@@ -4,27 +4,37 @@
 
 Phases, each of which raises on failure:
   1. the card, torch and CUDA versions;
-  2. build the hand-written CUDA kernels (vpt_tpu_torch/csrc) with nvcc;
+  2. build the hand-written CUDA kernels (vpt_tpu_torch/csrc), one nvcc per
+     source, all started together;
   3. every kernel against its plain torch version on the same inputs, at
-     the main path's shapes: the colonnade scene, 512x512 tiled primary
+     the main paths' shapes: the colonnade scene, 512x512 tiled primary
      rays, one bounce of cosine-diffuse rays and the 2N shadow batch;
-     envelope kernels exactly, the trace by the tie rule, occlusion as equal
-     booleans; CUDA-event medians of both;
-  4. the main path: Renderer on colonnade at 512x512, max_depth 8,
-     max_medium_events 8, 4 spp per dispatch, one warm-up and three timed
+     envelope kernels exactly, the stream trace by the tie rule, occlusion
+     as equal booleans, the packet visit with equal ids, t, u and v on the
+     same packets (512 bounce packets, 1,024 shadow packets); CUDA-event
+     medians of each kernel, the plain visit timed once;
+  4. the stream path: Renderer on colonnade at 512x512, max_depth 8,
+     max_medium_events 8, 4 spp per dispatch, one warm-up and two timed
      dispatches, with every kernel's launch count;
-  5. a 128x128 1-spp render with the kernels against the same render with
-     every plain version: PSNR > 40 dB.
-The last two lines are the kernel table as JSON and {"ok": true, ...}.
-Without a CUDA device the script exits non-zero and prints no result.
+  5. the packet path (integrator.TRACE_MODE = "packet") on the same
+     Renderer, the same way: the visit kernel must launch and the stream
+     and occlusion kernels must not; then Renderer.save writes a PNG that
+     is read back;
+  6. 128x128 1-spp renders with the kernels against the same renders with
+     every plain version, stream and packet mode: PSNR > 40 dB.
+The last lines are the card's name and power limit, the kernel table as
+JSON and {"ok": true, ...}.  Without a CUDA device the script exits
+non-zero and prints no result.
 """
 
 from __future__ import annotations
 
 import json
+import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from contextlib import ExitStack
 from unittest import mock
@@ -33,32 +43,42 @@ import numpy as np
 import torch
 
 from vpt_tpu_torch import Renderer, RenderFlags
-from vpt_tpu_torch.accel import envelope, kernels, occlude, stream
+from vpt_tpu_torch.accel import cluster, envelope, kernels, occlude, stream, visit
 from vpt_tpu_torch.accel.traverse import T_MAX, T_MIN
 from vpt_tpu_torch.api import render_step
 from vpt_tpu_torch.core import rng
 from vpt_tpu_torch.core.camera import generate_primary_rays, perspective
 from vpt_tpu_torch.core.tiling import tiled_pixel_order
-from vpt_tpu_torch.render import lights, sampling, surface
+from vpt_tpu_torch.io.image import read_png
+from vpt_tpu_torch.render import integrator, lights, sampling, surface
 from vpt_tpu_torch.render.params import default_params
 from vpt_tpu_torch.scene.build import compile_scene
 from vpt_tpu_torch.scene.procedural import colonnade
 
-SRC_ENVELOPE = "vpt_tpu_torch/csrc/envelope.cu"
-SRC_TRACE = "vpt_tpu_torch/csrc/trace.cu"
+SOURCES = {
+    "ray_keys": "vpt_tpu_torch/csrc/envelope.cu",
+    "supertile_tables": "vpt_tpu_torch/csrc/envelope.cu",
+    "stream": "vpt_tpu_torch/csrc/trace.cu",
+    "occlude": "vpt_tpu_torch/csrc/trace.cu",
+    "visit": "vpt_tpu_torch/csrc/visit.cu",
+}
 REPLACES = {
     "ray_keys": "vpt_tpu/accel/envelope.py:132",
     "supertile_tables": "vpt_tpu/accel/envelope.py:209",
     "stream": "vpt_tpu/accel/stream.py:490",
     "occlude": "vpt_tpu/accel/occlude.py:350",
+    "visit": "vpt_tpu/accel/visit_kernel.py:302",
 }
 PLAIN = {
     "ray_keys": (envelope, "ray_keys", envelope.ray_keys_plain),
     "supertile_tables": (envelope, "supertile_tables", envelope.supertile_tables_plain),
     "stream": (stream, "stream_trace", stream.stream_trace_plain),
     "occlude": (occlude, "occlude_trace", occlude.occlude_trace_plain),
+    "visit": (visit, "visit_trace", visit.visit_trace_plain),
 }
+STREAM_KERNELS = ("ray_keys", "supertile_tables", "stream", "occlude")
 W = H = 512
+TIMED_DISPATCHES = 2
 
 
 def log(msg: str) -> None:
@@ -71,7 +91,7 @@ def check(cond: bool, what: str) -> None:
 
 
 def cuda_ms(fn, reps: int = 5) -> float:
-    """Median milliseconds of `reps` calls after one warm-up, by CUDA events."""
+    """Median milliseconds of `reps` calls (after one warm-up), by CUDA events."""
     fn()
     times = []
     for _ in range(reps):
@@ -173,6 +193,68 @@ def compare_stream(bands, cl, t_min, label):
     return max_abs_err(tk, tp)
 
 
+def compare_visit(pk: cluster.Packets, cl, t_min, label):
+    """The visit kernel against its plain version on the same packets: ids,
+    t, u and v equal (the same gates and arithmetic, --fmad=false).  Returns
+    the max abs t error and the plain version's milliseconds (this one run)."""
+    args = (pk.nvis, pk.order, pk.entry_sorted, pk.origin, pk.direction, pk.active, pk.tmax, cl, t_min)
+    tk, trk, uk, vk = visit.visit_trace(*args)
+    a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    a.record()
+    tp, trp, up, vp = visit.visit_trace_plain(*args)
+    b.record()
+    torch.cuda.synchronize()
+    for name, got, want in (("ids", trk, trp), ("t", tk, tp), ("u", uk, up), ("v", vk, vp)):
+        check(torch.equal(got, want), f"visit {name} ({label}) equal the plain version's")
+    log(f"visit {label}: {pk.nvis.shape[0]} packets, {int(pk.active.sum())} active rays, "
+        f"{int((trk >= 0).sum())} hits, candidate groups per packet mean {float(pk.nvis.float().mean()):.1f} "
+        f"max {int(pk.nvis.max())}; ids, t, u and v equal the plain version's")
+    return max_abs_err(tk, tp), a.elapsed_time(b)
+
+
+def drive(r: Renderer, label: str):
+    """One warm-up and TIMED_DISPATCHES timed dispatches of the Renderer,
+    launch counts set to 0 just before and read just after."""
+    r.reset_path_tracing()
+    kernels.reset_launches()
+    r.path_trace()
+    dts, segs, syncs = [], [], []
+    for _ in range(TIMED_DISPATCHES):
+        seg0, t0 = r.segments_traced, time.perf_counter()
+        r.path_trace()
+        dts.append(time.perf_counter() - t0)
+        segs.append(r.segments_traced - seg0)
+        syncs.append(r.last_host_syncs)
+    launches = dict(kernels.LAUNCHES)
+    img = r.hdr_image()
+    s_per = statistics.median(dts)
+    log(f"{label} render colonnade {W}x{H} depth 8, 4 spp/dispatch: {s_per:.3f} s/dispatch (median of {dts}), "
+        f"{statistics.median(segs) / s_per:.0f} segments/s, {statistics.median(segs):.0f} segments/dispatch, "
+        f"host syncs/dispatch {syncs}, launches over {TIMED_DISPATCHES + 1} dispatches {launches}")
+    check(img.shape == (H, W, 3) and bool(np.isfinite(img).all()) and float(img.mean()) > 0.0,
+          f"{label} render is finite with mean > 0")
+    return launches
+
+
+def kernel_vs_plain_render(data, meta, aux, dev, label: str) -> None:
+    """A 128x128 1-spp render with the kernels against the same render with
+    every plain version."""
+    small = 128
+    view_inv = np.linalg.inv(aux["camera_view"])
+    proj_inv = np.linalg.inv(perspective(np.radians(aux["camera_fov_deg"]), 1.0))
+    args = (data, meta, RenderFlags(max_depth=8, max_medium_events=8), default_params(dev, view_inv, proj_inv),
+            2654435761, (small, small), torch.zeros((small, small, 3), device=dev), 0, 1)
+    img_k = render_step(*args)[0].cpu().numpy()
+    before = dict(kernels.LAUNCHES)
+    with plain_kernels():
+        img_p = render_step(*args)[0].cpu().numpy()
+    check(kernels.LAUNCHES == before, f"the plain {label} render launched no kernel")
+    p = psnr(np.clip(img_k, 0, 10), np.clip(img_p, 0, 10), 10.0)
+    log(f"{label} kernel vs plain render {small}x{small} 1 spp: PSNR {p:.1f} dB, "
+        f"max abs diff {float(np.abs(img_k - img_p).max()):.3g}")
+    check(p > 40.0, f"{label} kernel render within 40 dB PSNR of the plain render")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script needs a CUDA GPU", file=sys.stderr)
@@ -185,7 +267,12 @@ def main() -> int:
     # 2. Build.
     kernels.library()
     log(f"kernel build: {kernels.build_seconds:.1f} s (nvcc {' '.join(kernels.NVCC_FLAGS)})")
+    run(dev, smi)
+    return 0
 
+
+def run(dev, smi: str) -> None:
+    """Phases 3-6 on `dev`, then the result lines."""
     # 3. Kernels against plain versions at the main path's shapes.
     t0 = time.perf_counter()
     data, meta, aux = compile_scene(colonnade(), dev)
@@ -194,8 +281,7 @@ def main() -> int:
         f"{data.clusters.count.shape[0]} clusters, {data.clusters.group_min.shape[0]} groups, "
         f"{meta.n_instances} instances")
     cl = data.clusters
-    table = {k: {"name": k, "route": "cuda", "source": SRC_ENVELOPE if k in ("ray_keys", "supertile_tables")
-                 else SRC_TRACE, "replaces": REPLACES[k]} for k in REPLACES}
+    table = {k: {"name": k, "route": "cuda", "source": SOURCES[k], "replaces": REPLACES[k]} for k in REPLACES}
     t_min, primary, bounce, shadow = main_path_inputs(data, meta, aux, dev)
     b_primary = stream.trace_bands(*primary[:2], cl, t_min, T_MAX, primary[2], torch.zeros_like(primary[2]))
     b_bounce = stream.trace_bands(*bounce[:2], cl, t_min, T_MAX, bounce[2], torch.zeros_like(bounce[2]))
@@ -212,6 +298,17 @@ def main() -> int:
     table["occlude"]["max_abs_err"] = max_abs_err(ok, op)
     log(f"occlude: {int(b_shadow.payload[0].sum())} active shadow rays, {int(ok.sum())} blocked")
 
+    pk_bounce = cluster.prepare_packets(*bounce[:2], cl, t_min, T_MAX, bounce[2], sort_rays=True)
+    pk_shadow = cluster.prepare_packets(shadow["origin"], shadow["direction"], cl, t_min, shadow["tmax"],
+                                        shadow["active"], sort_rays=True)
+    err_b, plain_b = compare_visit(pk_bounce, cl, t_min, "bounce")
+    err_s, plain_s = compare_visit(pk_shadow, cl, t_min, "shadow")
+    table["visit"]["max_abs_err"] = max(err_b, err_s)
+    visit_args = {label: (pk.nvis, pk.order, pk.entry_sorted, pk.origin, pk.direction, pk.active, pk.tmax, cl, t_min)
+                  for label, pk in (("bounce", pk_bounce), ("shadow", pk_shadow))}
+    shadow_ms = cuda_ms(lambda: visit.visit_trace(*visit_args["shadow"]))
+    log(f"visit shadow: kernel {shadow_ms:.3f} ms, plain {plain_s:.1f} ms (1,024 packets; plain timed once)")
+
     timed = {
         "ray_keys": (lambda: envelope.ray_keys(*key_args), lambda: envelope.ray_keys_plain(*key_args)),
         "supertile_tables": (lambda: envelope.supertile_tables(*tab_args),
@@ -226,52 +323,41 @@ def main() -> int:
         table[name]["plain_ms"] = cuda_ms(plain)
         log(f"{name}: kernel {table[name]['ms']:.3f} ms, plain {table[name]['plain_ms']:.3f} ms "
             f"(bounce/shadow shapes, median of 5)")
+    table["visit"]["ms"] = cuda_ms(lambda: visit.visit_trace(*visit_args["bounce"]))
+    table["visit"]["plain_ms"] = plain_b
+    log(f"visit: kernel {table['visit']['ms']:.3f} ms, plain {plain_b:.1f} ms (512 bounce packets, kernel median "
+        f"of 5, plain timed once)")
 
-    # 4. The main path.
+    # 4. The stream path.
     r = Renderer(colonnade(), dev, width=W, height=H, flags=RenderFlags(max_depth=8, max_medium_events=8),
                  samples_per_frame=4)
-    kernels.reset_launches()
-    r.path_trace()
-    dts, segs, syncs = [], [], []
-    for _ in range(3):
-        seg0, t0 = r.segments_traced, time.perf_counter()
-        r.path_trace()
-        dts.append(time.perf_counter() - t0)
-        segs.append(r.segments_traced - seg0)
-        syncs.append(r.last_host_syncs)
-    launches = dict(kernels.LAUNCHES)
-    img = r.hdr_image()
-    s_per = statistics.median(dts)
-    log(f"render colonnade {W}x{H} depth 8, 4 spp/dispatch: {s_per:.3f} s/dispatch (median of {dts}), "
-        f"{statistics.median(segs) / s_per:.0f} segments/s, {statistics.median(segs):.0f} segments/dispatch, "
-        f"host syncs/dispatch {syncs}, launches over 4 dispatches {launches}")
-    check(img.shape == (H, W, 3) and bool(np.isfinite(img).all()) and float(img.mean()) > 0.0,
-          "render is finite with mean > 0")
-    for name in REPLACES:
-        check(launches[name] > 0, f"the main path launched {name}")
+    launches = drive(r, "stream")
+    for name in STREAM_KERNELS:
+        check(launches[name] > 0, f"the stream path launched {name}")
         table[name]["launches"] = launches[name]
 
-    # 5. Kernel render against plain render.
-    small = 128
-    view_inv = np.linalg.inv(aux["camera_view"])
-    proj_inv = np.linalg.inv(perspective(np.radians(aux["camera_fov_deg"]), 1.0))
-    args = (data, meta, RenderFlags(max_depth=8, max_medium_events=8), default_params(dev, view_inv, proj_inv),
-            2654435761, (small, small), torch.zeros((small, small, 3), device=dev), 0, 1)
-    img_k = render_step(*args)[0].cpu().numpy()
-    before = dict(kernels.LAUNCHES)
-    with plain_kernels():
-        img_p = render_step(*args)[0].cpu().numpy()
-    check(kernels.LAUNCHES == before, "the plain render launched no kernel")
-    p = psnr(np.clip(img_k, 0, 10), np.clip(img_p, 0, 10), 10.0)
-    log(f"kernel vs plain render {small}x{small} 1 spp: PSNR {p:.1f} dB, "
-        f"max abs diff {float(np.abs(img_k - img_p).max()):.3g}")
-    check(p > 40.0, "kernel render within 40 dB PSNR of the plain render")
+    # 5. The packet path, then its image saved as a PNG and read back.
+    with mock.patch.object(integrator, "TRACE_MODE", "packet"):
+        launches = drive(r, "packet")
+        check(launches["visit"] > 0, "the packet path launched visit")
+        check(launches["stream"] == 0 and launches["occlude"] == 0,
+              "the packet path launched neither stream nor occlude")
+        table["visit"]["launches"] = launches["visit"]
+        with tempfile.TemporaryDirectory() as tmp:
+            path = r.save(os.path.join(tmp, "packet.png"))
+            png = read_png(path)
+        log(f"saved {os.path.basename(path)}: {png.shape} uint8, mean {float(png.mean()):.1f}")
+        check(png.shape == (H, W, 3) and float(png.mean()) > 0.0, "the saved PNG reads back (512, 512) with mean > 0")
+
+    # 6. Kernel renders against plain renders.
+    kernel_vs_plain_render(data, meta, aux, dev, "stream")
+    with mock.patch.object(integrator, "TRACE_MODE", "packet"):
+        kernel_vs_plain_render(data, meta, aux, dev, "packet")
 
     print(smi)
     print(json.dumps({"kernels": list(table.values())}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))
-    return 0
 
 
 if __name__ == "__main__":

@@ -1,0 +1,259 @@
+"""The rest of the port's `Renderer` and its image I/O against the JAX
+package: PNG and Radiance HDR files, FlyCamera, the post-processed output,
+every ported setter, and checkpoints.  The JAX `Renderer` is built with
+`lookup_tables=None`, the constant energy-compensation fit the port uses."""
+
+import dataclasses
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+from PIL import Image
+
+from vpt_tpu.api import Renderer as JRenderer
+from vpt_tpu.core.camera import FlyCamera as JFlyCamera
+from vpt_tpu.io import image as jimage
+from vpt_tpu.render.params import RenderFlags as JFlags
+from vpt_tpu.scene import procedural as jproc
+from vpt_tpu.scene.types import Material as JMaterial
+from vpt_tpu_torch.api import Renderer
+from vpt_tpu_torch.core.camera import FlyCamera
+from vpt_tpu_torch.io import image as timage
+from vpt_tpu_torch.render.params import RenderFlags
+from vpt_tpu_torch.scene import procedural as tproc
+from vpt_tpu_torch.scene.types import Material
+
+torch.set_num_threads(1)
+FLAGS = dict(max_depth=2, max_medium_events=2)
+
+
+# ---------------------------------------------------------------- image I/O
+
+
+@pytest.mark.parametrize("channels", [3, 4])
+def test_png_decodes_to_the_array_jax_writes(tmp_path, channels):
+    img = np.random.default_rng(0).uniform(-0.2, 1.2, (19, 23, channels)).astype(np.float32)
+    ours, theirs = str(tmp_path / "port.png"), str(tmp_path / "jax.png")
+    timage.save_png(ours, img)
+    jimage.save_png(theirs, img)  # PIL
+    want = np.asarray(Image.open(theirs))
+    np.testing.assert_array_equal(timage.read_png(ours), want)
+    np.testing.assert_array_equal(np.asarray(Image.open(ours)), want)  # a valid PNG for other readers
+    np.testing.assert_array_equal(timage.to_uint8(img), want)
+
+
+def test_radiance_hdr_matches_jax(tmp_path):
+    rng = np.random.default_rng(0)
+    img = (rng.random((33, 47, 3)).astype(np.float32) ** 2) * 1000.0
+    img[0, 0] = 0.0
+    img[1, 1] = [1e-4, 5e5, 2.0]
+    ours, theirs = str(tmp_path / "port.hdr"), str(tmp_path / "jax.hdr")
+    timage.save_hdr(ours, img)
+    jimage.save_hdr(theirs, img)
+    assert open(ours, "rb").read() == open(theirs, "rb").read()
+    np.testing.assert_array_equal(timage.load_radiance_hdr(theirs), jimage.load_radiance_hdr(theirs))
+    timage.save_hdr(str(tmp_path / "port.npy"), img)
+    np.testing.assert_array_equal(np.load(str(tmp_path / "port.npy")), img)
+
+
+@pytest.mark.parametrize("kind", ["old_rle", "adaptive_rle", "trailing_bytes"])
+def test_radiance_hdr_scanline_kinds_match_jax(tmp_path, kind):
+    p = str(tmp_path / f"{kind}.hdr")
+    head = b"#?RADIANCE\nFORMAT=32-bit_rle_rgbe\n\n"
+    with open(p, "wb") as f:
+        if kind == "old_rle":
+            f.write(head + b"-Y 2 +X 4\n")
+            f.write(bytes([128, 64, 32, 130, 1, 1, 1, 3]) + bytes([10, 20, 30, 129]) * 4)
+        elif kind == "adaptive_rle":
+            w = 9
+            f.write(head + f"-Y 2 +X {w}\n".encode())
+            for row in range(2):
+                f.write(bytes([2, 2, 0, w]))
+                for c in range(4):  # a run of 5, then 4 literals
+                    f.write(bytes([128 + 5, 100 + c + row]) + bytes([4]) + bytes([10 * c + k for k in range(4)]))
+        else:
+            f.write(head + b"-Y 4 +X 12\n" + bytes([90, 60, 30, 131]) * 48 + b"\x00\x00\x00junk")
+    np.testing.assert_array_equal(timage.load_radiance_hdr(p), jimage.load_radiance_hdr(p))
+
+
+def test_export_filename_matches_jax():
+    assert timage.export_filename("out/img", 512, 12.345) == jimage.export_filename("out/img", 512, 12.345)
+
+
+# ---------------------------------------------------------------- camera
+
+
+def test_fly_camera_matches_jax():
+    kw = dict(position=np.array([1.0, 2.0, 3.0], np.float32), yaw=-120.0, pitch=15.0, fov_deg=50.0, aspect=1.5)
+    cam, jcam = FlyCamera(**kw), JFlyCamera(**{k: np.copy(v) if isinstance(v, np.ndarray) else v
+                                                for k, v in kw.items()})
+    for c in (cam, jcam):
+        c.move("forward", 2.0)
+        c.rotate(90.0, 200.0)  # pitch clamps at 89
+        c.move("left", 0.5)
+    assert cam.pitch == jcam.pitch == 89.0
+    np.testing.assert_array_equal(cam.position, jcam.position)
+    for name in ("view_matrix", "proj_matrix", "view_inverse", "proj_inverse"):
+        np.testing.assert_array_equal(getattr(cam, name)(), getattr(jcam, name)(), err_msg=name)
+    back, jback = FlyCamera.from_matrices(cam.view_matrix(), cam.proj_matrix()), \
+        JFlyCamera.from_matrices(jcam.view_matrix(), jcam.proj_matrix())
+    assert dataclasses.astuple(back)[1:5] == dataclasses.astuple(jback)[1:5]
+    np.testing.assert_array_equal(back.position, jback.position)
+
+
+# ---------------------------------------------------------------- Renderer
+
+
+@pytest.fixture(scope="module")
+def renderers():
+    r = Renderer(tproc.cornell_box(), "cpu", width=12, height=8, flags=RenderFlags(**FLAGS),
+                 samples_per_frame=2, max_samples=4)
+    j = JRenderer(jproc.cornell_box(), width=12, height=8, flags=JFlags(**FLAGS), samples_per_frame=2,
+                  max_samples=4, lookup_tables=None)
+    return r, j
+
+
+def _np(x):
+    return x.cpu().numpy() if torch.is_tensor(x) else np.asarray(x)
+
+
+def _env(r):
+    return {f: _np(getattr(r.scene_data.env, f)) for f in ("image", "alias", "quad")}
+
+
+_ENV = np.random.default_rng(3).uniform(0.0, 4.0, (8, 16, 3)).astype(np.float32)
+_VIEW = np.array([[1, 0, 0, -0.5], [0, 1, 0, -1.0], [0, 0, 1, -6.0], [0, 0, 0, 1]], np.float32)
+
+# (setter, arguments, what it changes): a flag, a parameter or an attribute name.
+SETTERS = [
+    ("set_max_depth", (5,), "flag:max_depth"),
+    ("set_samples_per_frame", (3,), "attr:samples_per_frame"),
+    ("set_max_luminance", (120.0,), "param:max_luminance"),
+    ("set_focus_distance", (3.0,), "param:focus_distance"),
+    ("set_dof_strength", (0.25,), "param:dof_strength"),
+    ("set_sky_azimuth", (45.0,), "param:sky_rotation_azimuth"),
+    ("set_sky_altitude", (-10.0,), "param:sky_rotation_altitude"),
+    ("set_sky_intensity", (2.0,), "param:environment_intensity"),
+    ("set_emissive_pdf_bias", (0.1,), "param:emissive_pdf_bias"),
+    ("set_sky_mis", (False,), "flag:enable_sky_mis"),
+    ("set_mesh_mis", (False,), "flag:enable_mesh_mis"),
+    ("set_env_map_shown_directly", (False,), "flag:show_env_map_directly"),
+    ("set_use_only_geometry_normals", (True,), "flag:use_only_geometry_normals"),
+    ("set_use_energy_compensation", (False,), "flag:use_energy_compensation"),
+    ("set_furnace_test_mode", (True,), "flag:furnace_test_mode"),
+    ("set_camera", (_VIEW, None), "param:view_inverse"),
+    ("set_env_map", (_ENV,), "env"),
+    ("set_material", (1, "blue"), "material"),
+    ("resize_image", (16, 10), "resize"),
+    ("sync_fly_camera", (), "fly"),
+]
+
+
+def _field(r, what):
+    kind, _, name = what.partition(":")
+    if kind == "flag":
+        return getattr(r.flags, name)
+    if kind == "param":
+        return _np(getattr(r.params, name))
+    if kind == "attr":
+        return getattr(r, name)
+    if kind == "env":
+        return _env(r)
+    if kind == "material":
+        attr = r.scene_data.material_attr if hasattr(r.scene_data, "material_attr") else r.scene_data.materials.attr
+        return _np(attr)
+    if kind == "resize":
+        return (r.width, r.height, tuple(r._accum.shape), _np(r.params.proj_inverse), r.camera.aspect)
+    return _np(r.params.view_inverse), _np(r.params.proj_inverse)
+
+
+def _assert_same(a, b):
+    if isinstance(a, dict):
+        for k in a:
+            np.testing.assert_array_equal(a[k], b[k], err_msg=k)
+    elif isinstance(a, tuple):
+        for x, y in zip(a, b):
+            _assert_same(x, y)
+    else:
+        np.testing.assert_allclose(np.asarray(a, np.float64), np.asarray(b, np.float64), rtol=1e-6, atol=0)
+
+
+@pytest.mark.parametrize("setter,args,what", SETTERS, ids=[s[0] for s in SETTERS])
+def test_setter_changes_the_jax_field_and_resets(renderers, setter, args, what):
+    r, j = renderers
+    before = _field(r, what)
+    for ren in (r, j):
+        ren.frame_count, ren.samples_accumulated = 3, 6
+        call_args = args
+        if setter == "set_material":
+            mat = Material if ren is r else JMaterial
+            call_args = (1, mat(name="blue", base_color=(0.1, 0.1, 0.9), roughness=0.3))
+        if setter == "sync_fly_camera":
+            ren.camera.move("left", 0.5)
+        getattr(ren, setter)(*call_args)
+        assert ren.frame_count == 0 and ren.samples_accumulated == 0, f"{setter} did not reset"
+    got = _field(r, what)
+    _assert_same(got, _field(j, what))
+    if what not in ("fly",):
+        with pytest.raises(AssertionError):
+            _assert_same(got, before)  # the setter did change the field
+
+
+def test_max_samples_and_counts_match_jax(renderers):
+    r, j = renderers
+    for ren in (r, j):
+        ren.set_max_samples(9)
+    assert r.max_samples == j.max_samples == 9
+    assert r.total_vertex_count == j.total_vertex_count and r.total_index_count == j.total_index_count
+    assert r.get_material(2).name == j.get_material(2).name and len(r.materials) == len(j.materials)
+
+
+def test_set_env_map_from_an_hdr_file(tmp_path, renderers):
+    r, j = renderers
+    p = str(tmp_path / "env.hdr")
+    timage.save_radiance_hdr(p, _ENV)
+    r.set_env_map(p)
+    j.set_env_map(p)
+    _assert_same(_env(r), _env(j))
+
+
+@pytest.mark.parametrize("mode,enable_bloom", [("aces", False), ("agx:punchy", True)])
+def test_output_image_matches_jax(renderers, mode, enable_bloom):
+    r, j = renderers
+    img = np.random.default_rng(4).uniform(0.0, 3.0, (r.height, r.width, 3)).astype(np.float32)
+    for ren in (r, j):
+        ren.post.tonemap_mode, ren.post.enable_bloom, ren.post.exposure = mode, enable_bloom, 1.3
+    r._accum = torch.tensor(img)
+    j._accum = jnp.asarray(img)
+    np.testing.assert_allclose(r.output_image(), j.output_image(), atol=1e-4)  # AGX: see test_torch_post.py
+
+
+def test_render_save_and_checkpoint_resume(tmp_path):
+    """A checkpoint taken after one dispatch resumes to the identical
+    accumulation; `save` writes the tonemapped PNG, the HDR .npy, and
+    spp/seconds into the name."""
+    def make():
+        return Renderer(tproc.cornell_box(), "cpu", width=8, height=8, flags=RenderFlags(**FLAGS),
+                        samples_per_frame=1, max_samples=3)
+
+    r = make()
+    r.path_trace()
+    ck = str(tmp_path / "ck.npz")
+    r.save_checkpoint(ck)
+    img = r.render()  # two more dispatches
+    assert r.samples_accumulated == 3 and r.segments_traced > 0 and r.render_seconds > 0
+    resumed = make()
+    resumed.load_checkpoint(ck)
+    assert (resumed.frame_count, resumed.samples_accumulated) == (1, 1)
+    np.testing.assert_array_equal(resumed.render(), img)
+
+    png = r.save(str(tmp_path / "out.png"))
+    np.testing.assert_array_equal(timage.read_png(png), timage.to_uint8(r.output_image()))
+    assert timage.read_png(png).mean() > 0
+    np.testing.assert_array_equal(np.load(r.save(str(tmp_path / "hdr.npy"))), img)
+    named = r.save(str(tmp_path / "stats.png"), embed_stats=True)
+    assert named.endswith(".png") and "_3spp_" in named
+    r.reset_path_tracing()
+    assert (r.frame_count, r.samples_accumulated, r.segments_traced, r.render_seconds) == (0, 0, 0.0, 0.0)
+

@@ -1,4 +1,4 @@
-"""The four hand-written CUDA kernels of vpt_tpu_torch against their plain
+"""The five hand-written CUDA kernels of vpt_tpu_torch against their plain
 torch versions, on a CUDA device at small shapes.  These tests skip where
 there is no CUDA device; they import no JAX, so on a GPU machine without
 JAX run them with
@@ -10,9 +10,9 @@ import numpy as np
 import pytest
 import torch
 
-from vpt_tpu_torch.accel import envelope, occlude, stream
+from vpt_tpu_torch.accel import envelope, kernels, occlude, stream, visit
 from vpt_tpu_torch.accel.bvh import LEAF_SIZE, build_bvh
-from vpt_tpu_torch.accel.cluster import assemble_clusters, build_mesh_clusters
+from vpt_tpu_torch.accel.cluster import assemble_clusters, build_mesh_clusters, prepare_packets
 from vpt_tpu_torch.scene.types import tree_to_device
 
 pytestmark = pytest.mark.gpu
@@ -98,3 +98,25 @@ def test_occlude_kernel_matches_plain(cuda):
     blocked = occlude.occlude_trace(b, cl, T_MIN)
     assert torch.equal(blocked, occlude.occlude_trace_plain(b, cl, T_MIN))
     assert int(blocked.sum()) > 200
+
+
+@pytest.mark.parametrize("instanced", [False, True])
+@pytest.mark.parametrize("any_hit", [False, True])
+def test_visit_kernel_matches_plain(cuda, instanced, any_hit):
+    """vpt_visit equals visit_trace_plain exactly, ties included: the same
+    packets, the same gates, the same arithmetic (--fmad=false)."""
+    cl, rng = _clusters(cuda, instanced)
+    org, d = _rays(rng, cuda, n=6000)
+    n = org.shape[0]
+    active = torch.tensor(rng.uniform(size=n) < 0.9, device=cuda)
+    tmax = torch.tensor(rng.uniform(0.5, 20.0, n).astype(np.float32), device=cuda)
+    pk = prepare_packets(org, d, cl, T_MIN, tmax if any_hit else 1e8, active, sort_rays=True)
+    args = (pk.nvis, pk.order, pk.entry_sorted, pk.origin, pk.direction, pk.active, pk.tmax, cl, T_MIN)
+    before = kernels.LAUNCHES["visit"]
+    got = visit.visit_trace(*args, any_hit=any_hit)
+    assert kernels.LAUNCHES["visit"] == before + 1
+    want = visit.visit_trace_plain(*args, any_hit=any_hit)
+    torch.cuda.synchronize()
+    for name, a, b in zip(("t", "tri", "u", "v"), got, want):
+        assert torch.equal(a, b), name
+    assert int((got[1] >= 0).sum()) > 500

@@ -18,10 +18,14 @@ SLICE_MODULES = [
     "vpt_tpu_torch.accel.envelope",
     "vpt_tpu_torch.accel.stream",
     "vpt_tpu_torch.accel.occlude",
+    "vpt_tpu_torch.accel.visit",
     "vpt_tpu_torch.core.rng",
     "vpt_tpu_torch.core.vecmath",
     "vpt_tpu_torch.core.camera",
     "vpt_tpu_torch.core.tiling",
+    "vpt_tpu_torch.io.image",
+    "vpt_tpu_torch.post.tonemap",
+    "vpt_tpu_torch.post.bloom",
     "vpt_tpu_torch.render.params",
     "vpt_tpu_torch.render.sampling",
     "vpt_tpu_torch.render.bsdf",

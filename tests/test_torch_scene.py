@@ -13,7 +13,7 @@ from vpt_tpu.scene import build as jbuild
 from vpt_tpu.scene import procedural as jproc
 from vpt_tpu_torch.scene import build as tbuild
 from vpt_tpu_torch.scene import procedural as tproc
-from vpt_tpu_torch.scene.convert import scene_from_numpy
+from vpt_tpu_torch.scene.convert import clusters_from_numpy, scene_from_numpy
 
 torch.set_num_threads(1)
 
@@ -54,7 +54,7 @@ def test_scene_from_numpy_round_trip():
     assert dataclasses.asdict(meta) == {f: getattr(jmeta, f) for f in dataclasses.asdict(meta)}
     sources = {
         "material_attr": tree.materials.attr,
-        "clusters": tree.clusters,
+        "clusters": clusters_from_numpy(tree.clusters),  # sub_aabbs from tris_rk's metadata rows
         "emissive": tree.emissive,
         "env": tree.env,
     }

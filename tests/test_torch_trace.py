@@ -25,13 +25,14 @@ from vpt_tpu.render import integrator as jint
 from vpt_tpu_torch.accel.occlude import occlude_stream
 from vpt_tpu_torch.accel.stream import intersect_stream
 from vpt_tpu_torch.accel.traverse import intersect_brute
-from vpt_tpu_torch.scene.types import ClusterData
+from vpt_tpu_torch.scene.convert import clusters_from_numpy
+from vpt_tpu_torch.scene.types import tree_to_device
 
 torch.set_num_threads(1)
 
 
 def _port_clusters(cl):
-    return ClusterData(*(torch.tensor(np.asarray(getattr(cl, f))) for f in ClusterData._fields))
+    return tree_to_device(clusters_from_numpy(cl), "cpu")
 
 
 def _instanced_scene():

@@ -1,25 +1,38 @@
-"""Host-side cluster build (jax-free copy of vpt_tpu/accel/cluster.py:132-395).
+"""Cluster tables and the packet trace (port of vpt_tpu/accel/cluster.py).
 
-The SAH BVH is cut into groups of subtrees (<= GROUP_SIZE * CLUSTER_SIZE
-triangles) and each group into clusters of <= CLUSTER_SIZE contiguous
-triangles.  `build_mesh_clusters` makes one mesh's cluster blocks in its
-local space; `assemble_clusters` lays out the per-instance cluster tables
-(world boxes, virtual triangle ids, world->local transforms), padding every
-(instance, group) to exactly GROUP_SIZE slots.  The result is numpy; the
-JAX package's lane-interleaved TPU blocks are not built.
+Host half (jax-free copy of cluster.py:132-395): the SAH BVH is cut into
+groups of subtrees (<= GROUP_SIZE * CLUSTER_SIZE triangles) and each group
+into clusters of <= CLUSTER_SIZE contiguous triangles.  `build_mesh_clusters`
+makes one mesh's cluster blocks in its local space, with the mesh-local box
+of each 8-way sub-block; `assemble_clusters` lays out the per-instance
+cluster tables (world boxes, virtual triangle ids, world->local transforms),
+padding every (instance, group) to exactly GROUP_SIZE slots.  The result is
+numpy; the JAX package's lane-interleaved TPU blocks are not built.
+
+Device half: `intersect_clusters` (cluster.py:415-587), the packet trace
+that `VPT_TRACE=packet` selects.  Rays are padded to whole 512-ray packets,
+bounded by the root box, optionally stable-sorted by their first two
+entered groups, culled per packet against every group box (`entry`,
+`nvis`), and each packet marches its entry-sorted candidate groups in
+kernel 5, `visit.visit_trace`.
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import numpy as np
+import torch
 
+from vpt_tpu_torch.accel import envelope, visit
 from vpt_tpu_torch.accel.bvh import FlatBVH
+from vpt_tpu_torch.accel.traverse import T_MAX, T_MIN, Hit, guarded_inverse
 from vpt_tpu_torch.scene.types import ClusterData
 
 CLUSTER_SIZE = 128  # triangles per cluster (K)
 GROUP_SIZE = 8  # clusters per group
+N_SUB = 8  # sub-blocks per cluster, each with its own mesh-local box
+PACKET_SIZE = visit.PACKET  # rays per packet of the packet trace
 _BIG = 3e9
 
 
@@ -31,6 +44,7 @@ class MeshClusters(NamedTuple):
     start: np.ndarray  # (Cm,) i32 local reordered-slot base
     count: np.ndarray  # (Cm,) i32
     tris: np.ndarray  # (Cm, 16, K) component-major blocks
+    sub_aabbs: np.ndarray  # (Cm, N_SUB, 6) local sub-block boxes [lo.xyz, hi.xyz]
     gidx: np.ndarray  # (Cm,) i32 group (BVH subtree) index
 
 
@@ -121,8 +135,26 @@ def build_mesh_clusters(
         axis=1,
     )
     return MeshClusters(
-        cmin=cmin, cmax=cmax, start=start, count=cnt, tris=np.ascontiguousarray(tris), gidx=gidx,
+        cmin=cmin, cmax=cmax, start=start, count=cnt, tris=np.ascontiguousarray(tris),
+        sub_aabbs=sub_block_boxes(p0, e1, e2, cnt), gidx=gidx,
     )
+
+
+def sub_block_boxes(p0, e1, e2, cnt) -> np.ndarray:
+    """(C, N_SUB, 6) box of each sub-block's real triangles (cluster.py:246-268):
+    lo = 3e9, hi = -3e9 where a sub-block holds none."""
+    c, k, _ = p0.shape
+    sub = k // N_SUB
+    fill = (np.arange(k)[None, :] < cnt[:, None])[:, :, None]  # (c, k, 1) real-triangle mask
+    v1, v2 = p0 + e1, p0 + e2
+    lo = np.minimum(np.minimum(np.where(fill, p0, _BIG), np.where(fill, v1, _BIG)), np.where(fill, v2, _BIG))
+    hi = np.maximum(np.maximum(np.where(fill, p0, -_BIG), np.where(fill, v1, -_BIG)), np.where(fill, v2, -_BIG))
+    lo = lo.reshape(c, N_SUB, sub, 3).min(axis=2)
+    hi = hi.reshape(c, N_SUB, sub, 3).max(axis=2)
+    empty = ~fill.reshape(c, N_SUB, sub).any(axis=2)
+    lo[empty] = _BIG
+    hi[empty] = -_BIG
+    return np.concatenate([lo, hi], axis=2).astype(np.float32)
 
 
 def _transform_aabb(lo, hi, m):
@@ -206,5 +238,127 @@ def assemble_clusters(
         inst=inst,
         inv_rows=np.stack(inv_l),
         tris=np.concatenate([mc.tris for mc in mesh_clusters]),
+        sub_aabbs=np.concatenate([mc.sub_aabbs for mc in mesh_clusters]),
     )
 
+
+
+# ---------------------------------------------------------------------------
+# Device half: the packet trace
+
+
+def pad_groups(cl: ClusterData):
+    """(3, Gp) lo/hi group boxes padded to a multiple of 128 with 3e9 points."""
+    g = cl.group_min.shape[0]
+    gp = -(-g // 128) * 128
+    pad = torch.full((gp - g, 3), 3e9, dtype=torch.float32, device=cl.group_min.device)
+    return torch.cat([cl.group_min, pad]).T.contiguous(), torch.cat([cl.group_max, pad]).T.contiguous()
+
+
+def ray_tmax(t_max, n: int, device) -> torch.Tensor:
+    """(n,) float32 per-ray tmax from a tensor or a host scalar (a scalar is
+    filled on the device: a host-to-device copy would synchronise)."""
+    if torch.is_tensor(t_max):
+        return torch.broadcast_to(t_max.to(torch.float32), (n,))
+    return torch.full((n,), t_max, dtype=torch.float32, device=device)
+
+
+def root_exit_tmax(origin, inv, tmax, cl: ClusterData, t_min):
+    """tmax clipped to the ray's exit from the scene's root box
+    (cluster.py:463-479): geometry lies inside it, so no hit lies beyond."""
+    root_min = cl.group_min.amin(dim=0)
+    root_max = cl.group_max.amax(dim=0)
+    r0 = (root_min[None, :] - origin) * inv
+    r1 = (root_max[None, :] - origin) * inv
+    tn_root = torch.minimum(r0, r1).amax(dim=1)
+    tf_root = torch.maximum(r0, r1).amin(dim=1)
+    exit_bound = torch.where(tn_root <= tf_root, tf_root * 1.0001 + t_min, t_min)
+    return torch.minimum(tmax, torch.clamp(exit_bound, min=t_min))
+
+
+class Packets(NamedTuple):
+    """A packet-padded, optionally key-sorted wavefront and its culled,
+    entry-sorted candidate groups: the inputs of kernel 5."""
+
+    n_orig: int
+    perm: Optional[torch.Tensor]  # (N,) sorted slot -> padded input slot, None unsorted
+    nvis: torch.Tensor  # (P,) i32 candidate groups per packet
+    order: torch.Tensor  # (P, Gp) i32 group ids by entry distance
+    entry_sorted: torch.Tensor  # (P, Gp) f32 nearest entry of any live ray, +inf = none
+    origin: torch.Tensor  # (P, pk, 3)
+    direction: torch.Tensor  # (P, pk, 3)
+    active: torch.Tensor  # (P, pk) bool
+    tmax: torch.Tensor  # (P, pk) f32, root-exit bounded
+
+
+_CULL_PACKETS = 32  # packets per block of the (packets, rays, Gp) group cull
+_INACTIVE_KEY = 1 << 30  # above every active key, so inactive rays sort last
+
+
+def prepare_packets(origin, direction, cl: ClusterData, t_min, t_max, active, sort_rays: bool) -> Packets:
+    """Pad, bound, sort and cull a wavefront (cluster.py:441-553)."""
+    dev = origin.device
+    n_orig = origin.shape[0]
+    tmax = ray_tmax(t_max, n_orig, dev)
+    if active is None:
+        active = torch.ones(n_orig, dtype=torch.bool, device=dev)
+    pad = (-n_orig) % PACKET_SIZE
+    if pad:
+        origin = torch.cat([origin, torch.full((pad, 3), 1e9, dtype=torch.float32, device=dev)])
+        dpad = torch.zeros((pad, 3), dtype=torch.float32, device=dev)
+        dpad[:, 0] = 1.0
+        direction = torch.cat([direction, dpad])
+        tmax = torch.cat([tmax, torch.full((pad,), t_min, dtype=torch.float32, device=dev)])
+        active = torch.cat([active, torch.zeros(pad, dtype=torch.bool, device=dev)])
+    inv = guarded_inverse(direction)
+    tmax = root_exit_tmax(origin, inv, tmax, cl, t_min)
+    gmin_pad, gmax_pad = pad_groups(cl)
+
+    perm = None
+    if sort_rays:
+        # ray_keys(levels=2) is the first and second entered group packed as
+        # first * (Gp + 1) + second, the key of cluster.py:512-519.
+        key = envelope.ray_keys(origin.contiguous(), inv, tmax, gmin_pad, gmax_pad, t_min=t_min, levels=2)
+        key = torch.where(active, key, _INACTIVE_KEY)
+        _, perm = torch.sort(key, stable=True)
+        origin, direction, inv, tmax, active = (x[perm] for x in (origin, direction, inv, tmax, active))
+
+    n_pk = origin.shape[0] // PACKET_SIZE
+    o_p = origin.reshape(n_pk, PACKET_SIZE, 3).contiguous()
+    act_p = active.reshape(n_pk, PACKET_SIZE).contiguous()
+    tmax_p = tmax.reshape(n_pk, PACKET_SIZE).contiguous()
+    gp = gmin_pad.shape[1]
+    entry = torch.empty((n_pk, gp), dtype=torch.float32, device=dev)
+    for s in range(0, n_pk, _CULL_PACKETS):
+        rows = slice(s * PACKET_SIZE, min(s + _CULL_PACKETS, n_pk) * PACKET_SIZE)
+        ent = envelope.slab_entry(origin[rows], inv[rows], tmax[rows], gmin_pad, gmax_pad, t_min)
+        ent = torch.where(active[rows, None], ent, torch.inf)
+        entry[s : s + _CULL_PACKETS] = ent.reshape(-1, PACKET_SIZE, gp).amin(dim=1)
+    entry_sorted, order = torch.sort(entry, dim=1, stable=True)
+    return Packets(
+        n_orig=n_orig, perm=perm, nvis=torch.isfinite(entry).sum(dim=1).to(torch.int32),
+        order=order.to(torch.int32).contiguous(), entry_sorted=entry_sorted.contiguous(),
+        origin=o_p, direction=direction.reshape(n_pk, PACKET_SIZE, 3).contiguous(), active=act_p, tmax=tmax_p,
+    )
+
+
+def unpack(pk: Packets, values):
+    """(P, pk) per-packet values back to (N,) input order, pad rays dropped."""
+    values = values.reshape(-1)
+    if pk.perm is not None:
+        out = torch.empty_like(values)
+        out[pk.perm] = values
+        values = out
+    return values[: pk.n_orig]
+
+
+def intersect_clusters(origin, direction, cl: ClusterData, t_min=T_MIN, t_max=T_MAX, active=None,
+                       any_hit: bool = False, sort_rays: bool = False) -> Hit:
+    """Closest-hit (or, with `any_hit`, any-hit) packet trace of a wavefront;
+    `t_max` may be per-ray.  With `sort_rays` the rays are regrouped by their
+    two nearest entered groups first, so packet mates share candidates."""
+    pk = prepare_packets(origin, direction, cl, t_min, t_max, active, sort_rays)
+    t, tri, u, v = visit.visit_trace(pk.nvis, pk.order, pk.entry_sorted, pk.origin, pk.direction, pk.active,
+                                     pk.tmax, cl, t_min, any_hit=any_hit)
+    t = torch.where(tri >= 0, t, -1.0)
+    return Hit(t=unpack(pk, t), tri=unpack(pk, tri), u=unpack(pk, u), v=unpack(pk, v))

@@ -27,7 +27,7 @@ SUPERTILE = 1024
 _CHUNK = 32768  # rays per slab block in the plain versions
 
 
-def _entry(origin, inv, tmax, gmin_pad, gmax_pad, t_min: float):
+def slab_entry(origin, inv, tmax, gmin_pad, gmax_pad, t_min: float):
     """(n, Gp) slab entry distances, +inf where the ray does not enter."""
     n = origin.shape[0]
     gp = gmin_pad.shape[1]
@@ -47,7 +47,7 @@ def ray_keys_plain(origin, inv, tmax, gmin_pad, gmax_pad, t_min: float, levels: 
     gp = gmin_pad.shape[1]
     out = []
     for s in range(0, origin.shape[0], _CHUNK):
-        ent = _entry(origin[s : s + _CHUNK], inv[s : s + _CHUNK], tmax[s : s + _CHUNK], gmin_pad, gmax_pad, t_min)
+        ent = slab_entry(origin[s : s + _CHUNK], inv[s : s + _CHUNK], tmax[s : s + _CHUNK], gmin_pad, gmax_pad, t_min)
         v0, g0 = torch.min(ent, dim=1)  # first minimum: ties go to the lower id
         l0 = torch.where(torch.isfinite(v0), g0, gp)
         if levels == 2:
@@ -81,7 +81,7 @@ def supertile_tables_plain(origin, inv, tmax_eff, gmin_pad, gmax_pad, t_min: flo
     gp = gmin_pad.shape[1]
     out = []
     for s in range(0, origin.shape[0], _CHUNK):
-        ent = _entry(origin[s : s + _CHUNK], inv[s : s + _CHUNK], tmax_eff[s : s + _CHUNK], gmin_pad, gmax_pad, t_min)
+        ent = slab_entry(origin[s : s + _CHUNK], inv[s : s + _CHUNK], tmax_eff[s : s + _CHUNK], gmin_pad, gmax_pad, t_min)
         out.append(ent.reshape(-1, SUPERTILE, gp).amin(dim=1))
     return torch.cat(out)
 

@@ -1,16 +1,17 @@
 """Build, load and count the hand-written CUDA kernels of vpt_tpu_torch/csrc.
 
-The sources are compiled once per checkout, at first use, with
+Each source is compiled once per checkout, at first use, into a shared
+library of its own under `vpt_tpu_torch/build/` (git-ignored), one nvcc
+process per source, all started together:
 
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 --fmad=false
          -shared -Xcompiler -fPIC
 
-into one shared library under `vpt_tpu_torch/build/` (git-ignored) and
-loaded with ctypes: every entry point has a plain C interface, takes raw
-device pointers and the CUDA stream, and returns `cudaGetLastError()`.
-`--fmad=false` keeps nvcc from contracting products and sums into FMAs, so
-the kernels' slab and Moller-Trumbore decisions round exactly like their
-plain torch versions.
+The libraries are loaded with ctypes: every entry point has a plain C
+interface, takes raw device pointers and the CUDA stream, and returns
+`cudaGetLastError()`.  `--fmad=false` keeps nvcc from contracting products
+and sums into FMAs, so the kernels' slab and Moller-Trumbore decisions
+round exactly like their plain torch versions.
 
 `LAUNCHES` counts the launches of each kernel: a wrapper adds one where it
 launches its kernel and nowhere else.  Nothing here runs at import time.
@@ -29,25 +30,29 @@ import torch
 PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(PKG_DIR, "build")
-SOURCES = ("envelope.cu", "trace.cu")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "--fmad=false", "-shared", "-Xcompiler", "-fPIC",
 )
 
-LAUNCHES = {"ray_keys": 0, "supertile_tables": 0, "stream": 0, "occlude": 0}
+LAUNCHES = {"ray_keys": 0, "supertile_tables": 0, "stream": 0, "occlude": 0, "visit": 0}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
-_SIGNATURES = {
-    "vpt_ray_keys": [_P, _P, _P, _P, _P, _I, _I, _F, _I, _P, _P],
-    "vpt_supertile_tables": [_P, _P, _P, _P, _P, _I, _I, _F, _P, _P],
-    "vpt_stream": [_P] * 16 + [_I] * 5 + [_F, _I] + [_P] * 5,
-    "vpt_occlude": [_P] * 17 + [_I] * 5 + [_F, _I] + [_P] * 2,
+SOURCES = {  # source -> {entry point: argument types}
+    "envelope.cu": {
+        "vpt_ray_keys": [_P, _P, _P, _P, _P, _I, _I, _F, _I, _P, _P],
+        "vpt_supertile_tables": [_P, _P, _P, _P, _P, _I, _I, _F, _P, _P],
+    },
+    "trace.cu": {
+        "vpt_stream": [_P] * 16 + [_I] * 5 + [_F, _I] + [_P] * 5,
+        "vpt_occlude": [_P] * 17 + [_I] * 5 + [_F, _I] + [_P] * 2,
+    },
+    "visit.cu": {"vpt_visit": [_P] * 15 + [_I] * 4 + [_F, _I, _I] + [_P] * 5},
 }
 
-_lib = None
+_entry = None
 build_seconds = None
 
 
@@ -63,31 +68,41 @@ def _nvcc() -> str:
     return path
 
 
-def library() -> ctypes.CDLL:
-    """The loaded kernel library, built from csrc/ on first use."""
-    global _lib, build_seconds
-    if _lib is not None:
-        return _lib
-    srcs = [os.path.join(CSRC_DIR, s) for s in SOURCES]
-    out = os.path.join(BUILD_DIR, "libvpt_kernels.so")
+def library() -> dict:
+    """Every entry point by name, its source built on first use."""
+    global _entry, build_seconds
+    if _entry is not None:
+        return _entry
     t0 = time.perf_counter()
-    if not os.path.exists(out) or os.path.getmtime(out) < max(map(os.path.getmtime, srcs)):
+    outs = {s: os.path.join(BUILD_DIR, f"libvpt_{os.path.splitext(s)[0]}.so") for s in SOURCES}
+    stale = [s for s, out in outs.items()
+             if not os.path.exists(out) or os.path.getmtime(out) < os.path.getmtime(os.path.join(CSRC_DIR, s))]
+    if stale:
         os.makedirs(BUILD_DIR, exist_ok=True)
-        tmp = f"{out}.{os.getpid()}.tmp"
-        proc = subprocess.run(
-            [_nvcc(), *NVCC_FLAGS, "-o", tmp, *srcs], capture_output=True, text=True,
-        )
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stdout}\n{proc.stderr}")
-        os.replace(tmp, out)
-    lib = ctypes.CDLL(out)
-    for name, argtypes in _SIGNATURES.items():
-        fn = getattr(lib, name)
-        fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
+        tag = f"{os.getpid()}.tmp"
+        procs = {s: subprocess.Popen([_nvcc(), *NVCC_FLAGS, "-o", f"{outs[s]}.{tag}", os.path.join(CSRC_DIR, s)],
+                                     stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+                 for s in stale}
+        failed = []
+        for s, proc in procs.items():
+            out, err = proc.communicate()
+            if proc.returncode != 0:
+                failed.append(f"{s} ({proc.returncode}):\n{out}\n{err}")
+        if failed:
+            raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
+        for s in stale:
+            os.replace(f"{outs[s]}.{tag}", outs[s])
+    entry = {}
+    for s, signatures in SOURCES.items():
+        lib = ctypes.CDLL(outs[s])
+        for name, argtypes in signatures.items():
+            fn = getattr(lib, name)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+            entry[name] = fn
     build_seconds = time.perf_counter() - t0
-    _lib = lib
-    return lib
+    _entry = entry
+    return entry
 
 
 def ptr(t: torch.Tensor, dtype: torch.dtype) -> int:
@@ -101,7 +116,7 @@ def ptr(t: torch.Tensor, dtype: torch.dtype) -> int:
 def launch(name: str, counter: str, *args) -> None:
     """Call one C entry point on the current stream; raise on a launch error."""
     stream = torch.cuda.current_stream().cuda_stream
-    err = getattr(library(), name)(*args, stream)
+    err = library()[name](*args, stream)
     if err != 0:
         raise RuntimeError(f"{name} launch failed: CUDA error {err}")
     LAUNCHES[counter] += 1

@@ -21,8 +21,8 @@ from typing import NamedTuple
 import torch
 
 from vpt_tpu_torch.accel import envelope, kernels
-from vpt_tpu_torch.accel.cluster import GROUP_SIZE
-from vpt_tpu_torch.accel.traverse import T_MAX, T_MIN, Hit
+from vpt_tpu_torch.accel.cluster import GROUP_SIZE, pad_groups, ray_tmax, root_exit_tmax
+from vpt_tpu_torch.accel.traverse import T_MAX, T_MIN, Hit, guarded_inverse, instance_space, moller_trumbore_scalar
 from vpt_tpu_torch.scene.types import ClusterData
 
 F32, I32 = torch.float32, torch.int32
@@ -49,18 +49,6 @@ class Bands(NamedTuple):
     sent: torch.Tensor  # (B, T, Gp) f32 per-supertile entry, +inf = none
 
 
-def pad_groups(cl: ClusterData):
-    """(3, Gp) lo/hi group boxes padded to a multiple of 128 with 3e9 points."""
-    g = cl.group_min.shape[0]
-    gp = -(-g // 128) * 128
-    pad = torch.full((gp - g, 3), 3e9, dtype=torch.float32, device=cl.group_min.device)
-    return torch.cat([cl.group_min, pad]).T.contiguous(), torch.cat([cl.group_max, pad]).T.contiguous()
-
-
-def guarded_inverse(d):
-    return 1.0 / torch.where(torch.abs(d) > 1e-20, d, 1e-20)
-
-
 def prepare_bands(origin, direction, cl: ClusterData, t_min, t_max, active, levels: int,
                   payload=(), pad_payload=()) -> Bands:
     """Pad, bound, key, sort and tabulate a wavefront (stream.py:599-698).
@@ -70,10 +58,7 @@ def prepare_bands(origin, direction, cl: ClusterData, t_min, t_max, active, leve
     key, so they sort last."""
     dev = origin.device
     n_orig = origin.shape[0]
-    if torch.is_tensor(t_max):
-        tmax = torch.broadcast_to(t_max.to(torch.float32), (n_orig,))
-    else:  # a host scalar: no host-to-device copy, which would synchronise
-        tmax = torch.full((n_orig,), t_max, dtype=torch.float32, device=dev)
+    tmax = ray_tmax(t_max, n_orig, dev)
     tiles = min(TILES_PER_BAND, max(1, -(-n_orig // SUPERTILE)))
     band = tiles * SUPERTILE
     pad = (-n_orig) % band
@@ -90,17 +75,8 @@ def prepare_bands(origin, direction, cl: ClusterData, t_min, t_max, active, leve
         )
     n = origin.shape[0]
 
-    # Root-exit bound: no hit lies beyond the ray's exit from the root box.
-    root_min = cl.group_min.amin(dim=0)
-    root_max = cl.group_max.amax(dim=0)
     inv = guarded_inverse(direction)
-    r0 = (root_min[None, :] - origin) * inv
-    r1 = (root_max[None, :] - origin) * inv
-    tn_root = torch.minimum(r0, r1).amax(dim=1)
-    tf_root = torch.maximum(r0, r1).amin(dim=1)
-    exit_bound = torch.where(tn_root <= tf_root, tf_root * 1.0001 + t_min, t_min)
-    tmax = torch.minimum(tmax, torch.clamp(exit_bound, min=t_min))
-    tmax = torch.where(active, tmax, t_min)
+    tmax = torch.where(active, root_exit_tmax(origin, inv, tmax, cl, t_min), t_min)
 
     gmin_pad, gmax_pad = pad_groups(cl)
     gp = gmin_pad.shape[1]
@@ -168,36 +144,16 @@ def _pair_moller_trumbore(bands: Bands, cl: ClusterData, r, c, t_min: float):
     in the CUDA kernel's operation order: (t, u, v, valid) of shape (P, K)."""
     o = bands.origin[r]
     d = bands.direction[r]
+    lo = [o[:, k] for k in range(3)]
+    ld = [d[:, k] for k in range(3)]
     if cl.inv_rows.shape[0] > 1:
-        T = cl.inv_rows[cl.inst[c]]  # (P, 12)
-        lo = [T[:, 4 * k] * o[:, 0] + T[:, 4 * k + 1] * o[:, 1] + T[:, 4 * k + 2] * o[:, 2] + T[:, 4 * k + 3]
-              for k in range(3)]
-        ld = [T[:, 4 * k] * d[:, 0] + T[:, 4 * k + 1] * d[:, 1] + T[:, 4 * k + 2] * d[:, 2] for k in range(3)]
-    else:
-        lo = [o[:, k] for k in range(3)]
-        ld = [d[:, k] for k in range(3)]
+        lo, ld = instance_space(cl.inv_rows[cl.inst[c]], lo, ld)
     ox, oy, oz = (x[:, None] for x in lo)
     dx, dy, dz = (x[:, None] for x in ld)
     blk = cl.tris[cl.block_id[c]]  # (P, 16, K)
-    p0x, p0y, p0z, e1x, e1y, e1z, e2x, e2y, e2z = (blk[:, k] for k in range(9))
-    pvx = dy * e2z - dz * e2y
-    pvy = dz * e2x - dx * e2z
-    pvz = dx * e2y - dy * e2x
-    det = e1x * pvx + e1y * pvy + e1z * pvz
-    ok_det = torch.abs(det) > 1e-12
-    inv_det = torch.where(ok_det, 1.0 / det, 0.0)
-    tvx, tvy, tvz = ox - p0x, oy - p0y, oz - p0z
-    u = (tvx * pvx + tvy * pvy + tvz * pvz) * inv_det
-    qvx = tvy * e1z - tvz * e1y
-    qvy = tvz * e1x - tvx * e1z
-    qvz = tvx * e1y - tvy * e1x
-    v = (dx * qvx + dy * qvy + dz * qvz) * inv_det
-    t = (e2x * qvx + e2y * qvy + e2z * qvz) * inv_det
+    t, u, v, ok = moller_trumbore_scalar(ox, oy, oz, dx, dy, dz, blk.transpose(0, 1), t_min)
     k = torch.arange(blk.shape[-1], device=blk.device)
-    valid = (
-        ok_det & (u >= 0.0) & (v >= 0.0) & (u + v <= 1.0) & (t > t_min)
-        & (t < bands.tmax[r][:, None]) & (k[None, :] < cl.count[c][:, None])
-    )
+    valid = ok & (t < bands.tmax[r][:, None]) & (k[None, :] < cl.count[c][:, None])
     return t, u, v, valid
 
 

@@ -38,6 +38,44 @@ def _moller_trumbore(origin, direction, p0, e1, e2, t_min, t_max):
     return t, u, v, valid
 
 
+def guarded_inverse(d):
+    """1 / d with |d| raised to at least 1e-20 (positive where d is 0)."""
+    return 1.0 / torch.where(torch.abs(d) > 1e-20, d, 1e-20)
+
+
+def instance_space(T, o, d):
+    """Ray components (lists of 3) moved to an instance's local space by the
+    world->local rows T (..., 12), summed in the CUDA kernels' order.  The
+    direction stays unnormalised, so t remains world-parametric."""
+    lo = [T[..., 4 * k] * o[0] + T[..., 4 * k + 1] * o[1] + T[..., 4 * k + 2] * o[2] + T[..., 4 * k + 3]
+          for k in range(3)]
+    ld = [T[..., 4 * k] * d[0] + T[..., 4 * k + 1] * d[1] + T[..., 4 * k + 2] * d[2] for k in range(3)]
+    return lo, ld
+
+
+def moller_trumbore_scalar(ox, oy, oz, dx, dy, dz, blk, t_min):
+    """Moller-Trumbore over broadcastable per-component operands in the CUDA
+    kernels' operation order, one rounding per product and sum: (t, u, v, ok),
+    `ok` without the caller's t < tmax and range tests.  `blk` holds the
+    nine triangle components p0.xyz, e1.xyz, e2.xyz along its first axis."""
+    p0x, p0y, p0z, e1x, e1y, e1z, e2x, e2y, e2z = (blk[k] for k in range(9))
+    pvx = dy * e2z - dz * e2y
+    pvy = dz * e2x - dx * e2z
+    pvz = dx * e2y - dy * e2x
+    det = e1x * pvx + e1y * pvy + e1z * pvz
+    ok_det = torch.abs(det) > 1e-12
+    inv_det = torch.where(ok_det, 1.0 / det, 0.0)
+    tvx, tvy, tvz = ox - p0x, oy - p0y, oz - p0z
+    u = (tvx * pvx + tvy * pvy + tvz * pvz) * inv_det
+    qvx = tvy * e1z - tvz * e1y
+    qvy = tvz * e1x - tvx * e1z
+    qvz = tvx * e1y - tvy * e1x
+    v = (dx * qvx + dy * qvy + dz * qvz) * inv_det
+    t = (e2x * qvx + e2y * qvy + e2z * qvz) * inv_det
+    ok = ok_det & (u >= 0.0) & (v >= 0.0) & (u + v <= 1.0) & (t > t_min)
+    return t, u, v, ok
+
+
 def intersect_brute(origin, direction, tri_p0, tri_e1, tri_e2, t_min=T_MIN, t_max=T_MAX) -> Hit:
     """Closest hit of every ray against every triangle; `t_max` may be (N,).
     Equal t resolves to the lower triangle index."""

@@ -1,25 +1,52 @@
-"""`render_step` and a minimal `Renderer` (port of vpt_tpu/api.py).
+"""`render_step` and `Renderer` (port of vpt_tpu/api.py).
 
 `render_step` is one progressive dispatch: n_samples new paths per pixel in
 8x8-tiled ray order, scattered back to a row-major image and EWMA'd into
 the accumulation buffer.  `Renderer` keeps the accumulation state of one
-compiled scene on one device.  PNG export, the setters, checkpoints and
-post-processing are not ported yet.
+compiled scene on one device, mirroring the reference's PathTracer host
+object: progressive accumulation, typed setters that each restart it,
+post-processing (bloom, tonemap), PNG / HDR export and checkpoints.
+
+Not ported yet: the atmosphere, sun-colour and phase-function setters and
+the volume methods (their render branches are not ported), the metrics log,
+and `lookup_tables="auto"` (the port renders with the constant
+energy-compensation fit).
 """
 
 from __future__ import annotations
 
+import dataclasses
 import time
+from typing import Optional
 
 import numpy as np
 import torch
 
-from vpt_tpu_torch.core.camera import look_at, perspective
+from vpt_tpu_torch.core.camera import FlyCamera, look_at, perspective
 from vpt_tpu_torch.core.tiling import scatter_to_image, tiled_pixel_order
 from vpt_tpu_torch.device import resolve_device
+from vpt_tpu_torch.io.image import export_filename, save_hdr, save_png
+from vpt_tpu_torch.post.bloom import bloom as bloom_pass
+from vpt_tpu_torch.post.tonemap import tonemap as tonemap_pass
 from vpt_tpu_torch.render import integrator
 from vpt_tpu_torch.render.params import RenderFlags, default_params
-from vpt_tpu_torch.scene.build import compile_scene
+from vpt_tpu_torch.scene.build import build_material_attr, compile_scene
+from vpt_tpu_torch.scene.envmap import load_hdr, prepare_environment
+from vpt_tpu_torch.scene.types import Material, Scene, tree_to_device
+
+
+@dataclasses.dataclass
+class PostSettings:
+    """PostProcessor knobs (PostProcessor.h:36-50 defaults)."""
+
+    exposure: float = 1.0
+    gamma: float = 2.2
+    bloom_threshold: float = 1.5
+    bloom_strength: float = 0.5
+    bloom_falloff: float = 0.5
+    bloom_mip_levels: int = 10
+    tonemap_mode: str = "aces"
+    enable_bloom: bool = False
 
 
 def render_step(scene_data, meta, flags, params, frame_seed: int, resolution, accum, frame_count: int,
@@ -40,11 +67,14 @@ def render_step(scene_data, meta, flags, params, frame_seed: int, resolution, ac
 class Renderer:
     """Progressive path tracer over one compiled scene on `device`."""
 
-    def __init__(self, scene, device, width=None, height=None, flags: RenderFlags = RenderFlags(),
+    def __init__(self, scene: Scene, device, width=None, height=None, flags: RenderFlags = RenderFlags(),
                  samples_per_frame: int = 1, max_samples: int = 5000):
+        self._scene_host = scene
         self.device = resolve_device(device)
         self.scene_data, self.meta, aux = compile_scene(scene, self.device)
         self.flags = flags
+        self.post = PostSettings()
+        # Output sized 1080 * aspect x 1080 like the reference (PathTracer.cpp:507-512).
         height = 1080 if height is None else height
         width = int(round(height * aux["camera_aspect"])) if width is None else width
         self.width, self.height = width, height
@@ -53,6 +83,7 @@ class Renderer:
             view = look_at((0.0, 0.0, 5.0), (0.0, 0.0, 0.0), (0.0, 1.0, 0.0))
         proj = perspective(np.radians(aux["camera_fov_deg"]), width / height)
         self.params = default_params(self.device, np.linalg.inv(view), np.linalg.inv(proj))
+        self.camera = FlyCamera.from_matrices(view, proj)
         self.samples_per_frame = samples_per_frame
         self.max_samples = max_samples
         self._accum = torch.zeros((height, width, 3), dtype=torch.float32, device=self.device)
@@ -60,8 +91,20 @@ class Renderer:
         self.samples_accumulated = 0
         self._seed_counter = 0
         self.render_seconds = 0.0
-        self.segments_traced = 0
+        self.segments_traced = 0.0
         self.last_host_syncs = 0
+
+    # ------------------------------------------------------------------ core
+
+    def reset_path_tracing(self) -> None:
+        """ResetPathTracing (PathTracer.h:183): the next dispatch starts a
+        new accumulation."""
+        self.frame_count = 0
+        self.samples_accumulated = 0
+        self.render_seconds = 0.0
+        self.segments_traced = 0.0
+
+    reset_accumulation = reset_path_tracing
 
     def path_trace(self) -> bool:
         """One progressive dispatch; True once max_samples are accumulated."""
@@ -75,19 +118,174 @@ class Renderer:
             self.scene_data, self.meta, self.flags, self.params, seed, (self.width, self.height),
             accum, self.frame_count, self.samples_per_frame,
         )
-        self.segments_traced += int(segments)  # waits for the dispatch to finish
+        self.segments_traced += float(segments)  # waits for the dispatch to finish
         self.render_seconds += time.perf_counter() - t0
         self.frame_count += 1
         self.samples_accumulated += self.samples_per_frame
         return self.samples_accumulated >= self.max_samples
 
-    def render(self, total_samples=None) -> np.ndarray:
+    def render(self, total_samples: Optional[int] = None, verbose: bool = False) -> np.ndarray:
         """Accumulate until max_samples; returns the HDR image."""
         if total_samples is not None:
             self.max_samples = total_samples
         while not self.path_trace():
-            pass
+            if verbose and self.frame_count % 16 == 0:
+                eta = self.render_seconds * (self.max_samples - self.samples_accumulated) / max(
+                    self.samples_accumulated, 1)
+                print(f"[vpt] {self.samples_accumulated}/{self.max_samples} spp, "
+                      f"{self.render_seconds:.1f}s elapsed, ETA {eta:.1f}s")
         return self.hdr_image()
+
+    # ---------------------------------------------------------------- output
 
     def hdr_image(self) -> np.ndarray:
         return self._accum.cpu().numpy()
+
+    def output_image(self) -> np.ndarray:
+        """Post-processed LDR image (PostProcessor::PostProcess equivalent)."""
+        img = self._accum
+        bl = None
+        if self.post.enable_bloom:
+            bl = bloom_pass(img, threshold=self.post.bloom_threshold, strength=self.post.bloom_strength,
+                            falloff_range=self.post.bloom_falloff, mip_levels=self.post.bloom_mip_levels)
+        out = tonemap_pass(img, bloom=bl, exposure=self.post.exposure, gamma=self.post.gamma,
+                           mode=self.post.tonemap_mode)
+        return out.cpu().numpy()
+
+    def save(self, path: str, embed_stats: bool = False) -> str:
+        """Write the tonemapped PNG (or, for `.npy`, the HDR buffer); with
+        `embed_stats` the name carries spp and seconds.  Returns the path."""
+        if embed_stats:
+            base = path[:-4] if path.endswith(".png") else path
+            path = export_filename(base, self.samples_accumulated, self.render_seconds)
+        if path.endswith(".npy"):
+            save_hdr(path, self.hdr_image())
+        else:
+            save_png(path, self.output_image())
+        return path
+
+    # ------------------------------------------------------------ checkpoint
+
+    def save_checkpoint(self, path: str) -> None:
+        """Accumulation buffer and counters: the full resumable state."""
+        np.savez(path, accum=self.hdr_image(), frame_count=self.frame_count,
+                 samples_accumulated=self.samples_accumulated, seed_counter=self._seed_counter,
+                 render_seconds=self.render_seconds)
+
+    def load_checkpoint(self, path: str) -> None:
+        d = np.load(path if path.endswith(".npz") else path + ".npz")
+        self._accum = torch.as_tensor(d["accum"], device=self.device)
+        self.frame_count = int(d["frame_count"])
+        self.samples_accumulated = int(d["samples_accumulated"])
+        self._seed_counter = int(d["seed_counter"])
+        self.render_seconds = float(d["render_seconds"])
+
+    # --------------------------------------------------------------- setters
+    # Every setter resets accumulation, like the reference's Set* methods.
+
+    def _param(self, **kw) -> None:
+        self.params = self.params._replace(**kw)
+        self.reset_path_tracing()
+
+    def _flag(self, **kw) -> None:
+        self.flags = dataclasses.replace(self.flags, **kw)
+        self.reset_path_tracing()
+
+    def set_camera(self, view=None, proj=None) -> None:
+        kw = {}
+        if view is not None:
+            kw["view_inverse"] = np.linalg.inv(np.asarray(view, np.float32))
+        if proj is not None:
+            kw["proj_inverse"] = np.linalg.inv(np.asarray(proj, np.float32))
+        self._param(**{k: torch.as_tensor(v.astype(np.float32), device=self.device) for k, v in kw.items()})
+
+    def sync_fly_camera(self) -> None:
+        self.set_camera(view=self.camera.view_matrix(), proj=self.camera.proj_matrix())
+
+    def set_max_depth(self, d: int) -> None:
+        self._flag(max_depth=int(d))
+
+    def set_max_samples(self, s: int) -> None:
+        self.max_samples = int(s)
+
+    def set_samples_per_frame(self, s: int) -> None:
+        self.samples_per_frame = int(s)
+        self.reset_path_tracing()
+
+    def set_max_luminance(self, v: float) -> None:
+        self._param(max_luminance=float(v))
+
+    def set_focus_distance(self, v: float) -> None:
+        self._param(focus_distance=float(v))
+
+    def set_dof_strength(self, v: float) -> None:
+        self._param(dof_strength=float(v))
+
+    def set_sky_azimuth(self, deg: float) -> None:
+        self._param(sky_rotation_azimuth=float(deg))
+
+    def set_sky_altitude(self, deg: float) -> None:
+        self._param(sky_rotation_altitude=float(deg))
+
+    def set_sky_intensity(self, v: float) -> None:
+        self._param(environment_intensity=float(v))
+
+    def set_emissive_pdf_bias(self, v: float) -> None:
+        self._param(emissive_pdf_bias=float(v))
+
+    def set_sky_mis(self, on: bool) -> None:
+        self._flag(enable_sky_mis=bool(on))
+
+    def set_mesh_mis(self, on: bool) -> None:
+        self._flag(enable_mesh_mis=bool(on))
+
+    def set_env_map_shown_directly(self, on: bool) -> None:
+        self._flag(show_env_map_directly=bool(on))
+
+    def set_use_only_geometry_normals(self, on: bool) -> None:
+        self._flag(use_only_geometry_normals=bool(on))
+
+    def set_use_energy_compensation(self, on: bool) -> None:
+        self._flag(use_energy_compensation=bool(on))
+
+    def set_furnace_test_mode(self, on: bool) -> None:
+        self._flag(furnace_test_mode=bool(on))
+
+    def set_env_map(self, env) -> None:
+        """SetEnvMapFilepath (PathTracer.cpp:1137-1332): a `.npy` / `.hdr`
+        path or an (H, W, 3) array; rebuilds the alias map."""
+        if isinstance(env, str):
+            env = load_hdr(env)
+        env = np.asarray(env, np.float32)
+        self._scene_host.env_map = env
+        self.scene_data = self.scene_data._replace(env=tree_to_device(prepare_environment(env), self.device))
+        self.reset_path_tracing()
+
+    @property
+    def total_vertex_count(self) -> int:
+        return int(sum(m.positions.shape[0] for m in self._scene_host.meshes))
+
+    @property
+    def total_index_count(self) -> int:
+        return int(sum(m.indices.shape[0] for m in self._scene_host.meshes))
+
+    def set_material(self, index: int, material: Material) -> None:
+        """SetMaterial (PathTracer.cpp:1010-): replace one material."""
+        self._scene_host.materials[index] = material
+        attr = build_material_attr(self._scene_host.materials)
+        self.scene_data = self.scene_data._replace(material_attr=torch.as_tensor(attr, device=self.device))
+        self.reset_path_tracing()
+
+    def get_material(self, index: int) -> Material:
+        return self._scene_host.materials[index]
+
+    @property
+    def materials(self):
+        return self._scene_host.materials
+
+    def resize_image(self, width: int, height: int) -> None:
+        """A new output size; the projection follows the new aspect ratio."""
+        self.width, self.height = width, height
+        self._accum = torch.zeros((height, width, 3), dtype=torch.float32, device=self.device)
+        self.camera.aspect = width / height
+        self.set_camera(proj=self.camera.proj_matrix())

@@ -1,13 +1,14 @@
 """Camera matrices and primary-ray generation (port of vpt_tpu/core/camera.py).
 
-`look_at` / `perspective` build the host-side matrices (numpy);
+`look_at` / `perspective` build the host-side matrices (numpy) and
+`FlyCamera` keeps yaw/pitch camera state (FlyCamera.{h,cpp});
 `generate_primary_rays` turns pixels into rays with AA jitter and thin-lens
-depth of field, drawing from the RNG in the reference's order.  The
-interactive `FlyCamera` is not ported yet.
+depth of field, drawing from the RNG in the reference's order.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import math
 
 import numpy as np
@@ -47,6 +48,65 @@ def perspective(fovy_rad: float, aspect: float, znear: float = 0.1, zfar: float 
     m[2, 3] = -(zfar * znear) / (zfar - znear)
     m[3, 2] = -1.0
     return m
+
+
+@dataclasses.dataclass
+class FlyCamera:
+    """WASD/mouse-style camera state; yaw/pitch Euler angles in degrees, GLM
+    conventions: yaw = -90 faces -Z."""
+
+    position: np.ndarray = dataclasses.field(default_factory=lambda: np.zeros(3, np.float32))
+    yaw: float = -90.0
+    pitch: float = 0.0
+    fov_deg: float = 45.0
+    aspect: float = 1.0
+    world_up: np.ndarray = dataclasses.field(default_factory=lambda: np.array([0, 1, 0], np.float32))
+
+    @property
+    def front(self) -> np.ndarray:
+        cy, sy = np.cos(np.radians(self.yaw)), np.sin(np.radians(self.yaw))
+        cp, sp = np.cos(np.radians(self.pitch)), np.sin(np.radians(self.pitch))
+        f = np.array([cy * cp, sp, sy * cp], np.float32)
+        return f / np.linalg.norm(f)
+
+    def move(self, direction: str, amount: float) -> None:
+        f = self.front
+        r = np.cross(f, self.world_up)
+        r /= np.linalg.norm(r)
+        delta = {
+            "forward": f, "back": -f, "right": r, "left": -r,
+            "up": self.world_up, "down": -self.world_up,
+        }[direction]
+        self.position = (self.position + amount * delta).astype(np.float32)
+
+    def rotate(self, dyaw: float, dpitch: float) -> None:
+        self.yaw += dyaw
+        self.pitch = float(np.clip(self.pitch + dpitch, -89.0, 89.0))
+
+    def view_matrix(self) -> np.ndarray:
+        return look_at(self.position, self.position + self.front, self.world_up)
+
+    def proj_matrix(self, znear: float = 0.1, zfar: float = 1000.0) -> np.ndarray:
+        return perspective(np.radians(self.fov_deg), self.aspect, znear, zfar)
+
+    def view_inverse(self) -> np.ndarray:
+        return np.linalg.inv(self.view_matrix()).astype(np.float32)
+
+    def proj_inverse(self) -> np.ndarray:
+        return np.linalg.inv(self.proj_matrix()).astype(np.float32)
+
+    @staticmethod
+    def from_matrices(view: np.ndarray, proj: np.ndarray) -> "FlyCamera":
+        """From arbitrary view / projection matrices (FlyCamera.cpp:110-140)."""
+        vi = np.linalg.inv(view)
+        pos = vi[:3, 3]
+        front = -vi[:3, 2]
+        yaw = float(np.degrees(np.arctan2(front[2], front[0])))
+        pitch = float(np.degrees(np.arcsin(np.clip(front[1], -1, 1))))
+        fovy = 2.0 * np.arctan(1.0 / abs(proj[1, 1]))
+        aspect = abs(proj[1, 1] / proj[0, 0])
+        return FlyCamera(position=pos.astype(np.float32), yaw=yaw, pitch=pitch,
+                         fov_deg=float(np.degrees(fovy)), aspect=aspect)
 
 
 def generate_primary_rays(

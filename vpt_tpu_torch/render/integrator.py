@@ -10,13 +10,21 @@ bounded by n_samples * (max_depth + max_medium_events) iterations that
 stops early once no lane is alive: that check reads one bool from the
 device, one synchronisation per iteration, and the count is returned.
 Volumes and the atmosphere are not ported yet and raise.
+
+Large scenes trace through the cluster tables in one of two modes, read
+from `VPT_TRACE` once at import as in the JAX package: "stream" (default;
+kernels 1-4) or "packet" (the packet trace through kernel 5).  Switch in
+code with `mock.patch.object(integrator, "TRACE_MODE", "packet")`.
 """
 
 from __future__ import annotations
 
+import os
+
 import torch
 
 from vpt_tpu_torch.accel import traverse
+from vpt_tpu_torch.accel.cluster import intersect_clusters
 from vpt_tpu_torch.accel.occlude import occlude_stream
 from vpt_tpu_torch.accel.stream import intersect_stream
 from vpt_tpu_torch.core import rng
@@ -28,9 +36,13 @@ from vpt_tpu_torch.render import surface as surface_mod
 from vpt_tpu_torch.render.params import RenderFlags, RenderParams
 
 
+TRACE_MODE = os.environ.get("VPT_TRACE", "stream")  # stream | packet
+
+
 def trace(scene, meta, origin, direction, active, t_min=traverse.T_MIN, t_max=traverse.T_MAX):
-    """Closest hit: brute force for small scenes, the cluster stream trace
-    otherwise.  Inactive rays report a miss."""
+    """Closest hit: brute force for small scenes, else the cluster stream
+    trace, or the key-sorted packet trace in "packet" mode.  Inactive rays
+    report a miss."""
     if meta.use_brute_force:
         n_real = meta.n_tris
         hit = traverse.intersect_brute(
@@ -40,15 +52,18 @@ def trace(scene, meta, origin, direction, active, t_min=traverse.T_MIN, t_max=tr
         return traverse.Hit(
             t=torch.where(active, hit.t, -1.0), tri=torch.where(active, hit.tri, -1), u=hit.u, v=hit.v,
         )
+    if TRACE_MODE == "packet":
+        return intersect_clusters(origin, direction, scene.clusters, t_min, t_max, active=active, sort_rays=True)
     return intersect_stream(origin, direction, scene.clusters, t_min, t_max, active=active)
 
 
 def occlude(scene, meta, origin, direction, active, t_min=traverse.T_MIN, t_max=traverse.T_MAX,
             exclude_tri=None):
     """Shadow query: blocked iff a triangle with virtual id != exclude_tri
-    intersects in (t_min, t_max).  Brute-force scenes use a closest-hit
-    trace and compare ids."""
-    if not meta.use_brute_force:
+    intersects in (t_min, t_max).  The stream mode runs the occlusion
+    kernel; brute-force scenes and the packet mode make a closest-hit trace
+    and compare ids."""
+    if not meta.use_brute_force and TRACE_MODE != "packet":
         return occlude_stream(origin, direction, scene.clusters, t_min, t_max, active=active,
                               exclude_tri=exclude_tri)
     hit = trace(scene, meta, origin, direction, active, t_min=t_min, t_max=t_max)

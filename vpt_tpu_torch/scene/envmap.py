@@ -9,7 +9,24 @@ from __future__ import annotations
 
 import numpy as np
 
+from vpt_tpu_torch.io.image import load_radiance_hdr
 from vpt_tpu_torch.scene.types import EnvMapData
+
+
+def load_hdr(path: str) -> np.ndarray:
+    """An environment image as float32 (H, W, 3) from a `.npy` array or a
+    Radiance `.hdr` file (other formats need imageio, which the port does
+    not use)."""
+    if path.endswith(".npy"):
+        img = np.load(path)
+    elif path.endswith(".hdr"):
+        img = load_radiance_hdr(path)
+    else:
+        raise ValueError(f"{path}: the port loads environment maps from .npy or .hdr files")
+    img = np.asarray(img, np.float32)
+    if img.ndim == 2:
+        img = np.repeat(img[..., None], 3, axis=-1)
+    return img[..., :3]
 
 
 def build_alias_map(importance: np.ndarray):

@@ -4,7 +4,8 @@ Host types (`Scene`, `Mesh`, `Instance`, `Material`, `default_textures`)
 are jax-free copies of vpt_tpu/scene/types.py.  The device containers hold
 torch tensors and carry only the fields the ported render path reads; the
 JAX package's TPU-only layouts (the lane-interleaved `tris_rk` blocks and
-the group DMA table) are not carried.
+the group DMA table) are not carried; the sub-block boxes that `tris_rk`
+holds in its metadata rows are a table of their own, `sub_aabbs`.
 """
 
 from __future__ import annotations
@@ -128,6 +129,8 @@ class ClusterData(NamedTuple):
     inst: torch.Tensor  # (C,) i32 owning instance
     inv_rows: torch.Tensor  # (n_inst, 12) f32 row-major [R | T] world->local
     tris: torch.Tensor  # (B, 16, K) f32 rows 0-8 = p0.xyz, e1.xyz, e2.xyz
+    sub_aabbs: torch.Tensor  # (B, 8, 6) f32 mesh-local box of each 16-triangle
+    # sub-block [lo.xyz, hi.xyz]; lo = 3e9, hi = -3e9 where the sub-block is empty
 
 
 class EnvMapData(NamedTuple):
