@@ -13,15 +13,27 @@ Phases, each of which raises on failure:
      as equal booleans, the packet visit with equal ids, t, u and v on the
      same packets (512 bounce packets, 1,024 shadow packets); CUDA-event
      medians of each kernel, the plain visit timed once;
-  4. the stream path: Renderer on colonnade at 512x512, max_depth 8,
+  4. the energy-compensation table bake on the card (what the default
+     `Renderer(lookup_tables="auto")` runs once and caches), timed; then
+     the stream path: Renderer on colonnade at 512x512, max_depth 8,
      max_medium_events 8, 4 spp per dispatch, one warm-up and two timed
-     dispatches, with every kernel's launch count;
+     dispatches, with every kernel's launch count; its fits must not be
+     the constant fit;
   5. the packet path (integrator.TRACE_MODE = "packet") on the same
      Renderer, the same way: the visit kernel must launch and the stream
      and occlusion kernels must not; then Renderer.save writes a PNG that
      is read back;
   6. 128x128 1-spp renders with the kernels against the same renders with
-     every plain version, stream and packet mode: PSNR > 40 dB.
+     every plain version, stream and packet mode: PSNR > 40 dB;
+  7. the media path: the stream-mode Renderer with a 128^3 procedural
+     cloud and a homogeneous ground haze added by `add_volume` (the merged
+     march, delta tracking, ratio-tracked NEE, HG phase), driven like
+     phase 4: ray_keys, supertile_tables, stream and occlude must launch
+     and visit must not; then its 128x128 kernel render against the plain
+     one, PSNR > 40 dB;
+  8. the atmosphere path: the gallery's day setup (planet surface at
+     y = 0, sky altitude 30 degrees) under colonnade's open sky, the same
+     way.
 The last lines are the card's name and power limit, the kernel table as
 JSON and {"ok": true, ...}.  Without a CUDA device the script exits
 non-zero and prints no result.
@@ -50,10 +62,13 @@ from vpt_tpu_torch.core import rng
 from vpt_tpu_torch.core.camera import generate_primary_rays, perspective
 from vpt_tpu_torch.core.tiling import tiled_pixel_order
 from vpt_tpu_torch.io.image import read_png
-from vpt_tpu_torch.render import integrator, lights, sampling, surface
+from vpt_tpu_torch.render import integrator, lights, lookup, sampling, surface
+from vpt_tpu_torch.render.lookup_fit import constant_fit
 from vpt_tpu_torch.render.params import default_params
 from vpt_tpu_torch.scene.build import compile_scene
 from vpt_tpu_torch.scene.procedural import colonnade
+from vpt_tpu_torch.scene.types import Volume
+from vpt_tpu_torch.scene.vdb import procedural_cloud
 
 SOURCES = {
     "ray_keys": "vpt_tpu_torch/csrc/envelope.cu",
@@ -218,32 +233,37 @@ def drive(r: Renderer, label: str):
     r.reset_path_tracing()
     kernels.reset_launches()
     r.path_trace()
-    dts, segs, syncs = [], [], []
+    dts, segs, syncs, steps = [], [], [], []
     for _ in range(TIMED_DISPATCHES):
         seg0, t0 = r.segments_traced, time.perf_counter()
         r.path_trace()
         dts.append(time.perf_counter() - t0)
         segs.append(r.segments_traced - seg0)
         syncs.append(r.last_host_syncs)
+        steps.append(r.last_media_steps)
     launches = dict(kernels.LAUNCHES)
     img = r.hdr_image()
     s_per = statistics.median(dts)
     log(f"{label} render colonnade {W}x{H} depth 8, 4 spp/dispatch: {s_per:.3f} s/dispatch (median of {dts}), "
         f"{statistics.median(segs) / s_per:.0f} segments/s, {statistics.median(segs):.0f} segments/dispatch, "
-        f"host syncs/dispatch {syncs}, launches over {TIMED_DISPATCHES + 1} dispatches {launches}")
+        f"host syncs/dispatch {syncs}, media loop steps/dispatch {steps}, "
+        f"launches over {TIMED_DISPATCHES + 1} dispatches {launches}, image mean {float(img.mean()):.4f}")
     check(img.shape == (H, W, 3) and bool(np.isfinite(img).all()) and float(img.mean()) > 0.0,
           f"{label} render is finite with mean > 0")
     return launches
 
 
-def kernel_vs_plain_render(data, meta, aux, dev, label: str) -> None:
+def check_stream_launches(launches, label: str) -> None:
+    for name in STREAM_KERNELS:
+        check(launches[name] > 0, f"the {label} path launched {name}")
+    check(launches["visit"] == 0, f"the {label} path did not launch visit")
+
+
+def kernel_vs_plain_render(data, meta, flags, params, dev, label: str) -> None:
     """A 128x128 1-spp render with the kernels against the same render with
-    every plain version."""
+    every plain version (`params` made for a square image)."""
     small = 128
-    view_inv = np.linalg.inv(aux["camera_view"])
-    proj_inv = np.linalg.inv(perspective(np.radians(aux["camera_fov_deg"]), 1.0))
-    args = (data, meta, RenderFlags(max_depth=8, max_medium_events=8), default_params(dev, view_inv, proj_inv),
-            2654435761, (small, small), torch.zeros((small, small, 3), device=dev), 0, 1)
+    args = (data, meta, flags, params, 2654435761, (small, small), torch.zeros((small, small, 3), device=dev), 0, 1)
     img_k = render_step(*args)[0].cpu().numpy()
     before = dict(kernels.LAUNCHES)
     with plain_kernels():
@@ -328,12 +348,27 @@ def run(dev, smi: str) -> None:
     log(f"visit: kernel {table['visit']['ms']:.3f} ms, plain {plain_b:.1f} ms (512 bounce packets, kernel median "
         f"of 5, plain timed once)")
 
-    # 4. The stream path.
-    r = Renderer(colonnade(), dev, width=W, height=H, flags=RenderFlags(max_depth=8, max_medium_events=8),
-                 samples_per_frame=4)
+    # 4. The table bake the default Renderer runs (and caches), then the
+    # stream path.
+    cached = all(os.path.exists(os.path.join(lookup.CACHE_DIR, f"torch_lookup_{k}_4096.npy"))
+                 for k in ("reflect", "refract_out", "refract_in"))
+    t0 = time.perf_counter()
+    tables = lookup.get_lookup_tables(device=dev)
+    torch.cuda.synchronize()
+    log(f"lookup tables ({'loaded from the cache' if cached else 'baked on the card'}, 4096 samples/texel): "
+        f"{time.perf_counter() - t0:.1f} s; means " + ", ".join(f"{float(t.mean()):.4f}" for t in tables))
+    check(all(bool(np.isfinite(t).all()) for t in tables) and tables[0].shape == lookup.REFLECT_SHAPE
+          and tables[1].shape == tables[2].shape == lookup.REFRACT_SHAPE,
+          "the baked tables are finite and of their shapes")
+    flags = RenderFlags(max_depth=8, max_medium_events=8)
+    t0 = time.perf_counter()
+    r = Renderer(colonnade(), dev, width=W, height=H, flags=flags, samples_per_frame=4)
+    log(f"Renderer(colonnade, lookup_tables='auto'): {time.perf_counter() - t0:.1f} s")
+    check(not np.array_equal(r.scene_data.lookup_reflect.cpu().numpy(), constant_fit(1.0)),
+          "the default Renderer carries the baked fits, not the constant fit")
     launches = drive(r, "stream")
+    check_stream_launches(launches, "stream")
     for name in STREAM_KERNELS:
-        check(launches[name] > 0, f"the stream path launched {name}")
         table[name]["launches"] = launches[name]
 
     # 5. The packet path, then its image saved as a PNG and read back.
@@ -350,9 +385,32 @@ def run(dev, smi: str) -> None:
         check(png.shape == (H, W, 3) and float(png.mean()) > 0.0, "the saved PNG reads back (512, 512) with mean > 0")
 
     # 6. Kernel renders against plain renders.
-    kernel_vs_plain_render(data, meta, aux, dev, "stream")
+    square = default_params(dev, np.linalg.inv(aux["camera_view"]),
+                            np.linalg.inv(perspective(np.radians(aux["camera_fov_deg"]), 1.0)))
+    kernel_vs_plain_render(data, meta, flags, square, dev, "stream")
     with mock.patch.object(integrator, "TRACE_MODE", "packet"):
-        kernel_vs_plain_render(data, meta, aux, dev, "packet")
+        kernel_vs_plain_render(data, meta, flags, square, dev, "packet")
+
+    # 7. The media path: a 128^3 cloud and a ground haze (README's cloud in a scene).
+    t0 = time.perf_counter()
+    r = Renderer(colonnade(), dev, width=W, height=H, flags=flags, samples_per_frame=4)
+    r.add_volume(Volume(corner_min=(-6, 3, -4), corner_max=(6, 9, 4), density=8.0, anisotropy=0.3,
+                        density_grid=procedural_cloud((128, 128, 128), coverage=0.6, seed=0)))
+    r.add_volume(Volume(corner_min=(-17, 0, -7), corner_max=(17, 1.5, 7), density=0.05, color=(0.9, 0.9, 0.9)))
+    log(f"media Renderer with two volumes: {time.perf_counter() - t0:.1f} s; n_volumes {r.meta.n_volumes}, "
+        f"n_het_volumes {r.meta.n_het_volumes}, grids {tuple(r.scene_data.volumes.density_grids.shape)}")
+    check_stream_launches(drive(r, "media"), "media")
+    kernel_vs_plain_render(r.scene_data, r.meta, r.flags, square, dev, "media")
+
+    # 8. The atmosphere path: the day setup of scripts/gallery.py.
+    r = Renderer(colonnade(), dev, width=W, height=H, flags=flags, samples_per_frame=4)
+    r.set_enable_atmosphere(True)
+    r.set_planet_position((0.0, -6360e3, 0.0))
+    r.set_sky_altitude(30.0)
+    check_stream_launches(drive(r, "atmosphere"), "atmosphere")
+    kernel_vs_plain_render(r.scene_data, r.meta, r.flags, square._replace(sky_rotation_altitude=30.0,
+                                                                          planet_position=r.params.planet_position),
+                           dev, "atmosphere")
 
     print(smi)
     print(json.dumps({"kernels": list(table.values())}))

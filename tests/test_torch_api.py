@@ -1,7 +1,9 @@
 """The rest of the port's `Renderer` and its image I/O against the JAX
 package: PNG and Radiance HDR files, FlyCamera, the post-processed output,
-every ported setter, and checkpoints.  The JAX `Renderer` is built with
-`lookup_tables=None`, the constant energy-compensation fit the port uses."""
+every ported setter (the atmosphere's and the phase function's
+included), the volume methods, and checkpoints.  Both `Renderer`s are
+built with `lookup_tables=None`, the constant energy-compensation fit, so
+that nothing bakes the tables on the CPU."""
 
 import dataclasses
 
@@ -108,7 +110,7 @@ def test_fly_camera_matches_jax():
 @pytest.fixture(scope="module")
 def renderers():
     r = Renderer(tproc.cornell_box(), "cpu", width=12, height=8, flags=RenderFlags(**FLAGS),
-                 samples_per_frame=2, max_samples=4)
+                 samples_per_frame=2, max_samples=4, lookup_tables=None)
     j = JRenderer(jproc.cornell_box(), width=12, height=8, flags=JFlags(**FLAGS), samples_per_frame=2,
                   max_samples=4, lookup_tables=None)
     return r, j
@@ -142,6 +144,19 @@ SETTERS = [
     ("set_use_only_geometry_normals", (True,), "flag:use_only_geometry_normals"),
     ("set_use_energy_compensation", (False,), "flag:use_energy_compensation"),
     ("set_furnace_test_mode", (True,), "flag:furnace_test_mode"),
+    ("set_enable_atmosphere", (True,), "flag:enable_atmosphere"),
+    ("set_phase_function", ("hg_draine",), "flag:phase_function"),
+    ("set_sun_color", ((0.9, 0.7, 0.4),), "param:sun_color"),
+    ("set_planet_position", ((0.0, -6360e3, 10.0),), "param:planet_position"),
+    ("set_planet_radius", (6371e3,), "param:planet_radius"),
+    ("set_atmosphere_height", (80e3,), "param:atmosphere_height"),
+    ("set_rayleigh_scattering_multiplier", ((1.0, 1.5, 2.0),), "param:rayleigh_scattering_multiplier"),
+    ("set_mie_scattering_multiplier", ((0.5, 0.5, 0.7),), "param:mie_scattering_multiplier"),
+    ("set_ozone_absorption_multiplier", ((2.0, 1.0, 0.1),), "param:ozone_absorption_multiplier"),
+    ("set_rayleigh_density_falloff", (7994.3,), "param:rayleigh_density_falloff"),
+    ("set_mie_density_falloff", (1100.1,), "param:mie_density_falloff"),
+    ("set_ozone_density_falloff", (4500.0,), "param:ozone_density_falloff"),
+    ("set_ozone_peak", (25000.7,), "param:ozone_peak"),
     ("set_camera", (_VIEW, None), "param:view_inverse"),
     ("set_env_map", (_ENV,), "env"),
     ("set_material", (1, "blue"), "material"),
@@ -169,7 +184,9 @@ def _field(r, what):
 
 
 def _assert_same(a, b):
-    if isinstance(a, dict):
+    if isinstance(a, str):
+        assert a == b
+    elif isinstance(a, dict):
         for k in a:
             np.testing.assert_array_equal(a[k], b[k], err_msg=k)
     elif isinstance(a, tuple):
@@ -198,6 +215,56 @@ def test_setter_changes_the_jax_field_and_resets(renderers, setter, args, what):
     if what not in ("fly",):
         with pytest.raises(AssertionError):
             _assert_same(got, before)  # the setter did change the field
+
+
+def test_set_phase_function_rejects_unknown_names(renderers):
+    r, _ = renderers
+    with pytest.raises(ValueError, match="phase function"):
+        r.set_phase_function("mie")
+
+
+def _volume_state(r):
+    table = r.scene_data.volumes
+    return ((r.meta.n_volumes, r.meta.n_het_volumes),
+            {f: _np(getattr(table, f)) for f in type(table)._fields})
+
+
+def test_volume_methods_match_jax(tmp_path):
+    """add_volume, set_volume, the density-data methods (an array and .npy
+    paths) and remove_volume: each rebuilds the volume table and meta as
+    the JAX package does and resets accumulation."""
+    from vpt_tpu.scene.types import Volume as JVolume
+    from vpt_tpu.scene.vdb import procedural_cloud
+    from vpt_tpu_torch.scene.types import Volume
+
+    r = Renderer(tproc.cornell_box(), "cpu", width=8, height=8, flags=RenderFlags(**FLAGS), lookup_tables=None)
+    j = JRenderer(jproc.cornell_box(), width=8, height=8, flags=JFlags(**FLAGS), lookup_tables=None)
+    cloud = procedural_cloud((12, 10, 8), seed=2)
+    temp = np.random.default_rng(1).uniform(0.0, 1000.0, (12, 10, 8)).astype(np.float32)
+    np.save(tmp_path / "cloud.npy", cloud)
+    np.save(tmp_path / "temp.npy", temp)
+    first = dict(corner_min=(-0.5, -0.5, -0.5), corner_max=(0.5, 0.5, 0.5), density=2.0)
+    second = dict(corner_min=(-1.0, -1.0, -1.0), corner_max=(1.0, 0.0, 1.0), density=0.3, color=(0.5, 0.6, 0.7))
+    steps = [
+        ("add_volume", lambda V: (V(**first),)),
+        ("add_volume", lambda V: (V(**second, density_grid=cloud),)),
+        ("set_volume", lambda V: (0, V(**first, anisotropy=0.5))),
+        ("add_density_data_to_volume", lambda V: (0, str(tmp_path / "cloud.npy"), str(tmp_path / "temp.npy"))),
+        ("add_density_data_to_volume", lambda V: (1, cloud * 2.0)),
+        ("remove_density_data_from_volume", lambda V: (0,)),
+        ("remove_volume", lambda V: (1,)),
+    ]
+    for name, args in steps:
+        for ren, V in ((r, Volume), (j, JVolume)):
+            ren.frame_count, ren.samples_accumulated = 3, 6
+            getattr(ren, name)(*args(V))
+            assert ren.frame_count == 0 and ren.samples_accumulated == 0, f"{name} did not reset"
+        (counts, table), (jcounts, jtable) = _volume_state(r), _volume_state(j)
+        assert counts == jcounts, name
+        for f, v in table.items():
+            np.testing.assert_array_equal(v, jtable[f], err_msg=f"{name}: {f}")
+        assert len(r.volumes) == len(j.volumes)
+    assert counts == (1, 0)
 
 
 def test_max_samples_and_counts_match_jax(renderers):
@@ -235,7 +302,7 @@ def test_render_save_and_checkpoint_resume(tmp_path):
     spp/seconds into the name."""
     def make():
         return Renderer(tproc.cornell_box(), "cpu", width=8, height=8, flags=RenderFlags(**FLAGS),
-                        samples_per_frame=1, max_samples=3)
+                        samples_per_frame=1, max_samples=3, lookup_tables=None)
 
     r = make()
     r.path_trace()

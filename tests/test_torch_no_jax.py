@@ -32,11 +32,16 @@ SLICE_MODULES = [
     "vpt_tpu_torch.render.surface",
     "vpt_tpu_torch.render.lights",
     "vpt_tpu_torch.render.lookup_fit",
+    "vpt_tpu_torch.render.lookup",
+    "vpt_tpu_torch.render.loop",
+    "vpt_tpu_torch.render.volumes",
+    "vpt_tpu_torch.render.atmosphere",
     "vpt_tpu_torch.render.integrator",
     "vpt_tpu_torch.scene.types",
     "vpt_tpu_torch.scene.envmap",
     "vpt_tpu_torch.scene.procedural",
     "vpt_tpu_torch.scene.build",
+    "vpt_tpu_torch.scene.vdb",
     "vpt_tpu_torch.scene.convert",
 ]
 

@@ -48,7 +48,7 @@ def _render_both(scene, trace_mode="stream"):
     tdata, tmeta = scene_from_numpy(jax.tree.map(np.asarray, data), meta, "cpu")
     args = (tdata, tmeta, RenderFlags(max_depth=3, max_medium_events=8), default_params("cpu", view_inv, proj_inv),
             SEED, (W, H), torch.zeros((H, W, 3)), 0, 1)
-    got, segs, syncs = render_step(*args)
+    got, segs, stats = render_step(*args)
     packet = None
     if not meta.use_brute_force:
         # Packet mode must not reach the stream path's trace or occlusion.
@@ -56,8 +56,9 @@ def _render_both(scene, trace_mode="stream"):
                 mock.patch.object(integrator, "intersect_stream", side_effect=AssertionError("stream trace")), \
                 mock.patch.object(integrator, "occlude_stream", side_effect=AssertionError("stream occlude")):
             packet = render_step(*args)
-        packet = (packet[0].numpy(), int(packet[1]), packet[2])
-    return np.asarray(want), float(want_segs), got.numpy(), int(segs), syncs, meta, packet
+        packet = (packet[0].numpy(), int(packet[1]), packet[2].syncs)
+    assert stats.loops == stats.steps == 0  # no volume, no atmosphere
+    return np.asarray(want), float(want_segs), got.numpy(), int(segs), stats.syncs, meta, packet
 
 
 def _assert_images_agree(got, want):

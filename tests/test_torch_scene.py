@@ -57,6 +57,7 @@ def test_scene_from_numpy_round_trip():
         "clusters": clusters_from_numpy(tree.clusters),  # sub_aabbs from tris_rk's metadata rows
         "emissive": tree.emissive,
         "env": tree.env,
+        "volumes": tree.volumes,
     }
     for path, leaf in _leaves(data):
         head, _, rest = path.partition(".")

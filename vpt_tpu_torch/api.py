@@ -4,13 +4,13 @@
 8x8-tiled ray order, scattered back to a row-major image and EWMA'd into
 the accumulation buffer.  `Renderer` keeps the accumulation state of one
 compiled scene on one device, mirroring the reference's PathTracer host
-object: progressive accumulation, typed setters that each restart it,
-post-processing (bloom, tonemap), PNG / HDR export and checkpoints.
+object: progressive accumulation, typed setters that each restart it
+(the atmosphere's and the phase function's included), volumes,
+post-processing (bloom, tonemap), PNG / HDR export and checkpoints.  Its
+energy-compensation tables are baked on its device by default
+(`lookup_tables="auto"`), as the JAX package's are.
 
-Not ported yet: the atmosphere, sun-colour and phase-function setters and
-the volume methods (their render branches are not ported), the metrics log,
-and `lookup_tables="auto"` (the port renders with the constant
-energy-compensation fit).
+Not ported yet: the metrics log (`Renderer(metrics_log=...)`).
 """
 
 from __future__ import annotations
@@ -29,10 +29,12 @@ from vpt_tpu_torch.io.image import export_filename, save_hdr, save_png
 from vpt_tpu_torch.post.bloom import bloom as bloom_pass
 from vpt_tpu_torch.post.tonemap import tonemap as tonemap_pass
 from vpt_tpu_torch.render import integrator
-from vpt_tpu_torch.render.params import RenderFlags, default_params
-from vpt_tpu_torch.scene.build import build_material_attr, compile_scene
+from vpt_tpu_torch.render.lookup import get_lookup_tables, load_reference_tables
+from vpt_tpu_torch.render.params import PHASE_FUNCTIONS, RenderFlags, default_params, f32, vec3
+from vpt_tpu_torch.scene.build import build_material_attr, build_volume_table, compile_scene
 from vpt_tpu_torch.scene.envmap import load_hdr, prepare_environment
-from vpt_tpu_torch.scene.types import Material, Scene, tree_to_device
+from vpt_tpu_torch.scene.types import Material, Scene, Volume, tree_to_device
+from vpt_tpu_torch.scene.vdb import load_grid
 
 
 @dataclasses.dataclass
@@ -52,26 +54,40 @@ class PostSettings:
 def render_step(scene_data, meta, flags, params, frame_seed: int, resolution, accum, frame_count: int,
                 n_samples: int):
     """One dispatch: (new accumulation (H, W, 3), segments traced as an int64
-    device scalar, host synchronisations made)."""
+    device scalar, LoopStats of the media loops with the dispatch's host
+    synchronisations)."""
     width, height = resolution
     dev = accum.device
     pxy, pidx, sct, padded = tiled_pixel_order(width, height)
-    radiance, segments, syncs = integrator.render_samples(
+    radiance, segments, stats = integrator.render_samples(
         scene_data, meta, flags, params, torch.as_tensor(pxy, device=dev),
         torch.as_tensor(pidx.astype(np.int64), device=dev), resolution, frame_seed, n_samples,
     )
     new = scatter_to_image(radiance, torch.as_tensor(sct, device=dev), padded, width, height)
-    return integrator.accumulate_ewma(accum, new, frame_count), segments, syncs
+    return integrator.accumulate_ewma(accum, new, frame_count), segments, stats
 
 
 class Renderer:
     """Progressive path tracer over one compiled scene on `device`."""
 
     def __init__(self, scene: Scene, device, width=None, height=None, flags: RenderFlags = RenderFlags(),
-                 samples_per_frame: int = 1, max_samples: int = 5000):
+                 samples_per_frame: int = 1, max_samples: int = 5000, lookup_tables="auto"):
+        """`lookup_tables`: "auto" bakes the energy-compensation tables on
+        `device` (or loads the cached bake) when the flags use them,
+        "reference" loads the reference's committed tables, None uses the
+        constant fit; three tables or fits may also be passed."""
         self._scene_host = scene
         self.device = resolve_device(device)
-        self.scene_data, self.meta, aux = compile_scene(scene, self.device)
+        if isinstance(lookup_tables, str):
+            if lookup_tables == "auto":
+                lookup_tables = get_lookup_tables(device=self.device) if flags.use_energy_compensation else None
+            elif lookup_tables == "reference":
+                lookup_tables = load_reference_tables()
+            else:
+                raise ValueError('lookup_tables must be "auto", "reference", None or three tables, '
+                                 f"not {lookup_tables!r}")
+        self.scene_data, self.meta, aux = compile_scene(scene, self.device, lookup_tables)
+        self.volumes = []  # host Volume list; add_volume and friends rebuild the table
         self.flags = flags
         self.post = PostSettings()
         # Output sized 1080 * aspect x 1080 like the reference (PathTracer.cpp:507-512).
@@ -92,7 +108,8 @@ class Renderer:
         self._seed_counter = 0
         self.render_seconds = 0.0
         self.segments_traced = 0.0
-        self.last_host_syncs = 0
+        self.last_host_syncs = 0  # of the last dispatch
+        self.last_media_steps = 0  # volume and atmosphere loop steps of the last dispatch
 
     # ------------------------------------------------------------------ core
 
@@ -114,10 +131,11 @@ class Renderer:
         self._seed_counter += 1
         seed = (self._seed_counter * 2654435761) & 0xFFFFFFFF
         accum = self._accum if self.frame_count > 0 else torch.zeros_like(self._accum)
-        self._accum, segments, self.last_host_syncs = render_step(
+        self._accum, segments, stats = render_step(
             self.scene_data, self.meta, self.flags, self.params, seed, (self.width, self.height),
             accum, self.frame_count, self.samples_per_frame,
         )
+        self.last_host_syncs, self.last_media_steps = stats.syncs, stats.steps
         self.segments_traced += float(segments)  # waits for the dispatch to finish
         self.render_seconds += time.perf_counter() - t0
         self.frame_count += 1
@@ -251,6 +269,49 @@ class Renderer:
     def set_furnace_test_mode(self, on: bool) -> None:
         self._flag(furnace_test_mode=bool(on))
 
+    def set_sun_color(self, rgb) -> None:
+        self._param(sun_color=vec3(rgb, self.device))
+
+    def set_enable_atmosphere(self, on: bool) -> None:
+        self._flag(enable_atmosphere=bool(on))
+
+    def set_phase_function(self, name: str) -> None:
+        if name not in PHASE_FUNCTIONS:
+            raise ValueError(f"phase function must be one of {PHASE_FUNCTIONS}, not {name!r}")
+        self._flag(phase_function=name)
+
+    # Atmosphere parameters (PathTracer.h:168-179): the scalars rounded to
+    # float32, the (3,) vectors made on the device once per call.
+    def set_planet_position(self, pos) -> None:
+        self._param(planet_position=vec3(pos, self.device))
+
+    def set_planet_radius(self, r: float) -> None:
+        self._param(planet_radius=f32(r))
+
+    def set_atmosphere_height(self, h: float) -> None:
+        self._param(atmosphere_height=f32(h))
+
+    def set_rayleigh_scattering_multiplier(self, m) -> None:
+        self._param(rayleigh_scattering_multiplier=vec3(m, self.device))
+
+    def set_mie_scattering_multiplier(self, m) -> None:
+        self._param(mie_scattering_multiplier=vec3(m, self.device))
+
+    def set_ozone_absorption_multiplier(self, m) -> None:
+        self._param(ozone_absorption_multiplier=vec3(m, self.device))
+
+    def set_rayleigh_density_falloff(self, v: float) -> None:
+        self._param(rayleigh_density_falloff=f32(v))
+
+    def set_mie_density_falloff(self, v: float) -> None:
+        self._param(mie_density_falloff=f32(v))
+
+    def set_ozone_density_falloff(self, v: float) -> None:
+        self._param(ozone_density_falloff=f32(v))
+
+    def set_ozone_peak(self, v: float) -> None:
+        self._param(ozone_peak=f32(v))
+
     def set_env_map(self, env) -> None:
         """SetEnvMapFilepath (PathTracer.cpp:1137-1332): a `.npy` / `.hdr`
         path or an (H, W, 3) array; rebuilds the alias map."""
@@ -289,3 +350,41 @@ class Renderer:
         self._accum = torch.zeros((height, width, 3), dtype=torch.float32, device=self.device)
         self.camera.aspect = width / height
         self.set_camera(proj=self.camera.proj_matrix())
+
+    # --------------------------------------------------------------- volumes
+    # AddVolume / SetVolume / RemoveVolume (PathTracer.cpp:1334-).  The only
+    # way volumes enter a render, as in the JAX package.
+
+    def _rebuild_volumes(self) -> None:
+        self.scene_data = self.scene_data._replace(
+            volumes=tree_to_device(build_volume_table(self.volumes), self.device))
+        n_het = sum(1 for v in self.volumes if v.density_grid is not None)
+        self.meta = dataclasses.replace(self.meta, n_volumes=len(self.volumes), n_het_volumes=n_het)
+        self.reset_path_tracing()
+
+    def add_volume(self, volume: Volume) -> None:
+        self.volumes.append(volume)
+        self._rebuild_volumes()
+
+    def set_volume(self, index: int, volume: Volume) -> None:
+        self.volumes[index] = volume
+        self._rebuild_volumes()
+
+    def remove_volume(self, index: int) -> None:
+        self.volumes.pop(index)
+        self._rebuild_volumes()
+
+    def add_density_data_to_volume(self, index: int, grid, temperature=None) -> None:
+        """AddDensityDataToVolume (PathTracer.cpp:1347-1516): a dense
+        (D, H, W) density grid, or a `.npy` / `.npz` path, and optionally a
+        temperature grid the same way."""
+        self.volumes[index].density_grid = load_grid(grid) if isinstance(grid, str) else grid
+        if temperature is not None:
+            self.volumes[index].temperature_grid = (
+                load_grid(temperature) if isinstance(temperature, str) else temperature)
+        self._rebuild_volumes()
+
+    def remove_density_data_from_volume(self, index: int) -> None:
+        self.volumes[index].density_grid = None
+        self.volumes[index].temperature_grid = None
+        self._rebuild_volumes()

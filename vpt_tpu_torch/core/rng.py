@@ -31,10 +31,16 @@ def seed(pixel_index: torch.Tensor, sample_index, frame_seed) -> torch.Tensor:
     return (pixel_index.to(torch.int64) + f) & _MASK
 
 
+def next_uint(state: torch.Tensor):
+    """Advance the generator: (new_state, uint32 draw = new_state)."""
+    new = pcg_hash(state)
+    return new, new
+
+
 def next_float(state: torch.Tensor):
     """Uniform float32 in [0, 1]: (new_state, draw), draw = state / UINT_MAX."""
-    new = pcg_hash(state)
-    return new, new.to(torch.float32) / torch.tensor(_UINT_MAX_F, dtype=torch.float32)
+    new, bits = next_uint(state)
+    return new, bits.to(torch.float32) / torch.tensor(_UINT_MAX_F, dtype=torch.float32)
 
 
 def next_float2(state: torch.Tensor):

@@ -7,6 +7,7 @@ from __future__ import annotations
 
 import math
 
+import numpy as np
 import torch
 
 # Guard for exactly-zero vectors only (see vpt_tpu/core/vecmath.py).
@@ -71,3 +72,60 @@ def power_heuristic(pdf_a, pdf_b):
     a2 = pdf_a * pdf_a
     b2 = pdf_b * pdf_b
     return a2 / torch.clamp(a2 + b2, min=1e-20)
+
+
+def pow32(x, y):
+    """x ** y in float32, taken in float64 and rounded.  XLA's float32 power
+    is correctly rounded on all but ~0.06% of inputs, torch's float32 kernel
+    differs from it on ~2% (measured on the CPU), and a media loop's step
+    count can hang on one such ulp.  A Python-float exponent is rounded to
+    float32 first, as the JAX package's weakly typed constant is."""
+    y = y.double() if torch.is_tensor(y) else float(np.float32(y))
+    return torch.pow(x.double(), y).to(torch.float32)
+
+
+def sqrt32(x):
+    """Correctly rounded float32 square root, taken in float64: XLA's is,
+    ATen's vectorised CPU kernel is not on ~0.7% of inputs, and the Draine
+    sampler's cancellations turn that ulp into 1e-4."""
+    return torch.sqrt(x.double()).to(torch.float32)
+
+
+def dot3(a, b):
+    """a . b summed in the order x, y, z, as XLA's reduction sums it: the
+    planet-scale sphere tests cancel to a few ulps of 4e13, so the order
+    must not change with the device's reduction kernel."""
+    return a[..., 0] * b[..., 0] + a[..., 1] * b[..., 1] + a[..., 2] * b[..., 2]
+
+
+def blackbody_rgb(temperature):
+    """Kelvin -> RGB (Tanner Helland fit, RTCommon.slang:138-172)."""
+    t = temperature / 100.0
+    r = torch.where(t <= 66.0, 255.0, 329.698727446 * pow32(torch.clamp(t - 60.0, min=1e-6), -0.1332047592))
+    g = torch.where(
+        t <= 66.0,
+        99.4708025861 * torch.log(torch.clamp(t, min=1e-6)) - 161.1195681661,
+        288.1221695283 * pow32(torch.clamp(t - 60.0, min=1e-6), -0.0755148492),
+    )
+    b = torch.where(
+        t >= 66.0,
+        255.0,
+        torch.where(t <= 19.0, 0.0, 138.5177312231 * torch.log(torch.clamp(t - 10.0, min=1e-6)) - 305.0447927307),
+    )
+    return torch.clamp(torch.stack([r, g, b], dim=-1) / 255.0, 0.0, 1.0)
+
+
+def intersect_sphere(origin, direction, center, radius: float):
+    """Ray-sphere: (t0, t1), both -1 when missed (RTCommon.slang:174-192).
+    The radius is squared in float32, as the JAX package squares its
+    float32 parameter."""
+    oc = origin - center
+    a = dot3(direction, direction)
+    b = 2.0 * dot3(oc, direction)
+    c = dot3(oc, oc) - float(np.float32(radius) * np.float32(radius))
+    disc = b * b - 4.0 * a * c
+    sq = sqrt32(torch.clamp(disc, min=0.0))
+    t0 = (-b - sq) / (2.0 * a)
+    t1 = (-b + sq) / (2.0 * a)
+    miss = disc < 0.0
+    return torch.where(miss, -1.0, t0), torch.where(miss, -1.0, t1)

@@ -1,18 +1,21 @@
 """Light sampling (port of vpt_tpu/render/lights.py): bilinear env lookups,
-alias-map env importance sampling and emissive-triangle NEE.  The sun disk
-of the atmosphere mode waits for the atmosphere port."""
+alias-map env importance sampling, the atmosphere mode's sun disk and
+emissive-triangle NEE."""
 
 from __future__ import annotations
 
 import math
 
+import numpy as np
 import torch
 
 from vpt_tpu_torch.core import rng
-from vpt_tpu_torch.core.vecmath import cross, dot, normalize, rotate_axis_angle
+from vpt_tpu_torch.core.vecmath import cross, dot, normalize, rotate_axis_angle, sqrt32, unit_axis
 from vpt_tpu_torch.render.surface import sample_texture
 
 X_AXIS, Y_AXIS = 0, 1
+SUN_THETA = 0.004675  # radians (Sampler.slang:469)
+SUN_RADIANCE_SCALE = 2e5  # Sampler.slang:459
 
 
 def _env_bilinear(env, u, v):
@@ -78,6 +81,36 @@ def importance_sample_env(state, env, azimuth_deg: float, altitude_deg: float):
     to_light = rotate_axis_angle(to_light, Y_AXIS, azimuth_deg / 180.0 * math.pi)
     to_light = rotate_axis_angle(to_light, X_AXIS, altitude_deg / 180.0 * math.pi)
     return state, to_light, _env_bilinear(env, u, v)
+
+
+def sample_sun_disk(state, sun_color, environment_intensity: float, azimuth_deg: float, altitude_deg: float,
+                    n: int):
+    """Sun-disk cone sampling for the atmosphere mode (Sampler.slang:430-462):
+    (state, to_light (n, 3), colour (n, 3), pdf (n,)).  The float32 cone
+    constants are computed on the host in float32: 1 - cos(SUN_THETA) keeps
+    only a few bits there, and they must be the JAX package's bits."""
+    base = -unit_axis(2, sun_color).expand(n, 3)
+    sun_dir = rotate_axis_angle(base, X_AXIS, altitude_deg / 180.0 * math.pi)
+    sun_dir = rotate_axis_angle(sun_dir, Y_AXIS, azimuth_deg / 180.0 * math.pi)
+
+    cos_max = np.cos(np.float32(SUN_THETA))
+    state, u1 = rng.next_float(state)
+    state, u2 = rng.next_float(state)
+    phi = 2.0 * math.pi * u1
+    cos_t = float(cos_max) + float(np.float32(1.0) - cos_max) * u2
+    sin_t = sqrt32(torch.clamp(1.0 - cos_t * cos_t, min=0.0))
+    local = torch.stack([torch.cos(phi) * sin_t, torch.sin(phi) * sin_t, cos_t], dim=-1)
+
+    wz = normalize(sun_dir)
+    up = torch.where(torch.abs(wz[..., 2:3]) < 0.999, unit_axis(2, wz), unit_axis(0, wz))
+    u_ax = normalize(cross(up, wz))
+    v_ax = cross(wz, u_ax)
+    to_light = u_ax * local[..., 0:1] + v_ax * local[..., 1:2] + wz * local[..., 2:3]
+
+    solid_angle = np.float32(2.0 * math.pi) * (np.float32(1.0) - cos_max)
+    pdf = torch.full((n,), float(np.float32(1.0) / solid_angle), dtype=torch.float32, device=u1.device)
+    color = (sun_color * SUN_RADIANCE_SCALE * environment_intensity).expand(n, 3)
+    return state, to_light, color, pdf
 
 
 def sample_emissive_triangle(state, scene, position, n_emissive: int, has_textures: bool):

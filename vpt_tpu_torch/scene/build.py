@@ -5,8 +5,8 @@ Each unique mesh gets one local-space BVH and cluster build; instances add
 world cluster boxes and world->local transforms; shading reads packed
 per-triangle rows indexed by virtual triangle id.  Everything is built in
 numpy exactly as the JAX package builds it and moved to the device once at
-the end.  Volumes and the energy-compensation table bake are not ported
-yet: the lookups carry the constant fit.
+the end.  Volumes enter only through `Renderer.add_volume`, as in the
+JAX package: a compiled scene carries an empty volume table.
 """
 
 from __future__ import annotations
@@ -16,13 +16,113 @@ import numpy as np
 from vpt_tpu_torch.accel.bvh import LEAF_SIZE, build_bvh
 from vpt_tpu_torch.accel.cluster import CLUSTER_SIZE, assemble_clusters, build_mesh_clusters
 from vpt_tpu_torch.device import resolve_device
-from vpt_tpu_torch.render.lookup_fit import constant_fit
+from vpt_tpu_torch.render.lookup_fit import constant_fit, fit_table
 from vpt_tpu_torch.scene.envmap import constant_environment, default_sky, prepare_environment
 from vpt_tpu_torch.scene.types import (
-    MAT_ATTR_COLS, TRI_ATTR_COLS, EmissiveTable, Scene, SceneData, SceneMeta, tree_to_device,
+    MAT_ATTR_COLS, TRI_ATTR_COLS, EmissiveTable, Scene, SceneData, SceneMeta, VolumeTable, tree_to_device,
 )
 
 BRUTE_FORCE_MAX_TRIS = 1024
+BLOCK_DIM = 32  # max-density blocks per axis (Volume.slang MAX_DENSITY_GRID_DIM)
+
+
+def _block_ranges(n: int):
+    """Voxel range [lo, hi) of each of the BLOCK_DIM blocks along an axis of
+    n voxels, dilated by one voxel (the sampler jitters by +-1 voxel)."""
+    out = []
+    for b in range(BLOCK_DIM):
+        v0 = b * n // BLOCK_DIM
+        v1 = max((b + 1) * n // BLOCK_DIM, v0 + 1)
+        out.append((max(v0 - 1, 0), min(v1 + 1, n)))
+    return out
+
+
+def max_density_blocks(norm: np.ndarray) -> np.ndarray:
+    """(32, 32, 32) maxima of a normalised (D, H, W) grid over the dilated
+    blocks, laid out [z, y, x] with y flipped like the sampler's normalised
+    position.  A box maximum is the maximum over z, then y, then x, so the
+    three axes reduce one after another."""
+    m = norm
+    for axis, n in enumerate(norm.shape):
+        m = np.stack([m.take(range(lo, hi), axis=axis).max(axis=axis) for lo, hi in _block_ranges(n)], axis=axis)
+    return m[:, ::-1, :]
+
+
+def build_volume_table(volumes) -> VolumeTable:
+    """Host Volume list -> VolumeTable of numpy arrays (VolumeGPU upload,
+    PathTracer.cpp:1334-).  Density grids are padded to a common shape,
+    temperature grids normalised by their maximum, and the 32^3
+    max-density blocks of each normalised density grid precomputed."""
+    if not volumes:
+        return empty_volume_table()
+    nv = len(volumes)
+
+    def f(get, dtype=np.float32):
+        return np.array([get(v) for v in volumes], dtype)
+
+    corners = [v.world_corners() for v in volumes]
+    grid_vols = [i for i, v in enumerate(volumes) if v.density_grid is not None]
+    grid_index = np.full(nv, -1, np.int32)
+    max_density = np.zeros(nv, np.float32)
+    if grid_vols:
+        shape = tuple(max(volumes[i].density_grid.shape[a] for i in grid_vols) for a in range(3))
+        grids = np.zeros((len(grid_vols),) + shape, np.float32)
+        temps = np.zeros_like(grids)
+        blocks = np.zeros((len(grid_vols), BLOCK_DIM, BLOCK_DIM, BLOCK_DIM), np.float32)
+        for g, i in enumerate(grid_vols):
+            dg = np.asarray(volumes[i].density_grid, np.float32)
+            grids[g, : dg.shape[0], : dg.shape[1], : dg.shape[2]] = dg
+            if volumes[i].temperature_grid is not None:
+                tg = np.asarray(volumes[i].temperature_grid, np.float32)
+                temps[g, : tg.shape[0], : tg.shape[1], : tg.shape[2]] = tg / max(tg.max(), 1e-20)
+            grid_index[i] = g
+            max_density[i] = float(dg.max())
+            blocks[g] = max_density_blocks(dg / max(float(dg.max()), 1e-20))
+    else:
+        grids = temps = np.zeros((0, 1, 1, 1), np.float32)
+        blocks = np.zeros((0, BLOCK_DIM, BLOCK_DIM, BLOCK_DIM), np.float32)
+
+    return VolumeTable(
+        corner_min=np.stack([c[0] for c in corners]),
+        corner_max=np.stack([c[1] for c in corners]),
+        color=f(lambda v: v.color),
+        emissive_color=f(lambda v: v.emissive_color),
+        temperature_color=f(lambda v: v.temperature_color),
+        density=f(lambda v: v.density),
+        anisotropy=f(lambda v: v.anisotropy),
+        alpha=f(lambda v: v.alpha),
+        droplet_size=f(lambda v: v.droplet_size),
+        density_grid_index=grid_index,
+        max_density=max_density,
+        use_blackbody=f(lambda v: int(v.use_blackbody), np.int32),
+        has_temperature=f(lambda v: int(v.temperature_grid is not None), np.int32),
+        temperature_gamma=f(lambda v: v.temperature_gamma),
+        temperature_scale=f(lambda v: v.temperature_scale),
+        emissive_color_gamma=f(lambda v: v.emissive_color_gamma),
+        kelvin_min=f(lambda v: v.kelvin_min),
+        kelvin_max=f(lambda v: v.kelvin_max),
+        approx_cloud_scattering=f(lambda v: int(v.approximated_scattering_for_clouds), np.int32),
+        approx_scattering_falloff=f(lambda v: v.approximated_scattering_falloff),
+        grid_sharpness=f(lambda v: v.grid_sharpness),
+        density_grids=grids,
+        temperature_grids=temps,
+        max_density_blocks=blocks,
+    )
+
+
+def empty_volume_table() -> VolumeTable:
+    z3 = np.zeros((0, 3), np.float32)
+    z = np.zeros((0,), np.float32)
+    zi = np.zeros((0,), np.int32)
+    g = np.zeros((0, 1, 1, 1), np.float32)
+    return VolumeTable(
+        corner_min=z3, corner_max=z3, color=z3, emissive_color=z3, temperature_color=z3,
+        density=z, anisotropy=z, alpha=z, droplet_size=z, density_grid_index=zi, max_density=z,
+        use_blackbody=zi, has_temperature=zi, temperature_gamma=z, temperature_scale=z,
+        emissive_color_gamma=z, kelvin_min=z, kelvin_max=z, approx_cloud_scattering=zi,
+        approx_scattering_falloff=z, grid_sharpness=z, density_grids=g, temperature_grids=g,
+        max_density_blocks=np.zeros((0, BLOCK_DIM, BLOCK_DIM, BLOCK_DIM), np.float32),
+    )
 
 
 def build_material_attr(materials) -> np.ndarray:
@@ -71,9 +171,11 @@ def texture_dims(textures) -> np.ndarray:
     return np.array(rows, np.int32)
 
 
-def compile_scene(scene: Scene, device):
+def compile_scene(scene: Scene, device, lookup_tables=None):
     """Returns (SceneData on `device`, SceneMeta, aux) where aux holds the
-    camera's view matrix, field of view and aspect."""
+    camera's view matrix, field of view and aspect.  `lookup_tables` is None
+    (the constant energy-compensation fit) or three baked tables or fits
+    (reflect, refract_out, refract_in); tables are fitted here."""
     unique_meshes = sorted({inst.mesh for inst in scene.instances})
     mesh_slot = {mi: j for j, mi in enumerate(unique_meshes)}
     mesh_cache = {}
@@ -178,7 +280,10 @@ def compile_scene(scene: Scene, device):
     tri_attr[:, 26] = inst_padded.astype(np.float32)
     tri_attr[:, 27] = np.where(inst_padded >= 0, em_tcount_by_inst[np.maximum(inst_padded, 0)], 0.0)
 
-    lut = constant_fit(1.0)
+    if lookup_tables is None:
+        luts = (constant_fit(1.0),) * 3
+    else:
+        luts = tuple(t if t.ndim == 3 and t.shape[0] <= 16 else fit_table(np.asarray(t)) for t in lookup_tables)
     host = SceneData(
         tri_p0=tri_p0,
         tri_e1=tri_e1,
@@ -193,9 +298,10 @@ def compile_scene(scene: Scene, device):
         env=env,
         textures=pack_textures(scene.textures),
         texture_dims=texture_dims(scene.textures),
-        lookup_reflect=lut,
-        lookup_refract_out=lut,
-        lookup_refract_in=lut,
+        volumes=empty_volume_table(),
+        lookup_reflect=luts[0],
+        lookup_refract_out=luts[1],
+        lookup_refract_in=luts[2],
     )
 
     world_lo = np.minimum(np.minimum(v0.min(0), v1.min(0)), v2.min(0))
@@ -207,6 +313,7 @@ def compile_scene(scene: Scene, device):
         n_materials=len(scene.materials),
         n_emissive=em_count,
         n_volumes=0,
+        n_het_volumes=0,
         use_brute_force=n_tris <= BRUTE_FORCE_MAX_TRIS,
         has_textures=any(t.shape[0] > 1 or t.shape[1] > 1 for t in scene.textures),
         name=scene.name,

@@ -4,8 +4,7 @@
 with numpy leaves (for example `jax.tree.map(np.asarray, data)`) and its
 `SceneMeta`, and returns the port's `SceneData` on `device` and `SceneMeta`.
 It reads fields by name and imports nothing from the JAX package, so both
-packages can trace the identical scene.  Scenes with volumes convert, but
-the port's integrator refuses to render them until volumes are ported.
+packages can trace the identical scene, its volume table included.
 """
 
 from __future__ import annotations
@@ -15,7 +14,7 @@ import numpy as np
 from vpt_tpu_torch.accel.cluster import N_SUB
 from vpt_tpu_torch.device import resolve_device
 from vpt_tpu_torch.scene.types import (
-    ClusterData, EmissiveTable, EnvMapData, SceneData, SceneMeta, tree_to_device,
+    ClusterData, EmissiveTable, EnvMapData, SceneData, SceneMeta, VolumeTable, tree_to_device,
 )
 
 
@@ -48,6 +47,7 @@ def scene_from_numpy(tree, meta, device):
         env=_pick(EnvMapData, tree.env),
         textures=tree.textures,
         texture_dims=tree.texture_dims,
+        volumes=_pick(VolumeTable, tree.volumes),
         lookup_reflect=tree.lookup_reflect,
         lookup_refract_out=tree.lookup_refract_out,
         lookup_refract_in=tree.lookup_refract_in,

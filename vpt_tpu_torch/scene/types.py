@@ -1,7 +1,7 @@
 """Host scene description and the device-resident scene containers.
 
-Host types (`Scene`, `Mesh`, `Instance`, `Material`, `default_textures`)
-are jax-free copies of vpt_tpu/scene/types.py.  The device containers hold
+Host types (`Scene`, `Mesh`, `Instance`, `Material`, `Volume`,
+`default_textures`) are jax-free copies of vpt_tpu/scene/types.py.  The device containers hold
 torch tensors and carry only the fields the ported render path reads; the
 JAX package's TPU-only layouts (the lane-interleaved `tris_rk` blocks and
 the group DMA table) are not carried; the sub-block boxes that `tris_rk`
@@ -66,6 +66,46 @@ class Instance:
     material: int  # index into Scene.materials
     transform: np.ndarray  # (4, 4) f32 object->world
     name: str = "instance"
+
+
+@dataclasses.dataclass
+class Volume:
+    """Host volume description; mirrors PathTracer::Volume (PathTracer.h:36-74).
+
+    `density_grid` / `temperature_grid` are optional dense (D, H, W) float32
+    arrays."""
+
+    corner_min: tuple = (-1.0, -1.0, -1.0)
+    corner_max: tuple = (1.0, 1.0, 1.0)
+    position: tuple = (0.0, 0.0, 0.0)
+    scale: tuple = (1.0, 1.0, 1.0)
+    color: tuple = (0.8, 0.8, 0.8)
+    emissive_color: tuple = (0.0, 0.0, 0.0)
+    temperature_color: tuple = (1.0, 0.5, 0.0)
+    density: float = 1.0
+    anisotropy: float = 0.0
+    alpha: float = 1.0
+    droplet_size: float = 20.0
+    use_blackbody: bool = True
+    temperature_gamma: float = 1.0
+    temperature_scale: float = 1.0
+    emissive_color_gamma: float = 1.0
+    kelvin_min: int = 500
+    kelvin_max: int = 8000
+    approximated_scattering_for_clouds: bool = False
+    approximated_scattering_falloff: float = 0.8
+    grid_sharpness: float = 1.0
+    density_grid: Optional[np.ndarray] = None  # (D, H, W) f32
+    temperature_grid: Optional[np.ndarray] = None
+
+    def world_corners(self):
+        """Position and scale applied like VolumeGPU's constructor (PathTracer.h:396-397)."""
+        pos = np.asarray(self.position, np.float32)
+        scl = np.asarray(self.scale, np.float32)
+        return (
+            pos + np.asarray(self.corner_min, np.float32) * scl,
+            pos + np.asarray(self.corner_max, np.float32) * scl,
+        )
 
 
 @dataclasses.dataclass
@@ -145,6 +185,36 @@ class EmissiveTable(NamedTuple):
     tri_rows: torch.Tensor  # (sum tri_count, TRI_ATTR_COLS) f32
 
 
+class VolumeTable(NamedTuple):
+    """AABB participating media (reference: VolumeGPU, PathTracer.h:341-400)."""
+
+    corner_min: torch.Tensor  # (NV, 3)
+    corner_max: torch.Tensor  # (NV, 3)
+    color: torch.Tensor  # (NV, 3)
+    emissive_color: torch.Tensor  # (NV, 3)
+    temperature_color: torch.Tensor  # (NV, 3)
+    density: torch.Tensor  # (NV,)
+    anisotropy: torch.Tensor
+    alpha: torch.Tensor
+    droplet_size: torch.Tensor
+    density_grid_index: torch.Tensor  # (NV,) i32; -1 = homogeneous
+    max_density: torch.Tensor  # (NV,)
+    use_blackbody: torch.Tensor  # (NV,) i32
+    has_temperature: torch.Tensor  # (NV,) i32
+    temperature_gamma: torch.Tensor
+    temperature_scale: torch.Tensor
+    emissive_color_gamma: torch.Tensor
+    kelvin_min: torch.Tensor
+    kelvin_max: torch.Tensor
+    approx_cloud_scattering: torch.Tensor  # (NV,) i32
+    approx_scattering_falloff: torch.Tensor
+    grid_sharpness: torch.Tensor
+    # Dense bricks of the heterogeneous volumes, padded to a common shape:
+    density_grids: torch.Tensor  # (G, D, H, W) f32 (G may be 0)
+    temperature_grids: torch.Tensor  # (G, D, H, W) f32, normalised to [0, 1]
+    max_density_blocks: torch.Tensor  # (G, 32, 32, 32) f32 empty-space skipping
+
+
 class SceneData(NamedTuple):
     tri_p0: torch.Tensor  # (T', 3) world space, padded by LEAF_SIZE
     tri_e1: torch.Tensor  # (T', 3)
@@ -156,6 +226,7 @@ class SceneData(NamedTuple):
     env: EnvMapData
     textures: torch.Tensor  # (P,) i64 packed RGBA8 texels (r | g<<8 | b<<16 | a<<24)
     texture_dims: torch.Tensor  # (K, 3) i32 (height, width, pool offset)
+    volumes: VolumeTable
     lookup_reflect: torch.Tensor  # (7, 11, 13) Chebyshev coefficients
     lookup_refract_out: torch.Tensor
     lookup_refract_in: torch.Tensor
@@ -170,6 +241,7 @@ class SceneMeta:
     n_materials: int
     n_emissive: int
     n_volumes: int
+    n_het_volumes: int
     use_brute_force: bool
     has_textures: bool = True
     name: str = "scene"
