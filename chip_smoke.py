@@ -12,7 +12,10 @@ Phases, each of which raises on failure:
      envelope kernels exactly, the stream trace by the tie rule, occlusion
      as equal booleans, the packet visit with equal ids, t, u and v on the
      same packets (512 bounce packets, 1,024 shadow packets); CUDA-event
-     medians of each kernel, the plain visit timed once;
+     medians of each kernel, the plain visit timed once; the traversal work
+     of the primary, bounce and shadow rays (clusters, sub-block boxes and
+     triangle tests per ray, out to the final hit and out to tmax, with and
+     without the sub-block cull) and from it each kernel's bound;
   4. the energy-compensation table bake on the card (what the default
      `Renderer(lookup_tables="auto")` runs once and caches), timed; then
      the stream path: Renderer on colonnade at 512x512, max_depth 8,
@@ -37,10 +40,29 @@ Phases, each of which raises on failure:
 The last lines are the card's name and power limit, the kernel table as
 JSON and {"ok": true, ...}.  Without a CUDA device the script exits
 non-zero and prints no result.
+
+    python3 chip_smoke.py --compare-trace OTHER_TRACE_CU [OTHER_TRACE_CU ...]
+
+also builds other versions of csrc/trace.cu (this one's C interface or an
+earlier one: without the group boxes, as the lane-per-ray designs PERF.md
+times, or also without the sub-block boxes and with a k_tris argument) and
+times their stream and occlusion kernels against the current ones on the
+phase-3 shapes, in turns (other, current, current, other), printing one
+JSON line "trace_ab".
+
+A kernel's bound is the larger of its float operations over 67 TFLOP/s
+(FP32 outside the tensor cores) and its bytes over 3.35 TB/s (H100 SXM
+HBM3), each input read once and each output written once.  The operations
+are those this run's rays need: every (ray, group) slab of the envelope
+kernels; for the traces, the cluster and sub-block slabs, instance
+transforms and triangle tests out to each ray's final hit (the nearest
+blocker for shadow rays), the same closest-hit work for the packet visit.
 """
 
 from __future__ import annotations
 
+import argparse
+import ctypes
 import json
 import os
 import statistics
@@ -94,6 +116,11 @@ PLAIN = {
 STREAM_KERNELS = ("ray_keys", "supertile_tables", "stream", "occlude")
 W = H = 512
 TIMED_DISPATCHES = 2
+PEAK_FLOPS = 67e12  # H100 SXM, FP32 outside the tensor cores
+PEAK_BYTES = 3.35e12  # H100 SXM, HBM3
+SLAB_OPS = 24  # 6 subtractions, 6 products, 12 min / max
+TRANSFORM_OPS = 36  # world -> local origin (18) and direction (15), 3 reciprocals
+MT_OPS = 53  # Moller-Trumbore as in csrc/trace.cu: 47 arithmetic, 6 compares
 
 
 def log(msg: str) -> None:
@@ -129,6 +156,45 @@ def max_abs_err(a: torch.Tensor, b: torch.Tensor) -> float:
     """Largest |a - b|, counting entries that are equal (the same infinity
     included) as 0."""
     return float(torch.where(a == b, 0.0, (a.double() - b.double()).abs()).max())
+
+
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def bound(flops: float, moved: int) -> dict:
+    """The least time the card could take: operations or bytes, whichever is slower."""
+    t_ops, t_bytes = flops / PEAK_FLOPS * 1e3, moved / PEAK_BYTES * 1e3
+    return {"bound_ms": max(t_ops, t_bytes), "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            "library_ms": None}
+
+
+def cluster_tables(cl):
+    return (cl.aabbs, cl.count, cl.start, cl.block_id, cl.inst, cl.inv_rows, cl.tris, cl.sub_aabbs, cl.group_min,
+            cl.group_max)
+
+
+def band_inputs(bands):
+    return (bands.ngrp, bands.order, bands.entry_sorted, bands.bits, bands.sent, bands.origin, bands.direction,
+            bands.tmax, *bands.payload)
+
+
+def trace_flops(w: stream.TraceWork, instanced: bool) -> float:
+    clusters = float(w.clusters.sum())
+    return (SLAB_OPS * (clusters + float(w.sub_slabs.sum())) + (TRANSFORM_OPS * clusters if instanced else 0.0)
+            + MT_OPS * float(w.tests.sum()))
+
+
+def log_trace_work(label, bands, cl, t_min, active, tf_final):
+    """Log the traversal work per active ray out to the final hit and out to
+    tmax; return the work out to the final hit."""
+    need = stream.trace_work(bands, cl, t_min, active, tf_final)
+    most = stream.trace_work(bands, cl, t_min, active, bands.tmax)
+    n_act = max(int(active.sum()), 1)
+    per = ", ".join(f"{f} {float(a.sum()) / n_act:.2f} / {float(b.sum()) / n_act:.2f}"
+                    for f, a, b in zip(stream.TraceWork._fields, need, most))
+    log(f"trace work {label}, per active ray ({n_act}), out to the final hit / out to tmax: {per}")
+    return need
 
 
 def plain_kernels() -> ExitStack:
@@ -205,7 +271,7 @@ def compare_stream(bands, cl, t_min, label):
           and torch.allclose(vk[same], vp[same], rtol=1e-4, atol=1e-5), f"stream u/v ({label})")
     hits = int(((trk >= 0) & act).sum())
     log(f"stream {label}: {int(act.sum())} active rays, {hits} hits, {int((~same).sum())} id ties")
-    return max_abs_err(tk, tp)
+    return max_abs_err(tk, tp), tp
 
 
 def compare_visit(pk: cluster.Packets, cl, t_min, label):
@@ -225,6 +291,76 @@ def compare_visit(pk: cluster.Packets, cl, t_min, label):
         f"{int((trk >= 0).sum())} hits, candidate groups per packet mean {float(pk.nvis.float().mean()):.1f} "
         f"max {int(pk.nvis.max())}; ids, t, u and v equal the plain version's")
     return max_abs_err(tk, tp), a.elapsed_time(b)
+
+
+def compare_traces(paths, cl, t_min, b_bounce, b_shadow) -> None:
+    """Build other versions of csrc/trace.cu and time each one's stream
+    kernel on the bounce rays and occlusion kernel on the shadow rays against
+    the current ones, in turns: other, current, current, other.  A source
+    without sub-block boxes has the earlier C interface (a k_tris argument).
+    Prints one JSON line "trace_ab"."""
+    dev = b_bounce.origin.device
+    n_b, n_s = b_bounce.origin.shape[0], b_shadow.origin.shape[0]
+
+    def current_stream():
+        return stream.stream_trace(b_bounce, cl, t_min)
+
+    def current_occlude():
+        return occlude.occlude_trace(b_shadow, cl, t_min)
+
+    tc, trc = current_stream()[:2]
+    blocked_c = current_occlude()
+    ab = {}
+    for path in paths:
+        with open(path) as f:
+            text = f.read()
+        # Earlier interfaces end their table pointers before the group boxes,
+        # or before the sub-block boxes as well (and add k_tris).
+        with_sub = "sub_aabbs" in text
+        cut = 0 if "group_min" in text else (2 if with_sub else 3)
+        lib_path = os.path.join(os.path.dirname(os.path.abspath(path)),
+                                f"lib{os.path.splitext(os.path.basename(path))[0]}.so")
+        proc = subprocess.run([kernels.nvcc(), *kernels.NVCC_FLAGS, "-o", lib_path, path],
+                              capture_output=True, text=True, timeout=600)
+        check(proc.returncode == 0, f"nvcc builds {path}:\n{proc.stderr}")
+        lib = ctypes.CDLL(lib_path)
+        p_, i_, f_ = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        n_ptr, n_int = len(stream.table_pointers(b_bounce, cl, b_bounce.payload[:1])) - cut, 4 if with_sub else 5
+        lib.vpt_stream.argtypes = [p_] * n_ptr + [i_] * n_int + [f_, i_] + [p_] * 5
+        lib.vpt_occlude.argtypes = [p_] * (n_ptr + 1) + [i_] * n_int + [f_, i_] + [p_] * 2
+        lib.vpt_stream.restype = lib.vpt_occlude.restype = ctypes.c_int
+
+        def launch(fn, bands, payload, outs):
+            ptrs = stream.table_pointers(bands, cl, payload)
+            ints = (bands.origin.shape[0], bands.tiles, bands.order.shape[1], cluster.GROUP_SIZE)
+            err = fn(*ptrs[: len(ptrs) - cut], *(ints if with_sub else (*ints, cl.tris.shape[2])),
+                     float(t_min), int(cl.inv_rows.shape[0] > 1), *(x.data_ptr() for x in outs),
+                     torch.cuda.current_stream().cuda_stream)
+            check(err == 0, f"{path} launches (CUDA error {err})")
+            return outs
+
+        def other_stream():
+            outs = (torch.empty(n_b, device=dev), torch.empty(n_b, dtype=torch.int32, device=dev),
+                    torch.empty(n_b, device=dev), torch.empty(n_b, device=dev))
+            return launch(lib.vpt_stream, b_bounce, b_bounce.payload[:1], outs)
+
+        def other_occlude():
+            return launch(lib.vpt_occlude, b_shadow, b_shadow.payload[:2],
+                          (torch.empty(n_s, dtype=torch.int32, device=dev),))[0]
+
+        to, tro = other_stream()[:2]
+        blocked_o = other_occlude()
+        torch.cuda.synchronize()
+        row = {"stream_t_max_abs_diff": max_abs_err(to, tc), "stream_ids_differ": int((tro != trc).sum()),
+               "occlude_differ": int((blocked_o != blocked_c).sum())}
+        for name, (o_fn, c_fn) in (("stream", (other_stream, current_stream)),
+                                   ("occlude", (other_occlude, current_occlude))):
+            o1, c1, c2, o2 = (cuda_ms(fn, reps=21) for fn in (o_fn, c_fn, c_fn, o_fn))
+            row[name] = {"other_ms": [o1, o2], "current_ms": [c1, c2]}
+            log(f"{name}: {os.path.basename(path)} {o1:.3f} / {o2:.3f} ms, current {c1:.3f} / {c2:.3f} ms "
+                f"(other, current, current, other; medians of 21)")
+        ab[os.path.basename(path)] = row
+    print(json.dumps({"trace_ab": ab}), flush=True)
 
 
 def drive(r: Renderer, label: str):
@@ -276,6 +412,10 @@ def kernel_vs_plain_render(data, meta, flags, params, dev, label: str) -> None:
 
 
 def main() -> int:
+    parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    parser.add_argument("--compare-trace", metavar="OTHER_TRACE_CU", nargs="+", default=[],
+                        help="also time other versions of csrc/trace.cu against the current trace kernels")
+    args = parser.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script needs a CUDA GPU", file=sys.stderr)
         return 1
@@ -287,11 +427,11 @@ def main() -> int:
     # 2. Build.
     kernels.library()
     log(f"kernel build: {kernels.build_seconds:.1f} s (nvcc {' '.join(kernels.NVCC_FLAGS)})")
-    run(dev, smi)
+    run(dev, smi, args.compare_trace)
     return 0
 
 
-def run(dev, smi: str) -> None:
+def run(dev, smi: str, other_traces=()) -> None:
     """Phases 3-6 on `dev`, then the result lines."""
     # 3. Kernels against plain versions at the main path's shapes.
     t0 = time.perf_counter()
@@ -309,14 +449,24 @@ def run(dev, smi: str) -> None:
                                     shadow["active"], shadow["extri"])
     key_args, tab_args = compare_envelope(cl, b_bounce, t_min, 2, table)
     compare_envelope(cl, b_shadow, t_min, 1, table)
-    table["stream"]["max_abs_err"] = max(compare_stream(b_primary, cl, t_min, "primary"),
-                                         compare_stream(b_bounce, cl, t_min, "bounce"))
+    err_p, t_primary = compare_stream(b_primary, cl, t_min, "primary")
+    err_b, t_bounce = compare_stream(b_bounce, cl, t_min, "bounce")
+    table["stream"]["max_abs_err"] = max(err_p, err_b)
     ok = occlude.occlude_trace(b_shadow, cl, t_min)
     op = occlude.occlude_trace_plain(b_shadow, cl, t_min)
     torch.cuda.synchronize()
     check(torch.equal(ok, op), "occlude equals its plain version")
     table["occlude"]["max_abs_err"] = max_abs_err(ok, op)
     log(f"occlude: {int(b_shadow.payload[0].sum())} active shadow rays, {int(ok.sum())} blocked")
+
+    # The work the rays need, and from it each kernel's bound.
+    instanced = cl.inv_rows.shape[0] > 1
+    log_trace_work("primary", b_primary, cl, t_min, (b_primary.payload[0] & 1) > 0, t_primary)
+    w_bounce = log_trace_work("bounce", b_bounce, cl, t_min, (b_bounce.payload[0] & 1) > 0, t_bounce)
+    near = torch.minimum(occlude.nearest_blocker_plain(b_shadow, cl, t_min), b_shadow.tmax)
+    w_shadow = log_trace_work("shadow", b_shadow, cl, t_min, b_shadow.payload[0] > 0, near)
+    check(2 * int(w_bounce.tests.sum()) < int(w_bounce.tests_unculled.sum()),
+          "the sub-block cull halves the bounce rays' triangle tests")
 
     pk_bounce = cluster.prepare_packets(*bounce[:2], cl, t_min, T_MAX, bounce[2], sort_rays=True)
     pk_shadow = cluster.prepare_packets(shadow["origin"], shadow["direction"], cl, t_min, shadow["tmax"],
@@ -326,6 +476,18 @@ def run(dev, smi: str) -> None:
     table["visit"]["max_abs_err"] = max(err_b, err_s)
     visit_args = {label: (pk.nvis, pk.order, pk.entry_sorted, pk.origin, pk.direction, pk.active, pk.tmax, cl, t_min)
                   for label, pk in (("bounce", pk_bounce), ("shadow", pk_shadow))}
+    n_b, n_s, groups, gp = b_bounce.origin.shape[0], b_shadow.origin.shape[0], cl.group_min.shape[0], key_args[3].shape[1]
+    table["ray_keys"].update(bound(n_b * groups * (SLAB_OPS + 2), nbytes(*key_args[:5]) + 4 * n_b))
+    table["supertile_tables"].update(bound(n_b * groups * (SLAB_OPS + 1),
+                                           nbytes(*tab_args[:5]) + 4 * (n_b // stream.SUPERTILE) * gp))
+    table["stream"].update(bound(trace_flops(w_bounce, instanced),
+                                 nbytes(*band_inputs(b_bounce), *cluster_tables(cl)) + 16 * n_b))
+    table["occlude"].update(bound(trace_flops(w_shadow, instanced),
+                                  nbytes(*band_inputs(b_shadow), *cluster_tables(cl)) + 4 * n_s))
+    table["visit"].update(bound(trace_flops(w_bounce, instanced),  # the same closest hits of the same rays
+                                nbytes(pk_bounce.nvis, pk_bounce.order, pk_bounce.entry_sorted, pk_bounce.origin,
+                                       pk_bounce.direction, pk_bounce.tmax, *cluster_tables(cl))
+                                + 4 * pk_bounce.active.numel() + 16 * n_b))
     shadow_ms = cuda_ms(lambda: visit.visit_trace(*visit_args["shadow"]))
     log(f"visit shadow: kernel {shadow_ms:.3f} ms, plain {plain_s:.1f} ms (1,024 packets; plain timed once)")
 
@@ -347,6 +509,11 @@ def run(dev, smi: str) -> None:
     table["visit"]["plain_ms"] = plain_b
     log(f"visit: kernel {table['visit']['ms']:.3f} ms, plain {plain_b:.1f} ms (512 bounce packets, kernel median "
         f"of 5, plain timed once)")
+    for name, row in table.items():
+        log(f"{name}: bound {row['bound_ms'] * 1e3:.2f} us by {row['bound_by']}, the kernel at "
+            f"{100 * row['bound_ms'] / row['ms']:.2f}% of it; library call: none")
+    if other_traces:
+        compare_traces(other_traces, cl, t_min, b_bounce, b_shadow)
 
     # 4. The table bake the default Renderer runs (and caches), then the
     # stream path.

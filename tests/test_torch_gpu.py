@@ -1,5 +1,6 @@
 """The five hand-written CUDA kernels of vpt_tpu_torch against their plain
-torch versions, on a CUDA device at small shapes.  These tests skip where
+torch versions, on a CUDA device at small shapes, and the trace wrappers'
+shape checks.  These tests skip where
 there is no CUDA device; they import no JAX, so on a GPU machine without
 JAX run them with
 
@@ -26,17 +27,18 @@ def cuda():
     return torch.device("cuda")
 
 
-def _clusters(dev, instanced: bool):
+def _clusters(dev, instanced: bool, n_tris: int = 3000, cluster_size: int = 128):
     rng = np.random.default_rng(5)
-    v0 = rng.uniform(-4, 4, (3000, 3)).astype(np.float32)
-    v1 = v0 + rng.uniform(-0.5, 0.5, (3000, 3)).astype(np.float32)
-    v2 = v0 + rng.uniform(-0.5, 0.5, (3000, 3)).astype(np.float32)
+    v0 = rng.uniform(-4, 4, (n_tris, 3)).astype(np.float32)
+    v1 = v0 + rng.uniform(-0.5, 0.5, (n_tris, 3)).astype(np.float32)
+    v2 = v0 + rng.uniform(-0.5, 0.5, (n_tris, 3)).astype(np.float32)
     order = build_bvh(v0, v1, v2).tri_order
 
     def pad(a):
         return np.concatenate([a, np.zeros((LEAF_SIZE, 3), np.float32)])
 
-    mc = build_mesh_clusters(build_bvh(v0, v1, v2), pad(v0[order]), pad((v1 - v0)[order]), pad((v2 - v0)[order]))
+    mc = build_mesh_clusters(build_bvh(v0, v1, v2), pad(v0[order]), pad((v1 - v0)[order]), pad((v2 - v0)[order]),
+                             cluster_size=cluster_size)
     specs = [(0, np.eye(4, dtype=np.float32), 0)]
     if instanced:
         m = np.diag([0.8, 1.3, 1.0, 1.0]).astype(np.float32)
@@ -98,6 +100,55 @@ def test_occlude_kernel_matches_plain(cuda):
     blocked = occlude.occlude_trace(b, cl, T_MIN)
     assert torch.equal(blocked, occlude.occlude_trace_plain(b, cl, T_MIN))
     assert int(blocked.sum()) > 200
+
+
+@pytest.mark.parametrize("instanced", [False, True])
+def test_trace_kernels_match_plain_with_empty_sub_blocks(cuda, instanced):
+    """A small scene whose partial clusters hold empty sub-blocks (inverted
+    boxes): the stream kernel by the tie rule, occlusion exactly."""
+    cl, rng = _clusters(cuda, instanced, n_tris=700)
+    empty = cl.sub_aabbs[..., 0] > cl.sub_aabbs[..., 3]
+    assert bool(empty.any()) and bool((~empty).any())
+    org, d = _rays(rng, cuda, n=3000)
+    n = org.shape[0]
+    active = torch.tensor(rng.uniform(size=n) < 0.9, device=cuda)
+    b = stream.trace_bands(org, d, cl, T_MIN, 1e8, active, torch.zeros_like(active))
+    tk, trk, uk, vk = stream.stream_trace(b, cl, T_MIN)
+    tp, trp, up, vp = stream.stream_trace_plain(b, cl, T_MIN)
+    torch.cuda.synchronize()
+    assert torch.allclose(tk, tp, rtol=1e-5, atol=1e-6)
+    same = trk == trp
+    tie = (tk - tp).abs() <= 1e-5 + 1e-5 * tp.abs()
+    assert bool((same | (tie & (trp >= 0))).all())
+    assert torch.equal(uk[same], up[same]) and torch.equal(vk[same], vp[same])
+    assert int((trk >= 0).sum()) > 300
+    tmax = torch.tensor(rng.uniform(0.5, 20.0, n).astype(np.float32), device=cuda)
+    extri = torch.tensor(rng.integers(-1, 700, n).astype(np.int32), device=cuda)
+    sb = occlude.shadow_bands(org, d, cl, T_MIN, tmax, active, extri)
+    blocked = occlude.occlude_trace(sb, cl, T_MIN)
+    assert torch.equal(blocked, occlude.occlude_trace_plain(sb, cl, T_MIN))
+    assert int(blocked.sum()) > 100
+
+
+@pytest.mark.parametrize("shape", ["K=64", "4 sub-blocks"])
+def test_trace_wrappers_raise_on_other_cluster_shapes(cuda, shape):
+    """vpt_stream / vpt_occlude are compiled for K = 128 in 8 sub-blocks: the
+    wrappers raise on anything else and launch nothing."""
+    if shape == "K=64":
+        cl, rng = _clusters(cuda, instanced=False, cluster_size=64)
+    else:
+        cl, rng = _clusters(cuda, instanced=False)
+        cl = cl._replace(sub_aabbs=cl.sub_aabbs[:, :4].contiguous())
+    org, d = _rays(rng, cuda, n=1000)
+    active = torch.ones(org.shape[0], dtype=torch.bool, device=cuda)
+    b = stream.trace_bands(org, d, cl, T_MIN, 1e8, active, torch.zeros_like(active))
+    sb = occlude.shadow_bands(org, d, cl, T_MIN, 1e8, active, torch.full_like(active, -1, dtype=torch.int32))
+    before = dict(kernels.LAUNCHES)
+    with pytest.raises(ValueError, match="K = 128"):
+        stream.stream_trace(b, cl, T_MIN)
+    with pytest.raises(ValueError, match="K = 128"):
+        occlude.occlude_trace(sb, cl, T_MIN)
+    assert kernels.LAUNCHES == before
 
 
 @pytest.mark.parametrize("instanced", [False, True])

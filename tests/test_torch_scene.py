@@ -9,6 +9,7 @@ import numpy as np
 import pytest
 import torch
 
+from test_torch_trace import use_native_jax_bvh
 from vpt_tpu.scene import build as jbuild
 from vpt_tpu.scene import procedural as jproc
 from vpt_tpu_torch.scene import build as tbuild
@@ -34,6 +35,7 @@ def _leaves(tree, prefix=""):
 
 @pytest.mark.parametrize("name", sorted(SCENES))
 def test_compile_scene_matches_jax_leaf_by_leaf(name):
+    use_native_jax_bvh()  # both sides' BVHs come from the same C++ builder
     jdata, jmeta, jaux = jbuild.compile_scene(getattr(jproc, name)(**SCENES[name]))
     want, want_meta = scene_from_numpy(jax.tree.map(np.asarray, jdata), jmeta, "cpu")
     got, meta, aux = tbuild.compile_scene(getattr(tproc, name)(**SCENES[name]), "cpu")

@@ -22,8 +22,9 @@ from vpt_tpu.accel import traverse as jtraverse
 from vpt_tpu.accel.bvh import LEAF_SIZE, build_bvh
 from vpt_tpu.accel.cluster import assemble_clusters, build_mesh_clusters, intersect_clusters
 from vpt_tpu.render import integrator as jint
-from vpt_tpu_torch.accel.occlude import occlude_stream
-from vpt_tpu_torch.accel.stream import intersect_stream
+from vpt_tpu_torch.accel import bvh as tbvh
+from vpt_tpu_torch.accel.occlude import nearest_blocker_plain, occlude_stream, occlude_trace_plain, shadow_bands
+from vpt_tpu_torch.accel.stream import intersect_stream, stream_trace_plain, trace_bands, trace_work
 from vpt_tpu_torch.accel.traverse import intersect_brute
 from vpt_tpu_torch.scene.convert import clusters_from_numpy
 from vpt_tpu_torch.scene.types import tree_to_device
@@ -31,11 +32,33 @@ from vpt_tpu_torch.scene.types import tree_to_device
 torch.set_num_threads(1)
 
 
+def use_native_jax_bvh():
+    """Make the JAX package build its BVHs with its C++ builder, never with
+    its NumPy fallback, before a test compares them with the port's C++ build.
+
+    `vpt_tpu.accel.native` compiles its library in place and, if loading
+    fails once, keeps the NumPy builder for the life of the process.  Under
+    parallel test workers one worker can meet the library half written by
+    another.  So: retry once (the other build has likely finished), and
+    failing that, load the port's build of the same source with the same
+    flags, which is written to a temporary file and renamed into place."""
+    from vpt_tpu.accel import native
+
+    if native.available():
+        return
+    native._tried = False
+    if native.available():
+        return
+    native._lib = tbvh._library()
+    native._tried = True
+
+
 def _port_clusters(cl):
     return tree_to_device(clusters_from_numpy(cl), "cpu")
 
 
 def _instanced_scene():
+    use_native_jax_bvh()
     rng = np.random.default_rng(25)
     v0 = rng.uniform(-2, 2, (900, 3)).astype(np.float32)
     v1 = v0 + rng.uniform(-0.4, 0.4, (900, 3)).astype(np.float32)
@@ -130,6 +153,99 @@ def test_occlusion_matches_jax(name):
     assert not got[~active].any()
     assert (excl & active & ~got).sum() > 20  # the exclusion mattered
     assert got.sum() > 300
+
+
+def _sub_boxes(cl, box, blocks=slice(None)):
+    """The same tables with the sub-block boxes of `blocks` set to `box`."""
+    sub_aabbs = cl.sub_aabbs.clone()
+    sub_aabbs[blocks] = torch.tensor(box, dtype=torch.float32)
+    return cl._replace(sub_aabbs=sub_aabbs)
+
+
+_EVERYWHERE = [-3e9] * 3 + [3e9] * 3  # a sub-block box every ray enters: no cull
+_FAR_AWAY = [1e6] * 3 + [1e6 + 1.0] * 3  # a sub-block box no test ray enters
+
+
+def _port_case(name):
+    """The port's bands of _case's rays: closest-hit ones and shadow ones
+    (tmax, exclude ids) as test_occlusion_matches_jax makes them."""
+    cl, rng, org, d, active = _case(name)
+    tcl = _port_clusters(cl)
+    o, dd, act = _t(org), _t(d), _t(active)
+    n = o.shape[0]
+    b = trace_bands(o, dd, tcl, 1e-4, 1e8, act, torch.zeros_like(act))
+    tmax = torch.tensor(rng.uniform(0.5, 25.0, n).astype(np.float32))
+    extri = torch.tensor(np.where(np.arange(n) % 3 == 0, rng.integers(0, 3000, n), -1).astype(np.int32))
+    return tcl, b, shadow_bands(o, dd, tcl, 1e-4, tmax, act, extri)
+
+
+def _assert_tie_rule(got, want):
+    tk, trk, uk, vk = got
+    tp, trp, up, vp = want
+    torch.testing.assert_close(tk, tp, rtol=1e-5, atol=1e-6)
+    same = trk == trp
+    tie = (tk - tp).abs() <= 1e-5 + 1e-5 * tp.abs()
+    assert bool((same | (tie & (trp >= 0))).all())
+    assert torch.equal(uk[same], up[same]) and torch.equal(vk[same], vp[same])
+
+
+@pytest.mark.parametrize("name", sorted(SCENES))
+def test_sub_block_cull_keeps_the_unculled_answer(name):
+    """The plain traces with the sub-block cull against the same traces with
+    every sub-block box made the whole space: closest hits by the tie rule,
+    occlusion bit for bit."""
+    tcl, b, sb = _port_case(name)
+    unculled = _sub_boxes(tcl, _EVERYWHERE)
+    got = stream_trace_plain(b, tcl, 1e-4)
+    _assert_tie_rule(got, stream_trace_plain(b, unculled, 1e-4))
+    assert int((got[1] >= 0).sum()) > 500
+    blocked = occlude_trace_plain(sb, tcl, 1e-4)
+    assert torch.equal(blocked, occlude_trace_plain(sb, unculled, 1e-4))
+    assert int(blocked.sum()) > 300
+
+
+def test_sub_block_cull_halves_the_triangle_tests():
+    """On the instanced scene the cull at least halves the triangle tests,
+    both out to tmax and out to each ray's final hit."""
+    tcl, b, sb = _port_case("instanced")
+    act = (b.payload[0] & 1) > 0
+    t_hit = stream_trace_plain(b, tcl, 1e-4)[0]
+    near = nearest_blocker_plain(sb, tcl, 1e-4)
+    for bands, active, tf in ((b, act, b.tmax), (b, act, t_hit), (sb, sb.payload[0] > 0, sb.tmax),
+                              (sb, sb.payload[0] > 0, torch.minimum(near, sb.tmax))):
+        work = trace_work(bands, tcl, 1e-4, active, tf)
+        tests, unculled = int(work.tests.sum()), int(work.tests_unculled.sum())
+        assert 0 < 2 * tests <= unculled, (tests, unculled)
+        assert int(work.sub_blocks.sum()) <= int(work.sub_slabs.sum()) <= 8 * int(work.clusters.sum())
+        assert int(work.clusters[~active].sum()) == 0
+
+
+def test_no_hit_from_a_cluster_whose_sub_block_boxes_the_ray_misses():
+    """Rays that enter a cluster's world box but none of its sub-block boxes
+    get no hit from it, though they would hit its triangles without the cull."""
+    tcl, b, sb = _port_case("instanced")
+    t, tri, _, _ = stream_trace_plain(b, tcl, 1e-4)
+    block_of = torch.full((int((tcl.start + tcl.count).max()),), -1, dtype=torch.int64)
+    for c in torch.nonzero(tcl.count > 0)[:, 0].tolist():
+        block_of[int(tcl.start[c]) : int(tcl.start[c] + tcl.count[c])] = int(tcl.block_id[c])
+
+    def hit_block(ids):
+        return torch.where(ids >= 0, block_of[ids.clamp(min=0).long()], -1)
+
+    # The block (shared by both instances) that the most rays hit first.
+    blk = int(torch.mode(hit_block(tri)[tri >= 0]).values)
+    t2, tri2, _, _ = stream_trace_plain(b, _sub_boxes(tcl, _FAR_AWAY, blk), 1e-4)
+    in_blk = hit_block(tri) == blk
+    assert int(in_blk.sum()) > 20
+    assert not bool((hit_block(tri2) == blk).any())
+    keep = ~in_blk
+    assert torch.equal(tri2[keep], tri[keep]) and torch.equal(t2[keep], t[keep])
+    # Every sub-block box out of reach: the cluster boxes are still entered,
+    # but nothing blocks.
+    nowhere = _sub_boxes(tcl, _FAR_AWAY)
+    assert int(trace_work(sb, nowhere, 1e-4, sb.payload[0] > 0, sb.tmax).clusters.sum()) > 1000
+    assert int(occlude_trace_plain(sb, nowhere, 1e-4).sum()) == 0
+    assert int(occlude_trace_plain(sb, tcl, 1e-4).sum()) > 300
 
 
 def test_brute_force_matches_jax():

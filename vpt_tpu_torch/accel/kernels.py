@@ -46,8 +46,8 @@ SOURCES = {  # source -> {entry point: argument types}
         "vpt_supertile_tables": [_P, _P, _P, _P, _P, _I, _I, _F, _P, _P],
     },
     "trace.cu": {
-        "vpt_stream": [_P] * 16 + [_I] * 5 + [_F, _I] + [_P] * 5,
-        "vpt_occlude": [_P] * 17 + [_I] * 5 + [_F, _I] + [_P] * 2,
+        "vpt_stream": [_P] * 19 + [_I] * 4 + [_F, _I] + [_P] * 5,
+        "vpt_occlude": [_P] * 20 + [_I] * 4 + [_F, _I] + [_P] * 2,
     },
     "visit.cu": {"vpt_visit": [_P] * 15 + [_I] * 4 + [_F, _I, _I] + [_P] * 5},
 }
@@ -61,7 +61,7 @@ def reset_launches() -> None:
         LAUNCHES[k] = 0
 
 
-def _nvcc() -> str:
+def nvcc() -> str:
     path = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
     if not os.path.exists(path):
         raise RuntimeError("nvcc not found: the CUDA kernels need the CUDA toolkit")
@@ -80,7 +80,7 @@ def library() -> dict:
     if stale:
         os.makedirs(BUILD_DIR, exist_ok=True)
         tag = f"{os.getpid()}.tmp"
-        procs = {s: subprocess.Popen([_nvcc(), *NVCC_FLAGS, "-o", f"{outs[s]}.{tag}", os.path.join(CSRC_DIR, s)],
+        procs = {s: subprocess.Popen([nvcc(), *NVCC_FLAGS, "-o", f"{outs[s]}.{tag}", os.path.join(CSRC_DIR, s)],
                                      stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
                  for s in stale}
         failed = []

@@ -6,7 +6,9 @@ blocks); light NEE passes the sampled triangle, which then never blocks its
 own sample.  The wrapper sorts by the first entered group only and reuses
 the stream path's band tables; the trace is kernel 4, `occlude_trace`: CUDA
 csrc/trace.cu vpt_occlude (replacing the Pallas _occlude_kernel) for CUDA
-tensors, `occlude_trace_plain` for CPU tensors.
+tensors, `occlude_trace_plain` for CPU tensors.  Both count a triangle only
+in sub-blocks whose mesh-local box the ray enters before its tmax (the
+Pallas kernel's sub-block cull), so they agree exactly.
 """
 
 from __future__ import annotations
@@ -20,20 +22,28 @@ from vpt_tpu_torch.accel.traverse import T_MAX, T_MIN
 from vpt_tpu_torch.scene.types import ClusterData
 
 
-def occlude_trace_plain(bands: Bands, cl: ClusterData, t_min: float):
-    """(N,) int32 per sorted ray: 1 if any candidate triangle other than the
-    ray's exclude id lies in (t_min, tmax).  Payload = (active, exclude_tri)."""
+def nearest_blocker_plain(bands: Bands, cl: ClusterData, t_min: float):
+    """(N,) f32 per sorted ray: t of the nearest candidate triangle other
+    than the ray's exclude id in (t_min, tmax), +inf where there is none.
+    Triangles count only in sub-blocks the ray enters before its tmax, as in
+    the kernel.  Payload = (active, exclude_tri)."""
     act, extri = bands.payload[0] > 0, bands.payload[1]
 
-    def any_blocking(r, c, t, u, v, valid):
+    def nearest(r, c, t, u, v, valid):
         k = torch.arange(t.shape[1], device=t.device)
         other = (cl.start[c][:, None] + k[None, :]) != extri[r][:, None]
-        return ((valid & other).any(dim=1).to(torch.int32),)
+        return (torch.where(valid & other, t, torch.inf).amin(dim=1),)
 
-    blocked = torch.zeros(bands.origin.shape[0], dtype=torch.int32, device=bands.origin.device)
-    for r, _, (bp,) in pair_results(bands, cl, act, t_min, any_blocking):
-        blocked = blocked.scatter_reduce(0, r, bp, reduce="amax")
-    return blocked
+    near = torch.full((bands.origin.shape[0],), torch.inf, dtype=torch.float32, device=bands.origin.device)
+    for r, _, (tp,) in pair_results(bands, cl, act, t_min, nearest):
+        near = near.scatter_reduce(0, r, tp, reduce="amin")
+    return near
+
+
+def occlude_trace_plain(bands: Bands, cl: ClusterData, t_min: float):
+    """(N,) int32 per sorted ray: 1 if a triangle blocks it
+    (`nearest_blocker_plain` is finite)."""
+    return torch.isfinite(nearest_blocker_plain(bands, cl, t_min)).to(torch.int32)
 
 
 def occlude_trace(bands: Bands, cl: ClusterData, t_min: float):
@@ -44,8 +54,8 @@ def occlude_trace(bands: Bands, cl: ClusterData, t_min: float):
     blocked = torch.empty(n, dtype=torch.int32, device=bands.origin.device)
     kernels.launch(
         "vpt_occlude", "occlude", *table_pointers(bands, cl, bands.payload[:2]),
-        n, bands.tiles, bands.order.shape[1], GROUP_SIZE, cl.tris.shape[2],
-        float(t_min), int(cl.inv_rows.shape[0] > 1), kernels.ptr(blocked, I32),
+        n, bands.tiles, bands.order.shape[1], GROUP_SIZE, float(t_min), int(cl.inv_rows.shape[0] > 1),
+        kernels.ptr(blocked, I32),
     )
     return blocked
 

@@ -11,7 +11,12 @@ _stream_kernel) for CUDA tensors, `stream_trace_plain` for CPU tensors.
 
 The schedule of the Pallas kernel (1024-ray supertiles walked as 32-bit
 masks, SMEM caps, lane-interleaved triangle blocks) is not carried over;
-the band tables are, as the CUDA kernel's candidate lists.
+the band tables are, as the CUDA kernel's candidate lists, and so is its
+sub-block cull: a cluster's 16-triangle sub-blocks are tested only where
+the ray enters their mesh-local boxes.  The kernel gates clusters and
+sub-blocks with the ray's current best t, the plain version with its tmax;
+the closer gate skips only tests that cannot win, so the two agree up to
+hits at the same t.
 """
 
 from __future__ import annotations
@@ -22,12 +27,15 @@ import torch
 
 from vpt_tpu_torch.accel import envelope, kernels
 from vpt_tpu_torch.accel.cluster import GROUP_SIZE, pad_groups, ray_tmax, root_exit_tmax
-from vpt_tpu_torch.accel.traverse import T_MAX, T_MIN, Hit, guarded_inverse, instance_space, moller_trumbore_scalar
+from vpt_tpu_torch.accel.traverse import (T_MAX, T_MIN, Hit, guarded_inverse, instance_space,
+                                          moller_trumbore_scalar, slab)
 from vpt_tpu_torch.scene.types import ClusterData
 
 F32, I32 = torch.float32, torch.int32
 SUPERTILE = envelope.SUPERTILE
 TILES_PER_BAND = 32
+KERNEL_K = 128  # triangles per cluster block, a compile-time constant of csrc/trace.cu
+KERNEL_N_SUB = 8  # sub-blocks per cluster block, likewise
 FLAG_ACTIVE = 1
 FLAG_ANYHIT = 2
 
@@ -114,10 +122,11 @@ def unsort(bands: Bands, values):
 # Kernel 3 and its plain version
 
 
-def _pairs(bands: Bands, cl: ClusterData, rows, act, t_min: float):
+def _pairs(bands: Bands, cl: ClusterData, rows, act, t_min: float, tf):
     """Candidate (ray, cluster) pairs of sorted rays `rows` (a slice): the
-    supertile's bit is set for the cluster's group and the world-space slab
-    with tf = tmax is entered.  Returns (ray index, cluster index)."""
+    ray is active, the supertile's bit is set for the cluster's group, the
+    cluster holds triangles and the ray enters its world box before tf (N,).
+    Returns (ray index, cluster index)."""
     dev = bands.origin.device
     band = bands.tiles * SUPERTILE
     idx = torch.arange(rows.start, rows.stop, device=dev)
@@ -129,7 +138,7 @@ def _pairs(bands: Bands, cl: ClusterData, rows, act, t_min: float):
     o = bands.origin[rows]
     inv = guarded_inverse(bands.direction[rows])
     tn = torch.full(cand.shape, t_min, dtype=torch.float32, device=dev)
-    tf = bands.tmax[rows][:, None].expand(cand.shape)
+    tf = tf[rows][:, None].expand(cand.shape)
     for ax in range(3):
         s0 = (cl.aabbs[:, ax][None, :] - o[:, ax : ax + 1]) * inv[:, ax : ax + 1]
         s1 = (cl.aabbs[:, 3 + ax][None, :] - o[:, ax : ax + 1]) * inv[:, ax : ax + 1]
@@ -139,21 +148,51 @@ def _pairs(bands: Bands, cl: ClusterData, rows, act, t_min: float):
     return r + rows.start, c
 
 
-def _pair_moller_trumbore(bands: Bands, cl: ClusterData, r, c, t_min: float):
-    """Moller-Trumbore of each pair's ray against its cluster's K triangles,
-    in the CUDA kernel's operation order: (t, u, v, valid) of shape (P, K)."""
+def _local_rays(bands: Bands, cl: ClusterData, r, c):
+    """Each pair's ray in its cluster's instance space: (origin, direction),
+    lists of three (P,) components."""
     o = bands.origin[r]
     d = bands.direction[r]
     lo = [o[:, k] for k in range(3)]
     ld = [d[:, k] for k in range(3)]
     if cl.inv_rows.shape[0] > 1:
         lo, ld = instance_space(cl.inv_rows[cl.inst[c]], lo, ld)
+    return lo, ld
+
+
+def _sub_block_sizes(cl: ClusterData, c):
+    """(P, N_SUB) real triangles in each sub-block of each pair's cluster."""
+    n_sub = cl.sub_aabbs.shape[1]
+    sub = cl.tris.shape[2] // n_sub
+    first = torch.arange(n_sub, device=c.device) * sub
+    return (cl.count[c][:, None] - first[None, :]).clamp(0, sub)
+
+
+def _sub_enter(cl: ClusterData, c, lo, ld, tf, t_min: float):
+    """(P, N_SUB) bool: the pair's local ray enters a sub-block's mesh-local
+    box before tf (P,), with the kernels' local inverse direction.  An empty
+    sub-block (its box inverted) is never entered."""
+    sb = cl.sub_aabbs[cl.block_id[c]]  # (P, N_SUB, 6)
+    tn, tfg = slab(torch.stack(lo, dim=-1)[:, None, :], guarded_inverse(torch.stack(ld, dim=-1))[:, None, :],
+                   sb[..., :3], sb[..., 3:], t_min)
+    return (tn <= tf[:, None]) & (tn <= tfg) & (_sub_block_sizes(cl, c) > 0)
+
+
+def _pair_moller_trumbore(bands: Bands, cl: ClusterData, r, c, t_min: float):
+    """Moller-Trumbore of each pair's ray against its cluster's K triangles,
+    in the CUDA kernel's operation order: (t, u, v, valid) of shape (P, K).
+    Only triangles of sub-blocks the ray enters before its tmax are valid
+    (the sub-block cull; tf = tmax does not depend on the visit order)."""
+    lo, ld = _local_rays(bands, cl, r, c)
     ox, oy, oz = (x[:, None] for x in lo)
     dx, dy, dz = (x[:, None] for x in ld)
     blk = cl.tris[cl.block_id[c]]  # (P, 16, K)
     t, u, v, ok = moller_trumbore_scalar(ox, oy, oz, dx, dy, dz, blk.transpose(0, 1), t_min)
-    k = torch.arange(blk.shape[-1], device=blk.device)
-    valid = ok & (t < bands.tmax[r][:, None]) & (k[None, :] < cl.count[c][:, None])
+    k_tris = blk.shape[-1]
+    k = torch.arange(k_tris, device=blk.device)
+    enter = _sub_enter(cl, c, lo, ld, bands.tmax[r], t_min)
+    enter = enter.repeat_interleave(k_tris // enter.shape[1], dim=1)
+    valid = ok & (t < bands.tmax[r][:, None]) & (k[None, :] < cl.count[c][:, None]) & enter
     return t, u, v, valid
 
 
@@ -167,7 +206,7 @@ def pair_results(bands: Bands, cl: ClusterData, act, t_min: float, reduce_pairs)
     tests run in sub-blocks of at most _PAIR_CHUNK pairs to bound memory."""
     n = bands.origin.shape[0]
     for s in range(0, n, _RAY_CHUNK):
-        r_all, c_all = _pairs(bands, cl, slice(s, min(s + _RAY_CHUNK, n)), act, t_min)
+        r_all, c_all = _pairs(bands, cl, slice(s, min(s + _RAY_CHUNK, n)), act, t_min, bands.tmax)
         parts = []
         for p in range(0, r_all.shape[0], _PAIR_CHUNK):
             r, c = r_all[p : p + _PAIR_CHUNK], c_all[p : p + _PAIR_CHUNK]
@@ -227,8 +266,7 @@ def stream_trace(bands: Bands, cl: ClusterData, t_min: float):
     v = torch.empty(n, dtype=torch.float32, device=dev)
     kernels.launch(
         "vpt_stream", "stream", *table_pointers(bands, cl, bands.payload[:1]),
-        n, bands.tiles, bands.order.shape[1], GROUP_SIZE, cl.tris.shape[2],
-        float(t_min), int(cl.inv_rows.shape[0] > 1),
+        n, bands.tiles, bands.order.shape[1], GROUP_SIZE, float(t_min), int(cl.inv_rows.shape[0] > 1),
         kernels.ptr(t, F32), kernels.ptr(tri, I32), kernels.ptr(u, F32), kernels.ptr(v, F32),
     )
     return t, tri, u, v
@@ -236,15 +274,54 @@ def stream_trace(bands: Bands, cl: ClusterData, t_min: float):
 
 def table_pointers(bands: Bands, cl: ClusterData, payload):
     """Device pointers of the band tables, sorted rays, int32 payload
-    columns and cluster tables, in the order vpt_stream / vpt_occlude take them."""
+    columns and cluster tables, in the order vpt_stream / vpt_occlude take
+    them.  Raises unless the cluster blocks have the kernels' compile-time
+    shape: K = 128 triangles in 8 sub-blocks of 16."""
+    k_tris, n_sub = cl.tris.shape[2], cl.sub_aabbs.shape[1]
+    if (k_tris, n_sub) != (KERNEL_K, KERNEL_N_SUB) or cl.tris.shape[1] != 16:
+        raise ValueError(f"vpt_stream / vpt_occlude take K = {KERNEL_K} triangles per cluster in "
+                         f"{KERNEL_N_SUB} sub-blocks, got K = {k_tris} and {n_sub} sub-blocks")
+    if any(t.data_ptr() % 16 for t in (cl.aabbs, cl.inv_rows, cl.sub_aabbs)):
+        raise ValueError("vpt_stream / vpt_occlude read aabbs, inv_rows and sub_aabbs in vectors: "
+                         "pass tensors that start on a 16-byte boundary")
     p = kernels.ptr
     return (
         p(bands.ngrp, I32), p(bands.order, I32), p(bands.entry_sorted, F32), p(bands.bits, torch.int64),
         p(bands.sent, F32), p(bands.origin, F32), p(bands.direction, F32), p(bands.tmax, F32),
         *(p(col, I32) for col in payload),
         p(cl.aabbs, F32), p(cl.count, I32), p(cl.start, I32), p(cl.block_id, I32), p(cl.inst, I32),
-        p(cl.inv_rows, F32), p(cl.tris, F32),
+        p(cl.inv_rows, F32), p(cl.tris, F32), p(cl.sub_aabbs, F32), p(cl.group_min, F32), p(cl.group_max, F32),
     )
+
+
+class TraceWork(NamedTuple):
+    """Per sorted ray, the traversal work of a trace out to a distance tf."""
+
+    clusters: torch.Tensor  # (N,) i64 world cluster boxes entered
+    sub_slabs: torch.Tensor  # (N,) i64 sub-block boxes tested: the non-empty ones of entered clusters
+    sub_blocks: torch.Tensor  # (N,) i64 sub-block boxes entered
+    tests: torch.Tensor  # (N,) i64 triangle tests with the sub-block cull
+    tests_unculled: torch.Tensor  # (N,) i64 triangle tests of every entered cluster
+
+
+def trace_work(bands: Bands, cl: ClusterData, t_min: float, active, tf) -> TraceWork:
+    """The work the kernels' gates admit for active sorted rays that stop at
+    tf (N,): with tf = tmax, what a ray that finds nothing does; with tf =
+    its final hit t, the least a front-to-back trace must do."""
+    n = bands.origin.shape[0]
+    dev = bands.origin.device
+    acc = [torch.zeros(n, dtype=torch.int64, device=dev) for _ in TraceWork._fields]
+    for s in range(0, n, _RAY_CHUNK):
+        r, c = _pairs(bands, cl, slice(s, min(s + _RAY_CHUNK, n)), active, t_min, tf)
+        for p in range(0, r.shape[0], _PAIR_CHUNK):
+            rp, cp = r[p : p + _PAIR_CHUNK], c[p : p + _PAIR_CHUNK]
+            sizes = _sub_block_sizes(cl, cp)
+            enter = _sub_enter(cl, cp, *_local_rays(bands, cl, rp, cp), tf[rp], t_min)
+            counts = (torch.ones_like(rp), (sizes > 0).sum(dim=1), enter.sum(dim=1),
+                      (sizes * enter).sum(dim=1), cl.count[cp])
+            for a, x in zip(acc, counts):
+                a.index_add_(0, rp, x.to(torch.int64))
+    return TraceWork(*acc)
 
 
 def trace_bands(origin, direction, cl: ClusterData, t_min, t_max, active, anyhit) -> Bands:

@@ -43,6 +43,16 @@ def guarded_inverse(d):
     return 1.0 / torch.where(torch.abs(d) > 1e-20, d, 1e-20)
 
 
+def slab(o, inv, lo, hi, t_min: float):
+    """Slab entry and geometric exit, (tn, tfg): a ray enters the box before
+    a distance t iff tn <= min(t, tfg).  o/inv (..., 3), lo/hi broadcastable."""
+    s0 = (lo - o) * inv
+    s1 = (hi - o) * inv
+    tn = torch.clamp(torch.minimum(s0, s1).amax(dim=-1), min=t_min)
+    tfg = torch.maximum(s0, s1).amin(dim=-1)
+    return tn, tfg
+
+
 def instance_space(T, o, d):
     """Ray components (lists of 3) moved to an instance's local space by the
     world->local rows T (..., 12), summed in the CUDA kernels' order.  The

@@ -26,22 +26,12 @@ from __future__ import annotations
 import torch
 
 from vpt_tpu_torch.accel import kernels
-from vpt_tpu_torch.accel.traverse import guarded_inverse, instance_space, moller_trumbore_scalar
+from vpt_tpu_torch.accel.traverse import guarded_inverse, instance_space, moller_trumbore_scalar, slab
 from vpt_tpu_torch.scene.types import ClusterData
 
 F32, I32 = torch.float32, torch.int32
 PACKET = 512  # rays per packet, one thread each: vpt_visit's fixed block size
 _PACKETS = 64  # packets per block of the plain version
-
-
-def _slab(o, inv, lo, hi, t_min: float):
-    """Slab entry and geometric exit, (tn, tfg): a ray enters the box before
-    its best t iff tn <= min(t, tfg).  o/inv (..., 3), lo/hi broadcastable."""
-    s0 = (lo - o) * inv
-    s1 = (hi - o) * inv
-    tn = torch.clamp(torch.minimum(s0, s1).amax(dim=-1), min=t_min)
-    tfg = torch.maximum(s0, s1).amin(dim=-1)
-    return tn, tfg
 
 
 def _group_size(cl: ClusterData) -> int:
@@ -74,7 +64,7 @@ def _visit_block(nvis, order, entry, o, d, act, tmax, cl: ClusterData, t_min: fl
     while w < gp and bool(cont.any()):
         cids = torch.where(cont, order[:, w], 0).to(torch.int64)[:, None] * group_size + members  # (c, M)
         box = cl.aabbs[cids]  # (c, M, 6)
-        tn_m, tfg_m = _slab(o[:, :, None, :], inv[:, :, None, :], box[:, None, :, :3], box[:, None, :, 3:], t_min)
+        tn_m, tfg_m = slab(o[:, :, None, :], inv[:, :, None, :], box[:, None, :, :3], box[:, None, :, 3:], t_min)
         for m in range(group_size):
             cid = cids[:, m]
             tf = torch.where(live_rays(), t, t_min)
@@ -94,7 +84,7 @@ def _visit_block(nvis, order, entry, o, d, act, tmax, cl: ClusterData, t_min: fl
                 cl.tris[blk].transpose(0, 1)[:, :, None, :], t_min)  # (c, pk, K)
             ok = ok & (kidx < cl.count[cid][:, None, None]) & go[:, None, None]
             sb = cl.sub_aabbs[blk]  # (c, n_sub, 6)
-            tn_s, tfg_s = _slab(lo3[:, :, None, :], linv[:, :, None, :], sb[:, None, :, :3], sb[:, None, :, 3:], t_min)
+            tn_s, tfg_s = slab(lo3[:, :, None, :], linv[:, :, None, :], sb[:, None, :, :3], sb[:, None, :, 3:], t_min)
             base = cl.start[cid][:, None]
             for s in range(n_sub):
                 enter = (tn_s[..., s] <= t) & (tn_s[..., s] <= tfg_s[..., s]) & live_rays()

@@ -4,32 +4,60 @@
 //   vpt_stream   <- vpt_tpu/accel/stream.py   stream_pallas  (_stream_kernel)
 //   vpt_occlude  <- vpt_tpu/accel/occlude.py  occlude_pallas (_occlude_kernel)
 //
-// One thread per ray of the key-sorted wavefront.  A ray in band b and
-// supertile j walks its band's entry-sorted candidate groups (order[b, :ngrp]):
-//   - it stops when the band's entry distance exceeds its own best t (closest
-//     hit) or its tmax (occlusion): entries are sorted and the band's entry
-//     into a group never exceeds the ray's own, so the stop is exact;
-//   - it skips groups whose supertile bit is clear or whose supertile entry
-//     already lies beyond its best t;
-//   - for each member cluster with cnt > 0 it runs the world-space slab test,
-//     moves the ray into the instance's local space (direction left
-//     unnormalised so t stays world-parametric), and runs Moller-Trumbore
-//     over the cluster's triangles in index order with a strict '<'.
-// On equal t the first triangle in visit order wins, as in the Pallas kernel.
-// An any-hit ray (flags bit 1) stops at its first hit; an occlusion ray stops
-// at its first triangle whose virtual id differs from its exclude id.
+// What it computes.  Every ray of the key-sorted wavefront in band b and
+// supertile j walks its band's entry-sorted candidate groups (order[b, :ngrp]),
+// as the Pallas kernels do:
+//   - a group counts where the supertile's bit is set, its supertile entry
+//     lies within the ray's best t (closest hit; tmax for occlusion) and the
+//     ray enters the group box; the walk ends where the band's entry exceeds
+//     best t (entries are sorted and never exceed the ray's own);
+//   - a member cluster with triangles is entered when the ray meets its world
+//     box within best t;
+//   - the ray moves to the instance's local space (direction unnormalised, so
+//     t stays world-parametric; local inverse 1 / where(|d| > 1e-20, d, 1e-20));
+//   - the sub-block cull of stream.py:283-331 and occlude.py:137-207: each of
+//     the cluster's 8 mesh-local sub-block boxes (16 triangles each; an empty
+//     one, its box inverted, is never entered) is slab-tested, and its 16
+//     Moller-Trumbore tests run only while its entry distance is within the
+//     current best t.
+// A group box is the exact union of its members' boxes, so its slab never
+// rejects a member the member's own slab would enter (the roundings are
+// monotone): the group test only saves work.  Tie rules: the lower index
+// wins equal t inside a sub-block and, since two sub-blocks are tested at
+// once, across that pair in index order; otherwise only a strictly closer hit
+// replaces the current one.  An any-hit ray (flags bit 1) stops at its first
+// hit; an occlusion ray stops at its first triangle whose virtual id differs
+// from its exclude id.
 //
-// What bounds it on the H100: the traversal is latency- and divergence-bound,
-// not FLOP- or bandwidth-bound.  Each (ray, entered cluster) pair costs one
-// 24-byte box read and up to K = 128 triangle tests of about 40 float
-// operations, with loop trip counts that differ from ray to ray.  The simple
-// design relies on the key sort: neighbouring threads of a warp share their
-// first candidate groups, so their triangle reads hit the same addresses
-// (broadcast through L1) and their loops diverge little.  The cluster tables
-// (C x 24 B boxes, about 100 KB on the colonnade scene) stay in global
-// memory, where L1/L2 cache them, instead of crowding out occupancy in
-// shared memory.  Triangles are read from the component-major (B, 16, K)
-// blocks of ClusterData.tris.
+// What bounds it on the H100.  The work the rays need is small: at the main
+// path's shapes a bounce ray enters ~1.3 clusters and ~2 sub-blocks and runs
+// ~31 triangle tests of ~53 float operations before its final hit, so a
+// 262,144-ray call needs ~0.4 GFLOP and ~20 MB: ~6 us at the FP32 peak, a
+// few us of HBM.  Its time goes to latency and divergence: chains of
+// dependent loads of small tables, and loops whose trip counts differ from
+// ray to ray.  A warp of 32 rays, one per lane, runs the union of its lanes'
+// loops, and diffuse bounce rays share few clusters: that design, with the
+// warp's entered sub-blocks staged in shared memory by cp.async, double
+// buffered, took 2.0-2.1 ms on an H100 (PERF.md).  So this kernel gives each
+// ray a warp of its own (4 per 128-thread block) and spends the lanes on the
+// parallel parts of one ray's traversal:
+//   - the candidate walk takes 32 groups per step (lane k: candidate g0 + k;
+//     its entry, id, supertile bit, supertile entry and group box), and one
+//     ballot keeps the groups the ray enters;
+//   - lanes 0..7 slab-test the group's 8 member boxes, loading each member's
+//     count, block, triangle base and instance alongside for the warp to
+//     share by shuffles;
+//   - lanes 0..7 slab-test the entered cluster's 8 sub-block boxes;
+//   - lanes 0..15 and 16..31 run the Moller-Trumbore tests of the next two
+//     open sub-blocks, each lane loading its own triangle's 9 components
+//     (coalesced: a sub-block's component row is 64 contiguous bytes), and a
+//     warp min-reduction picks the hit.  No lane ever needs another lane's
+//     triangle, so nothing is staged in shared memory.
+// Loads are issued before the gates that use them, so a walk step costs two
+// dependent round trips and a cluster three.  K = 128, 8 sub-blocks and 8
+// members per group are compile-time constants; the wrappers raise on other
+// shapes.  63-72 registers (-Xptxas -v); capping them for occupancy spilled
+// and ran slower.
 //
 // Built with --fmad=false so the slab and Moller-Trumbore arithmetic rounds
 // exactly like the plain torch versions, which makes culling decisions agree.
@@ -41,6 +69,14 @@
 namespace {
 
 constexpr int kSupertile = 1024;
+constexpr int kTris = 128;               // K, triangles per cluster block
+constexpr int kNSub = 8;                 // sub-blocks per cluster
+constexpr int kSub = kTris / kNSub;      // 16 triangles per sub-block
+constexpr int kGroup = 8;                // member clusters per group
+constexpr int kWarps = 4;                // rays per block, one warp each
+constexpr int kThreads = 32 * kWarps;
+constexpr unsigned kFull = 0xffffffffu;
+constexpr unsigned kInfBits = 0x7f800000u;
 
 __device__ __forceinline__ float pmin(float a, float b) {
   return (a != a || b != b) ? __int_as_float(0x7fc00000) : fminf(a, b);
@@ -52,6 +88,38 @@ __device__ __forceinline__ float guarded_inv(float d) {
   return 1.0f / (fabsf(d) > 1e-20f ? d : 1e-20f);
 }
 
+struct Ray {
+  float ox, oy, oz, dx, dy, dz, ix, iy, iz;
+};
+
+// Does the ray enter box [lx, ly, lz] - [hx, hy, hz] within (t_min, tf]?  The
+// entry distance goes to `tn`.
+__device__ __forceinline__ bool slab(float lx, float ly, float lz, float hx, float hy, float hz,
+                                     const Ray& r, float t_min, float tf, float& tn) {
+  tn = t_min;
+  float s0 = (lx - r.ox) * r.ix, s1 = (hx - r.ox) * r.ix;
+  tn = pmax(tn, pmin(s0, s1));
+  tf = pmin(tf, pmax(s0, s1));
+  s0 = (ly - r.oy) * r.iy;
+  s1 = (hy - r.oy) * r.iy;
+  tn = pmax(tn, pmin(s0, s1));
+  tf = pmin(tf, pmax(s0, s1));
+  s0 = (lz - r.oz) * r.iz;
+  s1 = (hz - r.oz) * r.iz;
+  tn = pmax(tn, pmin(s0, s1));
+  tf = pmin(tf, pmax(s0, s1));
+  return tn <= tf;
+}
+
+// A [lo.xyz, hi.xyz] box of six floats that starts at an even float, read as
+// three 8-byte loads.
+__device__ __forceinline__ bool slab6(const float* p, const Ray& r, float t_min, float tf, float& tn) {
+  const float2 a = *reinterpret_cast<const float2*>(p);
+  const float2 b = *reinterpret_cast<const float2*>(p + 2);
+  const float2 c = *reinterpret_cast<const float2*>(p + 4);
+  return slab(a.x, a.y, b.x, b.y, c.x, c.y, r, t_min, tf, tn);
+}
+
 struct Tables {
   const int32_t* ngrp;        // (B,)
   const int32_t* order;       // (B, Gp) entry-sorted group ids
@@ -61,40 +129,149 @@ struct Tables {
   const float* aabbs;         // (C, 6) world boxes [lo.xyz, hi.xyz]
   const int32_t* count;       // (C,)
   const int32_t* start;       // (C,) virtual triangle id base
-  const int32_t* block_id;    // (C,) row of tris
+  const int32_t* block_id;    // (C,) row of tris / sub_aabbs
   const int32_t* inst;        // (C,) instance
   const float* inv_rows;      // (n_inst, 12) world -> local affines
   const float* tris;          // (Bk, 16, K) rows 0..8 = p0, e1, e2 components
+  const float* sub_aabbs;     // (Bk, 8, 6) mesh-local sub-block boxes
+  const float* group_min;     // (G, 3) world group boxes: the members' union
+  const float* group_max;     // (G, 3)
 };
 
+// The search state of the warp's ray; every lane holds the same copy.
+struct Search {
+  float best;  // closest hit so far; occlusion keeps tmax
+  int32_t best_tri;
+  float best_u, best_v;
+  bool live;  // still searching
+  bool anyhit;
+  bool blocked;
+  int32_t extri;
+};
+
+// Moller-Trumbore of the local ray against one triangle of a (16, K) block.
+__device__ __forceinline__ float moller_trumbore(const float* tri, const Ray& l, float t_min, float& u, float& v,
+                                                 bool& ok) {
+  const float p0x = tri[0 * kTris], p0y = tri[1 * kTris], p0z = tri[2 * kTris];
+  const float e1x = tri[3 * kTris], e1y = tri[4 * kTris], e1z = tri[5 * kTris];
+  const float e2x = tri[6 * kTris], e2y = tri[7 * kTris], e2z = tri[8 * kTris];
+  const float pvx = l.dy * e2z - l.dz * e2y;
+  const float pvy = l.dz * e2x - l.dx * e2z;
+  const float pvz = l.dx * e2y - l.dy * e2x;
+  const float det = e1x * pvx + e1y * pvy + e1z * pvz;
+  const bool ok_det = fabsf(det) > 1e-12f;
+  const float inv_det = ok_det ? 1.0f / det : 0.0f;
+  const float tvx = l.ox - p0x, tvy = l.oy - p0y, tvz = l.oz - p0z;
+  u = (tvx * pvx + tvy * pvy + tvz * pvz) * inv_det;
+  const float qvx = tvy * e1z - tvz * e1y;
+  const float qvy = tvz * e1x - tvx * e1z;
+  const float qvz = tvx * e1y - tvy * e1x;
+  v = (l.dx * qvx + l.dy * qvy + l.dz * qvz) * inv_det;
+  const float t = (e2x * qvx + e2y * qvy + e2z * qvz) * inv_det;
+  ok = ok_det && u >= 0.0f && v >= 0.0f && u + v <= 1.0f && t > t_min;
+  return t;
+}
+
+// A member cluster's row of the cluster tables.
+struct Member {
+  int count, block, start, inst;
+};
+
+// A member cluster with triangles, entered by the warp's ray.
 template <bool OCCLUDE, bool INSTANCED>
-__global__ void trace_kernel(
+__device__ __forceinline__ void visit_cluster(const Tables& tb, const Member& mc, const Ray& w, float t_min,
+                                              Search& S, int lane) {
+  const int cnt = mc.count;
+  Ray l = w;
+  if (INSTANCED) {
+    const float4* T4 = reinterpret_cast<const float4*>(tb.inv_rows + 12 * (size_t)mc.inst);
+    const float4 r0 = T4[0], r1 = T4[1], r2 = T4[2];
+    l.ox = r0.x * w.ox + r0.y * w.oy + r0.z * w.oz + r0.w;
+    l.oy = r1.x * w.ox + r1.y * w.oy + r1.z * w.oz + r1.w;
+    l.oz = r2.x * w.ox + r2.y * w.oy + r2.z * w.oz + r2.w;
+    l.dx = r0.x * w.dx + r0.y * w.dy + r0.z * w.dz;
+    l.dy = r1.x * w.dx + r1.y * w.dy + r1.z * w.dz;
+    l.dz = r2.x * w.dx + r2.y * w.dy + r2.z * w.dz;
+    l.ix = guarded_inv(l.dx);
+    l.iy = guarded_inv(l.dy);
+    l.iz = guarded_inv(l.dz);
+  }
+  const int blk = mc.block;
+  const int32_t base = mc.start;
+  // Lanes 0..7: the sub-block slabs, tf = the current best t.
+  float tn_s = INFINITY;
+  bool in_s = false;
+  if (lane < kNSub && lane * kSub < cnt) {
+    in_s = slab6(tb.sub_aabbs + ((size_t)blk * kNSub + lane) * 6, l, t_min, S.best, tn_s);
+  }
+  const float* block = tb.tris + (size_t)blk * 16 * kTris;
+  const int half = lane >> 4, k = lane & 15;
+  while (S.live) {
+    // The next two sub-blocks whose entry is still within the best t, tested
+    // together: lanes 0-15 take the first one's triangles, 16-31 the second's.
+    const unsigned open = __ballot_sync(kFull, in_s && tn_s <= S.best);
+    if (open == 0) break;
+    const int sa = __ffs(open) - 1;
+    const unsigned rest = open & (open - 1u);
+    const int sb = rest ? __ffs(rest) - 1 : -1;
+    if (lane == sa || lane == sb) in_s = false;
+    const int s = half ? sb : sa;
+    float t = INFINITY, u = 0.0f, v = 0.0f;
+    bool valid = false;
+    if (s >= 0 && s * kSub + k < cnt) {
+      t = moller_trumbore(block + s * kSub + k, l, t_min, u, v, valid);
+      valid = valid && t < S.best;
+    }
+    const int32_t id = base + s * kSub + k;
+    if (OCCLUDE) {
+      if (__any_sync(kFull, valid && id != S.extri)) {
+        S.blocked = true;
+        S.live = false;
+      }
+    } else {
+      // Closest hit, the lower lane on equal t (index order: sa before sb).
+      // Valid t are > t_min > 0, so their bit patterns order like the floats.
+      const unsigned tbits = valid ? __float_as_uint(t) : kInfBits;
+      const unsigned low = __reduce_min_sync(kFull, tbits);
+      if (low != kInfBits) {
+        const int win = __ffs(__ballot_sync(kFull, valid && tbits == low)) - 1;
+        S.best = __uint_as_float(low);
+        S.best_tri = __shfl_sync(kFull, id, win);
+        S.best_u = __shfl_sync(kFull, u, win);
+        S.best_v = __shfl_sync(kFull, v, win);
+        if (S.anyhit) S.live = false;
+      }
+    }
+  }
+}
+
+template <bool OCCLUDE, bool INSTANCED>
+__global__ void __launch_bounds__(kThreads) trace_kernel(
     Tables tb, const float* __restrict__ origin, const float* __restrict__ direction,
     const float* __restrict__ tmax_in, const int32_t* __restrict__ flags,
-    const int32_t* __restrict__ extri_in, int n, int tiles, int gp,
-    int group_size, int k_tris, float t_min,
-    float* __restrict__ t_out, int32_t* __restrict__ tri_out,
-    float* __restrict__ u_out, float* __restrict__ v_out,
-    int32_t* __restrict__ blocked_out) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+    const int32_t* __restrict__ extri_in, int n, int tiles, int gp, float t_min,
+    float* __restrict__ t_out, int32_t* __restrict__ tri_out, float* __restrict__ u_out,
+    float* __restrict__ v_out, int32_t* __restrict__ blocked_out) {
+  const int lane = threadIdx.x & 31;
+  const int i = blockIdx.x * kWarps + (threadIdx.x >> 5);  // the warp's ray
   if (i >= n) return;
   const int band = tiles * kSupertile;
   const int b = i / band;
   const int j = (i - b * band) / kSupertile;
 
-  const float ox = origin[3 * i], oy = origin[3 * i + 1], oz = origin[3 * i + 2];
-  const float dx = direction[3 * i], dy = direction[3 * i + 1], dz = direction[3 * i + 2];
-  const float ix = guarded_inv(dx), iy = guarded_inv(dy), iz = guarded_inv(dz);
-  const float tmax = tmax_in[i];
+  Ray w;
+  w.ox = origin[3 * i], w.oy = origin[3 * i + 1], w.oz = origin[3 * i + 2];
+  w.dx = direction[3 * i], w.dy = direction[3 * i + 1], w.dz = direction[3 * i + 2];
+  w.ix = guarded_inv(w.dx), w.iy = guarded_inv(w.dy), w.iz = guarded_inv(w.dz);
+  Search S;
+  S.best = tmax_in[i];
+  S.best_tri = -1;
+  S.best_u = S.best_v = 0.0f;
   const int32_t fl = flags[i];
-  const bool active = (fl & 1) != 0;
-  const bool anyhit = !OCCLUDE && (fl & 2) != 0;
-  const int32_t extri = OCCLUDE ? extri_in[i] : -1;
-
-  float best = tmax;  // closest hit so far; occlusion keeps tmax
-  int32_t best_tri = -1;
-  float best_u = 0.0f, best_v = 0.0f;
-  bool done = !active;
+  S.live = (fl & 1) != 0;
+  S.anyhit = !OCCLUDE && (fl & 2) != 0;
+  S.blocked = false;
+  S.extri = OCCLUDE ? extri_in[i] : -1;
 
   const int ng = tb.ngrp[b];
   const int32_t* order = tb.order + (size_t)b * gp;
@@ -102,106 +279,81 @@ __global__ void trace_kernel(
   const int64_t* bits = tb.bits + (size_t)b * gp;
   const float* sent = tb.sent + ((size_t)b * tiles + j) * gp;
 
-  for (int gi = 0; gi < ng && !done; ++gi) {
-    if (entry[gi] > best) break;
-    const int g = order[gi];
-    if (((bits[g] >> j) & 1) == 0) continue;
-    if (sent[g] > best) continue;
-    for (int m = 0; m < group_size && !done; ++m) {
-      const int c = g * group_size + m;
-      const int cnt = tb.count[c];
-      if (cnt <= 0) continue;
-      const float* box = tb.aabbs + 6 * (size_t)c;
-      float tn = t_min, tf = best;
-      float s0 = (box[0] - ox) * ix, s1 = (box[3] - ox) * ix;
-      tn = pmax(tn, pmin(s0, s1));
-      tf = pmin(tf, pmax(s0, s1));
-      s0 = (box[1] - oy) * iy;
-      s1 = (box[4] - oy) * iy;
-      tn = pmax(tn, pmin(s0, s1));
-      tf = pmin(tf, pmax(s0, s1));
-      s0 = (box[2] - oz) * iz;
-      s1 = (box[5] - oz) * iz;
-      tn = pmax(tn, pmin(s0, s1));
-      tf = pmin(tf, pmax(s0, s1));
-      if (!(tn <= tf)) continue;
-
-      float lox = ox, loy = oy, loz = oz, ldx = dx, ldy = dy, ldz = dz;
-      if (INSTANCED) {
-        const float* T = tb.inv_rows + 12 * (size_t)tb.inst[c];
-        lox = T[0] * ox + T[1] * oy + T[2] * oz + T[3];
-        loy = T[4] * ox + T[5] * oy + T[6] * oz + T[7];
-        loz = T[8] * ox + T[9] * oy + T[10] * oz + T[11];
-        ldx = T[0] * dx + T[1] * dy + T[2] * dz;
-        ldy = T[4] * dx + T[5] * dy + T[6] * dz;
-        ldz = T[8] * dx + T[9] * dy + T[10] * dz;
+  // The candidate walk, 32 candidates per step: lane k takes candidate g0 + k
+  // and keeps it if the supertile's bit is set and the ray itself enters the
+  // group box before its best t.  The band's entries are sorted and never
+  // exceed the ray's own, so the walk ends at the first one beyond best t.
+  for (int g0 = 0; g0 < ng && S.live; g0 += 32) {
+    const int gi = g0 + lane;
+    const bool listed = gi < ng;
+    // Loads first, gates after: two dependent round trips per step.
+    const float e = listed ? entry[gi] : INFINITY;
+    const int g = listed ? order[gi] : 0;
+    const int64_t gbits = bits[g];
+    const float sg = sent[g];
+    const float* lo = tb.group_min + 3 * (size_t)g;
+    const float* hi = tb.group_max + 3 * (size_t)g;
+    const float lx = lo[0], ly = lo[1], lz = lo[2], hx = hi[0], hy = hi[1], hz = hi[2];
+    const bool last = __any_sync(kFull, !listed || !(e <= S.best));
+    float tn_g = INFINITY;
+    const bool in_g = listed && e <= S.best && ((gbits >> j) & 1) != 0 && sg <= S.best &&
+                      slab(lx, ly, lz, hx, hy, hz, w, t_min, S.best, tn_g);
+    unsigned todo = __ballot_sync(kFull, in_g);
+    while (todo != 0 && S.live) {
+      const int src = __ffs(todo) - 1;
+      todo &= todo - 1u;
+      const int gg = __shfl_sync(kFull, g, src);
+      if (!(__shfl_sync(kFull, tn_g, src) <= S.best)) continue;
+      // Lanes 0..7: the member clusters' world slabs, with each member's
+      // table row loaded alongside for the lanes to share.
+      const int c = gg * kGroup + (lane & (kGroup - 1));
+      Member mb{0, 0, 0, 0};
+      float tn_m = INFINITY;
+      bool in_m = false;
+      if (lane < kGroup) {
+        mb = Member{tb.count[c], tb.block_id[c], tb.start[c], INSTANCED ? tb.inst[c] : 0};
+        in_m = slab6(tb.aabbs + 6 * (size_t)c, w, t_min, S.best, tn_m) && mb.count > 0;
       }
-      const float* blk = tb.tris + (size_t)tb.block_id[c] * 16 * k_tris;
-      const int32_t base = tb.start[c];
-      for (int k = 0; k < cnt; ++k) {
-        const float p0x = blk[0 * k_tris + k], p0y = blk[1 * k_tris + k], p0z = blk[2 * k_tris + k];
-        const float e1x = blk[3 * k_tris + k], e1y = blk[4 * k_tris + k], e1z = blk[5 * k_tris + k];
-        const float e2x = blk[6 * k_tris + k], e2y = blk[7 * k_tris + k], e2z = blk[8 * k_tris + k];
-        const float pvx = ldy * e2z - ldz * e2y;
-        const float pvy = ldz * e2x - ldx * e2z;
-        const float pvz = ldx * e2y - ldy * e2x;
-        const float det = e1x * pvx + e1y * pvy + e1z * pvz;
-        const bool ok_det = fabsf(det) > 1e-12f;
-        const float inv_det = ok_det ? 1.0f / det : 0.0f;
-        const float tvx = lox - p0x, tvy = loy - p0y, tvz = loz - p0z;
-        const float u = (tvx * pvx + tvy * pvy + tvz * pvz) * inv_det;
-        const float qvx = tvy * e1z - tvz * e1y;
-        const float qvy = tvz * e1x - tvx * e1z;
-        const float qvz = tvx * e1y - tvy * e1x;
-        const float v = (ldx * qvx + ldy * qvy + ldz * qvz) * inv_det;
-        const float t = (e2x * qvx + e2y * qvy + e2z * qvz) * inv_det;
-        const bool valid = ok_det && u >= 0.0f && v >= 0.0f && u + v <= 1.0f &&
-                           t > t_min && t < best;
-        if (!valid) continue;
-        if (OCCLUDE) {
-          if (base + k != extri) {
-            done = true;
-            break;
-          }
-        } else {
-          best = t;
-          best_tri = base + k;
-          best_u = u;
-          best_v = v;
-          if (anyhit) {
-            done = true;
-            break;
-          }
-        }
+      unsigned members = __ballot_sync(kFull, in_m);
+      while (members != 0 && S.live) {
+        const int m = __ffs(members) - 1;
+        members &= members - 1u;
+        if (!(__shfl_sync(kFull, tn_m, m) <= S.best)) continue;
+        const Member cm{__shfl_sync(kFull, mb.count, m), __shfl_sync(kFull, mb.block, m),
+                        __shfl_sync(kFull, mb.start, m), __shfl_sync(kFull, mb.inst, m)};
+        visit_cluster<OCCLUDE, INSTANCED>(tb, cm, w, t_min, S, lane);
       }
     }
+    if (last) break;
   }
+  if (lane != 0) return;
   if (OCCLUDE) {
-    blocked_out[i] = (active && done) ? 1 : 0;
+    blocked_out[i] = S.blocked ? 1 : 0;
   } else {
-    t_out[i] = best;
-    tri_out[i] = best_tri;
-    u_out[i] = best_u;
-    v_out[i] = best_v;
+    t_out[i] = S.best;
+    tri_out[i] = S.best_tri;
+    u_out[i] = S.best_u;
+    v_out[i] = S.best_v;
   }
 }
 
 template <bool OCCLUDE>
 int launch(const Tables& tb, const float* origin, const float* direction,
            const float* tmax, const int32_t* flags, const int32_t* extri, int n,
-           int tiles, int gp, int group_size, int k_tris, float t_min,
-           int instanced, float* t_out, int32_t* tri_out, float* u_out,
-           float* v_out, int32_t* blocked_out, cudaStream_t stream) {
-  const int threads = 128;
-  const int blocks = (n + threads - 1) / threads;
+           int tiles, int gp, int group_size, float t_min, int instanced,
+           float* t_out, int32_t* tri_out, float* u_out, float* v_out,
+           int32_t* blocked_out, cudaStream_t stream) {
+  if (group_size != kGroup) return (int)cudaErrorInvalidValue;
+  if (n <= 0) return 0;
+  const int blocks = (n + kWarps - 1) / kWarps;
   if (instanced) {
-    trace_kernel<OCCLUDE, true><<<blocks, threads, 0, stream>>>(
-        tb, origin, direction, tmax, flags, extri, n, tiles, gp, group_size,
-        k_tris, t_min, t_out, tri_out, u_out, v_out, blocked_out);
+    trace_kernel<OCCLUDE, true><<<blocks, kThreads, 0, stream>>>(
+        tb, origin, direction, tmax, flags, extri, n, tiles, gp, t_min, t_out, tri_out,
+        u_out, v_out, blocked_out);
   } else {
-    trace_kernel<OCCLUDE, false><<<blocks, threads, 0, stream>>>(
-        tb, origin, direction, tmax, flags, extri, n, tiles, gp, group_size,
-        k_tris, t_min, t_out, tri_out, u_out, v_out, blocked_out);
+    trace_kernel<OCCLUDE, false><<<blocks, kThreads, 0, stream>>>(
+        tb, origin, direction, tmax, flags, extri, n, tiles, gp, t_min, t_out, tri_out,
+        u_out, v_out, blocked_out);
   }
   return (int)cudaGetLastError();
 }
@@ -214,14 +366,15 @@ extern "C" int vpt_stream(
     const float* direction, const float* tmax, const int32_t* flags,
     const float* aabbs, const int32_t* count, const int32_t* start,
     const int32_t* block_id, const int32_t* inst, const float* inv_rows,
-    const float* tris, int n, int tiles, int gp, int group_size, int k_tris,
-    float t_min, int instanced, float* t_out, int32_t* tri_out, float* u_out,
-    float* v_out, void* stream) {
-  Tables tb{ngrp, order, entry_sorted, bits, sent, aabbs, count, start,
-            block_id, inst, inv_rows, tris};
+    const float* tris, const float* sub_aabbs, const float* group_min,
+    const float* group_max, int n, int tiles, int gp, int group_size, float t_min,
+    int instanced, float* t_out, int32_t* tri_out, float* u_out, float* v_out,
+    void* stream) {
+  const Tables tb{ngrp, order, entry_sorted, bits, sent, aabbs, count, start, block_id,
+                  inst, inv_rows, tris, sub_aabbs, group_min, group_max};
   return launch<false>(tb, origin, direction, tmax, flags, nullptr, n, tiles, gp,
-                       group_size, k_tris, t_min, instanced, t_out, tri_out,
-                       u_out, v_out, nullptr, (cudaStream_t)stream);
+                       group_size, t_min, instanced, t_out, tri_out, u_out, v_out,
+                       nullptr, (cudaStream_t)stream);
 }
 
 extern "C" int vpt_occlude(
@@ -230,12 +383,12 @@ extern "C" int vpt_occlude(
     const float* direction, const float* tmax, const int32_t* act,
     const int32_t* extri, const float* aabbs, const int32_t* count,
     const int32_t* start, const int32_t* block_id, const int32_t* inst,
-    const float* inv_rows, const float* tris, int n, int tiles, int gp,
-    int group_size, int k_tris, float t_min, int instanced,
-    int32_t* blocked_out, void* stream) {
-  Tables tb{ngrp, order, entry_sorted, bits, sent, aabbs, count, start,
-            block_id, inst, inv_rows, tris};
+    const float* inv_rows, const float* tris, const float* sub_aabbs,
+    const float* group_min, const float* group_max, int n, int tiles, int gp,
+    int group_size, float t_min, int instanced, int32_t* blocked_out, void* stream) {
+  const Tables tb{ngrp, order, entry_sorted, bits, sent, aabbs, count, start, block_id,
+                  inst, inv_rows, tris, sub_aabbs, group_min, group_max};
   return launch<true>(tb, origin, direction, tmax, act, extri, n, tiles, gp,
-                      group_size, k_tris, t_min, instanced, nullptr, nullptr,
-                      nullptr, nullptr, blocked_out, (cudaStream_t)stream);
+                      group_size, t_min, instanced, nullptr, nullptr, nullptr,
+                      nullptr, blocked_out, (cudaStream_t)stream);
 }
