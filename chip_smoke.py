@@ -9,13 +9,21 @@ Phases, each of which raises on failure:
   3. every kernel against its plain torch version on the same inputs, at
      the main paths' shapes: the colonnade scene, 512x512 tiled primary
      rays, one bounce of cosine-diffuse rays and the 2N shadow batch;
-     envelope kernels exactly, the stream trace by the tie rule, occlusion
-     as equal booleans, the packet visit with equal ids, t, u and v on the
-     same packets (512 bounce packets, 1,024 shadow packets); CUDA-event
-     medians of each kernel, the plain visit timed once; the traversal work
-     of the primary, bounce and shadow rays (clusters, sub-block boxes and
-     triangle tests per ray, out to the final hit and out to tmax, with and
-     without the sub-block cull) and from it each kernel's bound;
+     envelope kernels exactly at both shapes (ray_keys on the unsorted
+     wavefront as prepare_bands hands it over and on the sorted rays,
+     supertile_tables on the sorted rays), the stream trace by the tie
+     rule, occlusion as equal booleans, the packet visit with equal ids, t,
+     u and v on the same packets (512 bounce packets, 1,024 shadow
+     packets); CUDA-event medians of each kernel over 20 back-to-back
+     launches per event pair (the envelope kernels at both shapes) and of
+     each plain version over one call, the plain visit timed once; the
+     envelope work per ray (groups and union boxes entered, slab tests of
+     the two-level walk, union boxes entered by any lane of a 32-ray warp,
+     the share of rays that enter the last real union box with and without
+     its padding) and the traversal work of the primary, bounce and shadow rays
+     (clusters, sub-block boxes and triangle tests per ray, out to the
+     final hit and out to tmax, with and without the sub-block cull), and
+     from them each kernel's bound;
   4. the energy-compensation table bake on the card (what the default
      `Renderer(lookup_tables="auto")` runs once and caches), timed; then
      the stream path: Renderer on colonnade at 512x512, max_depth 8,
@@ -41,20 +49,25 @@ The last lines are the card's name and power limit, the kernel table as
 JSON and {"ok": true, ...}.  Without a CUDA device the script exits
 non-zero and prints no result.
 
-    python3 chip_smoke.py --compare-trace OTHER_TRACE_CU [OTHER_TRACE_CU ...]
+    python3 chip_smoke.py --compare OTHER_CU [OTHER_CU ...]
 
-also builds other versions of csrc/trace.cu (this one's C interface or an
-earlier one: without the group boxes, as the lane-per-ray designs PERF.md
-times, or also without the sub-block boxes and with a k_tris argument) and
-times their stream and occlusion kernels against the current ones on the
-phase-3 shapes, in turns (other, current, current, other), printing one
-JSON line "trace_ab".
+also builds other versions of a kernel source of csrc/ (envelope.cu,
+trace.cu or visit.cu, with the current C interface: the source is the one
+whose entry points the build defines), checks that each of its kernels
+gives the current results on the phase-3 calls and times both in turns
+(other, current, current, other; medians of 21), with the registers and
+spills of both builds (ptxas -v) and the SASS of each kernel's innermost
+loop with slab products (cuobjdump: instructions, slabs and min / max per
+slab); after phase 4 it drives the stream path with each other build in
+the same turns, twice.  One JSON line "ab".
 
 A kernel's bound is the larger of its float operations over 67 TFLOP/s
 (FP32 outside the tensor cores) and its bytes over 3.35 TB/s (H100 SXM
 HBM3), each input read once and each output written once.  The operations
-are those this run's rays need: every (ray, group) slab of the envelope
-kernels; for the traces, the cluster and sub-block slabs, instance
+are those this run's rays need: for the envelope kernels, the two-level
+walk (every ray against every union box, the 8 member slabs of each union
+box it enters; the dense count, Gp slabs per ray, is printed beside); for
+the traces, the cluster and sub-block slabs, instance
 transforms and triangle tests out to each ray's final hit (the nearest
 blocker for shadow rays), the same closest-hit work for the packet visit.
 """
@@ -62,15 +75,20 @@ blocker for shadow rays), the same closest-hit work for the packet visit.
 from __future__ import annotations
 
 import argparse
+import collections
+import contextlib
 import ctypes
 import json
 import os
+import re
+import shutil
 import statistics
 import subprocess
 import sys
 import tempfile
 import time
 from contextlib import ExitStack
+from typing import NamedTuple
 from unittest import mock
 
 import numpy as np
@@ -121,6 +139,7 @@ PEAK_BYTES = 3.35e12  # H100 SXM, HBM3
 SLAB_OPS = 24  # 6 subtractions, 6 products, 12 min / max
 TRANSFORM_OPS = 36  # world -> local origin (18) and direction (15), 3 reciprocals
 MT_OPS = 53  # Moller-Trumbore as in csrc/trace.cu: 47 arithmetic, 6 compares
+LAUNCHES_PER_PAIR = 20  # back-to-back kernel launches per event pair
 
 
 def log(msg: str) -> None:
@@ -132,18 +151,21 @@ def check(cond: bool, what: str) -> None:
         raise RuntimeError(f"check failed: {what}")
 
 
-def cuda_ms(fn, reps: int = 5) -> float:
-    """Median milliseconds of `reps` calls (after one warm-up), by CUDA events."""
+def cuda_ms(fn, reps: int = 5, launches: int = 1) -> float:
+    """Median milliseconds of one call over `reps` event pairs (after one
+    warm-up), each pair around `launches` calls back to back, so that the
+    host's launch time hides behind the device's work."""
     fn()
     times = []
     for _ in range(reps):
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
         a.record()
-        fn()
+        for _ in range(launches):
+            fn()
         b.record()
         torch.cuda.synchronize()
-        times.append(a.elapsed_time(b))
+        times.append(a.elapsed_time(b) / launches)
     return statistics.median(times)
 
 
@@ -239,23 +261,236 @@ def main_path_inputs(data, meta, aux, dev):
     return t_min, (org, d, torch.ones_like(found)), (bounce_org, bounce_dir, found), shadow
 
 
-def compare_envelope(cl, bands, t_min, levels, table):
+class EnvelopeCase(NamedTuple):
+    """The envelope kernels' inputs at one main-path shape."""
+
+    levels: int
+    keys: tuple  # ray_keys' arguments on the unsorted wavefront, as prepare_bands passes them
+    tables: tuple  # supertile_tables' arguments: the key-sorted rays
+    active: torch.Tensor  # (N,) bool, unsorted
+    perm: torch.Tensor  # (N,) sorted slot -> unsorted slot
+    n_groups: int  # real groups, before the padding
+
+
+def bits_equal(a: torch.Tensor, b: torch.Tensor) -> bool:
+    return torch.equal(a.view(torch.int32), b.view(torch.int32))
+
+
+def envelope_case(cl, wave: stream.Wavefront, bands, t_min, levels) -> EnvelopeCase:
+    check(bits_equal(wave.origin[bands.perm], bands.origin) and bits_equal(wave.tmax[bands.perm], bands.tmax),
+          "the unsorted wavefront is the one prepare_bands sorted")
     gmin, gmax = stream.pad_groups(cl)
-    inv = stream.guarded_inverse(bands.direction)
-    key_args = (bands.origin, inv, bands.tmax, gmin, gmax, t_min, levels)
-    k_kernel = envelope.ray_keys(*key_args)
-    k_plain = envelope.ray_keys_plain(*key_args)
+    tables = (bands.origin, stream.guarded_inverse(bands.direction), bands.tmax, gmin, gmax, t_min)
+    return EnvelopeCase(levels, (wave.origin, wave.inv, wave.tmax, gmin, gmax, t_min, levels), tables, wave.active,
+                        bands.perm, cl.group_min.shape[0])
+
+
+def compare_envelope(case: EnvelopeCase, label: str, table) -> None:
+    """Both envelope kernels against their plain versions, exactly: ray_keys
+    on the unsorted and the sorted rays, supertile_tables on the sorted."""
+    errs = []
+    for order, args in (("unsorted", case.keys), ("sorted", (*case.tables, case.levels))):
+        k_kernel, k_plain = envelope.ray_keys(*args), envelope.ray_keys_plain(*args)
+        torch.cuda.synchronize()
+        check(torch.equal(k_kernel, k_plain), f"ray_keys ({label}, levels {case.levels}, {order}) equals its plain version")
+        errs.append(("ray_keys", max_abs_err(k_kernel, k_plain)))
+    s_kernel, s_plain = envelope.supertile_tables(*case.tables), envelope.supertile_tables_plain(*case.tables)
     torch.cuda.synchronize()
-    check(torch.equal(k_kernel, k_plain), f"ray_keys levels={levels} equals its plain version")
-    tab_args = (bands.origin, inv, bands.tmax, gmin, gmax, t_min)
-    s_kernel = envelope.supertile_tables(*tab_args)
-    s_plain = envelope.supertile_tables_plain(*tab_args)
-    torch.cuda.synchronize()
-    check(torch.equal(s_kernel, s_plain), f"supertile_tables ({s_kernel.shape[0]} supertiles) equals its plain version")
-    for name, err in (("ray_keys", max_abs_err(k_kernel, k_plain)),
-                      ("supertile_tables", max_abs_err(s_kernel, s_plain))):
+    check(bits_equal(s_kernel, s_plain),
+          f"supertile_tables ({label}, {s_kernel.shape[0]} supertiles) equals its plain version")
+    errs.append(("supertile_tables", max_abs_err(s_kernel, s_plain)))
+    for name, err in errs:
         table[name]["max_abs_err"] = max(table[name].get("max_abs_err", 0.0), err)
-    return key_args, tab_args
+    log(f"envelope {label}: ray_keys (levels {case.levels}, unsorted and sorted) and supertile_tables "
+        f"({s_kernel.shape[0]} supertiles) equal their plain versions")
+
+
+def envelope_bounds(case: EnvelopeCase, label: str):
+    """Log the envelope work per active ray; return the bounds of ray_keys
+    and supertile_tables at this shape, from the two-level walk's work."""
+    w_in = envelope.envelope_work(*case.keys[:6])  # input order: ray_keys' warps
+    w_sorted = envelope.envelope_work(*case.tables)  # sorted order: supertile_tables' warps
+    n, gp = case.keys[0].shape[0], case.keys[3].shape[1]
+    n_chunks = gp // envelope.CHUNK
+    act, act_sorted = case.active, case.active[case.perm]
+    n_act = max(int(act.sum()), 1)
+
+    def mean(x, a):
+        return float(x[a].double().sum()) / n_act
+
+    log(f"envelope work {label} ({n} rays, {n_act} active, Gp {gp}, {n_chunks} union boxes of {envelope.CHUNK}), "
+        f"per active ray: groups entered {mean(w_in.groups, act):.2f}, union boxes entered "
+        f"{mean(w_in.chunks, act):.2f}, slab tests of the two-level walk {mean(w_in.slabs, act):.1f} (dense {gp}), "
+        f"union boxes entered by any lane of the ray's warp {mean(w_in.warp_chunks, act):.1f} in input order, "
+        f"{mean(w_sorted.warp_chunks, act_sorted):.1f} sorted; all {n} rays: {int(w_in.slabs.sum())} slab tests "
+        f"(dense {n * gp})")
+    g, k = case.n_groups, envelope.CHUNK
+    if g % k:  # the last real union box holds padding (3e9 points)
+        origin, inv, tmax, gmin, gmax, t_min = case.keys[:6]
+        c = g - g % k
+
+        def share(end):  # of the active rays that enter the union box of groups c .. end - 1
+            lo, hi = gmin[:, c:end].amin(dim=1, keepdim=True), gmax[:, c:end].amax(dim=1, keepdim=True)
+            enter = torch.isfinite(envelope.slab_entry(origin, inv, tmax, lo, hi, t_min)[:, 0])
+            return float((enter & act).sum()) / n_act
+
+        padded, real = share(c + k), share(g)
+        log(f"envelope {label}: the last real union box (groups {c}-{c + k - 1}, {g - c} of them real) is entered "
+            f"by {100 * padded:.2f}% of the active rays, the union of its real members by {100 * real:.2f}%: the "
+            f"padding adds {k * (padded - real):.2f} slab tests per active ray")
+    unions, members = float(n * n_chunks), float(w_in.chunks.sum()) * envelope.CHUNK
+    keys = bound(SLAB_OPS * unions + (SLAB_OPS + 2) * members, nbytes(*case.keys[:5]) + 4 * n)
+    tables = bound(SLAB_OPS * unions + (SLAB_OPS + 1) * members,
+                   nbytes(*case.tables[:5]) + 4 * (n // stream.SUPERTILE) * gp)
+    return keys, tables
+
+
+def kernel_calls(cases, cl, t_min, b_bounce, b_shadow, visit_bounce) -> dict:
+    """Each kernel's phase-3 calls, {kernel: {shape: arguments}}; the first
+    shape is the one the kernel table's `ms` takes."""
+    calls = {name: {label: case.keys if name == "ray_keys" else case.tables for label, case in cases.items()}
+             for name in ("ray_keys", "supertile_tables")}
+    calls["stream"] = {"bounce": (b_bounce, cl, t_min)}
+    calls["occlude"] = {"shadow": (b_shadow, cl, t_min)}
+    calls["visit"] = {"bounce": visit_bounce}
+    return calls
+
+
+def wrapper(name: str):
+    """The kernel's wrapper, as the render path calls it."""
+    module, attr, _ = PLAIN[name]
+    return getattr(module, attr)
+
+
+def same_bits(a, b) -> bool:
+    """Equal outputs (a tensor or a tuple of them), floats bit for bit."""
+    a, b = ((a,), (b,)) if torch.is_tensor(a) else (a, b)
+    return all(bits_equal(x, y) if x.dtype == torch.float32 else torch.equal(x, y) for x, y in zip(a, b))
+
+
+SASS_LINE = re.compile(r"/\*([0-9a-f]{4,})\*/\s+(.*?)\s*;")
+
+
+def sass_loops(lib_path: str) -> dict:
+    """Per kernel function in the library's SASS (cuobjdump -sass): its
+    innermost loop that holds slab products (a backward branch around FMULs;
+    each slab has 6), with the loop's instruction count, slabs (FMUL / 6),
+    instructions and FMNMX per slab, and its opcode counts."""
+    cuobjdump = os.path.join(os.path.dirname(kernels.nvcc()), "cuobjdump")
+    text = subprocess.run([cuobjdump, "-sass", lib_path], capture_output=True, text=True, check=True,
+                          timeout=120).stdout
+    report = {}
+    for chunk in re.split(r"\n\s*Function : ", text)[1:]:
+        name = chunk.split("\n", 1)[0].strip()
+        ins = [(int(a, 16), op) for a, op in SASS_LINE.findall(chunk)]
+        loops = []
+        for at, op in ins:
+            m = re.search(r"\bBRA\b.*?(0x[0-9a-f]+)", op)
+            if m and int(m.group(1), 16) < at:
+                body = [o for a, o in ins if int(m.group(1), 16) <= a <= at]
+                fmul = sum(1 for o in body if re.search(r"\bFMUL\b", o))
+                if fmul:
+                    loops.append((len(body), fmul, body))
+        if not loops:
+            report[name] = "no loop with slab products found"
+            continue
+        size, fmul, body = min(loops)
+        ops = collections.Counter(re.sub(r"^@!?U?P\w+\s+", "", o).split()[0] for o in body)
+        fmnmx = sum(v for k, v in ops.items() if k.startswith("FMNMX"))
+        report[name] = {"loop_instructions": size, "slabs": fmul / 6, "per_slab": size * 6 / fmul,
+                        "fmnmx_per_slab": fmnmx * 6 / fmul, "opcodes": dict(ops.most_common(12))}
+    return report
+
+
+class Build(NamedTuple):
+    """Another build of one kernel source."""
+
+    path: str
+    source: str  # the kernels.SOURCES entry whose entry points it defines
+    entry: dict  # entry point -> ctypes function
+    ptxas: list  # ptxas -v register and spill lines
+    sass: dict  # sass_loops()
+
+
+def build_source(path: str, out_dir: str) -> Build:
+    """nvcc one kernel source into out_dir with the kernels' flags and
+    -Xptxas -v, and load it."""
+    os.makedirs(out_dir, exist_ok=True)
+    lib_path = os.path.join(out_dir, f"lib{os.path.splitext(os.path.basename(path))[0]}.so")
+    proc = subprocess.run([kernels.nvcc(), *kernels.NVCC_FLAGS, "-Xptxas", "-v", "-o", lib_path, path],
+                          capture_output=True, text=True, timeout=600)
+    check(proc.returncode == 0, f"nvcc builds {path}:\n{proc.stderr}")
+    ptxas = [line.strip() for line in (proc.stdout + proc.stderr).splitlines()
+             if re.search(r"Compiling entry|registers|spill", line)]
+    lib = ctypes.CDLL(lib_path)
+    source = next((s for s, sig in kernels.SOURCES.items() if all(hasattr(lib, fn) for fn in sig)), None)
+    check(source is not None, f"{path} defines the entry points of one of {sorted(kernels.SOURCES)}")
+    entry = {fn: getattr(lib, fn) for fn in kernels.SOURCES[source]}
+    for fn, argtypes in kernels.SOURCES[source].items():
+        entry[fn].argtypes, entry[fn].restype = argtypes, ctypes.c_int
+    return Build(path, source, entry, ptxas, sass_loops(lib_path))
+
+
+@contextlib.contextmanager
+def routed(build):
+    """Route the kernel wrappers to another build's entry points (None: the
+    current ones)."""
+    with mock.patch.dict(kernels.library(), build.entry if build is not None else {}):
+        yield
+
+
+def compare_builds(paths, calls):
+    """Build other versions of kernel sources; check that each of their
+    kernels gives the current results on its phase-3 calls and time both
+    in turns (other, current, current, other; medians of 21).  Returns the
+    "ab" rows by path, and the builds for the stream-path turns."""
+    out_dir = tempfile.mkdtemp(prefix="ab_")
+    try:
+        others = [build_source(p, os.path.join(out_dir, str(i))) for i, p in enumerate(paths)]
+        current = {s: build_source(os.path.join(kernels.CSRC_DIR, s), os.path.join(out_dir, s))
+                   for s in {b.source for b in others}}
+    finally:
+        shutil.rmtree(out_dir, ignore_errors=True)
+    ab = {}
+    for b in others:
+        cur = current[b.source]
+        row = {"source": b.source, "ptxas": b.ptxas, "sass": b.sass, "current_ptxas": cur.ptxas,
+               "current_sass": cur.sass}
+        for entry in b.entry:
+            name = entry.removeprefix("vpt_")
+            fn = wrapper(name)
+            for label, args in calls[name].items():
+                want = fn(*args)
+                with routed(b):
+                    got = fn(*args)
+                torch.cuda.synchronize()
+                check(same_bits(got, want), f"{b.path} gives the current {name} results ({label})")
+
+                def timed(which):
+                    with routed(which):
+                        return cuda_ms(lambda: fn(*args), reps=21, launches=LAUNCHES_PER_PAIR)
+
+                o1, c1, c2, o2 = timed(b), timed(None), timed(None), timed(b)
+                row[f"{name}_{label}"] = {"other_ms": [o1, o2], "current_ms": [c1, c2]}
+                log(f"{name} {label}: {b.path} {o1:.4f} / {o2:.4f} ms, current {c1:.4f} / {c2:.4f} ms (other, "
+                    f"current, current, other; medians of 21 x {LAUNCHES_PER_PAIR} launches)")
+        ab[b.path] = row
+        log(f"{b.path}: ptxas {b.ptxas}; loops {b.sass}")
+        log(f"current {b.source}: ptxas {cur.ptxas}; loops {cur.sass}")
+    return ab, others
+
+
+def drive_ab(r: Renderer, others, ab) -> None:
+    """The stream path with each other build and the current one, in turns
+    (other, current, current, other, twice); prints the "ab" line."""
+    for b in others:
+        runs = {"other": [], "current": []}
+        for which in (b, None, None, b) * 2:
+            with routed(which):
+                key = "current" if which is None else "other"
+                runs[key].append(drive(r, f"stream ({b.path if which is not None else 'current'} {b.source})")[1])
+        ab[b.path]["stream_s_per_dispatch"] = runs
+    print(json.dumps({"ab": ab}), flush=True)
 
 
 def compare_stream(bands, cl, t_min, label):
@@ -293,79 +528,10 @@ def compare_visit(pk: cluster.Packets, cl, t_min, label):
     return max_abs_err(tk, tp), a.elapsed_time(b)
 
 
-def compare_traces(paths, cl, t_min, b_bounce, b_shadow) -> None:
-    """Build other versions of csrc/trace.cu and time each one's stream
-    kernel on the bounce rays and occlusion kernel on the shadow rays against
-    the current ones, in turns: other, current, current, other.  A source
-    without sub-block boxes has the earlier C interface (a k_tris argument).
-    Prints one JSON line "trace_ab"."""
-    dev = b_bounce.origin.device
-    n_b, n_s = b_bounce.origin.shape[0], b_shadow.origin.shape[0]
-
-    def current_stream():
-        return stream.stream_trace(b_bounce, cl, t_min)
-
-    def current_occlude():
-        return occlude.occlude_trace(b_shadow, cl, t_min)
-
-    tc, trc = current_stream()[:2]
-    blocked_c = current_occlude()
-    ab = {}
-    for path in paths:
-        with open(path) as f:
-            text = f.read()
-        # Earlier interfaces end their table pointers before the group boxes,
-        # or before the sub-block boxes as well (and add k_tris).
-        with_sub = "sub_aabbs" in text
-        cut = 0 if "group_min" in text else (2 if with_sub else 3)
-        lib_path = os.path.join(os.path.dirname(os.path.abspath(path)),
-                                f"lib{os.path.splitext(os.path.basename(path))[0]}.so")
-        proc = subprocess.run([kernels.nvcc(), *kernels.NVCC_FLAGS, "-o", lib_path, path],
-                              capture_output=True, text=True, timeout=600)
-        check(proc.returncode == 0, f"nvcc builds {path}:\n{proc.stderr}")
-        lib = ctypes.CDLL(lib_path)
-        p_, i_, f_ = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        n_ptr, n_int = len(stream.table_pointers(b_bounce, cl, b_bounce.payload[:1])) - cut, 4 if with_sub else 5
-        lib.vpt_stream.argtypes = [p_] * n_ptr + [i_] * n_int + [f_, i_] + [p_] * 5
-        lib.vpt_occlude.argtypes = [p_] * (n_ptr + 1) + [i_] * n_int + [f_, i_] + [p_] * 2
-        lib.vpt_stream.restype = lib.vpt_occlude.restype = ctypes.c_int
-
-        def launch(fn, bands, payload, outs):
-            ptrs = stream.table_pointers(bands, cl, payload)
-            ints = (bands.origin.shape[0], bands.tiles, bands.order.shape[1], cluster.GROUP_SIZE)
-            err = fn(*ptrs[: len(ptrs) - cut], *(ints if with_sub else (*ints, cl.tris.shape[2])),
-                     float(t_min), int(cl.inv_rows.shape[0] > 1), *(x.data_ptr() for x in outs),
-                     torch.cuda.current_stream().cuda_stream)
-            check(err == 0, f"{path} launches (CUDA error {err})")
-            return outs
-
-        def other_stream():
-            outs = (torch.empty(n_b, device=dev), torch.empty(n_b, dtype=torch.int32, device=dev),
-                    torch.empty(n_b, device=dev), torch.empty(n_b, device=dev))
-            return launch(lib.vpt_stream, b_bounce, b_bounce.payload[:1], outs)
-
-        def other_occlude():
-            return launch(lib.vpt_occlude, b_shadow, b_shadow.payload[:2],
-                          (torch.empty(n_s, dtype=torch.int32, device=dev),))[0]
-
-        to, tro = other_stream()[:2]
-        blocked_o = other_occlude()
-        torch.cuda.synchronize()
-        row = {"stream_t_max_abs_diff": max_abs_err(to, tc), "stream_ids_differ": int((tro != trc).sum()),
-               "occlude_differ": int((blocked_o != blocked_c).sum())}
-        for name, (o_fn, c_fn) in (("stream", (other_stream, current_stream)),
-                                   ("occlude", (other_occlude, current_occlude))):
-            o1, c1, c2, o2 = (cuda_ms(fn, reps=21) for fn in (o_fn, c_fn, c_fn, o_fn))
-            row[name] = {"other_ms": [o1, o2], "current_ms": [c1, c2]}
-            log(f"{name}: {os.path.basename(path)} {o1:.3f} / {o2:.3f} ms, current {c1:.3f} / {c2:.3f} ms "
-                f"(other, current, current, other; medians of 21)")
-        ab[os.path.basename(path)] = row
-    print(json.dumps({"trace_ab": ab}), flush=True)
-
-
 def drive(r: Renderer, label: str):
     """One warm-up and TIMED_DISPATCHES timed dispatches of the Renderer,
-    launch counts set to 0 just before and read just after."""
+    launch counts set to 0 just before and read just after: (launches,
+    median s/dispatch)."""
     r.reset_path_tracing()
     kernels.reset_launches()
     r.path_trace()
@@ -386,7 +552,7 @@ def drive(r: Renderer, label: str):
         f"launches over {TIMED_DISPATCHES + 1} dispatches {launches}, image mean {float(img.mean()):.4f}")
     check(img.shape == (H, W, 3) and bool(np.isfinite(img).all()) and float(img.mean()) > 0.0,
           f"{label} render is finite with mean > 0")
-    return launches
+    return launches, s_per
 
 
 def check_stream_launches(launches, label: str) -> None:
@@ -413,8 +579,8 @@ def kernel_vs_plain_render(data, meta, flags, params, dev, label: str) -> None:
 
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    parser.add_argument("--compare-trace", metavar="OTHER_TRACE_CU", nargs="+", default=[],
-                        help="also time other versions of csrc/trace.cu against the current trace kernels")
+    parser.add_argument("--compare", metavar="OTHER_CU", nargs="+", default=[],
+                        help="also time other versions of a csrc/ kernel source against the current kernels")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script needs a CUDA GPU", file=sys.stderr)
@@ -427,11 +593,11 @@ def main() -> int:
     # 2. Build.
     kernels.library()
     log(f"kernel build: {kernels.build_seconds:.1f} s (nvcc {' '.join(kernels.NVCC_FLAGS)})")
-    run(dev, smi, args.compare_trace)
+    run(dev, smi, args.compare)
     return 0
 
 
-def run(dev, smi: str, other_traces=()) -> None:
+def run(dev, smi: str, other_builds=()) -> None:
     """Phases 3-6 on `dev`, then the result lines."""
     # 3. Kernels against plain versions at the main path's shapes.
     t0 = time.perf_counter()
@@ -447,8 +613,13 @@ def run(dev, smi: str, other_traces=()) -> None:
     b_bounce = stream.trace_bands(*bounce[:2], cl, t_min, T_MAX, bounce[2], torch.zeros_like(bounce[2]))
     b_shadow = occlude.shadow_bands(shadow["origin"], shadow["direction"], cl, t_min, shadow["tmax"],
                                     shadow["active"], shadow["extri"])
-    key_args, tab_args = compare_envelope(cl, b_bounce, t_min, 2, table)
-    compare_envelope(cl, b_shadow, t_min, 1, table)
+    cases = {
+        "bounce": envelope_case(cl, stream.pad_wavefront(*bounce[:2], cl, t_min, T_MAX, bounce[2]), b_bounce, t_min, 2),
+        "shadow": envelope_case(cl, stream.pad_wavefront(shadow["origin"], shadow["direction"], cl, t_min,
+                                                         shadow["tmax"], shadow["active"]), b_shadow, t_min, 1),
+    }
+    for label, case in cases.items():
+        compare_envelope(case, label, table)
     err_p, t_primary = compare_stream(b_primary, cl, t_min, "primary")
     err_b, t_bounce = compare_stream(b_bounce, cl, t_min, "bounce")
     table["stream"]["max_abs_err"] = max(err_p, err_b)
@@ -476,10 +647,13 @@ def run(dev, smi: str, other_traces=()) -> None:
     table["visit"]["max_abs_err"] = max(err_b, err_s)
     visit_args = {label: (pk.nvis, pk.order, pk.entry_sorted, pk.origin, pk.direction, pk.active, pk.tmax, cl, t_min)
                   for label, pk in (("bounce", pk_bounce), ("shadow", pk_shadow))}
-    n_b, n_s, groups, gp = b_bounce.origin.shape[0], b_shadow.origin.shape[0], cl.group_min.shape[0], key_args[3].shape[1]
-    table["ray_keys"].update(bound(n_b * groups * (SLAB_OPS + 2), nbytes(*key_args[:5]) + 4 * n_b))
-    table["supertile_tables"].update(bound(n_b * groups * (SLAB_OPS + 1),
-                                           nbytes(*tab_args[:5]) + 4 * (n_b // stream.SUPERTILE) * gp))
+    n_b, n_s = b_bounce.origin.shape[0], b_shadow.origin.shape[0]
+    for label, case in cases.items():
+        for name, b in zip(("ray_keys", "supertile_tables"), envelope_bounds(case, label)):
+            if label == "bounce":
+                table[name].update(b)
+            else:
+                table[name]["shadow_bound_ms"] = b["bound_ms"]
     table["stream"].update(bound(trace_flops(w_bounce, instanced),
                                  nbytes(*band_inputs(b_bounce), *cluster_tables(cl)) + 16 * n_b))
     table["occlude"].update(bound(trace_flops(w_shadow, instanced),
@@ -488,32 +662,24 @@ def run(dev, smi: str, other_traces=()) -> None:
                                 nbytes(pk_bounce.nvis, pk_bounce.order, pk_bounce.entry_sorted, pk_bounce.origin,
                                        pk_bounce.direction, pk_bounce.tmax, *cluster_tables(cl))
                                 + 4 * pk_bounce.active.numel() + 16 * n_b))
-    shadow_ms = cuda_ms(lambda: visit.visit_trace(*visit_args["shadow"]))
+    table["visit"]["plain_ms"] = plain_b
+    shadow_ms = cuda_ms(lambda: visit.visit_trace(*visit_args["shadow"]), launches=LAUNCHES_PER_PAIR)
     log(f"visit shadow: kernel {shadow_ms:.3f} ms, plain {plain_s:.1f} ms (1,024 packets; plain timed once)")
 
-    timed = {
-        "ray_keys": (lambda: envelope.ray_keys(*key_args), lambda: envelope.ray_keys_plain(*key_args)),
-        "supertile_tables": (lambda: envelope.supertile_tables(*tab_args),
-                             lambda: envelope.supertile_tables_plain(*tab_args)),
-        "stream": (lambda: stream.stream_trace(b_bounce, cl, t_min),
-                   lambda: stream.stream_trace_plain(b_bounce, cl, t_min)),
-        "occlude": (lambda: occlude.occlude_trace(b_shadow, cl, t_min),
-                    lambda: occlude.occlude_trace_plain(b_shadow, cl, t_min)),
-    }
-    for name, (kern, plain) in timed.items():
-        table[name]["ms"] = cuda_ms(kern)
-        table[name]["plain_ms"] = cuda_ms(plain)
-        log(f"{name}: kernel {table[name]['ms']:.3f} ms, plain {table[name]['plain_ms']:.3f} ms "
-            f"(bounce/shadow shapes, median of 5)")
-    table["visit"]["ms"] = cuda_ms(lambda: visit.visit_trace(*visit_args["bounce"]))
-    table["visit"]["plain_ms"] = plain_b
-    log(f"visit: kernel {table['visit']['ms']:.3f} ms, plain {plain_b:.1f} ms (512 bounce packets, kernel median "
-        f"of 5, plain timed once)")
-    for name, row in table.items():
-        log(f"{name}: bound {row['bound_ms'] * 1e3:.2f} us by {row['bound_by']}, the kernel at "
-            f"{100 * row['bound_ms'] / row['ms']:.2f}% of it; library call: none")
-    if other_traces:
-        compare_traces(other_traces, cl, t_min, b_bounce, b_shadow)
+    calls = kernel_calls(cases, cl, t_min, b_bounce, b_shadow, visit_args["bounce"])
+    for name, shapes in calls.items():
+        row = table[name]
+        for i, (label, args) in enumerate(shapes.items()):
+            pre = f"{label}_" if i else ""
+            row[f"{pre}ms"] = cuda_ms(lambda: wrapper(name)(*args), launches=LAUNCHES_PER_PAIR)
+            if name != "visit":  # the plain visit was timed once above
+                row[f"{pre}plain_ms"] = cuda_ms(lambda: PLAIN[name][2](*args))
+            log(f"{name} {label}: kernel {row[f'{pre}ms']:.4f} ms (median of 5 x {LAUNCHES_PER_PAIR} launches), "
+                f"plain {row[f'{pre}plain_ms']:.3f} ms; bound {row[f'{pre}bound_ms'] * 1e3:.2f} us by "
+                f"{row['bound_by']}, the kernel at {100 * row[f'{pre}bound_ms'] / row[f'{pre}ms']:.2f}% of it; "
+                f"library call: none")
+    if other_builds:
+        ab, others = compare_builds(other_builds, calls)
 
     # 4. The table bake the default Renderer runs (and caches), then the
     # stream path.
@@ -533,14 +699,16 @@ def run(dev, smi: str, other_traces=()) -> None:
     log(f"Renderer(colonnade, lookup_tables='auto'): {time.perf_counter() - t0:.1f} s")
     check(not np.array_equal(r.scene_data.lookup_reflect.cpu().numpy(), constant_fit(1.0)),
           "the default Renderer carries the baked fits, not the constant fit")
-    launches = drive(r, "stream")
+    launches = drive(r, "stream")[0]
     check_stream_launches(launches, "stream")
     for name in STREAM_KERNELS:
         table[name]["launches"] = launches[name]
+    if other_builds:
+        drive_ab(r, others, ab)
 
     # 5. The packet path, then its image saved as a PNG and read back.
     with mock.patch.object(integrator, "TRACE_MODE", "packet"):
-        launches = drive(r, "packet")
+        launches = drive(r, "packet")[0]
         check(launches["visit"] > 0, "the packet path launched visit")
         check(launches["stream"] == 0 and launches["occlude"] == 0,
               "the packet path launched neither stream nor occlude")
@@ -566,7 +734,7 @@ def run(dev, smi: str, other_traces=()) -> None:
     r.add_volume(Volume(corner_min=(-17, 0, -7), corner_max=(17, 1.5, 7), density=0.05, color=(0.9, 0.9, 0.9)))
     log(f"media Renderer with two volumes: {time.perf_counter() - t0:.1f} s; n_volumes {r.meta.n_volumes}, "
         f"n_het_volumes {r.meta.n_het_volumes}, grids {tuple(r.scene_data.volumes.density_grids.shape)}")
-    check_stream_launches(drive(r, "media"), "media")
+    check_stream_launches(drive(r, "media")[0], "media")
     kernel_vs_plain_render(r.scene_data, r.meta, r.flags, square, dev, "media")
 
     # 8. The atmosphere path: the day setup of scripts/gallery.py.
@@ -574,7 +742,7 @@ def run(dev, smi: str, other_traces=()) -> None:
     r.set_enable_atmosphere(True)
     r.set_planet_position((0.0, -6360e3, 0.0))
     r.set_sky_altitude(30.0)
-    check_stream_launches(drive(r, "atmosphere"), "atmosphere")
+    check_stream_launches(drive(r, "atmosphere")[0], "atmosphere")
     kernel_vs_plain_render(r.scene_data, r.meta, r.flags, square._replace(sky_rotation_altitude=30.0,
                                                                           planet_position=r.params.planet_position),
                            dev, "atmosphere")

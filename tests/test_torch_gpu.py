@@ -11,6 +11,7 @@ import numpy as np
 import pytest
 import torch
 
+from envelope_rays import SCENES, wavefronts
 from vpt_tpu_torch.accel import envelope, kernels, occlude, stream, visit
 from vpt_tpu_torch.accel.bvh import LEAF_SIZE, build_bvh
 from vpt_tpu_torch.accel.cluster import assemble_clusters, build_mesh_clusters, prepare_packets
@@ -59,14 +60,59 @@ def _rays(rng, dev, n=5000):
 
 @pytest.mark.parametrize("levels", [1, 2])
 def test_envelope_kernels_match_plain(cuda, levels):
+    """Five supertiles: ray_keys on the unsorted wavefront as prepare_bands
+    hands it over and on the sorted rays, supertile_tables on the sorted."""
     cl, rng = _clusters(cuda, instanced=False)
     org, d = _rays(rng, cuda)
     active = torch.tensor(rng.uniform(size=org.shape[0]) < 0.9, device=cuda)
+    w = stream.pad_wavefront(org, d, cl, T_MIN, 1e8, active)
     b = stream.prepare_bands(org, d, cl, T_MIN, 1e8, active, levels=levels)
+    assert b.sent.shape[0] * b.sent.shape[1] == 5
     gmin, gmax = stream.pad_groups(cl)
+    unsorted = (w.origin, w.inv, w.tmax, gmin, gmax, T_MIN)
+    assert torch.equal(envelope.ray_keys(*unsorted, levels), envelope.ray_keys_plain(*unsorted, levels))
     args = (b.origin, stream.guarded_inverse(b.direction), b.tmax, gmin, gmax, T_MIN)
     assert torch.equal(envelope.ray_keys(*args, levels), envelope.ray_keys_plain(*args, levels))
     assert torch.equal(envelope.supertile_tables(*args), envelope.supertile_tables_plain(*args))
+
+
+@pytest.mark.parametrize("kind", ["primary", "bounce", "shadow"])
+@pytest.mark.parametrize("name", list(SCENES))
+def test_envelope_kernels_on_adversarial_rays(cuda, name, kind):
+    """tests/envelope_rays.py's rays (NaN origins, box faces, axis-parallel
+    directions, starts inside boxes, entry ties; one supertile, two for the
+    shadow batch): both kernels equal their plain versions, levels 1 and 2,
+    ray_keys on unsorted and sorted input."""
+    cl, t_min, waves = wavefronts(name)
+    cl = tree_to_device(cl, cuda)
+    origin, direction, t_max, active = (x.to(cuda) if torch.is_tensor(x) else x for x in waves[kind])
+    gmin, gmax = stream.pad_groups(cl)
+    w = stream.pad_wavefront(origin, direction, cl, t_min, t_max, active)
+    before = dict(kernels.LAUNCHES)
+    for levels in (1, 2):
+        unsorted = (w.origin, w.inv, w.tmax, gmin, gmax, t_min, levels)
+        assert torch.equal(envelope.ray_keys(*unsorted), envelope.ray_keys_plain(*unsorted)), levels
+        b = stream.prepare_bands(origin, direction, cl, t_min, t_max, active, levels=levels)
+        args = (b.origin, stream.guarded_inverse(b.direction), b.tmax, gmin, gmax, t_min)
+        assert torch.equal(envelope.ray_keys(*args, levels), envelope.ray_keys_plain(*args, levels)), levels
+        tables = envelope.supertile_tables(*args)
+        assert torch.equal(tables.view(torch.int32), envelope.supertile_tables_plain(*args).view(torch.int32))
+    assert kernels.LAUNCHES["ray_keys"] == before["ray_keys"] + 6
+    assert kernels.LAUNCHES["supertile_tables"] == before["supertile_tables"] + 4
+
+
+def test_supertile_tables_raises_on_nonpositive_t_min(cuda):
+    """The kernel orders entries by their float bits, which needs t_min > 0:
+    the wrapper refuses t_min <= 0 and launches nothing."""
+    cl, rng = _clusters(cuda, instanced=False)
+    org, d = _rays(rng, cuda, n=1024)
+    gmin, gmax = stream.pad_groups(cl)
+    tmax = torch.full((1024,), 1e8, device=cuda)
+    before = dict(kernels.LAUNCHES)
+    for t_min in (0.0, -1e-4):
+        with pytest.raises(ValueError, match="t_min > 0"):
+            envelope.supertile_tables(org, stream.guarded_inverse(d), tmax, gmin, gmax, t_min)
+    assert kernels.LAUNCHES == before
 
 
 @pytest.mark.parametrize("instanced", [False, True])

@@ -32,9 +32,11 @@ SAMPLES = 8
 def baked():
     """{name: (port table, JAX table)} at SAMPLES samples per texel."""
     return {
-        "reflect": (lookup.bake_reflection_table(SAMPLES), jlookup.bake_reflection_table(SAMPLES)),
-        "refract_out": (lookup.bake_refraction_table(True, SAMPLES), jlookup.bake_refraction_table(True, SAMPLES)),
-        "refract_in": (lookup.bake_refraction_table(False, SAMPLES), jlookup.bake_refraction_table(False, SAMPLES)),
+        "reflect": (lookup.bake_reflection_table(SAMPLES, device="cpu"), jlookup.bake_reflection_table(SAMPLES)),
+        "refract_out": (lookup.bake_refraction_table(True, SAMPLES, device="cpu"),
+                        jlookup.bake_refraction_table(True, SAMPLES)),
+        "refract_in": (lookup.bake_refraction_table(False, SAMPLES, device="cpu"),
+                       jlookup.bake_refraction_table(False, SAMPLES)),
     }
 
 
@@ -100,14 +102,14 @@ def test_cache_and_fits_use_the_port_names(tmp_path, baked):
     """get_lookup_tables bakes once into torch_lookup_*.npy and then loads;
     get_lookup_fits caches the fits beside them; JAX's names are never used."""
     cache = str(tmp_path)
-    tables = lookup.get_lookup_tables(n_samples=2, cache_dir=cache)
+    tables = lookup.get_lookup_tables(n_samples=2, cache_dir=cache, device="cpu")
     names = sorted(os.listdir(cache))
     assert names == [f"torch_lookup_{k}_2.npy" for k in ("reflect", "refract_in", "refract_out")]
-    np.testing.assert_array_equal(tables[0], lookup.bake_reflection_table(2))
-    again = lookup.get_lookup_tables(n_samples=2, cache_dir=cache)
+    np.testing.assert_array_equal(tables[0], lookup.bake_reflection_table(2, device="cpu"))
+    again = lookup.get_lookup_tables(n_samples=2, cache_dir=cache, device="cpu")
     for a, b in zip(tables, again):
         np.testing.assert_array_equal(a, b)
-    fits = lookup_fit.get_lookup_fits(n_samples=2, cache_dir=cache)
+    fits = lookup_fit.get_lookup_fits(n_samples=2, cache_dir=cache, device="cpu")
     assert "torch_lookup_fits_2_12x10x6.npz" in os.listdir(cache)
     np.testing.assert_array_equal(fits[1], lookup_fit.fit_table(tables[1]))
     assert not any(n.startswith("lookup_") for n in os.listdir(cache))

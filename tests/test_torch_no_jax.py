@@ -61,3 +61,45 @@ def test_imports_pull_in_no_jax(script):
     )
     proc = subprocess.run([sys.executable, "-c", code], cwd=_ROOT, capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
+
+
+def _port_modules():
+    """Every module of vpt_tpu_torch, by its file."""
+    pkg = os.path.join(_ROOT, "vpt_tpu_torch")
+    names = []
+    for dirpath, dirnames, files in os.walk(pkg):
+        dirnames[:] = sorted(d for d in dirnames if os.path.exists(os.path.join(dirpath, d, "__init__.py")))
+        rel = os.path.relpath(dirpath, _ROOT).replace(os.sep, ".")
+        names += [rel if f == "__init__.py" else f"{rel}.{f[:-3]}" for f in sorted(files) if f.endswith(".py")]
+    return names
+
+
+def _is_cpu(value) -> bool:
+    import torch
+
+    return (isinstance(value, str) and value.split(":")[0] == "cpu") or (
+        isinstance(value, torch.device) and value.type == "cpu")
+
+
+@pytest.mark.parametrize("module", _port_modules())
+def test_entry_points_default_to_the_card(module):
+    """No public function, class or method of the port takes a `device`
+    whose default is the CPU: its entry points run on the card unless the
+    caller asks for the CPU."""
+    import importlib
+    import inspect
+
+    mod = importlib.import_module(module)
+    found = []
+    for name, obj in vars(mod).items():
+        if name.startswith("_") or getattr(obj, "__module__", None) != module:
+            continue
+        funcs = [(name, obj)] if inspect.isfunction(obj) else []
+        if inspect.isclass(obj):
+            funcs += [(f"{name}.{m}", f) for m, f in vars(obj).items()
+                      if inspect.isfunction(f) and (m == "__init__" or not m.startswith("_"))]
+        for qual, fn in funcs:
+            for p in inspect.signature(fn).parameters.values():
+                if "device" in p.name and _is_cpu(p.default):
+                    found.append(f"{qual}({p.name}={p.default!r})")
+    assert not found, f"{module}: device parameters that default to the CPU: {found}"

@@ -13,18 +13,28 @@ Two kernels, each with a plain torch version of the same signature:
 
 The slab formula is cluster._slab_tn_tf's: tn starts at t_min, tf at the
 ray's tmax, reciprocal directions come in with the caller's 1e-20 guard.
-A wrapper takes the plain version for CPU tensors and launches the kernel
-for CUDA tensors; there is no fallback from one to the other.
+The plain versions reduce the dense (N, Gp) `slab_entry` matrix.  The
+kernels walk two levels: the union box of each CHUNK consecutive groups
+first (`union_boxes`), a chunk's member groups only where the ray enters
+the union and could still change the result.  The cull is exact
+(csrc/envelope.cu says why), so both give the same results;
+`envelope_work` counts the walk's work.  A wrapper takes the plain version
+for CPU tensors and launches the kernel for CUDA tensors; there is no
+fallback from one to the other.
 """
 
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import torch
 
 from vpt_tpu_torch.accel import kernels
 
 SUPERTILE = 1024
-_CHUNK = 32768  # rays per slab block in the plain versions
+CHUNK = 8  # groups per union box
+WARP = 32
+_CHUNK_RAYS = 32768  # rays per slab block in the plain versions
 
 
 def slab_entry(origin, inv, tmax, gmin_pad, gmax_pad, t_min: float):
@@ -43,11 +53,26 @@ def slab_entry(origin, inv, tmax, gmin_pad, gmax_pad, t_min: float):
     return torch.where(tn <= tf, tn, torch.inf)
 
 
+def union_boxes(gmin_pad, gmax_pad):
+    """(3, Gp / CHUNK) lo / hi: the union box of each CHUNK consecutive
+    group boxes, padding included, each box's lo / hi taken in either order
+    (as the kernels stage them)."""
+    lo = torch.minimum(gmin_pad, gmax_pad).reshape(3, -1, CHUNK).amin(dim=2)
+    hi = torch.maximum(gmin_pad, gmax_pad).reshape(3, -1, CHUNK).amax(dim=2)
+    return lo, hi
+
+
+def _check_groups(gmin_pad) -> None:
+    if gmin_pad.shape[1] % CHUNK:
+        raise ValueError(f"the envelope takes a multiple of {CHUNK} padded groups, got {gmin_pad.shape[1]}")
+
+
 def ray_keys_plain(origin, inv, tmax, gmin_pad, gmax_pad, t_min: float, levels: int):
     gp = gmin_pad.shape[1]
     out = []
-    for s in range(0, origin.shape[0], _CHUNK):
-        ent = slab_entry(origin[s : s + _CHUNK], inv[s : s + _CHUNK], tmax[s : s + _CHUNK], gmin_pad, gmax_pad, t_min)
+    for s in range(0, origin.shape[0], _CHUNK_RAYS):
+        rows = slice(s, s + _CHUNK_RAYS)
+        ent = slab_entry(origin[rows], inv[rows], tmax[rows], gmin_pad, gmax_pad, t_min)
         v0, g0 = torch.min(ent, dim=1)  # first minimum: ties go to the lower id
         l0 = torch.where(torch.isfinite(v0), g0, gp)
         if levels == 2:
@@ -63,7 +88,10 @@ def ray_keys_plain(origin, inv, tmax, gmin_pad, gmax_pad, t_min: float, levels: 
 def ray_keys(origin, inv, tmax, gmin_pad, gmax_pad, t_min: float, levels: int):
     """(N,) int32 key: levels=2 -> g0 * (Gp + 1) + g1, levels=1 -> g0, with
     the sentinel Gp for an absent entry.  origin/inv (N, 3), tmax (N,),
-    gmin_pad/gmax_pad (3, Gp)."""
+    gmin_pad/gmax_pad (3, Gp), Gp a multiple of CHUNK."""
+    if levels not in (1, 2):
+        raise ValueError(f"ray_keys takes levels 1 or 2, got {levels}")
+    _check_groups(gmin_pad)
     if not origin.is_cuda:
         return ray_keys_plain(origin, inv, tmax, gmin_pad, gmax_pad, t_min, levels)
     n, gp = origin.shape[0], gmin_pad.shape[1]
@@ -80,8 +108,9 @@ def ray_keys(origin, inv, tmax, gmin_pad, gmax_pad, t_min: float, levels: int):
 def supertile_tables_plain(origin, inv, tmax_eff, gmin_pad, gmax_pad, t_min: float):
     gp = gmin_pad.shape[1]
     out = []
-    for s in range(0, origin.shape[0], _CHUNK):
-        ent = slab_entry(origin[s : s + _CHUNK], inv[s : s + _CHUNK], tmax_eff[s : s + _CHUNK], gmin_pad, gmax_pad, t_min)
+    for s in range(0, origin.shape[0], _CHUNK_RAYS):
+        rows = slice(s, s + _CHUNK_RAYS)
+        ent = slab_entry(origin[rows], inv[rows], tmax_eff[rows], gmin_pad, gmax_pad, t_min)
         out.append(ent.reshape(-1, SUPERTILE, gp).amin(dim=1))
     return torch.cat(out)
 
@@ -89,9 +118,13 @@ def supertile_tables_plain(origin, inv, tmax_eff, gmin_pad, gmax_pad, t_min: flo
 def supertile_tables(origin, inv, tmax_eff, gmin_pad, gmax_pad, t_min: float):
     """(N // 1024, Gp) minimum entry per (supertile, group), +inf where no
     ray of the supertile enters.  Rays arrive sorted; tmax_eff already folds
-    the active mask (inactive -> t_min)."""
+    the active mask (inactive -> t_min).  t_min must be positive: the kernel
+    orders entries by their float bits, which holds for entries > 0."""
     if origin.shape[0] % SUPERTILE:
         raise ValueError("supertile_tables needs a multiple of 1024 rays")
+    if not t_min > 0:
+        raise ValueError(f"supertile_tables needs t_min > 0, got {t_min}")
+    _check_groups(gmin_pad)
     if not origin.is_cuda:
         return supertile_tables_plain(origin, inv, tmax_eff, gmin_pad, gmax_pad, t_min)
     n, gp = origin.shape[0], gmin_pad.shape[1]
@@ -103,3 +136,33 @@ def supertile_tables(origin, inv, tmax_eff, gmin_pad, gmax_pad, t_min: float):
         kernels.ptr(gmax_pad, f32), n, gp, float(t_min), kernels.ptr(out, f32),
     )
     return out
+
+
+class EnvelopeWork(NamedTuple):
+    """Per ray, the work of the envelope's two-level walk."""
+
+    groups: torch.Tensor  # (N,) i64 groups entered
+    chunks: torch.Tensor  # (N,) i64 union boxes entered
+    slabs: torch.Tensor  # (N,) i64 slab tests: every union box and the CHUNK members of each entered one
+    warp_chunks: torch.Tensor  # (N,) i64 union boxes entered by any ray of the ray's 32-ray warp (input order)
+
+
+def envelope_work(origin, inv, tmax, gmin_pad, gmax_pad, t_min: float) -> EnvelopeWork:
+    """The work of the two-level walk for these rays, in their order: what
+    a one-thread-per-ray walk with the static gate (union entered) tests.
+    A dense pass tests Gp slabs per ray."""
+    ulo, uhi = union_boxes(gmin_pad, gmax_pad)
+    n_chunks = ulo.shape[1]
+    groups, chunks, warp = [], [], []
+    for s in range(0, origin.shape[0], _CHUNK_RAYS):
+        rows = slice(s, s + _CHUNK_RAYS)
+        groups.append(torch.isfinite(slab_entry(origin[rows], inv[rows], tmax[rows], gmin_pad, gmax_pad,
+                                                t_min)).sum(dim=1))
+        enter = torch.isfinite(slab_entry(origin[rows], inv[rows], tmax[rows], ulo, uhi, t_min))
+        chunks.append(enter.sum(dim=1))
+        n = enter.shape[0]
+        lanes = torch.nn.functional.pad(enter, (0, 0, 0, (-n) % WARP)).reshape(-1, WARP, n_chunks)
+        warp.append(lanes.any(dim=1).sum(dim=1).repeat_interleave(WARP)[:n])
+    chunks = torch.cat(chunks)
+    return EnvelopeWork(groups=torch.cat(groups), chunks=chunks, slabs=n_chunks + CHUNK * chunks,
+                        warp_chunks=torch.cat(warp))

@@ -57,19 +57,28 @@ class Bands(NamedTuple):
     sent: torch.Tensor  # (B, T, Gp) f32 per-supertile entry, +inf = none
 
 
-def prepare_bands(origin, direction, cl: ClusterData, t_min, t_max, active, levels: int,
-                  payload=(), pad_payload=()) -> Bands:
-    """Pad, bound, key, sort and tabulate a wavefront (stream.py:599-698).
+class Wavefront(NamedTuple):
+    """A band-padded, root-bounded wavefront: what ray_keys takes."""
 
-    `payload` is a tuple of (N,) int32 columns carried through the sort;
-    `pad_payload` their values on pad rays.  Inactive rays take the largest
-    key, so they sort last."""
+    tiles: int  # supertiles per band
+    origin: torch.Tensor  # (N, 3)
+    direction: torch.Tensor  # (N, 3)
+    inv: torch.Tensor  # (N, 3) guarded reciprocal directions
+    tmax: torch.Tensor  # (N,) clipped to the root-box exit; t_min on inactive and pad rays
+    active: torch.Tensor  # (N,) bool
+    payload: tuple
+
+
+def pad_wavefront(origin, direction, cl: ClusterData, t_min, t_max, active, payload=(), pad_payload=()) -> Wavefront:
+    """Pad a wavefront to whole bands (origin 1e9, direction +x, tmax =
+    t_min, inactive; `pad_payload` on the payload columns), take the guarded
+    inverse and clip tmax to the ray's root-box exit, t_min on inactive rays
+    (stream.py:599-640)."""
     dev = origin.device
     n_orig = origin.shape[0]
     tmax = ray_tmax(t_max, n_orig, dev)
     tiles = min(TILES_PER_BAND, max(1, -(-n_orig // SUPERTILE)))
-    band = tiles * SUPERTILE
-    pad = (-n_orig) % band
+    pad = (-n_orig) % (tiles * SUPERTILE)
     if pad:
         origin = torch.cat([origin, torch.full((pad, 3), 1e9, dtype=torch.float32, device=dev)])
         dpad = torch.zeros((pad, 3), dtype=torch.float32, device=dev)
@@ -81,23 +90,35 @@ def prepare_bands(origin, direction, cl: ClusterData, t_min, t_max, active, leve
             torch.cat([p, torch.full((pad,), v, dtype=p.dtype, device=dev)])
             for p, v in zip(payload, pad_payload)
         )
-    n = origin.shape[0]
-
     inv = guarded_inverse(direction)
     tmax = torch.where(active, root_exit_tmax(origin, inv, tmax, cl, t_min), t_min)
+    return Wavefront(tiles=tiles, origin=origin, direction=direction, inv=inv, tmax=tmax, active=active,
+                     payload=tuple(payload))
 
+
+def prepare_bands(origin, direction, cl: ClusterData, t_min, t_max, active, levels: int,
+                  payload=(), pad_payload=()) -> Bands:
+    """Pad, bound, key, sort and tabulate a wavefront (stream.py:599-698).
+
+    `payload` is a tuple of (N,) int32 columns carried through the sort;
+    `pad_payload` their values on pad rays.  Inactive rays take the largest
+    key, so they sort last."""
+    dev = origin.device
+    n_orig = origin.shape[0]
+    w = pad_wavefront(origin, direction, cl, t_min, t_max, active, payload, pad_payload)
+    n = w.origin.shape[0]
     gmin_pad, gmax_pad = pad_groups(cl)
     gp = gmin_pad.shape[1]
-    key = envelope.ray_keys(origin, inv, tmax, gmin_pad, gmax_pad, t_min=t_min, levels=levels)
-    key = torch.where(active, key, (gp + 1) ** 2 - 1 if levels == 2 else gp)
+    key = envelope.ray_keys(w.origin, w.inv, w.tmax, gmin_pad, gmax_pad, t_min=t_min, levels=levels)
+    key = torch.where(w.active, key, (gp + 1) ** 2 - 1 if levels == 2 else gp)
     _, perm = torch.sort(key, stable=True)
 
-    o_s = origin[perm]
-    d_s = direction[perm]
-    tm_s = tmax[perm]
+    o_s = w.origin[perm]
+    d_s = w.direction[perm]
+    tm_s = w.tmax[perm]
     st_entry = envelope.supertile_tables(o_s, guarded_inverse(d_s), tm_s, gmin_pad, gmax_pad, t_min=t_min)
-    b = n // band
-    st = st_entry.reshape(b, tiles, gp)
+    tiles = w.tiles
+    st = st_entry.reshape(n // (tiles * SUPERTILE), tiles, gp)
     shifts = torch.arange(tiles, dtype=torch.int64, device=dev)
     bits = (torch.isfinite(st).to(torch.int64) << shifts[None, :, None]).sum(dim=1)
     entry_bg = st.amin(dim=1)
@@ -105,7 +126,7 @@ def prepare_bands(origin, direction, cl: ClusterData, t_min, t_max, active, leve
     ngrp = torch.isfinite(entry_bg).sum(dim=1).to(torch.int32)
     return Bands(
         n_orig=n_orig, tiles=tiles, perm=perm, origin=o_s, direction=d_s, tmax=tm_s,
-        payload=tuple(p[perm].contiguous() for p in payload),
+        payload=tuple(p[perm].contiguous() for p in w.payload),
         ngrp=ngrp, order=order.to(torch.int32).contiguous(), entry_sorted=entry_sorted.contiguous(),
         bits=bits.contiguous(), sent=st.contiguous(),
     )

@@ -4,19 +4,57 @@
 //   vpt_ray_keys          <- envelope.ray_keys (_keys_kernel)
 //   vpt_supertile_tables  <- envelope.supertile_tables (_tables_kernel)
 //
-// Both evaluate the same slab formula per (ray, padded group box): tn starts
-// at t_min, tf at the ray's tmax, per axis s0 = (lo - o) * inv and
-// s1 = (hi - o) * inv, and the ray enters the group iff tn <= tf, entry = tn.
-// Built with --fmad=false, so every product and sum rounds exactly like the
-// plain torch versions in vpt_tpu_torch/accel/envelope.py.
+// Both evaluate one slab formula per (ray, box): tn starts at t_min, tf at
+// the ray's tmax, per axis s0 = (lo - o) * inv and s1 = (hi - o) * inv,
+// tn = max(tn, min(s0, s1)), tf = min(tf, max(s0, s1)) with NaN-propagating
+// min / max (torch.minimum / maximum), and the ray enters iff tn <= tf, at
+// entry = tn.  Built with --fmad=false, so every product and sum rounds
+// exactly like the plain torch versions in vpt_tpu_torch/accel/envelope.py,
+// and both results equal theirs bit for bit.
 //
-// What bounds them on the H100: both are N x Gp slab tests (about 20 float
-// operations each) over data that fits in shared memory or registers.  At
-// the main path's N = 262,144 rays and Gp = 640 groups that is 3.4 GFLOP per
-// call, a few milliseconds of FP32 issue; memory traffic is only the rays
-// (28 B each) and the output.  The simple design keeps the group boxes
-// (ray_keys) or the supertile's rays (supertile_tables) in shared memory so
-// the inner loop reads shared memory and registers only.
+// What bounds them on the H100: FP32 instruction rate.  Each slab is 6 subtractions,
+// 6 products and 12 min / max over data that sits in shared memory and
+// registers; the bytes are only the rays (28 B each) and the output.  The
+// design cuts both factors of the N x Gp slab count of a dense pass:
+//
+// * One instruction per min / max.  PTX min.NaN / max.NaN (sm_80 and up)
+//   propagate NaN like torch in one instruction, where fminf / fmaxf plus a
+//   NaN test and a select took three.  NaN matters: an inactive ray may
+//   carry a NaN origin, and the plain versions give it +inf (NaN <= tf is
+//   false), where fminf / fmaxf alone would give it the finite t_min.  A
+//   group box is staged as lo.xyz and hi.xyz side by side, two 16-byte
+//   shared loads that every lane of a warp reads at one address.
+//
+// * A two-level walk.  While a block stages the Gp group boxes it takes the
+//   union box of each 8 consecutive groups (a chunk), over all Gp boxes as
+//   given, padding included, each box's lo / hi taken in either order.  A
+//   ray tests a chunk's 8 members only where it enters the union.  This is
+//   exact: per axis, x -> (x - o) * inv rounds monotonically (increasing for
+//   inv > 0, decreasing for inv < 0; inv is finite, from the caller's 1e-20
+//   guard), and the member's interval [min(lo, hi), max(lo, hi)] lies inside
+//   the union's, so the member's near slab value is >= the union's and its
+//   far value <= the union's; min and max are exact.  Hence a member's tn >=
+//   the union's tn and its tf <= the union's tf: a ray that misses the union
+//   misses every member, and an entered member's entry is never below the
+//   union's entry.  A NaN origin or tmax makes both NaN: neither is entered.
+//
+// vpt_ray_keys: one thread per ray walks the chunks in ascending group id
+// and keeps the (entry, id)-lexicographic first and second entered groups
+// by strict '<' (envelope.py:_minsel: entry ties go to the lower id).  It
+// skips a chunk unless its union entry is below the entry it would have to
+// beat (the second for levels 2, the first for levels 1): every member's
+// entry is >= the union's and its id above every id held, so the strict
+// '<' would not take it.  Rays arrive unsorted, so a warp runs the chunks
+// that any of its lanes enters.
+//
+// vpt_supertile_tables: one 1024-thread block per 1024-ray supertile, one
+// ray per thread.  Per chunk each lane tests its ray against the union;
+// where any lane of the warp entered, the lanes whose ray entered test the
+// 8 members, each member's warp minimum is taken on the float bits
+// (__reduce_min_sync on unsigned: entries are >= t_min > 0 or +inf, so
+// unsigned order is float order; the wrapper raises on t_min <= 0), and 8
+// lanes fold the 8 minima into the block's shared row by atomicMin.  The
+// block writes its Gp row at the end.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -24,109 +62,150 @@
 
 namespace {
 
-constexpr int kSupertile = 1024;  // rays per supertile (stream.py SUPER_ROWS * 128)
+constexpr int kSupertile = 1024;  // rays per supertile (stream.py SUPERTILE)
+constexpr int kChunk = 8;         // groups per union box
+constexpr int kKeysThreads = 256;
+constexpr unsigned kInfBits = 0x7f800000u;
+constexpr unsigned kFull = 0xffffffffu;
 
-// torch.minimum / torch.maximum propagate NaN; fminf / fmaxf drop it.
-__device__ __forceinline__ float pmin(float a, float b) {
-  return (a != a || b != b) ? __int_as_float(0x7fc00000) : fminf(a, b);
+__device__ __forceinline__ float nan_min(float a, float b) {
+  float r;
+  asm("min.NaN.f32 %0, %1, %2;" : "=f"(r) : "f"(a), "f"(b));
+  return r;
 }
-__device__ __forceinline__ float pmax(float a, float b) {
-  return (a != a || b != b) ? __int_as_float(0x7fc00000) : fmaxf(a, b);
+__device__ __forceinline__ float nan_max(float a, float b) {
+  float r;
+  asm("max.NaN.f32 %0, %1, %2;" : "=f"(r) : "f"(a), "f"(b));
+  return r;
 }
 
-// Entry distance of one ray into one box, +inf when it does not enter.
-__device__ __forceinline__ float slab_entry(
-    float ox, float oy, float oz, float ix, float iy, float iz, float tmax,
-    float lx, float ly, float lz, float hx, float hy, float hz, float t_min) {
-  float tn = t_min, tf = tmax;
-  float s0 = (lx - ox) * ix, s1 = (hx - ox) * ix;
-  tn = pmax(tn, pmin(s0, s1));
-  tf = pmin(tf, pmax(s0, s1));
-  s0 = (ly - oy) * iy;
-  s1 = (hy - oy) * iy;
-  tn = pmax(tn, pmin(s0, s1));
-  tf = pmin(tf, pmax(s0, s1));
-  s0 = (lz - oz) * iz;
-  s1 = (hz - oz) * iz;
-  tn = pmax(tn, pmin(s0, s1));
-  tf = pmin(tf, pmax(s0, s1));
+struct Ray {
+  float ox, oy, oz, ix, iy, iz, tmax;
+};
+
+__device__ __forceinline__ Ray load_ray(const float* __restrict__ origin, const float* __restrict__ inv,
+                                        const float* __restrict__ tmax, int i) {
+  return Ray{origin[3 * i], origin[3 * i + 1], origin[3 * i + 2], inv[3 * i], inv[3 * i + 1], inv[3 * i + 2],
+             tmax[i]};
+}
+
+// Entry distance of a ray into the box (lo, hi), +inf when it does not enter.
+__device__ __forceinline__ float slab_entry(const Ray& r, float4 lo, float4 hi, float t_min) {
+  float s0 = (lo.x - r.ox) * r.ix, s1 = (hi.x - r.ox) * r.ix;
+  float tn = nan_max(t_min, nan_min(s0, s1));
+  float tf = nan_min(r.tmax, nan_max(s0, s1));
+  s0 = (lo.y - r.oy) * r.iy;
+  s1 = (hi.y - r.oy) * r.iy;
+  tn = nan_max(tn, nan_min(s0, s1));
+  tf = nan_min(tf, nan_max(s0, s1));
+  s0 = (lo.z - r.oz) * r.iz;
+  s1 = (hi.z - r.oz) * r.iz;
+  tn = nan_max(tn, nan_min(s0, s1));
+  tf = nan_min(tf, nan_max(s0, s1));
   return (tn <= tf) ? tn : INFINITY;
 }
 
-// One thread per ray; the (3, Gp) lo/hi group boxes sit in shared memory.
-// Walking groups in ascending id with strict '<' keeps the lexicographic
-// (entry, id) minimum of envelope.py:_minsel: entry ties go to the lower id.
-__global__ void ray_keys_kernel(
-    const float* __restrict__ origin, const float* __restrict__ inv,
-    const float* __restrict__ tmax, const float* __restrict__ gmin,
-    const float* __restrict__ gmax, int n, int gp, float t_min, int levels,
-    int32_t* __restrict__ key) {
-  extern __shared__ float boxes[];  // [xlo ylo zlo xhi yhi zhi] x gp
-  for (int k = threadIdx.x; k < 3 * gp; k += blockDim.x) {
-    boxes[k] = gmin[k];
-    boxes[3 * gp + k] = gmax[k];
+// Stage the (3, gp) group boxes as box[2g] = lo, box[2g + 1] = hi, then the
+// gp / 8 union boxes the same way.  Ends with a barrier.
+__device__ void stage_boxes(const float* __restrict__ gmin, const float* __restrict__ gmax, int gp,
+                            float4* box, float4* uni) {
+  for (int g = threadIdx.x; g < gp; g += blockDim.x) {
+    box[2 * g] = make_float4(gmin[g], gmin[gp + g], gmin[2 * gp + g], 0.0f);
+    box[2 * g + 1] = make_float4(gmax[g], gmax[gp + g], gmax[2 * gp + g], 0.0f);
   }
   __syncthreads();
+  for (int c = threadIdx.x; c < gp / kChunk; c += blockDim.x) {
+    float4 lo = make_float4(INFINITY, INFINITY, INFINITY, 0.0f);
+    float4 hi = make_float4(-INFINITY, -INFINITY, -INFINITY, 0.0f);
+    for (int g = c * kChunk; g < (c + 1) * kChunk; ++g) {
+      const float4 a = box[2 * g], b = box[2 * g + 1];
+      lo.x = nan_min(lo.x, nan_min(a.x, b.x));
+      lo.y = nan_min(lo.y, nan_min(a.y, b.y));
+      lo.z = nan_min(lo.z, nan_min(a.z, b.z));
+      hi.x = nan_max(hi.x, nan_max(a.x, b.x));
+      hi.y = nan_max(hi.y, nan_max(a.y, b.y));
+      hi.z = nan_max(hi.z, nan_max(a.z, b.z));
+    }
+    uni[2 * c] = lo;
+    uni[2 * c + 1] = hi;
+  }
+  __syncthreads();
+}
+
+template <int kLevels>
+__global__ void __launch_bounds__(kKeysThreads) ray_keys_kernel(
+    const float* __restrict__ origin, const float* __restrict__ inv, const float* __restrict__ tmax,
+    const float* __restrict__ gmin, const float* __restrict__ gmax, int n, int gp, float t_min,
+    int32_t* __restrict__ key) {
+  extern __shared__ float4 smem[];
+  float4* box = smem;
+  float4* uni = smem + 2 * gp;
+  stage_boxes(gmin, gmax, gp, box, uni);
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
-  const float ox = origin[3 * i], oy = origin[3 * i + 1], oz = origin[3 * i + 2];
-  const float ix = inv[3 * i], iy = inv[3 * i + 1], iz = inv[3 * i + 2];
-  const float tm = tmax[i];
+  const Ray r = load_ray(origin, inv, tmax, i);
   float v1 = INFINITY, v2 = INFINITY;
   int a1 = gp, a2 = gp;
-  for (int g = 0; g < gp; ++g) {
-    const float e = slab_entry(
-        ox, oy, oz, ix, iy, iz, tm, boxes[g], boxes[gp + g], boxes[2 * gp + g],
-        boxes[3 * gp + g], boxes[4 * gp + g], boxes[5 * gp + g], t_min);
-    if (e < v1) {
-      v2 = v1;
-      a2 = a1;
-      v1 = e;
-      a1 = g;
-    } else if (e < v2) {
-      v2 = e;
-      a2 = g;
+  for (int c = 0; c < gp / kChunk; ++c) {
+    const float ue = slab_entry(r, uni[2 * c], uni[2 * c + 1], t_min);
+    if (!(ue < (kLevels == 2 ? v2 : v1))) continue;
+#pragma unroll
+    for (int m = 0; m < kChunk; ++m) {
+      const int g = c * kChunk + m;
+      const float e = slab_entry(r, box[2 * g], box[2 * g + 1], t_min);
+      if (e < v1) {
+        v2 = v1;
+        a2 = a1;
+        v1 = e;
+        a1 = g;
+      } else if (kLevels == 2 && e < v2) {
+        v2 = e;
+        a2 = g;
+      }
     }
   }
   const int l0 = (v1 < INFINITY) ? a1 : gp;
   const int l1 = (v2 < INFINITY) ? a2 : gp;
-  key[i] = (levels == 2) ? l0 * (gp + 1) + l1 : l0;
+  key[i] = (kLevels == 2) ? l0 * (gp + 1) + l1 : l0;
 }
 
-// One block per 1024-ray supertile: its rays are staged in shared memory and
-// each thread owns groups g = tid, tid + blockDim, ... taking the minimum
-// entry over the staged rays.  No atomics: every output has one writer.
-__global__ void supertile_tables_kernel(
-    const float* __restrict__ origin, const float* __restrict__ inv,
-    const float* __restrict__ tmax, const float* __restrict__ gmin,
-    const float* __restrict__ gmax, int gp, float t_min,
+__global__ void __launch_bounds__(kSupertile) supertile_tables_kernel(
+    const float* __restrict__ origin, const float* __restrict__ inv, const float* __restrict__ tmax,
+    const float* __restrict__ gmin, const float* __restrict__ gmax, int gp, float t_min,
     float* __restrict__ out) {
-  __shared__ float so[3][kSupertile];
-  __shared__ float si[3][kSupertile];
-  __shared__ float st[kSupertile];
-  const int base = blockIdx.x * kSupertile;
-  for (int r = threadIdx.x; r < kSupertile; r += blockDim.x) {
-    const int i = base + r;
-    for (int ax = 0; ax < 3; ++ax) {
-      so[ax][r] = origin[3 * i + ax];
-      si[ax][r] = inv[3 * i + ax];
+  extern __shared__ float4 smem[];
+  float4* box = smem;
+  float4* uni = smem + 2 * gp;
+  unsigned* best = reinterpret_cast<unsigned*>(uni + 2 * (gp / kChunk));
+  for (int g = threadIdx.x; g < gp; g += blockDim.x) best[g] = kInfBits;
+  stage_boxes(gmin, gmax, gp, box, uni);  // its barriers also publish `best`
+  const Ray r = load_ray(origin, inv, tmax, blockIdx.x * kSupertile + threadIdx.x);
+  const int lane = threadIdx.x & 31;
+  for (int c = 0; c < gp / kChunk; ++c) {
+    const bool in = slab_entry(r, uni[2 * c], uni[2 * c + 1], t_min) < INFINITY;
+    if (!__any_sync(kFull, in)) continue;
+    unsigned mine = kInfBits;  // lane m < 8 keeps member m's warp minimum
+#pragma unroll
+    for (int m = 0; m < kChunk; ++m) {
+      const int g = c * kChunk + m;
+      const float e = in ? slab_entry(r, box[2 * g], box[2 * g + 1], t_min) : INFINITY;
+      const unsigned w = __reduce_min_sync(kFull, __float_as_uint(e));
+      if (lane == m) mine = w;
     }
-    st[r] = tmax[i];
+    if (lane < kChunk && mine != kInfBits) atomicMin(&best[c * kChunk + lane], mine);
   }
   __syncthreads();
-  for (int g = threadIdx.x; g < gp; g += blockDim.x) {
-    const float lx = gmin[g], ly = gmin[gp + g], lz = gmin[2 * gp + g];
-    const float hx = gmax[g], hy = gmax[gp + g], hz = gmax[2 * gp + g];
-    float best = INFINITY;
-    for (int r = 0; r < kSupertile; ++r) {
-      const float e = slab_entry(
-          so[0][r], so[1][r], so[2][r], si[0][r], si[1][r], si[2][r], st[r],
-          lx, ly, lz, hx, hy, hz, t_min);
-      best = fminf(best, e);
-    }
-    out[(size_t)blockIdx.x * gp + g] = best;
-  }
+  for (int g = threadIdx.x; g < gp; g += blockDim.x) out[(size_t)blockIdx.x * gp + g] = __uint_as_float(best[g]);
 }
+
+// Dynamic shared memory above 48 KB must be asked for per kernel.
+template <typename Kernel>
+cudaError_t allow_smem(Kernel kernel, size_t smem) {
+  if (smem <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+}
+
+size_t box_bytes(int gp) { return (size_t)2 * (gp + gp / kChunk) * sizeof(float4); }
 
 }  // namespace
 
@@ -134,24 +213,33 @@ extern "C" int vpt_ray_keys(
     const float* origin, const float* inv, const float* tmax, const float* gmin,
     const float* gmax, int n, int gp, float t_min, int levels, int32_t* key,
     void* stream) {
-  const size_t smem = (size_t)6 * gp * sizeof(float);
-  if (smem > 48 * 1024) {
-    cudaError_t err = cudaFuncSetAttribute(
-        ray_keys_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return (int)err;
+  if (gp % kChunk != 0 || (levels != 1 && levels != 2)) return (int)cudaErrorInvalidValue;
+  const size_t smem = box_bytes(gp);
+  const int blocks = (n + kKeysThreads - 1) / kKeysThreads;
+  if (blocks == 0) return (int)cudaSuccess;
+  cudaError_t err;
+  if (levels == 2) {
+    if ((err = allow_smem(ray_keys_kernel<2>, smem)) != cudaSuccess) return (int)err;
+    ray_keys_kernel<2><<<blocks, kKeysThreads, smem, (cudaStream_t)stream>>>(
+        origin, inv, tmax, gmin, gmax, n, gp, t_min, key);
+  } else {
+    if ((err = allow_smem(ray_keys_kernel<1>, smem)) != cudaSuccess) return (int)err;
+    ray_keys_kernel<1><<<blocks, kKeysThreads, smem, (cudaStream_t)stream>>>(
+        origin, inv, tmax, gmin, gmax, n, gp, t_min, key);
   }
-  const int threads = 256;
-  const int blocks = (n + threads - 1) / threads;
-  ray_keys_kernel<<<blocks, threads, smem, (cudaStream_t)stream>>>(
-      origin, inv, tmax, gmin, gmax, n, gp, t_min, levels, key);
   return (int)cudaGetLastError();
 }
 
 extern "C" int vpt_supertile_tables(
     const float* origin, const float* inv, const float* tmax, const float* gmin,
     const float* gmax, int n, int gp, float t_min, float* out, void* stream) {
+  if (gp % kChunk != 0 || n % kSupertile != 0 || !(t_min > 0.0f)) return (int)cudaErrorInvalidValue;
+  const size_t smem = box_bytes(gp) + (size_t)gp * sizeof(unsigned);
   const int blocks = n / kSupertile;
-  supertile_tables_kernel<<<blocks, 256, 0, (cudaStream_t)stream>>>(
+  if (blocks == 0) return (int)cudaSuccess;
+  cudaError_t err = allow_smem(supertile_tables_kernel, smem);
+  if (err != cudaSuccess) return (int)err;
+  supertile_tables_kernel<<<blocks, kSupertile, smem, (cudaStream_t)stream>>>(
       origin, inv, tmax, gmin, gmax, gp, t_min, out);
   return (int)cudaGetLastError();
 }

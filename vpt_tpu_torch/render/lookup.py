@@ -116,7 +116,7 @@ def _bake(estimate, inputs, shape, n_samples: int, seed: int) -> np.ndarray:
     return (acc / n_samples).reshape(shape).cpu().numpy()
 
 
-def bake_reflection_table(n_samples: int = 4096, seed: int = 7, device="cpu") -> np.ndarray:
+def bake_reflection_table(n_samples: int = 4096, seed: int = 7, device="cuda") -> np.ndarray:
     layer, row, col = _grid(REFLECT_SHAPE, resolve_device(device))
     nl, nr, nv = REFLECT_SHAPE
     view_cos = torch.clamp(col / nv, 0.05, 0.999)
@@ -127,7 +127,7 @@ def bake_reflection_table(n_samples: int = 4096, seed: int = 7, device="cpu") ->
     return _bake(_reflection_estimate, (view_cos, ax, ay), REFLECT_SHAPE, n_samples, seed)
 
 
-def bake_refraction_table(above_surface: bool, n_samples: int = 4096, seed: int = 13, device="cpu") -> np.ndarray:
+def bake_refraction_table(above_surface: bool, n_samples: int = 4096, seed: int = 13, device="cuda") -> np.ndarray:
     layer, row, col = _grid(REFRACT_SHAPE, resolve_device(device))
     nl, nr, nv = REFRACT_SHAPE
     view_cos = torch.clamp((col / (nv - 1.0)) ** 2, 0.01, 0.9999)
@@ -161,7 +161,7 @@ def load_reference_tables(table_dir: str | None = None):
     )
 
 
-def get_lookup_tables(n_samples: int = 4096, cache_dir: str | None = None, device="cpu"):
+def get_lookup_tables(n_samples: int = 4096, cache_dir: str | None = None, device="cuda"):
     """Bake on `device` (or load the cached bake): (reflect, refract_out, refract_in)."""
     cache_dir = cache_dir or CACHE_DIR
     paths = [os.path.join(cache_dir, f"torch_lookup_{k}_{n_samples}.npy")

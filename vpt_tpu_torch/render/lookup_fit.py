@@ -80,7 +80,7 @@ def layer_coord(layer, n_layers: int):
     return (torch.clamp(layer, 0.0, n_layers - 1.0) + 0.5) / n_layers
 
 
-def get_lookup_fits(n_samples: int = 4096, cache_dir: str | None = None, device="cpu"):
+def get_lookup_fits(n_samples: int = 4096, cache_dir: str | None = None, device="cuda"):
     """Fits of the three baked tables (baked on `device`, or loaded from the
     cache): (reflect, refract_out, refract_in) float32 coefficient arrays."""
     # Imported here: lookup imports bsdf, which imports this module.
