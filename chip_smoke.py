@@ -14,16 +14,22 @@ Phases, each of which raises on failure:
      supertile_tables on the sorted rays), the stream trace by the tie
      rule, occlusion as equal booleans, the packet visit with equal ids, t,
      u and v on the same packets (512 bounce packets, 1,024 shadow
-     packets); CUDA-event medians of each kernel over 20 back-to-back
-     launches per event pair (the envelope kernels at both shapes) and of
+     packets), and the packet cull: supertile_tables at 512-ray tiles on
+     the key-sorted packet rays (tmax -inf on inactive ones) against its
+     plain version and against the dense (packets, rays, Gp) reduction it
+     replaced, with the same candidate lists; CUDA-event medians of each
+     kernel over 20 back-to-back launches per event pair (supertile_tables
+     at 1024-ray supertiles and 512-ray packets, both shapes each) and of
      each plain version over one call, the plain visit timed once; the
      envelope work per ray (groups and union boxes entered, slab tests of
      the two-level walk, union boxes entered by any lane of a 32-ray warp,
      the share of rays that enter the last real union box with and without
      its padding) and the traversal work of the primary, bounce and shadow rays
      (clusters, sub-block boxes and triangle tests per ray, out to the
-     final hit and out to tmax, with and without the sub-block cull), and
-     from them each kernel's bound;
+     final hit and out to tmax, with and without the sub-block cull), the
+     packet visit's walk per ray (32-candidate steps, groups, member
+     clusters, sub-blocks and triangle tests), and from them each kernel's
+     bound;
   4. the energy-compensation table bake on the card (what the default
      `Renderer(lookup_tables="auto")` runs once and caches), timed; then
      the stream path: Renderer on colonnade at 512x512, max_depth 8,
@@ -31,11 +37,15 @@ Phases, each of which raises on failure:
      dispatches, with every kernel's launch count; its fits must not be
      the constant fit;
   5. the packet path (integrator.TRACE_MODE = "packet") on the same
-     Renderer, the same way: the visit kernel must launch and the stream
-     and occlusion kernels must not; then Renderer.save writes a PNG that
-     is read back;
+     Renderer, the same way: visit and supertile_tables (the packet cull)
+     must launch and the stream and occlusion kernels must not; its
+     s/dispatch beside the stream path's; then Renderer.save writes a PNG
+     that is read back; then one torch.profiler trace of a stream and of a
+     packet dispatch: kernel launches, device time and busy share (device
+     time over the unprofiled s/dispatch), the top kernels;
   6. 128x128 1-spp renders with the kernels against the same renders with
-     every plain version, stream and packet mode: PSNR > 40 dB;
+     every plain version, stream and packet mode: PSNR > 40 dB, the packet
+     render equal;
   7. the media path: the stream-mode Renderer with a 128^3 procedural
      cloud and a homogeneous ground haze added by `add_volume` (the merged
      march, delta tracking, ratio-tracked NEE, HG phase), driven like
@@ -54,12 +64,14 @@ non-zero and prints no result.
 also builds other versions of a kernel source of csrc/ (envelope.cu,
 trace.cu or visit.cu, with the current C interface: the source is the one
 whose entry points the build defines), checks that each of its kernels
-gives the current results on the phase-3 calls and times both in turns
-(other, current, current, other; medians of 21), with the registers and
-spills of both builds (ptxas -v) and the SASS of each kernel's innermost
-loop with slab products (cuobjdump: instructions, slabs and min / max per
-slab); after phase 4 it drives the stream path with each other build in
-the same turns, twice.  One JSON line "ab".
+gives the current results on the phase-3 calls (visit: up to a share
+AB_DIFFER of rays, see there) and times both in turns (other, current,
+current, other; medians of 21), with the registers and spills of both
+builds (ptxas -v) and the SASS of each kernel's innermost loop with slab
+products (cuobjdump: instructions, slabs and min / max per slab); after
+phase 4 it drives the path that runs the source (the packet path for
+visit.cu, else the stream path) with each other build in the same turns,
+twice.  One JSON line "ab".
 
 A kernel's bound is the larger of its float operations over 67 TFLOP/s
 (FP32 outside the tensor cores) and its bytes over 3.35 TB/s (H100 SXM
@@ -96,7 +108,7 @@ import torch
 
 from vpt_tpu_torch import Renderer, RenderFlags
 from vpt_tpu_torch.accel import cluster, envelope, kernels, occlude, stream, visit
-from vpt_tpu_torch.accel.traverse import T_MAX, T_MIN
+from vpt_tpu_torch.accel.traverse import KERNEL_GROUP, T_MAX, T_MIN, guarded_inverse
 from vpt_tpu_torch.api import render_step
 from vpt_tpu_torch.core import rng
 from vpt_tpu_torch.core.camera import generate_primary_rays, perspective
@@ -140,6 +152,12 @@ SLAB_OPS = 24  # 6 subtractions, 6 products, 12 min / max
 TRANSFORM_OPS = 36  # world -> local origin (18) and direction (15), 3 reciprocals
 MT_OPS = 53  # Moller-Trumbore as in csrc/trace.cu: 47 arithmetic, 6 compares
 LAUNCHES_PER_PAIR = 20  # back-to-back kernel launches per event pair
+# The share of rays whose outputs may differ between another build of a
+# kernel and the current one in --compare.  The parent's visit gated a member
+# on "any ray of the packet enters it", the current one on the ray's own
+# entry: a ray that meets a triangle only at the rounding edge of a member
+# box it does not enter may then keep another hit.
+AB_DIFFER = {"visit": 1e-4}
 
 
 def log(msg: str) -> None:
@@ -340,19 +358,87 @@ def envelope_bounds(case: EnvelopeCase, label: str):
             f"padding adds {k * (padded - real):.2f} slab tests per active ray")
     unions, members = float(n * n_chunks), float(w_in.chunks.sum()) * envelope.CHUNK
     keys = bound(SLAB_OPS * unions + (SLAB_OPS + 2) * members, nbytes(*case.keys[:5]) + 4 * n)
-    tables = bound(SLAB_OPS * unions + (SLAB_OPS + 1) * members,
-                   nbytes(*case.tables[:5]) + 4 * (n // stream.SUPERTILE) * gp)
-    return keys, tables
+    return keys, tables_bound(case.tables, w_sorted, stream.SUPERTILE)
 
 
-def kernel_calls(cases, cl, t_min, b_bounce, b_shadow, visit_bounce) -> dict:
+def tables_bound(args, work: envelope.EnvelopeWork, tile: int) -> dict:
+    """supertile_tables' bound from the two-level walk: every ray against
+    every union box, the CHUNK member slabs of each union box it enters."""
+    n, gp = args[0].shape[0], args[3].shape[1]
+    unions, members = float(n * (gp // envelope.CHUNK)), float(work.chunks.sum()) * envelope.CHUNK
+    return bound(SLAB_OPS * unions + (SLAB_OPS + 1) * members, nbytes(*args[:5]) + 4 * (n // tile) * gp)
+
+
+def packet_cull_args(pk: cluster.Packets, cl, t_min) -> tuple:
+    """supertile_tables' arguments for the packet cull, as prepare_packets
+    passes them: the key-sorted packet rays, tmax -inf on inactive ones,
+    512-ray tiles."""
+    gmin, gmax = cluster.pad_groups(cl)
+    return (pk.origin.reshape(-1, 3), guarded_inverse(pk.direction.reshape(-1, 3)),
+            cluster.packet_cull_tmax(pk.tmax, pk.active).reshape(-1), gmin, gmax, t_min, cluster.PACKET_SIZE)
+
+
+def dense_packet_cull(pk: cluster.Packets, cl, t_min) -> torch.Tensor:
+    """The packet cull as the parent computed it in plain torch: per 32
+    packets the dense (rays, Gp) slab entries, +inf on inactive rays, the
+    minimum per packet."""
+    n_pk, size = pk.active.shape
+    origin, inv = pk.origin.reshape(-1, 3), guarded_inverse(pk.direction.reshape(-1, 3))
+    tmax, active = pk.tmax.reshape(-1), pk.active.reshape(-1)
+    gmin, gmax = cluster.pad_groups(cl)
+    out = []
+    for s in range(0, n_pk, 32):
+        rows = slice(s * size, min(s + 32, n_pk) * size)
+        ent = envelope.slab_entry(origin[rows], inv[rows], tmax[rows], gmin, gmax, t_min)
+        out.append(torch.where(active[rows, None], ent, torch.inf).reshape(-1, size, gmin.shape[1]).amin(dim=1))
+    return torch.cat(out)
+
+
+def compare_packet_cull(pk: cluster.Packets, cl, t_min, label: str, table) -> tuple:
+    """supertile_tables at 512-ray tiles against its plain version and the
+    dense cull it replaced, bit for bit, and the candidate lists that
+    prepare_packets made from it against the dense cull's.  Returns the
+    kernel's arguments."""
+    args = packet_cull_args(pk, cl, t_min)
+    got, plain = envelope.supertile_tables(*args), envelope.supertile_tables_plain(*args)
+    dense = dense_packet_cull(pk, cl, t_min)
+    torch.cuda.synchronize()
+    check(bits_equal(got, plain), f"supertile_tables ({label} packets, 512-ray tiles) equals its plain version")
+    check(bits_equal(got, dense), f"supertile_tables ({label} packets, 512-ray tiles) equals the dense packet cull")
+    entry_sorted, order = torch.sort(dense, dim=1, stable=True)
+    check(torch.equal(pk.order, order.to(torch.int32)) and bits_equal(pk.entry_sorted, entry_sorted)
+          and torch.equal(pk.nvis, torch.isfinite(dense).sum(dim=1).to(torch.int32)),
+          f"prepare_packets' candidate lists ({label}) equal the dense cull's")
+    row = table["supertile_tables"]
+    row["max_abs_err"] = max(row.get("max_abs_err", 0.0), max_abs_err(got, plain))
+    log(f"packet cull {label}: supertile_tables over {got.shape[0]} packets of 512 rays ({int(pk.active.sum())} "
+        f"active) equals its plain version and the dense cull; order, entry_sorted and nvis equal the dense cull's")
+    return args
+
+
+def log_visit_work(label: str, pk: cluster.Packets, cl, t_min, t_final) -> None:
+    """The packet visit's walk per active ray, out to the final hit and out
+    to tmax (visit.visit_work)."""
+    args = (pk.nvis, pk.order, pk.entry_sorted, pk.origin, pk.direction, pk.active)
+    need = visit.visit_work(*args, t_final, cl, t_min)
+    most = visit.visit_work(*args, pk.tmax, cl, t_min)
+    act = pk.active
+    n_act = max(int(act.sum()), 1)
+    per = ", ".join(f"{f} {float(a[act].sum()) / n_act:.2f} / {float(b[act].sum()) / n_act:.2f}"
+                    for f, a, b in zip(visit.VisitWork._fields, need, most))
+    log(f"visit walk {label}, per active ray ({n_act}), out to the final hit / out to tmax: {per} "
+        f"(each group entered tests its {KERNEL_GROUP} member boxes)")
+
+
+def kernel_calls(cases, cl, t_min, b_bounce, b_shadow, visit_args, cull_args) -> dict:
     """Each kernel's phase-3 calls, {kernel: {shape: arguments}}; the first
     shape is the one the kernel table's `ms` takes."""
     calls = {name: {label: case.keys if name == "ray_keys" else case.tables for label, case in cases.items()}
              for name in ("ray_keys", "supertile_tables")}
+    calls["supertile_tables"].update({"packet": cull_args["bounce"], "packet_shadow": cull_args["shadow"]})
     calls["stream"] = {"bounce": (b_bounce, cl, t_min)}
     calls["occlude"] = {"shadow": (b_shadow, cl, t_min)}
-    calls["visit"] = {"bounce": visit_bounce}
+    calls["visit"] = dict(visit_args)
     return calls
 
 
@@ -362,10 +448,14 @@ def wrapper(name: str):
     return getattr(module, attr)
 
 
-def same_bits(a, b) -> bool:
-    """Equal outputs (a tensor or a tuple of them), floats bit for bit."""
+def differing(a, b) -> tuple:
+    """(rays whose outputs differ, rays) of two results (a tensor or a tuple
+    of them), floats compared bit for bit."""
     a, b = ((a,), (b,)) if torch.is_tensor(a) else (a, b)
-    return all(bits_equal(x, y) if x.dtype == torch.float32 else torch.equal(x, y) for x, y in zip(a, b))
+    diff = torch.zeros(a[0].shape, dtype=torch.bool, device=a[0].device)
+    for x, y in zip(a, b):
+        diff |= (x.view(torch.int32) != y.view(torch.int32)) if x.dtype == torch.float32 else (x != y)
+    return int(diff.sum()), diff.numel()
 
 
 SASS_LINE = re.compile(r"/\*([0-9a-f]{4,})\*/\s+(.*?)\s*;")
@@ -414,10 +504,10 @@ class Build(NamedTuple):
 
 def build_source(path: str, out_dir: str) -> Build:
     """nvcc one kernel source into out_dir with the kernels' flags and
-    -Xptxas -v, and load it."""
+    -Xptxas -v (the headers of csrc/ on the include path), and load it."""
     os.makedirs(out_dir, exist_ok=True)
     lib_path = os.path.join(out_dir, f"lib{os.path.splitext(os.path.basename(path))[0]}.so")
-    proc = subprocess.run([kernels.nvcc(), *kernels.NVCC_FLAGS, "-Xptxas", "-v", "-o", lib_path, path],
+    proc = subprocess.run([kernels.nvcc(), *kernels.NVCC_FLAGS, "-Xptxas", "-v", "-I", kernels.CSRC_DIR, "-o", lib_path, path],
                           capture_output=True, text=True, timeout=600)
     check(proc.returncode == 0, f"nvcc builds {path}:\n{proc.stderr}")
     ptxas = [line.strip() for line in (proc.stdout + proc.stderr).splitlines()
@@ -464,16 +554,19 @@ def compare_builds(paths, calls):
                 with routed(b):
                     got = fn(*args)
                 torch.cuda.synchronize()
-                check(same_bits(got, want), f"{b.path} gives the current {name} results ({label})")
+                n_diff, rays = differing(got, want)
+                check(n_diff <= AB_DIFFER.get(name, 0.0) * rays,
+                      f"{b.path} gives the current {name} results ({label}): {n_diff} of {rays} rays differ")
 
                 def timed(which):
                     with routed(which):
                         return cuda_ms(lambda: fn(*args), reps=21, launches=LAUNCHES_PER_PAIR)
 
                 o1, c1, c2, o2 = timed(b), timed(None), timed(None), timed(b)
-                row[f"{name}_{label}"] = {"other_ms": [o1, o2], "current_ms": [c1, c2]}
+                row[f"{name}_{label}"] = {"other_ms": [o1, o2], "current_ms": [c1, c2], "differing_rays": n_diff}
                 log(f"{name} {label}: {b.path} {o1:.4f} / {o2:.4f} ms, current {c1:.4f} / {c2:.4f} ms (other, "
-                    f"current, current, other; medians of 21 x {LAUNCHES_PER_PAIR} launches)")
+                    f"current, current, other; medians of 21 x {LAUNCHES_PER_PAIR} launches); {n_diff} of {rays} "
+                    f"rays differ")
         ab[b.path] = row
         log(f"{b.path}: ptxas {b.ptxas}; loops {b.sass}")
         log(f"current {b.source}: ptxas {cur.ptxas}; loops {cur.sass}")
@@ -481,15 +574,18 @@ def compare_builds(paths, calls):
 
 
 def drive_ab(r: Renderer, others, ab) -> None:
-    """The stream path with each other build and the current one, in turns
-    (other, current, current, other, twice); prints the "ab" line."""
+    """The path that runs each other build's source (the packet path for
+    visit.cu, else the stream path) with that build and the current one, in
+    turns (other, current, current, other, twice); prints the "ab" line."""
     for b in others:
+        mode = "packet" if b.source == "visit.cu" else "stream"
         runs = {"other": [], "current": []}
-        for which in (b, None, None, b) * 2:
-            with routed(which):
-                key = "current" if which is None else "other"
-                runs[key].append(drive(r, f"stream ({b.path if which is not None else 'current'} {b.source})")[1])
-        ab[b.path]["stream_s_per_dispatch"] = runs
+        with mock.patch.object(integrator, "TRACE_MODE", mode):
+            for which in (b, None, None, b) * 2:
+                with routed(which):
+                    key = "current" if which is None else "other"
+                    runs[key].append(drive(r, f"{mode} ({b.path if which is not None else 'current'} {b.source})")[1])
+        ab[b.path][f"{mode}_s_per_dispatch"] = runs
     print(json.dumps({"ab": ab}), flush=True)
 
 
@@ -512,7 +608,8 @@ def compare_stream(bands, cl, t_min, label):
 def compare_visit(pk: cluster.Packets, cl, t_min, label):
     """The visit kernel against its plain version on the same packets: ids,
     t, u and v equal (the same gates and arithmetic, --fmad=false).  Returns
-    the max abs t error and the plain version's milliseconds (this one run)."""
+    the max abs t error, the plain version's milliseconds (this one run) and
+    the kernel's t."""
     args = (pk.nvis, pk.order, pk.entry_sorted, pk.origin, pk.direction, pk.active, pk.tmax, cl, t_min)
     tk, trk, uk, vk = visit.visit_trace(*args)
     a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
@@ -525,7 +622,7 @@ def compare_visit(pk: cluster.Packets, cl, t_min, label):
     log(f"visit {label}: {pk.nvis.shape[0]} packets, {int(pk.active.sum())} active rays, "
         f"{int((trk >= 0).sum())} hits, candidate groups per packet mean {float(pk.nvis.float().mean()):.1f} "
         f"max {int(pk.nvis.max())}; ids, t, u and v equal the plain version's")
-    return max_abs_err(tk, tp), a.elapsed_time(b)
+    return max_abs_err(tk, tp), a.elapsed_time(b), tk
 
 
 def drive(r: Renderer, label: str):
@@ -555,15 +652,49 @@ def drive(r: Renderer, label: str):
     return launches, s_per
 
 
+def profile_dispatch(r: Renderer, label: str, wall_s: float) -> None:
+    """One torch.profiler trace (CPU and CUDA activity) of a dispatch after
+    an unprofiled one: device events (kernels, copies, fills), their summed
+    time, the busy share against the unprofiled s/dispatch `wall_s` of this
+    call and against the profiled device span, and the top kernels."""
+    from torch.profiler import ProfilerActivity, profile
+
+    r.path_trace()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        r.path_trace()
+        torch.cuda.synchronize()
+    traced = time.perf_counter() - t0
+    events = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    check(len(events) > 0, f"the {label} profile holds device events")
+    by_name = collections.defaultdict(lambda: [0.0, 0])
+    for e in events:
+        by_name[e.name][0] += e.time_range.elapsed_us() / 1e3
+        by_name[e.name][1] += 1
+    busy_ms = sum(ms for ms, _ in by_name.values())
+    span_ms = (max(e.time_range.end for e in events) - min(e.time_range.start for e in events)) / 1e3
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:12]
+    ours = sorted((m.group(1), ms, n) for name, (ms, n) in by_name.items()
+                  if (m := re.search(r"((?:ray_keys|supertile_tables|trace|visit)_kernel<[^>]*>)", name)))
+    log(f"profile {label} dispatch: {len(events)} device events, device time {busy_ms:.1f} ms: busy "
+        f"{100 * busy_ms / (1e3 * wall_s):.1f}% of the unprofiled {wall_s:.3f} s/dispatch, "
+        f"{100 * busy_ms / span_ms:.1f}% of the profiled device span {span_ms:.0f} ms (profiled wall {traced:.2f} s); "
+        f"the csrc kernels {sum(ms for _, ms, _ in ours):.1f} ms: "
+        + ", ".join(f"{name} {ms:.1f} ms x{n}" for name, ms, n in ours)
+        + "; top: " + "; ".join(f"{name[:80]} {ms:.1f} ms x{n}" for name, (ms, n) in top))
+
+
 def check_stream_launches(launches, label: str) -> None:
     for name in STREAM_KERNELS:
         check(launches[name] > 0, f"the {label} path launched {name}")
     check(launches["visit"] == 0, f"the {label} path did not launch visit")
 
 
-def kernel_vs_plain_render(data, meta, flags, params, dev, label: str) -> None:
+def kernel_vs_plain_render(data, meta, flags, params, dev, label: str, exact: bool = False) -> None:
     """A 128x128 1-spp render with the kernels against the same render with
-    every plain version (`params` made for a square image)."""
+    every plain version (`params` made for a square image): within 40 dB
+    PSNR, or with `exact` equal."""
     small = 128
     args = (data, meta, flags, params, 2654435761, (small, small), torch.zeros((small, small, 3), device=dev), 0, 1)
     img_k = render_step(*args)[0].cpu().numpy()
@@ -575,6 +706,7 @@ def kernel_vs_plain_render(data, meta, flags, params, dev, label: str) -> None:
     log(f"{label} kernel vs plain render {small}x{small} 1 spp: PSNR {p:.1f} dB, "
         f"max abs diff {float(np.abs(img_k - img_p).max()):.3g}")
     check(p > 40.0, f"{label} kernel render within 40 dB PSNR of the plain render")
+    check(not exact or np.array_equal(img_k, img_p), f"{label} kernel render equals the plain render")
 
 
 def main() -> int:
@@ -642,11 +774,15 @@ def run(dev, smi: str, other_builds=()) -> None:
     pk_bounce = cluster.prepare_packets(*bounce[:2], cl, t_min, T_MAX, bounce[2], sort_rays=True)
     pk_shadow = cluster.prepare_packets(shadow["origin"], shadow["direction"], cl, t_min, shadow["tmax"],
                                         shadow["active"], sort_rays=True)
-    err_b, plain_b = compare_visit(pk_bounce, cl, t_min, "bounce")
-    err_s, plain_s = compare_visit(pk_shadow, cl, t_min, "shadow")
+    packets = {"bounce": pk_bounce, "shadow": pk_shadow}
+    cull_args = {label: compare_packet_cull(pk, cl, t_min, label, table) for label, pk in packets.items()}
+    err_b, plain_b, t_visit_b = compare_visit(pk_bounce, cl, t_min, "bounce")
+    err_s, plain_s, t_visit_s = compare_visit(pk_shadow, cl, t_min, "shadow")
     table["visit"]["max_abs_err"] = max(err_b, err_s)
+    log_visit_work("bounce", pk_bounce, cl, t_min, t_visit_b)
+    log_visit_work("shadow", pk_shadow, cl, t_min, t_visit_s)
     visit_args = {label: (pk.nvis, pk.order, pk.entry_sorted, pk.origin, pk.direction, pk.active, pk.tmax, cl, t_min)
-                  for label, pk in (("bounce", pk_bounce), ("shadow", pk_shadow))}
+                  for label, pk in packets.items()}
     n_b, n_s = b_bounce.origin.shape[0], b_shadow.origin.shape[0]
     for label, case in cases.items():
         for name, b in zip(("ray_keys", "supertile_tables"), envelope_bounds(case, label)):
@@ -654,19 +790,32 @@ def run(dev, smi: str, other_builds=()) -> None:
                 table[name].update(b)
             else:
                 table[name]["shadow_bound_ms"] = b["bound_ms"]
+    for label, args in cull_args.items():
+        work = envelope.envelope_work(*args[:6])
+        act = packets[label].active.reshape(-1)
+        n_act = max(int(act.sum()), 1)
+        log(f"packet cull {label}, per active ray: groups entered {float(work.groups[act].sum()) / n_act:.2f}, "
+            f"union boxes entered {float(work.chunks[act].sum()) / n_act:.2f}, by any lane of the ray's warp "
+            f"{float(work.warp_chunks[act].sum()) / n_act:.1f} (of {args[3].shape[1] // envelope.CHUNK})")
+        key = "packet_bound_ms" if label == "bounce" else "packet_shadow_bound_ms"
+        table["supertile_tables"][key] = tables_bound(args, work, cluster.PACKET_SIZE)["bound_ms"]
     table["stream"].update(bound(trace_flops(w_bounce, instanced),
                                  nbytes(*band_inputs(b_bounce), *cluster_tables(cl)) + 16 * n_b))
     table["occlude"].update(bound(trace_flops(w_shadow, instanced),
                                   nbytes(*band_inputs(b_shadow), *cluster_tables(cl)) + 4 * n_s))
-    table["visit"].update(bound(trace_flops(w_bounce, instanced),  # the same closest hits of the same rays
-                                nbytes(pk_bounce.nvis, pk_bounce.order, pk_bounce.entry_sorted, pk_bounce.origin,
-                                       pk_bounce.direction, pk_bounce.tmax, *cluster_tables(cl))
-                                + 4 * pk_bounce.active.numel() + 16 * n_b))
-    table["visit"]["plain_ms"] = plain_b
-    shadow_ms = cuda_ms(lambda: visit.visit_trace(*visit_args["shadow"]), launches=LAUNCHES_PER_PAIR)
-    log(f"visit shadow: kernel {shadow_ms:.3f} ms, plain {plain_s:.1f} ms (1,024 packets; plain timed once)")
+    # The visit does the same closest hits of the same rays as stream (bounce)
+    # and the nearest-blocker search of occlude (shadow).
+    for label, pk, work in (("bounce", pk_bounce, w_bounce), ("shadow", pk_shadow, w_shadow)):
+        b = bound(trace_flops(work, instanced),
+                  nbytes(pk.nvis, pk.order, pk.entry_sorted, pk.origin, pk.direction, pk.tmax, *cluster_tables(cl))
+                  + 4 * pk.active.numel() + 16 * pk.active.numel())
+        if label == "bounce":
+            table["visit"].update(b)
+        else:
+            table["visit"]["shadow_bound_ms"] = b["bound_ms"]
+    table["visit"]["plain_ms"], table["visit"]["shadow_plain_ms"] = plain_b, plain_s
 
-    calls = kernel_calls(cases, cl, t_min, b_bounce, b_shadow, visit_args["bounce"])
+    calls = kernel_calls(cases, cl, t_min, b_bounce, b_shadow, visit_args, cull_args)
     for name, shapes in calls.items():
         row = table[name]
         for i, (label, args) in enumerate(shapes.items()):
@@ -675,7 +824,8 @@ def run(dev, smi: str, other_builds=()) -> None:
             if name != "visit":  # the plain visit was timed once above
                 row[f"{pre}plain_ms"] = cuda_ms(lambda: PLAIN[name][2](*args))
             log(f"{name} {label}: kernel {row[f'{pre}ms']:.4f} ms (median of 5 x {LAUNCHES_PER_PAIR} launches), "
-                f"plain {row[f'{pre}plain_ms']:.3f} ms; bound {row[f'{pre}bound_ms'] * 1e3:.2f} us by "
+                f"plain {row[f'{pre}plain_ms']:.3f} ms{' (timed once)' if name == 'visit' else ''}; "
+                f"bound {row[f'{pre}bound_ms'] * 1e3:.2f} us by "
                 f"{row['bound_by']}, the kernel at {100 * row[f'{pre}bound_ms'] / row[f'{pre}ms']:.2f}% of it; "
                 f"library call: none")
     if other_builds:
@@ -695,11 +845,11 @@ def run(dev, smi: str, other_builds=()) -> None:
           "the baked tables are finite and of their shapes")
     flags = RenderFlags(max_depth=8, max_medium_events=8)
     t0 = time.perf_counter()
-    r = Renderer(colonnade(), dev, width=W, height=H, flags=flags, samples_per_frame=4)
+    r = Renderer(colonnade(), width=W, height=H, flags=flags, samples_per_frame=4, device=dev)
     log(f"Renderer(colonnade, lookup_tables='auto'): {time.perf_counter() - t0:.1f} s")
     check(not np.array_equal(r.scene_data.lookup_reflect.cpu().numpy(), constant_fit(1.0)),
           "the default Renderer carries the baked fits, not the constant fit")
-    launches = drive(r, "stream")[0]
+    launches, stream_s = drive(r, "stream")
     check_stream_launches(launches, "stream")
     for name in STREAM_KERNELS:
         table[name]["launches"] = launches[name]
@@ -708,27 +858,38 @@ def run(dev, smi: str, other_builds=()) -> None:
 
     # 5. The packet path, then its image saved as a PNG and read back.
     with mock.patch.object(integrator, "TRACE_MODE", "packet"):
-        launches = drive(r, "packet")[0]
+        launches, packet_s = drive(r, "packet")
         check(launches["visit"] > 0, "the packet path launched visit")
+        check(launches["supertile_tables"] > 0, "the packet path launched supertile_tables (the packet cull)")
         check(launches["stream"] == 0 and launches["occlude"] == 0,
               "the packet path launched neither stream nor occlude")
         table["visit"]["launches"] = launches["visit"]
+        table["supertile_tables"]["packet_launches"] = launches["supertile_tables"]
+        log(f"packet path {packet_s:.3f} s/dispatch, stream path {stream_s:.3f} s/dispatch in this call: "
+            f"{packet_s / stream_s:.2f}x; supertile_tables launches over {TIMED_DISPATCHES + 1} dispatches: "
+            f"{table['supertile_tables']['launches']} at 1024-ray tiles (stream path), "
+            f"{launches['supertile_tables']} at 512-ray tiles (packet path)")
         with tempfile.TemporaryDirectory() as tmp:
             path = r.save(os.path.join(tmp, "packet.png"))
             png = read_png(path)
         log(f"saved {os.path.basename(path)}: {png.shape} uint8, mean {float(png.mean()):.1f}")
         check(png.shape == (H, W, 3) and float(png.mean()) > 0.0, "the saved PNG reads back (512, 512) with mean > 0")
 
+    # One profiled dispatch of each mode.
+    profile_dispatch(r, "stream", stream_s)
+    with mock.patch.object(integrator, "TRACE_MODE", "packet"):
+        profile_dispatch(r, "packet", packet_s)
+
     # 6. Kernel renders against plain renders.
     square = default_params(dev, np.linalg.inv(aux["camera_view"]),
                             np.linalg.inv(perspective(np.radians(aux["camera_fov_deg"]), 1.0)))
     kernel_vs_plain_render(data, meta, flags, square, dev, "stream")
     with mock.patch.object(integrator, "TRACE_MODE", "packet"):
-        kernel_vs_plain_render(data, meta, flags, square, dev, "packet")
+        kernel_vs_plain_render(data, meta, flags, square, dev, "packet", exact=True)
 
     # 7. The media path: a 128^3 cloud and a ground haze (README's cloud in a scene).
     t0 = time.perf_counter()
-    r = Renderer(colonnade(), dev, width=W, height=H, flags=flags, samples_per_frame=4)
+    r = Renderer(colonnade(), width=W, height=H, flags=flags, samples_per_frame=4, device=dev)
     r.add_volume(Volume(corner_min=(-6, 3, -4), corner_max=(6, 9, 4), density=8.0, anisotropy=0.3,
                         density_grid=procedural_cloud((128, 128, 128), coverage=0.6, seed=0)))
     r.add_volume(Volume(corner_min=(-17, 0, -7), corner_max=(17, 1.5, 7), density=0.05, color=(0.9, 0.9, 0.9)))
@@ -738,7 +899,7 @@ def run(dev, smi: str, other_builds=()) -> None:
     kernel_vs_plain_render(r.scene_data, r.meta, r.flags, square, dev, "media")
 
     # 8. The atmosphere path: the day setup of scripts/gallery.py.
-    r = Renderer(colonnade(), dev, width=W, height=H, flags=flags, samples_per_frame=4)
+    r = Renderer(colonnade(), width=W, height=H, flags=flags, samples_per_frame=4, device=dev)
     r.set_enable_atmosphere(True)
     r.set_planet_position((0.0, -6360e3, 0.0))
     r.set_sky_altitude(30.0)

@@ -6,6 +6,9 @@ built with `lookup_tables=None`, the constant energy-compensation fit, so
 that nothing bakes the tables on the CPU."""
 
 import dataclasses
+import inspect
+import struct
+import zlib
 
 import jax.numpy as jnp
 import numpy as np
@@ -104,12 +107,134 @@ def test_fly_camera_matches_jax():
     np.testing.assert_array_equal(back.position, jback.position)
 
 
+def _png_rows(path):
+    """(filter type of every row, IDAT chunk count) of a PNG file."""
+    data = open(path, "rb").read()
+    pos, idat, header = 8, [], None
+    while pos < len(data):
+        (length,) = struct.unpack(">I", data[pos : pos + 4])
+        kind, body = data[pos + 4 : pos + 8], data[pos + 8 : pos + 8 + length]
+        if kind == b"IHDR":
+            header = struct.unpack(">IIBBBBB", body)
+        elif kind == b"IDAT":
+            idat.append(body)
+        pos += 12 + length
+    w, h, _, ctype = header[:4]
+    c = {0: 1, 2: 3, 4: 2, 6: 4}[ctype]
+    raw = np.frombuffer(zlib.decompress(b"".join(idat)), np.uint8).reshape(h, 1 + w * c)
+    return set(raw[:, 0].tolist()), len(idat)
+
+
+def _test_image(rng, h, w, shape):
+    """Noise, flat rows and ramps: rows that PIL's adaptive filter encodes
+    with different filter types."""
+    img = rng.integers(0, 256, (h, w) + shape).astype(np.uint8)
+    img[: h // 4] = 200
+    ramp = (np.arange(w) * 3 % 256).astype(np.uint8)
+    img[h // 4 : h // 2] = ramp.reshape((1, w) + (1,) * len(shape))
+    img[h // 2 : 3 * h // 4] = (np.arange(h // 2, 3 * h // 4)[:, None] + np.arange(w)[None, :]).astype(
+        np.uint8).reshape((-1, w) + (1,) * len(shape))
+    return img
+
+
+@pytest.mark.parametrize("mode", ["L", "LA", "RGB", "RGBA"])
+def test_load_png_equals_jax_on_pil_files(tmp_path, mode):
+    """PNGs that PIL writes (adaptive row filters; the RGBA one in several
+    IDAT chunks): the port's load_png equals the JAX package's (PIL), shape
+    and dtype included."""
+    shape = {"L": (), "LA": (2,), "RGB": (3,), "RGBA": (4,)}[mode]
+    h, w = (300, 320) if mode == "RGBA" else (41, 57)
+    img = _test_image(np.random.default_rng(len(mode)), h, w, shape)
+    path = str(tmp_path / f"{mode}.png")
+    Image.fromarray(img, mode).save(path)
+    got, want = timage.load_png(path), jimage.load_png(path)
+    assert got.dtype == want.dtype == np.float32 and got.shape == want.shape
+    np.testing.assert_array_equal(got, want)
+    np.testing.assert_array_equal(timage.read_png(path), img)
+    filters, chunks = _png_rows(path)
+    assert len(filters) >= 2, filters
+    assert chunks > 1 or mode != "RGBA"
+
+
+def _filtered(img, kinds):
+    """PNG scanlines of `img` (h, w, c) uint8, row y filtered with
+    kinds[y % len(kinds)], as the PNG spec defines the five filters."""
+    h, w, c = img.shape
+    rows = img.reshape(h, w * c).astype(np.int64)
+    out = []
+    for y in range(h):
+        x = rows[y]
+        b = rows[y - 1] if y else np.zeros_like(x)
+        a = np.concatenate([np.zeros(c, np.int64), x[:-c]])
+        ul = np.concatenate([np.zeros(c, np.int64), b[:-c]])
+        kind = kinds[y % len(kinds)]
+        p = a + b - ul
+        pa, pb, pc = np.abs(p - a), np.abs(p - b), np.abs(p - ul)
+        paeth = np.where((pa <= pb) & (pa <= pc), a, np.where(pb <= pc, b, ul))
+        pred = [np.zeros_like(x), a, b, (a + b) // 2, paeth][kind]
+        out.append(np.concatenate([[kind], (x - pred) % 256]).astype(np.uint8))
+    return np.stack(out)
+
+
+@pytest.mark.parametrize("channels", [1, 2, 3, 4])
+def test_png_row_filters(tmp_path, channels):
+    """Rows this test filters itself with each of the five filter types
+    (Paeth included), the data split over three IDAT chunks: read_png
+    gives the image back and equals PIL's decoding."""
+    img = _test_image(np.random.default_rng(channels), 23, 29, (channels,))
+    data = zlib.compress(_filtered(img, [0, 1, 2, 3, 4, 4, 3, 1]).tobytes())
+    ctype = {1: 0, 2: 4, 3: 2, 4: 6}[channels]
+    path = str(tmp_path / "filtered.png")
+    with open(path, "wb") as f:
+        f.write(b"\x89PNG\r\n\x1a\n")
+        f.write(timage._chunk(b"IHDR", struct.pack(">IIBBBBB", 29, 23, 8, ctype, 0, 0, 0)))
+        for part in (data[:10], data[10 : len(data) // 2], data[len(data) // 2 :]):
+            f.write(timage._chunk(b"IDAT", part))
+        f.write(timage._chunk(b"IEND", b""))
+    got = timage.read_png(path)
+    want = img[..., 0] if channels == 1 else img
+    np.testing.assert_array_equal(got, want)
+    np.testing.assert_array_equal(got, np.asarray(Image.open(path)))
+    np.testing.assert_array_equal(timage.load_png(path), jimage.load_png(path))
+
+
+def test_png_refusals_name_the_reason(tmp_path):
+    """Palette, 16-bit and interlaced PNGs raise a ValueError that says so."""
+    rng = np.random.default_rng(3)
+    pal = str(tmp_path / "palette.png")
+    Image.fromarray(rng.integers(0, 256, (8, 8, 3)).astype(np.uint8), "RGB").convert("P").save(pal)
+    deep = str(tmp_path / "deep.png")
+    Image.fromarray(rng.integers(0, 65535, (8, 8)).astype(np.uint16)).save(deep)
+    laced = str(tmp_path / "interlaced.png")
+    with open(laced, "wb") as f:
+        f.write(b"\x89PNG\r\n\x1a\n")
+        f.write(timage._chunk(b"IHDR", struct.pack(">IIBBBBB", 4, 4, 8, 2, 0, 0, 1)))
+        f.write(timage._chunk(b"IDAT", zlib.compress(bytes(4 * 13))))
+        f.write(timage._chunk(b"IEND", b""))
+    for path, reason in ((pal, "palette"), (deep, "16-bit"), (laced, "interlaced")):
+        with pytest.raises(ValueError, match=reason):
+            timage.load_png(path)
+
+
 # ---------------------------------------------------------------- Renderer
+
+
+def test_renderer_parameters_follow_the_jax_package():
+    """The port's Renderer parameters other than the keyword-only `device`
+    are a prefix of the JAX package's, in its order, with its defaults."""
+    port = inspect.signature(Renderer).parameters
+    jax_params = inspect.signature(JRenderer).parameters
+    names = [n for n in port if n != "device"]
+    assert names == list(jax_params)[: len(names)]
+    assert all(port[n].kind is inspect.Parameter.POSITIONAL_OR_KEYWORD for n in names)
+    for n in ("width", "height", "samples_per_frame", "max_samples", "lookup_tables"):
+        assert port[n].default == jax_params[n].default, n
+    assert port["device"].kind is inspect.Parameter.KEYWORD_ONLY and port["device"].default == "cuda"
 
 
 @pytest.fixture(scope="module")
 def renderers():
-    r = Renderer(tproc.cornell_box(), "cpu", width=12, height=8, flags=RenderFlags(**FLAGS),
+    r = Renderer(tproc.cornell_box(), device="cpu", width=12, height=8, flags=RenderFlags(**FLAGS),
                  samples_per_frame=2, max_samples=4, lookup_tables=None)
     j = JRenderer(jproc.cornell_box(), width=12, height=8, flags=JFlags(**FLAGS), samples_per_frame=2,
                   max_samples=4, lookup_tables=None)
@@ -237,7 +362,7 @@ def test_volume_methods_match_jax(tmp_path):
     from vpt_tpu.scene.vdb import procedural_cloud
     from vpt_tpu_torch.scene.types import Volume
 
-    r = Renderer(tproc.cornell_box(), "cpu", width=8, height=8, flags=RenderFlags(**FLAGS), lookup_tables=None)
+    r = Renderer(tproc.cornell_box(), device="cpu", width=8, height=8, flags=RenderFlags(**FLAGS), lookup_tables=None)
     j = JRenderer(jproc.cornell_box(), width=8, height=8, flags=JFlags(**FLAGS), lookup_tables=None)
     cloud = procedural_cloud((12, 10, 8), seed=2)
     temp = np.random.default_rng(1).uniform(0.0, 1000.0, (12, 10, 8)).astype(np.float32)
@@ -301,7 +426,7 @@ def test_render_save_and_checkpoint_resume(tmp_path):
     accumulation; `save` writes the tonemapped PNG, the HDR .npy, and
     spp/seconds into the name."""
     def make():
-        return Renderer(tproc.cornell_box(), "cpu", width=8, height=8, flags=RenderFlags(**FLAGS),
+        return Renderer(tproc.cornell_box(), device="cpu", width=8, height=8, flags=RenderFlags(**FLAGS),
                         samples_per_frame=1, max_samples=3, lookup_tables=None)
 
     r = make()

@@ -142,11 +142,25 @@ def test_envelope_work_culls_on_colonnade(kind):
 
 
 def test_wrappers_refuse_what_the_kernels_do_not_take():
+    """Any t_min is taken: at t_min 0 and below, the tables equal the JAX
+    kernel's in interpret mode (values: a -0.0 entry equals +0.0).  Refused:
+    a group count that is not a multiple of 8, levels other than 1 and 2,
+    tiles other than 512 and 1024, and a ray count that is not a multiple
+    of the tile."""
     o, _, inv, tmax, gmin, gmax, _ = _scene(0, n=1024, g=29, gp=32)
     args = _t(o, inv, tmax, gmin, gmax)
-    with pytest.raises(ValueError, match="t_min > 0"):
-        tenv.supertile_tables(*args, t_min=0.0)
+    for t_min in (0.0, -1e-4):
+        want = np.asarray(jenv.supertile_tables(*(jnp.asarray(a) for a in (o, inv, tmax, gmin, gmax)), t_min=t_min,
+                                                interpret=True))
+        got = tenv.supertile_tables_plain(*args, t_min, tile=1024).numpy()
+        np.testing.assert_array_equal(got, want)
+        assert torch.equal(tenv.supertile_tables(*args, t_min=t_min), torch.as_tensor(got))
+        assert np.isfinite(got).any() and (got <= 0).any(), t_min  # entries at or below 0 were taken
     with pytest.raises(ValueError, match="multiple of 8"):
         tenv.ray_keys(*args[:3], args[3][:, :30], args[4][:, :30], t_min=T_MIN, levels=2)
     with pytest.raises(ValueError, match="levels"):
         tenv.ray_keys(*args, t_min=T_MIN, levels=3)
+    with pytest.raises(ValueError, match="tiles of 512 or 1024"):
+        tenv.supertile_tables(*args, t_min=T_MIN, tile=256)
+    with pytest.raises(ValueError, match="multiple of 512"):
+        tenv.supertile_tables(*(a[:768] for a in args[:3]), *args[3:], t_min=T_MIN, tile=512)

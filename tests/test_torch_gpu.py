@@ -101,18 +101,47 @@ def test_envelope_kernels_on_adversarial_rays(cuda, name, kind):
     assert kernels.LAUNCHES["supertile_tables"] == before["supertile_tables"] + 4
 
 
-def test_supertile_tables_raises_on_nonpositive_t_min(cuda):
-    """The kernel orders entries by their float bits, which needs t_min > 0:
-    the wrapper refuses t_min <= 0 and launches nothing."""
+@pytest.mark.parametrize("tile", [512, 1024])
+@pytest.mark.parametrize("t_min", [0.0, -1e-4])
+def test_supertile_tables_match_plain_at_any_t_min(cuda, t_min, tile):
+    """The kernel orders entries by an order-preserving key, so it equals its
+    plain version at t_min 0 and below too (as values: -0.0 equals +0.0),
+    at both tile sizes; a third of the rays are inactive (tmax -inf) and
+    some start inside a group box."""
     cl, rng = _clusters(cuda, instanced=False)
-    org, d = _rays(rng, cuda, n=1024)
+    org, d = _rays(rng, cuda, n=4096)
+    org[::7] = torch.tensor(rng.uniform(-3, 3, (len(range(0, 4096, 7)), 3)).astype(np.float32), device=cuda)
     gmin, gmax = stream.pad_groups(cl)
-    tmax = torch.full((1024,), 1e8, device=cuda)
-    before = dict(kernels.LAUNCHES)
-    for t_min in (0.0, -1e-4):
-        with pytest.raises(ValueError, match="t_min > 0"):
-            envelope.supertile_tables(org, stream.guarded_inverse(d), tmax, gmin, gmax, t_min)
-    assert kernels.LAUNCHES == before
+    tmax = torch.tensor(rng.uniform(0.5, 20.0, 4096).astype(np.float32), device=cuda)
+    tmax = torch.where(torch.arange(4096, device=cuda) % 3 == 0, -torch.inf, tmax)
+    args = (org, stream.guarded_inverse(d), tmax, gmin, gmax, t_min, tile)
+    before = kernels.LAUNCHES["supertile_tables"]
+    got = envelope.supertile_tables(*args)
+    assert kernels.LAUNCHES["supertile_tables"] == before + 1
+    want = envelope.supertile_tables_plain(*args)
+    torch.cuda.synchronize()
+    assert got.shape == (4096 // tile, gmin.shape[1])
+    assert torch.equal(got, want)
+    assert bool((want <= 0).any()) and bool(torch.isfinite(want).any())
+
+
+def test_packet_cull_kernel_matches_the_dense_cull(cuda):
+    """prepare_packets on the card (supertile_tables at 512-ray tiles, tmax
+    -inf on inactive rays) gives the candidate lists of the dense (rays, Gp)
+    cull on the same sorted packets."""
+    cl, rng = _clusters(cuda, instanced=True)
+    org, d = _rays(rng, cuda, n=6000)
+    active = torch.tensor(rng.uniform(size=6000) < 0.7, device=cuda)
+    before = kernels.LAUNCHES["supertile_tables"]
+    pk = prepare_packets(org, d, cl, T_MIN, 1e8, active, sort_rays=True)
+    assert kernels.LAUNCHES["supertile_tables"] == before + 1
+    gmin, gmax = stream.pad_groups(cl)
+    ent = envelope.slab_entry(pk.origin.reshape(-1, 3), stream.guarded_inverse(pk.direction.reshape(-1, 3)),
+                              pk.tmax.reshape(-1), gmin, gmax, T_MIN)
+    entry = torch.where(pk.active.reshape(-1, 1), ent, torch.inf).reshape(-1, 512, gmin.shape[1]).amin(dim=1)
+    entry_sorted, order = torch.sort(entry, dim=1, stable=True)
+    assert torch.equal(pk.order, order.to(torch.int32)) and torch.equal(pk.entry_sorted, entry_sorted)
+    assert torch.equal(pk.nvis, torch.isfinite(entry).sum(dim=1).to(torch.int32))
 
 
 @pytest.mark.parametrize("instanced", [False, True])
@@ -217,3 +246,37 @@ def test_visit_kernel_matches_plain(cuda, instanced, any_hit):
     for name, a, b in zip(("t", "tri", "u", "v"), got, want):
         assert torch.equal(a, b), name
     assert int((got[1] >= 0).sum()) > 500
+
+
+@pytest.mark.parametrize("t_min", [0.0, -1e-4])
+def test_visit_kernel_matches_plain_at_any_t_min(cuda, t_min):
+    """The visit's closest hit is picked on an order-preserving key of t, so
+    it equals the plain version at t_min 0 and below too."""
+    cl, rng = _clusters(cuda, instanced=True)
+    org, d = _rays(rng, cuda, n=3000)
+    active = torch.tensor(rng.uniform(size=3000) < 0.9, device=cuda)
+    pk = prepare_packets(org, d, cl, t_min, 1e8, active, sort_rays=True)
+    args = (pk.nvis, pk.order, pk.entry_sorted, pk.origin, pk.direction, pk.active, pk.tmax, cl, t_min)
+    got = visit.visit_trace(*args)
+    want = visit.visit_trace_plain(*args)
+    torch.cuda.synchronize()
+    for name, a, b in zip(("t", "tri", "u", "v"), got, want):
+        assert torch.equal(a, b), name
+    assert int((got[1] >= 0).sum()) > 300
+
+
+@pytest.mark.parametrize("shape", ["K=64", "4 sub-blocks"])
+def test_visit_wrapper_raises_on_other_cluster_shapes(cuda, shape):
+    """vpt_visit is compiled for K = 128 in 8 sub-blocks: the wrapper raises
+    on anything else and launches nothing."""
+    if shape == "K=64":
+        cl, rng = _clusters(cuda, instanced=False, cluster_size=64)
+    else:
+        cl, rng = _clusters(cuda, instanced=False)
+        cl = cl._replace(sub_aabbs=cl.sub_aabbs[:, :4].contiguous())
+    org, d = _rays(rng, cuda, n=1000)
+    pk = prepare_packets(org, d, cl, T_MIN, 1e8, None, sort_rays=False)
+    before = dict(kernels.LAUNCHES)
+    with pytest.raises(ValueError, match="K = 128"):
+        visit.visit_trace(pk.nvis, pk.order, pk.entry_sorted, pk.origin, pk.direction, pk.active, pk.tmax, cl, T_MIN)
+    assert kernels.LAUNCHES == before

@@ -131,13 +131,13 @@ def test_renderer_lookup_tables_argument(tmp_path, monkeypatch):
 
     monkeypatch.setattr(api, "get_lookup_tables", fake_tables)
     kw = dict(width=4, height=4, flags=RenderFlags(max_depth=1, max_medium_events=1))
-    auto = Renderer(cornell_box(), "cpu", **kw)
+    auto = Renderer(cornell_box(), device="cpu", **kw)
     assert baked_on == [torch.device("cpu")]
     assert not np.array_equal(auto.scene_data.lookup_reflect.numpy(), lookup_fit.constant_fit(1.0))
-    off = Renderer(cornell_box(), "cpu", flags=RenderFlags(use_energy_compensation=False), width=4, height=4)
+    off = Renderer(cornell_box(), device="cpu", flags=RenderFlags(use_energy_compensation=False), width=4, height=4)
     assert len(baked_on) == 1  # no bake when the flags do not use the tables
     np.testing.assert_array_equal(off.scene_data.lookup_reflect.numpy(), lookup_fit.constant_fit(1.0))
-    none = Renderer(cornell_box(), "cpu", lookup_tables=None, **kw)
+    none = Renderer(cornell_box(), device="cpu", lookup_tables=None, **kw)
     np.testing.assert_array_equal(none.scene_data.lookup_refract_out.numpy(), lookup_fit.constant_fit(1.0))
     monkeypatch.setenv("VPT_REFERENCE_TABLES", str(tmp_path))
     r = np.random.default_rng(2)
@@ -145,8 +145,8 @@ def test_renderer_lookup_tables_argument(tmp_path, monkeypatch):
                         ("RefractionLookupHitFromOutside.bin", lookup.REFRACT_SHAPE),
                         ("RefractionLookupHitFromInside.bin", lookup.REFRACT_SHAPE)):
         r.random(shape).astype(np.float32).tofile(tmp_path / name)
-    ref = Renderer(cornell_box(), "cpu", lookup_tables="reference", **kw)
+    ref = Renderer(cornell_box(), device="cpu", lookup_tables="reference", **kw)
     np.testing.assert_allclose(ref.scene_data.lookup_refract_in.numpy(),
                                lookup_fit.fit_table(lookup.load_reference_tables(str(tmp_path))[2]), atol=0)
     with pytest.raises(ValueError):
-        Renderer(cornell_box(), "cpu", lookup_tables="bogus", **kw)
+        Renderer(cornell_box(), device="cpu", lookup_tables="bogus", **kw)

@@ -18,6 +18,7 @@ above is the only exemption, and it holds on the grazing case too."""
 
 import types
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -32,6 +33,7 @@ from vpt_tpu.accel.cluster import build_clusters, intersect_clusters
 from vpt_tpu_torch.accel import cluster as tcluster
 from vpt_tpu_torch.accel import envelope, visit
 from vpt_tpu_torch.accel.bvh import build_bvh as tbuild_bvh
+from vpt_tpu_torch.accel.traverse import KERNEL_GROUP, KERNEL_N_SUB, guarded_inverse
 from vpt_tpu_torch.scene.convert import clusters_from_numpy
 from vpt_tpu_torch.scene.types import tree_to_device
 
@@ -274,3 +276,65 @@ def test_brute_force_agrees_on_the_grazing_grid():
     brute = jtraverse.intersect_brute(jnp.asarray(org), jnp.asarray(d), *(jnp.asarray(x) for x in tris))
     np.testing.assert_allclose(got.t, np.asarray(brute.t), rtol=1e-5, atol=1e-6)
     assert (got.t[8:] > 0).sum() > 20 and np.all(got.t[:8] < 0)
+
+
+@pytest.mark.parametrize("t_min", [1e-4, 0.0])
+def test_packet_cull_equals_jax(t_min):
+    """prepare_packets' cull (supertile_tables at 512-ray tiles, tmax -inf on
+    inactive rays) against JAX's on the same key-sorted packets
+    (cluster._slab_tn_tf and cluster.py:541-553): entry and nvis exactly,
+    entry_sorted equal, order JAX's entries sorted stably.  Mixed active
+    lanes; inactive rays start at group box centres, which a tmax of t_min
+    would enter at t_min."""
+    jcl, org, d, active = _case("instanced")
+    org, active = org.copy(), active.copy()
+    centres = (np.asarray(jcl.group_min) + np.asarray(jcl.group_max)) / 2
+    org[:40] = centres[np.arange(40) % centres.shape[0]]
+    active[:40] = np.arange(40) % 2 == 0
+    tcl = tree_to_device(clusters_from_numpy(jcl), "cpu")
+    pk = tcluster.prepare_packets(torch.tensor(org), torch.tensor(d), tcl, t_min, 1e8, torch.tensor(active), True)
+    gmin_pad, gmax_pad = tcluster.pad_groups(tcl)
+    tn, tf = jcluster._slab_tn_tf(*(jnp.asarray(x.numpy()) for x in (pk.origin, pk.direction, pk.tmax, gmin_pad,
+                                                                       gmax_pad)), t_min)
+    enter = (tn <= tf) & jnp.asarray(pk.active.numpy())[:, :, None]
+    entry = np.asarray(jnp.min(jnp.where(enter, tn, jnp.inf), axis=1))
+    nvis = np.asarray(jnp.sum(jnp.any(enter, axis=1), axis=1))
+    ids = jnp.broadcast_to(jnp.arange(entry.shape[1], dtype=jnp.int32)[None, :], entry.shape)
+    entry_sorted, _ = jax.lax.sort((jnp.asarray(entry), ids), dimension=1, num_keys=1)
+    got = np.empty_like(entry)
+    np.put_along_axis(got, pk.order.numpy().astype(np.int64), pk.entry_sorted.numpy(), axis=1)
+    np.testing.assert_array_equal(got, entry)
+    np.testing.assert_array_equal(pk.nvis.numpy(), nvis)
+    np.testing.assert_array_equal(pk.entry_sorted.numpy(), np.asarray(entry_sorted))
+    np.testing.assert_array_equal(pk.order.numpy(), np.argsort(entry, axis=1, kind="stable"))
+    # The case holds what it claims: packets that mix active and inactive
+    # rays, and inactive rays that a tmax of t_min would let into a box.
+    act = pk.active.numpy()
+    assert (act.any(axis=1) & ~act.all(axis=1)).any()
+    o, inv = pk.origin.reshape(-1, 3), guarded_inverse(pk.direction.reshape(-1, 3))
+    at_t_min = envelope.slab_entry(o, inv, torch.full((o.shape[0],), t_min), gmin_pad, gmax_pad, t_min)
+    assert bool((torch.isfinite(at_t_min).any(dim=1) & ~pk.active.reshape(-1)).sum() >= 10)
+
+
+def test_visit_work_counts_the_walk():
+    """visit_work on the instanced case: each count bounds the next, the
+    walk to tmax does at least the walk to the final hit, and nearly every
+    hit lies in a cluster and sub-block the walk to the hit enters."""
+    cl, org, d, active = _case("instanced")
+    tcl = tree_to_device(clusters_from_numpy(cl), "cpu")
+    pk = tcluster.prepare_packets(torch.tensor(org), torch.tensor(d), tcl, 1e-4, 1e8, torch.tensor(active), True)
+    args = (pk.nvis, pk.order, pk.entry_sorted, pk.origin, pk.direction, pk.active)
+    t, tri, _, _ = visit.visit_trace_plain(*args, pk.tmax, tcl, 1e-4)
+    need = visit.visit_work(*args, t, tcl, 1e-4)
+    most = visit.visit_work(*args, pk.tmax, tcl, 1e-4)
+    for w in (need, most):
+        assert bool((w.walked <= pk.nvis[:, None]).all()) and bool((w.groups <= w.walked).all())
+        assert bool((w.steps * visit.WARP >= w.walked).all())
+        assert bool((w.clusters <= KERNEL_GROUP * w.groups).all())
+        assert bool((w.sub_blocks <= w.sub_slabs).all()) and bool((w.sub_slabs <= KERNEL_N_SUB * w.clusters).all())
+        assert bool((w.tests <= 16 * w.sub_blocks).all()) and not bool(w.walked[~pk.active].any())
+    for a, b in zip(need, most):
+        assert bool((a <= b).all())
+    hit = tri >= 0
+    assert int(hit.sum()) > 300
+    assert float(((need.clusters > 0) & (need.sub_blocks > 0))[hit].float().mean()) > 0.99

@@ -13,8 +13,9 @@ Device half: `intersect_clusters` (cluster.py:415-587), the packet trace
 that `VPT_TRACE=packet` selects.  Rays are padded to whole 512-ray packets,
 bounded by the root box, optionally stable-sorted by their first two
 entered groups, culled per packet against every group box (`entry`,
-`nvis`), and each packet marches its entry-sorted candidate groups in
-kernel 5, `visit.visit_trace`.
+`nvis`: kernel 2, `envelope.supertile_tables`, at 512-ray tiles), and each
+packet's rays walk its entry-sorted candidate groups in kernel 5,
+`visit.visit_trace`.
 """
 
 from __future__ import annotations
@@ -291,8 +292,12 @@ class Packets(NamedTuple):
     tmax: torch.Tensor  # (P, pk) f32, root-exit bounded
 
 
-_CULL_PACKETS = 32  # packets per block of the (packets, rays, Gp) group cull
 _INACTIVE_KEY = 1 << 30  # above every active key, so inactive rays sort last
+
+
+def packet_cull_tmax(tmax, active):
+    """The tmax the packet cull takes: -inf on inactive rays."""
+    return torch.where(active, tmax, -torch.inf)
 
 
 def prepare_packets(origin, direction, cl: ClusterData, t_min, t_max, active, sort_rays: bool) -> Packets:
@@ -324,16 +329,15 @@ def prepare_packets(origin, direction, cl: ClusterData, t_min, t_max, active, so
         origin, direction, inv, tmax, active = (x[perm] for x in (origin, direction, inv, tmax, active))
 
     n_pk = origin.shape[0] // PACKET_SIZE
-    o_p = origin.reshape(n_pk, PACKET_SIZE, 3).contiguous()
+    origin = origin.contiguous()
+    o_p = origin.reshape(n_pk, PACKET_SIZE, 3)
     act_p = active.reshape(n_pk, PACKET_SIZE).contiguous()
     tmax_p = tmax.reshape(n_pk, PACKET_SIZE).contiguous()
-    gp = gmin_pad.shape[1]
-    entry = torch.empty((n_pk, gp), dtype=torch.float32, device=dev)
-    for s in range(0, n_pk, _CULL_PACKETS):
-        rows = slice(s * PACKET_SIZE, min(s + _CULL_PACKETS, n_pk) * PACKET_SIZE)
-        ent = envelope.slab_entry(origin[rows], inv[rows], tmax[rows], gmin_pad, gmax_pad, t_min)
-        ent = torch.where(active[rows, None], ent, torch.inf)
-        entry[s : s + _CULL_PACKETS] = ent.reshape(-1, PACKET_SIZE, gp).amin(dim=1)
+    # The packet cull: per packet and group, the nearest entry of an active
+    # ray (cluster.py:540-542).  An inactive ray's tmax lies below t_min, so
+    # it enters nothing, not even a box around its origin.
+    entry = envelope.supertile_tables(origin, inv.contiguous(), packet_cull_tmax(tmax, active), gmin_pad, gmax_pad,
+                                      t_min, tile=PACKET_SIZE)
     entry_sorted, order = torch.sort(entry, dim=1, stable=True)
     return Packets(
         n_orig=n_orig, perm=perm, nvis=torch.isfinite(entry).sum(dim=1).to(torch.int32),

@@ -6,10 +6,12 @@ Two kernels, each with a plain torch version of the same signature:
   ray_keys          - packs a ray's first `levels` entered groups, in entry
                       order, into an int32 sort key (CUDA: csrc/envelope.cu
                       vpt_ray_keys, replacing the Pallas _keys_kernel);
-  supertile_tables  - for every 1024-ray supertile of the sorted rays and
-                      every group, the minimum slab entry distance, +inf
-                      where no ray enters (CUDA: vpt_supertile_tables,
-                      replacing the Pallas _tables_kernel).
+  supertile_tables  - for every tile of the sorted rays (a 1024-ray
+                      supertile of the stream path, or a 512-ray packet of
+                      the packet trace) and every group, the minimum slab
+                      entry distance, +inf where no ray enters (CUDA:
+                      vpt_supertile_tables, replacing the Pallas
+                      _tables_kernel).
 
 The slab formula is cluster._slab_tn_tf's: tn starts at t_min, tf at the
 ray's tmax, reciprocal directions come in with the caller's 1e-20 guard.
@@ -32,6 +34,7 @@ import torch
 from vpt_tpu_torch.accel import kernels
 
 SUPERTILE = 1024
+TILES = (512, SUPERTILE)  # the tile sizes vpt_supertile_tables is built for
 CHUNK = 8  # groups per union box
 WARP = 32
 _CHUNK_RAYS = 32768  # rays per slab block in the plain versions
@@ -105,35 +108,42 @@ def ray_keys(origin, inv, tmax, gmin_pad, gmax_pad, t_min: float, levels: int):
     return key
 
 
-def supertile_tables_plain(origin, inv, tmax_eff, gmin_pad, gmax_pad, t_min: float):
+def _check_tile(n: int, tile: int) -> None:
+    if tile not in TILES:
+        raise ValueError(f"supertile_tables takes tiles of {' or '.join(map(str, TILES))} rays, got {tile}")
+    if n % tile:
+        raise ValueError(f"supertile_tables needs a multiple of {tile} rays, got {n}")
+
+
+def supertile_tables_plain(origin, inv, tmax_eff, gmin_pad, gmax_pad, t_min: float, tile: int = SUPERTILE):
+    _check_tile(origin.shape[0], tile)
     gp = gmin_pad.shape[1]
     out = []
     for s in range(0, origin.shape[0], _CHUNK_RAYS):
         rows = slice(s, s + _CHUNK_RAYS)
         ent = slab_entry(origin[rows], inv[rows], tmax_eff[rows], gmin_pad, gmax_pad, t_min)
-        out.append(ent.reshape(-1, SUPERTILE, gp).amin(dim=1))
+        out.append(ent.reshape(-1, tile, gp).amin(dim=1))
     return torch.cat(out)
 
 
-def supertile_tables(origin, inv, tmax_eff, gmin_pad, gmax_pad, t_min: float):
-    """(N // 1024, Gp) minimum entry per (supertile, group), +inf where no
-    ray of the supertile enters.  Rays arrive sorted; tmax_eff already folds
-    the active mask (inactive -> t_min).  t_min must be positive: the kernel
-    orders entries by their float bits, which holds for entries > 0."""
-    if origin.shape[0] % SUPERTILE:
-        raise ValueError("supertile_tables needs a multiple of 1024 rays")
-    if not t_min > 0:
-        raise ValueError(f"supertile_tables needs t_min > 0, got {t_min}")
+def supertile_tables(origin, inv, tmax_eff, gmin_pad, gmax_pad, t_min: float, tile: int = SUPERTILE):
+    """(N // tile, Gp) minimum entry per (tile, group), +inf where no ray
+    of the tile enters; tile is 1024 (supertiles) or 512 (packets).  Rays
+    arrive sorted; tmax_eff already folds the active mask: the stream path
+    gives inactive rays t_min (JAX's rule, which still enters a box around
+    the origin), the packet cull -inf (enters nothing).  Any t_min: the
+    kernel orders entries by an order-preserving key of their bits."""
+    _check_tile(origin.shape[0], tile)
     _check_groups(gmin_pad)
     if not origin.is_cuda:
-        return supertile_tables_plain(origin, inv, tmax_eff, gmin_pad, gmax_pad, t_min)
+        return supertile_tables_plain(origin, inv, tmax_eff, gmin_pad, gmax_pad, t_min, tile)
     n, gp = origin.shape[0], gmin_pad.shape[1]
-    out = torch.empty((n // SUPERTILE, gp), dtype=torch.float32, device=origin.device)
+    out = torch.empty((n // tile, gp), dtype=torch.float32, device=origin.device)
     f32 = torch.float32
     kernels.launch(
         "vpt_supertile_tables", "supertile_tables",
         kernels.ptr(origin, f32), kernels.ptr(inv, f32), kernels.ptr(tmax_eff, f32), kernels.ptr(gmin_pad, f32),
-        kernels.ptr(gmax_pad, f32), n, gp, float(t_min), kernels.ptr(out, f32),
+        kernels.ptr(gmax_pad, f32), n, gp, float(t_min), int(tile), kernels.ptr(out, f32),
     )
     return out
 

@@ -1,8 +1,9 @@
 """Build, load and count the hand-written CUDA kernels of vpt_tpu_torch/csrc.
 
-Each source is compiled once per checkout, at first use, into a shared
-library of its own under `vpt_tpu_torch/build/` (git-ignored), one nvcc
-process per source, all started together:
+Each source is compiled once per checkout, at first use (and again when it
+or a header of csrc/ changes), into a shared library of its own under
+`vpt_tpu_torch/build/` (git-ignored), one nvcc process per source, all
+started together:
 
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 --fmad=false
          -shared -Xcompiler -fPIC
@@ -43,7 +44,7 @@ _F = ctypes.c_float
 SOURCES = {  # source -> {entry point: argument types}
     "envelope.cu": {
         "vpt_ray_keys": [_P, _P, _P, _P, _P, _I, _I, _F, _I, _P, _P],
-        "vpt_supertile_tables": [_P, _P, _P, _P, _P, _I, _I, _F, _P, _P],
+        "vpt_supertile_tables": [_P, _P, _P, _P, _P, _I, _I, _F, _I, _P, _P],
     },
     "trace.cu": {
         "vpt_stream": [_P] * 19 + [_I] * 4 + [_F, _I] + [_P] * 5,
@@ -75,8 +76,10 @@ def library() -> dict:
         return _entry
     t0 = time.perf_counter()
     outs = {s: os.path.join(BUILD_DIR, f"libvpt_{os.path.splitext(s)[0]}.so") for s in SOURCES}
+    headers = [os.path.join(CSRC_DIR, f) for f in os.listdir(CSRC_DIR) if f.endswith(".cuh")]
     stale = [s for s, out in outs.items()
-             if not os.path.exists(out) or os.path.getmtime(out) < os.path.getmtime(os.path.join(CSRC_DIR, s))]
+             if not os.path.exists(out)
+             or os.path.getmtime(out) < max(os.path.getmtime(f) for f in [os.path.join(CSRC_DIR, s), *headers])]
     if stale:
         os.makedirs(BUILD_DIR, exist_ok=True)
         tag = f"{os.getpid()}.tmp"

@@ -27,15 +27,13 @@ import torch
 
 from vpt_tpu_torch.accel import envelope, kernels
 from vpt_tpu_torch.accel.cluster import GROUP_SIZE, pad_groups, ray_tmax, root_exit_tmax
-from vpt_tpu_torch.accel.traverse import (T_MAX, T_MIN, Hit, guarded_inverse, instance_space,
-                                          moller_trumbore_scalar, slab)
+from vpt_tpu_torch.accel.traverse import (T_MAX, T_MIN, Hit, check_kernel_clusters, guarded_inverse,
+                                          instance_space, moller_trumbore_scalar, slab)
 from vpt_tpu_torch.scene.types import ClusterData
 
 F32, I32 = torch.float32, torch.int32
 SUPERTILE = envelope.SUPERTILE
 TILES_PER_BAND = 32
-KERNEL_K = 128  # triangles per cluster block, a compile-time constant of csrc/trace.cu
-KERNEL_N_SUB = 8  # sub-blocks per cluster block, likewise
 FLAG_ACTIVE = 1
 FLAG_ANYHIT = 2
 
@@ -296,15 +294,9 @@ def stream_trace(bands: Bands, cl: ClusterData, t_min: float):
 def table_pointers(bands: Bands, cl: ClusterData, payload):
     """Device pointers of the band tables, sorted rays, int32 payload
     columns and cluster tables, in the order vpt_stream / vpt_occlude take
-    them.  Raises unless the cluster blocks have the kernels' compile-time
-    shape: K = 128 triangles in 8 sub-blocks of 16."""
-    k_tris, n_sub = cl.tris.shape[2], cl.sub_aabbs.shape[1]
-    if (k_tris, n_sub) != (KERNEL_K, KERNEL_N_SUB) or cl.tris.shape[1] != 16:
-        raise ValueError(f"vpt_stream / vpt_occlude take K = {KERNEL_K} triangles per cluster in "
-                         f"{KERNEL_N_SUB} sub-blocks, got K = {k_tris} and {n_sub} sub-blocks")
-    if any(t.data_ptr() % 16 for t in (cl.aabbs, cl.inv_rows, cl.sub_aabbs)):
-        raise ValueError("vpt_stream / vpt_occlude read aabbs, inv_rows and sub_aabbs in vectors: "
-                         "pass tensors that start on a 16-byte boundary")
+    them.  Raises unless the cluster tables have the kernels' compiled shape
+    (traverse.check_kernel_clusters)."""
+    check_kernel_clusters(cl, "vpt_stream / vpt_occlude")
     p = kernels.ptr
     return (
         p(bands.ngrp, I32), p(bands.order, I32), p(bands.entry_sorted, F32), p(bands.bits, torch.int64),

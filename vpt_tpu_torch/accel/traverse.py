@@ -15,6 +15,11 @@ from vpt_tpu_torch.core.vecmath import cross, dot
 
 T_MIN = 1e-4
 T_MAX = 1e8
+# The cluster shape the warp-per-ray kernels (csrc/trace.cu, csrc/visit.cu)
+# are compiled for, csrc/traverse.cuh's constants.
+KERNEL_K = 128  # triangles per cluster block
+KERNEL_N_SUB = 8  # sub-blocks per cluster block
+KERNEL_GROUP = 8  # member clusters per group
 
 
 class Hit(NamedTuple):
@@ -104,3 +109,17 @@ def intersect_brute(origin, direction, tri_p0, tri_e1, tri_e2, t_min=T_MIN, t_ma
         u=torch.where(hit, u.gather(1, best)[:, 0], 0.0),
         v=torch.where(hit, v.gather(1, best)[:, 0], 0.0),
     )
+
+
+def check_kernel_clusters(cl, kernel: str) -> None:
+    """Raise unless the cluster tables have the compiled shape (K = 128
+    triangles in 8 sub-blocks, 8 clusters per group) and the tables the
+    kernels read in vectors (aabbs, inv_rows, sub_aabbs) start on 16-byte
+    boundaries."""
+    k_tris, n_sub, group = cl.tris.shape[2], cl.sub_aabbs.shape[1], cl.count.shape[0] // cl.group_min.shape[0]
+    if (k_tris, n_sub, group) != (KERNEL_K, KERNEL_N_SUB, KERNEL_GROUP) or cl.tris.shape[1] != 16:
+        raise ValueError(f"{kernel} take K = {KERNEL_K} triangles per cluster in {KERNEL_N_SUB} sub-blocks, "
+                         f"{KERNEL_GROUP} clusters per group, got K = {k_tris}, {n_sub} sub-blocks and {group} clusters")
+    if any(t.data_ptr() % 16 for t in (cl.aabbs, cl.inv_rows, cl.sub_aabbs)):
+        raise ValueError(f"{kernel} read aabbs, inv_rows and sub_aabbs in vectors: "
+                         "pass tensors that start on a 16-byte boundary")

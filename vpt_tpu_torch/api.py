@@ -70,12 +70,13 @@ def render_step(scene_data, meta, flags, params, frame_seed: int, resolution, ac
 class Renderer:
     """Progressive path tracer over one compiled scene on `device`."""
 
-    def __init__(self, scene: Scene, device, width=None, height=None, flags: RenderFlags = RenderFlags(),
-                 samples_per_frame: int = 1, max_samples: int = 5000, lookup_tables="auto"):
-        """`lookup_tables`: "auto" bakes the energy-compensation tables on
-        `device` (or loads the cached bake) when the flags use them,
-        "reference" loads the reference's committed tables, None uses the
-        constant fit; three tables or fits may also be passed."""
+    def __init__(self, scene: Scene, width=None, height=None, flags: RenderFlags = RenderFlags(),
+                 samples_per_frame: int = 1, max_samples: int = 5000, lookup_tables="auto", *, device="cuda"):
+        """The JAX package's parameters in its order, then the keyword-only
+        `device`.  `lookup_tables`: "auto" bakes the energy-compensation
+        tables on `device` (or loads the cached bake) when the flags use
+        them, "reference" loads the reference's committed tables, None uses
+        the constant fit; three tables or fits may also be passed."""
         self._scene_host = scene
         self.device = resolve_device(device)
         if isinstance(lookup_tables, str):

@@ -47,14 +47,19 @@
 // '<' would not take it.  Rays arrive unsorted, so a warp runs the chunks
 // that any of its lanes enters.
 //
-// vpt_supertile_tables: one 1024-thread block per 1024-ray supertile, one
-// ray per thread.  Per chunk each lane tests its ray against the union;
-// where any lane of the warp entered, the lanes whose ray entered test the
-// 8 members, each member's warp minimum is taken on the float bits
-// (__reduce_min_sync on unsigned: entries are >= t_min > 0 or +inf, so
-// unsigned order is float order; the wrapper raises on t_min <= 0), and 8
-// lanes fold the 8 minima into the block's shared row by atomicMin.  The
-// block writes its Gp row at the end.
+// vpt_supertile_tables: one block per tile of sorted rays, one ray per
+// thread, at two tile sizes: 1024 (the stream path's supertiles) and 512 (the
+// packet trace's packets, whose per-group nearest entry is the packet cull).
+// Per chunk each lane tests its ray against the union; where any lane of the
+// warp entered, the lanes whose ray entered test the 8 members, each member's
+// warp minimum is taken by __reduce_min_sync on an order-preserving unsigned
+// key of the entry (positive floats b | 0x80000000, negative floats ~b, so
+// any t_min works, a negative one included), and 8 lanes fold the 8 minima
+// into the block's shared row by atomicMin.  The block maps the keys back
+// and writes its Gp row at the end.  Entries are never NaN (a NaN slab is
+// not entered, +inf); -0.0 orders below +0.0, which compare equal as floats.
+// An inactive ray carries tmax -inf (packets) or t_min (supertiles) and
+// enters nothing.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -62,11 +67,20 @@
 
 namespace {
 
-constexpr int kSupertile = 1024;  // rays per supertile (stream.py SUPERTILE)
-constexpr int kChunk = 8;         // groups per union box
+constexpr int kChunk = 8;  // groups per union box
 constexpr int kKeysThreads = 256;
-constexpr unsigned kInfBits = 0x7f800000u;
 constexpr unsigned kFull = 0xffffffffu;
+
+// An unsigned key that orders like the float, for every float but NaN: the
+// sign bit set on positive floats, every bit flipped on negative ones.
+__device__ __forceinline__ unsigned order_key(float x) {
+  const unsigned b = __float_as_uint(x);
+  return b ^ ((unsigned)((int)b >> 31) | 0x80000000u);
+}
+__device__ __forceinline__ float from_order_key(unsigned k) {
+  return __uint_as_float((k & 0x80000000u) ? (k & 0x7fffffffu) : ~k);
+}
+constexpr unsigned kInfKey = 0x7f800000u | 0x80000000u;  // order_key(+inf)
 
 __device__ __forceinline__ float nan_min(float a, float b) {
   float r;
@@ -169,7 +183,8 @@ __global__ void __launch_bounds__(kKeysThreads) ray_keys_kernel(
   key[i] = (kLevels == 2) ? l0 * (gp + 1) + l1 : l0;
 }
 
-__global__ void __launch_bounds__(kSupertile) supertile_tables_kernel(
+template <int kTile>
+__global__ void __launch_bounds__(kTile) supertile_tables_kernel(
     const float* __restrict__ origin, const float* __restrict__ inv, const float* __restrict__ tmax,
     const float* __restrict__ gmin, const float* __restrict__ gmax, int gp, float t_min,
     float* __restrict__ out) {
@@ -177,25 +192,25 @@ __global__ void __launch_bounds__(kSupertile) supertile_tables_kernel(
   float4* box = smem;
   float4* uni = smem + 2 * gp;
   unsigned* best = reinterpret_cast<unsigned*>(uni + 2 * (gp / kChunk));
-  for (int g = threadIdx.x; g < gp; g += blockDim.x) best[g] = kInfBits;
+  for (int g = threadIdx.x; g < gp; g += blockDim.x) best[g] = kInfKey;
   stage_boxes(gmin, gmax, gp, box, uni);  // its barriers also publish `best`
-  const Ray r = load_ray(origin, inv, tmax, blockIdx.x * kSupertile + threadIdx.x);
+  const Ray r = load_ray(origin, inv, tmax, blockIdx.x * kTile + threadIdx.x);
   const int lane = threadIdx.x & 31;
   for (int c = 0; c < gp / kChunk; ++c) {
     const bool in = slab_entry(r, uni[2 * c], uni[2 * c + 1], t_min) < INFINITY;
     if (!__any_sync(kFull, in)) continue;
-    unsigned mine = kInfBits;  // lane m < 8 keeps member m's warp minimum
+    unsigned mine = kInfKey;  // lane m < 8 keeps member m's warp minimum
 #pragma unroll
     for (int m = 0; m < kChunk; ++m) {
       const int g = c * kChunk + m;
       const float e = in ? slab_entry(r, box[2 * g], box[2 * g + 1], t_min) : INFINITY;
-      const unsigned w = __reduce_min_sync(kFull, __float_as_uint(e));
+      const unsigned w = __reduce_min_sync(kFull, order_key(e));
       if (lane == m) mine = w;
     }
-    if (lane < kChunk && mine != kInfBits) atomicMin(&best[c * kChunk + lane], mine);
+    if (lane < kChunk && mine != kInfKey) atomicMin(&best[c * kChunk + lane], mine);
   }
   __syncthreads();
-  for (int g = threadIdx.x; g < gp; g += blockDim.x) out[(size_t)blockIdx.x * gp + g] = __uint_as_float(best[g]);
+  for (int g = threadIdx.x; g < gp; g += blockDim.x) out[(size_t)blockIdx.x * gp + g] = from_order_key(best[g]);
 }
 
 // Dynamic shared memory above 48 KB must be asked for per kernel.
@@ -230,16 +245,23 @@ extern "C" int vpt_ray_keys(
   return (int)cudaGetLastError();
 }
 
+template <int kTile>
+int launch_tables(const float* origin, const float* inv, const float* tmax, const float* gmin,
+                  const float* gmax, int n, int gp, float t_min, float* out, cudaStream_t stream) {
+  const size_t smem = box_bytes(gp) + (size_t)gp * sizeof(unsigned);
+  const int blocks = n / kTile;
+  if (blocks == 0) return (int)cudaSuccess;
+  cudaError_t err = allow_smem(supertile_tables_kernel<kTile>, smem);
+  if (err != cudaSuccess) return (int)err;
+  supertile_tables_kernel<kTile><<<blocks, kTile, smem, stream>>>(origin, inv, tmax, gmin, gmax, gp, t_min, out);
+  return (int)cudaGetLastError();
+}
+
 extern "C" int vpt_supertile_tables(
     const float* origin, const float* inv, const float* tmax, const float* gmin,
-    const float* gmax, int n, int gp, float t_min, float* out, void* stream) {
-  if (gp % kChunk != 0 || n % kSupertile != 0 || !(t_min > 0.0f)) return (int)cudaErrorInvalidValue;
-  const size_t smem = box_bytes(gp) + (size_t)gp * sizeof(unsigned);
-  const int blocks = n / kSupertile;
-  if (blocks == 0) return (int)cudaSuccess;
-  cudaError_t err = allow_smem(supertile_tables_kernel, smem);
-  if (err != cudaSuccess) return (int)err;
-  supertile_tables_kernel<<<blocks, kSupertile, smem, (cudaStream_t)stream>>>(
-      origin, inv, tmax, gmin, gmax, gp, t_min, out);
-  return (int)cudaGetLastError();
+    const float* gmax, int n, int gp, float t_min, int tile, float* out, void* stream) {
+  if (gp % kChunk != 0 || (tile != 512 && tile != 1024) || n % tile != 0) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  return tile == 512 ? launch_tables<512>(origin, inv, tmax, gmin, gmax, n, gp, t_min, out, s)
+                     : launch_tables<1024>(origin, inv, tmax, gmin, gmax, n, gp, t_min, out, s);
 }

@@ -1,232 +1,241 @@
-// Packet-major closest-hit (or any-hit) visit of culled candidate groups.
+// Packet closest-hit (or any-hit) visit of culled candidate groups.
 //
 // Replaces the Pallas kernel
 //   vpt_visit  <- vpt_tpu/accel/visit_kernel.py  visit_pallas (_visit_kernel)
 //
-// One 512-thread block per packet, one thread per ray.
-// The packet marches its entry-sorted candidate groups (order[p, :nvis]):
-//   - group w+1 is visited while entry[w+1] < cap, the block maximum of the
-//     live rays' best t (live = active, and without a hit yet under any-hit);
-//   - each of the group's member clusters passes a packet-level gate first:
-//     does any ray enter the world box, with tf = best t for live rays and
-//     t_min for the others (__syncthreads_or)?
-//   - an entered member's 9 x K triangle components and its 8 sub-block
-//     boxes are staged in shared memory once; each thread moves its ray into
-//     the instance's local space (direction left unnormalised, so t stays
-//     world-parametric);
-//   - for each sub-block, a per-ray slab test of its mesh-local box against
-//     the current best t and a block-level any gate, then Moller-Trumbore
-//     over its K/8 triangles for the rays that entered.  Within a sub-block
-//     the smallest index wins a t tie (ascending scan with a strict '<');
-//     across sub-blocks and clusters only a strictly closer hit replaces the
-//     current one.
-// These are the Pallas kernel's semantics, not its schedule: the Pallas
-// kernel overlaps one member's DMA with the previous member's triangle math,
-// so its gates read a best t that lags by one cluster.  Here every gate reads
-// the current best t, which only skips work that could not change a hit.
+// What it computes.  Ray i of packet p (512 rays) walks its packet's
+// entry-sorted candidate groups order[p, :nvis[p]] front to back, with its
+// own best t (tmax at first); an inactive ray walks nothing.
+//   - The walk ends at the first candidate whose packet entry is not below
+//     the ray's best t.  The packet's entry of a group is the least entry of
+//     its active rays, so it never exceeds the ray's own: no member the walk
+//     skips could be entered within best t.
+//   - A member cluster with triangles is entered, in index order, where the
+//     ray meets its world box within the current best t.
+//   - The ray moves to the instance's local space, and each of the cluster's
+//     8 mesh-local sub-block boxes (16 triangles each; an empty one is
+//     skipped by count) that it enters within the current best t runs its 16
+//     Moller-Trumbore tests, in index order.  The smallest index wins a t tie
+//     inside a sub-block; otherwise only a strictly closer hit replaces the
+//     current one.  An any-hit ray stops at the first sub-block that holds a
+//     hit and takes that sub-block's closest hit.
+// Every gate is the ray's own.  The Pallas kernel gates a member on "any
+// live ray of the packet enters it"; a ray that does not enter a member's
+// world box itself cannot hit its triangles but by rounding, so the plain
+// version, accel/visit.py, now carries the per-ray gate too, and the two
+// agree exactly.
 //
-// What bounds it on the H100: per packet and entered member, the block
-// spends one 4.6 KB shared-memory stage and up to 8 x 16 triangle tests of
-// about 40 float operations per ray, with block-wide barriers between the
-// gates.  The key sort upstream makes packet mates share candidates, so the
-// gates skip most members and the staged triangles serve all 512 rays
-// (broadcast reads).  Cluster tables (world boxes, counts, transforms) stay
-// in global memory, where L1/L2 cache them.
+// What bounds it on the H100.  The work the rays need is that of csrc/
+// trace.cu's stream kernel on the same rays (~0.4 GFLOP, ~20 MB for 262,144
+// bounce rays: ~6 us); its time goes to latency and divergence.  The parent
+// design, one 512-thread block per packet, paid a block-wide barrier per
+// member and per sub-block and a shared-memory stage per entered cluster,
+// and the packet's other rays waited at each of them.  So, as trace.cu does,
+// this kernel gives each ray a warp of its own (4 per 128-thread block) and
+// spends the lanes on the parallel parts of one ray's walk:
+//   - 32 candidates per step, lane k taking candidate g0 + k: its packet
+//     entry, its id and its group box, which the lane takes as the union of
+//     the group's 8 member boxes (12 16-byte loads; the C interface carries
+//     no group boxes).  A box holds each member's, and the slab roundings are
+//     monotone, so a ray that misses the union misses every member: the group
+//     test only saves work.  One ballot keeps the groups entered within best
+//     t;
+//   - lanes 0..7 test the group's 8 member boxes, loading each member's
+//     count, block, triangle base and instance for the warp to share;
+//   - lanes 0..7 test the entered cluster's 8 sub-block boxes;
+//   - lanes 0..15 and 16..31 run the Moller-Trumbore tests of the next two
+//     entered sub-blocks s < s', each lane loading its own triangle.  Two
+//     warp min-reductions keep the sequential semantics: first s's closest
+//     hit, then s' only if the ray still enters its box within the new best
+//     t, and only a strictly closer hit.
+// K = 128, 8 sub-blocks and 8 members per group are compile-time constants;
+// the wrapper raises on other shapes.
 //
 // Built with --fmad=false so the slab and Moller-Trumbore arithmetic rounds
 // exactly like the plain torch version, which makes every gate agree.
 
-#include <cuda_runtime.h>
-#include <math.h>
-#include <stdint.h>
+#include "traverse.cuh"
 
 namespace {
 
-constexpr int kNSub = 8;       // sub-blocks per cluster
-constexpr int kPacket = 512;  // rays per packet = threads per block
+using namespace vpt;
 
-__device__ __forceinline__ float pmin(float a, float b) {
-  return (a != a || b != b) ? __int_as_float(0x7fc00000) : fminf(a, b);
-}
-__device__ __forceinline__ float pmax(float a, float b) {
-  return (a != a || b != b) ? __int_as_float(0x7fc00000) : fmaxf(a, b);
-}
-__device__ __forceinline__ float guarded_inv(float d) {
-  return 1.0f / (fabsf(d) > 1e-20f ? d : 1e-20f);
-}
+constexpr int kPacket = 512;  // rays per packet (visit.py PACKET)
+constexpr int kWarps = 4;     // rays per block, one warp each
+constexpr int kThreads = 32 * kWarps;
+constexpr unsigned kNoKey = 0xffffffffu;  // above the key of every t but NaN
 
-// Does the ray (o, inv) enter box [lo, hi] within (t_min, tf]?
-__device__ __forceinline__ bool slab(const float* lo, const float* hi, float ox, float oy, float oz,
-                                     float ix, float iy, float iz, float t_min, float tf) {
-  float tn = t_min;
-  float s0 = (lo[0] - ox) * ix, s1 = (hi[0] - ox) * ix;
-  tn = pmax(tn, pmin(s0, s1));
-  tf = pmin(tf, pmax(s0, s1));
-  s0 = (lo[1] - oy) * iy;
-  s1 = (hi[1] - oy) * iy;
-  tn = pmax(tn, pmin(s0, s1));
-  tf = pmin(tf, pmax(s0, s1));
-  s0 = (lo[2] - oz) * iz;
-  s1 = (hi[2] - oz) * iz;
-  tn = pmax(tn, pmin(s0, s1));
-  tf = pmin(tf, pmax(s0, s1));
-  return tn <= tf;
+// An unsigned key that orders like the float t; -0.0 and +0.0 get the same
+// key, since they compare equal, so equal t resolve to the lower lane.
+__device__ __forceinline__ unsigned order_key(float t) {
+  const unsigned b = __float_as_uint(t + 0.0f);
+  return b ^ ((unsigned)((int)b >> 31) | 0x80000000u);
 }
 
-struct VisitArgs {
-  const int32_t* nvis;        // (P,) candidate groups per packet
-  const int32_t* order;       // (P, Gp) entry-sorted group ids
-  const float* entry;         // (P, Gp) sorted entry distances, +inf padded
-  const float* origin;        // (P, 512, 3)
-  const float* direction;     // (P, 512, 3)
-  const int32_t* act;         // (P, 512)
-  const float* tmax;          // (P, 512)
-  const float* aabbs;         // (C, 6) world boxes [lo.xyz, hi.xyz]
-  const int32_t* count;       // (C,)
-  const int32_t* start;       // (C,) virtual triangle id base
-  const int32_t* block_id;    // (C,) row of tris / sub_aabbs
-  const int32_t* inst;        // (C,) instance
-  const float* inv_rows;      // (n_inst, 12) world -> local affines
-  const float* tris;          // (B, 16, K) rows 0..8 = p0, e1, e2 components
-  const float* sub_aabbs;     // (B, 8, 6) mesh-local sub-block boxes
-  int gp, group_size, k_tris;
-  float t_min;
-  float* t_out;
-  int32_t* tri_out;
-  float* u_out;
-  float* v_out;
+struct Tables {
+  const float* aabbs;      // (C, 6) world boxes [lo.xyz, hi.xyz]
+  const int32_t* count;    // (C,)
+  const int32_t* start;    // (C,) virtual triangle id base
+  const int32_t* block_id; // (C,) row of tris / sub_aabbs
+  const int32_t* inst;     // (C,) instance
+  const float* inv_rows;   // (n_inst, 12) world -> local affines
+  const float* tris;       // (B, 16, K) rows 0..8 = p0, e1, e2 components
+  const float* sub_aabbs;  // (B, 8, 6) mesh-local sub-block boxes
 };
 
-// Block maximum of x; every thread gets it.  `scratch` holds one float per warp.
-__device__ float block_max(float x, float* scratch) {
-  for (int off = 16; off > 0; off >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, off));
-  if ((threadIdx.x & 31) == 0) scratch[threadIdx.x >> 5] = x;
-  __syncthreads();
-  float m = scratch[0];
-  for (int i = 1; i < kPacket / 32; ++i) m = fmaxf(m, scratch[i]);
-  __syncthreads();  // scratch is free again
-  return m;
+// The search state of the warp's ray; every lane holds the same copy.
+struct Search {
+  float best;  // closest hit so far, tmax at first
+  int32_t best_tri;
+  float best_u, best_v;
+  bool live;  // still searching
+};
+
+// Take the closest hit among the lanes with `cand` (the lowest lane on equal
+// t); every candidate's t is below the current best.
+template <bool ANY_HIT>
+__device__ __forceinline__ void take(bool cand, float t, float u, float v, int32_t id, Search& S) {
+  const unsigned key = cand ? order_key(t) : kNoKey;
+  const unsigned low = __reduce_min_sync(kFull, key);
+  if (low == kNoKey) return;
+  const int win = __ffs(__ballot_sync(kFull, key == low)) - 1;
+  S.best = __shfl_sync(kFull, t, win);
+  S.best_tri = __shfl_sync(kFull, id, win);
+  S.best_u = __shfl_sync(kFull, u, win);
+  S.best_v = __shfl_sync(kFull, v, win);
+  if (ANY_HIT) S.live = false;
 }
 
+// A member cluster with triangles, entered by the warp's ray.
 template <bool ANY_HIT, bool INSTANCED>
-__global__ void __launch_bounds__(kPacket) visit_kernel(VisitArgs a) {
-  extern __shared__ float smem[];
-  const int K = a.k_tris;
-  const int sub = K / kNSub;
-  float* s_tri = smem;                  // [9][K]
-  float* s_box = smem + 9 * K;          // [8][6]
-  float* s_red = s_box + kNSub * 6;     // [warps]
-
-  const int p = blockIdx.x;
-  const size_t i = (size_t)p * kPacket + threadIdx.x;
-  const float ox = a.origin[3 * i], oy = a.origin[3 * i + 1], oz = a.origin[3 * i + 2];
-  const float dx = a.direction[3 * i], dy = a.direction[3 * i + 1], dz = a.direction[3 * i + 2];
-  const float ix = guarded_inv(dx), iy = guarded_inv(dy), iz = guarded_inv(dz);
-  const bool act = a.act[i] != 0;
-  const float t_min = a.t_min;
-
-  float best = a.tmax[i];
-  int32_t best_tri = -1;
-  float best_u = 0.0f, best_v = 0.0f;
-
-  const int nv = a.nvis[p];
-  const int32_t* order = a.order + (size_t)p * a.gp;
-  const float* entry = a.entry + (size_t)p * a.gp;
-
-  bool cont = nv > 0;
-  for (int w = 0; cont;) {
-    const int g = order[w];
-    for (int m = 0; m < a.group_size; ++m) {
-      const int c = g * a.group_size + m;
-      const bool live = act && (!ANY_HIT || best_tri < 0);
-      const float* box = a.aabbs + 6 * (size_t)c;
-      const bool enter = slab(box, box + 3, ox, oy, oz, ix, iy, iz, t_min, live ? best : t_min);
-      if (!__syncthreads_or(enter)) continue;
-      const int cnt = a.count[c];
-      if (cnt <= 0) continue;  // an empty slot: no triangle could hit
-
-      const int blk = a.block_id[c];
-      const float* src = a.tris + (size_t)blk * 16 * K;
-      for (int e = threadIdx.x; e < 9 * K; e += kPacket) s_tri[e] = src[e];
-      const float* sb = a.sub_aabbs + (size_t)blk * kNSub * 6;
-      for (int e = threadIdx.x; e < kNSub * 6; e += kPacket) s_box[e] = sb[e];
-      __syncthreads();
-
-      float lox = ox, loy = oy, loz = oz, ldx = dx, ldy = dy, ldz = dz;
-      float lix = ix, liy = iy, liz = iz;
-      if (INSTANCED) {
-        const float* T = a.inv_rows + 12 * (size_t)a.inst[c];
-        lox = T[0] * ox + T[1] * oy + T[2] * oz + T[3];
-        loy = T[4] * ox + T[5] * oy + T[6] * oz + T[7];
-        loz = T[8] * ox + T[9] * oy + T[10] * oz + T[11];
-        ldx = T[0] * dx + T[1] * dy + T[2] * dz;
-        ldy = T[4] * dx + T[5] * dy + T[6] * dz;
-        ldz = T[8] * dx + T[9] * dy + T[10] * dz;
-        lix = guarded_inv(ldx);
-        liy = guarded_inv(ldy);
-        liz = guarded_inv(ldz);
-      }
-      const int32_t base = a.start[c];
-      for (int s = 0; s < kNSub; ++s) {
-        const bool live_s = act && (!ANY_HIT || best_tri < 0);
-        const bool enter_s =
-            live_s && slab(s_box + 6 * s, s_box + 6 * s + 3, lox, loy, loz, lix, liy, liz, t_min, best);
-        if (!__syncthreads_or(enter_s) || !enter_s) continue;
-        const float bt = best;
-        float tb = INFINITY, ub = 0.0f, vb = 0.0f;
-        int jb = 0;
-        for (int j = 0; j < sub; ++j) {
-          const int k = s * sub + j;
-          const float p0x = s_tri[0 * K + k], p0y = s_tri[1 * K + k], p0z = s_tri[2 * K + k];
-          const float e1x = s_tri[3 * K + k], e1y = s_tri[4 * K + k], e1z = s_tri[5 * K + k];
-          const float e2x = s_tri[6 * K + k], e2y = s_tri[7 * K + k], e2z = s_tri[8 * K + k];
-          const float pvx = ldy * e2z - ldz * e2y;
-          const float pvy = ldz * e2x - ldx * e2z;
-          const float pvz = ldx * e2y - ldy * e2x;
-          const float det = e1x * pvx + e1y * pvy + e1z * pvz;
-          const bool ok_det = fabsf(det) > 1e-12f;
-          const float inv_det = ok_det ? 1.0f / det : 0.0f;
-          const float tvx = lox - p0x, tvy = loy - p0y, tvz = loz - p0z;
-          const float u = (tvx * pvx + tvy * pvy + tvz * pvz) * inv_det;
-          const float qvx = tvy * e1z - tvz * e1y;
-          const float qvy = tvz * e1x - tvx * e1z;
-          const float qvz = tvx * e1y - tvy * e1x;
-          const float v = (ldx * qvx + ldy * qvy + ldz * qvz) * inv_det;
-          const float t = (e2x * qvx + e2y * qvy + e2z * qvz) * inv_det;
-          const bool valid = ok_det && u >= 0.0f && v >= 0.0f && u + v <= 1.0f && t > t_min &&
-                             t < bt && k < cnt;
-          if (valid && t < tb) {
-            tb = t;
-            jb = j;
-            ub = u;
-            vb = v;
-          }
-        }
-        if (tb < bt) {
-          best = tb;
-          best_tri = base + s * sub + jb;
-          best_u = ub;
-          best_v = vb;
-        }
-      }
-      __syncthreads();  // every thread is done with the staged cluster
-    }
-    const bool live = act && (!ANY_HIT || best_tri < 0);
-    const float cap = block_max(live ? best : 0.0f, s_red);
-    ++w;
-    cont = w < nv && entry[w] < cap;
+__device__ __forceinline__ void visit_cluster(const Tables& tb, const Member& mc, const Ray& w, float t_min,
+                                              Search& S, int lane) {
+  const int cnt = mc.count;
+  const Ray l = INSTANCED ? to_instance(w, tb.inv_rows + 12 * (size_t)mc.inst) : w;
+  // Lanes 0..7: the sub-block slabs, tf = the current best t.
+  float tn_s = INFINITY;
+  bool in_s = false;
+  if (lane < kNSub && lane * kSub < cnt) {
+    in_s = slab6(tb.sub_aabbs + ((size_t)mc.block * kNSub + lane) * 6, l, t_min, S.best, tn_s);
   }
-  a.t_out[i] = best;
-  a.tri_out[i] = best_tri;
-  a.u_out[i] = best_u;
-  a.v_out[i] = best_v;
+  const float* block = tb.tris + (size_t)mc.block * 16 * kTris;
+  const int half = lane >> 4, k = lane & 15;
+  while (S.live) {
+    // The next two sub-blocks still entered within the best t: lanes 0-15
+    // test the first one's triangles, 16-31 the second's.
+    const unsigned open = __ballot_sync(kFull, in_s && tn_s <= S.best);
+    if (open == 0) break;
+    const int sa = __ffs(open) - 1;
+    const unsigned rest = open & (open - 1u);
+    const int sb = rest ? __ffs(rest) - 1 : -1;
+    if (lane == sa || lane == sb) in_s = false;
+    const int s = half ? sb : sa;
+    float t = INFINITY, u = 0.0f, v = 0.0f;
+    bool valid = false;
+    if (s >= 0 && s * kSub + k < cnt) {
+      t = moller_trumbore(block + s * kSub + k, l, t_min, u, v, valid);
+      valid = valid && t < S.best;
+    }
+    const int32_t id = mc.start + s * kSub + k;
+    take<ANY_HIT>(valid && half == 0, t, u, v, id, S);
+    // The second sub-block as if visited after the first: only if the ray
+    // still enters its box within the new best t, and only a closer hit.
+    if (sb >= 0 && S.live && __shfl_sync(kFull, tn_s, sb) <= S.best) {
+      take<ANY_HIT>(valid && half == 1 && t < S.best, t, u, v, id, S);
+    }
+  }
+}
+
+// Lane k's candidate group box: the union of the group's 8 member boxes, the
+// 48 floats of their (8, 6) rows read as 12 16-byte loads.  Pad members
+// (lo 3e9, hi -3e9) change neither bound.
+__device__ __forceinline__ void group_box(const float* rows, float* lo, float* hi) {
+  const float4* r4 = reinterpret_cast<const float4*>(rows);
+  float f[48];
+#pragma unroll
+  for (int q = 0; q < 12; ++q) {
+    const float4 x = r4[q];
+    f[4 * q] = x.x, f[4 * q + 1] = x.y, f[4 * q + 2] = x.z, f[4 * q + 3] = x.w;
+  }
+#pragma unroll
+  for (int a = 0; a < 3; ++a) {
+    lo[a] = f[a];
+    hi[a] = f[3 + a];
+#pragma unroll
+    for (int m = 1; m < kGroup; ++m) {
+      lo[a] = fminf(lo[a], f[6 * m + a]);
+      hi[a] = fmaxf(hi[a], f[6 * m + 3 + a]);
+    }
+  }
 }
 
 template <bool ANY_HIT, bool INSTANCED>
-int launch(const VisitArgs& a, int n_pk, cudaStream_t stream) {
-  const size_t smem = (size_t)(9 * a.k_tris + kNSub * 6 + kPacket / 32) * sizeof(float);
-  visit_kernel<ANY_HIT, INSTANCED><<<n_pk, kPacket, smem, stream>>>(a);
-  return (int)cudaGetLastError();
+__global__ void __launch_bounds__(kThreads) visit_kernel(
+    Tables tb, const int32_t* __restrict__ nvis, const int32_t* __restrict__ order,
+    const float* __restrict__ entry, const float* __restrict__ origin, const float* __restrict__ direction,
+    const int32_t* __restrict__ act, const float* __restrict__ tmax, int n, int gp, float t_min,
+    float* __restrict__ t_out, int32_t* __restrict__ tri_out, float* __restrict__ u_out,
+    float* __restrict__ v_out) {
+  const int lane = threadIdx.x & 31;
+  const int i = blockIdx.x * kWarps + (threadIdx.x >> 5);  // the warp's ray
+  if (i >= n) return;
+  const int p = i / kPacket;
+  const Ray w = load_ray(origin, direction, i);
+  Search S{tmax[i], -1, 0.0f, 0.0f, act[i] != 0};
+
+  const int nv = nvis[p];
+  const int32_t* ord = order + (size_t)p * gp;
+  const float* ent = entry + (size_t)p * gp;
+  bool walking = S.live;
+  for (int g0 = 0; g0 < nv && walking; g0 += 32) {
+    const int gi = g0 + lane;
+    const bool listed = gi < nv;
+    // Loads first, gates after: two dependent round trips per step.
+    const float e = listed ? ent[gi] : INFINITY;
+    const int g = listed ? ord[gi] : 0;
+    float lo[3], hi[3];
+    group_box(tb.aabbs + 6 * kGroup * (size_t)g, lo, hi);
+    // Entries are sorted, so the walked candidates are a prefix of the step.
+    const bool go = listed && e < S.best;
+    if (__any_sync(kFull, !go)) walking = false;
+    float tn_g = INFINITY;
+    const bool in_g = go && slab(lo[0], lo[1], lo[2], hi[0], hi[1], hi[2], w, t_min, S.best, tn_g);
+    unsigned todo = __ballot_sync(kFull, in_g);
+    while (todo != 0 && S.live) {
+      const int src = __ffs(todo) - 1;
+      todo &= todo - 1u;
+      if (!(__shfl_sync(kFull, e, src) < S.best)) {  // the walk ends here
+        walking = false;
+        break;
+      }
+      if (!(__shfl_sync(kFull, tn_g, src) <= S.best)) continue;
+      // Lanes 0..7: the member clusters' world slabs, with each member's
+      // table row loaded alongside for the lanes to share.
+      const int c = __shfl_sync(kFull, g, src) * kGroup + (lane & (kGroup - 1));
+      Member mb{0, 0, 0, 0};
+      float tn_m = INFINITY;
+      bool in_m = false;
+      if (lane < kGroup) {
+        mb = Member{tb.count[c], tb.block_id[c], tb.start[c], INSTANCED ? tb.inst[c] : 0};
+        in_m = slab6(tb.aabbs + 6 * (size_t)c, w, t_min, S.best, tn_m) && mb.count > 0;
+      }
+      unsigned members = __ballot_sync(kFull, in_m);
+      while (members != 0 && S.live) {
+        const int m = __ffs(members) - 1;
+        members &= members - 1u;
+        if (!(__shfl_sync(kFull, tn_m, m) <= S.best)) continue;
+        const Member cm{__shfl_sync(kFull, mb.count, m), __shfl_sync(kFull, mb.block, m),
+                        __shfl_sync(kFull, mb.start, m), __shfl_sync(kFull, mb.inst, m)};
+        visit_cluster<ANY_HIT, INSTANCED>(tb, cm, w, t_min, S, lane);
+      }
+    }
+    if (!S.live) walking = false;
+  }
+  if (lane != 0) return;
+  t_out[i] = S.best;
+  tri_out[i] = S.best_tri;
+  u_out[i] = S.best_u;
+  v_out[i] = S.best_v;
 }
 
 }  // namespace
@@ -238,11 +247,26 @@ extern "C" int vpt_visit(
     const float* inv_rows, const float* tris, const float* sub_aabbs, int n_pk, int gp,
     int group_size, int k_tris, float t_min, int any_hit, int instanced, float* t_out,
     int32_t* tri_out, float* u_out, float* v_out, void* stream) {
+  if (group_size != kGroup || k_tris != kTris) return (int)cudaErrorInvalidValue;
   if (n_pk <= 0) return 0;
-  const VisitArgs a{nvis, order, entry, origin, direction, act, tmax, aabbs, count, start,
-                    block_id, inst, inv_rows, tris, sub_aabbs, gp, group_size, k_tris, t_min,
-                    t_out, tri_out, u_out, v_out};
+  const Tables tb{aabbs, count, start, block_id, inst, inv_rows, tris, sub_aabbs};
+  const int n = n_pk * kPacket;
+  const int blocks = n / kWarps;
   cudaStream_t s = (cudaStream_t)stream;
-  if (any_hit) return instanced ? launch<true, true>(a, n_pk, s) : launch<true, false>(a, n_pk, s);
-  return instanced ? launch<false, true>(a, n_pk, s) : launch<false, false>(a, n_pk, s);
+  if (any_hit) {
+    if (instanced) {
+      visit_kernel<true, true><<<blocks, kThreads, 0, s>>>(tb, nvis, order, entry, origin, direction, act, tmax, n,
+                                                           gp, t_min, t_out, tri_out, u_out, v_out);
+    } else {
+      visit_kernel<true, false><<<blocks, kThreads, 0, s>>>(tb, nvis, order, entry, origin, direction, act, tmax, n,
+                                                            gp, t_min, t_out, tri_out, u_out, v_out);
+    }
+  } else if (instanced) {
+    visit_kernel<false, true><<<blocks, kThreads, 0, s>>>(tb, nvis, order, entry, origin, direction, act, tmax, n,
+                                                          gp, t_min, t_out, tri_out, u_out, v_out);
+  } else {
+    visit_kernel<false, false><<<blocks, kThreads, 0, s>>>(tb, nvis, order, entry, origin, direction, act, tmax, n,
+                                                           gp, t_min, t_out, tri_out, u_out, v_out);
+  }
+  return (int)cudaGetLastError();
 }

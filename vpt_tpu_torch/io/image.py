@@ -2,9 +2,13 @@
 (port of vpt_tpu/io/image.py).
 
 PNG is written and read with the standard library's `zlib` and `struct`
-alone: 8-bit RGB or RGBA, one IDAT chunk, filter 0 on every row.  The
-quantisation is the JAX package's, clip(x, 0, 1) * 255 + 0.5 truncated.
-`read_png` reads such files back (it refuses other row filters).
+alone.  `save_png` writes 8-bit RGB or RGBA, one IDAT chunk, filter 0 on
+every row; the quantisation is the JAX package's, clip(x, 0, 1) * 255 + 0.5
+truncated.  `read_png` decodes any non-interlaced 8-bit gray, gray+alpha,
+RGB or RGBA PNG (IDAT split over several chunks, all five row filters);
+`load_png` gives its pixels as float32 / 255, with PIL's shapes, as the JAX
+package's `load_png` does through PIL.  Palette, 16-bit and interlaced files
+raise a ValueError that names the reason.
 """
 
 from __future__ import annotations
@@ -15,7 +19,7 @@ import zlib
 import numpy as np
 
 _PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
-_CHANNELS = {2: 3, 6: 4}  # PNG colour type -> channels (RGB, RGBA)
+_CHANNELS = {0: 1, 2: 3, 4: 2, 6: 4}  # PNG colour type -> channels (gray, RGB, gray+alpha, RGBA)
 
 
 def to_uint8(image) -> np.ndarray:
@@ -44,9 +48,43 @@ def save_png(path: str, image) -> None:
         f.write(_chunk(b"IEND", b""))
 
 
+def _unfilter(raw: np.ndarray, h: int, stride: int, bpp: int) -> np.ndarray:
+    """Undo the per-row filters of (h, 1 + stride) filtered scanlines: 0
+    none, 1 sub, 2 up, 3 average, 4 Paeth (PNG spec, section 9)."""
+    out = np.zeros((h, stride), np.uint8)
+    prev = np.zeros(stride, np.uint8)
+    for y in range(h):
+        kind, row = int(raw[y, 0]), raw[y, 1:]
+        if kind == 0:
+            cur = row.copy()
+        elif kind == 1:  # sub: a running sum per byte of a pixel, mod 256
+            cur = np.cumsum(row.reshape(-1, bpp), axis=0, dtype=np.uint8).reshape(-1)
+        elif kind == 2:
+            cur = row + prev
+        elif kind in (3, 4):  # each byte needs the one decoded bpp bytes before it
+            x, b = row.tolist(), prev.tolist()
+            c = bytearray(stride)
+            for i in range(stride):
+                a = c[i - bpp] if i >= bpp else 0
+                if kind == 3:
+                    c[i] = (x[i] + ((a + b[i]) >> 1)) & 0xFF
+                else:
+                    ul = b[i - bpp] if i >= bpp else 0
+                    p = a + b[i] - ul
+                    pa, pb, pc = abs(p - a), abs(p - b[i]), abs(p - ul)
+                    pred = a if pa <= pb and pa <= pc else (b[i] if pb <= pc else ul)
+                    c[i] = (x[i] + pred) & 0xFF
+            cur = np.frombuffer(bytes(c), np.uint8)
+        else:
+            raise ValueError(f"unknown PNG row filter {kind} in row {y}")
+        out[y] = cur
+        prev = out[y]
+    return out
+
+
 def read_png(path: str) -> np.ndarray:
-    """(H, W, C) uint8 pixels of an 8-bit RGB or RGBA PNG with unfiltered
-    rows, as `save_png` writes them."""
+    """The uint8 pixels of an 8-bit, non-interlaced gray (H, W), gray+alpha
+    (H, W, 2), RGB (H, W, 3) or RGBA (H, W, 4) PNG."""
     data = open(path, "rb").read()
     if data[:8] != _PNG_SIGNATURE:
         raise ValueError(f"{path} is not a PNG file")
@@ -63,14 +101,27 @@ def read_png(path: str) -> np.ndarray:
         elif kind == b"IEND":
             break
         pos += 12 + length
+    if header is None:
+        raise ValueError(f"{path}: no IHDR chunk")
     w, h, depth, ctype, _, _, interlace = header
-    if depth != 8 or ctype not in _CHANNELS or interlace:
-        raise ValueError(f"{path}: only non-interlaced 8-bit RGB / RGBA PNGs are read")
+    if ctype == 3:
+        raise ValueError(f"{path}: palette PNGs are not read")
+    if ctype not in _CHANNELS:
+        raise ValueError(f"{path}: unknown PNG colour type {ctype}")
+    if depth != 8:
+        raise ValueError(f"{path}: {depth}-bit PNGs are not read, only 8-bit")
+    if interlace:
+        raise ValueError(f"{path}: interlaced PNGs are not read")
     c = _CHANNELS[ctype]
-    raw = np.frombuffer(zlib.decompress(b"".join(idat)), np.uint8).reshape(h, 1 + w * c)
-    if (raw[:, 0] != 0).any():
-        raise ValueError(f"{path}: filtered PNG rows are not read")
-    return raw[:, 1:].reshape(h, w, c).copy()
+    raw = np.frombuffer(zlib.decompress(b"".join(idat)), np.uint8)[: h * (1 + w * c)].reshape(h, 1 + w * c)
+    pixels = _unfilter(raw, h, w * c, c).reshape(h, w, c)
+    return pixels[..., 0] if c == 1 else pixels
+
+
+def load_png(path: str) -> np.ndarray:
+    """The pixels of a PNG as float32 in [0, 1], value / 255 (vpt_tpu's
+    io/image.load_png): (H, W) gray, else (H, W, channels)."""
+    return read_png(path).astype(np.float32) / 255.0
 
 
 def save_hdr(path: str, image) -> None:
