@@ -49,12 +49,38 @@ Phases, each of which raises on failure:
   7. the media path: the stream-mode Renderer with a 128^3 procedural
      cloud and a homogeneous ground haze added by `add_volume` (the merged
      march, delta tracking, ratio-tracked NEE, HG phase), driven like
-     phase 4: ray_keys, supertile_tables, stream and occlude must launch
-     and visit must not; then its 128x128 kernel render against the plain
-     one, PSNR > 40 dB;
+     phase 4 but at max_depth 4 (MEDIA_FLAGS): ray_keys, supertile_tables,
+     stream and occlude must launch and visit must not; then its 128x128
+     kernel render against the plain one, PSNR > 40 dB.  The cloud comes
+     from a .vdb that write_vdb writes in blosc mode (LZ4 through the C
+     codec); placed at its origin, the grid load_grid reads equals the
+     procedural grid exactly;
   8. the atmosphere path: the gallery's day setup (planet surface at
      y = 0, sky altitude 30 degrees) under colonnade's open sky, the same
-     way.
+     way;
+  9. the user's entry points on the card:
+     a. the textured colonnade (9 textures, ~4.7M texels of albedo and
+        normal maps) at 512x512 with a metrics log, driven like phase 4
+        beside phase 4's numbers: the four stream-path kernels launch,
+        visit does not, the log holds one dispatch record per dispatch
+        whose segments sum to segments_traced; one torch.profiler trace of
+        a dispatch, as in phase 5; then its 128x128 kernel render against
+        the plain one, PSNR > 40 dB;
+     b. the textured colonnade written as a .glb (tests/gltf_scenes.py:
+        PNG textures in buffer views, instanced nodes, a camera, the KHR
+        extensions) and its sky as .npy; load_gltf gives its instances,
+        triangles and textures (within 1/255) back; then
+        `python -m vpt_tpu_torch render` of it at 512x512, 8 spp, exits 0
+        with its stats line and a PNG that reads back, and its HDR is
+        within 40 dB PSNR of the procedural scene's render at the same
+        seeds;
+     c. `python -m vpt_tpu_torch furnace`: mean error < 0.05 (960
+        triangles: the brute-force trace, no kernel);
+     d. `python -m vpt_tpu_torch bench`: its JSON line, 8 kept dispatches,
+        the card's name and power limit;
+     e. the TerminalViewer, headless, on sphere_garden (~96K triangles)
+        at 128x128: two steps, then a move that restarts the accumulation,
+        frames of ANSI half-blocks, the stream kernels launched.
 The last lines are the card's name and power limit, the kernel table as
 JSON and {"ok": true, ...}.  Without a CUDA device the script exits
 non-zero and prints no result.
@@ -110,17 +136,27 @@ from vpt_tpu_torch import Renderer, RenderFlags
 from vpt_tpu_torch.accel import cluster, envelope, kernels, occlude, stream, visit
 from vpt_tpu_torch.accel.traverse import KERNEL_GROUP, T_MAX, T_MIN, guarded_inverse
 from vpt_tpu_torch.api import render_step
+from vpt_tpu_torch.bench import card_description
 from vpt_tpu_torch.core import rng
 from vpt_tpu_torch.core.camera import generate_primary_rays, perspective
 from vpt_tpu_torch.core.tiling import tiled_pixel_order
 from vpt_tpu_torch.io.image import read_png
+from vpt_tpu_torch.io.metrics import psnr
 from vpt_tpu_torch.render import integrator, lights, lookup, sampling, surface
 from vpt_tpu_torch.render.lookup_fit import constant_fit
 from vpt_tpu_torch.render.params import default_params
-from vpt_tpu_torch.scene.build import compile_scene
-from vpt_tpu_torch.scene.procedural import colonnade
+from vpt_tpu_torch.scene import blosc
+from vpt_tpu_torch.scene.build import BRUTE_FORCE_MAX_TRIS, compile_scene
+from vpt_tpu_torch.scene.gltf import load_gltf
+from vpt_tpu_torch.scene.procedural import colonnade, colonnade_textured, furnace_sphere, sphere_garden
 from vpt_tpu_torch.scene.types import Volume
-from vpt_tpu_torch.scene.vdb import procedural_cloud
+from vpt_tpu_torch.scene.vdb import load_grid, procedural_cloud
+from vpt_tpu_torch.scene.vdb_reader import read_vdb, write_vdb
+from vpt_tpu_torch.viewer import TerminalViewer
+
+ROOT = os.path.dirname(os.path.abspath(__file__))
+sys.path.insert(0, os.path.join(ROOT, "tests"))
+import gltf_scenes  # noqa: E402  (tests/gltf_scenes.py, jax-free: the .glb writer)
 
 SOURCES = {
     "ray_keys": "vpt_tpu_torch/csrc/envelope.cu",
@@ -146,6 +182,9 @@ PLAIN = {
 STREAM_KERNELS = ("ray_keys", "supertile_tables", "stream", "occlude")
 W = H = 512
 TIMED_DISPATCHES = 2
+# The media path at depth 4 (the others at 8): its dispatch is tens of seconds
+# of host-bound loop steps, and the script stays within its time.
+MEDIA_FLAGS = RenderFlags(max_depth=4, max_medium_events=8)
 PEAK_FLOPS = 67e12  # H100 SXM, FP32 outside the tensor cores
 PEAK_BYTES = 3.35e12  # H100 SXM, HBM3
 SLAB_OPS = 24  # 6 subtractions, 6 products, 12 min / max
@@ -185,11 +224,6 @@ def cuda_ms(fn, reps: int = 5, launches: int = 1) -> float:
         torch.cuda.synchronize()
         times.append(a.elapsed_time(b) / launches)
     return statistics.median(times)
-
-
-def psnr(a: np.ndarray, b: np.ndarray, data_range: float) -> float:
-    mse = float(np.mean((a.astype(np.float64) - b.astype(np.float64)) ** 2))
-    return float("inf") if mse == 0.0 else 10.0 * np.log10(data_range**2 / mse)
 
 
 def max_abs_err(a: torch.Tensor, b: torch.Tensor) -> float:
@@ -628,7 +662,7 @@ def compare_visit(pk: cluster.Packets, cl, t_min, label):
 def drive(r: Renderer, label: str):
     """One warm-up and TIMED_DISPATCHES timed dispatches of the Renderer,
     launch counts set to 0 just before and read just after: (launches,
-    median s/dispatch)."""
+    median s/dispatch, median segments/dispatch)."""
     r.reset_path_tracing()
     kernels.reset_launches()
     r.path_trace()
@@ -643,13 +677,14 @@ def drive(r: Renderer, label: str):
     launches = dict(kernels.LAUNCHES)
     img = r.hdr_image()
     s_per = statistics.median(dts)
-    log(f"{label} render colonnade {W}x{H} depth 8, 4 spp/dispatch: {s_per:.3f} s/dispatch (median of {dts}), "
+    log(f"{label} render {r.meta.name} {W}x{H} depth {r.flags.max_depth}, {r.samples_per_frame} spp/dispatch: "
+        f"{s_per:.3f} s/dispatch (median of {dts}), "
         f"{statistics.median(segs) / s_per:.0f} segments/s, {statistics.median(segs):.0f} segments/dispatch, "
         f"host syncs/dispatch {syncs}, media loop steps/dispatch {steps}, "
         f"launches over {TIMED_DISPATCHES + 1} dispatches {launches}, image mean {float(img.mean()):.4f}")
     check(img.shape == (H, W, 3) and bool(np.isfinite(img).all()) and float(img.mean()) > 0.0,
           f"{label} render is finite with mean > 0")
-    return launches, s_per
+    return launches, s_per, statistics.median(segs)
 
 
 def profile_dispatch(r: Renderer, label: str, wall_s: float) -> None:
@@ -709,6 +744,177 @@ def kernel_vs_plain_render(data, meta, flags, params, dev, label: str, exact: bo
     check(not exact or np.array_equal(img_k, img_p), f"{label} kernel render equals the plain render")
 
 
+def cloud_from_vdb() -> np.ndarray:
+    """Phase 7's 128^3 cloud through a .vdb written in blosc mode (LZ4 by the
+    C codec): load_grid gives read_vdb's dense box of the active leaves,
+    which, placed at its origin, must equal the procedural grid exactly."""
+    want = procedural_cloud((128, 128, 128), coverage=0.6, seed=0)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "cloud.vdb")
+        t0 = time.perf_counter()
+        write_vdb(path, want, compress="blosc")
+        t1 = time.perf_counter()
+        got, box = load_grid(path), read_vdb(path)
+        t2 = time.perf_counter()
+        size = os.path.getsize(path)
+    check(blosc._lib is not None, "the blosc LZ4 codec is the C library")
+    check(np.array_equal(got, box.values), "load_grid(.vdb) gives read_vdb's values")
+    (ox, oy, oz), (d, h, w) = box.origin_ijk, got.shape
+    grid = np.zeros_like(want)
+    grid[oz:oz + d, oy:oy + h, ox:ox + w] = got
+    check(grid.dtype == want.dtype and np.array_equal(grid, want), "the .vdb cloud equals the procedural grid exactly")
+    log(f"cloud.vdb (blosc, LZ4 by the C codec): {size} bytes, write_vdb {t1 - t0:.2f} s, load_grid + read_vdb "
+        f"{t2 - t1:.2f} s; active box {got.shape} at {tuple(int(v) for v in box.origin_ijk)} placed at its origin "
+        f"equals procedural_cloud((128, 128, 128)) exactly")
+    return grid
+
+
+def run_cli(*args: str) -> dict:
+    """`python -m vpt_tpu_torch ARGS` from the checkout's root: it must exit
+    0; returns its last line of output as JSON."""
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "vpt_tpu_torch", *args], cwd=ROOT, capture_output=True, text=True,
+                          timeout=600)
+    check(proc.returncode == 0, f"python -m vpt_tpu_torch {' '.join(args)} exits 0 (rc {proc.returncode}):\n"
+                                f"{proc.stdout[-2000:]}\n{proc.stderr[-4000:]}")
+    last = proc.stdout.strip().splitlines()[-1]
+    log(f"python -m vpt_tpu_torch {args[0]}: exit 0 in {time.perf_counter() - t0:.1f} s; last line: {last}")
+    return json.loads(last)
+
+
+def textured_colonnade(dev, flags, square, untextured, tmp: str):
+    """9a: the textured colonnade at full width with a metrics log, driven
+    like phase 4 beside phase 4's (s/dispatch, segments/dispatch)
+    `untextured`; then its 128x128 kernel render against the plain one.
+    Returns the host scene."""
+    t0 = time.perf_counter()
+    scene = colonnade_textured()
+    log_path = os.path.join(tmp, "log.jsonl")
+    r = Renderer(scene, width=W, height=H, flags=flags, samples_per_frame=4, metrics_log=log_path, device=dev)
+    texels = sum(t.shape[0] * t.shape[1] for t in scene.textures)
+    log(f"Renderer(colonnade_textured, metrics_log=...): {time.perf_counter() - t0:.1f} s; {len(scene.textures)} "
+        f"textures, {texels} texels, {nbytes(r.scene_data.textures)} bytes of packed RGBA8 texels on the card")
+    check(r.meta.has_textures and len(scene.textures) == 9, "the textured colonnade carries its 9 textures")
+    launches, tex_s, tex_segs = drive(r, "textured")
+    check_stream_launches(launches, "textured")
+    r.metrics.close()
+    with open(log_path) as f:
+        records = [json.loads(line) for line in f]
+    check(len(records) == TIMED_DISPATCHES + 1 and all(x["event"] == "dispatch" for x in records)
+          and set(records[0]) == {"ts", "event", "frame", "seed", "spp", "wall_s", "segments", "segs_per_s",
+                                  "samples_accumulated", "resolution", "scene"},
+          f"the metrics log holds {TIMED_DISPATCHES + 1} dispatch records with the JAX package's keys")
+    check(sum(x["segments"] for x in records) == r.segments_traced, "the logged segments sum to segments_traced")
+    un_s, un_segs = untextured
+    log(f"textured colonnade {tex_s:.3f} s/dispatch, {tex_segs / tex_s:.0f} segments/s ({tex_segs:.0f} "
+        f"segments/dispatch); untextured (phase 4, this call) {un_s:.3f} s/dispatch, {un_segs / un_s:.0f} "
+        f"segments/s ({un_segs:.0f}): textured / untextured s/dispatch {tex_s / un_s:.3f}; log records "
+        + ", ".join(f"frame {x['frame']} wall {x['wall_s']} s" for x in records))
+    profile_dispatch(r, "textured", tex_s)
+    kernel_vs_plain_render(r.scene_data, r.meta, r.flags, square, dev, "textured")
+    return scene
+
+
+def glb_through_cli(dev, scene, tmp: str) -> None:
+    """9b: the textured colonnade as a .glb (PNG textures in buffer views,
+    a node per instance, a camera, the KHR extensions) and its sky as .npy;
+    load_gltf gives its instances, triangles and textures back; `python -m
+    vpt_tpu_torch render` of it matches the procedural scene's render at the
+    same seeds."""
+    t0 = time.perf_counter()
+    glb = gltf_scenes.scene_to_gltf(scene, os.path.join(tmp, "colonnade.glb"))
+    sky = os.path.join(tmp, "sky.npy")
+    np.save(sky, scene.env_map)
+    t1 = time.perf_counter()
+    loaded = load_gltf(glb)
+    t2 = time.perf_counter()
+
+    def tris(s):
+        return sum(s.meshes[i.mesh].n_tris for i in s.instances)
+
+    check(len(loaded.instances) == len(scene.instances) and tris(loaded) == tris(scene),
+          "load_gltf gives the colonnade's instances and triangles")
+    tex_err = max(float(np.abs(a[..., :3] - b[..., :3]).max()) for a, b in zip(loaded.textures, scene.textures))
+    check(len(loaded.textures) == len(scene.textures)
+          and all(a.shape[:2] == b.shape[:2] for a, b in zip(loaded.textures, scene.textures)) and tex_err <= 1 / 255,
+          "load_gltf gives the textures back within 1/255")
+    log(f"colonnade.glb: {os.path.getsize(glb)} bytes written in {t1 - t0:.1f} s; load_gltf {t2 - t1:.1f} s: "
+        f"{len(loaded.instances)} instances, {tris(loaded)} triangles, {len(loaded.textures)} textures within "
+        f"{tex_err * 255:.3f}/255")
+    png, hdr, mlog = (os.path.join(tmp, n) for n in ("glb.png", "glb.npy", "glb_log.jsonl"))
+    stats = run_cli("render", glb, "-o", png, "--hdr-output", hdr, "--env", sky, "--width", str(W), "--height", str(H),
+                    "--spp", "8", "--spp-per-frame", "4", "--metrics-log", mlog)
+    check(set(stats) == {"output", "spp", "seconds", "render_seconds", "segments", "segments_per_sec", "resolution"}
+          and stats["spp"] == 8 and stats["resolution"] == [W, H], "render prints its stats line with JAX's keys")
+    img = read_png(png)
+    check(img.shape == (H, W, 3) and float(img.mean()) > 0.0, "the CLI's PNG reads back (512, 512, 3) with mean > 0")
+    with open(mlog) as f:
+        records = [json.loads(line) for line in f]
+    check(len(records) == 2 and sum(x["segments"] for x in records) == stats["segments"],
+          "the CLI's metrics log holds its 2 dispatches")
+    ref = Renderer(scene, width=W, height=H, flags=RenderFlags(max_depth=8), samples_per_frame=4, max_samples=8,
+                   device=dev)
+    while not ref.path_trace():
+        pass
+    got, want = np.load(hdr), ref.hdr_image()
+    p = psnr(np.clip(got, 0, 10), np.clip(want, 0, 10), 10.0)
+    log(f"CLI render of the .glb vs the procedural scene, {W}x{H} 8 spp at the same seeds: PSNR {p:.1f} dB, "
+        f"segments {stats['segments']:.0f} vs {ref.segments_traced:.0f}")
+    check(p > 40.0, "the .glb render through the CLI within 40 dB PSNR of the procedural scene's")
+
+
+def check_ansi_frame(frame: str, rows: int, cols: int) -> None:
+    lines = frame.split("\n")
+    check(len(lines) == rows + 1 and all(line.count("▀") == cols and line.endswith("\x1b[0m")
+                                         for line in lines[:-1]) and "spp" in lines[-1],
+          f"a viewer frame is {rows} rows of {cols} ANSI half-blocks and a status line")
+
+
+def viewer_headless(dev) -> None:
+    """9e: the TerminalViewer on sphere_garden (the cluster path) at
+    128x128: two steps accumulate, a move restarts the accumulation."""
+    r = Renderer(sphere_garden(), width=128, height=128, flags=RenderFlags(max_depth=6), samples_per_frame=1,
+                 max_samples=512, device=dev)
+    check(not r.meta.use_brute_force, f"sphere_garden ({r.meta.n_tris} triangles) takes the cluster path")
+    viewer = TerminalViewer(r, cols=100)
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    frames = [viewer.step(), viewer.step()]
+    check(r.samples_accumulated == 2, "two viewer steps accumulate 2 spp")
+    before = r.camera.position.copy()
+    frames.append(viewer.step("w"))
+    dt = time.perf_counter() - t0
+    launches = dict(kernels.LAUNCHES)
+    check(r.samples_accumulated == 1 and r.frame_count == 1 and not np.array_equal(r.camera.position, before),
+          "a move restarts the accumulation")
+    for frame in frames:
+        check_ansi_frame(frame, 50, 100)
+    check_stream_launches(launches, "viewer")
+    log(f"viewer on sphere_garden ({r.meta.n_tris} triangles) 128x128: 3 steps in {dt:.2f} s, the move restarted "
+        f"the accumulation (camera {before.tolist()} -> {r.camera.position.tolist()}), frames of 50 x 100 ANSI "
+        f"half-blocks, launches {launches}")
+
+
+def entry_points(dev, smi: str, flags, square, stream_s: float, stream_segs: float) -> None:
+    """Phase 9: the user's entry points on the card."""
+    with tempfile.TemporaryDirectory() as tmp:
+        scene = textured_colonnade(dev, flags, square, (stream_s, stream_segs), tmp)
+        glb_through_cli(dev, scene, tmp)
+    # 9c. The furnace self-test: 960 triangles, the brute-force trace.
+    _, meta, _ = compile_scene(furnace_sphere(), dev)
+    check(meta.n_tris == 960 and meta.n_tris <= BRUTE_FORCE_MAX_TRIS and meta.use_brute_force,
+          "furnace_sphere (960 triangles) takes the brute-force trace, no kernel")
+    line = run_cli("furnace")
+    check(line["pass"] is True and line["furnace_mean_error"] < 0.05, "the furnace mean error is under 0.05")
+    # 9d. The bench command.
+    line = run_cli("bench")
+    check(set(line) == {"metric", "value", "unit", "vs_baseline", "detail"} and line["detail"]["dispatches"] == 8
+          and line["detail"]["device"] == smi and line["value"] > 0.0,
+          "bench prints its line: 8 kept dispatches, the card's name and power limit")
+    # 9e. The viewer.
+    viewer_headless(dev)
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--compare", metavar="OTHER_CU", nargs="+", default=[],
@@ -718,8 +924,7 @@ def main() -> int:
         print("chip_smoke: torch.cuda.is_available() is False; this script needs a CUDA GPU", file=sys.stderr)
         return 1
     dev = torch.device("cuda")
-    smi = subprocess.run(["nvidia-smi", "-i", "0", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                         capture_output=True, text=True, check=True, timeout=60).stdout.strip()
+    smi = card_description(0)
     log(f"torch {torch.__version__} cuda {torch.version.cuda} device {torch.cuda.get_device_name(0)} | {smi}")
 
     # 2. Build.
@@ -730,7 +935,7 @@ def main() -> int:
 
 
 def run(dev, smi: str, other_builds=()) -> None:
-    """Phases 3-6 on `dev`, then the result lines."""
+    """Phases 3-9 on `dev`, then the result lines."""
     # 3. Kernels against plain versions at the main path's shapes.
     t0 = time.perf_counter()
     data, meta, aux = compile_scene(colonnade(), dev)
@@ -849,7 +1054,7 @@ def run(dev, smi: str, other_builds=()) -> None:
     log(f"Renderer(colonnade, lookup_tables='auto'): {time.perf_counter() - t0:.1f} s")
     check(not np.array_equal(r.scene_data.lookup_reflect.cpu().numpy(), constant_fit(1.0)),
           "the default Renderer carries the baked fits, not the constant fit")
-    launches, stream_s = drive(r, "stream")
+    launches, stream_s, stream_segs = drive(r, "stream")
     check_stream_launches(launches, "stream")
     for name in STREAM_KERNELS:
         table[name]["launches"] = launches[name]
@@ -858,7 +1063,7 @@ def run(dev, smi: str, other_builds=()) -> None:
 
     # 5. The packet path, then its image saved as a PNG and read back.
     with mock.patch.object(integrator, "TRACE_MODE", "packet"):
-        launches, packet_s = drive(r, "packet")
+        launches, packet_s, _ = drive(r, "packet")
         check(launches["visit"] > 0, "the packet path launched visit")
         check(launches["supertile_tables"] > 0, "the packet path launched supertile_tables (the packet cull)")
         check(launches["stream"] == 0 and launches["occlude"] == 0,
@@ -887,11 +1092,13 @@ def run(dev, smi: str, other_builds=()) -> None:
     with mock.patch.object(integrator, "TRACE_MODE", "packet"):
         kernel_vs_plain_render(data, meta, flags, square, dev, "packet", exact=True)
 
-    # 7. The media path: a 128^3 cloud and a ground haze (README's cloud in a scene).
+    # 7. The media path: a 128^3 cloud, read from a .vdb, and a ground haze
+    # (README's cloud in a scene).
+    cloud = cloud_from_vdb()
     t0 = time.perf_counter()
-    r = Renderer(colonnade(), width=W, height=H, flags=flags, samples_per_frame=4, device=dev)
+    r = Renderer(colonnade(), width=W, height=H, flags=MEDIA_FLAGS, samples_per_frame=4, device=dev)
     r.add_volume(Volume(corner_min=(-6, 3, -4), corner_max=(6, 9, 4), density=8.0, anisotropy=0.3,
-                        density_grid=procedural_cloud((128, 128, 128), coverage=0.6, seed=0)))
+                        density_grid=cloud))
     r.add_volume(Volume(corner_min=(-17, 0, -7), corner_max=(17, 1.5, 7), density=0.05, color=(0.9, 0.9, 0.9)))
     log(f"media Renderer with two volumes: {time.perf_counter() - t0:.1f} s; n_volumes {r.meta.n_volumes}, "
         f"n_het_volumes {r.meta.n_het_volumes}, grids {tuple(r.scene_data.volumes.density_grids.shape)}")
@@ -907,6 +1114,9 @@ def run(dev, smi: str, other_builds=()) -> None:
     kernel_vs_plain_render(r.scene_data, r.meta, r.flags, square._replace(sky_rotation_altitude=30.0,
                                                                           planet_position=r.params.planet_position),
                            dev, "atmosphere")
+
+    # 9. The user's entry points.
+    entry_points(dev, smi, flags, square, stream_s, stream_segs)
 
     print(smi)
     print(json.dumps({"kernels": list(table.values())}))

@@ -199,10 +199,14 @@ def test_png_row_filters(tmp_path, channels):
 
 
 def test_png_refusals_name_the_reason(tmp_path):
-    """Palette, 16-bit and interlaced PNGs raise a ValueError that says so."""
+    """16-bit and interlaced PNGs, and JPEG files, raise a ValueError that
+    says so; palette PNGs are read (as their palette's colours)."""
     rng = np.random.default_rng(3)
     pal = str(tmp_path / "palette.png")
     Image.fromarray(rng.integers(0, 256, (8, 8, 3)).astype(np.uint8), "RGB").convert("P").save(pal)
+    np.testing.assert_array_equal(timage.read_png(pal), np.asarray(Image.open(pal).convert("RGB")))
+    jpeg = str(tmp_path / "photo.png")
+    Image.fromarray(rng.integers(0, 256, (8, 8, 3)).astype(np.uint8), "RGB").save(jpeg, format="JPEG")
     deep = str(tmp_path / "deep.png")
     Image.fromarray(rng.integers(0, 65535, (8, 8)).astype(np.uint16)).save(deep)
     laced = str(tmp_path / "interlaced.png")
@@ -211,7 +215,7 @@ def test_png_refusals_name_the_reason(tmp_path):
         f.write(timage._chunk(b"IHDR", struct.pack(">IIBBBBB", 4, 4, 8, 2, 0, 0, 1)))
         f.write(timage._chunk(b"IDAT", zlib.compress(bytes(4 * 13))))
         f.write(timage._chunk(b"IEND", b""))
-    for path, reason in ((pal, "palette"), (deep, "16-bit"), (laced, "interlaced")):
+    for path, reason in ((deep, "16-bit"), (laced, "interlaced"), (jpeg, "JPEG")):
         with pytest.raises(ValueError, match=reason):
             timage.load_png(path)
 

@@ -1,5 +1,6 @@
-"""The port runs where JAX is not installed: importing vpt_tpu_torch and every
-module of the ported slice must pull in neither `jax` nor `vpt_tpu`."""
+"""The port runs where JAX and PIL are not installed: importing
+vpt_tpu_torch and every module of the ported slice, or chip_smoke.py, must
+pull in neither `jax`, `vpt_tpu` nor `PIL`."""
 
 import os
 import subprocess
@@ -11,6 +12,10 @@ SLICE_MODULES = [
     "vpt_tpu_torch",
     "vpt_tpu_torch.device",
     "vpt_tpu_torch.api",
+    "vpt_tpu_torch.cli",
+    "vpt_tpu_torch.bench",
+    "vpt_tpu_torch.envguard",
+    "vpt_tpu_torch.viewer",
     "vpt_tpu_torch.accel.kernels",
     "vpt_tpu_torch.accel.bvh",
     "vpt_tpu_torch.accel.cluster",
@@ -24,6 +29,8 @@ SLICE_MODULES = [
     "vpt_tpu_torch.core.camera",
     "vpt_tpu_torch.core.tiling",
     "vpt_tpu_torch.io.image",
+    "vpt_tpu_torch.io.metrics",
+    "vpt_tpu_torch.io.metrics_log",
     "vpt_tpu_torch.post.tonemap",
     "vpt_tpu_torch.post.bloom",
     "vpt_tpu_torch.render.params",
@@ -42,6 +49,9 @@ SLICE_MODULES = [
     "vpt_tpu_torch.scene.procedural",
     "vpt_tpu_torch.scene.build",
     "vpt_tpu_torch.scene.vdb",
+    "vpt_tpu_torch.scene.vdb_reader",
+    "vpt_tpu_torch.scene.blosc",
+    "vpt_tpu_torch.scene.gltf",
     "vpt_tpu_torch.scene.convert",
 ]
 
@@ -56,7 +66,7 @@ def test_imports_pull_in_no_jax(script):
         code = "import importlib.util, sys\nsys.path.insert(0, '.')\nimport chip_smoke\n"
     code += (
         "import sys\n"
-        "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'vpt_tpu'))\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'vpt_tpu', 'PIL'))\n"
         "assert not bad, bad\n"
     )
     proc = subprocess.run([sys.executable, "-c", code], cwd=_ROOT, capture_output=True, text=True, timeout=120)

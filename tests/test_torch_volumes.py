@@ -45,6 +45,7 @@ from vpt_tpu_torch.scene import build as tbuild
 from vpt_tpu_torch.scene import vdb as tvdb
 from vpt_tpu_torch.scene.convert import _pick
 from vpt_tpu_torch.scene.types import Volume, VolumeTable, tree_to_device
+from vpt_tpu_torch.scene.vdb_reader import write_vdb
 
 torch.set_num_threads(1)
 N = 4096
@@ -192,10 +193,10 @@ def test_load_grid(tmp_path):
     g = np.random.default_rng(0).random((4, 5, 6)).astype(np.float32)
     np.save(tmp_path / "g.npy", g)
     np.savez(tmp_path / "g.npz", density=g)
-    for name in ("g.npy", "g.npz"):
+    write_vdb(str(tmp_path / "g.vdb"), g, compress="blosc")
+    for name in ("g.npy", "g.npz", "g.vdb"):
         np.testing.assert_array_equal(tvdb.load_grid(str(tmp_path / name)), jvdb.load_grid(str(tmp_path / name)))
-    with pytest.raises(NotImplementedError, match="not ported"):
-        tvdb.load_grid(str(tmp_path / "cloud.vdb"))
+    np.testing.assert_array_equal(tvdb.load_grid(str(tmp_path / "g.vdb"))[:4, :5, :6], g)  # one whole 8^3 leaf
     with pytest.raises(ValueError):
         tvdb.load_grid(str(tmp_path / "cloud.raw"))
 

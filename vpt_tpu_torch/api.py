@@ -6,11 +6,9 @@ the accumulation buffer.  `Renderer` keeps the accumulation state of one
 compiled scene on one device, mirroring the reference's PathTracer host
 object: progressive accumulation, typed setters that each restart it
 (the atmosphere's and the phase function's included), volumes,
-post-processing (bloom, tonemap), PNG / HDR export and checkpoints.  Its
-energy-compensation tables are baked on its device by default
-(`lookup_tables="auto"`), as the JAX package's are.
-
-Not ported yet: the metrics log (`Renderer(metrics_log=...)`).
+post-processing (bloom, tonemap), PNG / HDR export, checkpoints and the
+per-dispatch metrics log.  Its energy-compensation tables are baked on its
+device by default (`lookup_tables="auto"`), as the JAX package's are.
 """
 
 from __future__ import annotations
@@ -26,6 +24,7 @@ from vpt_tpu_torch.core.camera import FlyCamera, look_at, perspective
 from vpt_tpu_torch.core.tiling import scatter_to_image, tiled_pixel_order
 from vpt_tpu_torch.device import resolve_device
 from vpt_tpu_torch.io.image import export_filename, save_hdr, save_png
+from vpt_tpu_torch.io.metrics_log import RenderLog
 from vpt_tpu_torch.post.bloom import bloom as bloom_pass
 from vpt_tpu_torch.post.tonemap import tonemap as tonemap_pass
 from vpt_tpu_torch.render import integrator
@@ -71,12 +70,15 @@ class Renderer:
     """Progressive path tracer over one compiled scene on `device`."""
 
     def __init__(self, scene: Scene, width=None, height=None, flags: RenderFlags = RenderFlags(),
-                 samples_per_frame: int = 1, max_samples: int = 5000, lookup_tables="auto", *, device="cuda"):
+                 samples_per_frame: int = 1, max_samples: int = 5000, lookup_tables="auto", metrics_log=None, *,
+                 device="cuda"):
         """The JAX package's parameters in its order, then the keyword-only
         `device`.  `lookup_tables`: "auto" bakes the energy-compensation
         tables on `device` (or loads the cached bake) when the flags use
         them, "reference" loads the reference's committed tables, None uses
-        the constant fit; three tables or fits may also be passed."""
+        the constant fit; three tables or fits may also be passed.
+        `metrics_log`: a path to append one JSON record per dispatch to, or
+        a `RenderLog`; None logs nothing."""
         self._scene_host = scene
         self.device = resolve_device(device)
         if isinstance(lookup_tables, str):
@@ -111,6 +113,8 @@ class Renderer:
         self.segments_traced = 0.0
         self.last_host_syncs = 0  # of the last dispatch
         self.last_media_steps = 0  # volume and atmosphere loop steps of the last dispatch
+        self.metrics = (RenderLog.open(metrics_log) if isinstance(metrics_log, str)
+                        else (metrics_log or RenderLog.null()))
 
     # ------------------------------------------------------------------ core
 
@@ -137,10 +141,17 @@ class Renderer:
             accum, self.frame_count, self.samples_per_frame,
         )
         self.last_host_syncs, self.last_media_steps = stats.syncs, stats.steps
-        self.segments_traced += float(segments)  # waits for the dispatch to finish
-        self.render_seconds += time.perf_counter() - t0
+        segments = float(segments)  # waits for the dispatch to finish
+        dt = time.perf_counter() - t0
+        self.segments_traced += segments
+        self.render_seconds += dt
         self.frame_count += 1
         self.samples_accumulated += self.samples_per_frame
+        self.metrics.dispatch(
+            frame=self.frame_count, seed=seed, spp=self.samples_per_frame, wall_s=dt, segments=segments,
+            samples_accumulated=self.samples_accumulated, resolution=(self.width, self.height),
+            scene=self.meta.name,
+        )
         return self.samples_accumulated >= self.max_samples
 
     def render(self, total_samples: Optional[int] = None, verbose: bool = False) -> np.ndarray:

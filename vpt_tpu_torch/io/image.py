@@ -5,10 +5,14 @@ PNG is written and read with the standard library's `zlib` and `struct`
 alone.  `save_png` writes 8-bit RGB or RGBA, one IDAT chunk, filter 0 on
 every row; the quantisation is the JAX package's, clip(x, 0, 1) * 255 + 0.5
 truncated.  `read_png` decodes any non-interlaced 8-bit gray, gray+alpha,
-RGB or RGBA PNG (IDAT split over several chunks, all five row filters);
-`load_png` gives its pixels as float32 / 255, with PIL's shapes, as the JAX
-package's `load_png` does through PIL.  Palette, 16-bit and interlaced files
-raise a ValueError that names the reason.
+RGB or RGBA PNG and 1-, 2-, 4- or 8-bit palette PNGs (IDAT split over
+several chunks, all five row filters); `load_png` gives its pixels as
+float32 / 255, with PIL's shapes for the non-palette types, as the JAX
+package's `load_png` does through PIL.  `decode_rgba` gives any of them as
+(H, W, 4) float32 / 255, expanded the way PIL's `convert("RGBA")` expands
+them (tRNS transparency included): the glTF loader's texture decode.
+16-bit and interlaced PNGs, and JPEG or other formats, raise a ValueError
+that names the format.
 """
 
 from __future__ import annotations
@@ -82,40 +86,103 @@ def _unfilter(raw: np.ndarray, h: int, stride: int, bpp: int) -> np.ndarray:
     return out
 
 
-def read_png(path: str) -> np.ndarray:
-    """The uint8 pixels of an 8-bit, non-interlaced gray (H, W), gray+alpha
-    (H, W, 2), RGB (H, W, 3) or RGBA (H, W, 4) PNG."""
-    data = open(path, "rb").read()
+def _decode(data: bytes, name: str):
+    """(pixels, palette, trns) of a PNG's bytes: the uint8 samples (H, W, c),
+    palette indices for colour type 3; the (n, 3) PLTE entries or None; the
+    tRNS chunk's bytes or None."""
+    if data[:3] == b"\xff\xd8\xff":
+        raise ValueError(f"{name}: JPEG images are not read, only PNG")
     if data[:8] != _PNG_SIGNATURE:
-        raise ValueError(f"{path} is not a PNG file")
-    pos, idat, header = 8, [], None
+        raise ValueError(f"{name} is not a PNG file")
+    pos, idat, header, palette, trns = 8, [], None, None, None
     while pos < len(data):
         (length,) = struct.unpack(">I", data[pos : pos + 4])
         kind, body = data[pos + 4 : pos + 8], data[pos + 8 : pos + 8 + length]
         if zlib.crc32(kind + body) & 0xFFFFFFFF != struct.unpack(">I", data[pos + 8 + length : pos + 12 + length])[0]:
-            raise ValueError(f"{path}: CRC mismatch in chunk {kind!r}")
+            raise ValueError(f"{name}: CRC mismatch in chunk {kind!r}")
         if kind == b"IHDR":
             header = struct.unpack(">IIBBBBB", body)
+        elif kind == b"PLTE":
+            palette = np.frombuffer(body, np.uint8).reshape(-1, 3)
+        elif kind == b"tRNS":
+            trns = body
         elif kind == b"IDAT":
             idat.append(body)
         elif kind == b"IEND":
             break
         pos += 12 + length
     if header is None:
-        raise ValueError(f"{path}: no IHDR chunk")
+        raise ValueError(f"{name}: no IHDR chunk")
     w, h, depth, ctype, _, _, interlace = header
     if ctype == 3:
-        raise ValueError(f"{path}: palette PNGs are not read")
-    if ctype not in _CHANNELS:
-        raise ValueError(f"{path}: unknown PNG colour type {ctype}")
-    if depth != 8:
-        raise ValueError(f"{path}: {depth}-bit PNGs are not read, only 8-bit")
+        if depth not in (1, 2, 4, 8):
+            raise ValueError(f"{name}: {depth}-bit palette PNGs are not read")
+        if palette is None:
+            raise ValueError(f"{name}: palette PNG without a PLTE chunk")
+        c = 1
+    elif ctype not in _CHANNELS:
+        raise ValueError(f"{name}: unknown PNG colour type {ctype}")
+    elif depth != 8:
+        raise ValueError(f"{name}: {depth}-bit PNGs are not read, only 8-bit")
+    else:
+        c = _CHANNELS[ctype]
     if interlace:
-        raise ValueError(f"{path}: interlaced PNGs are not read")
-    c = _CHANNELS[ctype]
-    raw = np.frombuffer(zlib.decompress(b"".join(idat)), np.uint8)[: h * (1 + w * c)].reshape(h, 1 + w * c)
-    pixels = _unfilter(raw, h, w * c, c).reshape(h, w, c)
-    return pixels[..., 0] if c == 1 else pixels
+        raise ValueError(f"{name}: interlaced PNGs are not read")
+    stride = (w * c * depth + 7) // 8
+    raw = np.frombuffer(zlib.decompress(b"".join(idat)), np.uint8)[: h * (1 + stride)].reshape(h, 1 + stride)
+    rows = _unfilter(raw, h, stride, max(1, c * depth // 8))
+    if depth < 8:  # palette indices packed high bit first
+        shifts = np.arange(8 - depth, -1, -depth, dtype=np.uint8)
+        rows = ((rows[:, :, None] >> shifts) & ((1 << depth) - 1)).reshape(h, -1)[:, :w]
+    return rows.reshape(h, w, c), palette, trns
+
+
+def _palette_colours(pixels, palette, trns) -> np.ndarray:
+    """Palette indices (H, W, 1) to RGB, or RGBA where a tRNS chunk gives
+    the entries' alphas (entries past its end are opaque)."""
+    if trns is None:
+        table = palette
+    else:
+        alpha = np.full(palette.shape[0], 255, np.uint8)
+        n = min(len(trns), palette.shape[0])
+        alpha[:n] = np.frombuffer(trns[:n], np.uint8)
+        table = np.concatenate([palette, alpha[:, None]], axis=1)
+    return table[np.minimum(pixels[..., 0], palette.shape[0] - 1)]
+
+
+def read_png(path: str) -> np.ndarray:
+    """The uint8 pixels of an 8-bit, non-interlaced gray (H, W), gray+alpha
+    (H, W, 2), RGB (H, W, 3) or RGBA (H, W, 4) PNG; a palette PNG as RGB,
+    or RGBA when it carries tRNS alphas."""
+    with open(path, "rb") as f:
+        pixels, palette, trns = _decode(f.read(), path)
+    if palette is not None:
+        return _palette_colours(pixels, palette, trns)
+    return pixels[..., 0] if pixels.shape[2] == 1 else pixels
+
+
+def decode_rgba(data: bytes, name: str = "image") -> np.ndarray:
+    """A PNG's bytes as (H, W, 4) float32 in [0, 1], expanded as PIL's
+    `convert("RGBA")` expands each colour type: gray g -> (g, g, g, 255),
+    gray+alpha -> (g, g, g, a), RGB -> alpha 255, palette -> its entries
+    with the tRNS alphas; a gray or RGB tRNS colour becomes alpha 0."""
+    pixels, palette, trns = _decode(data, name)
+    c = pixels.shape[2]
+    if palette is not None:
+        rgba = _palette_colours(pixels, palette, trns)
+        if rgba.shape[2] == 3:
+            rgba = np.concatenate([rgba, np.full(rgba.shape[:2] + (1,), 255, np.uint8)], axis=-1)
+    else:
+        colour = pixels[..., :3] if c >= 3 else np.repeat(pixels[..., :1], 3, axis=-1)
+        if c in (2, 4):
+            alpha = pixels[..., -1:]
+        else:
+            alpha = np.full(pixels.shape[:2] + (1,), 255, np.uint8)
+            if trns is not None:  # one 16-bit sample per channel: the transparent colour
+                key = np.frombuffer(trns, ">u2")[:c].astype(np.int64)
+                alpha[(pixels == key).all(axis=-1)] = 0
+        rgba = np.concatenate([colour, alpha], axis=-1)
+    return rgba.astype(np.float32) / 255.0
 
 
 def load_png(path: str) -> np.ndarray:

@@ -16,7 +16,9 @@ device, one synchronisation per iteration; the media loops add theirs
 
 Large scenes trace through the cluster tables in one of two modes, read
 from `VPT_TRACE` once at import as in the JAX package: "stream" (default;
-kernels 1-4) or "packet" (the packet trace through kernel 5).  Switch in
+kernels 1-4) or "packet" (the packet trace through kernel 5); under
+`VPT_REQUIRE_GOLDENS` a non-default value refuses the import
+(envguard.guard_ablations).  Switch in
 code with `mock.patch.object(integrator, "TRACE_MODE", "packet")`.
 """
 
@@ -33,6 +35,7 @@ from vpt_tpu_torch.accel.stream import intersect_stream
 from vpt_tpu_torch.core import rng
 from vpt_tpu_torch.core.camera import generate_primary_rays
 from vpt_tpu_torch.core.vecmath import dot, luminance, normalize, power_heuristic
+from vpt_tpu_torch.envguard import guard_ablations
 from vpt_tpu_torch.render import bsdf as bsdf_mod
 from vpt_tpu_torch.render import atmosphere as atmo
 from vpt_tpu_torch.render import lights, sampling, volumes
@@ -41,6 +44,7 @@ from vpt_tpu_torch.render.loop import LoopStats
 from vpt_tpu_torch.render.params import RenderFlags, RenderParams
 
 
+guard_ablations()
 TRACE_MODE = os.environ.get("VPT_TRACE", "stream")  # stream | packet
 
 

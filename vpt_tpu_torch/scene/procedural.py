@@ -1,7 +1,8 @@
 """Procedural scenes (jax-free copy of vpt_tpu/scene/procedural.py):
-`cornell_box`, `sphere_garden` and the `colonnade` benchmark scene, with
-the meshes they are built from.  The textured colonnade variant is not
-ported yet."""
+`cornell_box`, `sphere_garden`, the `colonnade` benchmark scene and its
+textured variant, and the furnace test's `furnace_sphere`, with the meshes
+and textures they are built from.  The textures are numpy draws with the
+JAX package's seeds and come out equal to its arrays."""
 
 from __future__ import annotations
 
@@ -239,10 +240,70 @@ def make_ripple_quad(width, height, nx=64, ny=64, amp=0.1, freq=3.0) -> Mesh:
     return Mesh(pts, nrm, uv, _fix_winding(pts, nrm, np.array(idx, np.uint32)), name="drape")
 
 
-def colonnade(n_columns=8, column_res=(96, 40)) -> Scene:
+def _fbm2(shape, octaves=5, seed=0):
+    """Cheap value-noise fbm in [0, 1] for procedural texture content."""
+    rng = np.random.default_rng(seed)
+    h, w = shape
+    out = np.zeros((h, w), np.float32)
+    amp, total = 1.0, 0.0
+    for o in range(octaves):
+        gh, gw = max(2, h >> (octaves - 1 - o)), max(2, w >> (octaves - 1 - o))
+        g = rng.random((gh, gw)).astype(np.float32)
+        ys = np.linspace(0, gh - 1, h)
+        xs = np.linspace(0, gw - 1, w)
+        y0, x0 = ys.astype(int), xs.astype(int)
+        y1, x1 = np.minimum(y0 + 1, gh - 1), np.minimum(x0 + 1, gw - 1)
+        fy, fx = (ys - y0)[:, None], (xs - x0)[None, :]
+        v = (g[np.ix_(y0, x0)] * (1 - fy) * (1 - fx) + g[np.ix_(y0, x1)] * (1 - fy) * fx
+             + g[np.ix_(y1, x0)] * fy * (1 - fx) + g[np.ix_(y1, x1)] * fy * fx)
+        out += amp * v
+        total += amp
+        amp *= 0.55
+    return out / total
+
+
+def _normal_from_height(hmap, strength=2.0):
+    """Tangent-space normal map ((0.5, 0.5, 1) neutral) from a height field."""
+    gy, gx = np.gradient(hmap.astype(np.float32))
+    n = np.stack([-gx * strength, -gy * strength, np.ones_like(hmap)], axis=-1)
+    n /= np.linalg.norm(n, axis=-1, keepdims=True)
+    return (n * 0.5 + 0.5).astype(np.float32)
+
+
+def _colonnade_textures(textures) -> dict:
+    """Append the stone and floor 1K and the drape 512 albedo + normal maps
+    to `textures`; the Material texture slots of each surface."""
+
+    def add_tex(img):
+        textures.append(np.asarray(img, np.float32))
+        return len(textures) - 1
+
+    hm = _fbm2((1024, 1024), seed=3)  # stone: mottled albedo, chiseled normal
+    stone_alb = np.stack([0.5 + 0.25 * hm, 0.47 + 0.24 * hm, 0.43 + 0.22 * hm], -1)
+    stone_n = _normal_from_height(hm, 3.0)
+    yy, xx = np.mgrid[0:1024, 0:1024]  # floor: marble checker with veins
+    check = (((yy // 128) + (xx // 128)) % 2).astype(np.float32)
+    veins = _fbm2((1024, 1024), seed=9)
+    floor_alb = np.stack([0.25 + 0.5 * check + 0.12 * veins, 0.24 + 0.48 * check + 0.12 * veins,
+                          0.23 + 0.46 * check + 0.10 * veins], -1)
+    floor_n = _normal_from_height(veins, 1.2)
+    wy, wx = np.mgrid[0:512, 0:512]  # drape: woven stripes
+    weave = 0.75 + 0.25 * np.sin(wx / 3.0) * np.sin(wy / 3.0)
+    drape_alb = np.stack([weave, weave, weave], -1).astype(np.float32)
+    drape_n = _normal_from_height(weave.astype(np.float32), 1.5)
+    return {
+        "stone": dict(base_color_texture=add_tex(np.clip(stone_alb, 0, 1)), normal_texture=add_tex(stone_n)),
+        "floor": dict(base_color_texture=add_tex(np.clip(floor_alb, 0, 1)), normal_texture=add_tex(floor_n)),
+        "drape": dict(base_color_texture=add_tex(drape_alb), normal_texture=add_tex(drape_n)),
+    }
+
+
+def colonnade(n_columns=8, column_res=(96, 40), textured=False) -> Scene:
     """The benchmark scene (~334K triangles at defaults): a colonnaded
     courtyard of instanced fluted columns, rippled drapes, brass and glass
-    statues, emissive lamps and a sun-hotspot sky."""
+    statues, emissive lamps and a sun-hotspot sky.  With `textured`, the
+    stone, floor and drape materials get procedural albedo + normal maps
+    (~4.7M texels), so the per-hit texture gathers run at a realistic size."""
     meshes, instances, materials = [], [], []
 
     def add_mesh(mesh):
@@ -260,10 +321,14 @@ def colonnade(n_columns=8, column_res=(96, 40)) -> Scene:
         t[:3, 3] = translate
         instances.append(Instance(mesh=mesh_id, material=mat_id, transform=t, name=name))
 
-    stone = add_mat(Material(name="stone", base_color=(0.55, 0.52, 0.48), roughness=0.85))
-    floor_m = add_mat(Material(name="floor", base_color=(0.4, 0.38, 0.36), roughness=0.6))
-    red_drape = add_mat(Material(name="drape-red", base_color=(0.45, 0.06, 0.06), roughness=0.95))
-    green_drape = add_mat(Material(name="drape-green", base_color=(0.07, 0.3, 0.1), roughness=0.95))
+    textures = default_textures()
+    tex_kw = _colonnade_textures(textures) if textured else {"stone": {}, "floor": {}, "drape": {}}
+    stone = add_mat(Material(name="stone", base_color=(0.55, 0.52, 0.48), roughness=0.85, **tex_kw["stone"]))
+    floor_m = add_mat(Material(name="floor", base_color=(0.4, 0.38, 0.36), roughness=0.6, **tex_kw["floor"]))
+    red_drape = add_mat(Material(name="drape-red", base_color=(0.45, 0.06, 0.06), roughness=0.95,
+                                 **tex_kw["drape"]))
+    green_drape = add_mat(Material(name="drape-green", base_color=(0.07, 0.3, 0.1), roughness=0.95,
+                                   **tex_kw["drape"]))
     brass = add_mat(Material(name="brass", base_color=(0.85, 0.62, 0.3), metallic=1.0, roughness=0.25))
     glass = add_mat(Material(name="glass", base_color=(1, 1, 1), transmission=1.0, ior=1.5, roughness=0.03))
     lamp = add_mat(Material(name="lamp", base_color=(1, 1, 1), emissive_color=(40.0, 32.0, 22.0)))
@@ -320,7 +385,25 @@ def colonnade(n_columns=8, column_res=(96, 40)) -> Scene:
     sky[10:14, 88:92] = 400.0
     view = look_at((-L / 2 + 2.0, 3.2, 2.8), (L / 2, 2.2, -1.5), (0.0, 1.0, 0.0))
     return Scene(
-        meshes=meshes, instances=instances, materials=materials, textures=default_textures(),
+        meshes=meshes, instances=instances, materials=materials, textures=textures,
         camera_view=view, camera_fov_deg=55.0, camera_aspect=1.0, env_map=sky.astype(np.float32),
-        name="colonnade",
+        name="colonnade_textured" if textured else "colonnade",
+    )
+
+
+def colonnade_textured(n_columns=8, column_res=(96, 40)) -> Scene:
+    """The textured variant of the benchmark scene: 1K stone and floor
+    albedo + normal maps, a 512 drape weave (9 textures with the defaults)."""
+    return colonnade(n_columns, column_res, textured=True)
+
+
+def furnace_sphere(albedo=1.0, sky=1.0) -> Scene:
+    """A single sphere under a uniform environment: the furnace test scene."""
+    sphere = make_uv_sphere(radius=1.0, n_lat=16, n_lon=32)
+    mat = Material(name="furnace", base_color=(albedo,) * 3, roughness=1.0)
+    view = look_at((0.0, 0.0, 4.0), (0.0, 0.0, 0.0), (0.0, 1.0, 0.0))
+    return Scene(
+        meshes=[sphere], instances=[Instance(mesh=0, material=0, transform=np.eye(4, dtype=np.float32))],
+        materials=[mat], textures=default_textures(), camera_view=view, camera_fov_deg=45.0,
+        camera_aspect=1.0, env_map=np.full((16, 32, 3), sky, np.float32), name="furnace",
     )

@@ -2,9 +2,10 @@
 vpt_tpu/scene/vdb.py).
 
 Dense (D, H, W) float32 bricks are the device format.  `load_grid` reads
-`.npy` / `.npz`; the OpenVDB reader (`.vdb`, with its blosc codec) is not
-ported yet and raises.  The procedural fbm cloud and smoke plume draw from
-numpy's generator with the JAX package's seeds and give the same grids.
+`.npy` / `.npz` and OpenVDB `.vdb` files (scene/vdb_reader.py, with zlib,
+blosc and half-float value buffers).  The procedural fbm cloud and smoke
+plume draw from numpy's generator with the JAX package's seeds and give the
+same grids.
 """
 
 from __future__ import annotations
@@ -20,10 +21,9 @@ def load_grid(path: str) -> np.ndarray:
         key = "density" if "density" in d else list(d.keys())[0]
         return np.asarray(d[key], np.float32)
     if path.endswith(".vdb"):
-        raise NotImplementedError(
-            "OpenVDB (.vdb) files need the .vdb reader and its blosc codec, which vpt_tpu_torch has not "
-            "ported yet; convert the grid to a dense .npy / .npz array instead"
-        )
+        from vpt_tpu_torch.scene.vdb_reader import read_vdb
+
+        return read_vdb(path).values
     if path.endswith(".nvdb"):
         raise NotImplementedError("NanoVDB (.nvdb) is a GPU-baked format; load the source .vdb instead")
     raise ValueError(f"unsupported grid format: {path}")
