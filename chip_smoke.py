@@ -80,7 +80,24 @@ Phases, each of which raises on failure:
         the card's name and power limit;
      e. the TerminalViewer, headless, on sphere_garden (~96K triangles)
         at 128x128: two steps, then a move that restarts the accumulation,
-        frames of ANSI half-blocks, the stream kernels launched.
+        frames of ANSI half-blocks, the stream kernels launched;
+ 10. the sharded path (vpt_tpu_torch.dist), its wall time printed:
+     a. a one-rank nccl group and make_mesh(1, 1): render_sharded of
+        phase 4's colonnade 512x512, depth 8, 4 spp, one warm-up and two
+        timed dispatches beside phase 4's s/dispatch, with the launch
+        counts (the four stream-path kernels launch, visit does not), then
+        render_step and render_sharded timed in turns (step, sharded,
+        sharded, step); its
+        image above 60 dB PSNR against integrator.render_samples over the
+        same row-major pixels (bitwise equality reported), its segments
+        within 0.05% of render_step's at the same seed (t ties only); the
+        all_reduce of the 512x512 frame timed; then the one-rank render of
+        the dry run's frame (colonnade 128x128, 4 spp, depth 8, the
+        constant fit);
+     b. dryrun_multichip(2, device="cuda"): two rank processes on the one
+        card over gloo, colonnade 128x128, JAX's three checks; the (2, 1)
+        and (1, 2) images agree above 60 dB with each other and with a's
+        one-rank render.
 The last lines are the card's name and power limit, the kernel table as
 JSON and {"ok": true, ...}.  Without a CUDA device the script exits
 non-zero and prints no result.
@@ -131,6 +148,7 @@ from unittest import mock
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from vpt_tpu_torch import Renderer, RenderFlags
 from vpt_tpu_torch.accel import cluster, envelope, kernels, occlude, stream, visit
@@ -140,6 +158,8 @@ from vpt_tpu_torch.bench import card_description
 from vpt_tpu_torch.core import rng
 from vpt_tpu_torch.core.camera import generate_primary_rays, perspective
 from vpt_tpu_torch.core.tiling import tiled_pixel_order
+from vpt_tpu_torch.dist import dryrun
+from vpt_tpu_torch.dist import mesh as dmesh
 from vpt_tpu_torch.io.image import read_png
 from vpt_tpu_torch.io.metrics import psnr
 from vpt_tpu_torch.render import integrator, lights, lookup, sampling, surface
@@ -149,7 +169,7 @@ from vpt_tpu_torch.scene import blosc
 from vpt_tpu_torch.scene.build import BRUTE_FORCE_MAX_TRIS, compile_scene
 from vpt_tpu_torch.scene.gltf import load_gltf
 from vpt_tpu_torch.scene.procedural import colonnade, colonnade_textured, furnace_sphere, sphere_garden
-from vpt_tpu_torch.scene.types import Volume
+from vpt_tpu_torch.scene.types import Volume, tree_to_device
 from vpt_tpu_torch.scene.vdb import load_grid, procedural_cloud
 from vpt_tpu_torch.scene.vdb_reader import read_vdb, write_vdb
 from vpt_tpu_torch.viewer import TerminalViewer
@@ -915,6 +935,84 @@ def entry_points(dev, smi: str, flags, square, stream_s: float, stream_segs: flo
     viewer_headless(dev)
 
 
+DRYRUN_SIZE = 128  # 10b's frame, and a's one-rank render of it
+DRYRUN_DEPTH = 8
+
+
+def sharded_path(dev, r: Renderer, stream_s: float, table) -> None:
+    """Phase 10: render_sharded on a one-rank nccl group beside phase 4's
+    Renderer `r` (s/dispatch `stream_s`), then the two-rank dry run on the
+    card over gloo against a one-rank render of its frame."""
+    t_phase = time.perf_counter()
+    seed, n_spp = 2654435761, r.samples_per_frame
+    args = (r.scene_data, r.meta, r.flags, r.params, (W, H))
+    host, meta, flags, cameras = dryrun.scene_setup("colonnade", DRYRUN_DEPTH)
+    with tempfile.TemporaryDirectory() as tmp:
+        dist.init_process_group("nccl", init_method=f"file://{os.path.join(tmp, 'store')}", world_size=1, rank=0)
+        try:
+            m = dmesh.make_mesh(1, 1)
+            kernels.reset_launches()
+            dmesh.render_sharded(*args, seed, n_spp, m)
+            dts = []
+            for _ in range(TIMED_DISPATCHES):
+                t0 = time.perf_counter()
+                img, segs = dmesh.render_sharded(*args, seed, n_spp, m)
+                segs = int(segs)  # waits for the dispatch
+                dts.append(time.perf_counter() - t0)
+            launches = dict(kernels.LAUNCHES)
+            check_stream_launches(launches, "sharded")
+            for name in STREAM_KERNELS:
+                table[name]["sharded_launches"] = launches[name]
+            pxy, pidx = dmesh.pixel_grid(W, H)
+            want, want_segs, _ = integrator.render_samples(*args[:4], torch.as_tensor(pxy, device=dev),
+                                                           torch.as_tensor(pidx, device=dev), (W, H), seed, n_spp)
+            want = want.reshape(H, W, 3)
+            # Phase 4's function and the sharded one in turns (step, sharded,
+            # sharded, step): the host's state late in the script moves both.
+            turns = {"render_step": [], "render_sharded": []}
+            for which in ("render_step", "render_sharded", "render_sharded", "render_step"):
+                t0 = time.perf_counter()
+                if which == "render_step":
+                    step_segs = int(render_step(*args[:4], seed, (W, H), torch.zeros((H, W, 3), device=dev), 0,
+                                                n_spp)[1])
+                else:
+                    int(dmesh.render_sharded(*args, seed, n_spp, m)[1])
+                turns[which].append(time.perf_counter() - t0)
+            frame = torch.zeros((W * H, 3), device=dev)
+            all_reduce_ms = cuda_ms(lambda: dist.all_reduce(frame), reps=5, launches=LAUNCHES_PER_PAIR)
+            small_data = tree_to_device(host, dev)
+            small, _ = dmesh.render_sharded(small_data, meta, flags, default_params(dev, *cameras),
+                                            (DRYRUN_SIZE, DRYRUN_SIZE), 99, 4, m)
+            small = small.cpu().numpy()
+        finally:
+            dist.destroy_process_group()
+    img_np, want_np = img.cpu().numpy(), want.cpu().numpy()
+    p = dryrun.psnr_peak(want_np, img_np)
+    s_per = statistics.median(dts)
+    turn_ratio = statistics.median(turns["render_sharded"]) / statistics.median(turns["render_step"])
+    log(f"sharded path, one nccl rank on a (1, 1) mesh: colonnade {W}x{H} depth {r.flags.max_depth}, {n_spp} spp: "
+        f"{s_per:.3f} s/dispatch (median of {dts}) beside phase 4's {stream_s:.3f} (this call): "
+        f"{s_per / stream_s:.3f}x; in turns render_step {turns['render_step']} s, render_sharded "
+        f"{turns['render_sharded']} s: {turn_ratio:.3f}x; "
+        f"{segs} segments against render_step's {step_segs} at the same seed "
+        f"({100 * (segs - step_segs) / step_segs:+.4f}%) and render_samples' {int(want_segs)}; image against "
+        f"render_samples over the same row-major pixels: PSNR {p:.1f} dB, bitwise equal "
+        f"{bool(np.array_equal(img_np, want_np))}; all_reduce of the {W}x{H} float32 frame "
+        f"({4 * 3 * W * H} bytes, one rank) {all_reduce_ms:.4f} ms; launches over {TIMED_DISPATCHES + 1} "
+        f"dispatches {launches}")
+    check(bool(np.isfinite(img_np).all()) and img_np.shape == (H, W, 3), "the sharded image is finite, (512, 512, 3)")
+    check(p > 60.0, "the sharded image within 60 dB PSNR of render_samples")
+    check(abs(segs - step_segs) <= 5e-4 * step_segs, "the sharded segments within 0.05% of render_step's")
+
+    t0 = time.perf_counter()
+    out = dryrun.dryrun_multichip(2, device="cuda", scene="colonnade", size=DRYRUN_SIZE, max_depth=DRYRUN_DEPTH)
+    psnrs = {shape: dryrun.psnr_peak(small, img) for shape, img in out["images"].items()}
+    log(f"dryrun_multichip(2, cuda, gloo) on colonnade {DRYRUN_SIZE}x{DRYRUN_SIZE}: {time.perf_counter() - t0:.1f} s; "
+        f"PSNR between the shapes {out['psnr']}, against the one-rank nccl render {psnrs}; segments {out['segments']}")
+    check(all(v > 60.0 for v in psnrs.values()), "the dry run's shapes within 60 dB of the one-rank render")
+    log(f"phase 10 (the sharded path): {time.perf_counter() - t_phase:.1f} s")
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--compare", metavar="OTHER_CU", nargs="+", default=[],
@@ -935,7 +1033,7 @@ def main() -> int:
 
 
 def run(dev, smi: str, other_builds=()) -> None:
-    """Phases 3-9 on `dev`, then the result lines."""
+    """Phases 3-10 on `dev`, then the result lines."""
     # 3. Kernels against plain versions at the main path's shapes.
     t0 = time.perf_counter()
     data, meta, aux = compile_scene(colonnade(), dev)
@@ -1055,6 +1153,7 @@ def run(dev, smi: str, other_builds=()) -> None:
     check(not np.array_equal(r.scene_data.lookup_reflect.cpu().numpy(), constant_fit(1.0)),
           "the default Renderer carries the baked fits, not the constant fit")
     launches, stream_s, stream_segs = drive(r, "stream")
+    stream_r = r
     check_stream_launches(launches, "stream")
     for name in STREAM_KERNELS:
         table[name]["launches"] = launches[name]
@@ -1117,6 +1216,9 @@ def run(dev, smi: str, other_builds=()) -> None:
 
     # 9. The user's entry points.
     entry_points(dev, smi, flags, square, stream_s, stream_segs)
+
+    # 10. The sharded path.
+    sharded_path(dev, stream_r, stream_s, table)
 
     print(smi)
     print(json.dumps({"kernels": list(table.values())}))

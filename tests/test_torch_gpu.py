@@ -280,3 +280,35 @@ def test_visit_wrapper_raises_on_other_cluster_shapes(cuda, shape):
     with pytest.raises(ValueError, match="K = 128"):
         visit.visit_trace(pk.nvis, pk.order, pk.entry_sorted, pk.origin, pk.direction, pk.active, pk.tmax, cl, T_MIN)
     assert kernels.LAUNCHES == before
+
+
+def test_one_rank_nccl_render_sharded_equals_render_samples(cuda, tmp_path):
+    """render_sharded on a (1, 1) mesh of one nccl rank (sphere_garden 64^2,
+    the cluster path) equals the one-process render_samples over the same
+    row-major pixels, image and segments."""
+    import torch.distributed as dist
+
+    from vpt_tpu_torch.core.camera import perspective
+    from vpt_tpu_torch.dist import mesh
+    from vpt_tpu_torch.render import integrator
+    from vpt_tpu_torch.render.params import RenderFlags, default_params
+    from vpt_tpu_torch.scene.build import compile_scene
+    from vpt_tpu_torch.scene.procedural import sphere_garden
+
+    data, meta, aux = compile_scene(sphere_garden(), cuda)
+    assert not meta.use_brute_force
+    params = default_params(cuda, np.linalg.inv(aux["camera_view"]),
+                            np.linalg.inv(perspective(np.radians(aux["camera_fov_deg"]), 1.0)))
+    flags = RenderFlags(max_depth=4, max_medium_events=2)
+    pxy, pidx = mesh.pixel_grid(64, 64)
+    want, want_segs, _ = integrator.render_samples(data, meta, flags, params, torch.as_tensor(pxy, device=cuda),
+                                                   torch.as_tensor(pidx, device=cuda), (64, 64), 77, 2)
+    dist.init_process_group("nccl", init_method=f"file://{tmp_path / 'store'}", world_size=1, rank=0)
+    try:
+        before = dict(kernels.LAUNCHES)
+        img, segs = mesh.render_sharded(data, meta, flags, params, (64, 64), 77, 2, mesh.make_mesh())
+        torch.cuda.synchronize()
+    finally:
+        dist.destroy_process_group()
+    assert kernels.LAUNCHES["stream"] > before["stream"] and kernels.LAUNCHES["occlude"] > before["occlude"]
+    assert torch.equal(img, want.reshape(64, 64, 3)) and int(segs) == int(want_segs)

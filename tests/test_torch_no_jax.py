@@ -53,6 +53,9 @@ SLICE_MODULES = [
     "vpt_tpu_torch.scene.blosc",
     "vpt_tpu_torch.scene.gltf",
     "vpt_tpu_torch.scene.convert",
+    "vpt_tpu_torch.dist",
+    "vpt_tpu_torch.dist.mesh",
+    "vpt_tpu_torch.dist.dryrun",
 ]
 
 _ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))

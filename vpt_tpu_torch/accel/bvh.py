@@ -20,6 +20,7 @@ import numpy as np
 from vpt_tpu_torch.accel.kernels import BUILD_DIR, PKG_DIR
 
 LEAF_SIZE = 4
+SENTINEL = 2**31 - 1  # the skip link past the last node
 
 _SRC = os.path.join(os.path.dirname(PKG_DIR), "vpt_tpu", "accel", "cpp", "bvh_builder.cpp")
 _LIB = os.path.join(BUILD_DIR, "libvpt_bvh.so")

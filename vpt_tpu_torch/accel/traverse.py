@@ -1,4 +1,5 @@
-"""Hit record and brute-force intersection (port of vpt_tpu/accel/traverse.py).
+"""Hit record, brute-force and skip-link BVH intersection (port of
+vpt_tpu/accel/traverse.py).
 
 Semantics shared by every intersector of the port: Moller-Trumbore is
 two-sided, a triangle counts only when |det| > 1e-12 and
@@ -11,6 +12,7 @@ from typing import NamedTuple
 
 import torch
 
+from vpt_tpu_torch.accel.bvh import LEAF_SIZE, SENTINEL
 from vpt_tpu_torch.core.vecmath import cross, dot
 
 T_MIN = 1e-4
@@ -27,6 +29,10 @@ class Hit(NamedTuple):
     tri: torch.Tensor  # (N,) i32 virtual triangle id, -1 on a miss
     u: torch.Tensor  # (N,) f32 barycentric of v1
     v: torch.Tensor  # (N,) f32 barycentric of v2
+
+    @property
+    def hit_mask(self) -> torch.Tensor:
+        return self.t >= 0.0
 
 
 def _moller_trumbore(origin, direction, p0, e1, e2, t_min, t_max):
@@ -109,6 +115,56 @@ def intersect_brute(origin, direction, tri_p0, tri_e1, tri_e2, t_min=T_MIN, t_ma
         u=torch.where(hit, u.gather(1, best)[:, 0], 0.0),
         v=torch.where(hit, v.gather(1, best)[:, 0], 0.0),
     )
+
+
+def intersect_bvh(origin, direction, nodes_min, nodes_max, node_first, node_count, node_skip, tri_p0, tri_e1, tri_e2,
+                  t_min=T_MIN, t_max=T_MAX, active=None, any_hit: bool = False) -> Hit:
+    """Stackless skip-link traversal of a flattened BVH (accel/bvh.py) for a
+    whole wavefront: every live ray advances one node per step, a leaf tests
+    its LEAF_SIZE-wide triangle slice (the triangle tables are padded by
+    LEAF_SIZE), and the loop ends when no ray is live (one host read per
+    step).  `active`: (N,) bool, inactive rays skip traversal; `any_hit`
+    stops a ray at its first confirmed hit.  The renderer traces through the
+    cluster tables; this is the ground truth the BVH tests use."""
+    n, dev = origin.shape[0], origin.device
+    inv_dir = torch.where(torch.abs(direction) > 1e-20, 1.0 / direction, 1e20)
+    node = torch.zeros(n, dtype=torch.int64, device=dev)
+    if active is not None:
+        node = torch.where(active, node, SENTINEL)
+    best_t = torch.full((n,), float(t_max), dtype=torch.float32, device=dev)
+    best_tri = torch.full((n,), -1, dtype=torch.int32, device=dev)
+    best_u = torch.zeros(n, dtype=torch.float32, device=dev)
+    best_v = torch.zeros(n, dtype=torch.float32, device=dev)
+    offs = torch.arange(LEAF_SIZE, device=dev)
+    rows = torch.arange(n, device=dev)
+    while bool((node != SENTINEL).any()):
+        live = node != SENTINEL
+        nid = torch.where(live, node, 0)
+        t0 = (nodes_min[nid] - origin) * inv_dir
+        t1 = (nodes_max[nid] - origin) * inv_dir
+        t_near = torch.clamp(torch.minimum(t0, t1).amax(dim=-1), min=t_min)
+        t_far = torch.minimum(torch.maximum(t0, t1).amin(dim=-1), best_t)
+        aabb_hit = t_near <= t_far
+        count = node_count[nid].to(torch.int64)
+        is_leaf = count > 0
+        # The leaf's fixed-width triangle test, lanes past its count masked.
+        do_tris = live & aabb_hit & is_leaf
+        tid = torch.where(do_tris, node_first[nid].to(torch.int64), 0)[:, None] + offs[None, :]
+        t, u, v, valid = _moller_trumbore(origin[:, None, :], direction[:, None, :], tri_p0[tid], tri_e1[tid],
+                                          tri_e2[tid], t_min, t_max)
+        valid = valid & do_tris[:, None] & (offs[None, :] < count[:, None]) & (t < best_t[:, None])
+        cand_t, j = torch.min(torch.where(valid, t, torch.inf), dim=1)
+        better = torch.isfinite(cand_t)
+        best_t = torch.where(better, cand_t, best_t)
+        best_tri = torch.where(better, tid[rows, j].to(torch.int32), best_tri)
+        best_u = torch.where(better, u[rows, j], best_u)
+        best_v = torch.where(better, v[rows, j], best_v)
+        # Descend on an inner hit (left child nid + 1), else follow the skip link.
+        nxt = torch.where(aabb_hit & ~is_leaf, nid + 1, node_skip[nid].to(torch.int64))
+        if any_hit:
+            nxt = torch.where(best_tri >= 0, SENTINEL, nxt)
+        node = torch.where(live, nxt, SENTINEL)
+    return Hit(t=torch.where(best_tri >= 0, best_t, -1.0), tri=best_tri, u=best_u, v=best_v)
 
 
 def check_kernel_clusters(cl, kernel: str) -> None:

@@ -24,9 +24,13 @@ def pcg_hash(x):
 
 
 def seed(pixel_index: torch.Tensor, sample_index, frame_seed) -> torch.Tensor:
-    """Initial per-ray state from (pixel, sample within frame, frame seed);
-    the two scalar hashes run on the host."""
-    s = pcg_hash((int(sample_index) & _MASK) ^ 0x9E3779B9)
+    """Initial per-ray state from (pixel, sample within frame, frame seed).
+    `sample_index` is an int, whose two hashes run on the host, or an int64
+    tensor of per-lane indices; either wraps to uint32 as JAX's does."""
+    if torch.is_tensor(sample_index):
+        s = pcg_hash((sample_index.to(torch.int64) & _MASK) ^ 0x9E3779B9)
+    else:
+        s = pcg_hash((int(sample_index) & _MASK) ^ 0x9E3779B9)
     f = pcg_hash((int(frame_seed) + s) & _MASK)
     return (pixel_index.to(torch.int64) + f) & _MASK
 
@@ -54,3 +58,9 @@ def next_float3(state: torch.Tensor):
     state, x2 = next_float(state)
     state, x3 = next_float(state)
     return state, torch.stack([x1, x2, x3], dim=-1)
+
+
+def next_float_range(state: torch.Tensor, a: float, b: float):
+    """Uniform float32 in [a, b]: (new_state, draw)."""
+    state, u = next_float(state)
+    return state, u * (b - a) + a

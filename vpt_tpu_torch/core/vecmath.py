@@ -22,6 +22,10 @@ def cross(a, b):
     return torch.linalg.cross(a, b, dim=-1)
 
 
+def length(v, keepdim: bool = False):
+    return torch.sqrt(torch.clamp(dot(v, v, keepdim=keepdim), min=0.0))
+
+
 def normalize(v):
     return v * torch.rsqrt(torch.clamp(dot(v, v, keepdim=True), min=EPS))
 
@@ -67,11 +71,24 @@ def luminance(rgb):
     return rgb[..., 0] * 0.212671 + rgb[..., 1] * 0.715160 + rgb[..., 2] * 0.072169
 
 
+def direction_to_uv(v):
+    """Equirect direction -> (u, v) (RTCommon.slang:129-136):
+    u = atan2(x, -z) / 2 pi + 0.5, v = asin(y) / pi + 0.5."""
+    gamma = torch.asin(torch.clamp(v[..., 1], -1.0, 1.0))
+    theta = torch.atan2(v[..., 0], -v[..., 2])
+    return theta * (0.5 / math.pi) + 0.5, gamma * (1.0 / math.pi) + 0.5
+
+
 def power_heuristic(pdf_a, pdf_b):
     """MIS power heuristic a^2 / (a^2 + b^2)."""
     a2 = pdf_a * pdf_a
     b2 = pdf_b * pdf_b
     return a2 / torch.clamp(a2 + b2, min=1e-20)
+
+
+def balance_heuristic(pdf_a, pdf_b):
+    """MIS balance heuristic a / (a + b)."""
+    return pdf_a / torch.clamp(pdf_a + pdf_b, min=1e-20)
 
 
 def pow32(x, y):

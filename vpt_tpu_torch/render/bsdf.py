@@ -114,12 +114,15 @@ def ggx_d_anisotropic(h, ax, ay):
     return 1.0 / torch.clamp(denom, min=1e-20)
 
 
-def ggx_smith_g1(v, ax, ay):
+def ggx_smith_lambda(v, ax, ay):
     vx2 = v[..., 0] ** 2
     vy2 = v[..., 1] ** 2
     vz2 = v[..., 2] ** 2
-    lam = (-1.0 + torch.sqrt(1.0 + (ax * ax * vx2 + ay * ay * vy2) / torch.clamp(vz2, min=1e-20))) / 2.0
-    return 1.0 / (1.0 + lam)
+    return (-1.0 + torch.sqrt(1.0 + (ax * ax * vx2 + ay * ay * vy2) / torch.clamp(vz2, min=1e-20))) / 2.0
+
+
+def ggx_smith_g1(v, ax, ay):
+    return 1.0 / (1.0 + ggx_smith_lambda(v, ax, ay))
 
 
 def energy_comp_terms(props: MaterialProps, scene, vz, use_energy_compensation: bool):

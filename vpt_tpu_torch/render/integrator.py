@@ -87,8 +87,10 @@ def _sel(mask, a, b):
 
 
 def path_trace_sample(scene, meta, flags: RenderFlags, params: RenderParams, pixel_xy, pixel_index,
-                      resolution, sample_seed: int, n_samples: int = 1):
-    """Trace n_samples paths per pixel with path regeneration.
+                      resolution, sample_seed: int, n_samples: int = 1, sample_offset: int = 0):
+    """Trace n_samples paths per pixel with path regeneration; the samples
+    are seeded with indices sample_offset .. sample_offset + n_samples - 1
+    (an spp-sharded render offsets them), wrapping as uint32.
 
     Returns ((N, 3) radiance summed over samples, segment count as an int64
     device scalar, LoopStats: the media loops run and their steps, and the
@@ -108,14 +110,16 @@ def path_trace_sample(scene, meta, flags: RenderFlags, params: RenderParams, pix
     vt = scene.volumes
     media = LoopStats()  # the media loops'; the main loop's syncs join at the end
 
-    # Every sample's primary rays up front; regeneration selects from them.
-    pre = []
-    for s in range(n_samples):
-        rs = rng.seed(pixel_index, s, sample_seed)
-        pre.append(generate_primary_rays(
-            params.view_inverse, params.proj_inverse, pixel_xy, resolution, rs,
-            params.focus_distance, params.dof_strength,
-        ))
+    def primary_rays(sample_index):
+        rs = rng.seed(pixel_index, sample_index, sample_seed)
+        return generate_primary_rays(params.view_inverse, params.proj_inverse, pixel_xy, resolution, rs,
+                                     params.focus_distance, params.dof_strength)
+
+    # Up to 8 samples, every sample's primary rays up front, and regeneration
+    # selects from them; above that, regeneration reseeds the lane and makes
+    # its rays anew, which bounds the (S, N, 3) buffers (as in JAX).
+    precompute = n_samples <= 8
+    pre = [primary_rays(s + sample_offset) for s in range(n_samples if precompute else 1)]
     state, origin, direction = pre[0]
     throughput = torch.ones((n, 3), dtype=f32, device=dev)
     radiance = torch.zeros((n, 3), dtype=f32, device=dev)
@@ -475,12 +479,15 @@ def path_trace_sample(scene, meta, flags: RenderFlags, params: RenderParams, pix
         lane_acc = lane_acc + _sel(path_end, fold(radiance, channel), 0.0)
         regen = path_end & (sample_idx + 1 < n_samples)
         sample_idx = torch.where(regen, sample_idx + 1, sample_idx)
-        rs, o_new, d_new = pre[min(1, n_samples - 1)]
-        for s in range(2, n_samples):
-            pick = sample_idx == s
-            rs = torch.where(pick, pre[s][0], rs)
-            o_new = _sel(pick, pre[s][1], o_new)
-            d_new = _sel(pick, pre[s][2], d_new)
+        if precompute:
+            rs, o_new, d_new = pre[min(1, n_samples - 1)]
+            for s in range(2, n_samples):
+                pick = sample_idx == s
+                rs = torch.where(pick, pre[s][0], rs)
+                o_new = _sel(pick, pre[s][1], o_new)
+                d_new = _sel(pick, pre[s][2], d_new)
+        else:
+            rs, o_new, d_new = primary_rays(sample_idx + sample_offset)
         origin = _sel(regen, o_new, new_origin)
         direction = normalize(_sel(regen, d_new, new_direction))
         state = torch.where(regen, rs, state)
@@ -503,10 +510,10 @@ def path_trace_sample(scene, meta, flags: RenderFlags, params: RenderParams, pix
 
 
 def render_samples(scene, meta, flags, params, pixel_xy, pixel_index, resolution, frame_seed: int,
-                   n_samples: int):
+                   n_samples: int, sample_offset: int = 0):
     """Mean of n_samples paths per pixel: ((N, 3), segments, LoopStats)."""
     acc, segs, stats = path_trace_sample(scene, meta, flags, params, pixel_xy, pixel_index, resolution,
-                                         frame_seed, n_samples=n_samples)
+                                         frame_seed, n_samples=n_samples, sample_offset=sample_offset)
     return acc / n_samples, segs, stats
 
 

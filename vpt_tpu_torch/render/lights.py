@@ -10,7 +10,7 @@ import numpy as np
 import torch
 
 from vpt_tpu_torch.core import rng
-from vpt_tpu_torch.core.vecmath import cross, dot, normalize, rotate_axis_angle, sqrt32, unit_axis
+from vpt_tpu_torch.core.vecmath import cross, direction_to_uv, dot, normalize, rotate_axis_angle, sqrt32, unit_axis
 from vpt_tpu_torch.render.surface import sample_texture
 
 X_AXIS, Y_AXIS = 0, 1
@@ -44,11 +44,7 @@ def env_radiance(env, direction, azimuth_deg: float, altitude_deg: float):
     """Miss-shader env lookup with the inverse sky rotation (RGBA)."""
     d = rotate_axis_angle(direction, X_AXIS, -(altitude_deg / 180.0 * math.pi))
     d = rotate_axis_angle(d, Y_AXIS, -(azimuth_deg / 180.0 * math.pi))
-    gamma = torch.asin(torch.clamp(d[..., 1], -1.0, 1.0))
-    theta = torch.atan2(d[..., 0], -d[..., 2])
-    u = theta * (0.5 / math.pi) + 0.5
-    v = gamma * (1.0 / math.pi) + 0.5
-    return _env_bilinear(env, u, v)
+    return _env_bilinear(env, *direction_to_uv(d))
 
 
 def importance_sample_env(state, env, azimuth_deg: float, altitude_deg: float):

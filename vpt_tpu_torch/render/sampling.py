@@ -36,6 +36,14 @@ def _cbrt(x):
     return (torch.sign(xd) * xd.abs().pow(_ONE_THIRD_F32)).to(x.dtype)
 
 
+def sample_disk(state):
+    """Uniform disk via polar coordinates (Sampler.slang:102-112)."""
+    state, u = rng.next_float2(state)
+    theta = TWO_PI * u[..., 0]
+    r = torch.sqrt(u[..., 1])
+    return state, torch.stack([r * torch.cos(theta), r * torch.sin(theta)], dim=-1)
+
+
 def sample_sphere(state):
     """Uniform sphere (Sampler.slang:114-133)."""
     state, u = rng.next_float2(state)
