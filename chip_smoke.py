@@ -97,7 +97,24 @@ Phases, each of which raises on failure:
      b. dryrun_multichip(2, device="cuda"): two rank processes on the one
         card over gloo, colonnade 128x128, JAX's three checks; the (2, 1)
         and (1, 2) images agree above 60 dB with each other and with a's
-        one-rank render.
+        one-rank render;
+ 11. the image decoders (vpt_tpu_torch/io: the C codec csrc/imgcodec.c,
+     built with gcc, and io/jpeg.py) on a machine without PIL:
+     a. every fixture of tests/torch_images/ (baseline JPEGs at 4:4:4,
+        4:2:2 and 4:2:0, gray, optimised, with restart markers, progressive
+        4:2:0 and gray; 16-bit, Adam7 and 1/2/4-bit gray PNGs) decodes
+        bitwise equal to PIL's decode recorded beside it, the 1024x1024
+        JPEG to its recorded sha256;
+     b. host seconds of `decode_rgba` on that 1024x1024 4:2:0 JPEG and on a
+        2048x2048 RGBA PNG with Paeth rows made here (median of 5 each,
+        under 0.5 s), beside the card's name and power limit;
+     c. colonnade with a progressive JPEG base colour on its floor and a
+        16-bit PNG one on its stone, written as a .glb and rendered by
+        `python -m vpt_tpu_torch render` at 512x512, depth 8, 8 spp, against
+        the same scene rendered in memory with PIL's recorded decodes as
+        those textures, at the same seeds: equal segments, PSNR > 60 dB,
+        bitwise equality printed; the in-memory render's launch counts
+        (set to 0 just before it) show the four stream-path kernels.
 The last lines are the card's name and power limit, the kernel table as
 JSON and {"ok": true, ...}.  Without a CUDA device the script exits
 non-zero and prints no result.
@@ -133,6 +150,7 @@ import argparse
 import collections
 import contextlib
 import ctypes
+import hashlib
 import json
 import os
 import re
@@ -160,7 +178,8 @@ from vpt_tpu_torch.core.camera import generate_primary_rays, perspective
 from vpt_tpu_torch.core.tiling import tiled_pixel_order
 from vpt_tpu_torch.dist import dryrun
 from vpt_tpu_torch.dist import mesh as dmesh
-from vpt_tpu_torch.io.image import read_png
+from vpt_tpu_torch.io import codec
+from vpt_tpu_torch.io.image import decode_rgba, read_png
 from vpt_tpu_torch.io.metrics import psnr
 from vpt_tpu_torch.render import integrator, lights, lookup, sampling, surface
 from vpt_tpu_torch.render.lookup_fit import constant_fit
@@ -1013,6 +1032,114 @@ def sharded_path(dev, r: Renderer, stream_s: float, table) -> None:
     log(f"phase 10 (the sharded path): {time.perf_counter() - t_phase:.1f} s")
 
 
+DECODE_LIMIT_S = 0.5  # host seconds for the 1024^2 JPEG and the 2048^2 PNG
+
+
+def fixture_bytes(name: str) -> bytes:
+    with open(os.path.join(gltf_scenes.IMAGE_DIR, name), "rb") as f:
+        return f.read()
+
+
+def recorded_decode(name: str) -> np.ndarray:
+    """PIL's decode of fixture `name`, as (H, W, 4) float32 / 255."""
+    return read_png(os.path.join(gltf_scenes.IMAGE_DIR, name + ".ref.png")).astype(np.float32) / 255.0
+
+
+def host_seconds(fn, reps: int = 5) -> tuple:
+    """(median, all) host seconds of `reps` calls of fn."""
+    ts = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        ts.append(time.perf_counter() - t0)
+    return statistics.median(ts), ts
+
+
+def paeth_png(size: int) -> tuple:
+    """A size x size RGBA image (smooth colour fields and noise, seed 0) and
+    its PNG with the Paeth filter on every row."""
+    gen = np.random.default_rng(0)
+    y, x = np.mgrid[0:size, 0:size] / size
+    img = np.stack([np.sin(9 * x + 3 * y), np.cos(7 * x * y + 2), np.sin(20 * (x - y) ** 2), x - y], axis=-1)
+    img = np.clip(img * 110 + 128 + gen.normal(0.0, 6.0, img.shape), 0, 255).astype(np.uint8)
+    return img, gltf_scenes.encode_png(img, 8, filters=(4,))
+
+
+def image_decoders(dev, smi: str, table) -> None:
+    """Phase 11: the image decoders against PIL's recorded decodes, their
+    host seconds, and a .glb with a progressive JPEG and a 16-bit PNG
+    texture through the CLI against the in-memory render."""
+    t_phase = time.perf_counter()
+    # 11a. The fixtures.
+    for name in gltf_scenes.IMAGE_FIXTURES:
+        got, want = decode_rgba(fixture_bytes(name), name), recorded_decode(name)
+        check(got.shape == want.shape and np.array_equal(got, want), f"{name} decodes to PIL's recorded decode")
+    big = fixture_bytes(gltf_scenes.TIMING_JPEG)
+    with open(os.path.join(gltf_scenes.IMAGE_DIR, gltf_scenes.TIMING_JPEG + ".sha256")) as f:
+        digest = f.read().strip()
+    got = np.round(decode_rgba(big) * 255.0).astype(np.uint8)
+    check(got.shape == (1024, 1024, 4) and hashlib.sha256(got.tobytes()).hexdigest() == digest,
+          f"{gltf_scenes.TIMING_JPEG} decodes to the sha256 of PIL's decode")
+    check(codec._lib is not None, "the decoders ran the C codec")
+    log(f"image fixtures: {len(gltf_scenes.IMAGE_FIXTURES)} files bitwise equal to PIL's recorded decodes "
+        f"({', '.join(gltf_scenes.IMAGE_FIXTURES)}), {gltf_scenes.TIMING_JPEG} ({len(big)} bytes) to its sha256")
+
+    # 11b. Host decode seconds.
+    jpeg_s, jpeg_ts = host_seconds(lambda: decode_rgba(big))
+    img, png = paeth_png(2048)
+    check(np.array_equal(decode_rgba(png), img.astype(np.float32) / 255.0), "the 2048^2 Paeth PNG decodes exactly")
+    png_s, png_ts = host_seconds(lambda: decode_rgba(png))
+    log(f"decode_rgba host seconds (median of 5; {smi}, host {os.cpu_count()} CPUs): 1024x1024 4:2:0 JPEG "
+        f"({len(big)} bytes) {jpeg_s:.4f} s {jpeg_ts}; 2048x2048 RGBA PNG, Paeth rows ({len(png)} bytes) "
+        f"{png_s:.4f} s {png_ts}")
+    check(jpeg_s < DECODE_LIMIT_S and png_s < DECODE_LIMIT_S,
+          f"both decodes under {DECODE_LIMIT_S} s of host time")
+
+    # 11c. A .glb with JPEG and 16-bit PNG textures through the CLI.
+    jpg_name, png_name = "jpeg_progressive_420.jpg", "png16_rgb.png"
+    scene = colonnade()
+    slots = {}
+    for name, material in ((jpg_name, "floor"), (png_name, "stone")):
+        scene.textures.append(recorded_decode(name))
+        slots[name] = len(scene.textures) - 1
+        mat = next(m for m in scene.materials if m.name == material)
+        mat.base_color_texture = slots[name]
+    with tempfile.TemporaryDirectory() as tmp:
+        glb = gltf_scenes.scene_to_gltf(scene, os.path.join(tmp, "decoded.glb"), images={
+            slots[jpg_name]: (fixture_bytes(jpg_name), "image/jpeg"),
+            slots[png_name]: (fixture_bytes(png_name), "image/png")})
+        sky = os.path.join(tmp, "sky.npy")
+        np.save(sky, scene.env_map)
+        hdr = os.path.join(tmp, "decoded.npy")
+        stats = run_cli("render", glb, "-o", os.path.join(tmp, "decoded.png"), "--hdr-output", hdr, "--env", sky,
+                        "--width", str(W), "--height", str(H), "--spp", "8", "--spp-per-frame", "4")
+        got = np.load(hdr)
+        ref_scene = load_gltf(glb)
+    ref_scene.env_map = scene.env_map
+    for name, material in ((jpg_name, "floor"), (png_name, "stone")):
+        mat = next(m for m in ref_scene.materials if m.name == material)
+        ref_scene.textures[mat.base_color_texture] = recorded_decode(name)
+    ref = Renderer(ref_scene, width=W, height=H, flags=RenderFlags(max_depth=8), samples_per_frame=4, max_samples=8,
+                   device=dev)
+    kernels.reset_launches()
+    while not ref.path_trace():
+        pass
+    launches = dict(kernels.LAUNCHES)
+    check_stream_launches(launches, "decoded-texture")
+    for name in STREAM_KERNELS:
+        table[name]["decoded_texture_launches"] = launches[name]
+    want = ref.hdr_image()
+    p = psnr(np.clip(got, 0, 10), np.clip(want, 0, 10), 10.0)
+    log(f"CLI render of the .glb with {jpg_name} (floor) and {png_name} (stone) decoded by the port vs the "
+        f"in-memory render with PIL's recorded decodes, {W}x{H} depth 8, 8 spp at the same seeds: PSNR {p:.1f} dB, "
+        f"bitwise equal {bool(np.array_equal(got, want))}, segments {stats['segments']} vs {ref.segments_traced}; "
+        f"in-memory launches over its 2 dispatches {launches}")
+    check(got.shape == (H, W, 3) and bool(np.isfinite(got).all()), "the CLI's HDR image is finite, (512, 512, 3)")
+    check(stats["segments"] == ref.segments_traced, "the CLI render's segments equal the in-memory render's")
+    check(p > 60.0, "the CLI render within 60 dB PSNR of the in-memory render")
+    log(f"phase 11 (the image decoders): {time.perf_counter() - t_phase:.1f} s")
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--compare", metavar="OTHER_CU", nargs="+", default=[],
@@ -1033,7 +1160,7 @@ def main() -> int:
 
 
 def run(dev, smi: str, other_builds=()) -> None:
-    """Phases 3-10 on `dev`, then the result lines."""
+    """Phases 3-11 on `dev`, then the result lines."""
     # 3. Kernels against plain versions at the main path's shapes.
     t0 = time.perf_counter()
     data, meta, aux = compile_scene(colonnade(), dev)
@@ -1219,6 +1346,9 @@ def run(dev, smi: str, other_builds=()) -> None:
 
     # 10. The sharded path.
     sharded_path(dev, stream_r, stream_s, table)
+
+    # 11. The image decoders.
+    image_decoders(dev, smi, table)
 
     print(smi)
     print(json.dumps({"kernels": list(table.values())}))

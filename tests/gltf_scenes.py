@@ -1,14 +1,22 @@
-"""glTF 2.0 files for the loader tests and the chip smoke run, written with
-numpy, json and the port's `save_png` alone (no JAX, no PIL).
+"""glTF 2.0 files and PNG images for the loader tests and the chip smoke
+run, written with numpy, json, zlib and the port's `save_png` alone (no
+JAX, no PIL).
 
-`GltfWriter` lays out accessors, buffer views, PNG images, textures,
-materials, meshes, nodes and a camera, and saves the document as a `.glb`
-(images in buffer views), a `.gltf` with an external `.bin` buffer and
-external PNG files, or a `.gltf` with `data:` URIs.  `scene_to_gltf`
+`GltfWriter` lays out accessors, buffer views, PNG or JPEG images,
+textures, materials, meshes, nodes and a camera, and saves the document as
+a `.glb` (images in buffer views), a `.gltf` with an external `.bin` buffer
+and external image files, or a `.gltf` with `data:` URIs.  `scene_to_gltf`
 writes a host `Scene` with one node per instance (instances of one mesh
 and material share one glTF mesh), so `load_gltf` gives the same
 instances, materials and texture slots back; `feature_scene`
 writes a small document that touches every path of the loader.
+
+`encode_png` writes any PNG (every colour type and bit depth, chosen row
+filters, Adam7), the files PIL cannot write.  `IMAGE_FIXTURES` names the
+decoder fixtures in tests/torch_images/ (written by
+tests/make_torch_images.py with PIL): each NAME has NAME.ref.png beside
+it, PIL's decode of it as 8-bit RGBA; the large `TIMING_JPEG` has the
+sha256 of that decode in TIMING_JPEG.sha256 instead.
 """
 
 from __future__ import annotations
@@ -19,13 +27,26 @@ import json
 import os
 import struct
 import tempfile
+import zlib
 
 import numpy as np
 
-from vpt_tpu_torch.io.image import save_png
+from vpt_tpu_torch.io.image import _chunk, save_png
 
 FLOAT, UBYTE, USHORT, UINT = 5126, 5121, 5123, 5125
 _TYPES = {1: "SCALAR", 2: "VEC2", 3: "VEC3", 4: "VEC4", 16: "MAT4"}
+_EXTENSIONS = {"image/png": ".png", "image/jpeg": ".jpg"}
+
+IMAGE_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "torch_images")
+IMAGE_FIXTURES = (
+    "jpeg_444_q50.jpg", "jpeg_444_q95.jpg", "jpeg_422_q50.jpg", "jpeg_422_q95.jpg", "jpeg_420_q50.jpg",
+    "jpeg_420_q95.jpg", "jpeg_gray.jpg", "jpeg_optimize.jpg", "jpeg_restart.jpg", "jpeg_progressive_420.jpg",
+    "jpeg_progressive_gray.jpg", "png16_rgb.png", "png16_rgba.png", "png16_gray.png", "png16_gray_alpha.png",
+    "png_adam7_rgb8.png", "png_adam7_rgba16.png", "png_gray1.png", "png_gray2.png", "png_gray4.png",
+)
+TIMING_JPEG = "jpeg_1024_420.jpg"
+# Adam7 passes: first column, first row, column step, row step.
+ADAM7 = ((0, 0, 8, 8), (4, 0, 8, 8), (0, 4, 4, 8), (2, 0, 4, 4), (0, 2, 2, 4), (1, 0, 2, 2), (0, 1, 1, 2))
 
 
 def png_bytes(image) -> bytes:
@@ -35,6 +56,77 @@ def png_bytes(image) -> bytes:
         save_png(path, image)
         with open(path, "rb") as f:
             return f.read()
+
+
+def _pack_rows(sub: np.ndarray, depth: int) -> np.ndarray:
+    """(h, stride) uint8 scanline bytes of (h, w, c) samples at `depth` bits."""
+    h = sub.shape[0]
+    if depth == 16:
+        return sub.astype(">u2").view(np.uint8).reshape(h, -1)
+    if depth == 8:
+        return sub.astype(np.uint8).reshape(h, -1)
+    bits = (sub[..., 0, None].astype(np.uint8) >> np.arange(depth - 1, -1, -1, dtype=np.uint8)) & 1
+    return np.packbits(bits.reshape(h, -1), axis=1)
+
+
+def _filter_rows(rows: np.ndarray, bpp: int, kinds) -> bytes:
+    """Filtered scanlines: row y with kinds[y % len(kinds)] (0 none, 1 sub,
+    2 up, 3 average, 4 Paeth; PNG spec, section 9), its type byte first."""
+    x = rows.astype(np.int16)
+    h, stride = x.shape
+    a = np.zeros_like(x)
+    a[:, bpp:] = x[:, :-bpp]
+    b = np.zeros_like(x)
+    b[1:] = x[:-1]
+    c = np.zeros_like(x)
+    c[1:, bpp:] = x[:-1, :-bpp]
+    kind = np.asarray(kinds, np.uint8)[np.arange(h) % len(kinds)]
+    pred = np.zeros_like(x)
+    for k in set(kind.tolist()) - {0}:
+        rows_k = kind == k
+        ak, bk, ck = a[rows_k], b[rows_k], c[rows_k]
+        if k == 1:
+            pred[rows_k] = ak
+        elif k == 2:
+            pred[rows_k] = bk
+        elif k == 3:
+            pred[rows_k] = (ak + bk) >> 1
+        else:
+            pa, pb, pc = np.abs(bk - ck), np.abs(ak - ck), np.abs(ak + bk - 2 * ck)
+            pred[rows_k] = np.where((pa <= pb) & (pa <= pc), ak, np.where(pb <= pc, bk, ck))
+    out = np.empty((h, stride + 1), np.uint8)
+    out[:, 0] = kind
+    out[:, 1:] = (x - pred) & 0xFF
+    return out.tobytes()
+
+
+def encode_png(samples, depth: int = 8, ctype=None, filters=(0,), interlace: bool = False, palette=None,
+               trns: bytes | None = None) -> bytes:
+    """A PNG of (H, W[, c]) samples: uint8 or uint16 values at `depth` bits
+    (1, 2, 4, 8 or 16; palette indices for colour type 3, then `palette`
+    is (n, 3) uint8), colour type `ctype` (by default from c: gray, gray +
+    alpha, RGB, RGBA), row y of each (sub)image filtered with
+    filters[y % len(filters)], Adam7-interlaced if `interlace`, with a
+    tRNS chunk of the bytes `trns`."""
+    s = np.asarray(samples)
+    if s.ndim == 2:
+        s = s[..., None]
+    h, w, c = s.shape
+    if ctype is None:
+        ctype = {1: 0, 2: 4, 3: 2, 4: 6}[c]
+    bpp = max(1, c * depth // 8)
+    data = []
+    for x0, y0, dx, dy in ADAM7 if interlace else ((0, 0, 1, 1),):
+        sub = s[y0::dy, x0::dx]
+        if sub.size:
+            data.append(_filter_rows(_pack_rows(sub, depth), bpp, filters))
+    out = [b"\x89PNG\r\n\x1a\n", _chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, depth, ctype, 0, 0, int(interlace)))]
+    if palette is not None:
+        out.append(_chunk(b"PLTE", np.asarray(palette, np.uint8).tobytes()))
+    if trns is not None:
+        out.append(_chunk(b"tRNS", trns))
+    out += [_chunk(b"IDAT", zlib.compress(b"".join(data), 6)), _chunk(b"IEND", b"")]
+    return b"".join(out)
 
 
 def _append_view(doc: dict, blob: bytearray, data: bytes, stride=None) -> int:
@@ -90,9 +182,9 @@ class GltfWriter:
             off += 4 * c.shape[1]
         return out
 
-    def image(self, data: bytes, name=None) -> int:
+    def image(self, data: bytes, name=None, mime_type: str = "image/png") -> int:
         self.images.append(data)
-        img = {"mimeType": "image/png"}
+        img = {"mimeType": mime_type}
         if name:
             img["name"] = name
         self._list("images").append(img)
@@ -137,14 +229,14 @@ class GltfWriter:
                 f.write(blob)
             doc["buffers"][0]["uri"] = os.path.basename(base) + ".bin"
             for i, data in enumerate(self.images):
-                name = f"{os.path.basename(base)}_{i}.png"
+                name = f"{os.path.basename(base)}_{i}{_EXTENSIONS[doc['images'][i]['mimeType']]}"
                 with open(os.path.join(os.path.dirname(path), name), "wb") as f:
                     f.write(data)
                 doc["images"][i]["uri"] = name
         elif layout == "data":
             doc["buffers"][0]["uri"] = "data:application/octet-stream;base64," + base64.b64encode(blob).decode()
             for i, data in enumerate(self.images):
-                doc["images"][i]["uri"] = "data:image/png;base64," + base64.b64encode(data).decode()
+                doc["images"][i]["uri"] = f"data:{doc['images'][i]['mimeType']};base64," + base64.b64encode(data).decode()
         if layout == "glb":
             js = json.dumps(doc).encode()
             js += b" " * (-len(js) % 4)
@@ -188,18 +280,21 @@ def _material_json(m, tex_of) -> dict:
     return out
 
 
-def scene_to_gltf(scene, path: str, layout: str = "glb") -> str:
+def scene_to_gltf(scene, path: str, layout: str = "glb", images=None) -> str:
     """Write a host Scene (its env map aside) so that `load_gltf` gives its
     instances, materials and texture slots back: one glTF mesh per mesh and
     material (a glTF primitive carries its material, so a mesh drawn with
     two materials is written twice), one root node per instance (matrix),
-    then the camera node."""
+    then the camera node.  Textures are written as 8-bit PNGs, except the
+    slots of `images`, {slot: (bytes, mimeType)}, written as given."""
     w = GltfWriter()
     texture_of = {}
+    images = images or {}
 
     def tex_of(slot):
         if slot not in texture_of:
-            texture_of[slot] = w.texture(w.image(png_bytes(scene.textures[slot]), name=f"texture {slot}"))
+            data, mime = images.get(slot) or (png_bytes(scene.textures[slot]), "image/png")
+            texture_of[slot] = w.texture(w.image(data, name=f"texture {slot}", mime_type=mime))
         return texture_of[slot]
 
     for m in scene.materials:

@@ -16,6 +16,7 @@ import pytest
 import torch
 from PIL import Image
 
+import gltf_scenes
 from vpt_tpu.api import Renderer as JRenderer
 from vpt_tpu.core.camera import FlyCamera as JFlyCamera
 from vpt_tpu.io import image as jimage
@@ -199,8 +200,12 @@ def test_png_row_filters(tmp_path, channels):
 
 
 def test_png_refusals_name_the_reason(tmp_path):
-    """16-bit and interlaced PNGs, and JPEG files, raise a ValueError that
-    says so; palette PNGs are read (as their palette's colours)."""
+    """16-bit and interlaced PNGs and JPEG files (whatever their name) load
+    as the JAX package's load_png loads them through PIL; palette PNGs are
+    read (read_png as their palette's colours, load_png as PIL's indices).
+    What stays refused raises a ValueError that names the reason: another
+    format, a bit depth or colour type that PNG does not define, a bad row
+    filter."""
     rng = np.random.default_rng(3)
     pal = str(tmp_path / "palette.png")
     Image.fromarray(rng.integers(0, 256, (8, 8, 3)).astype(np.uint8), "RGB").convert("P").save(pal)
@@ -211,11 +216,26 @@ def test_png_refusals_name_the_reason(tmp_path):
     Image.fromarray(rng.integers(0, 65535, (8, 8)).astype(np.uint16)).save(deep)
     laced = str(tmp_path / "interlaced.png")
     with open(laced, "wb") as f:
-        f.write(b"\x89PNG\r\n\x1a\n")
-        f.write(timage._chunk(b"IHDR", struct.pack(">IIBBBBB", 4, 4, 8, 2, 0, 0, 1)))
-        f.write(timage._chunk(b"IDAT", zlib.compress(bytes(4 * 13))))
-        f.write(timage._chunk(b"IEND", b""))
-    for path, reason in ((deep, "16-bit"), (laced, "interlaced"), (jpeg, "JPEG")):
+        f.write(gltf_scenes.encode_png(rng.integers(0, 256, (4, 4, 3)), filters=(4, 2), interlace=True))
+    for path in (pal, jpeg, deep, laced):
+        got, want = timage.load_png(path), jimage.load_png(path)
+        assert got.dtype == want.dtype and got.shape == want.shape
+        np.testing.assert_array_equal(got, want)
+
+    def png(depth, ctype, body=bytes(2 * 9)):
+        path = str(tmp_path / f"bad{depth}_{ctype}_{len(body)}.png")
+        with open(path, "wb") as f:
+            f.write(b"\x89PNG\r\n\x1a\n")
+            f.write(timage._chunk(b"IHDR", struct.pack(">IIBBBBB", 2, 2, depth, ctype, 0, 0, 0)))
+            f.write(timage._chunk(b"IDAT", zlib.compress(body)))
+            f.write(timage._chunk(b"IEND", b""))
+        return path
+
+    gif = str(tmp_path / "anim.png")
+    with open(gif, "wb") as f:
+        f.write(b"GIF89a" + bytes(32))
+    for path, reason in ((gif, "GIF"), (png(16, 3), "16-bit PNGs of colour type 3"), (png(8, 5), "colour type 5"),
+                         (png(8, 2, b"\x07" + bytes(6) + b"\x00" + bytes(6)), "row filter 7")):
         with pytest.raises(ValueError, match=reason):
             timage.load_png(path)
 

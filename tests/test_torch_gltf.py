@@ -8,7 +8,9 @@ three KHR extensions.  Every Scene field must be equal, textures included;
 the textured colonnade written as a .glb loads back with its instances,
 triangles and textures (within the PNG's 1/255), and the CLI's render of
 it equals the procedural scene's; palette PNGs decode as
-PIL's convert("RGBA"); JPEG raises."""
+PIL's convert("RGBA"); JPEG textures load as PIL reads them, and a CMYK
+JPEG raises, naming the format and the image (tests/test_torch_jpeg.py
+holds every decoder case)."""
 
 import dataclasses
 import io
@@ -129,16 +131,26 @@ def test_glb_render_through_the_cli_equals_the_procedural_scene(tmp_path, capsys
 
 
 def test_jpeg_raises_naming_format_and_image(tmp_path):
-    out = io.BytesIO()
-    Image.fromarray(np.zeros((4, 4, 3), np.uint8)).save(out, format="JPEG")
-    w = gltf_scenes.GltfWriter()
-    mat = w.material(pbrMetallicRoughness={"baseColorTexture": {"index": w.texture(w.image(out.getvalue(), "wall"))}})
-    w.mesh([{"attributes": {"POSITION": w.accessor(np.eye(3, dtype=np.float32))}, "material": mat}])
-    w.node(mesh=0)
-    path = w.save(str(tmp_path / "jpeg.glb"))
-    assert len(jax_load_gltf(path).textures) == 4  # PIL reads it
-    with pytest.raises(ValueError, match="wall: JPEG"):
-        load_gltf(path)
+    """A JPEG base colour texture loads as the JAX loader loads it (PIL); a
+    CMYK one, which the port does not read, raises a ValueError that names
+    the format and the image."""
+    rng = np.random.default_rng(2)
+    paths = {}
+    for mode in ("RGB", "CMYK"):
+        out = io.BytesIO()
+        Image.fromarray(rng.integers(0, 256, (12, 10, len(mode))).astype(np.uint8), mode).save(out, format="JPEG")
+        w = gltf_scenes.GltfWriter()
+        image = w.image(out.getvalue(), "wall", mime_type="image/jpeg")
+        mat = w.material(pbrMetallicRoughness={"baseColorTexture": {"index": w.texture(image)}})
+        w.mesh([{"attributes": {"POSITION": w.accessor(np.eye(3, dtype=np.float32))}, "material": mat}])
+        w.node(mesh=0)
+        paths[mode] = w.save(str(tmp_path / f"{mode}.glb"))
+    got, want = load_gltf(paths["RGB"]), jax_load_gltf(paths["RGB"])
+    assert len(got.textures) == len(want.textures) == 4
+    np.testing.assert_array_equal(got.textures[3], want.textures[3])
+    assert len(jax_load_gltf(paths["CMYK"]).textures) == 4  # PIL reads it
+    with pytest.raises(ValueError, match="wall: CMYK"):
+        load_gltf(paths["CMYK"])
 
 
 def test_palette_png_decodes_as_pil_converts_it(tmp_path):

@@ -1,6 +1,6 @@
-"""The port runs where JAX and PIL are not installed: importing
+"""The port runs where JAX, PIL and imageio are not installed: importing
 vpt_tpu_torch and every module of the ported slice, or chip_smoke.py, must
-pull in neither `jax`, `vpt_tpu` nor `PIL`."""
+pull in neither `jax`, `vpt_tpu`, `PIL` nor `imageio`."""
 
 import os
 import subprocess
@@ -29,6 +29,8 @@ SLICE_MODULES = [
     "vpt_tpu_torch.core.camera",
     "vpt_tpu_torch.core.tiling",
     "vpt_tpu_torch.io.image",
+    "vpt_tpu_torch.io.codec",
+    "vpt_tpu_torch.io.jpeg",
     "vpt_tpu_torch.io.metrics",
     "vpt_tpu_torch.io.metrics_log",
     "vpt_tpu_torch.post.tonemap",
@@ -69,7 +71,7 @@ def test_imports_pull_in_no_jax(script):
         code = "import importlib.util, sys\nsys.path.insert(0, '.')\nimport chip_smoke\n"
     code += (
         "import sys\n"
-        "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'vpt_tpu', 'PIL'))\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'vpt_tpu', 'PIL', 'imageio'))\n"
         "assert not bad, bad\n"
     )
     proc = subprocess.run([sys.executable, "-c", code], cwd=_ROOT, capture_output=True, text=True, timeout=120)

@@ -35,12 +35,12 @@ from vpt_tpu_torch.scene.build import compile_scene
 from vpt_tpu_torch.scene.procedural import colonnade, cornell_box
 from vpt_tpu_torch.scene.types import tree_to_device
 
-FOREIGN = ("jax", "jaxlib", "vpt_tpu", "PIL")  # what the card's machine does not have
+FOREIGN = ("jax", "jaxlib", "vpt_tpu", "PIL", "imageio")  # what the card's machine does not have
 SCENES = {"cornell": cornell_box, "colonnade": colonnade}
 
 
 def foreign_modules() -> list:
-    """The modules of JAX, the JAX package or PIL loaded in this process."""
+    """The modules of JAX, the JAX package, PIL or imageio loaded in this process."""
     return sorted(m for m in sys.modules if m.split(".")[0] in FOREIGN)
 
 

@@ -1,18 +1,25 @@
 """Image export and import: PNG (LDR), and NPY or Radiance RGBE `.hdr` (HDR)
-(port of vpt_tpu/io/image.py).
+(port of vpt_tpu/io/image.py), and the PNG and JPEG decoding that the
+glTF loader and `load_hdr` use.
 
-PNG is written and read with the standard library's `zlib` and `struct`
-alone.  `save_png` writes 8-bit RGB or RGBA, one IDAT chunk, filter 0 on
-every row; the quantisation is the JAX package's, clip(x, 0, 1) * 255 + 0.5
-truncated.  `read_png` decodes any non-interlaced 8-bit gray, gray+alpha,
-RGB or RGBA PNG and 1-, 2-, 4- or 8-bit palette PNGs (IDAT split over
-several chunks, all five row filters); `load_png` gives its pixels as
-float32 / 255, with PIL's shapes for the non-palette types, as the JAX
-package's `load_png` does through PIL.  `decode_rgba` gives any of them as
-(H, W, 4) float32 / 255, expanded the way PIL's `convert("RGBA")` expands
-them (tRNS transparency included): the glTF loader's texture decode.
-16-bit and interlaced PNGs, and JPEG or other formats, raise a ValueError
-that names the format.
+PNG is written with the standard library's `zlib` and `struct` alone:
+`save_png` writes 8-bit RGB or RGBA, one IDAT chunk, filter 0 on every
+row; the quantisation is the JAX package's, clip(x, 0, 1) * 255 + 0.5
+truncated.
+
+Reading gives what the JAX package gets from PIL, which opens a file by
+its content.  PNG: every colour type and bit depth (1-16), Adam7
+interlacing, IDAT split over chunks, all five row filters (undone by the
+C codec, io/codec.py), tRNS.  JPEG: io/jpeg.py.  The arrays are PIL's:
+a 16-bit RGB, RGBA or gray+alpha PNG gives its samples' high bytes (the
+gray+alpha one as RGBA), a 16-bit gray one its full uint16 values, a 1-bit
+gray one booleans and a 2- or 4-bit gray one samples scaled to 0..255;
+a palette PNG its indices.  `load_png` is that array as float32 / 255,
+as the JAX package's `load_png` gives it; `decode_rgba` expands it as
+PIL's `convert("RGBA")` does (the glTF texture decode); `decode_samples`
+gives it as imageio gives it to the JAX package's `load_hdr` (a palette
+PNG as its RGB colours).  Other formats raise a ValueError that names
+them.
 """
 
 from __future__ import annotations
@@ -22,8 +29,20 @@ import zlib
 
 import numpy as np
 
+from vpt_tpu_torch.io import codec
+from vpt_tpu_torch.io.jpeg import decode_jpeg
+
 _PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
-_CHANNELS = {0: 1, 2: 3, 4: 2, 6: 4}  # PNG colour type -> channels (gray, RGB, gray+alpha, RGBA)
+_JPEG_SOI = b"\xff\xd8\xff"
+_CHANNELS = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}  # PNG colour type -> samples per pixel
+_DEPTHS = {0: (1, 2, 4, 8, 16), 2: (8, 16), 3: (1, 2, 4, 8), 4: (8, 16), 6: (8, 16)}
+# Adam7 passes: first column, first row, column step, row step.
+_ADAM7 = ((0, 0, 8, 8), (4, 0, 8, 8), (0, 4, 4, 8), (2, 0, 4, 4), (0, 2, 2, 4), (1, 0, 2, 2), (0, 1, 1, 2))
+# Leading bytes of image formats that glTF assets or environment maps come
+# in and that the port does not read, to name them in the refusal.
+_OTHER_FORMATS = ((b"GIF8", "GIF"), (b"BM", "BMP"), (b"II*\0", "TIFF"), (b"MM\0*", "TIFF"), (b"RIFF", "WebP"),
+                  (b"\xabKTX 20\xbb", "KTX2"), (b"\x76\x2f\x31\x01", "OpenEXR"), (b"#?RADIANCE", "Radiance HDR"),
+                  (b"#?RGBE", "Radiance HDR"))
 
 
 def to_uint8(image) -> np.ndarray:
@@ -52,58 +71,36 @@ def save_png(path: str, image) -> None:
         f.write(_chunk(b"IEND", b""))
 
 
-def _unfilter(raw: np.ndarray, h: int, stride: int, bpp: int) -> np.ndarray:
-    """Undo the per-row filters of (h, 1 + stride) filtered scanlines: 0
-    none, 1 sub, 2 up, 3 average, 4 Paeth (PNG spec, section 9)."""
-    out = np.zeros((h, stride), np.uint8)
-    prev = np.zeros(stride, np.uint8)
-    for y in range(h):
-        kind, row = int(raw[y, 0]), raw[y, 1:]
-        if kind == 0:
-            cur = row.copy()
-        elif kind == 1:  # sub: a running sum per byte of a pixel, mod 256
-            cur = np.cumsum(row.reshape(-1, bpp), axis=0, dtype=np.uint8).reshape(-1)
-        elif kind == 2:
-            cur = row + prev
-        elif kind in (3, 4):  # each byte needs the one decoded bpp bytes before it
-            x, b = row.tolist(), prev.tolist()
-            c = bytearray(stride)
-            for i in range(stride):
-                a = c[i - bpp] if i >= bpp else 0
-                if kind == 3:
-                    c[i] = (x[i] + ((a + b[i]) >> 1)) & 0xFF
-                else:
-                    ul = b[i - bpp] if i >= bpp else 0
-                    p = a + b[i] - ul
-                    pa, pb, pc = abs(p - a), abs(p - b[i]), abs(p - ul)
-                    pred = a if pa <= pb and pa <= pc else (b[i] if pb <= pc else ul)
-                    c[i] = (x[i] + pred) & 0xFF
-            cur = np.frombuffer(bytes(c), np.uint8)
-        else:
-            raise ValueError(f"unknown PNG row filter {kind} in row {y}")
-        out[y] = cur
-        prev = out[y]
-    return out
+def _samples(rows: np.ndarray, w: int, c: int, depth: int) -> np.ndarray:
+    """(h, w, c) samples of (h, stride) unfiltered scanlines: uint16 for
+    16-bit files (big-endian in the file), else uint8; samples under 8 bits
+    unpacked high bits first."""
+    h = rows.shape[0]
+    if depth == 16:
+        return rows[:, : 2 * w * c].view(">u2").astype(np.uint16).reshape(h, w, c)
+    if depth == 8:
+        return rows[:, : w * c].reshape(h, w, c)
+    shifts = np.arange(8 - depth, -1, -depth, dtype=np.uint8)
+    return ((rows[:, :, None] >> shifts) & ((1 << depth) - 1)).reshape(h, -1)[:, :w].reshape(h, w, 1)
 
 
-def _decode(data: bytes, name: str):
-    """(pixels, palette, trns) of a PNG's bytes: the uint8 samples (H, W, c),
-    palette indices for colour type 3; the (n, 3) PLTE entries or None; the
-    tRNS chunk's bytes or None."""
-    if data[:3] == b"\xff\xd8\xff":
-        raise ValueError(f"{name}: JPEG images are not read, only PNG")
-    if data[:8] != _PNG_SIGNATURE:
-        raise ValueError(f"{name} is not a PNG file")
+def _decode_png(data: bytes, name: str):
+    """(samples, depth, colour type, palette, tRNS bytes) of a PNG's bytes:
+    the (H, W, c) samples (palette indices for colour type 3), the (n, 3)
+    PLTE entries or None, the tRNS chunk or None."""
     pos, idat, header, palette, trns = 8, [], None, None, None
-    while pos < len(data):
+    while pos + 8 <= len(data):
         (length,) = struct.unpack(">I", data[pos : pos + 4])
         kind, body = data[pos + 4 : pos + 8], data[pos + 8 : pos + 8 + length]
-        if zlib.crc32(kind + body) & 0xFFFFFFFF != struct.unpack(">I", data[pos + 8 + length : pos + 12 + length])[0]:
+        crc = data[pos + 8 + length : pos + 12 + length]
+        if len(crc) < 4:
+            raise ValueError(f"{name}: PNG file is truncated in chunk {kind!r}")
+        if zlib.crc32(kind + body) & 0xFFFFFFFF != struct.unpack(">I", crc)[0]:
             raise ValueError(f"{name}: CRC mismatch in chunk {kind!r}")
         if kind == b"IHDR":
             header = struct.unpack(">IIBBBBB", body)
         elif kind == b"PLTE":
-            palette = np.frombuffer(body, np.uint8).reshape(-1, 3)
+            palette = np.frombuffer(body, np.uint8)[: len(body) // 3 * 3].reshape(-1, 3)
         elif kind == b"tRNS":
             trns = body
         elif kind == b"IDAT":
@@ -114,81 +111,150 @@ def _decode(data: bytes, name: str):
     if header is None:
         raise ValueError(f"{name}: no IHDR chunk")
     w, h, depth, ctype, _, _, interlace = header
-    if ctype == 3:
-        if depth not in (1, 2, 4, 8):
-            raise ValueError(f"{name}: {depth}-bit palette PNGs are not read")
-        if palette is None:
-            raise ValueError(f"{name}: palette PNG without a PLTE chunk")
-        c = 1
-    elif ctype not in _CHANNELS:
+    if ctype not in _CHANNELS:
         raise ValueError(f"{name}: unknown PNG colour type {ctype}")
-    elif depth != 8:
-        raise ValueError(f"{name}: {depth}-bit PNGs are not read, only 8-bit")
-    else:
-        c = _CHANNELS[ctype]
-    if interlace:
-        raise ValueError(f"{name}: interlaced PNGs are not read")
-    stride = (w * c * depth + 7) // 8
-    raw = np.frombuffer(zlib.decompress(b"".join(idat)), np.uint8)[: h * (1 + stride)].reshape(h, 1 + stride)
-    rows = _unfilter(raw, h, stride, max(1, c * depth // 8))
-    if depth < 8:  # palette indices packed high bit first
-        shifts = np.arange(8 - depth, -1, -depth, dtype=np.uint8)
-        rows = ((rows[:, :, None] >> shifts) & ((1 << depth) - 1)).reshape(h, -1)[:, :w]
-    return rows.reshape(h, w, c), palette, trns
+    if depth not in _DEPTHS[ctype]:
+        raise ValueError(f"{name}: {depth}-bit PNGs of colour type {ctype} do not exist")
+    if ctype == 3 and palette is None:
+        raise ValueError(f"{name}: palette PNG without a PLTE chunk")
+    if interlace > 1:
+        raise ValueError(f"{name}: unknown PNG interlace method {interlace}")
+    try:
+        raw = np.frombuffer(zlib.decompress(b"".join(idat)), np.uint8)
+    except zlib.error as e:
+        raise ValueError(f"{name}: PNG image data is corrupt ({e})") from None
+    c = _CHANNELS[ctype]
+    bits, bpp = c * depth, max(1, c * depth // 8)
+    if not interlace:
+        samples = _samples(codec.png_unfilter(raw, h, (w * bits + 7) // 8, bpp), w, c, depth)
+    else:  # Adam7: seven sub-images, each filtered on its own
+        samples = np.zeros((h, w, c), np.uint16 if depth == 16 else np.uint8)
+        pos = 0
+        for x0, y0, dx, dy in _ADAM7:
+            pw, ph = max(0, -(-(w - x0) // dx)), max(0, -(-(h - y0) // dy))
+            if pw == 0 or ph == 0:
+                continue
+            stride = (pw * bits + 7) // 8
+            rows = codec.png_unfilter(raw[pos : pos + ph * (1 + stride)], ph, stride, bpp)
+            samples[y0::dy, x0::dx] = _samples(rows, pw, c, depth)
+            pos += ph * (1 + stride)
+    return samples, depth, ctype, palette, trns
 
 
-def _palette_colours(pixels, palette, trns) -> np.ndarray:
-    """Palette indices (H, W, 1) to RGB, or RGBA where a tRNS chunk gives
-    the entries' alphas (entries past its end are opaque)."""
-    if trns is None:
-        table = palette
+def _pil_image(data: bytes, name: str):
+    """The image as PIL opens it: (array, mode, palette, transparency).
+    The array is `np.asarray` of PIL's image; the palette is (256, 3)
+    (unlisted entries black) with PIL's transparency for a palette PNG
+    (the tRNS alphas) or None; the transparency is PIL's `info` value
+    (a gray level, an RGB triple, palette alphas) or None."""
+    if data[:8] == _PNG_SIGNATURE:
+        samples, depth, ctype, palette, trns = _decode_png(data, name)
+    elif data[:3] == _JPEG_SOI:
+        arr = decode_jpeg(data, name)
+        return arr, ("L" if arr.ndim == 2 else "RGB"), None, None
     else:
-        alpha = np.full(palette.shape[0], 255, np.uint8)
-        n = min(len(trns), palette.shape[0])
-        alpha[:n] = np.frombuffer(trns[:n], np.uint8)
-        table = np.concatenate([palette, alpha[:, None]], axis=1)
-    return table[np.minimum(pixels[..., 0], palette.shape[0] - 1)]
+        kind = next((f for magic, f in _OTHER_FORMATS if data.startswith(magic)), None)
+        raise ValueError(f"{name}: {kind + ' images are' if kind else 'a file of unknown format is'} not read "
+                         f"(only PNG and JPEG)")
+    gray_key = struct.unpack(">H", trns[:2])[0] if trns is not None and len(trns) >= 2 else None
+    rgb_key = struct.unpack(">3H", trns[:6]) if trns is not None and len(trns) >= 6 else None
+    if ctype == 3:
+        table = np.zeros((256, 3), np.uint8)
+        table[: min(len(palette), 256)] = palette[:256]
+        return samples[..., 0], "P", table, trns
+    if depth == 16:
+        if ctype == 0:
+            return samples[..., 0], "I;16", None, gray_key
+        samples = (samples >> 8).astype(np.uint8)
+    if ctype == 0:
+        if depth == 1:
+            return samples[..., 0].astype(bool), "1", None, None if gray_key is None else 255 * bool(gray_key)
+        scale = {2: 85, 4: 17, 8: 1}[depth]
+        return samples[..., 0] * np.uint8(scale), "L", None, gray_key
+    if ctype == 2:
+        return samples, "RGB", None, rgb_key
+    if ctype == 4 and depth == 16:  # PIL opens 16-bit gray+alpha as RGBA
+        return samples[..., [0, 0, 0, 1]], "RGBA", None, None
+    return samples, ("LA" if ctype == 4 else "RGBA"), None, None
+
+
+def _palette_colours(indices, table, trns) -> np.ndarray:
+    """Palette indices (H, W) to RGB, or RGBA where a tRNS chunk gives the
+    entries' alphas (entries past its end are opaque)."""
+    if trns is not None:
+        alpha = np.full(256, 255, np.uint8)
+        alpha[: min(len(trns), 256)] = np.frombuffer(trns[:256], np.uint8)
+        table = np.concatenate([table, alpha[:, None]], axis=1)
+    return table[indices]
 
 
 def read_png(path: str) -> np.ndarray:
-    """The uint8 pixels of an 8-bit, non-interlaced gray (H, W), gray+alpha
-    (H, W, 2), RGB (H, W, 3) or RGBA (H, W, 4) PNG; a palette PNG as RGB,
-    or RGBA when it carries tRNS alphas."""
+    """The uint8 pixels of a PNG: gray (H, W), gray+alpha (H, W, 2), RGB
+    (H, W, 3) or RGBA (H, W, 4) as PIL opens it (1-bit gray as 0 / 255, a
+    16-bit gray one as its uint16 values); a palette PNG as RGB, or RGBA
+    when it carries tRNS alphas."""
     with open(path, "rb") as f:
-        pixels, palette, trns = _decode(f.read(), path)
-    if palette is not None:
-        return _palette_colours(pixels, palette, trns)
-    return pixels[..., 0] if pixels.shape[2] == 1 else pixels
+        data = f.read()
+    if data[:8] != _PNG_SIGNATURE:
+        raise ValueError(f"{path} is not a PNG file")
+    arr, mode, table, trns = _pil_image(data, path)
+    if mode == "P":
+        return _palette_colours(arr, table, trns)
+    return arr.astype(np.uint8) * np.uint8(255) if mode == "1" else arr
+
+
+def _unit(arr: np.ndarray) -> np.ndarray:
+    """float32 arr / 255, as PIL's arrays are scaled (divided in place)."""
+    out = arr.astype(np.float32)
+    out /= np.float32(255.0)
+    return out
 
 
 def decode_rgba(data: bytes, name: str = "image") -> np.ndarray:
-    """A PNG's bytes as (H, W, 4) float32 in [0, 1], expanded as PIL's
-    `convert("RGBA")` expands each colour type: gray g -> (g, g, g, 255),
-    gray+alpha -> (g, g, g, a), RGB -> alpha 255, palette -> its entries
-    with the tRNS alphas; a gray or RGB tRNS colour becomes alpha 0."""
-    pixels, palette, trns = _decode(data, name)
-    c = pixels.shape[2]
-    if palette is not None:
-        rgba = _palette_colours(pixels, palette, trns)
+    """A PNG's or JPEG's bytes as (H, W, 4) float32 in [0, 1], expanded as
+    PIL's `convert("RGBA")` expands each mode: gray g -> (g, g, g, 255)
+    (16-bit gray clipped to 255 first), gray+alpha -> (g, g, g, a), RGB ->
+    alpha 255, palette -> its entries with the tRNS alphas; a pixel whose
+    gray or RGB value equals the tRNS key's low bytes gets alpha 0."""
+    arr, mode, table, trns = _pil_image(data, name)
+    if mode == "P":
+        rgba = _palette_colours(arr, table, trns)
         if rgba.shape[2] == 3:
             rgba = np.concatenate([rgba, np.full(rgba.shape[:2] + (1,), 255, np.uint8)], axis=-1)
+        return _unit(rgba)
+    if mode == "RGBA":
+        return _unit(arr)
+    if mode == "1":
+        arr = arr.astype(np.uint8) * np.uint8(255)
+    elif mode == "I;16":
+        arr = np.minimum(arr, 255).astype(np.uint8)
+    rgba = np.empty(arr.shape[:2] + (4,), np.uint8)
+    if mode == "LA":
+        rgba[..., :3] = arr[..., :1]
+        rgba[..., 3] = arr[..., 1]
     else:
-        colour = pixels[..., :3] if c >= 3 else np.repeat(pixels[..., :1], 3, axis=-1)
-        if c in (2, 4):
-            alpha = pixels[..., -1:]
-        else:
-            alpha = np.full(pixels.shape[:2] + (1,), 255, np.uint8)
-            if trns is not None:  # one 16-bit sample per channel: the transparent colour
-                key = np.frombuffer(trns, ">u2")[:c].astype(np.int64)
-                alpha[(pixels == key).all(axis=-1)] = 0
-        rgba = np.concatenate([colour, alpha], axis=-1)
-    return rgba.astype(np.float32) / 255.0
+        rgba[..., :3] = arr[..., None] if arr.ndim == 2 else arr
+        rgba[..., 3] = 255
+        if trns is not None:
+            key = np.atleast_1d(np.asarray(trns, np.int64)) & 0xFF
+            rgba[..., 3][(rgba[..., : key.size] == key).all(axis=-1)] = 0
+    return _unit(rgba)
+
+
+def decode_samples(data: bytes, name: str = "image") -> np.ndarray:
+    """A PNG's or JPEG's samples as imageio reads them through PIL: PIL's
+    array, a palette PNG converted to its RGB colours."""
+    arr, mode, table, _ = _pil_image(data, name)
+    return table[arr] if mode == "P" else arr
 
 
 def load_png(path: str) -> np.ndarray:
-    """The pixels of a PNG as float32 in [0, 1], value / 255 (vpt_tpu's
-    io/image.load_png): (H, W) gray, else (H, W, channels)."""
-    return read_png(path).astype(np.float32) / 255.0
+    """The pixels of a PNG or JPEG file, by its content, as float32 PIL
+    array / 255 (vpt_tpu's io/image.load_png): (H, W) for gray, 1-bit and
+    palette images (palette indices), else (H, W, channels)."""
+    with open(path, "rb") as f:
+        arr = _pil_image(f.read(), path)[0]
+    return np.asarray(arr, np.float32) / 255.0
 
 
 def save_hdr(path: str, image) -> None:

@@ -7,22 +7,34 @@ importance, the quantity the MIS weights read as the PDF.  Leaves are numpy.
 
 from __future__ import annotations
 
+import os
+
 import numpy as np
 
-from vpt_tpu_torch.io.image import load_radiance_hdr
+from vpt_tpu_torch.io.image import decode_samples, load_radiance_hdr
 from vpt_tpu_torch.scene.types import EnvMapData
+
+# Extensions read as images, by their content, as imageio reads them for
+# the JAX package: the decoded integer samples, not divided by 255.
+_IMAGE_EXTENSIONS = (".png", ".jpg", ".jpeg")
 
 
 def load_hdr(path: str) -> np.ndarray:
-    """An environment image as float32 (H, W, 3) from a `.npy` array or a
-    Radiance `.hdr` file (other formats need imageio, which the port does
-    not use)."""
+    """An environment image as float32 (H, W, 3) from a `.npy` array, a
+    Radiance `.hdr` file, or a PNG or JPEG file (its samples as they are,
+    gray repeated to three channels).  Other formats (EXR, TIFF, PFM and
+    the rest of imageio's) raise a ValueError that names the extension."""
     if path.endswith(".npy"):
         img = np.load(path)
     elif path.endswith(".hdr"):
         img = load_radiance_hdr(path)
+    elif path.lower().endswith(_IMAGE_EXTENSIONS):
+        with open(path, "rb") as f:
+            img = decode_samples(f.read(), path)
     else:
-        raise ValueError(f"{path}: the port loads environment maps from .npy or .hdr files")
+        ext = os.path.splitext(path)[1] or "extensionless"
+        raise ValueError(f"{path}: {ext} files are not read as environment maps (only .npy, .hdr, .png, .jpg "
+                         f"and .jpeg)")
     img = np.asarray(img, np.float32)
     if img.ndim == 2:
         img = np.repeat(img[..., None], 3, axis=-1)

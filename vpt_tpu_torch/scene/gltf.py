@@ -13,10 +13,12 @@ inverse of its node's world matrix).
 Texture channel conventions follow the renderer: roughness and metallic
 are read from a texture's .r channel, so the packed glTF metallicRoughness
 texture (G = roughness, B = metallic) is split into two derived textures at
-load time, once per texture.  Images are PNGs decoded by `io/image.py` and
-expanded to RGBA as PIL's `convert("RGBA")` expands them (palette PNGs
-included); JPEG, 16-bit and interlaced PNGs raise a ValueError that names
-the format and the image.
+load time, once per texture.  Images are PNG or JPEG files, recognised by
+their content whatever their `mimeType` says, as PIL opens them; they are
+decoded by `io/image.py` (PNG) and `io/jpeg.py` with the C codec, and
+expanded to RGBA as PIL's `convert("RGBA")` expands them.  Other formats,
+and the JPEG kinds `io/jpeg.py` lists, raise a ValueError that names the
+format and the image.
 """
 
 from __future__ import annotations
