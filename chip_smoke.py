@@ -40,9 +40,7 @@ Phases, each of which raises on failure:
      Renderer, the same way: visit and supertile_tables (the packet cull)
      must launch and the stream and occlusion kernels must not; its
      s/dispatch beside the stream path's; then Renderer.save writes a PNG
-     that is read back; then one torch.profiler trace of a stream and of a
-     packet dispatch: kernel launches, device time and busy share (device
-     time over the unprofiled s/dispatch), the top kernels;
+     that is read back (phase 12 profiles both modes);
   6. 128x128 1-spp renders with the kernels against the same renders with
      every plain version, stream and packet mode: PSNR > 40 dB, the packet
      render equal;
@@ -63,9 +61,8 @@ Phases, each of which raises on failure:
         normal maps) at 512x512 with a metrics log, driven like phase 4
         beside phase 4's numbers: the four stream-path kernels launch,
         visit does not, the log holds one dispatch record per dispatch
-        whose segments sum to segments_traced; one torch.profiler trace of
-        a dispatch, as in phase 5; then its 128x128 kernel render against
-        the plain one, PSNR > 40 dB;
+        whose segments sum to segments_traced (phase 12 profiles it); then
+        its 128x128 kernel render against the plain one, PSNR > 40 dB;
      b. the textured colonnade written as a .glb (tests/gltf_scenes.py:
         PNG textures in buffer views, instanced nodes, a camera, the KHR
         extensions) and its sky as .npy; load_gltf gives its instances,
@@ -115,6 +112,20 @@ Phases, each of which raises on failure:
         those textures, at the same seeds: equal segments, PSNR > 60 dB,
         bitwise equality printed; the in-memory render's launch counts
         (set to 0 just before it) show the four stream-path kernels.
+ 12. the captured loop (vpt_tpu_torch/render/graphs.py) against the eager
+     one (graphs.CAPTURE = False) in the stream, packet, textured and
+     one-rank nccl sharded paths, colonnade 512x512, depth 8, 4 spp, one
+     seed: after a warm-up of each way, eager, captured, captured, eager;
+     the four images bitwise equal with equal segments, host syncs and
+     launches (set to 0 just before each dispatch); both s/dispatch,
+     segments/s, the capture seconds and graph pool bytes, and one
+     torch.profiler trace of a captured dispatch and, but for the sharded
+     path, of an eager one: kernel launches, device time and busy share
+     (device time over the unprofiled s/dispatch), the top kernels; one
+     JSON line "graphs".
+Every drive of phases 4-11 says whether its loop ran captured (every path
+without media) or eagerly (the media and atmosphere paths, by rule); the
+plain-version renders run eagerly.
 The last lines are the card's name and power limit, the kernel table as
 JSON and {"ok": true, ...}.  Without a CUDA device the script exits
 non-zero and prints no result.
@@ -181,9 +192,9 @@ from vpt_tpu_torch.dist import mesh as dmesh
 from vpt_tpu_torch.io import codec
 from vpt_tpu_torch.io.image import decode_rgba, read_png
 from vpt_tpu_torch.io.metrics import psnr
-from vpt_tpu_torch.render import integrator, lights, lookup, sampling, surface
+from vpt_tpu_torch.render import graphs, integrator, lights, lookup, sampling, surface
 from vpt_tpu_torch.render.lookup_fit import constant_fit
-from vpt_tpu_torch.render.params import default_params
+from vpt_tpu_torch.render.params import default_params, scalar
 from vpt_tpu_torch.scene import blosc
 from vpt_tpu_torch.scene.build import BRUTE_FORCE_MAX_TRIS, compile_scene
 from vpt_tpu_torch.scene.gltf import load_gltf
@@ -311,10 +322,13 @@ def log_trace_work(label, bands, cl, t_min, active, tf_final):
 
 
 def plain_kernels() -> ExitStack:
-    """Route every kernel wrapper of the render path to its plain version."""
+    """Route every kernel wrapper of the render path to its plain version,
+    with the loop eager: the plain versions synchronise, and a captured
+    step would replay the kernels."""
     stack = ExitStack()
     for module, name, plain in PLAIN.values():
         stack.enter_context(mock.patch.object(module, name, plain))
+    stack.enter_context(mock.patch.object(graphs, "CAPTURE", False))
     return stack
 
 
@@ -326,7 +340,8 @@ def main_path_inputs(data, meta, aux, dev):
     pxy, pidx, _, _ = tiled_pixel_order(W, H)
     state = rng.seed(torch.as_tensor(pidx.astype(np.int64), device=dev), 0, 12345)
     state, org, d = generate_primary_rays(params.view_inverse, params.proj_inverse,
-                                          torch.as_tensor(pxy, device=dev), (W, H), state, 1.0, 0.0)
+                                          torch.as_tensor(pxy, device=dev), (W, H), state, params.focus_distance,
+                                          params.dof_strength)
     t_min = T_MIN * meta.scene_scale
     hit = stream.intersect_stream(org, d, data.clusters, t_min, T_MAX)
     found = hit.t >= 0
@@ -336,7 +351,8 @@ def main_path_inputs(data, meta, aux, dev):
     p_mag = torch.linalg.vector_norm(surf.world_pos - center, dim=-1) + 0.0346 * meta.scene_scale
     bounce_org = surf.world_pos + surf.geom_normal * (5.8e-4 * p_mag)[:, None]
     state, bounce_dir = sampling.sample_cosine_hemisphere(state, surf.geom_normal)
-    state, to_sky, _ = lights.importance_sample_env(state, data.env, 0.0, 0.0)
+    state, to_sky, _ = lights.importance_sample_env(state, data.env, params.sky_rotation_azimuth,
+                                                    params.sky_rotation_altitude)
     state, to_light, _, light_pdf, light_tri, light_dist = lights.sample_emissive_triangle(
         state, data, surf.world_pos, meta.n_emissive, meta.has_textures)
     light_eps = 5e-3 * (light_dist + 0.0346 * meta.scene_scale)
@@ -597,9 +613,14 @@ def build_source(path: str, out_dir: str) -> Build:
 @contextlib.contextmanager
 def routed(build):
     """Route the kernel wrappers to another build's entry points (None: the
-    current ones)."""
-    with mock.patch.dict(kernels.library(), build.entry if build is not None else {}):
-        yield
+    current ones).  The cached steps go on entry and on exit: a graph
+    replays the build it was captured with."""
+    graphs.clear()
+    try:
+        with mock.patch.dict(kernels.library(), build.entry if build is not None else {}):
+            yield
+    finally:
+        graphs.clear()
 
 
 def compare_builds(paths, calls):
@@ -704,20 +725,24 @@ def drive(r: Renderer, label: str):
     median s/dispatch, median segments/dispatch)."""
     r.reset_path_tracing()
     kernels.reset_launches()
-    r.path_trace()
-    dts, segs, syncs, steps = [], [], [], []
-    for _ in range(TIMED_DISPATCHES):
-        seg0, t0 = r.segments_traced, time.perf_counter()
+    with counted_replays() as replayed:
         r.path_trace()
-        dts.append(time.perf_counter() - t0)
-        segs.append(r.segments_traced - seg0)
-        syncs.append(r.last_host_syncs)
-        steps.append(r.last_media_steps)
+        dts, segs, syncs, steps = [], [], [], []
+        for _ in range(TIMED_DISPATCHES):
+            seg0, t0 = r.segments_traced, time.perf_counter()
+            r.path_trace()
+            dts.append(time.perf_counter() - t0)
+            segs.append(r.segments_traced - seg0)
+            syncs.append(r.last_host_syncs)
+            steps.append(r.last_media_steps)
     launches = dict(kernels.LAUNCHES)
+    loop = "captured" if replayed else "eager"
+    check(loop == ("eager" if integrator.uses_media(r.meta, r.flags) else "captured"),
+          f"the {label} loop ran {loop}: captured without media, eagerly with media")
     img = r.hdr_image()
     s_per = statistics.median(dts)
-    log(f"{label} render {r.meta.name} {W}x{H} depth {r.flags.max_depth}, {r.samples_per_frame} spp/dispatch: "
-        f"{s_per:.3f} s/dispatch (median of {dts}), "
+    log(f"{label} render {r.meta.name} {W}x{H} depth {r.flags.max_depth}, {r.samples_per_frame} spp/dispatch, "
+        f"loop {loop}: {s_per:.3f} s/dispatch (median of {dts}), "
         f"{statistics.median(segs) / s_per:.0f} segments/s, {statistics.median(segs):.0f} segments/dispatch, "
         f"host syncs/dispatch {syncs}, media loop steps/dispatch {steps}, "
         f"launches over {TIMED_DISPATCHES + 1} dispatches {launches}, image mean {float(img.mean()):.4f}")
@@ -726,18 +751,20 @@ def drive(r: Renderer, label: str):
     return launches, s_per, statistics.median(segs)
 
 
-def profile_dispatch(r: Renderer, label: str, wall_s: float) -> None:
-    """One torch.profiler trace (CPU and CUDA activity) of a dispatch after
-    an unprofiled one: device events (kernels, copies, fills), their summed
-    time, the busy share against the unprofiled s/dispatch `wall_s` of this
-    call and against the profiled device span, and the top kernels."""
+def profile_dispatch(dispatch, label: str, wall_s: float) -> dict:
+    """One torch.profiler trace of `dispatch()`'s device activity (CUDA
+    only: tracing an eager dispatch's ~100K host ops costs tens of seconds)
+    after an unprofiled one: device events (kernels, copies, fills), their
+    summed time, the busy share against the unprofiled s/dispatch `wall_s`
+    of this call and against the profiled device span, and the top kernels.
+    Returns the events, device ms and busy share."""
     from torch.profiler import ProfilerActivity, profile
 
-    r.path_trace()
+    dispatch()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        r.path_trace()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        dispatch()
         torch.cuda.synchronize()
     traced = time.perf_counter() - t0
     events = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
@@ -757,6 +784,20 @@ def profile_dispatch(r: Renderer, label: str, wall_s: float) -> None:
         f"the csrc kernels {sum(ms for _, ms, _ in ours):.1f} ms: "
         + ", ".join(f"{name} {ms:.1f} ms x{n}" for name, ms, n in ours)
         + "; top: " + "; ".join(f"{name[:80]} {ms:.1f} ms x{n}" for name, (ms, n) in top))
+    return {"device_events": len(events), "device_ms": busy_ms, "busy": busy_ms / (1e3 * wall_s)}
+
+
+@contextlib.contextmanager
+def counted_replays():
+    """The graphs replayed inside the block, one entry per replay."""
+    graphs_run, replay = [], graphs.replay
+
+    def counted(graph, launches):
+        graphs_run.append(graph)
+        replay(graph, launches)
+
+    with mock.patch.object(graphs, "replay", counted):
+        yield graphs_run
 
 
 def check_stream_launches(launches, label: str) -> None:
@@ -849,7 +890,6 @@ def textured_colonnade(dev, flags, square, untextured, tmp: str):
         f"segments/dispatch); untextured (phase 4, this call) {un_s:.3f} s/dispatch, {un_segs / un_s:.0f} "
         f"segments/s ({un_segs:.0f}): textured / untextured s/dispatch {tex_s / un_s:.3f}; log records "
         + ", ".join(f"frame {x['frame']} wall {x['wall_s']} s" for x in records))
-    profile_dispatch(r, "textured", tex_s)
     kernel_vs_plain_render(r.scene_data, r.meta, r.flags, square, dev, "textured")
     return scene
 
@@ -1030,6 +1070,109 @@ def sharded_path(dev, r: Renderer, stream_s: float, table) -> None:
         f"PSNR between the shapes {out['psnr']}, against the one-rank nccl render {psnrs}; segments {out['segments']}")
     check(all(v > 60.0 for v in psnrs.values()), "the dry run's shapes within 60 dB of the one-rank render")
     log(f"phase 10 (the sharded path): {time.perf_counter() - t_phase:.1f} s")
+
+
+GRAPH_SEED = 2654435761  # phase 12's dispatches, all at one seed
+
+
+def captured_or_eager(dispatch, captured: bool) -> dict:
+    """One dispatch with the loop captured or eager: its image, segments,
+    host syncs, launches (set to 0 just before) and host seconds."""
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    with mock.patch.object(graphs, "CAPTURE", captured):
+        img, segs, syncs = dispatch()
+        segs = int(segs)  # waits for the dispatch
+    return {"img": img, "segments": segs, "syncs": syncs, "launches": dict(kernels.LAUNCHES),
+            "s": time.perf_counter() - t0}
+
+
+def graph_turns(label: str, dispatch, profile_eager: bool = True) -> dict:
+    """Phase 12 for one path: a warm-up of each way (the captured one
+    captures where its step has no graph yet), then eager, captured,
+    captured, eager.  The four images must be bitwise equal, with equal
+    segments, host syncs and launches; prints both s/dispatch, segments/s,
+    the step's capture seconds and graph pool bytes, and a profile of a
+    captured dispatch and, with `profile_eager`, of an eager one."""
+    captured_or_eager(dispatch, False)
+    with counted_replays() as replayed:
+        captured_or_eager(dispatch, True)
+    check(len(replayed) > 0, f"{label}: the captured dispatch replays a graph")
+    step = next(st for st in graphs.steps() if st.graph is replayed[-1])
+    runs = [captured_or_eager(dispatch, way) for way in (False, True, True, False)]
+    first = runs[0]
+    for run_ in runs[1:]:
+        check(torch.equal(run_["img"], first["img"]), f"{label}: captured and eager images bitwise equal")
+        check(run_["segments"] == first["segments"] and run_["syncs"] == first["syncs"]
+              and run_["launches"] == first["launches"],
+              f"{label}: captured and eager segments, host syncs and launches equal")
+    check(bool(torch.isfinite(first["img"]).all()) and float(first["img"].mean()) > 0.0,
+          f"{label}: the image is finite with mean > 0")
+    eager = [r_["s"] for r_ in (runs[0], runs[3])]
+    captured = [r_["s"] for r_ in (runs[1], runs[2])]
+    e_s, c_s = statistics.median(eager), statistics.median(captured)
+    profiles = {}
+    for way, wall in (("eager", e_s), ("captured", c_s))[0 if profile_eager else 1:]:
+        with mock.patch.object(graphs, "CAPTURE", way == "captured"):
+            profiles[way] = profile_dispatch(dispatch, f"{label} {way}", wall)
+    row = {"path": label, "eager_s": eager, "captured_s": captured, "segments": first["segments"],
+           "syncs": first["syncs"], "launches": first["launches"], "eager_segments_per_s": first["segments"] / e_s,
+           "captured_segments_per_s": first["segments"] / c_s, "capture_s": step.capture_seconds,
+           "pool_bytes": step.pool_bytes, "graph_launches_per_replay": step.launches, "profiles": profiles}
+    log(f"graphs {label}: eager {eager} s, captured {captured} s per dispatch (eager, captured, captured, eager): "
+        f"{e_s / c_s:.2f}x; {first['segments']} segments/dispatch, {first['segments'] / e_s:.0f} -> "
+        f"{first['segments'] / c_s:.0f} segments/s; host syncs {first['syncs']}; launches {first['launches']}; "
+        f"images bitwise equal; capture {step.capture_seconds:.3f} s, graph pool {step.pool_bytes} bytes; "
+        f"kernel launches per replay {step.launches}")
+    return row
+
+
+def graph_phase(dev, stream_r: Renderer, smi: str) -> None:
+    """Phase 12: the captured loop against the eager one in the stream,
+    packet, textured and sharded paths (colonnade 512x512, depth 8, 4 spp)."""
+    t_phase = time.perf_counter()
+    zeros = torch.zeros((H, W, 3), device=dev)
+
+    def stepper(r: Renderer):
+        def dispatch():
+            img, segs, stats = render_step(r.scene_data, r.meta, r.flags, r.params, GRAPH_SEED, (W, H), zeros, 0,
+                                           r.samples_per_frame)
+            return img, segs, stats.syncs
+        return dispatch
+
+    rows = [graph_turns("stream", stepper(stream_r))]
+    with mock.patch.object(integrator, "TRACE_MODE", "packet"):
+        rows.append(graph_turns("packet", stepper(stream_r)))
+    textured = Renderer(colonnade_textured(), width=W, height=H, flags=stream_r.flags, samples_per_frame=4,
+                        device=dev)
+    rows.append(graph_turns("textured", stepper(textured)))
+    del textured
+    r = stream_r
+    with tempfile.TemporaryDirectory() as tmp:
+        dist.init_process_group("nccl", init_method=f"file://{os.path.join(tmp, 'store')}", world_size=1, rank=0)
+        try:
+            m = dmesh.make_mesh(1, 1)
+            stats = []
+            render_samples = integrator.render_samples
+
+            def spy(*args, **kwargs):
+                out = render_samples(*args, **kwargs)
+                stats.append(out[2])
+                return out
+
+            def sharded():
+                stats.clear()
+                with mock.patch.object(integrator, "render_samples", spy):
+                    img, segs = dmesh.render_sharded(r.scene_data, r.meta, r.flags, r.params, (W, H), GRAPH_SEED,
+                                                     r.samples_per_frame, m)
+                return img, segs, stats[0].syncs
+
+            rows.append(graph_turns("sharded", sharded, profile_eager=False))
+        finally:
+            dist.destroy_process_group()
+    print(json.dumps({"graphs": rows, "device": smi}), flush=True)
+    log(f"phase 12 (captured against eager): {time.perf_counter() - t_phase:.1f} s")
 
 
 DECODE_LIMIT_S = 0.5  # host seconds for the 1024^2 JPEG and the 2048^2 PNG
@@ -1306,11 +1449,6 @@ def run(dev, smi: str, other_builds=()) -> None:
         log(f"saved {os.path.basename(path)}: {png.shape} uint8, mean {float(png.mean()):.1f}")
         check(png.shape == (H, W, 3) and float(png.mean()) > 0.0, "the saved PNG reads back (512, 512) with mean > 0")
 
-    # One profiled dispatch of each mode.
-    profile_dispatch(r, "stream", stream_s)
-    with mock.patch.object(integrator, "TRACE_MODE", "packet"):
-        profile_dispatch(r, "packet", packet_s)
-
     # 6. Kernel renders against plain renders.
     square = default_params(dev, np.linalg.inv(aux["camera_view"]),
                             np.linalg.inv(perspective(np.radians(aux["camera_fov_deg"]), 1.0)))
@@ -1337,7 +1475,7 @@ def run(dev, smi: str, other_builds=()) -> None:
     r.set_planet_position((0.0, -6360e3, 0.0))
     r.set_sky_altitude(30.0)
     check_stream_launches(drive(r, "atmosphere")[0], "atmosphere")
-    kernel_vs_plain_render(r.scene_data, r.meta, r.flags, square._replace(sky_rotation_altitude=30.0,
+    kernel_vs_plain_render(r.scene_data, r.meta, r.flags, square._replace(sky_rotation_altitude=scalar(30.0, dev),
                                                                           planet_position=r.params.planet_position),
                            dev, "atmosphere")
 
@@ -1349,6 +1487,9 @@ def run(dev, smi: str, other_builds=()) -> None:
 
     # 11. The image decoders.
     image_decoders(dev, smi, table)
+
+    # 12. The captured loop against the eager one.
+    graph_phase(dev, stream_r, smi)
 
     print(smi)
     print(json.dumps({"kernels": list(table.values())}))

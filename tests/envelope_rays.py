@@ -45,7 +45,7 @@ def wavefronts(name):
     pxy, pidx, _, _ = tiled_pixel_order(SIZE, SIZE)
     state = rng.seed(torch.as_tensor(pidx.astype(np.int64)), 0, 12345)
     _, org, d = generate_primary_rays(params.view_inverse, params.proj_inverse, torch.as_tensor(pxy),
-                                      (SIZE, SIZE), state, 1.0, 0.0)
+                                      (SIZE, SIZE), state, params.focus_distance, params.dof_strength)
     n = org.shape[0]
     hit = stream.intersect_stream(org, d, cl, t_min, T_MAX)
     found = hit.t >= 0

@@ -25,7 +25,7 @@ from vpt_tpu_torch.core import vecmath as tvec
 from vpt_tpu_torch.render import atmosphere as tatmo
 from vpt_tpu_torch.render import lights as tlights
 from vpt_tpu_torch.render import loop
-from vpt_tpu_torch.render.params import default_params, vec3
+from vpt_tpu_torch.render.params import default_params, scalar, vec3
 
 torch.set_num_threads(1)
 
@@ -45,7 +45,7 @@ def _params(setup):
     jp, tp = jparams(), default_params("cpu")
     for k, v in SETUPS[setup].items():
         jp = jp._replace(**{k: jnp.asarray(v, jnp.float32)})
-        tp = tp._replace(**{k: vec3(v, "cpu") if isinstance(v, tuple) else float(np.float32(v))})
+        tp = tp._replace(**{k: vec3(v, "cpu") if isinstance(v, tuple) else scalar(v, "cpu")})
     return jp, tp
 
 
@@ -74,7 +74,7 @@ def test_heights_densities_and_spheres_match_jax(setup):
                                    rtol=1e-5, atol=1e-30, err_msg=fn)
     for radius in (jp.planet_radius, jp.planet_radius + jp.atmosphere_height):
         want = jvec.intersect_sphere(jnp.asarray(o), jnp.asarray(d), jp.planet_position, radius)
-        got = tvec.intersect_sphere(_t(o), _t(d), tp.planet_position, float(radius))
+        got = tvec.intersect_sphere(_t(o), _t(d), tp.planet_position, torch.tensor(np.float32(radius)))
         assert_agree(*zip(got, want))
 
 
@@ -114,7 +114,7 @@ def test_sun_disk_matches_jax(az, al, intensity):
     sun = np.array([1.0, 0.9, 0.7], np.float32)
     want = jlights.sample_sun_disk(jnp.asarray(s), jnp.asarray(sun), jnp.float32(intensity), jnp.float32(az),
                                    jnp.float32(al), (N,))
-    got = tlights.sample_sun_disk(_t(s), _t(sun), intensity, az, al, N)
+    got = tlights.sample_sun_disk(_t(s), _t(sun), scalar(intensity, "cpu"), scalar(az, "cpu"), scalar(al, "cpu"), N)
     assert_agree(*zip(got, want))
     axis = np.asarray(want[1]).mean(0)
     cos_max = np.cos(np.float32(tlights.SUN_THETA))

@@ -74,7 +74,7 @@ def test_generate_primary_rays(dof):
     js, jo, jd = jcam.generate_primary_rays(jnp.asarray(vi), jnp.asarray(pi), jnp.asarray(pxy), (w, h), js,
                                             jnp.float32(2.0), jnp.float32(dof))
     ts, to, td = tcam.generate_primary_rays(torch.as_tensor(vi), torch.as_tensor(pi), torch.as_tensor(pxy),
-                                            (w, h), ts, 2.0, dof)
+                                            (w, h), ts, torch.tensor(2.0), torch.tensor(dof, dtype=torch.float32))
     np.testing.assert_array_equal(ts.numpy(), np.asarray(js).astype(np.int64))
     np.testing.assert_allclose(to.numpy(), np.asarray(jo), rtol=1e-6, atol=1e-6)
     np.testing.assert_allclose(td.numpy(), np.asarray(jd), rtol=1e-6, atol=1e-6)

@@ -1,6 +1,7 @@
 """The five hand-written CUDA kernels of vpt_tpu_torch against their plain
-torch versions, on a CUDA device at small shapes, and the trace wrappers'
-shape checks.  These tests skip where
+torch versions, on a CUDA device at small shapes, the trace wrappers'
+shape checks, and the captured loop (render/graphs.py) against the eager
+one.  These tests skip where
 there is no CUDA device; they import no JAX, so on a GPU machine without
 JAX run them with
 
@@ -312,3 +313,84 @@ def test_one_rank_nccl_render_sharded_equals_render_samples(cuda, tmp_path):
         dist.destroy_process_group()
     assert kernels.LAUNCHES["stream"] > before["stream"] and kernels.LAUNCHES["occlude"] > before["occlude"]
     assert torch.equal(img, want.reshape(64, 64, 3)) and int(segs) == int(want_segs)
+
+
+def _dispatches(dev, compiled, size: int, capture: bool, mode: str):
+    """Two render_step dispatches of the `compiled` scene at size^2, 2 spp,
+    depth 4, with another camera, sky rotation, seed and frame count the
+    second time, with the loop captured or eager: [(image, segments, host
+    syncs)], launches."""
+    from unittest import mock
+
+    from vpt_tpu_torch.api import render_step
+    from vpt_tpu_torch.core.camera import look_at, perspective
+    from vpt_tpu_torch.render import graphs, integrator
+    from vpt_tpu_torch.render.params import RenderFlags, default_params, scalar
+
+    data, meta, aux = compiled
+    proj_inv = np.linalg.inv(perspective(np.radians(aux["camera_fov_deg"]), 1.0))
+    views = [np.linalg.inv(aux["camera_view"]), np.linalg.inv(look_at((1.5, 3.0, 14.0), (0.0, 2.0, 0.0), (0, 1, 0)))]
+    flags = RenderFlags(max_depth=4, max_medium_events=4)
+    accum, out = torch.zeros((size, size, 3), device=dev), []
+    kernels.reset_launches()
+    with mock.patch.object(graphs, "CAPTURE", capture), mock.patch.object(integrator, "TRACE_MODE", mode):
+        for i, (view_inv, seed) in enumerate(zip(views, (2654435761, 99))):
+            params = default_params(dev, view_inv, proj_inv)._replace(sky_rotation_azimuth=scalar(25.0 * i, dev))
+            accum, segs, stats = render_step(data, meta, flags, params, seed, (size, size), accum, i, 2)
+            out.append((accum.clone(), int(segs), stats.syncs))
+    torch.cuda.synchronize()
+    return out, dict(kernels.LAUNCHES)
+
+
+@pytest.mark.parametrize("name,size,mode", [("cornell_box", 64, "stream"), ("colonnade", 128, "stream"),
+                                            ("colonnade", 128, "packet")])
+def test_captured_dispatches_equal_eager_ones(cuda, name, size, mode):
+    """The captured loop (render/graphs.py) against the eager one over two
+    dispatches with different parameters: images bitwise, segments, host
+    syncs and kernel launches equal; one capture serves both dispatches."""
+    from vpt_tpu_torch.render import graphs
+    from vpt_tpu_torch.scene import procedural
+    from vpt_tpu_torch.scene.build import compile_scene
+
+    graphs.clear()
+    compiled = compile_scene(getattr(procedural, name)(), cuda)
+    eager, eager_launches = _dispatches(cuda, compiled, size, False, mode)
+    captured, captured_launches = _dispatches(cuda, compiled, size, True, mode)
+    steps = graphs.steps()
+    graphs.clear()
+    for (a, sa, ya), (b, sb, yb) in zip(eager, captured):
+        assert torch.equal(a, b) and sa == sb and ya == yb
+    assert not torch.equal(eager[0][0], eager[1][0])
+    assert eager_launches == captured_launches
+    assert name == "cornell_box" or captured_launches["supertile_tables"] > 0
+    assert len(steps) == 1 and steps[0].captures == 1 and steps[0].replays > 0
+
+
+def test_a_sync_in_the_body_makes_the_capture_raise(cuda):
+    """A host synchronisation inside the loop body cannot be captured: the
+    dispatch raises, and nothing falls back to an eager loop.  (Last in the
+    file: the failed capture is left to the process.)"""
+    from unittest import mock
+
+    from vpt_tpu_torch.api import render_step
+    from vpt_tpu_torch.render import graphs, integrator
+    from vpt_tpu_torch.render.params import RenderFlags, default_params
+    from vpt_tpu_torch.scene.build import compile_scene
+    from vpt_tpu_torch.scene.procedural import cornell_box
+
+    data, meta, _ = compile_scene(cornell_box(), cuda)
+    body = integrator.body
+
+    def syncing_body(*args):
+        out = body(*args)
+        bool(out["alive"].any())
+        return out
+
+    graphs.clear()
+    try:
+        with mock.patch.object(integrator, "body", syncing_body), pytest.raises(RuntimeError):
+            render_step(data, meta, RenderFlags(max_depth=2), default_params(cuda), 7, (16, 16),
+                        torch.zeros((16, 16, 3), device=cuda), 0, 1)
+        assert graphs.steps()[0].graph is None
+    finally:
+        graphs.clear()

@@ -59,7 +59,7 @@ from vpt_tpu.scene.types import Volume
 from vpt_tpu.scene.vdb import procedural_cloud
 from vpt_tpu_torch.api import render_step
 from vpt_tpu_torch.render import atmosphere, volumes
-from vpt_tpu_torch.render.params import RenderFlags, default_params, vec3
+from vpt_tpu_torch.render.params import RenderFlags, default_params, scalar, vec3
 from vpt_tpu_torch.scene.convert import scene_from_numpy
 
 torch.set_num_threads(1)
@@ -145,7 +145,7 @@ def _render_both(scene, case):
     tp = default_params("cpu", view_inv, proj_inv)
     if atmo:
         jp = jp._replace(planet_position=jnp.asarray(PLANET, jnp.float32), sky_rotation_altitude=jnp.float32(30.0))
-        tp = tp._replace(planet_position=vec3(PLANET, "cpu"), sky_rotation_altitude=30.0)
+        tp = tp._replace(planet_position=vec3(PLANET, "cpu"), sky_rotation_altitude=scalar(30.0, "cpu"))
     want, want_segs, counts = _jax_render_step(
         data, meta, JFlags(enable_atmosphere=atmo, **FLAGS), jp, jnp.uint32(SEED), (W, H),
         jnp.zeros((H, W, 3), jnp.float32), jnp.int32(0), 1,

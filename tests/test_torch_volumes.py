@@ -223,7 +223,7 @@ def test_next_uint_blackbody_and_sphere():
     c = np.array([0.5, -0.2, 1.0], np.float32)
     for radius in (2.0, 6.5):
         want = jvec.intersect_sphere(jnp.asarray(o), jnp.asarray(d), jnp.asarray(c), jnp.float32(radius))
-        got = tvec.intersect_sphere(_t(o), _t(d), _t(c), radius)
+        got = tvec.intersect_sphere(_t(o), _t(d), _t(c), torch.tensor(radius, dtype=torch.float32))
         for g, w in zip(got, want):
             np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=1e-5, atol=1e-5)
 

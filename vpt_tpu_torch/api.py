@@ -14,6 +14,7 @@ device by default (`lookup_tables="auto"`), as the JAX package's are.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import time
 from typing import Optional
 
@@ -29,7 +30,7 @@ from vpt_tpu_torch.post.bloom import bloom as bloom_pass
 from vpt_tpu_torch.post.tonemap import tonemap as tonemap_pass
 from vpt_tpu_torch.render import integrator
 from vpt_tpu_torch.render.lookup import get_lookup_tables, load_reference_tables
-from vpt_tpu_torch.render.params import PHASE_FUNCTIONS, RenderFlags, default_params, f32, vec3
+from vpt_tpu_torch.render.params import PHASE_FUNCTIONS, RenderFlags, default_params, scalar, vec3
 from vpt_tpu_torch.scene.build import build_material_attr, build_volume_table, compile_scene
 from vpt_tpu_torch.scene.envmap import load_hdr, prepare_environment
 from vpt_tpu_torch.scene.types import Material, Scene, Volume, tree_to_device
@@ -50,19 +51,29 @@ class PostSettings:
     enable_bloom: bool = False
 
 
+@functools.lru_cache(maxsize=8)
+def tiled_pixels(width: int, height: int, device: torch.device):
+    """(pixel_xy, pixel_index, scatter, padded) of `tiled_pixel_order` on
+    `device`, made once per size: the JAX package closes its step over
+    these arrays, so the port keeps them beside its steps (render/graphs.py)
+    instead of copying them to the device on every dispatch."""
+    pxy, pidx, sct, padded = tiled_pixel_order(width, height)
+    return (torch.as_tensor(pxy, device=device), torch.as_tensor(pidx.astype(np.int64), device=device),
+            torch.as_tensor(sct, device=device), padded)
+
+
 def render_step(scene_data, meta, flags, params, frame_seed: int, resolution, accum, frame_count: int,
                 n_samples: int):
     """One dispatch: (new accumulation (H, W, 3), segments traced as an int64
     device scalar, LoopStats of the media loops with the dispatch's host
-    synchronisations)."""
+    synchronisations).  On a CUDA device without media each loop iteration
+    is one replay of the configuration's captured step (render/graphs.py)."""
     width, height = resolution
-    dev = accum.device
-    pxy, pidx, sct, padded = tiled_pixel_order(width, height)
+    pxy, pidx, sct, padded = tiled_pixels(width, height, accum.device)
     radiance, segments, stats = integrator.render_samples(
-        scene_data, meta, flags, params, torch.as_tensor(pxy, device=dev),
-        torch.as_tensor(pidx.astype(np.int64), device=dev), resolution, frame_seed, n_samples,
+        scene_data, meta, flags, params, pxy, pidx, resolution, frame_seed, n_samples,
     )
-    new = scatter_to_image(radiance, torch.as_tensor(sct, device=dev), padded, width, height)
+    new = scatter_to_image(radiance, sct, padded, width, height)
     return integrator.accumulate_ewma(accum, new, frame_count), segments, stats
 
 
@@ -214,6 +225,9 @@ class Renderer:
     # Every setter resets accumulation, like the reference's Set* methods.
 
     def _param(self, **kw) -> None:
+        """New parameter values (a number becomes a 0-d float32 tensor on
+        the device); the cached steps copy them in at the next dispatch."""
+        kw = {k: v if torch.is_tensor(v) else scalar(v, self.device) for k, v in kw.items()}
         self.params = self.params._replace(**kw)
         self.reset_path_tracing()
 
@@ -293,15 +307,15 @@ class Renderer:
         self._flag(phase_function=name)
 
     # Atmosphere parameters (PathTracer.h:168-179): the scalars rounded to
-    # float32, the (3,) vectors made on the device once per call.
+    # float32 by _param, the (3,) vectors made on the device once per call.
     def set_planet_position(self, pos) -> None:
         self._param(planet_position=vec3(pos, self.device))
 
     def set_planet_radius(self, r: float) -> None:
-        self._param(planet_radius=f32(r))
+        self._param(planet_radius=float(r))
 
     def set_atmosphere_height(self, h: float) -> None:
-        self._param(atmosphere_height=f32(h))
+        self._param(atmosphere_height=float(h))
 
     def set_rayleigh_scattering_multiplier(self, m) -> None:
         self._param(rayleigh_scattering_multiplier=vec3(m, self.device))
@@ -313,16 +327,16 @@ class Renderer:
         self._param(ozone_absorption_multiplier=vec3(m, self.device))
 
     def set_rayleigh_density_falloff(self, v: float) -> None:
-        self._param(rayleigh_density_falloff=f32(v))
+        self._param(rayleigh_density_falloff=float(v))
 
     def set_mie_density_falloff(self, v: float) -> None:
-        self._param(mie_density_falloff=f32(v))
+        self._param(mie_density_falloff=float(v))
 
     def set_ozone_density_falloff(self, v: float) -> None:
-        self._param(ozone_density_falloff=f32(v))
+        self._param(ozone_density_falloff=float(v))
 
     def set_ozone_peak(self, v: float) -> None:
-        self._param(ozone_peak=f32(v))
+        self._param(ozone_peak=float(v))
 
     def set_env_map(self, env) -> None:
         """SetEnvMapFilepath (PathTracer.cpp:1137-1332): a `.npy`, `.hdr`,

@@ -115,11 +115,12 @@ def generate_primary_rays(
     pixel_xy: torch.Tensor,  # (N, 2) float pixel coordinates
     resolution,  # (width, height)
     rng_state: torch.Tensor,  # (N,) int64-held uint32
-    focus_distance: float,
-    dof_strength: float,
+    focus_distance: torch.Tensor,  # 0-d float32
+    dof_strength: torch.Tensor,  # 0-d float32
 ):
     """(state, origin, direction): two uniforms for AA jitter, then two for
-    the lens disk, as in RayGen.slang:35-50."""
+    the lens disk, as in RayGen.slang:35-50.  The lens parameters are read on
+    the device, so a captured step follows them."""
     width, height = resolution
     rng_state, jit2 = rng.next_float2(rng_state)
     pixel_center = pixel_xy + 0.5 + (jit2 - 0.5)
@@ -131,7 +132,7 @@ def generate_primary_rays(
     target = normalize(target_h[:, :3])
     direction = target @ view_inverse[:3, :3].T
 
-    focus_point = origin + direction * max(float(focus_distance), 0.001)
+    focus_point = origin + direction * torch.clamp(focus_distance, min=0.001)
     rng_state, u2 = rng.next_float2(rng_state)
     theta = (2.0 * math.pi) * u2[:, 0]
     r = torch.sqrt(u2[:, 1])

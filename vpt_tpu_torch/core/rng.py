@@ -26,12 +26,15 @@ def pcg_hash(x):
 def seed(pixel_index: torch.Tensor, sample_index, frame_seed) -> torch.Tensor:
     """Initial per-ray state from (pixel, sample within frame, frame seed).
     `sample_index` is an int, whose two hashes run on the host, or an int64
-    tensor of per-lane indices; either wraps to uint32 as JAX's does."""
+    tensor of per-lane indices; `frame_seed` an int or an int64 0-d tensor
+    (a captured step's, read on the device); each wraps to uint32 as JAX's
+    does."""
     if torch.is_tensor(sample_index):
         s = pcg_hash((sample_index.to(torch.int64) & _MASK) ^ 0x9E3779B9)
     else:
         s = pcg_hash((int(sample_index) & _MASK) ^ 0x9E3779B9)
-    f = pcg_hash((int(frame_seed) + s) & _MASK)
+    frame_seed = frame_seed.to(torch.int64) if torch.is_tensor(frame_seed) else int(frame_seed)
+    f = pcg_hash((frame_seed + s) & _MASK)
     return (pixel_index.to(torch.int64) + f) & _MASK
 
 

@@ -50,11 +50,12 @@ def unit_axis(i: int, like):
     return (torch.arange(3, device=like.device) == i).to(like.dtype)
 
 
-def rotate_axis_angle(v, axis: int, theta: float):
-    """Rodrigues rotation about unit axis `axis` (0, 1, 2) by a scalar angle."""
+def rotate_axis_angle(v, axis: int, theta: torch.Tensor):
+    """Rodrigues rotation about unit axis `axis` (0, 1, 2) by a 0-d float32
+    angle, its cosine and sine taken in float32 on the device as the JAX
+    package takes them."""
     axis = unit_axis(axis, v).expand(v.shape)
-    c = math.cos(theta)
-    s = math.sin(theta)
+    c, s = torch.cos(theta), torch.sin(theta)
     return v * c + cross(axis, v) * s + axis * dot(axis, v, keepdim=True) * (1.0 - c)
 
 
@@ -132,14 +133,14 @@ def blackbody_rgb(temperature):
     return torch.clamp(torch.stack([r, g, b], dim=-1) / 255.0, 0.0, 1.0)
 
 
-def intersect_sphere(origin, direction, center, radius: float):
+def intersect_sphere(origin, direction, center, radius: torch.Tensor):
     """Ray-sphere: (t0, t1), both -1 when missed (RTCommon.slang:174-192).
-    The radius is squared in float32, as the JAX package squares its
-    float32 parameter."""
+    The 0-d float32 radius is squared in float32, as the JAX package
+    squares its float32 parameter."""
     oc = origin - center
     a = dot3(direction, direction)
     b = 2.0 * dot3(oc, direction)
-    c = dot3(oc, oc) - float(np.float32(radius) * np.float32(radius))
+    c = dot3(oc, oc) - radius * radius
     disc = b * b - 4.0 * a * c
     sq = sqrt32(torch.clamp(disc, min=0.0))
     t0 = (-b - sq) / (2.0 * a)

@@ -29,9 +29,11 @@ pixel its one-process value bit for bit.  The segment counts are summed
 over the world the same way (pad lanes count, as in JAX).
 
 JAX caches one compiled executable per static configuration
-(`functools.lru_cache` on `_sharded_step`); the port compiles nothing per
-configuration, so it has no counterpart.  The scene is replicated on every
-rank.
+(`functools.lru_cache` on `_sharded_step`); the port's counterpart is the
+step cache of render/graphs.py, which every rank's `render_samples`
+reaches: each rank captures its loop iteration once per configuration and
+replays it, its pixels and sample offset copied into the step's buffers.
+The scene is replicated on every rank.
 """
 
 from __future__ import annotations

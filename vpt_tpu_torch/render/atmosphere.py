@@ -62,25 +62,27 @@ def ozone_density(params, height):
     return torch.exp(-(torch.abs(height - params.ozone_peak) / params.ozone_density_falloff))
 
 
-def _top_radius(params) -> float:
-    return float(np.float32(params.planet_radius) + np.float32(params.atmosphere_height))
+def _top_radius(params):
+    """The atmosphere's outer radius, summed in float32 on the device."""
+    return params.planet_radius + params.atmosphere_height
 
 
 def _channel_coeffs(params, channel):
     """Per-ray coefficients of the tracked channel, (N,) each, and the
     majorant: the densities' maxima (at sea level and at the ozone peak)
-    times the coefficients."""
+    times the coefficients.  The maxima are float32 tensor arithmetic on
+    the parameters, as the JAX package's (a zero falloff gives NaN there
+    too)."""
     c = coefficients(channel.device)
     cr = c[0][channel] * params.rayleigh_scattering_multiplier[channel]
     cm = c[1][channel] * params.mie_scattering_multiplier[channel]
     co = c[2][channel] * params.ozone_absorption_multiplier[channel]
-    with np.errstate(divide="ignore", invalid="ignore"):
-        zero = np.float32(0.0)
-        r0 = np.exp(-zero / np.float32(params.rayleigh_density_falloff))
-        m0 = np.exp(-zero / np.float32(params.mie_density_falloff))
-        peak = np.float32(params.ozone_peak)
-        o0 = np.exp(-(np.abs(peak - peak) / np.float32(params.ozone_density_falloff)))
-    majorant = float(r0) * cr + float(m0) * cm + float(o0) * co
+    zero = torch.zeros_like(params.rayleigh_density_falloff)
+    r0 = torch.exp(-zero / params.rayleigh_density_falloff)
+    m0 = torch.exp(-zero / params.mie_density_falloff)
+    peak = params.ozone_peak
+    o0 = torch.exp(-(torch.abs(peak - peak) / params.ozone_density_falloff))
+    majorant = r0 * cr + m0 * cm + o0 * co
     return cr, cm, co, majorant
 
 

@@ -40,14 +40,15 @@ def _env_bilinear(env, u, v):
     return (t00 * (1 - fx) + t10 * fx) * (1 - fy) + (t01 * (1 - fx) + t11 * fx) * fy
 
 
-def env_radiance(env, direction, azimuth_deg: float, altitude_deg: float):
-    """Miss-shader env lookup with the inverse sky rotation (RGBA)."""
+def env_radiance(env, direction, azimuth_deg, altitude_deg):
+    """Miss-shader env lookup with the inverse sky rotation (RGBA); the
+    angles are 0-d float32 tensors (the render parameters)."""
     d = rotate_axis_angle(direction, X_AXIS, -(altitude_deg / 180.0 * math.pi))
     d = rotate_axis_angle(d, Y_AXIS, -(azimuth_deg / 180.0 * math.pi))
     return _env_bilinear(env, *direction_to_uv(d))
 
 
-def importance_sample_env(state, env, azimuth_deg: float, altitude_deg: float):
+def importance_sample_env(state, env, azimuth_deg, altitude_deg):
     """Alias-map env sampling: (state, to_light (N, 3), rgba (N, 4))."""
     h, w = env.image.shape[0], env.image.shape[1]
     size = h * w
@@ -79,8 +80,7 @@ def importance_sample_env(state, env, azimuth_deg: float, altitude_deg: float):
     return state, to_light, _env_bilinear(env, u, v)
 
 
-def sample_sun_disk(state, sun_color, environment_intensity: float, azimuth_deg: float, altitude_deg: float,
-                    n: int):
+def sample_sun_disk(state, sun_color, environment_intensity, azimuth_deg, altitude_deg, n: int):
     """Sun-disk cone sampling for the atmosphere mode (Sampler.slang:430-462):
     (state, to_light (n, 3), colour (n, 3), pdf (n,)).  The float32 cone
     constants are computed on the host in float32: 1 - cos(SUN_THETA) keeps
