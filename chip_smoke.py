@@ -46,16 +46,22 @@ Phases, each of which raises on failure:
      render equal;
   7. the media path: the stream-mode Renderer with a 128^3 procedural
      cloud and a homogeneous ground haze added by `add_volume` (the merged
-     march, delta tracking, ratio-tracked NEE, HG phase), driven like
-     phase 4 but at max_depth 4 (MEDIA_FLAGS): ray_keys, supertile_tables,
-     stream and occlude must launch and visit must not; then its 128x128
-     kernel render against the plain one, PSNR > 40 dB.  The cloud comes
-     from a .vdb that write_vdb writes in blosc mode (LZ4 through the C
-     codec); placed at its origin, the grid load_grid reads equals the
-     procedural grid exactly;
+     march, delta tracking, ratio-tracked NEE, HG phase) at 512x512,
+     max_depth 4 (MEDIA_FLAGS), 4 spp, one seed, its loop captured (a
+     segment graph between its 5 media loops per iteration and a chunk
+     graph per loop) against the eager loop as phase 12 does it: after a
+     warm-up of each way, eager, captured, captured, eager, the four images
+     bitwise equal with equal segments, host syncs, media loop steps and
+     launches (ray_keys, supertile_tables, stream and occlude launch, visit
+     does not); both s/dispatch, segments/s, the replays' device time,
+     the capture seconds and graph pool bytes, and a profile of a
+     captured dispatch at PROFILE_SIZE^2, 1 spp; then its 128x128 kernel render against the plain one, PSNR >
+     40 dB.  The cloud comes from a .vdb that write_vdb writes in blosc
+     mode (LZ4 through the C codec); placed at its origin, the grid
+     load_grid reads equals the procedural grid exactly;
   8. the atmosphere path: the gallery's day setup (planet surface at
-     y = 0, sky altitude 30 degrees) under colonnade's open sky, the same
-     way;
+     y = 0, sky altitude 30 degrees) under colonnade's open sky, at depth
+     8 (7 media loops per iteration), the same way;
   9. the user's entry points on the card:
      a. the textured colonnade (9 textures, ~4.7M texels of albedo and
         normal maps) at 512x512 with a metrics log, driven like phase 4
@@ -90,7 +96,9 @@ Phases, each of which raises on failure:
         within 0.05% of render_step's at the same seed (t ties only); the
         all_reduce of the 512x512 frame timed; then the one-rank render of
         the dry run's frame (colonnade 128x128, 4 spp, depth 8, the
-        constant fit);
+        constant fit); then one dispatch of phase 7's media scene through
+        render_sharded, its loop captured, bitwise render_samples over the
+        same pixels with equal segments;
      b. dryrun_multichip(2, device="cuda"): two rank processes on the one
         card over gloo, colonnade 128x128, JAX's three checks; the (2, 1)
         and (1, 2) images agree above 60 dB with each other and with a's
@@ -118,13 +126,14 @@ Phases, each of which raises on failure:
      seed: after a warm-up of each way, eager, captured, captured, eager;
      the four images bitwise equal with equal segments, host syncs and
      launches (set to 0 just before each dispatch); both s/dispatch,
-     segments/s, the capture seconds and graph pool bytes, and one
+     segments/s, the device time in one captured dispatch's graph replays
+     (CUDA event pairs) and its busy share, the capture seconds and graph
+     pool bytes, and one
      torch.profiler trace of a captured dispatch and, but for the sharded
      path, of an eager one: kernel launches, device time and busy share
      (device time over the unprofiled s/dispatch), the top kernels; one
-     JSON line "graphs".
-Every drive of phases 4-11 says whether its loop ran captured (every path
-without media) or eagerly (the media and atmosphere paths, by rule); the
+     JSON line "graphs" with phases 7 and 8's rows first.
+Every drive of phases 4-11 checks that its loop ran captured; the
 plain-version renders run eagerly.
 The last lines are the card's name and power limit, the kernel table as
 JSON and {"ok": true, ...}.  Without a CUDA device the script exits
@@ -235,6 +244,10 @@ TIMED_DISPATCHES = 2
 # The media path at depth 4 (the others at 8): its dispatch is tens of seconds
 # of host-bound loop steps, and the script stays within its time.
 MEDIA_FLAGS = RenderFlags(max_depth=4, max_medium_events=8)
+# The captured media and atmosphere dispatches are profiled at this size,
+# 1 spp: a media dispatch issues ~300 kernels per loop step whatever its
+# size, and a trace of millions of events takes minutes to gather.
+PROFILE_SIZE = 64
 PEAK_FLOPS = 67e12  # H100 SXM, FP32 outside the tensor cores
 PEAK_BYTES = 3.35e12  # H100 SXM, HBM3
 SLAB_OPS = 24  # 6 subtractions, 6 products, 12 min / max
@@ -737,8 +750,7 @@ def drive(r: Renderer, label: str):
             steps.append(r.last_media_steps)
     launches = dict(kernels.LAUNCHES)
     loop = "captured" if replayed else "eager"
-    check(loop == ("eager" if integrator.uses_media(r.meta, r.flags) else "captured"),
-          f"the {label} loop ran {loop}: captured without media, eagerly with media")
+    check(loop == "captured", f"the {label} loop ran {loop}: captured")
     img = r.hdr_image()
     s_per = statistics.median(dts)
     log(f"{label} render {r.meta.name} {W}x{H} depth {r.flags.max_depth}, {r.samples_per_frame} spp/dispatch, "
@@ -751,17 +763,22 @@ def drive(r: Renderer, label: str):
     return launches, s_per, statistics.median(segs)
 
 
-def profile_dispatch(dispatch, label: str, wall_s: float) -> dict:
+def profile_dispatch(dispatch, label: str, wall_s: float = None) -> dict:
     """One torch.profiler trace of `dispatch()`'s device activity (CUDA
     only: tracing an eager dispatch's ~100K host ops costs tens of seconds)
     after an unprofiled one: device events (kernels, copies, fills), their
     summed time, the busy share against the unprofiled s/dispatch `wall_s`
-    of this call and against the profiled device span, and the top kernels.
-    Returns the events, device ms and busy share."""
+    of this call (by default that of an unprofiled dispatch after the
+    first, which may capture) and against the profiled device span, and the
+    top kernels.  Returns the events, device ms and busy share."""
     from torch.profiler import ProfilerActivity, profile
 
-    dispatch()
-    torch.cuda.synchronize()
+    for _ in range(1 if wall_s is not None else 2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        dispatch()
+        torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0 if wall_s is None else wall_s
     t0 = time.perf_counter()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         dispatch()
@@ -784,7 +801,7 @@ def profile_dispatch(dispatch, label: str, wall_s: float) -> dict:
         f"the csrc kernels {sum(ms for _, ms, _ in ours):.1f} ms: "
         + ", ".join(f"{name} {ms:.1f} ms x{n}" for name, ms, n in ours)
         + "; top: " + "; ".join(f"{name[:80]} {ms:.1f} ms x{n}" for name, (ms, n) in top))
-    return {"device_events": len(events), "device_ms": busy_ms, "busy": busy_ms / (1e3 * wall_s)}
+    return {"device_events": len(events), "device_ms": busy_ms, "busy": busy_ms / (1e3 * wall_s), "wall_s": wall_s}
 
 
 @contextlib.contextmanager
@@ -998,10 +1015,12 @@ DRYRUN_SIZE = 128  # 10b's frame, and a's one-rank render of it
 DRYRUN_DEPTH = 8
 
 
-def sharded_path(dev, r: Renderer, stream_s: float, table) -> None:
+def sharded_path(dev, r: Renderer, stream_s: float, table, media_r: Renderer) -> None:
     """Phase 10: render_sharded on a one-rank nccl group beside phase 4's
-    Renderer `r` (s/dispatch `stream_s`), then the two-rank dry run on the
-    card over gloo against a one-rank render of its frame."""
+    Renderer `r` (s/dispatch `stream_s`), and one dispatch of phase 7's
+    media Renderer `media_r` through it against render_samples; then the
+    two-rank dry run on the card over gloo against a one-rank render of its
+    frame."""
     t_phase = time.perf_counter()
     seed, n_spp = 2654435761, r.samples_per_frame
     args = (r.scene_data, r.meta, r.flags, r.params, (W, H))
@@ -1043,8 +1062,24 @@ def sharded_path(dev, r: Renderer, stream_s: float, table) -> None:
             small, _ = dmesh.render_sharded(small_data, meta, flags, default_params(dev, *cameras),
                                             (DRYRUN_SIZE, DRYRUN_SIZE), 99, 4, m)
             small = small.cpu().numpy()
+            # One media dispatch through the sharded path, its loop captured.
+            media_args = (media_r.scene_data, media_r.meta, media_r.flags, media_r.params, (W, H))
+            with counted_replays() as replayed:
+                t0 = time.perf_counter()
+                m_img, m_segs = dmesh.render_sharded(*media_args, seed, n_spp, m)
+                m_segs = int(m_segs)
+                m_s = time.perf_counter() - t0
+            m_want, m_want_segs, m_stats = integrator.render_samples(
+                *media_args[:4], torch.as_tensor(pxy, device=dev), torch.as_tensor(pidx, device=dev), (W, H), seed,
+                n_spp)
+            m_equal = torch.equal(m_img, m_want.reshape(H, W, 3))
         finally:
             dist.destroy_process_group()
+    log(f"sharded media dispatch, one nccl rank: {m_s:.3f} s, loop {'captured' if replayed else 'eager'}, "
+        f"{m_segs} segments against render_samples' {int(m_want_segs)} ({m_stats.steps} media loop steps), "
+        f"image bitwise equal {m_equal}")
+    check(len(replayed) > 0, "the sharded media dispatch replays its captured step")
+    check(m_equal and m_segs == int(m_want_segs), "the sharded media dispatch equals render_samples, bit for bit")
     img_np, want_np = img.cpu().numpy(), want.cpu().numpy()
     p = dryrun.psnr_peak(want_np, img_np)
     s_per = statistics.median(dts)
@@ -1077,71 +1112,111 @@ GRAPH_SEED = 2654435761  # phase 12's dispatches, all at one seed
 
 def captured_or_eager(dispatch, captured: bool) -> dict:
     """One dispatch with the loop captured or eager: its image, segments,
-    host syncs, launches (set to 0 just before) and host seconds."""
+    host syncs, media loop steps, launches (set to 0 just before) and host
+    seconds."""
     torch.cuda.synchronize()
     kernels.reset_launches()
     t0 = time.perf_counter()
     with mock.patch.object(graphs, "CAPTURE", captured):
-        img, segs, syncs = dispatch()
+        img, segs, stats = dispatch()
         segs = int(segs)  # waits for the dispatch
-    return {"img": img, "segments": segs, "syncs": syncs, "launches": dict(kernels.LAUNCHES),
-            "s": time.perf_counter() - t0}
+    return {"img": img, "segments": segs, "syncs": stats.syncs, "media_steps": stats.steps,
+            "launches": dict(kernels.LAUNCHES), "s": time.perf_counter() - t0}
 
 
-def graph_turns(label: str, dispatch, profile_eager: bool = True) -> dict:
-    """Phase 12 for one path: a warm-up of each way (the captured one
-    captures where its step has no graph yet), then eager, captured,
+def replay_device_time(dispatch) -> tuple:
+    """One captured dispatch with a CUDA event pair around every graph
+    replay: (its host seconds, the summed device ms of its replays).  The
+    host waits for the device at each flag read, so the pairs do not
+    overlap, and each holds its graph's launch latency as well."""
+    pairs, replay = [], graphs.replay
+
+    def timed(graph, launches):
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        replay(graph, launches)
+        b.record()
+        pairs.append((a, b))
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with mock.patch.object(graphs, "replay", timed), mock.patch.object(graphs, "CAPTURE", True):
+        int(dispatch()[1])
+    wall = time.perf_counter() - t0
+    return wall, sum(a.elapsed_time(b) for a, b in pairs)
+
+
+def stepper(r: Renderer, size: int = W, n_samples: int = None):
+    """render_step of the Renderer's scene, flags and parameters at one seed
+    (GRAPH_SEED), size x size, from a zero accumulation: (image, segments,
+    LoopStats)."""
+    zeros = torch.zeros((size, size, 3), device=r.device)
+
+    def dispatch():
+        return render_step(r.scene_data, r.meta, r.flags, r.params, GRAPH_SEED, (size, size), zeros, 0,
+                           n_samples or r.samples_per_frame)
+    return dispatch
+
+
+def graph_turns(label: str, dispatch, profile_eager: bool = True, small=None) -> dict:
+    """One path captured against eager: a warm-up of each way (the captured
+    one captures where its step has no graphs yet), then eager, captured,
     captured, eager.  The four images must be bitwise equal, with equal
-    segments, host syncs and launches; prints both s/dispatch, segments/s,
-    the step's capture seconds and graph pool bytes, and a profile of a
-    captured dispatch and, with `profile_eager`, of an eager one."""
+    segments, host syncs, media loop steps and launches; prints both
+    s/dispatch, segments/s, the device time in one captured dispatch's
+    graph replays (CUDA events) and its share of that dispatch's wall, the
+    step's loop sites, capture seconds and graph pool bytes, and a profile of a captured dispatch and, with
+    `profile_eager`, of an eager one.  `small` = (dispatch, size label):
+    profile that captured dispatch instead (a media dispatch is millions of
+    device events)."""
     captured_or_eager(dispatch, False)
     with counted_replays() as replayed:
         captured_or_eager(dispatch, True)
     check(len(replayed) > 0, f"{label}: the captured dispatch replays a graph")
-    step = next(st for st in graphs.steps() if st.graph is replayed[-1])
+    step = next(st for st in graphs.steps() if any(g is replayed[-1] for g, _ in st.segments))
     runs = [captured_or_eager(dispatch, way) for way in (False, True, True, False)]
     first = runs[0]
     for run_ in runs[1:]:
         check(torch.equal(run_["img"], first["img"]), f"{label}: captured and eager images bitwise equal")
-        check(run_["segments"] == first["segments"] and run_["syncs"] == first["syncs"]
-              and run_["launches"] == first["launches"],
-              f"{label}: captured and eager segments, host syncs and launches equal")
+        check(all(run_[k] == first[k] for k in ("segments", "syncs", "media_steps", "launches")),
+              f"{label}: captured and eager segments, host syncs, media loop steps and launches equal")
     check(bool(torch.isfinite(first["img"]).all()) and float(first["img"].mean()) > 0.0,
           f"{label}: the image is finite with mean > 0")
     eager = [r_["s"] for r_ in (runs[0], runs[3])]
     captured = [r_["s"] for r_ in (runs[1], runs[2])]
     e_s, c_s = statistics.median(eager), statistics.median(captured)
+    timed_s, replay_ms = replay_device_time(dispatch)
     profiles = {}
-    for way, wall in (("eager", e_s), ("captured", c_s))[0 if profile_eager else 1:]:
-        with mock.patch.object(graphs, "CAPTURE", way == "captured"):
-            profiles[way] = profile_dispatch(dispatch, f"{label} {way}", wall)
+    if small is None:
+        for way, wall in (("eager", e_s), ("captured", c_s))[0 if profile_eager else 1:]:
+            with mock.patch.object(graphs, "CAPTURE", way == "captured"):
+                profiles[way] = profile_dispatch(dispatch, f"{label} {way}", wall)
+    else:
+        with mock.patch.object(graphs, "CAPTURE", True):
+            profiles["captured_" + small[1]] = profile_dispatch(small[0], f"{label} captured at {small[1]}")
     row = {"path": label, "eager_s": eager, "captured_s": captured, "segments": first["segments"],
-           "syncs": first["syncs"], "launches": first["launches"], "eager_segments_per_s": first["segments"] / e_s,
-           "captured_segments_per_s": first["segments"] / c_s, "capture_s": step.capture_seconds,
-           "pool_bytes": step.pool_bytes, "graph_launches_per_replay": step.launches, "profiles": profiles}
+           "syncs": first["syncs"], "media_steps": first["media_steps"], "launches": first["launches"],
+           "eager_segments_per_s": first["segments"] / e_s, "captured_segments_per_s": first["segments"] / c_s,
+           "replay_device_ms": replay_ms, "replay_busy": replay_ms / (1e3 * timed_s),
+           "sites": len(step.sites), "capture_s": step.capture_seconds, "pool_bytes": step.pool_bytes,
+           "graph_launches_per_replay": [launches for _, launches in step.segments], "profiles": profiles}
     log(f"graphs {label}: eager {eager} s, captured {captured} s per dispatch (eager, captured, captured, eager): "
         f"{e_s / c_s:.2f}x; {first['segments']} segments/dispatch, {first['segments'] / e_s:.0f} -> "
-        f"{first['segments'] / c_s:.0f} segments/s; host syncs {first['syncs']}; launches {first['launches']}; "
-        f"images bitwise equal; capture {step.capture_seconds:.3f} s, graph pool {step.pool_bytes} bytes; "
-        f"kernel launches per replay {step.launches}")
+        f"{first['segments'] / c_s:.0f} segments/s; device time in the graph replays {replay_ms:.1f} ms of a "
+        f"{timed_s:.3f} s dispatch ({100 * replay_ms / (1e3 * timed_s):.1f}% busy); host syncs {first['syncs']}; "
+        f"media loop steps "
+        f"{first['media_steps']}; launches {first['launches']}; images bitwise equal; {len(step.sites)} loop sites, "
+        f"{len(step.segments)} segment graphs; capture {step.capture_seconds:.3f} s, graph pool {step.pool_bytes} "
+        f"bytes; kernel launches per replay of each segment {row['graph_launches_per_replay']}")
     return row
 
 
-def graph_phase(dev, stream_r: Renderer, smi: str) -> None:
+def graph_phase(dev, stream_r: Renderer, smi: str, media_rows: list) -> None:
     """Phase 12: the captured loop against the eager one in the stream,
-    packet, textured and sharded paths (colonnade 512x512, depth 8, 4 spp)."""
+    packet, textured and sharded paths (colonnade 512x512, depth 8, 4 spp);
+    its JSON line also holds phases 7 and 8's rows (`media_rows`)."""
     t_phase = time.perf_counter()
-    zeros = torch.zeros((H, W, 3), device=dev)
-
-    def stepper(r: Renderer):
-        def dispatch():
-            img, segs, stats = render_step(r.scene_data, r.meta, r.flags, r.params, GRAPH_SEED, (W, H), zeros, 0,
-                                           r.samples_per_frame)
-            return img, segs, stats.syncs
-        return dispatch
-
-    rows = [graph_turns("stream", stepper(stream_r))]
+    rows = media_rows + [graph_turns("stream", stepper(stream_r))]
     with mock.patch.object(integrator, "TRACE_MODE", "packet"):
         rows.append(graph_turns("packet", stepper(stream_r)))
     textured = Renderer(colonnade_textured(), width=W, height=H, flags=stream_r.flags, samples_per_frame=4,
@@ -1166,7 +1241,7 @@ def graph_phase(dev, stream_r: Renderer, smi: str) -> None:
                 with mock.patch.object(integrator, "render_samples", spy):
                     img, segs = dmesh.render_sharded(r.scene_data, r.meta, r.flags, r.params, (W, H), GRAPH_SEED,
                                                      r.samples_per_frame, m)
-                return img, segs, stats[0].syncs
+                return img, segs, stats[0]
 
             rows.append(graph_turns("sharded", sharded, profile_eager=False))
         finally:
@@ -1466,7 +1541,11 @@ def run(dev, smi: str, other_builds=()) -> None:
     r.add_volume(Volume(corner_min=(-17, 0, -7), corner_max=(17, 1.5, 7), density=0.05, color=(0.9, 0.9, 0.9)))
     log(f"media Renderer with two volumes: {time.perf_counter() - t0:.1f} s; n_volumes {r.meta.n_volumes}, "
         f"n_het_volumes {r.meta.n_het_volumes}, grids {tuple(r.scene_data.volumes.density_grids.shape)}")
-    check_stream_launches(drive(r, "media")[0], "media")
+    media_r = r
+    t0 = time.perf_counter()
+    media_rows = [graph_turns("media", stepper(r), small=(stepper(r, PROFILE_SIZE, 1), f"{PROFILE_SIZE}^2 1 spp"))]
+    check_stream_launches(media_rows[-1]["launches"], "media")
+    log(f"phase 7 (the media path, captured against eager): {time.perf_counter() - t0:.1f} s")
     kernel_vs_plain_render(r.scene_data, r.meta, r.flags, square, dev, "media")
 
     # 8. The atmosphere path: the day setup of scripts/gallery.py.
@@ -1474,7 +1553,11 @@ def run(dev, smi: str, other_builds=()) -> None:
     r.set_enable_atmosphere(True)
     r.set_planet_position((0.0, -6360e3, 0.0))
     r.set_sky_altitude(30.0)
-    check_stream_launches(drive(r, "atmosphere")[0], "atmosphere")
+    t0 = time.perf_counter()
+    media_rows.append(graph_turns("atmosphere", stepper(r), small=(stepper(r, PROFILE_SIZE, 1),
+                                                                   f"{PROFILE_SIZE}^2 1 spp")))
+    check_stream_launches(media_rows[-1]["launches"], "atmosphere")
+    log(f"phase 8 (the atmosphere path, captured against eager): {time.perf_counter() - t0:.1f} s")
     kernel_vs_plain_render(r.scene_data, r.meta, r.flags, square._replace(sky_rotation_altitude=scalar(30.0, dev),
                                                                           planet_position=r.params.planet_position),
                            dev, "atmosphere")
@@ -1483,13 +1566,13 @@ def run(dev, smi: str, other_builds=()) -> None:
     entry_points(dev, smi, flags, square, stream_s, stream_segs)
 
     # 10. The sharded path.
-    sharded_path(dev, stream_r, stream_s, table)
+    sharded_path(dev, stream_r, stream_s, table, media_r)
 
     # 11. The image decoders.
     image_decoders(dev, smi, table)
 
     # 12. The captured loop against the eager one.
-    graph_phase(dev, stream_r, smi)
+    graph_phase(dev, stream_r, smi, media_rows)
 
     print(smi)
     print(json.dumps({"kernels": list(table.values())}))

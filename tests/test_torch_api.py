@@ -256,6 +256,14 @@ def test_renderer_parameters_follow_the_jax_package():
     assert port["device"].kind is inspect.Parameter.KEYWORD_ONLY and port["device"].default == "cuda"
 
 
+def test_render_flags_follow_the_jax_package():
+    """The port's RenderFlags has the JAX package's fields, in its order, with
+    its defaults (samples_per_launch included)."""
+    port = [(f.name, f.default) for f in dataclasses.fields(RenderFlags)]
+    assert port == [(f.name, f.default) for f in dataclasses.fields(JFlags)]
+    assert RenderFlags(samples_per_launch=4) != RenderFlags()
+
+
 @pytest.fixture(scope="module")
 def renderers():
     r = Renderer(tproc.cornell_box(), device="cpu", width=12, height=8, flags=RenderFlags(**FLAGS),

@@ -366,6 +366,64 @@ def test_captured_dispatches_equal_eager_ones(cuda, name, size, mode):
     assert len(steps) == 1 and steps[0].captures == 1 and steps[0].replays > 0
 
 
+@pytest.mark.parametrize("case", ["cloud_and_haze", "atmosphere", "both"])
+def test_captured_media_dispatches_equal_eager_ones(cuda, case):
+    """A configuration with volumes, the atmosphere or both, captured (a
+    segment graph between its media loops and a chunk graph per loop)
+    against the eager loop over two dispatches with different parameters:
+    images bitwise, segments, media loop steps, host syncs and kernel
+    launches equal; one capture serves both dispatches."""
+    import dataclasses
+    from unittest import mock
+
+    from vpt_tpu_torch.api import render_step
+    from vpt_tpu_torch.core.camera import look_at, perspective
+    from vpt_tpu_torch.render import graphs
+    from vpt_tpu_torch.render.params import RenderFlags, default_params, scalar, vec3
+    from vpt_tpu_torch.scene.build import build_volume_table, compile_scene
+    from vpt_tpu_torch.scene.procedural import colonnade
+    from vpt_tpu_torch.scene.types import Volume
+    from vpt_tpu_torch.scene.vdb import procedural_cloud
+
+    data, meta, aux = compile_scene(colonnade(n_columns=2, column_res=(24, 8)), cuda)
+    if case != "atmosphere":
+        vols = [Volume(corner_min=(-6, 3, -4), corner_max=(6, 9, 4), density=8.0, anisotropy=0.3,
+                       density_grid=procedural_cloud((32, 32, 32), coverage=0.6)),
+                Volume(corner_min=(-17, 0, -7), corner_max=(17, 1.5, 7), density=0.05, color=(0.9, 0.9, 0.9))]
+        data = data._replace(volumes=tree_to_device(build_volume_table(vols), cuda))
+        meta = dataclasses.replace(meta, n_volumes=2, n_het_volumes=1)
+    flags = RenderFlags(max_depth=3, max_medium_events=4, enable_atmosphere=case != "cloud_and_haze")
+    proj_inv = np.linalg.inv(perspective(np.radians(aux["camera_fov_deg"]), 1.0))
+    views = [np.linalg.inv(aux["camera_view"]), np.linalg.inv(look_at((3.0, 4.0, 18.0), (0.0, 3.0, 0.0), (0, 1, 0)))]
+
+    def dispatches(capture: bool):
+        accum, out = torch.zeros((64, 64, 3), device=cuda), []
+        kernels.reset_launches()
+        with mock.patch.object(graphs, "CAPTURE", capture):
+            for i, (view_inv, seed) in enumerate(zip(views, (2654435761, 99))):
+                params = default_params(cuda, view_inv, proj_inv)._replace(
+                    planet_position=vec3((0.0, -6360e3, 0.0), cuda), sky_rotation_altitude=scalar(30.0, cuda))
+                accum, segs, stats = render_step(data, meta, flags, params, seed, (64, 64), accum, i, 2)
+                out.append((accum.clone(), int(segs), dataclasses.astuple(stats)))
+        torch.cuda.synchronize()
+        return out, dict(kernels.LAUNCHES)
+
+    graphs.clear()
+    try:
+        eager, eager_launches = dispatches(False)
+        captured, captured_launches = dispatches(True)
+        (step,) = graphs.steps()
+    finally:
+        graphs.clear()
+    for (a, sa, la), (b, sb, lb) in zip(eager, captured):
+        assert torch.equal(a, b) and sa == sb and la == lb
+    assert not torch.equal(eager[0][0], eager[1][0]) and eager[0][2][1] > 0
+    assert eager_launches == captured_launches and captured_launches["stream"] > 0
+    assert step.captures == 1 and step.replays > 0
+    assert len(step.sites) == {"cloud_and_haze": 5, "atmosphere": 7, "both": 16}[case]
+    assert len(step.segments) == len(step.sites) + 1
+
+
 def test_a_sync_in_the_body_makes_the_capture_raise(cuda):
     """A host synchronisation inside the loop body cannot be captured: the
     dispatch raises, and nothing falls back to an eager loop.  (Last in the
@@ -391,6 +449,6 @@ def test_a_sync_in_the_body_makes_the_capture_raise(cuda):
         with mock.patch.object(integrator, "body", syncing_body), pytest.raises(RuntimeError):
             render_step(data, meta, RenderFlags(max_depth=2), default_params(cuda), 7, (16, 16),
                         torch.zeros((16, 16, 3), device=cuda), 0, 1)
-        assert graphs.steps()[0].graph is None
+        assert not graphs.steps()[0].segments
     finally:
         graphs.clear()

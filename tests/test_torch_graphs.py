@@ -13,18 +13,19 @@
   (test_torch_render.py's bar: PSNR > 40 dB on [0, 10], 99% of pixels
   within rtol 1e-3 / atol 1e-4, segments within 1%) and equals, bit for bit,
   a step built fresh for it.
-* The same two dispatches through the capture path's buffers, with a stub
-  graph whose replay runs the captured function again (the CPU has no
-  graphs): bitwise the eager dispatches, one capture, every later
-  iteration a replay.
+* The same two dispatches through the capture path, with a tape in place
+  of each CUDA graph (the CPU has no graphs; `Tape`): the captured Python
+  runs once, and a replay runs the recorded aten ops again on the same
+  tensors: bitwise the eager dispatches, one capture, every later
+  iteration a replay.  A media configuration captures too.
 * The cache: a new scene, resolution, flags, sample count or trace mode
   adds an entry, new parameters do not, and a ninth entry evicts the first.
 * Launch accounting, with a stub graph: capturing counts nothing, each
-  replay adds the launches counted while capturing.
+  replay adds the launches counted while capturing; a failed capture
+  restores the counts and raises.
 """
 
 import contextlib
-import dataclasses
 import functools
 from unittest import mock
 
@@ -33,6 +34,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from torch.utils._python_dispatch import TorchDispatchMode
 
 from test_torch_render import SEED, _assert_images_agree
 from vpt_tpu.api import _render_step
@@ -124,6 +126,116 @@ def sync_guard():
         stack.enter_context(mock.patch.object(torch.Tensor, "__setitem__", setitem))
         for module, name in PLAIN:
             stack.enter_context(mock.patch.object(module, name, lifted(getattr(module, name))))
+        yield
+
+
+class Tape(TorchDispatchMode):
+    """A CUDA graph's stand-in on the CPU.  While it is entered, every aten op
+    is recorded with its arguments and its outputs and run, but for the ops
+    that write a tensor (in place or `out=`), which capturing does not run;
+    `replay` runs all ops again in order on the same tensor objects and
+    writes each fresh result into the recorded output (a view or an
+    in-place result already is it).  So the Python that made the ops runs
+    once, a Python number read at capture stays what it was, and a replay
+    reads and writes the same tensors, as a graph's replay reads and writes
+    the same addresses.  A plain kernel version (data-dependent shapes
+    inside) is recorded as one call (`taped`)."""
+
+    current = None
+
+    def __init__(self):
+        super().__init__()
+        self.nodes = []
+        self.paused = False
+
+    def __enter__(self):
+        Tape.current = self
+        return super().__enter__()
+
+    def __exit__(self, *exc):
+        Tape.current = None
+        return super().__exit__(*exc)
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        kwargs = kwargs or {}
+        if self.paused:
+            return func(*args, **kwargs)
+        if func._schema.is_mutable:  # capturing writes nothing: the op's tensor comes back as it was
+            out = _written(func, args, kwargs)
+        else:
+            out = func(*args, **kwargs)
+        self.nodes.append((func, args, kwargs, out))
+        return out
+
+    def call(self, fn, args, kwargs):
+        self.paused = True
+        try:
+            out = fn(*args, **kwargs)
+        finally:
+            self.paused = False
+        self.nodes.append((fn, args, kwargs, out))
+        return out
+
+    def replay(self):
+        for fn, args, kwargs, out in self.nodes:
+            _store(out, fn(*args, **kwargs))
+
+
+def _written(func, args, kwargs):
+    """The argument that an in-place or out= op writes and returns."""
+    for i, arg in enumerate(func._schema.arguments):
+        if arg.alias_info is not None and arg.alias_info.is_write:
+            return kwargs[arg.name] if arg.name in kwargs else args[i]
+    raise NotImplementedError(f"{func} writes no argument of its own")
+
+
+def _store(recorded, fresh):
+    if torch.is_tensor(recorded):
+        if recorded.untyped_storage().data_ptr() != fresh.untyped_storage().data_ptr():
+            recorded.copy_(fresh)
+    elif isinstance(recorded, (tuple, list)):
+        for r, f in zip(recorded, fresh):
+            _store(r, f)
+
+
+class TapeRecorder(graphs.Recorder):
+    """graphs.Recorder with a Tape for each graph; with `guard`, each graph's
+    capture runs under sync_guard."""
+
+    guard = False
+
+    def _begin_graph(self):
+        stack = contextlib.ExitStack()
+        if self.guard:
+            stack.enter_context(sync_guard())
+        tape = stack.enter_context(Tape())
+        return tape, stack
+
+    def _end_graph(self, opened):
+        tape, stack = opened
+        stack.close()
+        return tape
+
+
+@contextlib.contextmanager
+def taped(guard: bool = False):
+    """The capture path on the CPU: every device capturable (unless
+    graphs.CAPTURE is False), each graph a Tape, each plain kernel version
+    one call on the tape."""
+
+    def opaque(fn):
+        @functools.wraps(fn)
+        def run(*args, **kwargs):
+            tape = Tape.current
+            return fn(*args, **kwargs) if tape is None else tape.call(fn, args, kwargs)
+        return run
+
+    with contextlib.ExitStack() as stack:
+        stack.enter_context(mock.patch.object(graphs, "capturable", lambda device: graphs.CAPTURE))
+        stack.enter_context(mock.patch.object(graphs, "Recorder", TapeRecorder))
+        stack.enter_context(mock.patch.object(TapeRecorder, "guard", guard))
+        for module, name in PLAIN:
+            stack.enter_context(mock.patch.object(module, name, opaque(getattr(module, name))))
         yield
 
 
@@ -249,11 +361,21 @@ def test_body_is_sync_free(scene, mode):
         assert out[k] is start[k]
 
 
-def test_media_runs_eagerly_by_rule(scene):
-    _, _, aux, tdata, tmeta = scene
-    assert not integrator.uses_media(tmeta, RenderFlags())
-    assert integrator.uses_media(tmeta, RenderFlags(enable_atmosphere=True))
-    assert integrator.uses_media(dataclasses.replace(tmeta, n_volumes=1), RenderFlags())
+def test_media_is_captured_on_a_capturable_device(cornell):
+    """dispatch_step captures a configuration with volumes or the
+    atmosphere as it captures one without (graphs.CAPTURE False keeps it
+    eager): one segment more than its loop sites."""
+    tdata, tmeta, aux = cornell
+    tp = default_params("cpu", *_cameras(aux))
+    pxy, pidx, _, _ = tiled_pixels(8, 8, "cpu")
+    flags = RenderFlags(max_depth=1, max_medium_events=1, enable_atmosphere=True)
+    with taped():
+        integrator.path_trace_sample(tdata, tmeta, flags, tp, pxy, pidx, (8, 8), 5)
+        with mock.patch.object(graphs, "CAPTURE", False):
+            eager = integrator.dispatch_step(tdata, tmeta, flags, tp, pxy, pidx, (8, 8), 5)
+    step = graphs.steps()[0]
+    assert step.captures == 1 and len(step.sites) > 0 and len(step.segments) == len(step.sites) + 1
+    assert eager is step and not step._capture
 
 
 # ------------------------------------------------- one step, many dispatches
@@ -298,22 +420,12 @@ def test_one_step_equals_a_fresh_step(scene, two_dispatches):
 
 
 def test_captured_buffers_equal_eager_dispatches(scene, two_dispatches):
-    """The capture path on the CPU, its graph a stub that reruns the
-    captured function on replay."""
-
-    class ReplayingGraph:
-        def __init__(self, fn):
-            self.fn = fn
-
-        def replay(self):
-            self.fn()
-
-    with mock.patch.object(graphs, "capturable", lambda device: True), \
-            mock.patch.object(graphs, "_record", ReplayingGraph):
+    """The capture path on the CPU, each graph a Tape."""
+    with taped():
         out, step = _two_dispatches(scene)
     for (got, segs), (want, want_segs) in zip(out, two_dispatches[0]):
         assert torch.equal(got, want) and segs == want_segs
-    assert step.captures == 1 and step.replays > 0 and step.graph is not None
+    assert step.captures == 1 and step.replays > 0 and len(step.segments) == 1 and not step.sites
 
 
 # ----------------------------------------------------------------- the cache
@@ -348,12 +460,14 @@ def test_new_params_seed_or_offset_reuse_the_step(cornell):
     assert int(step.inputs["frame_seed"]) == 99 and int(step.inputs["sample_offset"]) == 7
 
 
-@pytest.mark.parametrize("change", ["scene", "resolution", "flags", "n_samples", "trace_mode"])
+@pytest.mark.parametrize("change", ["scene", "resolution", "flags", "samples_per_launch", "n_samples", "trace_mode"])
 def test_a_new_configuration_adds_an_entry(cornell, change):
     tdata, _, _ = cornell
     first = _step(cornell)
     kw = {"scene": dict(data=tdata._replace(tri_p0=tdata.tri_p0.clone())), "resolution": dict(size=16),
-          "flags": dict(flags=RenderFlags(max_depth=3)), "n_samples": dict(n_samples=2)}.get(change, {})
+          "flags": dict(flags=RenderFlags(max_depth=3)),
+          "samples_per_launch": dict(flags=RenderFlags(max_depth=2, samples_per_launch=2)),
+          "n_samples": dict(n_samples=2)}.get(change, {})
     with mock.patch.object(integrator, "TRACE_MODE", "packet" if change == "trace_mode" else integrator.TRACE_MODE):
         second = _step(cornell, **kw)
     assert second is not first and len(graphs.steps()) == 2
@@ -376,19 +490,25 @@ class StubGraph:
         StubGraph.replays += 1
 
 
+class StubRecorder(graphs.Recorder):
+    def _begin_graph(self):
+        return None
+
+    def _end_graph(self, opened):
+        return StubGraph()
+
+
 def test_capture_takes_back_the_counts_and_replays_add_them():
     def iteration():  # what the wrappers count while an iteration is captured
         kernels.LAUNCHES["ray_keys"] += 2
         kernels.LAUNCHES["stream"] += 1
 
-    def record(fn):
-        fn()
-        return StubGraph()
-
     kernels.reset_launches()
     kernels.LAUNCHES["occlude"] = 5
-    with mock.patch.object(graphs, "_record", record):
-        graph, launches = graphs.capture(iteration)
+    rec = StubRecorder()
+    rec.begin()
+    iteration()
+    graph, launches = rec.end()
     assert kernels.LAUNCHES == {"ray_keys": 0, "supertile_tables": 0, "stream": 0, "occlude": 5, "visit": 0}
     assert launches == {"ray_keys": 2, "supertile_tables": 0, "stream": 1, "occlude": 0, "visit": 0}
     for _ in range(3):
@@ -399,14 +519,21 @@ def test_capture_takes_back_the_counts_and_replays_add_them():
 
 
 def test_a_failed_capture_restores_the_counts_and_raises():
-    def record(fn):
-        fn()
-        raise RuntimeError("operation not permitted when stream is capturing")
+    class Failing(StubRecorder):
+        def _end_graph(self, opened):
+            raise RuntimeError("operation not permitted when stream is capturing")
 
     kernels.reset_launches()
-    with mock.patch.object(graphs, "_record", record), pytest.raises(RuntimeError, match="capturing"):
-        graphs.capture(lambda: kernels.LAUNCHES.__setitem__("visit", 4))
+    rec = Failing()
+    rec.begin()
+    kernels.LAUNCHES["visit"] = 4
+    with pytest.raises(RuntimeError, match="capturing"):
+        rec.end()
     assert all(v == 0 for v in kernels.LAUNCHES.values())
+    rec.begin()
+    kernels.LAUNCHES["visit"] = 4
+    rec.abort()  # an error's open capture: ended, its error dropped, the counts restored
+    assert all(v == 0 for v in kernels.LAUNCHES.values()) and rec._open is None
 
 
 def test_write_clones_outputs_that_alias_another_buffer():

@@ -66,8 +66,8 @@ def render_step(scene_data, meta, flags, params, frame_seed: int, resolution, ac
                 n_samples: int):
     """One dispatch: (new accumulation (H, W, 3), segments traced as an int64
     device scalar, LoopStats of the media loops with the dispatch's host
-    synchronisations).  On a CUDA device without media each loop iteration
-    is one replay of the configuration's captured step (render/graphs.py)."""
+    synchronisations).  On a CUDA device each loop iteration replays the
+    configuration's captured step (render/graphs.py)."""
     width, height = resolution
     pxy, pidx, sct, padded = tiled_pixels(width, height, accum.device)
     radiance, segments, stats = integrator.render_samples(

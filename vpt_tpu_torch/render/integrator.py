@@ -16,9 +16,12 @@ device, one synchronisation per iteration; the media loops add theirs
 
 The loop is `prologue` (the carry at the start), `body` (one iteration)
 and a fold of the paths the iteration cap cut.  The body is a function of
-device buffers only, so on a CUDA device without media each iteration is
-one replay of a CUDA graph captured once per configuration, as the JAX
-package compiles its step once (`dispatch_step`, render/graphs.py).
+device buffers only, so on a CUDA device each iteration replays CUDA
+graphs captured once per configuration, as the JAX package compiles its
+step once (`dispatch_step`, render/graphs.py): one graph without media,
+and with volumes or the atmosphere a graph per segment between the media
+loops and a chunk graph per loop, which the host replays while the loop's
+flag holds.
 
 Large scenes trace through the cluster tables in one of two modes, read
 from `VPT_TRACE` once at import as in the JAX package: "stream" (default;
@@ -157,10 +160,12 @@ def body(scene, meta, flags: RenderFlags, resolution, n_samples: int, carry: dic
     event.  It reads Python values only from the configuration (the scene,
     `meta`, `flags`, the resolution, `n_samples`, the lane count and
     TRACE_MODE) and per-dispatch values only from the device tensors of
-    `inputs` and `carry`, and it never synchronises with the host unless a
-    media loop runs (`media` counts those loops' steps and syncs), so
-    without media it can be captured once and replayed (render/graphs.py).
-    Returns the new carry; `pre_*` pass through unchanged."""
+    `inputs` and `carry`, and it never synchronises with the host but in
+    its media loops (`loop.while_live`; `media` counts their steps and
+    syncs), whose sequence is fixed by that configuration, so it can be
+    captured once, its media loops as loop sites, and replayed
+    (render/graphs.py).  Returns the new carry; `pre_*` pass through
+    unchanged."""
     params = inputs["params"]
     center = inputs["center"]
     n = carry["alive"].shape[0]
@@ -541,12 +546,6 @@ def body(scene, meta, flags: RenderFlags, resolution, n_samples: int, carry: dic
     return {**carry, **out}
 
 
-def uses_media(meta, flags: RenderFlags) -> bool:
-    """Volumes or the atmosphere: their loops read a host flag inside an
-    iteration, so such a loop runs eagerly."""
-    return meta.n_volumes > 0 or bool(flags.enable_atmosphere)
-
-
 def dispatch_step(scene, meta, flags: RenderFlags, params: RenderParams, pixel_xy, pixel_index, resolution,
                   sample_seed, n_samples: int = 1, sample_offset=0) -> graphs.Step:
     """The configuration's cached step, keyed as the JAX package keys its
@@ -569,7 +568,7 @@ def dispatch_step(scene, meta, flags: RenderFlags, params: RenderParams, pixel_x
     step = graphs.cached(key, make)
     step.load(params=tuple(params), pixel_xy=pixel_xy, pixel_index=pixel_index, frame_seed=sample_seed,
               sample_offset=sample_offset)
-    step.start(prologue(step.inputs, resolution, n_samples), capture=graphs.capturable(dev) and not uses_media(meta, flags))
+    step.start(prologue(step.inputs, resolution, n_samples), capture=graphs.capturable(dev))
     return step
 
 

@@ -9,11 +9,21 @@ package's count of steps.  The host cannot see `any(live)` without a
 synchronisation, so it reads it once per CHUNK steps: inside a chunk each
 step's update is kept only where any(live) held at the step's start, which
 makes the steps past the loop's end change nothing.
+
+`while_live` is the one place where a loop runs.  Eagerly, it issues each
+chunk's steps op by op.  While render/graphs.py captures an iteration of
+the wavefront loop (`recording`), it hands the loop to the capture as a
+loop site instead: the capture closes the graph it was recording, captures
+one chunk of the loop as a graph of its own and opens the next, and every
+later iteration replays the chunk graph between the host's reads (`drive`,
+the same host loop as the eager one).
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import threading
 
 import torch
 
@@ -30,25 +40,69 @@ class LoopStats:
     syncs: int = 0
 
 
-def while_live(body, carry: dict, max_steps: int, stats: LoopStats) -> dict:
-    """carry = body(carry) while any(carry["live"]), at most max_steps times.
-    Every value of `carry` is a tensor; `body` returns the same keys."""
+_capture = threading.local()  # .site while this thread captures an iteration
+
+
+@contextlib.contextmanager
+def recording(site):
+    """Inside the block, `while_live` on this thread hands each loop to
+    `site(body, carry, max_steps)` and returns what it returns."""
+    outer = getattr(_capture, "site", None)
+    _capture.site = site
+    try:
+        yield
+    finally:
+        _capture.site = outer
+
+
+def flag(carry: dict, steps: torch.Tensor) -> torch.Tensor:
+    """[any(live), steps run] as one int64 tensor: what the host reads
+    between two chunks."""
+    return torch.stack([carry["live"].any().to(torch.int64), steps])
+
+
+def gated_steps(body, carry: dict, steps: torch.Tensor, n: int):
+    """n steps of the loop, each kept only where any(live) held at its
+    start: (carry, steps run)."""
+    for _ in range(n):
+        go = carry["live"].any()
+        new = body(carry)
+        carry = {k: torch.where(go, new[k], v) for k, v in carry.items()}
+        steps = steps + go.to(torch.int64)
+    return carry, steps
+
+
+def drive(read, run_chunk, max_steps: int, stats: LoopStats) -> None:
+    """The host's side of one loop: read the flag (`read()`, a `flag`
+    tensor), and while a lane is live and fewer than max_steps were issued,
+    run another chunk (`run_chunk(n)`, n steps).  Counts the loop, its steps
+    and its host reads into `stats`."""
     stats.loops += 1
-    steps = torch.zeros((), dtype=torch.int64, device=carry["live"].device)
     issued = 0
     while issued < max_steps:
         stats.syncs += 1
-        any_live, n_run = torch.stack([carry["live"].any().to(torch.int64), steps]).tolist()
+        any_live, n_run = read().tolist()
         if not any_live:
             stats.steps += n_run
-            return carry
-        for _ in range(min(CHUNK, max_steps - issued)):
-            go = carry["live"].any()
-            new = body(carry)
-            carry = {k: torch.where(go, new[k], v) for k, v in carry.items()}
-            steps = steps + go.to(torch.int64)
-            issued += 1
+            return
+        n = min(CHUNK, max_steps - issued)
+        run_chunk(n)
+        issued += n
     # The cap: the last chunk's lanes may still have died inside it.
     stats.syncs += 1
-    stats.steps += int(steps)
-    return carry
+    stats.steps += int(read()[1])
+
+
+def while_live(body, carry: dict, max_steps: int, stats: LoopStats) -> dict:
+    """carry = body(carry) while any(carry["live"]), at most max_steps times.
+    Every value of `carry` is a tensor; `body` returns the same keys."""
+    site = getattr(_capture, "site", None)
+    if site is not None:
+        return site(body, carry, max_steps)
+    run = {"carry": carry, "steps": torch.zeros((), dtype=torch.int64, device=carry["live"].device)}
+
+    def chunk(n):
+        run["carry"], run["steps"] = gated_steps(body, run["carry"], run["steps"], n)
+
+    drive(lambda: flag(run["carry"], run["steps"]), chunk, max_steps, stats)
+    return run["carry"]

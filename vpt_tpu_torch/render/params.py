@@ -32,6 +32,7 @@ class RenderFlags:
     enable_atmosphere: bool = False
     phase_function: str = "hg"  # "hg" | "draine" | "hg_draine"
     max_depth: int = 200
+    samples_per_launch: int = 1
     max_medium_events: int = 32  # extra iteration slack for in-medium walks
 
 
