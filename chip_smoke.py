@@ -132,8 +132,29 @@ Phases, each of which raises on failure:
      torch.profiler trace of a captured dispatch and, but for the sharded
      path, of an eager one: kernel launches, device time and busy share
      (device time over the unprofiled s/dispatch), the top kernels; one
-     JSON line "graphs" with phases 7 and 8's rows first.
-Every drive of phases 4-11 checks that its loop ran captured; the
+     JSON line "graphs" with phases 7 and 8's rows first;
+ 13. the goldens and the gallery (vpt_tpu_torch/gallery.py):
+     a. the four golden configurations of tests/test_golden.py whose
+        scenes are in the repository (tests/torch_goldens.py), rendered
+        captured on the card: SSIM against tests/golden at the JAX tests'
+        bars, against the port's CPU render of the same configuration
+        (cornell and glass within 40 dB and GOLDEN_CLOSE of the pixels
+        close, PSNR printed for smoke and sunset), no kernel launched
+        (brute force); then sphere_garden(grid=3) at 48x48, 16 spp by
+        brute force against the clusters, > 40 dB, stream and occlude
+        launched in the cluster render and no kernel in the other;
+     b. every gallery job through gallery.render at its committed TPU
+        render's size (from Gallery/<name>.png's header), 16 spp, captured:
+        seconds, s/dispatch, segments/s, capture seconds and launches; the
+        image finite and not uniform; the four stream-path kernels launch
+        for colonnade and sphere_garden and none for the brute-force
+        scenes; PSNR and SSIM of the saved PNG against the TPU render, the
+        PSNR at least GALLERY_PSNR_BARS; the step cache's steps and graph
+        pool bytes and memory_reserved after the gallery; then `python -m
+        vpt_tpu_torch.gallery` at GALLERY_SIZE=64 GALLERY_SPP=8 into a
+        temporary directory: exit 0, one PNG per job, viking_room skipped;
+        one JSON line "gallery".
+Every drive of phases 4-11 and 13 checks that its loop ran captured; the
 plain-version renders run eagerly.
 The last lines are the card's name and power limit, the kernel table as
 JSON and {"ok": true, ...}.  Without a CUDA device the script exits
@@ -152,6 +173,14 @@ products (cuobjdump: instructions, slabs and min / max per slab); after
 phase 4 it drives the path that runs the source (the packet path for
 visit.cu, else the stream path) with each other build in the same turns,
 twice.  One JSON line "ab".
+
+    python3 chip_smoke.py --gallery-full
+
+builds the kernels and bakes the lookup tables, then renders every gallery
+job at its committed TPU render's size and samples (TPU_SPP), with the
+13b numbers and the same numbers of the accumulation after 16 spp (what
+phase 13b renders, and what GALLERY_PSNR_BARS come from).  One JSON line
+"gallery_full".
 
 A kernel's bound is the larger of its float operations over 67 TFLOP/s
 (FP32 outside the tensor cores) and its bytes over 3.35 TB/s (H100 SXM
@@ -176,6 +205,7 @@ import os
 import re
 import shutil
 import statistics
+import struct
 import subprocess
 import sys
 import tempfile
@@ -188,7 +218,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-from vpt_tpu_torch import Renderer, RenderFlags
+from vpt_tpu_torch import Renderer, RenderFlags, gallery
 from vpt_tpu_torch.accel import cluster, envelope, kernels, occlude, stream, visit
 from vpt_tpu_torch.accel.traverse import KERNEL_GROUP, T_MAX, T_MIN, guarded_inverse
 from vpt_tpu_torch.api import render_step
@@ -199,8 +229,8 @@ from vpt_tpu_torch.core.tiling import tiled_pixel_order
 from vpt_tpu_torch.dist import dryrun
 from vpt_tpu_torch.dist import mesh as dmesh
 from vpt_tpu_torch.io import codec
-from vpt_tpu_torch.io.image import decode_rgba, read_png
-from vpt_tpu_torch.io.metrics import psnr
+from vpt_tpu_torch.io.image import decode_rgba, load_png, read_png
+from vpt_tpu_torch.io.metrics import psnr, ssim
 from vpt_tpu_torch.render import graphs, integrator, lights, lookup, sampling, surface
 from vpt_tpu_torch.render.lookup_fit import constant_fit
 from vpt_tpu_torch.render.params import default_params, scalar
@@ -216,6 +246,7 @@ from vpt_tpu_torch.viewer import TerminalViewer
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "tests"))
 import gltf_scenes  # noqa: E402  (tests/gltf_scenes.py, jax-free: the .glb writer)
+import torch_goldens  # noqa: E402  (tests/torch_goldens.py, jax-free: the golden configurations)
 
 SOURCES = {
     "ray_keys": "vpt_tpu_torch/csrc/envelope.cu",
@@ -1358,10 +1389,189 @@ def image_decoders(dev, smi: str, table) -> None:
     log(f"phase 11 (the image decoders): {time.perf_counter() - t_phase:.1f} s")
 
 
+GALLERY_SPP = 16  # 13b: two dispatches of gallery.SAMPLES_PER_FRAME
+# The samples per pixel of the committed TPU renders in Gallery/ (the
+# gallery's defaults, colonnade's and the atmosphere's as their commits say),
+# which --gallery-full renders.
+TPU_SPP = {"cornell_glass_gold": 384, "colonnade": 64, "atmosphere_day": 320, "atmosphere_sunset": 320}
+# 13b's bars: a job's 16-spp render must come within this PSNR (dB) of the
+# committed TPU render: 3 dB below what the 16-spp render of that job read in
+# a run of `--gallery-full` on an NVIDIA H100 80GB HBM3 at 700.00 W (25.98,
+# 24.82, 28.47, 24.59, 27.30, 24.64, 22.29, 14.87, 12.74 dB in this order;
+# phase 13 read the same).  The TPU renders come from the JAX package of
+# 2026-08-16/17, before later changes to its estimator, and at 192-384 spp.
+GALLERY_PSNR_BARS = {"cornell_box": 22.97, "cornell_glass_gold": 21.82, "sphere_garden": 25.46, "cornell_dof": 21.59,
+                     "cornell_smoke": 24.30, "cornell_bloom": 21.64, "colonnade": 19.28, "atmosphere_day": 11.87,
+                     "atmosphere_sunset": 9.73}
+# A kernel render of a golden configuration against the port's CPU render:
+# the share of pixels within rtol 1e-3 / atol 1e-4 (test_torch_golden.py's).
+GOLDEN_CLOSE = {"cornell": 0.99, "glass": 0.94}
+BRUTE_VS_CLUSTER = (48, 16)  # tests/test_golden.py's size and samples
+
+
+def png_size(path: str) -> tuple:
+    """(width, height) from a PNG's header."""
+    with open(path, "rb") as f:
+        head = f.read(24)
+    check(head[:8] == b"\x89PNG\r\n\x1a\n" and head[12:16] == b"IHDR", f"{path} is a PNG")
+    return struct.unpack(">II", head[16:24])
+
+
+def goldens_on_card(dev) -> None:
+    """13a: the four golden configurations rendered on the card, against
+    the goldens at the JAX tests' bars and against the port's CPU render of
+    the same configuration; then brute force against the clusters at the
+    JAX test's 48x48, 16 spp."""
+    for name, golden in torch_goldens.GOLDENS.items():
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        with counted_replays() as replayed:
+            img = torch_goldens.render(golden.renderer(dev))
+        dt = time.perf_counter() - t0
+        launches = dict(kernels.LAUNCHES)
+        s = torch_goldens.golden_ssim(golden, img)
+        t0 = time.perf_counter()
+        cpu = torch_goldens.render(golden.renderer("cpu"))
+        cpu_s = time.perf_counter() - t0
+        p = psnr(np.clip(img, 0, 10), np.clip(cpu, 0, 10), 10.0)
+        close = float(np.isclose(img, cpu, rtol=1e-3, atol=1e-4).all(axis=-1).mean())
+        log(f"golden {golden.file} on the card: {dt:.2f} s (captured, {len(replayed)} graph replays), SSIM "
+            f"{s:.5f} (bar {golden.bar}); against the port's CPU render ({cpu_s:.1f} s on the card's host): PSNR "
+            f"{p:.2f} dB, {100 * close:.2f}% of pixels within rtol 1e-3 / atol 1e-4, max abs diff "
+            f"{float(np.abs(img - cpu).max()):.3g}; launches {launches}")
+        check(bool(np.isfinite(img).all()) and float(img.mean()) > 0.0, f"the {name} golden render is finite")
+        check(len(replayed) > 0, f"the {name} golden render ran captured")
+        check(sum(launches.values()) == 0, f"the brute-force {name} golden render launched no kernel")
+        check(s > golden.bar, f"the {name} render on the card within SSIM {golden.bar} of {golden.file}")
+        if name in GOLDEN_CLOSE:
+            check(p > 40.0 and close >= GOLDEN_CLOSE[name],
+                  f"the {name} render on the card within 40 dB and {GOLDEN_CLOSE[name]} close of the CPU render")
+    size, spp = BRUTE_VS_CLUSTER
+    imgs, counts = [], []
+    for r in torch_goldens.brute_and_cluster(size, spp, dev):
+        kernels.reset_launches()
+        imgs.append(torch_goldens.render(r))
+        counts.append(dict(kernels.LAUNCHES))
+    p = psnr(np.clip(imgs[0], 0, 10), np.clip(imgs[1], 0, 10), 10.0)
+    log(f"brute force against the clusters, sphere_garden(grid=3) {size}x{size} {spp} spp: PSNR {p:.2f} dB; "
+        f"launches brute {counts[0]}, clusters {counts[1]}")
+    check(all(bool(np.isfinite(i).all()) for i in imgs) and p > 40.0, "brute force within 40 dB of the clusters")
+    check(sum(counts[0].values()) == 0, "the brute-force render launched no kernel")
+    check(counts[1]["stream"] > 0 and counts[1]["occlude"] > 0, "the cluster render launched stream and occlude")
+
+
+def tree_bytes(tree) -> int:
+    """Bytes of the tensors of a (nested) NamedTuple."""
+    if torch.is_tensor(tree):
+        return nbytes(tree)
+    return sum(tree_bytes(x) for x in tree) if isinstance(tree, tuple) else 0
+
+
+def gallery_job(job, dev, size: int, spp: int, out: str, snapshot: int = None) -> dict:
+    """Render `job` through the gallery at size x size, `spp` samples, into
+    `out`, launch counts set to 0 just before: seconds, s/dispatch,
+    segments/s, capture seconds, launches, and PSNR / SSIM of the saved PNG
+    against the committed TPU render (and of the accumulation after
+    `snapshot` samples, tonemapped as saved, when given)."""
+    tpu = load_png(os.path.join(ROOT, "Gallery", f"{job.name}.png"))
+    before = graphs.steps()  # held, so that no step made here takes the address of one evicted here
+    kernels.reset_launches()
+    early = {}
+    if snapshot:
+        path_trace = Renderer.path_trace
+
+        def spy(r):
+            done = path_trace(r)
+            if r.samples_accumulated == snapshot:
+                early["ldr"] = load_png(r.save(os.path.join(out, f"{job.name}_{snapshot}spp.png")))
+            return done
+    t0 = time.perf_counter()
+    with mock.patch.object(Renderer, "path_trace", spy) if snapshot else contextlib.nullcontext(), \
+            counted_replays() as replayed:
+        r = gallery.render(job, size, spp, dev, out)
+    seconds = time.perf_counter() - t0
+    launches = dict(kernels.LAUNCHES)
+    steps = [st for st in graphs.steps() if all(st is not b for b in before)]
+    del before
+    img = load_png(os.path.join(out, f"{job.name}.png"))
+    hdr = r.hdr_image()
+    row = {"name": job.name, "size": size, "spp": r.samples_accumulated, "seconds": seconds,
+           "s_per_dispatch": r.render_seconds / r.frame_count, "segments_per_s": r.segments_traced / r.render_seconds,
+           "capture_s": sum(st.capture_seconds or 0.0 for st in steps), "replays": len(replayed),
+           "scene_bytes": tree_bytes(r.scene_data), "pool_bytes": sum(st.pool_bytes or 0 for st in steps),
+           "launches": launches,
+           "psnr": psnr(img, tpu, 1.0), "ssim": ssim(img, tpu, 1.0), "finite": bool(np.isfinite(hdr).all()),
+           "uniform": bool(hdr.max() == hdr.min())}
+    if "ldr" in early:
+        row.update(snapshot_spp=snapshot, snapshot_psnr=psnr(early["ldr"], tpu, 1.0),
+                   snapshot_ssim=ssim(early["ldr"], tpu, 1.0))
+    log(f"gallery {job.name} {size}x{size} {row['spp']} spp: {seconds:.1f} s, {row['s_per_dispatch']:.3f} s/dispatch, "
+        f"{row['segments_per_s']:.0f} segments/s, capture {row['capture_s']:.2f} s, {len(replayed)} graph replays, "
+        f"scene {row['scene_bytes']} bytes and graph pool {row['pool_bytes']} bytes on the card; against "
+        f"Gallery/{job.name}.png: PSNR {row['psnr']:.2f} dB, SSIM {row['ssim']:.4f}"
+        + (f"; at {snapshot} spp PSNR {row['snapshot_psnr']:.2f} dB, SSIM {row['snapshot_ssim']:.4f}"
+           if "ldr" in early else "") + f"; launches {launches}")
+    return row
+
+
+def gallery_phase(dev, smi: str) -> None:
+    """Phase 13: the goldens and the gallery on the card."""
+    t_phase = time.perf_counter()
+    goldens_on_card(dev)
+    rows = []
+    with tempfile.TemporaryDirectory() as tmp:
+        for job in gallery.jobs():
+            size, height = png_size(os.path.join(ROOT, "Gallery", f"{job.name}.png"))
+            check(size == height, f"Gallery/{job.name}.png is square")
+            row = gallery_job(job, dev, size, GALLERY_SPP, tmp)
+            rows.append(row)
+            check(row["replays"] > 0, f"the {job.name} render ran captured")
+            check(row["finite"] and not row["uniform"], f"the {job.name} render is finite and not uniform")
+            if job.name in ("colonnade", "sphere_garden"):
+                check_stream_launches(row["launches"], job.name)
+            else:
+                check(sum(row["launches"].values()) == 0, f"the brute-force {job.name} render launched no kernel")
+            check(row["psnr"] >= GALLERY_PSNR_BARS[job.name],
+                  f"{job.name} within {GALLERY_PSNR_BARS[job.name]} dB PSNR of the TPU render")
+        pools = [st.pool_bytes or 0 for st in graphs.steps()]
+        log(f"step cache after the gallery's {len(rows)} Renderers: {len(pools)} steps (cap {graphs.STEPS_CAP}), "
+            f"graph pools {sum(pools)} bytes {pools}, torch.cuda.memory_reserved {torch.cuda.memory_reserved()} bytes")
+        # The command line, once, small.
+        out = os.path.join(tmp, "cli")
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, "-m", "vpt_tpu_torch.gallery", out], cwd=ROOT, capture_output=True,
+                              text=True, timeout=600, env={**os.environ, "GALLERY_SIZE": "64", "GALLERY_SPP": "8"})
+        pngs = sorted(f for f in os.listdir(out) if f.endswith(".png")) if os.path.isdir(out) else []
+        log(f"python -m vpt_tpu_torch.gallery at 64x64, 8 spp: exit {proc.returncode} in "
+            f"{time.perf_counter() - t0:.1f} s, {len(pngs)} PNGs; output:\n{proc.stdout}{proc.stderr[-2000:]}")
+        check(proc.returncode == 0, "python -m vpt_tpu_torch.gallery exits 0")
+        check(pngs == sorted(f"{job.name}.png" for job in gallery.jobs()), "the gallery wrote one PNG per job")
+        check("viking_room skipped:" in proc.stdout, "the gallery skipped viking_room")
+    print(json.dumps({"gallery": rows, "device": smi}), flush=True)
+    log(f"phase 13 (the goldens and the gallery): {time.perf_counter() - t_phase:.1f} s")
+
+
+def gallery_full(dev, smi: str) -> None:
+    """--gallery-full: every gallery job at its committed TPU render's size
+    and samples, against that render, with the 16-spp numbers that
+    GALLERY_PSNR_BARS come from; one JSON line "gallery_full"."""
+    t0 = time.perf_counter()
+    lookup.get_lookup_tables(device=dev)  # what the first Renderer would bake, outside the jobs' seconds
+    log(f"lookup tables: {time.perf_counter() - t0:.1f} s")
+    rows = []
+    with tempfile.TemporaryDirectory() as tmp:
+        for job in gallery.jobs():
+            size, _ = png_size(os.path.join(ROOT, "Gallery", f"{job.name}.png"))
+            rows.append(gallery_job(job, dev, size, TPU_SPP.get(job.name, gallery.SPP), tmp, snapshot=GALLERY_SPP))
+    print(json.dumps({"gallery_full": rows, "device": smi}), flush=True)
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--compare", metavar="OTHER_CU", nargs="+", default=[],
                         help="also time other versions of a csrc/ kernel source against the current kernels")
+    parser.add_argument("--gallery-full", action="store_true",
+                        help="only render the gallery at the committed TPU renders' sizes and samples")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script needs a CUDA GPU", file=sys.stderr)
@@ -1373,12 +1583,16 @@ def main() -> int:
     # 2. Build.
     kernels.library()
     log(f"kernel build: {kernels.build_seconds:.1f} s (nvcc {' '.join(kernels.NVCC_FLAGS)})")
+    if args.gallery_full:
+        gallery_full(dev, smi)
+        print(smi)
+        return 0
     run(dev, smi, args.compare)
     return 0
 
 
 def run(dev, smi: str, other_builds=()) -> None:
-    """Phases 3-11 on `dev`, then the result lines."""
+    """Phases 3-13 on `dev`, then the result lines."""
     # 3. Kernels against plain versions at the main path's shapes.
     t0 = time.perf_counter()
     data, meta, aux = compile_scene(colonnade(), dev)
@@ -1573,6 +1787,9 @@ def run(dev, smi: str, other_builds=()) -> None:
 
     # 12. The captured loop against the eager one.
     graph_phase(dev, stream_r, smi, media_rows)
+
+    # 13. The goldens and the gallery.
+    gallery_phase(dev, smi)
 
     print(smi)
     print(json.dumps({"kernels": list(table.values())}))

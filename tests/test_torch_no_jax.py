@@ -16,6 +16,7 @@ SLICE_MODULES = [
     "vpt_tpu_torch.bench",
     "vpt_tpu_torch.envguard",
     "vpt_tpu_torch.viewer",
+    "vpt_tpu_torch.gallery",
     "vpt_tpu_torch.accel.kernels",
     "vpt_tpu_torch.accel.bvh",
     "vpt_tpu_torch.accel.cluster",
