@@ -30,6 +30,14 @@ Phases, each of which raises on failure:
      packet visit's walk per ray (32-candidate steps, groups, member
      clusters, sub-blocks and triangle tests), and from them each kernel's
      bound;
+ 3b. the port's own kernel, the dispatch graph's loop condition
+     (csrc/graph_loop.cu vpt_loop_cond_kernel), against its plain version
+     (render/loop.py:cond) in toy WHILE graphs (tests/while_toys.py):
+     seeded live schedules (cap 0, every lane dead at entry, lanes alive
+     at the cap, random ones, a 512x512 wavefront) give the plain host
+     loop's step count, twice, and a nested pair counts its loops and
+     steps; its time per run inside a WHILE body at 262,144 lanes beside
+     the plain version's and its bound;
   4. the energy-compensation table bake on the card (what the default
      `Renderer(lookup_tables="auto")` runs once and caches), timed; then
      the stream path: Renderer on colonnade at 512x512, max_depth 8,
@@ -47,16 +55,19 @@ Phases, each of which raises on failure:
   7. the media path: the stream-mode Renderer with a 128^3 procedural
      cloud and a homogeneous ground haze added by `add_volume` (the merged
      march, delta tracking, ratio-tracked NEE, HG phase) at 512x512,
-     max_depth 4 (MEDIA_FLAGS), 4 spp, one seed, its loop captured (a
-     segment graph between its 5 media loops per iteration and a chunk
-     graph per loop) against the eager loop as phase 12 does it: after a
+     max_depth 4 (MEDIA_FLAGS), 4 spp, one seed, its loop captured (one
+     dispatch graph: a WHILE node over the iteration's segment graphs and,
+     between them, a nested WHILE node over one step of each of its 5
+     media loops) against the eager loop as phase 12 does it: after a
      warm-up of each way, eager, captured, captured, eager, the four images
-     bitwise equal with equal segments, host syncs, media loop steps and
+     bitwise equal with equal segments, media loops, media loop steps and
      launches (ray_keys, supertile_tables, stream and occlude launch, visit
-     does not); both s/dispatch, segments/s, the replays' device time,
-     the capture seconds and graph pool bytes, and a profile of a
-     captured dispatch at PROFILE_SIZE^2, 1 spp; then its 128x128 kernel render against the plain one, PSNR >
-     40 dB.  The cloud comes from a .vdb that write_vdb writes in blosc
+     does not; the loop condition only captured); each captured dispatch
+     one graph launch with no host read inside its loop; both s/dispatch,
+     segments/s, the launch's device time and busy share, the capture
+     seconds and graph pool bytes, and a profile of a captured dispatch at
+     PROFILE_SIZE^2, 1 spp; then its 128x128 kernel render against the
+     plain one, PSNR > 40 dB.  The cloud comes from a .vdb that write_vdb writes in blosc
      mode (LZ4 through the C codec); placed at its origin, the grid
      load_grid reads equals the procedural grid exactly;
   8. the atmosphere path: the gallery's day setup (planet surface at
@@ -124,11 +135,13 @@ Phases, each of which raises on failure:
      one (graphs.CAPTURE = False) in the stream, packet, textured and
      one-rank nccl sharded paths, colonnade 512x512, depth 8, 4 spp, one
      seed: after a warm-up of each way, eager, captured, captured, eager;
-     the four images bitwise equal with equal segments, host syncs and
-     launches (set to 0 just before each dispatch); both s/dispatch,
-     segments/s, the device time in one captured dispatch's graph replays
-     (CUDA event pairs) and its busy share, the capture seconds and graph
-     pool bytes, and one
+     the four images bitwise equal with equal segments and launches (set
+     to 0 just before each dispatch; the loop condition only captured);
+     each captured dispatch one launch of its dispatch graph with no host
+     read inside its loop and one after it (the graph's tallies); both
+     s/dispatch, segments/s, the device time of one captured dispatch's
+     launch (one CUDA event pair) and its busy share, the capture seconds
+     and graph pool bytes, and one
      torch.profiler trace of a captured dispatch and, but for the sharded
      path, of an eager one: kernel launches, device time and busy share
      (device time over the unprofiled s/dispatch), the top kernels; one
@@ -139,10 +152,10 @@ Phases, each of which raises on failure:
         captured on the card: SSIM against tests/golden at the JAX tests'
         bars, against the port's CPU render of the same configuration
         (cornell and glass within 40 dB and GOLDEN_CLOSE of the pixels
-        close, PSNR printed for smoke and sunset), no kernel launched
+        close, PSNR printed for smoke and sunset), no trace kernel launched
         (brute force); then sphere_garden(grid=3) at 48x48, 16 spp by
         brute force against the clusters, > 40 dB, stream and occlude
-        launched in the cluster render and no kernel in the other;
+        launched in the cluster render and no trace kernel in the other;
      b. every gallery job through gallery.render at its committed TPU
         render's size (from Gallery/<name>.png's header), 16 spp, captured:
         seconds, s/dispatch, segments/s, capture seconds and launches; the
@@ -150,12 +163,13 @@ Phases, each of which raises on failure:
         for colonnade and sphere_garden and none for the brute-force
         scenes; PSNR and SSIM of the saved PNG against the TPU render, the
         PSNR at least GALLERY_PSNR_BARS; the step cache's steps and graph
-        pool bytes and memory_reserved after the gallery; then `python -m
+        pool bytes and memory_reserved after the gallery: no step that a
+        job made outlives its Renderer; then `python -m
         vpt_tpu_torch.gallery` at GALLERY_SIZE=64 GALLERY_SPP=8 into a
         temporary directory: exit 0, one PNG per job, viking_room skipped;
         one JSON line "gallery".
-Every drive of phases 4-11 and 13 checks that its loop ran captured; the
-plain-version renders run eagerly.
+Every drive of phases 4-11 and 13 checks that its loop ran captured (a
+graph launch per dispatch); the plain-version renders run eagerly.
 The last lines are the card's name and power limit, the kernel table as
 JSON and {"ok": true, ...}.  Without a CUDA device the script exits
 non-zero and prints no result.
@@ -199,6 +213,7 @@ import argparse
 import collections
 import contextlib
 import ctypes
+import gc
 import hashlib
 import json
 import os
@@ -210,6 +225,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import weakref
 from contextlib import ExitStack
 from typing import NamedTuple
 from unittest import mock
@@ -231,7 +247,7 @@ from vpt_tpu_torch.dist import mesh as dmesh
 from vpt_tpu_torch.io import codec
 from vpt_tpu_torch.io.image import decode_rgba, load_png, read_png
 from vpt_tpu_torch.io.metrics import psnr, ssim
-from vpt_tpu_torch.render import graphs, integrator, lights, lookup, sampling, surface
+from vpt_tpu_torch.render import graphs, integrator, lights, lookup, loop, sampling, surface
 from vpt_tpu_torch.render.lookup_fit import constant_fit
 from vpt_tpu_torch.render.params import default_params, scalar
 from vpt_tpu_torch.scene import blosc
@@ -247,6 +263,7 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "tests"))
 import gltf_scenes  # noqa: E402  (tests/gltf_scenes.py, jax-free: the .glb writer)
 import torch_goldens  # noqa: E402  (tests/torch_goldens.py, jax-free: the golden configurations)
+import while_toys  # noqa: E402  (tests/while_toys.py, jax-free: toy dispatch graphs)
 
 SOURCES = {
     "ray_keys": "vpt_tpu_torch/csrc/envelope.cu",
@@ -254,6 +271,7 @@ SOURCES = {
     "stream": "vpt_tpu_torch/csrc/trace.cu",
     "occlude": "vpt_tpu_torch/csrc/trace.cu",
     "visit": "vpt_tpu_torch/csrc/visit.cu",
+    "loop_cond": "vpt_tpu_torch/csrc/graph_loop.cu",
 }
 REPLACES = {
     "ray_keys": "vpt_tpu/accel/envelope.py:132",
@@ -261,6 +279,9 @@ REPLACES = {
     "stream": "vpt_tpu/accel/stream.py:490",
     "occlude": "vpt_tpu/accel/occlude.py:350",
     "visit": "vpt_tpu/accel/visit_kernel.py:302",
+    # The port's own kernel, no TPU kernel's counterpart: the condition of the
+    # lax.while_loop that the dispatch graph's WHILE nodes run.
+    "loop_cond": "vpt_tpu/render/integrator.py:838",
 }
 PLAIN = {
     "ray_keys": (envelope, "ray_keys", envelope.ray_keys_plain),
@@ -285,6 +306,7 @@ SLAB_OPS = 24  # 6 subtractions, 6 products, 12 min / max
 TRANSFORM_OPS = 36  # world -> local origin (18) and direction (15), 3 reciprocals
 MT_OPS = 53  # Moller-Trumbore as in csrc/trace.cu: 47 arithmetic, 6 compares
 LAUNCHES_PER_PAIR = 20  # back-to-back kernel launches per event pair
+COND_RUNS = 2000  # loop condition kernels run inside one WHILE graph launch when timing it
 # The share of rays whose outputs may differ between another build of a
 # kernel and the current one in --compare.  The parent's visit gated a member
 # on "any ray of the packet enters it", the current one on the ray's own
@@ -763,13 +785,68 @@ def compare_visit(pk: cluster.Packets, cl, t_min, label):
     return max_abs_err(tk, tp), a.elapsed_time(b), tk
 
 
+def loop_cond_phase(dev, table) -> None:
+    """Phase 3b: vpt_loop_cond_kernel (csrc/graph_loop.cu) against its plain
+    version (render/loop.py:cond) in toy dispatch graphs (tests/
+    while_toys.py): per seeded live schedule the WHILE node runs the plain
+    host loop's count of steps (twice: the upstream condition restarts
+    it), the final live mask equal; a nested pair counts its loops and
+    steps as nested loops do; then its time per run inside a WHILE body
+    over a 512x512 wavefront's live mask (COND_RUNS + 1 runs in one launch
+    whose body is the condition alone, by one CUDA event pair), the plain
+    version's time and the bound."""
+    t_phase = time.perf_counter()
+    worst = 0
+    for name in while_toys.SCHEDULES:
+        death, cap = while_toys.deaths(name, seed=1)
+        d = torch.as_tensor(death, device=dev)
+        want = while_toys.plain_count(d, cap)
+        nodes, (live, steps, counts) = while_toys.single(d, cap, graphs.Recorder())
+        toy = graphs.DispatchGraph(nodes, dev)
+        got = []
+        for _ in range(2):
+            counts.zero_()
+            graphs.launch(toy)
+            torch.cuda.synchronize()
+            got.append((int(steps), counts.tolist()))
+            check(torch.equal(live, d > want), f"loop_cond {name}: the final live mask equals the plain loop's")
+        worst = max(worst, *(abs(n - want) for n, _ in got))
+        log(f"loop_cond {name}: {death.shape[0]} lanes, cap {cap}: WHILE node steps {got}, plain loop {want} "
+            f"(expected {while_toys.expected(death, cap)})")
+        check(all(n == want and c == [1, want] for n, c in got), f"loop_cond {name}: the WHILE node's steps")
+    rng = np.random.default_rng(11)
+    d_out, d_in = rng.integers(0, 9, 4096), rng.integers(0, 14, 262_144)
+    nodes, (c_out, c_in) = while_toys.nested(torch.as_tensor(d_out, device=dev), 6,
+                                             torch.as_tensor(d_in, device=dev), 5, graphs.Recorder())
+    graphs.launch(graphs.DispatchGraph(nodes, dev))
+    want = while_toys.expected_nested(d_out, 6, d_in, 5)
+    got = (*c_out.tolist(), *c_in.tolist())
+    log(f"loop_cond nested: outer [entered, steps] and inner [entered, steps] {got}, expected {(1, *want)}")
+    check(got == (1, *want), "loop_cond nested: the WHILE nodes' loops and steps")
+    n = W * H
+    ones = torch.ones(n, dtype=torch.bool, device=dev)
+    steps = torch.zeros((), dtype=torch.int64, device=dev)
+    counts = torch.zeros((2,), dtype=torch.int64, device=dev)
+    spin = graphs.DispatchGraph([graphs.Cond(ones, steps, COND_RUNS, 0, True, counts),
+                                 graphs.While(0, [graphs.Cond(ones, steps, COND_RUNS, 0, False, counts)])], dev)
+    ms = cuda_ms(lambda: graphs.launch(spin)) / (COND_RUNS + 1)
+    check(int(steps) == COND_RUNS, "the timing graph ran its condition COND_RUNS + 1 times")
+    row = table["loop_cond"]
+    row.update(bound(n, n + 2 * 8 + 2 * 16), max_abs_err=float(worst), ms=ms,
+               plain_ms=cuda_ms(lambda: loop.cond(ones, steps, COND_RUNS + 1)))
+    log(f"loop_cond at {n} lanes: {ms * 1e3:.2f} us per run inside a WHILE body (one launch of {COND_RUNS + 1} "
+        f"runs), plain {row['plain_ms'] * 1e3:.1f} us (a host read); bound {row['bound_ms'] * 1e3:.3f} us by "
+        f"{row['bound_by']}, the kernel at {100 * row['bound_ms'] / ms:.2f}% of it; library call: none")
+    log(f"phase 3b (the loop condition): {time.perf_counter() - t_phase:.1f} s")
+
+
 def drive(r: Renderer, label: str):
     """One warm-up and TIMED_DISPATCHES timed dispatches of the Renderer,
     launch counts set to 0 just before and read just after: (launches,
     median s/dispatch, median segments/dispatch)."""
     r.reset_path_tracing()
     kernels.reset_launches()
-    with counted_replays() as replayed:
+    with counted_launches() as launched:
         r.path_trace()
         dts, segs, syncs, steps = [], [], [], []
         for _ in range(TIMED_DISPATCHES):
@@ -780,14 +857,15 @@ def drive(r: Renderer, label: str):
             syncs.append(r.last_host_syncs)
             steps.append(r.last_media_steps)
     launches = dict(kernels.LAUNCHES)
-    loop = "captured" if replayed else "eager"
+    loop = "captured" if launched else "eager"
     check(loop == "captured", f"the {label} loop ran {loop}: captured")
+    check(len(launched) == TIMED_DISPATCHES + 1, f"the {label} path launched one dispatch graph per dispatch")
     img = r.hdr_image()
     s_per = statistics.median(dts)
     log(f"{label} render {r.meta.name} {W}x{H} depth {r.flags.max_depth}, {r.samples_per_frame} spp/dispatch, "
         f"loop {loop}: {s_per:.3f} s/dispatch (median of {dts}), "
         f"{statistics.median(segs) / s_per:.0f} segments/s, {statistics.median(segs):.0f} segments/dispatch, "
-        f"host syncs/dispatch {syncs}, media loop steps/dispatch {steps}, "
+        f"host reads/dispatch {syncs} (the graph's tallies after its launch), media loop steps/dispatch {steps}, "
         f"launches over {TIMED_DISPATCHES + 1} dispatches {launches}, image mean {float(img.mean()):.4f}")
     check(img.shape == (H, W, 3) and bool(np.isfinite(img).all()) and float(img.mean()) > 0.0,
           f"{label} render is finite with mean > 0")
@@ -825,27 +903,35 @@ def profile_dispatch(dispatch, label: str, wall_s: float = None) -> dict:
     span_ms = (max(e.time_range.end for e in events) - min(e.time_range.start for e in events)) / 1e3
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:12]
     ours = sorted((m.group(1), ms, n) for name, (ms, n) in by_name.items()
-                  if (m := re.search(r"((?:ray_keys|supertile_tables|trace|visit)_kernel<[^>]*>)", name)))
+                  if (m := re.search(r"((?:ray_keys|supertile_tables|trace|visit)_kernel<[^>]*>|vpt_loop_cond_kernel)",
+                                     name)))
     log(f"profile {label} dispatch: {len(events)} device events, device time {busy_ms:.1f} ms: busy "
         f"{100 * busy_ms / (1e3 * wall_s):.1f}% of the unprofiled {wall_s:.3f} s/dispatch, "
         f"{100 * busy_ms / span_ms:.1f}% of the profiled device span {span_ms:.0f} ms (profiled wall {traced:.2f} s); "
         f"the csrc kernels {sum(ms for _, ms, _ in ours):.1f} ms: "
         + ", ".join(f"{name} {ms:.1f} ms x{n}" for name, ms, n in ours)
         + "; top: " + "; ".join(f"{name[:80]} {ms:.1f} ms x{n}" for name, (ms, n) in top))
-    return {"device_events": len(events), "device_ms": busy_ms, "busy": busy_ms / (1e3 * wall_s), "wall_s": wall_s}
+    return {"device_events": len(events), "device_ms": busy_ms, "busy": busy_ms / (1e3 * wall_s), "wall_s": wall_s,
+            "csrc_kernels": sum(n for _, _, n in ours)}
 
 
 @contextlib.contextmanager
-def counted_replays():
-    """The graphs replayed inside the block, one entry per replay."""
-    graphs_run, replay = [], graphs.replay
+def counted_launches():
+    """The dispatch graphs launched inside the block, one entry per launch."""
+    launched, launch = [], graphs.launch
 
-    def counted(graph, launches):
-        graphs_run.append(graph)
-        replay(graph, launches)
+    def counted(graph):
+        launched.append(graph)
+        launch(graph)
 
-    with mock.patch.object(graphs, "replay", counted):
-        yield graphs_run
+    with mock.patch.object(graphs, "launch", counted):
+        yield launched
+
+
+def trace_launches(launches: dict) -> int:
+    """Launches of the five trace kernels (not the loop condition, which
+    every captured dispatch runs)."""
+    return sum(n for k, n in launches.items() if k != "loop_cond")
 
 
 def check_stream_launches(launches, label: str) -> None:
@@ -1095,7 +1181,7 @@ def sharded_path(dev, r: Renderer, stream_s: float, table, media_r: Renderer) ->
             small = small.cpu().numpy()
             # One media dispatch through the sharded path, its loop captured.
             media_args = (media_r.scene_data, media_r.meta, media_r.flags, media_r.params, (W, H))
-            with counted_replays() as replayed:
+            with counted_launches() as launched:
                 t0 = time.perf_counter()
                 m_img, m_segs = dmesh.render_sharded(*media_args, seed, n_spp, m)
                 m_segs = int(m_segs)
@@ -1106,10 +1192,10 @@ def sharded_path(dev, r: Renderer, stream_s: float, table, media_r: Renderer) ->
             m_equal = torch.equal(m_img, m_want.reshape(H, W, 3))
         finally:
             dist.destroy_process_group()
-    log(f"sharded media dispatch, one nccl rank: {m_s:.3f} s, loop {'captured' if replayed else 'eager'}, "
+    log(f"sharded media dispatch, one nccl rank: {m_s:.3f} s, loop {'captured' if launched else 'eager'}, "
         f"{m_segs} segments against render_samples' {int(m_want_segs)} ({m_stats.steps} media loop steps), "
         f"image bitwise equal {m_equal}")
-    check(len(replayed) > 0, "the sharded media dispatch replays its captured step")
+    check(len(launched) == 1, "the sharded media dispatch is one launch of its dispatch graph")
     check(m_equal and m_segs == int(m_want_segs), "the sharded media dispatch equals render_samples, bit for bit")
     img_np, want_np = img.cpu().numpy(), want.cpu().numpy()
     p = dryrun.psnr_peak(want_np, img_np)
@@ -1143,38 +1229,39 @@ GRAPH_SEED = 2654435761  # phase 12's dispatches, all at one seed
 
 def captured_or_eager(dispatch, captured: bool) -> dict:
     """One dispatch with the loop captured or eager: its image, segments,
-    host syncs, media loop steps, launches (set to 0 just before) and host
+    media loops and steps, host reads inside the loop and after a graph's
+    launch, graph launches, kernel launches (set to 0 just before) and host
     seconds."""
     torch.cuda.synchronize()
     kernels.reset_launches()
     t0 = time.perf_counter()
-    with mock.patch.object(graphs, "CAPTURE", captured):
+    with mock.patch.object(graphs, "CAPTURE", captured), counted_launches() as launched:
         img, segs, stats = dispatch()
         segs = int(segs)  # waits for the dispatch
-    return {"img": img, "segments": segs, "syncs": stats.syncs, "media_steps": stats.steps,
+    return {"img": img, "segments": segs, "loops": stats.loops, "media_steps": stats.steps, "syncs": stats.syncs,
+            "launch_reads": stats.launch_reads, "graph_launches": len(launched), "graphs": launched,
             "launches": dict(kernels.LAUNCHES), "s": time.perf_counter() - t0}
 
 
-def replay_device_time(dispatch) -> tuple:
-    """One captured dispatch with a CUDA event pair around every graph
-    replay: (its host seconds, the summed device ms of its replays).  The
-    host waits for the device at each flag read, so the pairs do not
-    overlap, and each holds its graph's launch latency as well."""
-    pairs, replay = [], graphs.replay
+def launch_device_time(dispatch) -> tuple:
+    """One captured dispatch with a CUDA event pair around its graph's
+    launch: (its host seconds, the device ms of the launch)."""
+    pairs, launch = [], graphs.launch
 
-    def timed(graph, launches):
+    def timed(graph):
         a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         a.record()
-        replay(graph, launches)
+        launch(graph)
         b.record()
         pairs.append((a, b))
 
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    with mock.patch.object(graphs, "replay", timed), mock.patch.object(graphs, "CAPTURE", True):
+    with mock.patch.object(graphs, "launch", timed), mock.patch.object(graphs, "CAPTURE", True):
         int(dispatch()[1])
     wall = time.perf_counter() - t0
-    return wall, sum(a.elapsed_time(b) for a, b in pairs)
+    check(len(pairs) == 1, "a captured dispatch is one graph launch")
+    return wall, pairs[0][0].elapsed_time(pairs[0][1])
 
 
 def stepper(r: Renderer, size: int = W, n_samples: int = None):
@@ -1191,32 +1278,45 @@ def stepper(r: Renderer, size: int = W, n_samples: int = None):
 
 def graph_turns(label: str, dispatch, profile_eager: bool = True, small=None) -> dict:
     """One path captured against eager: a warm-up of each way (the captured
-    one captures where its step has no graphs yet), then eager, captured,
+    one captures where its step has no graph yet), then eager, captured,
     captured, eager.  The four images must be bitwise equal, with equal
-    segments, host syncs, media loop steps and launches; prints both
-    s/dispatch, segments/s, the device time in one captured dispatch's
-    graph replays (CUDA events) and its share of that dispatch's wall, the
-    step's loop sites, capture seconds and graph pool bytes, and a profile of a captured dispatch and, with
-    `profile_eager`, of an eager one.  `small` = (dispatch, size label):
-    profile that captured dispatch instead (a media dispatch is millions of
-    device events)."""
+    segments, media loops and steps, and kernel launches (the loop
+    condition's launched on the captured path only); each captured
+    dispatch must be one launch of its dispatch graph with no host read
+    inside its loop and one after it.  Prints both s/dispatch, segments/s,
+    the device time of one captured dispatch's launch (one CUDA event pair)
+    and its share of that dispatch's wall, the step's loop sites, capture
+    seconds and graph pool bytes, and a profile of a captured dispatch and,
+    with `profile_eager`, of an eager one.  `small` = (dispatch, size
+    label): profile that captured dispatch instead (a media dispatch is
+    millions of device events)."""
     captured_or_eager(dispatch, False)
-    with counted_replays() as replayed:
-        captured_or_eager(dispatch, True)
-    check(len(replayed) > 0, f"{label}: the captured dispatch replays a graph")
-    step = next(st for st in graphs.steps() if any(g is replayed[-1] for g, _ in st.segments))
+    warm = captured_or_eager(dispatch, True)
+    check(warm["graph_launches"] == 1, f"{label}: the captured dispatch launches its dispatch graph")
+    step = next(st for st in graphs.steps() if st.graph is warm["graphs"][-1])
     runs = [captured_or_eager(dispatch, way) for way in (False, True, True, False)]
     first = runs[0]
     for run_ in runs[1:]:
         check(torch.equal(run_["img"], first["img"]), f"{label}: captured and eager images bitwise equal")
-        check(all(run_[k] == first[k] for k in ("segments", "syncs", "media_steps", "launches")),
-              f"{label}: captured and eager segments, host syncs, media loop steps and launches equal")
+        check(all(run_[k] == first[k] for k in ("segments", "loops", "media_steps")),
+              f"{label}: captured and eager segments, media loops and media loop steps equal")
+        check({k: v for k, v in run_["launches"].items() if k != "loop_cond"}
+              == {k: v for k, v in first["launches"].items() if k != "loop_cond"},
+              f"{label}: captured and eager kernel launches equal")
+    for run_, captured in zip(runs, (False, True, True, False)):
+        if captured:
+            check(run_["graph_launches"] == 1 and run_["syncs"] == 0 and run_["launch_reads"] == 1
+                  and run_["launches"]["loop_cond"] > 0,
+                  f"{label}: a captured dispatch is one graph launch, no host read inside its loop, one after it")
+        else:
+            check(run_["graph_launches"] == 0 and run_["launch_reads"] == 0 and run_["launches"]["loop_cond"] == 0,
+                  f"{label}: an eager dispatch launches no dispatch graph")
     check(bool(torch.isfinite(first["img"]).all()) and float(first["img"].mean()) > 0.0,
           f"{label}: the image is finite with mean > 0")
     eager = [r_["s"] for r_ in (runs[0], runs[3])]
     captured = [r_["s"] for r_ in (runs[1], runs[2])]
     e_s, c_s = statistics.median(eager), statistics.median(captured)
-    timed_s, replay_ms = replay_device_time(dispatch)
+    timed_s, launch_ms = launch_device_time(dispatch)
     profiles = {}
     if small is None:
         for way, wall in (("eager", e_s), ("captured", c_s))[0 if profile_eager else 1:]:
@@ -1225,20 +1325,25 @@ def graph_turns(label: str, dispatch, profile_eager: bool = True, small=None) ->
     else:
         with mock.patch.object(graphs, "CAPTURE", True):
             profiles["captured_" + small[1]] = profile_dispatch(small[0], f"{label} captured at {small[1]}")
+    seen = [p["csrc_kernels"] for way, p in profiles.items() if way.startswith("captured")]
     row = {"path": label, "eager_s": eager, "captured_s": captured, "segments": first["segments"],
-           "syncs": first["syncs"], "media_steps": first["media_steps"], "launches": first["launches"],
+           "eager_host_syncs": first["syncs"], "captured_host_syncs": runs[1]["syncs"],
+           "captured_launch_reads": runs[1]["launch_reads"], "graph_launches_per_dispatch": runs[1]["graph_launches"],
+           "media_loops": first["loops"], "media_steps": first["media_steps"], "launches": runs[1]["launches"],
            "eager_segments_per_s": first["segments"] / e_s, "captured_segments_per_s": first["segments"] / c_s,
-           "replay_device_ms": replay_ms, "replay_busy": replay_ms / (1e3 * timed_s),
+           "launch_device_ms": launch_ms, "launch_busy": launch_ms / (1e3 * timed_s),
            "sites": len(step.sites), "capture_s": step.capture_seconds, "pool_bytes": step.pool_bytes,
-           "graph_launches_per_replay": [launches for _, launches in step.segments], "profiles": profiles}
+           "kernel_launches_per_segment_run": [launches for _, launches in step.segments],
+           "kernel_launches_per_site_step": [site.launches for site in step.sites], "profiles": profiles}
     log(f"graphs {label}: eager {eager} s, captured {captured} s per dispatch (eager, captured, captured, eager): "
         f"{e_s / c_s:.2f}x; {first['segments']} segments/dispatch, {first['segments'] / e_s:.0f} -> "
-        f"{first['segments'] / c_s:.0f} segments/s; device time in the graph replays {replay_ms:.1f} ms of a "
-        f"{timed_s:.3f} s dispatch ({100 * replay_ms / (1e3 * timed_s):.1f}% busy); host syncs {first['syncs']}; "
-        f"media loop steps "
-        f"{first['media_steps']}; launches {first['launches']}; images bitwise equal; {len(step.sites)} loop sites, "
-        f"{len(step.segments)} segment graphs; capture {step.capture_seconds:.3f} s, graph pool {step.pool_bytes} "
-        f"bytes; kernel launches per replay of each segment {row['graph_launches_per_replay']}")
+        f"{first['segments'] / c_s:.0f} segments/s; device time of the graph's launch {launch_ms:.1f} ms of a "
+        f"{timed_s:.3f} s dispatch ({100 * launch_ms / (1e3 * timed_s):.1f}% busy); host reads inside the loop "
+        f"{first['syncs']} eager, {runs[1]['syncs']} captured (+{runs[1]['launch_reads']} after the launch); "
+        f"graph launches per captured dispatch {runs[1]['graph_launches']}; media loops {first['loops']}, steps "
+        f"{first['media_steps']}; launches {runs[1]['launches']}; images bitwise equal; {len(step.sites)} loop "
+        f"sites, {len(step.segments)} segment graphs; capture {step.capture_seconds:.3f} s, graph pool "
+        f"{step.pool_bytes} bytes; CUPTI sees csrc kernels inside the WHILE bodies: {seen}")
     return row
 
 
@@ -1425,7 +1530,7 @@ def goldens_on_card(dev) -> None:
     for name, golden in torch_goldens.GOLDENS.items():
         kernels.reset_launches()
         t0 = time.perf_counter()
-        with counted_replays() as replayed:
+        with counted_launches() as launched:
             img = torch_goldens.render(golden.renderer(dev))
         dt = time.perf_counter() - t0
         launches = dict(kernels.LAUNCHES)
@@ -1435,13 +1540,13 @@ def goldens_on_card(dev) -> None:
         cpu_s = time.perf_counter() - t0
         p = psnr(np.clip(img, 0, 10), np.clip(cpu, 0, 10), 10.0)
         close = float(np.isclose(img, cpu, rtol=1e-3, atol=1e-4).all(axis=-1).mean())
-        log(f"golden {golden.file} on the card: {dt:.2f} s (captured, {len(replayed)} graph replays), SSIM "
+        log(f"golden {golden.file} on the card: {dt:.2f} s (captured, {len(launched)} graph launches), SSIM "
             f"{s:.5f} (bar {golden.bar}); against the port's CPU render ({cpu_s:.1f} s on the card's host): PSNR "
             f"{p:.2f} dB, {100 * close:.2f}% of pixels within rtol 1e-3 / atol 1e-4, max abs diff "
             f"{float(np.abs(img - cpu).max()):.3g}; launches {launches}")
         check(bool(np.isfinite(img).all()) and float(img.mean()) > 0.0, f"the {name} golden render is finite")
-        check(len(replayed) > 0, f"the {name} golden render ran captured")
-        check(sum(launches.values()) == 0, f"the brute-force {name} golden render launched no kernel")
+        check(len(launched) > 0, f"the {name} golden render ran captured")
+        check(trace_launches(launches) == 0, f"the brute-force {name} golden render launched no trace kernel")
         check(s > golden.bar, f"the {name} render on the card within SSIM {golden.bar} of {golden.file}")
         if name in GOLDEN_CLOSE:
             check(p > 40.0 and close >= GOLDEN_CLOSE[name],
@@ -1456,7 +1561,7 @@ def goldens_on_card(dev) -> None:
     log(f"brute force against the clusters, sphere_garden(grid=3) {size}x{size} {spp} spp: PSNR {p:.2f} dB; "
         f"launches brute {counts[0]}, clusters {counts[1]}")
     check(all(bool(np.isfinite(i).all()) for i in imgs) and p > 40.0, "brute force within 40 dB of the clusters")
-    check(sum(counts[0].values()) == 0, "the brute-force render launched no kernel")
+    check(trace_launches(counts[0]) == 0, "the brute-force render launched no trace kernel")
     check(counts[1]["stream"] > 0 and counts[1]["occlude"] > 0, "the cluster render launched stream and occlude")
 
 
@@ -1467,12 +1572,13 @@ def tree_bytes(tree) -> int:
     return sum(tree_bytes(x) for x in tree) if isinstance(tree, tuple) else 0
 
 
-def gallery_job(job, dev, size: int, spp: int, out: str, snapshot: int = None) -> dict:
+def gallery_job(job, dev, size: int, spp: int, out: str, snapshot: int = None, made: list = None) -> dict:
     """Render `job` through the gallery at size x size, `spp` samples, into
     `out`, launch counts set to 0 just before: seconds, s/dispatch,
     segments/s, capture seconds, launches, and PSNR / SSIM of the saved PNG
     against the committed TPU render (and of the accumulation after
-    `snapshot` samples, tonemapped as saved, when given)."""
+    `snapshot` samples, tonemapped as saved, when given).  Weak references
+    to the steps the job made are appended to `made`."""
     tpu = load_png(os.path.join(ROOT, "Gallery", f"{job.name}.png"))
     before = graphs.steps()  # held, so that no step made here takes the address of one evicted here
     kernels.reset_launches()
@@ -1487,17 +1593,19 @@ def gallery_job(job, dev, size: int, spp: int, out: str, snapshot: int = None) -
             return done
     t0 = time.perf_counter()
     with mock.patch.object(Renderer, "path_trace", spy) if snapshot else contextlib.nullcontext(), \
-            counted_replays() as replayed:
+            counted_launches() as launched:
         r = gallery.render(job, size, spp, dev, out)
     seconds = time.perf_counter() - t0
     launches = dict(kernels.LAUNCHES)
     steps = [st for st in graphs.steps() if all(st is not b for b in before)]
     del before
+    if made is not None:
+        made.extend(weakref.ref(st) for st in steps)
     img = load_png(os.path.join(out, f"{job.name}.png"))
     hdr = r.hdr_image()
     row = {"name": job.name, "size": size, "spp": r.samples_accumulated, "seconds": seconds,
            "s_per_dispatch": r.render_seconds / r.frame_count, "segments_per_s": r.segments_traced / r.render_seconds,
-           "capture_s": sum(st.capture_seconds or 0.0 for st in steps), "replays": len(replayed),
+           "capture_s": sum(st.capture_seconds or 0.0 for st in steps), "graph_launches": len(launched),
            "scene_bytes": tree_bytes(r.scene_data), "pool_bytes": sum(st.pool_bytes or 0 for st in steps),
            "launches": launches,
            "psnr": psnr(img, tpu, 1.0), "ssim": ssim(img, tpu, 1.0), "finite": bool(np.isfinite(hdr).all()),
@@ -1506,7 +1614,7 @@ def gallery_job(job, dev, size: int, spp: int, out: str, snapshot: int = None) -
         row.update(snapshot_spp=snapshot, snapshot_psnr=psnr(early["ldr"], tpu, 1.0),
                    snapshot_ssim=ssim(early["ldr"], tpu, 1.0))
     log(f"gallery {job.name} {size}x{size} {row['spp']} spp: {seconds:.1f} s, {row['s_per_dispatch']:.3f} s/dispatch, "
-        f"{row['segments_per_s']:.0f} segments/s, capture {row['capture_s']:.2f} s, {len(replayed)} graph replays, "
+        f"{row['segments_per_s']:.0f} segments/s, capture {row['capture_s']:.2f} s, {len(launched)} graph launches, "
         f"scene {row['scene_bytes']} bytes and graph pool {row['pool_bytes']} bytes on the card; against "
         f"Gallery/{job.name}.png: PSNR {row['psnr']:.2f} dB, SSIM {row['ssim']:.4f}"
         + (f"; at {snapshot} spp PSNR {row['snapshot_psnr']:.2f} dB, SSIM {row['snapshot_ssim']:.4f}"
@@ -1518,24 +1626,32 @@ def gallery_phase(dev, smi: str) -> None:
     """Phase 13: the goldens and the gallery on the card."""
     t_phase = time.perf_counter()
     goldens_on_card(dev)
-    rows = []
+    rows, made = [], []
     with tempfile.TemporaryDirectory() as tmp:
         for job in gallery.jobs():
             size, height = png_size(os.path.join(ROOT, "Gallery", f"{job.name}.png"))
             check(size == height, f"Gallery/{job.name}.png is square")
-            row = gallery_job(job, dev, size, GALLERY_SPP, tmp)
+            row = gallery_job(job, dev, size, GALLERY_SPP, tmp, made=made)
             rows.append(row)
-            check(row["replays"] > 0, f"the {job.name} render ran captured")
+            check(row["graph_launches"] > 0, f"the {job.name} render ran captured")
             check(row["finite"] and not row["uniform"], f"the {job.name} render is finite and not uniform")
             if job.name in ("colonnade", "sphere_garden"):
                 check_stream_launches(row["launches"], job.name)
             else:
-                check(sum(row["launches"].values()) == 0, f"the brute-force {job.name} render launched no kernel")
+                check(trace_launches(row["launches"]) == 0,
+                      f"the brute-force {job.name} render launched no trace kernel")
             check(row["psnr"] >= GALLERY_PSNR_BARS[job.name],
                   f"{job.name} within {GALLERY_PSNR_BARS[job.name]} dB PSNR of the TPU render")
+        gc.collect()
+        torch.cuda.empty_cache()
         pools = [st.pool_bytes or 0 for st in graphs.steps()]
-        log(f"step cache after the gallery's {len(rows)} Renderers: {len(pools)} steps (cap {graphs.STEPS_CAP}), "
-            f"graph pools {sum(pools)} bytes {pools}, torch.cuda.memory_reserved {torch.cuda.memory_reserved()} bytes")
+        left = [ref() for ref in made if ref() is not None]
+        log(f"step cache after the gallery's {len(rows)} Renderers were dropped: {len(pools)} steps (cap "
+            f"{graphs.STEPS_CAP}), graph pools {sum(pools)} bytes {pools}; of the {len(made)} steps the gallery's "
+            f"jobs made, {len(left)} alive, {sum(st in graphs.steps() for st in left)} cached, their pools "
+            f"{sum(st.pool_bytes or 0 for st in left)} bytes; torch.cuda.memory_reserved "
+            f"{torch.cuda.memory_reserved()} bytes (after empty_cache)")
+        check(not left, "no step of the gallery's dropped Renderers outlives them")
         # The command line, once, small.
         out = os.path.join(tmp, "cli")
         t0 = time.perf_counter()
@@ -1692,6 +1808,7 @@ def run(dev, smi: str, other_builds=()) -> None:
                 f"library call: none")
     if other_builds:
         ab, others = compare_builds(other_builds, calls)
+    loop_cond_phase(dev, table)
 
     # 4. The table bake the default Renderer runs (and caches), then the
     # stream path.
@@ -1714,7 +1831,7 @@ def run(dev, smi: str, other_builds=()) -> None:
     launches, stream_s, stream_segs = drive(r, "stream")
     stream_r = r
     check_stream_launches(launches, "stream")
-    for name in STREAM_KERNELS:
+    for name in (*STREAM_KERNELS, "loop_cond"):
         table[name]["launches"] = launches[name]
     if other_builds:
         drive_ab(r, others, ab)

@@ -318,8 +318,10 @@ def test_one_rank_nccl_render_sharded_equals_render_samples(cuda, tmp_path):
 def _dispatches(dev, compiled, size: int, capture: bool, mode: str):
     """Two render_step dispatches of the `compiled` scene at size^2, 2 spp,
     depth 4, with another camera, sky rotation, seed and frame count the
-    second time, with the loop captured or eager: [(image, segments, host
-    syncs)], launches."""
+    second time, with the loop captured or eager: [(image, segments,
+    LoopStats as a tuple)], launches."""
+    import dataclasses
+
     from unittest import mock
 
     from vpt_tpu_torch.api import render_step
@@ -337,17 +339,32 @@ def _dispatches(dev, compiled, size: int, capture: bool, mode: str):
         for i, (view_inv, seed) in enumerate(zip(views, (2654435761, 99))):
             params = default_params(dev, view_inv, proj_inv)._replace(sky_rotation_azimuth=scalar(25.0 * i, dev))
             accum, segs, stats = render_step(data, meta, flags, params, seed, (size, size), accum, i, 2)
-            out.append((accum.clone(), int(segs), stats.syncs))
+            out.append((accum.clone(), int(segs), dataclasses.astuple(stats)))
     torch.cuda.synchronize()
     return out, dict(kernels.LAUNCHES)
+
+
+def _check_captured_against_eager(eager, captured, eager_launches, captured_launches):
+    """Images bitwise, segments, media loops and steps equal; the captured
+    loop reads nothing on the host once its graph is built (the first
+    dispatch runs its first iteration eagerly) and reads the graph's
+    tallies once after each launch; kernel launches equal, the loop
+    condition launched on the captured path only."""
+    for (a, sa, la), (b, sb, lb) in zip(eager, captured):
+        assert torch.equal(a, b) and sa == sb and la[:2] == lb[:2]
+        assert la[3] == 0 and lb[3] == 1
+    assert captured[1][2][2] == 0 < captured[0][2][2] < eager[0][2][2]
+    assert eager_launches.pop("loop_cond") == 0 and captured_launches.pop("loop_cond") > 0
+    assert eager_launches == captured_launches
 
 
 @pytest.mark.parametrize("name,size,mode", [("cornell_box", 64, "stream"), ("colonnade", 128, "stream"),
                                             ("colonnade", 128, "packet")])
 def test_captured_dispatches_equal_eager_ones(cuda, name, size, mode):
-    """The captured loop (render/graphs.py) against the eager one over two
-    dispatches with different parameters: images bitwise, segments, host
-    syncs and kernel launches equal; one capture serves both dispatches."""
+    """The captured loop (render/graphs.py, one dispatch graph) against the
+    eager one over two dispatches with different parameters
+    (`_check_captured_against_eager`); one capture serves both
+    dispatches."""
     from vpt_tpu_torch.render import graphs
     from vpt_tpu_torch.scene import procedural
     from vpt_tpu_torch.scene.build import compile_scene
@@ -358,21 +375,19 @@ def test_captured_dispatches_equal_eager_ones(cuda, name, size, mode):
     captured, captured_launches = _dispatches(cuda, compiled, size, True, mode)
     steps = graphs.steps()
     graphs.clear()
-    for (a, sa, ya), (b, sb, yb) in zip(eager, captured):
-        assert torch.equal(a, b) and sa == sb and ya == yb
-    assert not torch.equal(eager[0][0], eager[1][0])
-    assert eager_launches == captured_launches
     assert name == "cornell_box" or captured_launches["supertile_tables"] > 0
-    assert len(steps) == 1 and steps[0].captures == 1 and steps[0].replays > 0
+    _check_captured_against_eager(eager, captured, eager_launches, captured_launches)
+    assert not torch.equal(eager[0][0], eager[1][0])
+    assert len(steps) == 1 and steps[0].captures == 1 and steps[0].replays == 2
 
 
 @pytest.mark.parametrize("case", ["cloud_and_haze", "atmosphere", "both"])
 def test_captured_media_dispatches_equal_eager_ones(cuda, case):
     """A configuration with volumes, the atmosphere or both, captured (a
-    segment graph between its media loops and a chunk graph per loop)
-    against the eager loop over two dispatches with different parameters:
-    images bitwise, segments, media loop steps, host syncs and kernel
-    launches equal; one capture serves both dispatches."""
+    segment graph between its media loops and a nested WHILE node over one
+    step per loop) against the eager loop over two dispatches with
+    different parameters (`_check_captured_against_eager`); one capture
+    serves both dispatches."""
     import dataclasses
     from unittest import mock
 
@@ -415,13 +430,42 @@ def test_captured_media_dispatches_equal_eager_ones(cuda, case):
         (step,) = graphs.steps()
     finally:
         graphs.clear()
-    for (a, sa, la), (b, sb, lb) in zip(eager, captured):
-        assert torch.equal(a, b) and sa == sb and la == lb
+    assert captured_launches["stream"] > 0
+    _check_captured_against_eager(eager, captured, eager_launches, captured_launches)
     assert not torch.equal(eager[0][0], eager[1][0]) and eager[0][2][1] > 0
-    assert eager_launches == captured_launches and captured_launches["stream"] > 0
-    assert step.captures == 1 and step.replays > 0
+    assert step.captures == 1 and step.replays == 2
     assert len(step.sites) == {"cloud_and_haze": 5, "atmosphere": 7, "both": 16}[case]
     assert len(step.segments) == len(step.sites) + 1
+
+
+@pytest.mark.parametrize("name", ["cap0", "all_dead", "alive_at_cap", "random_a", "wavefront"])
+def test_loop_cond_kernel_counts_as_its_plain_version(cuda, name):
+    """vpt_loop_cond_kernel (csrc/graph_loop.cu) in a dispatch graph of
+    tests/while_toys.py: the WHILE node runs the plain loop's count of
+    steps, twice, and a nested pair counts its loops and steps."""
+    import while_toys
+    from vpt_tpu_torch.render import graphs
+
+    death, cap = while_toys.deaths(name)
+    d = torch.as_tensor(death, device=cuda)
+    want = while_toys.plain_count(d, cap)
+    assert want == while_toys.expected(death, cap)
+    nodes, (live, steps, counts) = while_toys.single(d, cap, graphs.Recorder())
+    toy = graphs.DispatchGraph(nodes, cuda)
+    for _ in range(2):
+        counts.zero_()
+        graphs.launch(toy)
+        torch.cuda.synchronize()
+        assert int(steps) == want and counts.tolist() == [1, want]
+        assert torch.equal(live, d > want)
+    rng = np.random.default_rng(7)
+    d_out, d_in = rng.integers(0, 9, 300), rng.integers(0, 14, 5000)
+    nodes, (c_out, c_in) = while_toys.nested(torch.as_tensor(d_out, device=cuda), 6,
+                                             torch.as_tensor(d_in, device=cuda), 5, graphs.Recorder())
+    graphs.launch(graphs.DispatchGraph(nodes, cuda))
+    torch.cuda.synchronize()
+    k, entered, inner = while_toys.expected_nested(d_out, 6, d_in, 5)
+    assert c_out.tolist() == [1, k] and c_in.tolist() == [entered, inner]
 
 
 def test_a_sync_in_the_body_makes_the_capture_raise(cuda):

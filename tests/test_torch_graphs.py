@@ -16,13 +16,16 @@
 * The same two dispatches through the capture path, with a tape in place
   of each CUDA graph (the CPU has no graphs; `Tape`): the captured Python
   runs once, and a replay runs the recorded aten ops again on the same
-  tensors: bitwise the eager dispatches, one capture, every later
-  iteration a replay.  A media configuration captures too.
+  tensors, the dispatch graph's WHILE nodes replaying their body tapes
+  while the plain condition holds (`graphs.run_plain`): bitwise the eager
+  dispatches, one capture, every dispatch one run of the dispatch
+  graph.  A media configuration captures too.
 * The cache: a new scene, resolution, flags, sample count or trace mode
   adds an entry, new parameters do not, and a ninth entry evicts the first.
-* Launch accounting, with a stub graph: capturing counts nothing, each
-  replay adds the launches counted while capturing; a failed capture
-  restores the counts and raises.
+* Launch accounting, with a stub graph: capturing counts nothing, and the
+  launches counted while capturing are added once per run of the graph
+  (the dispatch graph's tallies); a failed capture restores the counts
+  and raises.
 """
 
 import contextlib
@@ -239,6 +242,20 @@ def taped(guard: bool = False):
         yield
 
 
+@contextlib.contextmanager
+def kept_steps():
+    """The steps that integrator.dispatch_step returns inside the block, in
+    order, each kept alive (a step leaves the cache with its scene)."""
+    made, dispatch_step = [], integrator.dispatch_step
+
+    def keep(*args, **kwargs):
+        made.append(dispatch_step(*args, **kwargs))
+        return made[-1]
+
+    with mock.patch.object(integrator, "dispatch_step", keep):
+        yield made
+
+
 @pytest.fixture(autouse=True)
 def fresh_cache():
     graphs.clear()
@@ -354,7 +371,7 @@ def test_body_is_sync_free(scene, mode):
         step = integrator.dispatch_step(tdata, tmeta, RenderFlags(**FLAGS), tp, pxy, pidx, (W, H), SEED, 2)
         start = dict(step.carry)
         with sync_guard():
-            out = step.body(step.carry, step.inputs, LoopStats())
+            out = step.body(tdata, step.carry, step.inputs, LoopStats())
     assert set(out) == set(start) and set(integrator.CARRY) <= set(out)  # segments: every lane and its shadow rays
     assert int(out["segments"]) > W * H and not torch.equal(out["origin"], start["origin"])
     for k in ("pre_state", "pre_origin", "pre_direction"):
@@ -484,10 +501,7 @@ def test_the_ninth_entry_evicts_the_first(cornell):
 
 
 class StubGraph:
-    replays = 0
-
-    def replay(self):
-        StubGraph.replays += 1
+    pass
 
 
 class StubRecorder(graphs.Recorder):
@@ -509,12 +523,13 @@ def test_capture_takes_back_the_counts_and_replays_add_them():
     rec.begin()
     iteration()
     graph, launches = rec.end()
-    assert kernels.LAUNCHES == {"ray_keys": 0, "supertile_tables": 0, "stream": 0, "occlude": 5, "visit": 0}
-    assert launches == {"ray_keys": 2, "supertile_tables": 0, "stream": 1, "occlude": 0, "visit": 0}
-    for _ in range(3):
-        graphs.replay(graph, launches)
-    assert StubGraph.replays == 3
-    assert kernels.LAUNCHES == {"ray_keys": 6, "supertile_tables": 0, "stream": 3, "occlude": 5, "visit": 0}
+    assert isinstance(graph, StubGraph)
+    assert kernels.LAUNCHES == {"ray_keys": 0, "supertile_tables": 0, "stream": 0, "occlude": 5, "visit": 0,
+                                "loop_cond": 0}
+    assert launches == {"ray_keys": 2, "supertile_tables": 0, "stream": 1, "occlude": 0, "visit": 0, "loop_cond": 0}
+    graphs.add_launches(launches, 3)  # the graph ran 3 times (the dispatch graph's tally)
+    assert kernels.LAUNCHES == {"ray_keys": 6, "supertile_tables": 0, "stream": 3, "occlude": 5, "visit": 0,
+                                "loop_cond": 0}
     kernels.reset_launches()
 
 

@@ -11,10 +11,14 @@ emissive lamps, the sky) at 16x16, 1 spp, depth 2:
 * the atmosphere (the gallery's day setup),
 * the cloud, the haze and the atmosphere together,
 two dispatches (another camera, seed and frame count the second time)
-through one captured step equal two eager dispatches bit for bit, with
-equal segments and media LoopStats (loops, steps, host syncs); the step is
-captured once, every segment and chunk of the capture runs under
-sync_guard, and its loop sites come in the order of integrator.body's
+through one captured step, its loop run as the dispatch graph's plain
+version (WHILE nodes over the tapes), equal two eager dispatches bit for
+bit, with equal segments and media LoopStats loops and steps; the
+captured dispatch reads nothing inside its loop once the graph is built
+(the first dispatch runs its first iteration eagerly before capturing)
+and reads the graph's tallies once after it; the step is captured once,
+every segment and loop step of the capture runs under sync_guard, and
+its loop sites come in the order of integrator.body's
 media calls (`_sites`: 5 for a cloud and a haze, 7 for the atmosphere,
 16 for both).  A one-rank gloo render_sharded of the cloud and the haze,
 captured, equals the eager render_samples over the same pixels bit for
@@ -31,7 +35,7 @@ import pytest
 import torch
 import torch.distributed as dist
 
-from test_torch_graphs import taped
+from test_torch_graphs import kept_steps, taped
 from tests.test_torch_media_render import _render_both
 from vpt_tpu.scene.build import compile_scene as jcompile_scene
 from vpt_tpu.scene.procedural import colonnade as jcolonnade
@@ -111,8 +115,8 @@ def _configuration(scene, case: str):
 
 
 def _dispatches(scene, case: str):
-    """Two render_step dispatches of `case`: [(image, segments, LoopStats
-    as a tuple)]."""
+    """Two render_step dispatches of `case`: ([(image, segments, LoopStats
+    as a tuple)], meta, the step), the step taken while its scene lives."""
     data, meta, flags, aux = _configuration(scene, case)
     atmo = flags.enable_atmosphere
     proj_inv = np.linalg.inv(perspective(np.radians(aux["camera_fov_deg"]), W / H))
@@ -124,27 +128,28 @@ def _dispatches(scene, case: str):
             params = params._replace(planet_position=vec3(PLANET, "cpu"), sky_rotation_altitude=scalar(30.0, "cpu"))
         accum, segs, stats = render_step(data, meta, flags, params, seed, (W, H), accum, i, 1)
         out.append((accum.clone(), int(segs), dataclasses.astuple(stats)))
-    return out, meta
+    return out, meta, graphs.steps()[0]
 
 
 @pytest.mark.parametrize("case", list(CASES))
 def test_captured_media_dispatches_equal_eager_ones(scene, case):
     vols, atmo, mode = CASES[case]
     with mock.patch.object(integrator, "TRACE_MODE", mode):
-        eager, meta = _dispatches(scene, case)
-        assert not graphs.steps()[0].segments  # the CPU runs eagerly
+        eager, meta, step = _dispatches(scene, case)
+        assert not step.segments  # the CPU runs eagerly
         graphs.clear()
         with taped(guard=True):
-            captured, _ = _dispatches(scene, case)
+            captured, _, step = _dispatches(scene, case)
     assert meta.n_volumes == len(vols) and not meta.use_brute_force
     for (a, sa, la), (b, sb, lb) in zip(eager, captured):
-        assert torch.equal(a, b) and sa == sb and la == lb, (sa, sb, la, lb)
+        assert torch.equal(a, b) and sa == sb and la[:2] == lb[:2], (sa, sb, la, lb)  # loops, steps
+        assert la[3] == 0 and lb[3] == 1  # reads after a launch: the tallies, once
+    assert captured[1][2][2] == 0 and 0 < captured[0][2][2] < eager[0][2][2]  # reads inside the loop
     assert not torch.equal(eager[0][0], eager[1][0])
-    (step,) = graphs.steps()
     assert step.captures == 1 and step.replays > 0
     assert [site.body for site in step.sites] == _sites(len(vols), atmo)
     assert len(step.segments) == len(step.sites) + 1
-    loops, steps, syncs = eager[0][2]
+    loops, steps, syncs, _ = eager[0][2]
     assert loops > len(step.sites) and steps > 0 and syncs > loops
 
 
@@ -174,9 +179,9 @@ def jax_scene():
 def test_captured_atmosphere_dispatch_matches_jax(jax_scene):
     """test_torch_media_render.py's atmosphere case, its port dispatch
     captured."""
-    with taped():
+    with taped(), kept_steps() as made:
         want, want_segs, got, segs, stats, _ = _render_both(jax_scene, "atmosphere")
-    (step,) = graphs.steps()
+    (step,) = made
     assert step.captures == 1 and step.replays > 0 and len(step.sites) == 7
     p = psnr(np.clip(got, 0, 10), np.clip(want, 0, 10), data_range=10.0)
     close = np.isclose(got, want, rtol=1e-3, atol=1e-4).all(axis=-1)

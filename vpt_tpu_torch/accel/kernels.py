@@ -15,7 +15,8 @@ and sums into FMAs, so the kernels' slab and Moller-Trumbore decisions
 round exactly like their plain torch versions.
 
 `LAUNCHES` counts the launches of each kernel: a wrapper adds one where it
-launches its kernel and nowhere else.  Nothing here runs at import time.
+launches its kernel and nowhere else; a kernel inside a CUDA graph counts
+once per run of its node (render/graphs.py).  Nothing here runs at import time.
 """
 
 from __future__ import annotations
@@ -36,10 +37,12 @@ NVCC_FLAGS = (
     "--fmad=false", "-shared", "-Xcompiler", "-fPIC",
 )
 
-LAUNCHES = {"ray_keys": 0, "supertile_tables": 0, "stream": 0, "occlude": 0, "visit": 0}
+LAUNCHES = {"ray_keys": 0, "supertile_tables": 0, "stream": 0, "occlude": 0, "visit": 0, "loop_cond": 0}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_L = ctypes.c_longlong
+_U = ctypes.c_ulonglong
 _F = ctypes.c_float
 SOURCES = {  # source -> {entry point: argument types}
     "envelope.cu": {
@@ -51,6 +54,18 @@ SOURCES = {  # source -> {entry point: argument types}
         "vpt_occlude": [_P] * 20 + [_I] * 4 + [_F, _I] + [_P] * 2,
     },
     "visit.cu": {"vpt_visit": [_P] * 15 + [_I] * 4 + [_F, _I, _I] + [_P] * 5},
+    "graph_loop.cu": {  # the dispatch graph's WHILE nodes and their condition (render/graphs.py)
+        "vpt_graph_versions": [_P, _P],
+        "vpt_graph_create": [_P],
+        "vpt_graph_handle": [_P, _P],
+        "vpt_graph_add_child": [_P, _P, _P, _P],
+        "vpt_graph_add_cond": [_P, _P, _P, _L, _P, _L, _U, _I, _P, _P],
+        "vpt_graph_add_while": [_P, _P, _U, _P, _P],
+        "vpt_graph_bad_node": [_P, _P],
+        "vpt_graph_instantiate": [_P, _P],
+        "vpt_graph_launch": [_P, _P],
+        "vpt_graph_destroy": [_P, _P],
+    },
 }
 
 _entry = None

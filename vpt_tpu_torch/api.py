@@ -66,8 +66,8 @@ def render_step(scene_data, meta, flags, params, frame_seed: int, resolution, ac
                 n_samples: int):
     """One dispatch: (new accumulation (H, W, 3), segments traced as an int64
     device scalar, LoopStats of the media loops with the dispatch's host
-    synchronisations).  On a CUDA device each loop iteration replays the
-    configuration's captured step (render/graphs.py)."""
+    reads).  On a CUDA device the loop is one launch of the configuration's
+    dispatch graph (render/graphs.py)."""
     width, height = resolution
     pxy, pidx, sct, padded = tiled_pixels(width, height, accum.device)
     radiance, segments, stats = integrator.render_samples(
@@ -122,7 +122,7 @@ class Renderer:
         self._seed_counter = 0
         self.render_seconds = 0.0
         self.segments_traced = 0.0
-        self.last_host_syncs = 0  # of the last dispatch
+        self.last_host_syncs = 0  # host reads of the last dispatch: inside its loops, and after its graph's launch
         self.last_media_steps = 0  # volume and atmosphere loop steps of the last dispatch
         self.metrics = (RenderLog.open(metrics_log) if isinstance(metrics_log, str)
                         else (metrics_log or RenderLog.null()))
@@ -151,7 +151,7 @@ class Renderer:
             self.scene_data, self.meta, self.flags, self.params, seed, (self.width, self.height),
             accum, self.frame_count, self.samples_per_frame,
         )
-        self.last_host_syncs, self.last_media_steps = stats.syncs, stats.steps
+        self.last_host_syncs, self.last_media_steps = stats.syncs + stats.launch_reads, stats.steps
         segments = float(segments)  # waits for the dispatch to finish
         dt = time.perf_counter() - t0
         self.segments_traced += segments

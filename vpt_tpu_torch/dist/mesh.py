@@ -31,8 +31,9 @@ over the world the same way (pad lanes count, as in JAX).
 JAX caches one compiled executable per static configuration
 (`functools.lru_cache` on `_sharded_step`); the port's counterpart is the
 step cache of render/graphs.py, which every rank's `render_samples`
-reaches: each rank captures its loop iteration once per configuration and
-replays it, its pixels and sample offset copied into the step's buffers.
+reaches: each rank captures its loop once per configuration and launches
+it as one graph, its pixels and sample offset copied into the step's
+buffers.
 The scene is replicated on every rank.
 """
 

@@ -8,20 +8,20 @@ and Russian roulette; a lane whose path ends starts its pixel's next sample
 at once (path regeneration).  With volumes or the atmosphere each
 iteration first samples a scatter distance through them; scatter events
 shade like surfaces, with phase-function sampling, NEE transmittance and
-the spectral channel split.  JAX's `lax.while_loop` becomes a host loop
-bounded by n_samples * (max_depth + max_medium_events) iterations that
-stops early once no lane is alive: that check reads one bool from the
-device, one synchronisation per iteration; the media loops add theirs
-(render/loop.py), and the total is returned.
+the spectral channel split.  JAX's `lax.while_loop`, bounded by
+n_samples * (max_depth + max_medium_events) iterations and stopping early
+once no lane is alive, is `graphs.Step.run`.
 
 The loop is `prologue` (the carry at the start), `body` (one iteration)
 and a fold of the paths the iteration cap cut.  The body is a function of
-device buffers only, so on a CUDA device each iteration replays CUDA
-graphs captured once per configuration, as the JAX package compiles its
-step once (`dispatch_step`, render/graphs.py): one graph without media,
-and with volumes or the atmosphere a graph per segment between the media
-loops and a chunk graph per loop, which the host replays while the loop's
-flag holds.
+device buffers only, so on a CUDA device the whole loop is one CUDA graph
+built once per configuration, as the JAX package compiles its step once
+(`dispatch_step`, render/graphs.py): a WHILE node over the iteration's
+captured graphs, with a nested WHILE node per media loop, whose conditions
+the device evaluates; the host reads the loops' tallies once after the
+launch.  Eagerly (a CPU device, or graphs.CAPTURE False) the host reads
+`any(alive)` before each iteration and the media loops' flags
+(render/loop.py), and counts those reads.
 
 Large scenes trace through the cluster tables in one of two modes, read
 from `VPT_TRACE` once at import as in the JAX package: "stream" (default;
@@ -563,13 +563,18 @@ def dispatch_step(scene, meta, flags: RenderFlags, params: RenderParams, pixel_x
                       pixel_index=graphs.buffer(pixel_index, torch.int64, dev),
                       frame_seed=graphs.buffer(0, torch.int64, dev), sample_offset=graphs.buffer(0, torch.int64, dev),
                       center=torch.tensor(meta.scene_center, dtype=torch.float32, device=dev))
-        return graphs.Step(functools.partial(body, scene, meta, flags, resolution, n_samples), inputs, owner=scene)
+        return graphs.Step(functools.partial(_iteration, meta, flags, resolution, n_samples), inputs)
 
-    step = graphs.cached(key, make)
+    step = graphs.cached(key, make, owner=scene)
     step.load(params=tuple(params), pixel_xy=pixel_xy, pixel_index=pixel_index, frame_seed=sample_seed,
               sample_offset=sample_offset)
     step.start(prologue(step.inputs, resolution, n_samples), capture=graphs.capturable(dev))
     return step
+
+
+def _iteration(meta, flags, resolution, n_samples, scene, carry, inputs, media):
+    """`body` with the configuration bound first: a step holds no scene."""
+    return body(scene, meta, flags, resolution, n_samples, carry, inputs, media)
 
 
 def path_trace_sample(scene, meta, flags: RenderFlags, params: RenderParams, pixel_xy, pixel_index,
@@ -581,22 +586,14 @@ def path_trace_sample(scene, meta, flags: RenderFlags, params: RenderParams, pix
 
     Returns ((N, 3) radiance summed over samples, segment count as an int64
     device scalar, LoopStats: the media loops run and their steps, and the
-    host synchronisations of the whole call)."""
+    host reads of the whole call)."""
     step = dispatch_step(scene, meta, flags, params, pixel_xy, pixel_index, resolution, sample_seed, n_samples,
                          sample_offset)
-    media = LoopStats()  # the media loops'; the main loop's syncs join at the end
-    max_iters = n_samples * (flags.max_depth + flags.max_medium_events)
-    syncs = 0
-    for _ in range(max_iters):
-        syncs += 1
-        if not bool(step.carry["alive"].any()):
-            break
-        step.advance(media)
-    c = step.carry
+    stats = LoopStats()
+    c = step.run(scene, n_samples * (flags.max_depth + flags.max_medium_events), stats)
     # Paths cut by the iteration cap fold with what they have.
     lane_acc = c["lane_acc"] + _sel(c["alive"], _fold(c["radiance"], c["channel"], bool(flags.enable_atmosphere)), 0.0)
-    media.syncs += syncs
-    return lane_acc, c["segments"].clone(), media
+    return lane_acc, c["segments"].clone(), stats
 
 
 def render_samples(scene, meta, flags, params, pixel_xy, pixel_index, resolution, frame_seed: int,

@@ -5,18 +5,19 @@ cond = (i < max_steps) & any(carry["live"]).
 The step count decides the random streams: every step advances the RNG of
 every lane, dead lanes included, so a lane's state after the loop depends
 on how long the slowest lane ran.  `while_live` runs exactly the JAX
-package's count of steps.  The host cannot see `any(live)` without a
-synchronisation, so it reads it once per CHUNK steps: inside a chunk each
-step's update is kept only where any(live) held at the step's start, which
-makes the steps past the loop's end change nothing.
+package's count of steps.
 
-`while_live` is the one place where a loop runs.  Eagerly, it issues each
-chunk's steps op by op.  While render/graphs.py captures an iteration of
-the wavefront loop (`recording`), it hands the loop to the capture as a
-loop site instead: the capture closes the graph it was recording, captures
-one chunk of the loop as a graph of its own and opens the next, and every
-later iteration replays the chunk graph between the host's reads (`drive`,
-the same host loop as the eager one).
+`while_live` is the one place where a loop runs.  Eagerly (a CPU device,
+or graphs.CAPTURE False), the host cannot see `any(live)` without a
+synchronisation, so it reads it once per CHUNK steps (`drive`): inside a
+chunk each step's update is kept only where any(live) held at the step's
+start, which makes the steps past the loop's end change nothing.  While
+render/graphs.py captures an iteration of the wavefront loop
+(`recording`), it hands the loop to the capture as a loop site instead:
+the capture closes the graph it was recording, captures one plain step of
+the loop as a graph of its own and opens the next, and the dispatch graph
+runs that step in a WHILE node whose condition is `cond`, evaluated on the
+device (csrc/graph_loop.cu) as `lax.while_loop` evaluates it.
 """
 
 from __future__ import annotations
@@ -33,11 +34,14 @@ CHUNK = 8  # steps issued between two host reads of the loop's flag
 @dataclasses.dataclass
 class LoopStats:
     """What the loops of one caller ran: loop calls, steps (as
-    `lax.while_loop` counts its iterations) and host synchronisations."""
+    `lax.while_loop` counts its iterations), host synchronisations inside
+    the loops (`syncs`) and host reads after a dispatch graph's launch
+    (`launch_reads`, render/graphs.py)."""
 
     loops: int = 0
     steps: int = 0
     syncs: int = 0
+    launch_reads: int = 0
 
 
 _capture = threading.local()  # .site while this thread captures an iteration
@@ -53,6 +57,13 @@ def recording(site):
         yield
     finally:
         _capture.site = outer
+
+
+def cond(live: torch.Tensor, steps: torch.Tensor, cap: int) -> bool:
+    """`lax.while_loop`'s condition of a loop: any(live) & (steps < cap).
+    The plain version of csrc/graph_loop.cu vpt_loop_cond_kernel, which
+    sets a WHILE node's condition to it on the device."""
+    return bool(live.any()) and int(steps) < cap
 
 
 def flag(carry: dict, steps: torch.Tensor) -> torch.Tensor:
