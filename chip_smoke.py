@@ -168,7 +168,42 @@ Phases, each of which raises on failure:
         vpt_tpu_torch.gallery` at GALLERY_SIZE=64 GALLERY_SPP=8 into a
         temporary directory: exit 0, one PNG per job, viking_room skipped;
         one JSON line "gallery".
-Every drive of phases 4-11 and 13 checks that its loop ran captured (a
+ 14. the layout knobs and the dispatch tools (vpt_tpu_torch/tools):
+     a. colonnade compiled at K = 64 and 256 (cluster.CLUSTER_SIZE, which
+        compile_scene reads when called) and at groups of 4 and 16 with K =
+        128 (cluster.GROUP_SIZE), each with phase 4's baked fits: at phase
+        3's bounce and shadow shapes ray_keys and supertile_tables equal
+        their plain versions, stream by the tie rule, occlude and the
+        packet cull exactly, visit exactly on VISIT_SLICE bounce packets
+        spread over them; CUDA-event medians of 20-launch pairs of the
+        five kernels (bounce; occlude on the shadow batch) beside their
+        bounds (phase 3's way); clusters, groups and Gp; one captured
+        dispatch at
+        512x512, depth 8, 4 spp, at GRAPH_SEED after the one that captures:
+        s/dispatch, segments and the image's PSNR against phase 4's K = 128
+        image at that seed (above LAYOUT_PSNR);
+     b. the packet path (integrator.TRACE_MODE "packet") at
+        PACKET_LAYOUTS (cluster.PACKET_SIZE 256 and 1024, _SORT_KEY "fe",
+        integrator._SORT_RAYS False): the packet cull at PACKET_SIZE-ray
+        tiles against its plain version and the dense cull, the key-sorted
+        (or unsorted) packets' visit on VISIT_SLICE packets spread over
+        them exactly, the fe keys against their plain version; visit and the
+        packet cull timed beside their bounds; one captured dispatch each
+        as in a, visit launched and stream not;
+     c. tools.profile_dispatch on the stream path (colonnade 512x512, 4
+        spp) and on phase 7's media scene at PROFILE_SIZE^2, 1 spp: the
+        host-driven profile's device events number the kernel, memcpy and
+        memset nodes its graphs' replays ran within PROFILE_EVENTS, and its
+        summed device ms is at most PROFILE_TOLERANCE above the device ms of
+        the step's WHILE launch (one event pair, after the profiled run; the
+        launch before it and the ratio are printed too); the top ops, the
+        csrc kernels' shares and the SM clock around it;
+     d. `python -m vpt_tpu_torch.tools.quick_bench` at the defaults, then
+        `python -m vpt_tpu_torch.tools.sweep_bench 512 4 --configs
+        k64,k128,k256`, as subprocesses: each RESULT line with the card's
+        name and power limit;
+     one JSON line "layouts".
+Every drive of phases 4-11, 13 and 14 checks that its loop ran captured (a
 graph launch per dispatch); the plain-version renders run eagerly.
 The last lines are the card's name and power limit, the kernel table as
 JSON and {"ok": true, ...}.  Without a CUDA device the script exits
@@ -257,6 +292,7 @@ from vpt_tpu_torch.scene.procedural import colonnade, colonnade_textured, furnac
 from vpt_tpu_torch.scene.types import Volume, tree_to_device
 from vpt_tpu_torch.scene.vdb import load_grid, procedural_cloud
 from vpt_tpu_torch.scene.vdb_reader import read_vdb, write_vdb
+from vpt_tpu_torch.tools import profile_dispatch as profile_tool
 from vpt_tpu_torch.viewer import TerminalViewer
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -527,10 +563,10 @@ def tables_bound(args, work: envelope.EnvelopeWork, tile: int) -> dict:
 def packet_cull_args(pk: cluster.Packets, cl, t_min) -> tuple:
     """supertile_tables' arguments for the packet cull, as prepare_packets
     passes them: the key-sorted packet rays, tmax -inf on inactive ones,
-    512-ray tiles."""
+    tiles of the packets' size."""
     gmin, gmax = cluster.pad_groups(cl)
     return (pk.origin.reshape(-1, 3), guarded_inverse(pk.direction.reshape(-1, 3)),
-            cluster.packet_cull_tmax(pk.tmax, pk.active).reshape(-1), gmin, gmax, t_min, cluster.PACKET_SIZE)
+            cluster.packet_cull_tmax(pk.tmax, pk.active).reshape(-1), gmin, gmax, t_min, pk.active.shape[1])
 
 
 def dense_packet_cull(pk: cluster.Packets, cl, t_min) -> torch.Tensor:
@@ -550,23 +586,24 @@ def dense_packet_cull(pk: cluster.Packets, cl, t_min) -> torch.Tensor:
 
 
 def compare_packet_cull(pk: cluster.Packets, cl, t_min, label: str, table) -> tuple:
-    """supertile_tables at 512-ray tiles against its plain version and the
-    dense cull it replaced, bit for bit, and the candidate lists that
-    prepare_packets made from it against the dense cull's.  Returns the
+    """supertile_tables at PACKET_SIZE-ray tiles against its plain version
+    and the dense cull it replaced, bit for bit, and the candidate lists
+    that prepare_packets made from it against the dense cull's.  Returns the
     kernel's arguments."""
     args = packet_cull_args(pk, cl, t_min)
+    size = args[-1]
     got, plain = envelope.supertile_tables(*args), envelope.supertile_tables_plain(*args)
     dense = dense_packet_cull(pk, cl, t_min)
     torch.cuda.synchronize()
-    check(bits_equal(got, plain), f"supertile_tables ({label} packets, 512-ray tiles) equals its plain version")
-    check(bits_equal(got, dense), f"supertile_tables ({label} packets, 512-ray tiles) equals the dense packet cull")
+    check(bits_equal(got, plain), f"supertile_tables ({label} packets, {size}-ray tiles) equals its plain version")
+    check(bits_equal(got, dense), f"supertile_tables ({label} packets, {size}-ray tiles) equals the dense packet cull")
     entry_sorted, order = torch.sort(dense, dim=1, stable=True)
     check(torch.equal(pk.order, order.to(torch.int32)) and bits_equal(pk.entry_sorted, entry_sorted)
           and torch.equal(pk.nvis, torch.isfinite(dense).sum(dim=1).to(torch.int32)),
           f"prepare_packets' candidate lists ({label}) equal the dense cull's")
     row = table["supertile_tables"]
     row["max_abs_err"] = max(row.get("max_abs_err", 0.0), max_abs_err(got, plain))
-    log(f"packet cull {label}: supertile_tables over {got.shape[0]} packets of 512 rays ({int(pk.active.sum())} "
+    log(f"packet cull {label}: supertile_tables over {got.shape[0]} packets of {size} rays ({int(pk.active.sum())} "
         f"active) equals its plain version and the dense cull; order, entry_sorted and nvis equal the dense cull's")
     return args
 
@@ -1682,6 +1719,277 @@ def gallery_full(dev, smi: str) -> None:
     print(json.dumps({"gallery_full": rows, "device": smi}), flush=True)
 
 
+# Phase 14: the layout knobs and the dispatch tools.
+LAYOUT_KS = (64, 256)  # cluster sizes beside the default 128
+LAYOUT_GROUPS = (4, 16)  # group sizes beside the default 8, at K = 128
+# (VPT_PACKET_SIZE, VPT_SORT_KEY, VPT_SORT_RAYS) of the packet path beside (512, fs, sorted).
+PACKET_LAYOUTS = ((256, "fs", True), (1024, "fs", True), (512, "fe", True), (512, "fs", False))
+VISIT_SLICE = 32  # packets whose visit phase 14 holds against the plain version (the plain visit takes ~80 ms a packet)
+# A layout may change which of two triangles at equal t a ray takes; the
+# path of such a sample continues elsewhere, an independent sample in that
+# pixel.  So a layout's image is held to phase 4's K = 128 one at the same
+# seed by a PSNR bar (dB, clipped to [0, 10] as kernel_vs_plain_render), not
+# bitwise; on an H100 80GB HBM3 they read equal (stream) and 137 dB (packet
+# mode).
+LAYOUT_PSNR = 50.0
+# The host-driven profile of a dispatch against its WHILE launch.  Its device
+# events must number the kernel, memcpy and memset nodes its graphs' replays
+# ran within PROFILE_EVENTS: the host's condition reads add a few events per
+# loop condition (+0.2% stream, +1.7% media on an H100 80GB HBM3), and CUPTI
+# can drop a few records; a profile of the media path's WHILE launch itself
+# saw 5,439 of ~356K.  Its summed device time may exceed the launch's by at
+# most PROFILE_TOLERANCE (the same kernels, less the loop condition's, timed
+# by CUPTI).  It may fall short of it by more: the launch also holds the idle
+# time between its nodes, and on that card the same step's launch read
+# 341-419 ms within and between processes at a constant 342-346 ms of
+# kernels, the parent commit's too (PERF.md §7); the ratio is printed.
+PROFILE_EVENTS = 0.02
+PROFILE_TOLERANCE = 0.05
+SWEEP = "k64,k128,k256"  # 14d's tools.sweep_bench configurations
+
+
+def slice_packets(pk: cluster.Packets, n: int) -> cluster.Packets:
+    """n packets of `pk` spread evenly over them, the first and the last
+    included (a visit needs nothing else of the others)."""
+    idx = torch.linspace(0, pk.nvis.shape[0] - 1, n, device=pk.nvis.device).round().long()
+    return pk._replace(**{f: getattr(pk, f).index_select(0, idx).contiguous()
+                          for f in ("nvis", "order", "entry_sorted", "origin", "direction", "active", "tmax")})
+
+
+def visit_call(pk: cluster.Packets, cl, t_min) -> tuple:
+    """visit_trace's arguments for the packets `pk`."""
+    return (pk.nvis, pk.order, pk.entry_sorted, pk.origin, pk.direction, pk.active, pk.tmax, cl, t_min)
+
+
+def visit_bound(pk: cluster.Packets, cl, work, instanced: bool) -> dict:
+    """The visit's bound: the closest-hit work of the same rays (phase 3's
+    way), its packets' tables and rays read, the hits written."""
+    return bound(trace_flops(work, instanced),
+                 nbytes(pk.nvis, pk.order, pk.entry_sorted, pk.origin, pk.direction, pk.tmax, *cluster_tables(cl))
+                 + 4 * pk.active.numel() + 16 * pk.active.numel())
+
+
+def timed_row(fn, args, b: dict) -> dict:
+    """A kernel's CUDA-event median over 20-launch pairs beside its bound."""
+    ms = cuda_ms(lambda: fn(*args), launches=LAUNCHES_PER_PAIR)
+    return {"ms": ms, "bound_ms": b["bound_ms"], "bound_by": b["bound_by"], "bound_share": b["bound_ms"] / ms}
+
+
+def layout_kernels(data, meta, aux, dev, label: str, table) -> dict:
+    """Phase 14a's kernel checks of one cluster layout at phase 3's bounce
+    and shadow shapes, and the five kernels' times beside their bounds."""
+    cl = data.clusters
+    t_min, _, bounce, shadow = main_path_inputs(data, meta, aux, dev)
+    b_bounce = stream.trace_bands(*bounce[:2], cl, t_min, T_MAX, bounce[2], torch.zeros_like(bounce[2]))
+    b_shadow = occlude.shadow_bands(shadow["origin"], shadow["direction"], cl, t_min, shadow["tmax"],
+                                    shadow["active"], shadow["extri"])
+    cases = {
+        "bounce": envelope_case(cl, stream.pad_wavefront(*bounce[:2], cl, t_min, T_MAX, bounce[2]), b_bounce, t_min, 2),
+        "shadow": envelope_case(cl, stream.pad_wavefront(shadow["origin"], shadow["direction"], cl, t_min,
+                                                         shadow["tmax"], shadow["active"]), b_shadow, t_min, 1),
+    }
+    for shape, case in cases.items():
+        compare_envelope(case, f"{label} {shape}", table)
+    err, t_bounce = compare_stream(b_bounce, cl, t_min, f"{label} bounce")
+    table["stream"]["max_abs_err"] = max(table["stream"]["max_abs_err"], err)
+    ok, op = occlude.occlude_trace(b_shadow, cl, t_min), occlude.occlude_trace_plain(b_shadow, cl, t_min)
+    torch.cuda.synchronize()
+    check(torch.equal(ok, op), f"occlude ({label}) equals its plain version")
+    pk = cluster.prepare_packets(*bounce[:2], cl, t_min, T_MAX, bounce[2], sort_rays=True)
+    compare_packet_cull(pk, cl, t_min, f"{label} bounce", table)
+    err_v, _, _ = compare_visit(slice_packets(pk, VISIT_SLICE), cl, t_min, f"{label} bounce, {VISIT_SLICE} packets")
+    table["visit"]["max_abs_err"] = max(table["visit"]["max_abs_err"], err_v)
+    instanced = cl.inv_rows.shape[0] > 1
+    w_bounce = stream.trace_work(b_bounce, cl, t_min, (b_bounce.payload[0] & 1) > 0, t_bounce)
+    near = torch.minimum(occlude.nearest_blocker_plain(b_shadow, cl, t_min), b_shadow.tmax)
+    w_shadow = stream.trace_work(b_shadow, cl, t_min, b_shadow.payload[0] > 0, near)
+    keys_b, tables_b = envelope_bounds(cases["bounce"], label)
+    gp = cases["bounce"].keys[3].shape[1]
+    row = {"layout": label, "K": cl.tris.shape[2], "G": cl.count.shape[0] // cl.group_min.shape[0],
+           "P": cluster.PACKET_SIZE, "key": cluster._SORT_KEY, "sorted": True, "clusters": cl.count.shape[0],
+           "groups": cl.group_min.shape[0], "Gp": gp, "kernels": {
+               "ray_keys": timed_row(envelope.ray_keys, cases["bounce"].keys, keys_b),
+               "supertile_tables": timed_row(envelope.supertile_tables, cases["bounce"].tables, tables_b),
+               "stream": timed_row(stream.stream_trace, (b_bounce, cl, t_min),
+                                   bound(trace_flops(w_bounce, instanced),
+                                         nbytes(*band_inputs(b_bounce), *cluster_tables(cl)) + 16 * b_bounce.origin.shape[0])),
+               "occlude": timed_row(occlude.occlude_trace, (b_shadow, cl, t_min),
+                                    bound(trace_flops(w_shadow, instanced),
+                                          nbytes(*band_inputs(b_shadow), *cluster_tables(cl)) + 4 * b_shadow.origin.shape[0])),
+               "visit": timed_row(visit.visit_trace, visit_call(pk, cl, t_min),
+                                  visit_bound(pk, cl, w_bounce, instanced)),
+           }}
+    log(f"layout {label}: K {row['K']}, groups of {row['G']}: {row['clusters']} clusters, {row['groups']} groups, Gp "
+        f"{gp}; kernels equal their plain versions (stream by the tie rule, visit on {VISIT_SLICE} packets); "
+        + "; ".join(f"{k} {v['ms']:.4f} ms, bound {v['bound_ms'] * 1e3:.2f} us by {v['bound_by']} "
+                    f"({100 * v['bound_share']:.2f}%)" for k, v in row["kernels"].items()))
+    return row
+
+
+def layout_dispatch(data, meta, flags, params, base, label: str, mode: str = "stream") -> dict:
+    """One captured dispatch of a layout at GRAPH_SEED (after the one that
+    captures): s/dispatch, segments, launches and the image's PSNR against
+    `base` (phase 4's configuration at K = 128, the same seed)."""
+    zeros = torch.zeros((H, W, 3), device=params.view_inverse.device)
+
+    def dispatch():
+        return render_step(data, meta, flags, params, GRAPH_SEED, (W, H), zeros, 0, 4)
+
+    captured_or_eager(dispatch, True)
+    run_ = captured_or_eager(dispatch, True)
+    check(run_["graph_launches"] == 1 and run_["syncs"] == 0, f"{label}: a captured dispatch, one graph launch")
+    launches = run_["launches"]
+    if mode == "packet":
+        check(launches["visit"] > 0 and launches["stream"] == 0 and launches["occlude"] == 0,
+              f"{label}: the packet path launched visit, neither stream nor occlude")
+    else:
+        check_stream_launches(launches, label)
+    img = run_["img"].cpu().numpy()
+    check(bool(np.isfinite(img).all()) and float(img.mean()) > 0.0, f"{label}: the image is finite with mean > 0")
+    p = psnr(np.clip(img, 0, 10), np.clip(base["img"].cpu().numpy(), 0, 10), 10.0)
+    check(p > LAYOUT_PSNR, f"{label}: the image within {LAYOUT_PSNR} dB of the K = 128 stream image")
+    out = {"s_per_dispatch": run_["s"], "segments": run_["segments"], "segments_per_s": run_["segments"] / run_["s"],
+           "psnr_vs_k128": p, "segments_vs_k128": run_["segments"] / base["segments"] - 1.0,
+           "launches": {k: v for k, v in launches.items()}}
+    log(f"layout {label} dispatch ({mode}, 512x512, 4 spp, seed {GRAPH_SEED}): {run_['s']:.3f} s, "
+        f"{run_['segments']} segments ({100 * out['segments_vs_k128']:+.4f}% against K = 128), "
+        f"{out['segments_per_s'] / 1e6:.3f} M segs/s, PSNR {p:.1f} dB against the K = 128 image; launches {launches}")
+    return out
+
+
+def packet_layout(stream_r: Renderer, p3: dict, size: int, key: str, sort: bool, base, table) -> dict:
+    """Phase 14b at one packet layout: the cull, the keys and the visit
+    against their plain versions, their times and bounds, one dispatch."""
+    data, t_min, bounce, shadow = p3["data"], p3["t_min"], p3["bounce"], p3["shadow"]
+    cl = data.clusters
+    label = f"P{size} {key}{'' if sort else ' unsorted'}"
+    instanced = cl.inv_rows.shape[0] > 1
+    with mock.patch.object(cluster, "PACKET_SIZE", size), mock.patch.object(cluster, "_SORT_KEY", key), \
+            mock.patch.object(integrator, "_SORT_RAYS", sort):
+        packets = {"bounce": cluster.prepare_packets(*bounce[:2], cl, t_min, T_MAX, bounce[2], sort_rays=sort),
+                   "shadow": cluster.prepare_packets(shadow["origin"], shadow["direction"], cl, t_min, shadow["tmax"],
+                                                     shadow["active"], sort_rays=sort)}
+        for shape, pk in packets.items():
+            check(pk.active.shape[1] == size and (pk.perm is None) == (not sort), f"{label} {shape}: the packets")
+            compare_packet_cull(pk, cl, t_min, f"{label} {shape}", table)
+            err, _, _ = compare_visit(slice_packets(pk, VISIT_SLICE), cl, t_min,
+                                      f"{label} {shape}, {VISIT_SLICE} packets")
+            table["visit"]["max_abs_err"] = max(table["visit"]["max_abs_err"], err)
+        if key == "fe":
+            w = stream.pad_wavefront(*bounce[:2], cl, t_min, T_MAX, bounce[2])
+            gmin, gmax = cluster.pad_groups(cl)
+            keys = (w.origin, w.inv, w.tmax, gmin, gmax, t_min, 1)
+            diag = cluster.root_diagonal(cl)
+            got, want = envelope.ray_keys(*keys, diag=diag), envelope.ray_keys_plain(*keys, diag=diag)
+            torch.cuda.synchronize()
+            check(torch.equal(got, want), f"ray_keys' fe key ({label}) equals its plain version")
+            log(f"ray_keys fe ({label}): {got.shape[0]} keys equal their plain version")
+        pk = packets["bounce"]
+        cull = packet_cull_args(pk, cl, t_min)
+        row = {"layout": label, "K": cl.tris.shape[2], "G": cl.count.shape[0] // cl.group_min.shape[0], "P": size,
+               "key": key, "sorted": sort, "clusters": cl.count.shape[0], "groups": cl.group_min.shape[0],
+               "Gp": cull[3].shape[1], "nvis_mean": float(pk.nvis.float().mean()), "kernels": {
+                   "visit": timed_row(visit.visit_trace, visit_call(pk, cl, t_min),
+                                      visit_bound(pk, cl, p3["w_bounce"], instanced)),
+                   "visit_shadow": timed_row(visit.visit_trace, visit_call(packets["shadow"], cl, t_min),
+                                             visit_bound(packets["shadow"], cl, p3["w_shadow"], instanced)),
+                   "supertile_tables": timed_row(envelope.supertile_tables, cull,
+                                                 tables_bound(cull, envelope.envelope_work(*cull[:6]), size)),
+               }}
+        log(f"packet layout {label}: {pk.nvis.shape[0]} bounce packets, candidate groups per packet mean "
+            f"{row['nvis_mean']:.1f}; " + "; ".join(
+                f"{k} {v['ms']:.4f} ms, bound {v['bound_ms'] * 1e3:.2f} us ({100 * v['bound_share']:.2f}%)"
+                for k, v in row["kernels"].items()))
+        with mock.patch.object(integrator, "TRACE_MODE", "packet"):
+            row.update(layout_dispatch(stream_r.scene_data, stream_r.meta, stream_r.flags, stream_r.params, base, label,
+                                       mode="packet"))
+    return row
+
+
+def sm_clock() -> str:
+    """The card's SM clock now, as nvidia-smi reads it."""
+    return subprocess.run(["nvidia-smi", "--query-gpu=clocks.sm", "--format=csv,noheader"], capture_output=True,
+                          text=True, check=True, timeout=60).stdout.strip()
+
+
+def run_tool(*args: str, timeout: float = 600) -> list:
+    """`python -m vpt_tpu_torch.tools.<args>` from the checkout's root with no
+    VPT_* variable set: its output lines (raises on a non-zero exit)."""
+    env = {k: v for k, v in os.environ.items() if not k.startswith("VPT_")}
+    proc = subprocess.run([sys.executable, "-m", *args], cwd=ROOT, env=env, capture_output=True, text=True,
+                          timeout=timeout)
+    if proc.returncode != 0:
+        raise RuntimeError(f"{' '.join(args)} exited {proc.returncode}:\n{proc.stdout[-2000:]}\n{proc.stderr[-3000:]}")
+    return proc.stdout.splitlines()
+
+
+def layouts_phase(dev, smi: str, table, p3: dict, stream_r: Renderer, media_r: Renderer) -> None:
+    """Phase 14: the layout knobs (a, b) and the dispatch tools (c, d)."""
+    t_phase = time.perf_counter()
+    base = captured_or_eager(stepper(stream_r), True)  # phase 4's configuration at K = 128, GRAPH_SEED
+    tables = lookup.get_lookup_tables(device=dev)  # the cached bake: phase 4's fits
+    rows = []
+    # 14a. Cluster layouts.
+    for knob, values in (("CLUSTER_SIZE", LAYOUT_KS), ("GROUP_SIZE", LAYOUT_GROUPS)):
+        for value in values:
+            label = f"K{value}" if knob == "CLUSTER_SIZE" else f"G{value}"
+            t0 = time.perf_counter()
+            with mock.patch.object(cluster, knob, value):
+                data, meta, aux = compile_scene(colonnade(), dev, lookup_tables=tables)
+            torch.cuda.synchronize()
+            log(f"compile_scene(colonnade) at {label}: {time.perf_counter() - t0:.1f} s")
+            row = layout_kernels(data, meta, aux, dev, label, table)
+            row.update(layout_dispatch(data, meta, stream_r.flags, stream_r.params, base, label))
+            rows.append(row)
+            del data, meta, aux
+    log(f"phase 14a (cluster layouts): {time.perf_counter() - t_phase:.1f} s")
+    # 14b. Packet layouts.
+    t0 = time.perf_counter()
+    for size, key, sort in PACKET_LAYOUTS:
+        rows.append(packet_layout(stream_r, p3, size, key, sort, base, table))
+    log(f"phase 14b (packet layouts): {time.perf_counter() - t0:.1f} s")
+    # 14c. The profile tool against the WHILE launch.
+    t0 = time.perf_counter()
+    profiles = {}
+    for name, r, size, spp in (("stream", stream_r, W, 4), ("media", media_r, PROFILE_SIZE, 1)):
+        lines = []
+        clocks = [sm_clock()]
+        res = profile_tool.profile_step(r.scene_data, r.meta, r.flags, r.params, size, spp, out=lines.append)
+        clocks.append(sm_clock())
+        log(f"profile_dispatch {name}: SM clock before / after (nvidia-smi clocks.sm) {clocks}")
+        check(lines[0] == profile_tool.HOST_DRIVEN, f"profile_dispatch ({name}) names its mode first")
+        for line in lines[:3] + [x for x in lines if x.startswith(("profile device ms", "csrc", "device events"))]:
+            log(f"profile_dispatch {name} {size}x{size} {spp} spp: {line}")
+        top = next(iter(res["top"].values()))
+        log(f"profile_dispatch {name} top ops: " + "; ".join(f"{n[:70]} {ms:.2f} ms x{c}" for n, ms, c in top[:12]))
+        check(abs(res["events"] / res["replayed_nodes"] - 1.0) <= PROFILE_EVENTS,
+              f"profile_dispatch ({name}): the profile's device events within {PROFILE_EVENTS:.0%} of the kernel, "
+              "memcpy and memset nodes the graphs' replays ran")
+        check(res["ratio"] <= 1.0 + PROFILE_TOLERANCE,
+              f"profile_dispatch ({name}): the profile's device ms at most {PROFILE_TOLERANCE:.0%} above the WHILE "
+              "launch's")
+        profiles[name] = {k: res[k] for k in ("segments", "wall_s", "device_ms", "launch_ms", "launch_before_ms", "ratio",
+                                              "events", "replayed_nodes", "csrc")}
+        profiles[name]["within_5_percent"] = abs(res["ratio"] - 1.0) <= PROFILE_TOLERANCE
+        profiles[name]["sm_clock"] = clocks
+        profiles[name]["top"] = top[:15]
+    log(f"phase 14c (profile_dispatch): {time.perf_counter() - t0:.1f} s")
+    # 14d. quick_bench and sweep_bench as subprocesses.
+    t0 = time.perf_counter()
+    quick = run_tool("vpt_tpu_torch.tools.quick_bench")
+    sweep = run_tool("vpt_tpu_torch.tools.sweep_bench", "512", "4", "--configs", SWEEP, timeout=900)
+    results = [x for x in quick if x.startswith("RESULT")] + [x for x in sweep if "RESULT" in x and "===" not in x
+                                                                and not x.startswith("    ")]
+    for line in quick[-3:] + sweep[sweep.index("=== sweep summary ==="):]:
+        log(f"tools: {line}")
+    check(quick[-1] == smi and sweep[-1] == smi, "quick_bench and sweep_bench end with the card's name and power limit")
+    check(len(results) == 1 + len(SWEEP.split(",")), "one RESULT line per configuration")
+    log(f"phase 14d (quick_bench, sweep_bench): {time.perf_counter() - t0:.1f} s")
+    print(json.dumps({"layouts": rows, "k128": {"s_per_dispatch": base["s"], "segments": base["segments"]},
+                      "profiles": profiles, "tools": results, "device": smi}), flush=True)
+    log(f"phase 14 (the layouts and the tools): {time.perf_counter() - t_phase:.1f} s")
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--compare", metavar="OTHER_CU", nargs="+", default=[],
@@ -1793,6 +2101,7 @@ def run(dev, smi: str, other_builds=()) -> None:
             table["visit"]["shadow_bound_ms"] = b["bound_ms"]
     table["visit"]["plain_ms"], table["visit"]["shadow_plain_ms"] = plain_b, plain_s
 
+    p3 = {"data": data, "t_min": t_min, "bounce": bounce, "shadow": shadow, "w_bounce": w_bounce, "w_shadow": w_shadow}
     calls = kernel_calls(cases, cl, t_min, b_bounce, b_shadow, visit_args, cull_args)
     for name, shapes in calls.items():
         row = table[name]
@@ -1907,6 +2216,9 @@ def run(dev, smi: str, other_builds=()) -> None:
 
     # 13. The goldens and the gallery.
     gallery_phase(dev, smi)
+
+    # 14. The layout knobs and the dispatch tools.
+    layouts_phase(dev, smi, table, p3, stream_r, media_r)
 
     print(smi)
     print(json.dumps({"kernels": list(table.values())}))

@@ -160,7 +160,7 @@ def test_wrappers_refuse_what_the_kernels_do_not_take():
         tenv.ray_keys(*args[:3], args[3][:, :30], args[4][:, :30], t_min=T_MIN, levels=2)
     with pytest.raises(ValueError, match="levels"):
         tenv.ray_keys(*args, t_min=T_MIN, levels=3)
-    with pytest.raises(ValueError, match="tiles of 512 or 1024"):
-        tenv.supertile_tables(*args, t_min=T_MIN, tile=256)
+    with pytest.raises(ValueError, match="tiles of 128, 256, 512 or 1024"):
+        tenv.supertile_tables(*args, t_min=T_MIN, tile=384)
     with pytest.raises(ValueError, match="multiple of 512"):
         tenv.supertile_tables(*(a[:768] for a in args[:3]), *args[3:], t_min=T_MIN, tile=512)

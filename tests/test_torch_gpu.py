@@ -1,7 +1,8 @@
 """The five hand-written CUDA kernels of vpt_tpu_torch against their plain
-torch versions, on a CUDA device at small shapes, the trace wrappers'
-shape checks, and the captured loop (render/graphs.py) against the eager
-one.  These tests skip where
+torch versions, on a CUDA device at small shapes and at the cluster and
+packet layouts of the layout knobs (VPT_CLUSTER_SIZE, VPT_GROUP_SIZE,
+VPT_PACKET_SIZE, VPT_SORT_KEY, VPT_SORT_RAYS), the wrappers' layout
+checks, and the captured loop (render/graphs.py) against the eager one.  These tests skip where
 there is no CUDA device; they import no JAX, so on a GPU machine without
 JAX run them with
 
@@ -13,7 +14,9 @@ import pytest
 import torch
 
 from envelope_rays import SCENES, wavefronts
-from vpt_tpu_torch.accel import envelope, kernels, occlude, stream, visit
+from unittest import mock
+
+from vpt_tpu_torch.accel import cluster, envelope, kernels, occlude, stream, visit
 from vpt_tpu_torch.accel.bvh import LEAF_SIZE, build_bvh
 from vpt_tpu_torch.accel.cluster import assemble_clusters, build_mesh_clusters, prepare_packets
 from vpt_tpu_torch.scene.types import tree_to_device
@@ -29,7 +32,7 @@ def cuda():
     return torch.device("cuda")
 
 
-def _clusters(dev, instanced: bool, n_tris: int = 3000, cluster_size: int = 128):
+def _clusters(dev, instanced: bool, n_tris: int = 3000, cluster_size: int = 128, group_size: int = 8):
     rng = np.random.default_rng(5)
     v0 = rng.uniform(-4, 4, (n_tris, 3)).astype(np.float32)
     v1 = v0 + rng.uniform(-0.5, 0.5, (n_tris, 3)).astype(np.float32)
@@ -39,14 +42,16 @@ def _clusters(dev, instanced: bool, n_tris: int = 3000, cluster_size: int = 128)
     def pad(a):
         return np.concatenate([a, np.zeros((LEAF_SIZE, 3), np.float32)])
 
-    mc = build_mesh_clusters(build_bvh(v0, v1, v2), pad(v0[order]), pad((v1 - v0)[order]), pad((v2 - v0)[order]),
-                             cluster_size=cluster_size)
     specs = [(0, np.eye(4, dtype=np.float32), 0)]
     if instanced:
         m = np.diag([0.8, 1.3, 1.0, 1.0]).astype(np.float32)
         m[:3, 3] = [7.0, 0.5, -1.0]
         specs.append((1, m, 10000))
-    return tree_to_device(assemble_clusters([mc, mc] if instanced else [mc], specs), dev), rng
+    with mock.patch.object(cluster, "GROUP_SIZE", group_size):  # the builders read it when called
+        mc = build_mesh_clusters(build_bvh(v0, v1, v2), pad(v0[order]), pad((v1 - v0)[order]),
+                                 pad((v2 - v0)[order]), cluster_size=cluster_size)
+        tables = assemble_clusters([mc, mc] if instanced else [mc], specs)
+    return tree_to_device(tables, dev), rng
 
 
 def _rays(rng, dev, n=5000):
@@ -102,12 +107,12 @@ def test_envelope_kernels_on_adversarial_rays(cuda, name, kind):
     assert kernels.LAUNCHES["supertile_tables"] == before["supertile_tables"] + 4
 
 
-@pytest.mark.parametrize("tile", [512, 1024])
+@pytest.mark.parametrize("tile", [128, 256, 512, 1024])
 @pytest.mark.parametrize("t_min", [0.0, -1e-4])
 def test_supertile_tables_match_plain_at_any_t_min(cuda, t_min, tile):
     """The kernel orders entries by an order-preserving key, so it equals its
     plain version at t_min 0 and below too (as values: -0.0 equals +0.0),
-    at both tile sizes; a third of the rays are inactive (tmax -inf) and
+    at every tile size; a third of the rays are inactive (tmax -inf) and
     some start inside a group box."""
     cl, rng = _clusters(cuda, instanced=False)
     org, d = _rays(rng, cuda, n=4096)
@@ -206,25 +211,118 @@ def test_trace_kernels_match_plain_with_empty_sub_blocks(cuda, instanced):
     assert int(blocked.sum()) > 100
 
 
-@pytest.mark.parametrize("shape", ["K=64", "4 sub-blocks"])
+def _refused(dev, shape):
+    """Cluster tables of a layout the trace kernels refuse."""
+    if shape == "groups of 33":
+        return _clusters(dev, instanced=False, group_size=33)
+    cl, rng = _clusters(dev, instanced=False)
+    return cl._replace(sub_aabbs=cl.sub_aabbs[:, :4].contiguous()), rng
+
+
+@pytest.mark.parametrize("shape", ["groups of 33", "4 sub-blocks"])
 def test_trace_wrappers_raise_on_other_cluster_shapes(cuda, shape):
-    """vpt_stream / vpt_occlude are compiled for K = 128 in 8 sub-blocks: the
-    wrappers raise on anything else and launch nothing."""
-    if shape == "K=64":
-        cl, rng = _clusters(cuda, instanced=False, cluster_size=64)
-    else:
-        cl, rng = _clusters(cuda, instanced=False)
-        cl = cl._replace(sub_aabbs=cl.sub_aabbs[:, :4].contiguous())
+    """vpt_stream / vpt_occlude take any K that is a multiple of 8 in 8
+    sub-blocks and 1 to 32 clusters per group: the wrappers raise on
+    anything else, naming the layout, and launch nothing."""
+    cl, rng = _refused(cuda, shape)
     org, d = _rays(rng, cuda, n=1000)
     active = torch.ones(org.shape[0], dtype=torch.bool, device=cuda)
     b = stream.trace_bands(org, d, cl, T_MIN, 1e8, active, torch.zeros_like(active))
     sb = occlude.shadow_bands(org, d, cl, T_MIN, 1e8, active, torch.full_like(active, -1, dtype=torch.int32))
     before = dict(kernels.LAUNCHES)
-    with pytest.raises(ValueError, match="K = 128"):
+    with pytest.raises(ValueError, match="a multiple of 8 triangles per cluster in 8 sub-blocks and 1 to 32"):
         stream.stream_trace(b, cl, T_MIN)
-    with pytest.raises(ValueError, match="K = 128"):
+    with pytest.raises(ValueError, match="a multiple of 8 triangles per cluster in 8 sub-blocks and 1 to 32"):
         occlude.occlude_trace(sb, cl, T_MIN)
     assert kernels.LAUNCHES == before
+
+
+# The cluster layouts beside the default (K = 128, groups of 8): the compiled
+# K of 64, 256 and 1024, a K taken at run time (40), and groups of 4, 16 and 3.
+LAYOUTS = [(64, 8), (256, 8), (1024, 8), (40, 8), (128, 4), (128, 16), (64, 3)]
+
+
+@pytest.mark.parametrize("k,g", LAYOUTS)
+def test_trace_kernels_match_plain_at_layouts(cuda, k, g):
+    """vpt_stream by the tie rule and vpt_occlude exactly, instanced, at the
+    cluster layouts of VPT_CLUSTER_SIZE and VPT_GROUP_SIZE."""
+    cl, rng = _clusters(cuda, instanced=True, cluster_size=k, group_size=g)
+    assert cl.tris.shape[2] == k and cl.count.shape[0] == g * cl.group_min.shape[0]
+    org, d = _rays(rng, cuda)
+    n = org.shape[0]
+    active = torch.tensor(rng.uniform(size=n) < 0.9, device=cuda)
+    b = stream.trace_bands(org, d, cl, T_MIN, 1e8, active, torch.zeros_like(active))
+    before = dict(kernels.LAUNCHES)
+    tk, trk, uk, vk = stream.stream_trace(b, cl, T_MIN)
+    tp, trp, up, vp = stream.stream_trace_plain(b, cl, T_MIN)
+    torch.cuda.synchronize()
+    assert torch.allclose(tk, tp, rtol=1e-5, atol=1e-6)
+    same = trk == trp
+    tie = (tk - tp).abs() <= 1e-5 + 1e-5 * tp.abs()
+    assert bool((same | (tie & (trp >= 0))).all())
+    assert torch.equal(uk[same], up[same]) and torch.equal(vk[same], vp[same])
+    assert int((trk >= 0).sum()) > 500
+    extri = torch.tensor(rng.integers(-1, 3000, n).astype(np.int32), device=cuda)
+    tmax = torch.tensor(rng.uniform(0.5, 20.0, n).astype(np.float32), device=cuda)
+    sb = occlude.shadow_bands(org, d, cl, T_MIN, tmax, active, extri)
+    blocked = occlude.occlude_trace(sb, cl, T_MIN)
+    assert torch.equal(blocked, occlude.occlude_trace_plain(sb, cl, T_MIN))
+    assert int(blocked.sum()) > 200
+    assert kernels.LAUNCHES["stream"] == before["stream"] + 1 and kernels.LAUNCHES["occlude"] == before["occlude"] + 1
+
+
+@pytest.mark.parametrize("k,g", LAYOUTS)
+@pytest.mark.parametrize("any_hit", [False, True])
+def test_visit_kernel_matches_plain_at_layouts(cuda, k, g, any_hit):
+    """vpt_visit equals visit_trace_plain exactly at the cluster layouts."""
+    cl, rng = _clusters(cuda, instanced=True, cluster_size=k, group_size=g)
+    org, d = _rays(rng, cuda, n=3000)
+    active = torch.tensor(rng.uniform(size=3000) < 0.9, device=cuda)
+    tmax = torch.tensor(rng.uniform(0.5, 20.0, 3000).astype(np.float32), device=cuda)
+    pk = prepare_packets(org, d, cl, T_MIN, tmax if any_hit else 1e8, active, sort_rays=True)
+    args = (pk.nvis, pk.order, pk.entry_sorted, pk.origin, pk.direction, pk.active, pk.tmax, cl, T_MIN)
+    got = visit.visit_trace(*args, any_hit=any_hit)
+    want = visit.visit_trace_plain(*args, any_hit=any_hit)
+    torch.cuda.synchronize()
+    for name, a, b in zip(("t", "tri", "u", "v"), got, want):
+        assert torch.equal(a, b), name
+    assert int((got[1] >= 0).sum()) > 300
+
+
+@pytest.mark.parametrize("size,key,sort", [(128, "fs", True), (256, "fs", True), (1024, "fs", True),
+                                           (512, "fe", True), (256, "fe", True), (512, "fs", False),
+                                           (1024, "fs", False)])
+def test_packet_layouts_match_plain(cuda, size, key, sort):
+    """VPT_PACKET_SIZE, VPT_SORT_KEY and VPT_SORT_RAYS on the card: the
+    keys (fe through ray_keys' mode 3), the packet cull at `size`-ray tiles
+    against the dense cull, and vpt_visit against its plain version."""
+    cl, rng = _clusters(cuda, instanced=True)
+    org, d = _rays(rng, cuda, n=5000)
+    active = torch.tensor(rng.uniform(size=5000) < 0.8, device=cuda)
+    with mock.patch.object(cluster, "PACKET_SIZE", size), mock.patch.object(cluster, "_SORT_KEY", key):
+        before = dict(kernels.LAUNCHES)
+        pk = prepare_packets(org, d, cl, T_MIN, 1e8, active, sort_rays=sort)
+        assert kernels.LAUNCHES["ray_keys"] == before["ray_keys"] + int(sort)
+    assert pk.active.shape[1] == size and (pk.perm is None) == (not sort)
+    gmin, gmax = stream.pad_groups(cl)
+    o, inv = pk.origin.reshape(-1, 3), stream.guarded_inverse(pk.direction.reshape(-1, 3))
+    ent = envelope.slab_entry(o, inv, pk.tmax.reshape(-1), gmin, gmax, T_MIN)
+    entry = torch.where(pk.active.reshape(-1, 1), ent, torch.inf).reshape(-1, size, gmin.shape[1]).amin(dim=1)
+    entry_sorted, order = torch.sort(entry, dim=1, stable=True)
+    assert torch.equal(pk.order, order.to(torch.int32)) and torch.equal(pk.entry_sorted, entry_sorted)
+    if key == "fe":
+        diag = cluster.root_diagonal(cl)
+        w_inv = stream.guarded_inverse(d)
+        tmax = cluster.root_exit_tmax(org, w_inv, torch.full((5000,), 1e8, device=cuda), cl, T_MIN)
+        keys = (org, w_inv, tmax, gmin, gmax, T_MIN, 1)
+        assert torch.equal(envelope.ray_keys(*keys, diag=diag), envelope.ray_keys_plain(*keys, diag=diag))
+    args = (pk.nvis, pk.order, pk.entry_sorted, pk.origin, pk.direction, pk.active, pk.tmax, cl, T_MIN)
+    got = visit.visit_trace(*args)
+    want = visit.visit_trace_plain(*args)
+    torch.cuda.synchronize()
+    for name, a, b in zip(("t", "tri", "u", "v"), got, want):
+        assert torch.equal(a, b), name
+    assert int((got[1] >= 0).sum()) > 500
 
 
 @pytest.mark.parametrize("instanced", [False, True])
@@ -266,20 +364,21 @@ def test_visit_kernel_matches_plain_at_any_t_min(cuda, t_min):
     assert int((got[1] >= 0).sum()) > 300
 
 
-@pytest.mark.parametrize("shape", ["K=64", "4 sub-blocks"])
+@pytest.mark.parametrize("shape", ["groups of 33", "4 sub-blocks", "384-ray packets"])
 def test_visit_wrapper_raises_on_other_cluster_shapes(cuda, shape):
-    """vpt_visit is compiled for K = 128 in 8 sub-blocks: the wrapper raises
-    on anything else and launches nothing."""
-    if shape == "K=64":
-        cl, rng = _clusters(cuda, instanced=False, cluster_size=64)
-    else:
-        cl, rng = _clusters(cuda, instanced=False)
-        cl = cl._replace(sub_aabbs=cl.sub_aabbs[:, :4].contiguous())
-    org, d = _rays(rng, cuda, n=1000)
+    """vpt_visit takes the layouts the trace kernels take and packets of 128,
+    256, 512 or 1024 rays: the wrapper raises on anything else, naming the
+    layout, and launches nothing."""
+    cl, rng = _refused(cuda, shape) if shape != "384-ray packets" else _clusters(cuda, instanced=False)
+    org, d = _rays(rng, cuda, n=1536)
     pk = prepare_packets(org, d, cl, T_MIN, 1e8, None, sort_rays=False)
+    args = (pk.nvis, pk.order, pk.entry_sorted, pk.origin, pk.direction, pk.active, pk.tmax)
+    if shape == "384-ray packets":
+        args = (pk.nvis[:4], pk.order[:4], pk.entry_sorted[:4], *(x.reshape(4, 384, *x.shape[2:]) for x in args[3:]))
     before = dict(kernels.LAUNCHES)
-    with pytest.raises(ValueError, match="K = 128"):
-        visit.visit_trace(pk.nvis, pk.order, pk.entry_sorted, pk.origin, pk.direction, pk.active, pk.tmax, cl, T_MIN)
+    match = "packets of 128, 256, 512 or 1024 rays" if shape == "384-ray packets" else "1 to 32 clusters per group"
+    with pytest.raises(ValueError, match=match):
+        visit.visit_trace(*args, cl, T_MIN)
     assert kernels.LAUNCHES == before
 
 

@@ -4,22 +4,35 @@ Host half (jax-free copy of cluster.py:132-395): the SAH BVH is cut into
 groups of subtrees (<= GROUP_SIZE * CLUSTER_SIZE triangles) and each group
 into clusters of <= CLUSTER_SIZE contiguous triangles.  `build_mesh_clusters`
 makes one mesh's cluster blocks in its local space, with the mesh-local box
-of each 8-way sub-block; `assemble_clusters` lays out the per-instance
-cluster tables (world boxes, virtual triangle ids, world->local transforms),
-padding every (instance, group) to exactly GROUP_SIZE slots.  The result is
-numpy; the JAX package's lane-interleaved TPU blocks are not built.
+of each of its 8 sub-blocks (K / 8 triangles each); `assemble_clusters`
+lays out the per-instance cluster tables (world boxes, virtual triangle
+ids, world->local transforms), padding every (instance, group) to exactly
+GROUP_SIZE slots.  The result is numpy; the JAX package's lane-interleaved
+TPU blocks are not built.
 
 Device half: `intersect_clusters` (cluster.py:415-587), the packet trace
-that `VPT_TRACE=packet` selects.  Rays are padded to whole 512-ray packets,
-bounded by the root box, optionally stable-sorted by their first two
-entered groups, culled per packet against every group box (`entry`,
-`nvis`: kernel 2, `envelope.supertile_tables`, at 512-ray tiles), and each
-packet's rays walk its entry-sorted candidate groups in kernel 5,
-`visit.visit_trace`.
+that `VPT_TRACE=packet` selects.  Rays are padded to whole PACKET_SIZE-ray
+packets, bounded by the root box, optionally stable-sorted by a key
+(`_SORT_KEY`: "fs", their first two entered groups, or "fe", their first
+entered group and its quantised entry depth), culled per packet against
+every group box (`entry`, `nvis`: kernel 2, `envelope.supertile_tables`,
+at PACKET_SIZE-ray tiles), and each packet's rays walk its entry-sorted
+candidate groups in kernel 5, `visit.visit_trace`.
+
+The layout knobs, read from the environment at import with the JAX
+package's names and defaults: `VPT_CLUSTER_SIZE` (K, 128; any multiple of
+8), `VPT_GROUP_SIZE` (8), `VPT_PACKET_SIZE` (512) and `VPT_SORT_KEY`
+("fs").  They change the schedule, not the results (up to hits at equal
+t).  The builders and `prepare_packets` read the module constants when
+they are called, so code (and a test) may set them; the kernels take every
+layout the JAX package takes but groups of more than 32 clusters
+(`traverse.check_kernel_clusters`) and packets other than 128, 256, 512 or
+1024 rays (`visit.PACKETS`), and raise on those.
 """
 
 from __future__ import annotations
 
+import os
 from typing import NamedTuple, Optional
 
 import numpy as np
@@ -28,12 +41,15 @@ import torch
 from vpt_tpu_torch.accel import envelope, visit
 from vpt_tpu_torch.accel.bvh import FlatBVH
 from vpt_tpu_torch.accel.traverse import T_MAX, T_MIN, Hit, guarded_inverse
+from vpt_tpu_torch.envguard import guard_ablations
 from vpt_tpu_torch.scene.types import ClusterData
 
-CLUSTER_SIZE = 128  # triangles per cluster (K)
-GROUP_SIZE = 8  # clusters per group
+guard_ablations()
+CLUSTER_SIZE = int(os.environ.get("VPT_CLUSTER_SIZE", "128"))  # triangles per cluster (K)
+GROUP_SIZE = int(os.environ.get("VPT_GROUP_SIZE", "8"))  # clusters per group
+PACKET_SIZE = int(os.environ.get("VPT_PACKET_SIZE", "512"))  # rays per packet of the packet trace
+_SORT_KEY = os.environ.get("VPT_SORT_KEY", "fs")  # fs = first + second group, fe = first group + entry depth
 N_SUB = 8  # sub-blocks per cluster, each with its own mesh-local box
-PACKET_SIZE = visit.PACKET  # rays per packet of the packet trace
 _BIG = 3e9
 
 
@@ -79,10 +95,11 @@ def _subtree_cuts(bvh: FlatBVH, root: int, max_tris: int, lo, hi):
     return out
 
 
-def _cut_ranges(bvh: FlatBVH, cluster_size: int, group_size: int = GROUP_SIZE):
+def _cut_ranges(bvh: FlatBVH, cluster_size: int, group_size: Optional[int] = None):
     """Two-level cut: groups of (lo, hi, aabb_min, aabb_max) cluster ranges,
-    each group at most group_size clusters of one BVH subtree.  Adjacent
-    cuts merge only while the union box stays tight."""
+    each group at most group_size (default GROUP_SIZE) clusters of one BVH
+    subtree.  Adjacent cuts merge only while the union box stays tight."""
+    group_size = GROUP_SIZE if group_size is None else group_size
     lo, hi = _subtree_lohi(bvh)
 
     def _area(mn, mx):
@@ -110,9 +127,14 @@ def _cut_ranges(bvh: FlatBVH, cluster_size: int, group_size: int = GROUP_SIZE):
 
 def build_mesh_clusters(
     bvh: FlatBVH, tri_p0: np.ndarray, tri_e1: np.ndarray, tri_e2: np.ndarray,
-    cluster_size: int = CLUSTER_SIZE,
+    cluster_size: Optional[int] = None,
 ) -> MeshClusters:
-    """One mesh's cluster blocks over its reordered local triangle arrays."""
+    """One mesh's cluster blocks over its reordered local triangle arrays;
+    K = cluster_size defaults to CLUSTER_SIZE, and the groups take
+    GROUP_SIZE, as they stand when called."""
+    cluster_size = CLUSTER_SIZE if cluster_size is None else cluster_size
+    if cluster_size % N_SUB:
+        raise ValueError("cluster_size must be a multiple of 8")
     groups = _cut_ranges(bvh, cluster_size)
     ranges = [r for grp in groups for r in grp]
     gidx = np.array([gi for gi, grp in enumerate(groups) for _ in grp], np.int32)
@@ -171,9 +193,12 @@ def _transform_aabb(lo, hi, m):
 def assemble_clusters(
     mesh_clusters: list, instance_specs: list,
 ) -> ClusterData:
-    """Per-instance cluster tables over shared mesh blocks (numpy leaves).
+    """Per-instance cluster tables over shared mesh blocks (numpy leaves),
+    each (instance, group) padded to GROUP_SIZE slots as it stands when
+    called.
 
     `instance_specs` is [(mesh_cluster_index, transform (4,4), virt_tri_base)]."""
+    group_size = GROUP_SIZE
     block_base = []
     b = 0
     for mc in mesh_clusters:
@@ -183,7 +208,7 @@ def assemble_clusters(
     cmin_l, cmax_l, start_l, cnt_l, blk_l, inst_l, inv_l = [], [], [], [], [], [], []
 
     def _pad_group():
-        fill = (-len(cmin_l)) % GROUP_SIZE
+        fill = (-len(cmin_l)) % group_size
         for _ in range(fill):
             cmin_l.append(np.full(3, _BIG, np.float32))
             cmax_l.append(np.full(3, -_BIG, np.float32))
@@ -213,7 +238,7 @@ def assemble_clusters(
         _pad_group()
 
     c = len(cmin_l)
-    c_pad = -(-max(c, 1) // GROUP_SIZE) * GROUP_SIZE
+    c_pad = -(-max(c, 1) // group_size) * group_size
     cmin = np.full((c_pad, 3), _BIG, np.float32)
     cmax = np.full((c_pad, 3), -_BIG, np.float32)
     start = np.zeros(c_pad, np.int32)
@@ -228,11 +253,11 @@ def assemble_clusters(
         blk[:c] = np.asarray(blk_l, np.int32)
         inst[:c] = np.asarray(inst_l, np.int32)
 
-    g = c_pad // GROUP_SIZE
+    g = c_pad // group_size
     return ClusterData(
         aabbs=np.concatenate([cmin, cmax], axis=1),
-        group_min=cmin.reshape(g, GROUP_SIZE, 3).min(axis=1),
-        group_max=cmax.reshape(g, GROUP_SIZE, 3).max(axis=1),
+        group_min=cmin.reshape(g, group_size, 3).min(axis=1),
+        group_max=cmax.reshape(g, group_size, 3).max(axis=1),
         start=start,
         count=cnt,
         block_id=blk,
@@ -264,17 +289,29 @@ def ray_tmax(t_max, n: int, device) -> torch.Tensor:
     return torch.full((n,), t_max, dtype=torch.float32, device=device)
 
 
+def root_box(cl: ClusterData):
+    """(lo, hi) (3,) of the scene's root box: the union of the group boxes."""
+    return cl.group_min.amin(dim=0), cl.group_max.amax(dim=0)
+
+
 def root_exit_tmax(origin, inv, tmax, cl: ClusterData, t_min):
     """tmax clipped to the ray's exit from the scene's root box
     (cluster.py:463-479): geometry lies inside it, so no hit lies beyond."""
-    root_min = cl.group_min.amin(dim=0)
-    root_max = cl.group_max.amax(dim=0)
+    root_min, root_max = root_box(cl)
     r0 = (root_min[None, :] - origin) * inv
     r1 = (root_max[None, :] - origin) * inv
     tn_root = torch.minimum(r0, r1).amax(dim=1)
     tf_root = torch.maximum(r0, r1).amin(dim=1)
     exit_bound = torch.where(tn_root <= tf_root, tf_root * 1.0001 + t_min, t_min)
     return torch.minimum(tmax, torch.clamp(exit_bound, min=t_min))
+
+
+def root_diagonal(cl: ClusterData) -> torch.Tensor:
+    """(1,) float32 length of the root box's diagonal, the squares summed x,
+    y, z in order (jnp.linalg.norm's order), left on the device."""
+    lo, hi = root_box(cl)
+    sq = (hi - lo) * (hi - lo)
+    return torch.sqrt(sq[0] + sq[1] + sq[2]).reshape(1)
 
 
 class Packets(NamedTuple):
@@ -300,14 +337,30 @@ def packet_cull_tmax(tmax, active):
     return torch.where(active, tmax, -torch.inf)
 
 
+def sort_keys(origin, inv, tmax, cl: ClusterData, gmin_pad, gmax_pad, t_min):
+    """(N,) int32 packet sort key of `_SORT_KEY` (cluster.py:494-519), by
+    ray_keys: "fs" the first and second entered group packed as
+    first * (Gp + 1) + second; "fe" the first entered group * 1024 + its
+    entry depth quantised to 1/256 of the root box's diagonal, clipped to
+    1023 (Gp * 1024 for a ray that enters no group)."""
+    if _SORT_KEY == "fe":
+        return envelope.ray_keys(origin, inv, tmax, gmin_pad, gmax_pad, t_min=t_min, levels=1, diag=root_diagonal(cl))
+    if _SORT_KEY == "fs":
+        return envelope.ray_keys(origin, inv, tmax, gmin_pad, gmax_pad, t_min=t_min, levels=2)
+    raise ValueError(f"VPT_SORT_KEY must be fs or fe, got {_SORT_KEY!r}")
+
+
 def prepare_packets(origin, direction, cl: ClusterData, t_min, t_max, active, sort_rays: bool) -> Packets:
-    """Pad, bound, sort and cull a wavefront (cluster.py:441-553)."""
+    """Pad, bound, sort and cull a wavefront (cluster.py:441-553) into
+    PACKET_SIZE-ray packets; unsorted (`sort_rays` False) the packets keep
+    the wavefront's order."""
     dev = origin.device
     n_orig = origin.shape[0]
+    size = PACKET_SIZE
     tmax = ray_tmax(t_max, n_orig, dev)
     if active is None:
         active = torch.ones(n_orig, dtype=torch.bool, device=dev)
-    pad = (-n_orig) % PACKET_SIZE
+    pad = (-n_orig) % size
     if pad:
         origin = torch.cat([origin, torch.full((pad, 3), 1e9, dtype=torch.float32, device=dev)])
         dpad = torch.zeros((pad, 3), dtype=torch.float32, device=dev)
@@ -321,28 +374,26 @@ def prepare_packets(origin, direction, cl: ClusterData, t_min, t_max, active, so
 
     perm = None
     if sort_rays:
-        # ray_keys(levels=2) is the first and second entered group packed as
-        # first * (Gp + 1) + second, the key of cluster.py:512-519.
-        key = envelope.ray_keys(origin.contiguous(), inv, tmax, gmin_pad, gmax_pad, t_min=t_min, levels=2)
+        key = sort_keys(origin.contiguous(), inv, tmax, cl, gmin_pad, gmax_pad, t_min)
         key = torch.where(active, key, _INACTIVE_KEY)
         _, perm = torch.sort(key, stable=True)
         origin, direction, inv, tmax, active = (x[perm] for x in (origin, direction, inv, tmax, active))
 
-    n_pk = origin.shape[0] // PACKET_SIZE
+    n_pk = origin.shape[0] // size
     origin = origin.contiguous()
-    o_p = origin.reshape(n_pk, PACKET_SIZE, 3)
-    act_p = active.reshape(n_pk, PACKET_SIZE).contiguous()
-    tmax_p = tmax.reshape(n_pk, PACKET_SIZE).contiguous()
+    o_p = origin.reshape(n_pk, size, 3)
+    act_p = active.reshape(n_pk, size).contiguous()
+    tmax_p = tmax.reshape(n_pk, size).contiguous()
     # The packet cull: per packet and group, the nearest entry of an active
     # ray (cluster.py:540-542).  An inactive ray's tmax lies below t_min, so
     # it enters nothing, not even a box around its origin.
     entry = envelope.supertile_tables(origin, inv.contiguous(), packet_cull_tmax(tmax, active), gmin_pad, gmax_pad,
-                                      t_min, tile=PACKET_SIZE)
+                                      t_min, tile=size)
     entry_sorted, order = torch.sort(entry, dim=1, stable=True)
     return Packets(
         n_orig=n_orig, perm=perm, nvis=torch.isfinite(entry).sum(dim=1).to(torch.int32),
         order=order.to(torch.int32).contiguous(), entry_sorted=entry_sorted.contiguous(),
-        origin=o_p, direction=direction.reshape(n_pk, PACKET_SIZE, 3).contiguous(), active=act_p, tmax=tmax_p,
+        origin=o_p, direction=direction.reshape(n_pk, size, 3).contiguous(), active=act_p, tmax=tmax_p,
     )
 
 
@@ -360,7 +411,7 @@ def intersect_clusters(origin, direction, cl: ClusterData, t_min=T_MIN, t_max=T_
                        any_hit: bool = False, sort_rays: bool = False) -> Hit:
     """Closest-hit (or, with `any_hit`, any-hit) packet trace of a wavefront;
     `t_max` may be per-ray.  With `sort_rays` the rays are regrouped by their
-    two nearest entered groups first, so packet mates share candidates."""
+    `_SORT_KEY` first, so packet mates share candidates."""
     pk = prepare_packets(origin, direction, cl, t_min, t_max, active, sort_rays)
     t, tri, u, v = visit.visit_trace(pk.nvis, pk.order, pk.entry_sorted, pk.origin, pk.direction, pk.active,
                                      pk.tmax, cl, t_min, any_hit=any_hit)

@@ -4,14 +4,16 @@
 Two kernels, each with a plain torch version of the same signature:
 
   ray_keys          - packs a ray's first `levels` entered groups, in entry
-                      order, into an int32 sort key (CUDA: csrc/envelope.cu
+                      order, into an int32 sort key, or (with `diag`) its
+                      first entered group and quantised entry depth, the
+                      packet trace's "fe" key (CUDA: csrc/envelope.cu
                       vpt_ray_keys, replacing the Pallas _keys_kernel);
   supertile_tables  - for every tile of the sorted rays (a 1024-ray
-                      supertile of the stream path, or a 512-ray packet of
-                      the packet trace) and every group, the minimum slab
-                      entry distance, +inf where no ray enters (CUDA:
-                      vpt_supertile_tables, replacing the Pallas
-                      _tables_kernel).
+                      supertile of the stream path, or a packet of the
+                      packet trace: 128, 256, 512 or 1024 rays) and every
+                      group, the minimum slab entry distance, +inf where no
+                      ray enters (CUDA: vpt_supertile_tables, replacing the
+                      Pallas _tables_kernel).
 
 The slab formula is cluster._slab_tn_tf's: tn starts at t_min, tf at the
 ray's tmax, reciprocal directions come in with the caller's 1e-20 guard.
@@ -34,7 +36,8 @@ import torch
 from vpt_tpu_torch.accel import kernels
 
 SUPERTILE = 1024
-TILES = (512, SUPERTILE)  # the tile sizes vpt_supertile_tables is built for
+TILES = (128, 256, 512, SUPERTILE)  # the tile sizes vpt_supertile_tables is built for
+DEPTH_STEPS = 1024  # the "fe" key's entry-depth levels per group (cluster.py:507-510)
 CHUNK = 8  # groups per union box
 WARP = 32
 _CHUNK_RAYS = 32768  # rays per slab block in the plain versions
@@ -70,7 +73,16 @@ def _check_groups(gmin_pad) -> None:
         raise ValueError(f"the envelope takes a multiple of {CHUNK} padded groups, got {gmin_pad.shape[1]}")
 
 
-def ray_keys_plain(origin, inv, tmax, gmin_pad, gmax_pad, t_min: float, levels: int):
+def fe_key(first, v, gp: int, diag):
+    """The "fe" key of cluster.py:504-511: the first entered group * 1024 +
+    its entry v quantised as clip(v / max(diag, 1e-20) * 256, 0, 1023);
+    Gp * 1024 where the ray enters no group."""
+    q = torch.clamp(v / torch.clamp(diag, min=1e-20) * 256.0, 0.0, DEPTH_STEPS - 1.0)
+    entered = torch.isfinite(v)
+    return torch.where(entered, first, gp) * DEPTH_STEPS + torch.where(entered, q, 0.0).to(torch.int32)
+
+
+def ray_keys_plain(origin, inv, tmax, gmin_pad, gmax_pad, t_min: float, levels: int, diag=None):
     gp = gmin_pad.shape[1]
     out = []
     for s in range(0, origin.shape[0], _CHUNK_RAYS):
@@ -78,7 +90,9 @@ def ray_keys_plain(origin, inv, tmax, gmin_pad, gmax_pad, t_min: float, levels: 
         ent = slab_entry(origin[rows], inv[rows], tmax[rows], gmin_pad, gmax_pad, t_min)
         v0, g0 = torch.min(ent, dim=1)  # first minimum: ties go to the lower id
         l0 = torch.where(torch.isfinite(v0), g0, gp)
-        if levels == 2:
+        if diag is not None:
+            out.append(fe_key(g0, v0, gp, diag))
+        elif levels == 2:
             ent = ent.scatter(1, g0[:, None], torch.inf)
             v1, g1 = torch.min(ent, dim=1)
             l1 = torch.where(torch.isfinite(v1), g1, gp)
@@ -88,29 +102,37 @@ def ray_keys_plain(origin, inv, tmax, gmin_pad, gmax_pad, t_min: float, levels: 
     return torch.cat(out).to(torch.int32)
 
 
-def ray_keys(origin, inv, tmax, gmin_pad, gmax_pad, t_min: float, levels: int):
+def ray_keys(origin, inv, tmax, gmin_pad, gmax_pad, t_min: float, levels: int, diag=None):
     """(N,) int32 key: levels=2 -> g0 * (Gp + 1) + g1, levels=1 -> g0, with
-    the sentinel Gp for an absent entry.  origin/inv (N, 3), tmax (N,),
-    gmin_pad/gmax_pad (3, Gp), Gp a multiple of CHUNK."""
+    the sentinel Gp for an absent entry; levels=1 with `diag` (a (1,)
+    float32 tensor, the root box's diagonal) -> the "fe" key (`fe_key`).
+    origin/inv (N, 3), tmax (N,), gmin_pad/gmax_pad (3, Gp), Gp a multiple
+    of CHUNK."""
     if levels not in (1, 2):
         raise ValueError(f"ray_keys takes levels 1 or 2, got {levels}")
+    if diag is not None and (levels != 1 or diag.shape != (1,) or diag.dtype != torch.float32):
+        raise ValueError("ray_keys' fe key takes levels 1 and diag a (1,) float32 tensor")
     _check_groups(gmin_pad)
     if not origin.is_cuda:
-        return ray_keys_plain(origin, inv, tmax, gmin_pad, gmax_pad, t_min, levels)
+        return ray_keys_plain(origin, inv, tmax, gmin_pad, gmax_pad, t_min, levels, diag)
     n, gp = origin.shape[0], gmin_pad.shape[1]
+    if diag is not None and gp * DEPTH_STEPS >= 2**31:
+        raise ValueError(f"the fe key of {gp} padded groups overflows int32")
     key = torch.empty(n, dtype=torch.int32, device=origin.device)
     f32 = torch.float32
     kernels.launch(
         "vpt_ray_keys", "ray_keys",
         kernels.ptr(origin, f32), kernels.ptr(inv, f32), kernels.ptr(tmax, f32), kernels.ptr(gmin_pad, f32),
-        kernels.ptr(gmax_pad, f32), n, gp, float(t_min), int(levels), kernels.ptr(key, torch.int32),
+        kernels.ptr(gmax_pad, f32), n, gp, float(t_min), int(levels) if diag is None else 3,
+        None if diag is None else kernels.ptr(diag, f32), kernels.ptr(key, torch.int32),
     )
     return key
 
 
 def _check_tile(n: int, tile: int) -> None:
     if tile not in TILES:
-        raise ValueError(f"supertile_tables takes tiles of {' or '.join(map(str, TILES))} rays, got {tile}")
+        raise ValueError(f"supertile_tables takes tiles of {', '.join(map(str, TILES[:-1]))} or {TILES[-1]} rays "
+                         f"(VPT_PACKET_SIZE), got {tile}")
     if n % tile:
         raise ValueError(f"supertile_tables needs a multiple of {tile} rays, got {n}")
 
@@ -128,11 +150,12 @@ def supertile_tables_plain(origin, inv, tmax_eff, gmin_pad, gmax_pad, t_min: flo
 
 def supertile_tables(origin, inv, tmax_eff, gmin_pad, gmax_pad, t_min: float, tile: int = SUPERTILE):
     """(N // tile, Gp) minimum entry per (tile, group), +inf where no ray
-    of the tile enters; tile is 1024 (supertiles) or 512 (packets).  Rays
-    arrive sorted; tmax_eff already folds the active mask: the stream path
-    gives inactive rays t_min (JAX's rule, which still enters a box around
-    the origin), the packet cull -inf (enters nothing).  Any t_min: the
-    kernel orders entries by an order-preserving key of their bits."""
+    of the tile enters; tile is 1024 (supertiles) or a packet's 128, 256,
+    512 or 1024 rays.  Rays arrive sorted; tmax_eff already folds the
+    active mask: the stream path gives inactive rays t_min (JAX's rule,
+    which still enters a box around the origin), the packet cull -inf
+    (enters nothing).  Any t_min: the kernel orders entries by an
+    order-preserving key of their bits."""
     _check_tile(origin.shape[0], tile)
     _check_groups(gmin_pad)
     if not origin.is_cuda:

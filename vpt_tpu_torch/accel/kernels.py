@@ -46,14 +46,14 @@ _U = ctypes.c_ulonglong
 _F = ctypes.c_float
 SOURCES = {  # source -> {entry point: argument types}
     "envelope.cu": {
-        "vpt_ray_keys": [_P, _P, _P, _P, _P, _I, _I, _F, _I, _P, _P],
+        "vpt_ray_keys": [_P, _P, _P, _P, _P, _I, _I, _F, _I, _P, _P, _P],
         "vpt_supertile_tables": [_P, _P, _P, _P, _P, _I, _I, _F, _I, _P, _P],
     },
     "trace.cu": {
-        "vpt_stream": [_P] * 19 + [_I] * 4 + [_F, _I] + [_P] * 5,
-        "vpt_occlude": [_P] * 20 + [_I] * 4 + [_F, _I] + [_P] * 2,
+        "vpt_stream": [_P] * 19 + [_I] * 5 + [_F, _I] + [_P] * 5,
+        "vpt_occlude": [_P] * 20 + [_I] * 5 + [_F, _I] + [_P] * 2,
     },
-    "visit.cu": {"vpt_visit": [_P] * 15 + [_I] * 4 + [_F, _I, _I] + [_P] * 5},
+    "visit.cu": {"vpt_visit": [_P] * 15 + [_I] * 5 + [_F, _I, _I] + [_P] * 5},
     "graph_loop.cu": {  # the dispatch graph's WHILE nodes and their condition (render/graphs.py)
         "vpt_graph_versions": [_P, _P],
         "vpt_graph_create": [_P],
@@ -62,6 +62,7 @@ SOURCES = {  # source -> {entry point: argument types}
         "vpt_graph_add_cond": [_P, _P, _P, _L, _P, _L, _U, _I, _P, _P],
         "vpt_graph_add_while": [_P, _P, _U, _P, _P],
         "vpt_graph_bad_node": [_P, _P],
+        "vpt_graph_count_nodes": [_P, _P],
         "vpt_graph_instantiate": [_P, _P],
         "vpt_graph_launch": [_P, _P],
         "vpt_graph_destroy": [_P, _P],
@@ -132,7 +133,8 @@ def ptr(t: torch.Tensor, dtype: torch.dtype) -> int:
 
 
 def launch(name: str, counter: str, *args) -> None:
-    """Call one C entry point on the current stream; raise on a launch error."""
+    """Call one C entry point on the current stream; raise on a launch error
+    (the wrappers check the layouts the kernels take before they call)."""
     stream = torch.cuda.current_stream().cuda_stream
     err = library()[name](*args, stream)
     if err != 0:

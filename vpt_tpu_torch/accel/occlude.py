@@ -16,8 +16,7 @@ from __future__ import annotations
 import torch
 
 from vpt_tpu_torch.accel import kernels
-from vpt_tpu_torch.accel.cluster import GROUP_SIZE
-from vpt_tpu_torch.accel.stream import I32, Bands, pair_results, prepare_bands, table_pointers, unsort
+from vpt_tpu_torch.accel.stream import I32, Bands, layout_arguments, pair_results, prepare_bands, table_pointers, unsort
 from vpt_tpu_torch.accel.traverse import T_MAX, T_MIN
 from vpt_tpu_torch.scene.types import ClusterData
 
@@ -50,12 +49,10 @@ def occlude_trace(bands: Bands, cl: ClusterData, t_min: float):
     """Kernel 4: (N,) int32 blocked flag per sorted ray."""
     if not bands.origin.is_cuda:
         return occlude_trace_plain(bands, cl, t_min)
-    n = bands.origin.shape[0]
-    blocked = torch.empty(n, dtype=torch.int32, device=bands.origin.device)
+    blocked = torch.empty(bands.origin.shape[0], dtype=torch.int32, device=bands.origin.device)
     kernels.launch(
         "vpt_occlude", "occlude", *table_pointers(bands, cl, bands.payload[:2]),
-        n, bands.tiles, bands.order.shape[1], GROUP_SIZE, float(t_min), int(cl.inv_rows.shape[0] > 1),
-        kernels.ptr(blocked, I32),
+        *layout_arguments(bands, cl, t_min), kernels.ptr(blocked, I32),
     )
     return blocked
 

@@ -12,7 +12,7 @@ _stream_kernel) for CUDA tensors, `stream_trace_plain` for CPU tensors.
 The schedule of the Pallas kernel (1024-ray supertiles walked as 32-bit
 masks, SMEM caps, lane-interleaved triangle blocks) is not carried over;
 the band tables are, as the CUDA kernel's candidate lists, and so is its
-sub-block cull: a cluster's 16-triangle sub-blocks are tested only where
+sub-block cull: a cluster's K / 8-triangle sub-blocks are tested only where
 the ray enters their mesh-local boxes.  The kernel gates clusters and
 sub-blocks with the ray's current best t, the plain version with its tmax;
 the closer gate skips only tests that cannot win, so the two agree up to
@@ -26,8 +26,8 @@ from typing import NamedTuple
 import torch
 
 from vpt_tpu_torch.accel import envelope, kernels
-from vpt_tpu_torch.accel.cluster import GROUP_SIZE, pad_groups, ray_tmax, root_exit_tmax
-from vpt_tpu_torch.accel.traverse import (T_MAX, T_MIN, Hit, check_kernel_clusters, guarded_inverse,
+from vpt_tpu_torch.accel.cluster import pad_groups, ray_tmax, root_exit_tmax
+from vpt_tpu_torch.accel.traverse import (T_MAX, T_MIN, Hit, check_kernel_clusters, group_size, guarded_inverse,
                                           instance_space, moller_trumbore_scalar, slab)
 from vpt_tpu_torch.scene.types import ClusterData
 
@@ -152,7 +152,7 @@ def _pairs(bands: Bands, cl: ClusterData, rows, act, t_min: float, tf):
     b = idx // band
     j = (idx % band) // SUPERTILE
     gbits = (bands.bits[b] >> j[:, None]) & 1  # (R, Gp)
-    g_of_c = torch.arange(cl.count.shape[0], device=dev) // GROUP_SIZE
+    g_of_c = torch.arange(cl.count.shape[0], device=dev) // group_size(cl)
     cand = (gbits[:, g_of_c] > 0) & (cl.count > 0)[None, :] & act[rows][:, None]
     o = bands.origin[rows]
     inv = guarded_inverse(bands.direction[rows])
@@ -253,6 +253,7 @@ def stream_trace_plain(bands: Bands, cl: ClusterData, t_min: float):
         kp = kp[:, None]
         return tp, kp[:, 0], u.gather(1, kp)[:, 0], v.gather(1, kp)[:, 0]
 
+    gs = group_size(cl)
     never = torch.iinfo(torch.int64).max
     best_t = bands.tmax.clone()
     best_tri = torch.full((n,), -1, dtype=torch.int32, device=dev)
@@ -261,7 +262,7 @@ def stream_trace_plain(bands: Bands, cl: ClusterData, t_min: float):
     for r, c, (tp, kp, up, vp) in pair_results(bands, cl, act, t_min, closest):
         best_t = best_t.scatter_reduce(0, r, tp, reduce="amin")
         at_best = torch.isfinite(tp) & (tp == best_t[r])
-        visit = rank[r // band, c // GROUP_SIZE] * GROUP_SIZE + c % GROUP_SIZE
+        visit = rank[r // band, c // gs] * gs + c % gs
         visit = torch.where(at_best, visit, never)
         first = torch.full((n,), never, dtype=torch.int64, device=dev).scatter_reduce(0, r, visit, reduce="amin")
         win = at_best & (visit == first[r])  # one winning pair per hit ray
@@ -285,7 +286,7 @@ def stream_trace(bands: Bands, cl: ClusterData, t_min: float):
     v = torch.empty(n, dtype=torch.float32, device=dev)
     kernels.launch(
         "vpt_stream", "stream", *table_pointers(bands, cl, bands.payload[:1]),
-        n, bands.tiles, bands.order.shape[1], GROUP_SIZE, float(t_min), int(cl.inv_rows.shape[0] > 1),
+        *layout_arguments(bands, cl, t_min),
         kernels.ptr(t, F32), kernels.ptr(tri, I32), kernels.ptr(u, F32), kernels.ptr(v, F32),
     )
     return t, tri, u, v
@@ -294,7 +295,7 @@ def stream_trace(bands: Bands, cl: ClusterData, t_min: float):
 def table_pointers(bands: Bands, cl: ClusterData, payload):
     """Device pointers of the band tables, sorted rays, int32 payload
     columns and cluster tables, in the order vpt_stream / vpt_occlude take
-    them.  Raises unless the cluster tables have the kernels' compiled shape
+    them.  Raises unless the kernels take the cluster tables' layout
     (traverse.check_kernel_clusters)."""
     check_kernel_clusters(cl, "vpt_stream / vpt_occlude")
     p = kernels.ptr
@@ -305,6 +306,14 @@ def table_pointers(bands: Bands, cl: ClusterData, payload):
         p(cl.aabbs, F32), p(cl.count, I32), p(cl.start, I32), p(cl.block_id, I32), p(cl.inst, I32),
         p(cl.inv_rows, F32), p(cl.tris, F32), p(cl.sub_aabbs, F32), p(cl.group_min, F32), p(cl.group_max, F32),
     )
+
+
+def layout_arguments(bands: Bands, cl: ClusterData, t_min: float) -> tuple:
+    """The integer and float arguments vpt_stream / vpt_occlude take after
+    the pointers: rays, supertiles per band, Gp, the group size, K, t_min,
+    and whether the tables are instanced."""
+    return (bands.origin.shape[0], bands.tiles, bands.order.shape[1], group_size(cl), cl.tris.shape[2], float(t_min),
+            int(cl.inv_rows.shape[0] > 1))
 
 
 class TraceWork(NamedTuple):

@@ -17,11 +17,13 @@ from vpt_tpu_torch.core.vecmath import cross, dot
 
 T_MIN = 1e-4
 T_MAX = 1e8
-# The cluster shape the warp-per-ray kernels (csrc/trace.cu, csrc/visit.cu)
-# are compiled for, csrc/traverse.cuh's constants.
-KERNEL_K = 128  # triangles per cluster block
+# The cluster layouts of the warp-per-ray kernels (csrc/trace.cu,
+# csrc/visit.cu): the default layout, and the largest group, whose members
+# one warp tests in one step.  They take any K that is a multiple of 8.
+KERNEL_K = 128  # triangles per cluster block, the default
 KERNEL_N_SUB = 8  # sub-blocks per cluster block
-KERNEL_GROUP = 8  # member clusters per group
+KERNEL_GROUP = 8  # member clusters per group, the default
+MAX_GROUP = 32  # the largest group the kernels take
 
 
 class Hit(NamedTuple):
@@ -167,15 +169,22 @@ def intersect_bvh(origin, direction, nodes_min, nodes_max, node_first, node_coun
     return Hit(t=torch.where(best_tri >= 0, best_t, -1.0), tri=best_tri, u=best_u, v=best_v)
 
 
+def group_size(cl) -> int:
+    """Clusters per group of the cluster tables."""
+    return cl.count.shape[0] // cl.group_min.shape[0]
+
+
 def check_kernel_clusters(cl, kernel: str) -> None:
-    """Raise unless the cluster tables have the compiled shape (K = 128
-    triangles in 8 sub-blocks, 8 clusters per group) and the tables the
-    kernels read in vectors (aabbs, inv_rows, sub_aabbs) start on 16-byte
-    boundaries."""
-    k_tris, n_sub, group = cl.tris.shape[2], cl.sub_aabbs.shape[1], cl.count.shape[0] // cl.group_min.shape[0]
-    if (k_tris, n_sub, group) != (KERNEL_K, KERNEL_N_SUB, KERNEL_GROUP) or cl.tris.shape[1] != 16:
-        raise ValueError(f"{kernel} take K = {KERNEL_K} triangles per cluster in {KERNEL_N_SUB} sub-blocks, "
-                         f"{KERNEL_GROUP} clusters per group, got K = {k_tris}, {n_sub} sub-blocks and {group} clusters")
+    """Raise unless the kernels take the cluster tables' layout (K a
+    multiple of 8 triangles in 8 sub-blocks, at most MAX_GROUP clusters per
+    group) and the tables the kernels read in vectors (aabbs, inv_rows,
+    sub_aabbs) start on 16-byte boundaries."""
+    k_tris, n_sub, group = cl.tris.shape[2], cl.sub_aabbs.shape[1], group_size(cl)
+    if (k_tris % KERNEL_N_SUB or k_tris == 0 or n_sub != KERNEL_N_SUB or cl.tris.shape[1] != 16
+            or not 1 <= group <= MAX_GROUP):
+        raise ValueError(f"{kernel} take K = a multiple of 8 triangles per cluster in {KERNEL_N_SUB} sub-blocks and "
+                         f"1 to {MAX_GROUP} clusters per group (VPT_CLUSTER_SIZE, VPT_GROUP_SIZE), got K = {k_tris}, "
+                         f"{n_sub} sub-blocks and {group} clusters per group")
     if any(t.data_ptr() % 16 for t in (cl.aabbs, cl.inv_rows, cl.sub_aabbs)):
         raise ValueError(f"{kernel} read aabbs, inv_rows and sub_aabbs in vectors: "
                          "pass tensors that start on a 16-byte boundary")

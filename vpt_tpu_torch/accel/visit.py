@@ -11,7 +11,7 @@ group's member clusters, in index order:
   2. the ray moves to the cluster's instance space (direction unnormalised);
   3. for each of the 8 sub-blocks, a per-ray slab test of the sub-block's
      mesh-local box against the current best t, then Moller-Trumbore over
-     its 16 triangles for the rays that entered.  Within a sub-block the
+     its K / 8 triangles for the rays that entered.  Within a sub-block the
      smallest triangle index wins a t tie; across sub-blocks and clusters
      only a strictly closer hit replaces the current one.
 
@@ -22,7 +22,8 @@ CUDA kernel runs a warp per ray (csrc/visit.cu says why).  `visit_trace`
 launches CUDA csrc/visit.cu vpt_visit (replacing the Pallas _visit_kernel)
 for CUDA tensors and `visit_trace_plain` for CPU tensors.  The plain version
 keeps the kernel's gates, in the kernel's order, so the two agree exactly,
-ties included.
+ties included.  Both take packets of PACKETS rays (cluster.PACKET_SIZE,
+`VPT_PACKET_SIZE`) and any cluster layout check_kernel_clusters admits.
 """
 
 from __future__ import annotations
@@ -32,18 +33,14 @@ from typing import NamedTuple
 import torch
 
 from vpt_tpu_torch.accel import kernels
-from vpt_tpu_torch.accel.traverse import (check_kernel_clusters, guarded_inverse, instance_space,
+from vpt_tpu_torch.accel.traverse import (check_kernel_clusters, group_size, guarded_inverse, instance_space,
                                           moller_trumbore_scalar, slab)
 from vpt_tpu_torch.scene.types import ClusterData
 
 F32, I32 = torch.float32, torch.int32
-PACKET = 512  # rays per packet, a compile-time constant of csrc/visit.cu
+PACKETS = (128, 256, 512, 1024)  # the packet sizes (rays) vpt_visit and the packet cull take
 WARP = 32  # candidates per walk step of the kernel
 _PACKETS = 64  # packets per block of the plain version
-
-
-def _group_size(cl: ClusterData) -> int:
-    return cl.count.shape[0] // cl.group_min.shape[0]
 
 
 def _visit_block(nvis, order, entry, o, d, act, tmax, cl: ClusterData, t_min: float, any_hit: bool):
@@ -51,7 +48,7 @@ def _visit_block(nvis, order, entry, o, d, act, tmax, cl: ClusterData, t_min: fl
     dev = o.device
     c, pk = act.shape
     gp = order.shape[1]
-    group_size = _group_size(cl)
+    gs = group_size(cl)
     n_sub = cl.sub_aabbs.shape[1]
     k_tris = cl.tris.shape[2]
     sub = k_tris // n_sub
@@ -62,7 +59,7 @@ def _visit_block(nvis, order, entry, o, d, act, tmax, cl: ClusterData, t_min: fl
     v = torch.zeros((c, pk), dtype=F32, device=dev)
     inv = guarded_inverse(d)
     kidx = torch.arange(k_tris, device=dev)
-    members = torch.arange(group_size, device=dev)
+    members = torch.arange(gs, device=dev)
 
     def live_rays():
         return act & (tri < 0) if any_hit else act
@@ -71,10 +68,10 @@ def _visit_block(nvis, order, entry, o, d, act, tmax, cl: ClusterData, t_min: fl
     w = 0
     while w < gp and bool(cont.any()):
         walking = cont[:, None] & (entry[:, w : w + 1] < t)  # (c, pk): the ray's walk reaches group w
-        cids = torch.where(cont, order[:, w], 0).to(torch.int64)[:, None] * group_size + members  # (c, M)
+        cids = torch.where(cont, order[:, w], 0).to(torch.int64)[:, None] * gs + members  # (c, M)
         box = cl.aabbs[cids]  # (c, M, 6)
         tn_m, tfg_m = slab(o[:, :, None, :], inv[:, :, None, :], box[:, None, :, :3], box[:, None, :, 3:], t_min)
-        for m in range(group_size):
+        for m in range(gs):
             cid = cids[:, m]
             enter_m = (walking & live_rays() & (tn_m[..., m] <= t) & (tn_m[..., m] <= tfg_m[..., m])
                        & (cl.count[cid] > 0)[:, None])  # (c, pk): the ray's own member gate
@@ -130,8 +127,9 @@ def visit_trace(nvis, order, entry_sorted, o_p, d_p, act_p, tmax_p, cl: ClusterD
     if not o_p.is_cuda:
         return visit_trace_plain(nvis, order, entry_sorted, o_p, d_p, act_p, tmax_p, cl, t_min, any_hit)
     n_pk, pk = act_p.shape
-    if pk != PACKET:
-        raise ValueError(f"vpt_visit takes {PACKET}-ray packets, got {pk} rays")
+    if pk not in PACKETS:
+        raise ValueError(f"vpt_visit takes packets of {', '.join(map(str, PACKETS[:-1]))} or {PACKETS[-1]} rays "
+                         f"(VPT_PACKET_SIZE), got {pk}")
     check_kernel_clusters(cl, "vpt_visit")
     dev = o_p.device
     out = (torch.empty((n_pk, pk), dtype=F32, device=dev), torch.empty((n_pk, pk), dtype=I32, device=dev),
@@ -143,7 +141,7 @@ def visit_trace(nvis, order, entry_sorted, o_p, d_p, act_p, tmax_p, cl: ClusterD
         p(nvis, I32), p(order, I32), p(entry_sorted, F32), p(o_p, F32), p(d_p, F32), p(act_i, I32), p(tmax_p, F32),
         p(cl.aabbs, F32), p(cl.count, I32), p(cl.start, I32), p(cl.block_id, I32), p(cl.inst, I32),
         p(cl.inv_rows, F32), p(cl.tris, F32), p(cl.sub_aabbs, F32),
-        n_pk, order.shape[1], _group_size(cl), cl.tris.shape[2], float(t_min), int(any_hit),
+        n_pk, pk, order.shape[1], group_size(cl), cl.tris.shape[2], float(t_min), int(any_hit),
         int(cl.inv_rows.shape[0] > 1),
         *(p(x, dt) for x, dt in zip(out, (F32, I32, F32, F32))),
     )
@@ -169,7 +167,7 @@ def visit_work(nvis, order, entry_sorted, o_p, d_p, act_p, tf, cl: ClusterData, 
     with tf = tmax, what a ray that finds nothing does."""
     n_pk, pk = act_p.shape
     dev = o_p.device
-    gs = _group_size(cl)
+    gs = group_size(cl)
     n_sub = cl.sub_aabbs.shape[1]
     sub = cl.tris.shape[2] // n_sub
     ulo = cl.aabbs[:, :3].reshape(-1, gs, 3).amin(dim=1)  # the kernel's group boxes: its members' union

@@ -42,14 +42,19 @@
 // and keeps the (entry, id)-lexicographic first and second entered groups
 // by strict '<' (envelope.py:_minsel: entry ties go to the lower id).  It
 // skips a chunk unless its union entry is below the entry it would have to
-// beat (the second for levels 2, the first for levels 1): every member's
-// entry is >= the union's and its id above every id held, so the strict
-// '<' would not take it.  Rays arrive unsorted, so a warp runs the chunks
-// that any of its lanes enters.
+// beat (the second for levels 2, the first for levels 1 and the fe key):
+// every member's entry is >= the union's and its id above every id held, so
+// the strict '<' would not take it.  Rays arrive unsorted, so a warp runs the
+// chunks that any of its lanes enters.  Mode 3 is the packet trace's "fe"
+// key (VPT_SORT_KEY=fe, vpt_tpu/accel/cluster.py:504-511): the first entered
+// group * 1024 + its entry quantised as (int)clip(entry / max(diag, 1e-20) *
+// 256, 0, 1023), diag the root box's diagonal read from the device (so the
+// caller never waits for it), and Gp * 1024 for a ray that enters nothing.
 //
 // vpt_supertile_tables: one block per tile of sorted rays, one ray per
-// thread, at two tile sizes: 1024 (the stream path's supertiles) and 512 (the
-// packet trace's packets, whose per-group nearest entry is the packet cull).
+// thread, at four tile sizes: 1024 (the stream path's supertiles) and 128,
+// 256, 512 or 1024 (the packet trace's packets, VPT_PACKET_SIZE, whose
+// per-group nearest entry is the packet cull).
 // Per chunk each lane tests its ray against the union; where any lane of the
 // warp entered, the lanes whose ray entered test the 8 members, each member's
 // warp minimum is taken by __reduce_min_sync on an order-preserving unsigned
@@ -146,11 +151,13 @@ __device__ void stage_boxes(const float* __restrict__ gmin, const float* __restr
   __syncthreads();
 }
 
-template <int kLevels>
+constexpr int kDepthSteps = 1024;  // the fe key's entry-depth levels per group
+
+template <int kLevels>  // 1, 2, or 3 = the fe key
 __global__ void __launch_bounds__(kKeysThreads) ray_keys_kernel(
     const float* __restrict__ origin, const float* __restrict__ inv, const float* __restrict__ tmax,
     const float* __restrict__ gmin, const float* __restrict__ gmax, int n, int gp, float t_min,
-    int32_t* __restrict__ key) {
+    const float* __restrict__ diag, int32_t* __restrict__ key) {
   extern __shared__ float4 smem[];
   float4* box = smem;
   float4* uni = smem + 2 * gp;
@@ -180,7 +187,12 @@ __global__ void __launch_bounds__(kKeysThreads) ray_keys_kernel(
   }
   const int l0 = (v1 < INFINITY) ? a1 : gp;
   const int l1 = (v2 < INFINITY) ? a2 : gp;
-  key[i] = (kLevels == 2) ? l0 * (gp + 1) + l1 : l0;
+  if (kLevels == 3) {
+    const float q = fminf(fmaxf(v1 / fmaxf(*diag, 1e-20f) * 256.0f, 0.0f), (float)(kDepthSteps - 1));
+    key[i] = l0 * kDepthSteps + ((v1 < INFINITY) ? (int)q : 0);
+  } else {
+    key[i] = (kLevels == 2) ? l0 * (gp + 1) + l1 : l0;
+  }
 }
 
 template <int kTile>
@@ -224,25 +236,30 @@ size_t box_bytes(int gp) { return (size_t)2 * (gp + gp / kChunk) * sizeof(float4
 
 }  // namespace
 
-extern "C" int vpt_ray_keys(
-    const float* origin, const float* inv, const float* tmax, const float* gmin,
-    const float* gmax, int n, int gp, float t_min, int levels, int32_t* key,
-    void* stream) {
-  if (gp % kChunk != 0 || (levels != 1 && levels != 2)) return (int)cudaErrorInvalidValue;
+template <int kLevels>
+int launch_keys(const float* origin, const float* inv, const float* tmax, const float* gmin, const float* gmax, int n,
+                int gp, float t_min, const float* diag, int32_t* key, cudaStream_t stream) {
   const size_t smem = box_bytes(gp);
   const int blocks = (n + kKeysThreads - 1) / kKeysThreads;
   if (blocks == 0) return (int)cudaSuccess;
-  cudaError_t err;
-  if (levels == 2) {
-    if ((err = allow_smem(ray_keys_kernel<2>, smem)) != cudaSuccess) return (int)err;
-    ray_keys_kernel<2><<<blocks, kKeysThreads, smem, (cudaStream_t)stream>>>(
-        origin, inv, tmax, gmin, gmax, n, gp, t_min, key);
-  } else {
-    if ((err = allow_smem(ray_keys_kernel<1>, smem)) != cudaSuccess) return (int)err;
-    ray_keys_kernel<1><<<blocks, kKeysThreads, smem, (cudaStream_t)stream>>>(
-        origin, inv, tmax, gmin, gmax, n, gp, t_min, key);
-  }
+  const cudaError_t err = allow_smem(ray_keys_kernel<kLevels>, smem);
+  if (err != cudaSuccess) return (int)err;
+  ray_keys_kernel<kLevels><<<blocks, kKeysThreads, smem, stream>>>(origin, inv, tmax, gmin, gmax, n, gp, t_min, diag,
+                                                                     key);
   return (int)cudaGetLastError();
+}
+
+extern "C" int vpt_ray_keys(
+    const float* origin, const float* inv, const float* tmax, const float* gmin,
+    const float* gmax, int n, int gp, float t_min, int levels, const float* diag, int32_t* key,
+    void* stream) {
+  if (gp % kChunk != 0 || levels < 1 || levels > 3 || (levels == 3) != (diag != nullptr)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  cudaStream_t s = (cudaStream_t)stream;
+  if (levels == 3) return launch_keys<3>(origin, inv, tmax, gmin, gmax, n, gp, t_min, diag, key, s);
+  if (levels == 2) return launch_keys<2>(origin, inv, tmax, gmin, gmax, n, gp, t_min, diag, key, s);
+  return launch_keys<1>(origin, inv, tmax, gmin, gmax, n, gp, t_min, diag, key, s);
 }
 
 template <int kTile>
@@ -260,8 +277,13 @@ int launch_tables(const float* origin, const float* inv, const float* tmax, cons
 extern "C" int vpt_supertile_tables(
     const float* origin, const float* inv, const float* tmax, const float* gmin,
     const float* gmax, int n, int gp, float t_min, int tile, float* out, void* stream) {
-  if (gp % kChunk != 0 || (tile != 512 && tile != 1024) || n % tile != 0) return (int)cudaErrorInvalidValue;
+  if (gp % kChunk != 0 || tile <= 0 || n % tile != 0) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
-  return tile == 512 ? launch_tables<512>(origin, inv, tmax, gmin, gmax, n, gp, t_min, out, s)
-                     : launch_tables<1024>(origin, inv, tmax, gmin, gmax, n, gp, t_min, out, s);
+  switch (tile) {
+    case 128: return launch_tables<128>(origin, inv, tmax, gmin, gmax, n, gp, t_min, out, s);
+    case 256: return launch_tables<256>(origin, inv, tmax, gmin, gmax, n, gp, t_min, out, s);
+    case 512: return launch_tables<512>(origin, inv, tmax, gmin, gmax, n, gp, t_min, out, s);
+    case 1024: return launch_tables<1024>(origin, inv, tmax, gmin, gmax, n, gp, t_min, out, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }

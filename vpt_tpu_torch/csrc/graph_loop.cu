@@ -155,6 +155,35 @@ int vpt_graph_bad_node(cudaGraph_t graph, int* type) {
   return e;
 }
 
+// Adds the kernel, memcpy and memset nodes of `graph` (child graphs searched
+// too) to counts[0], counts[1] and counts[2]: the device work one launch of
+// it runs, which a profiler sees as that many device events.
+int vpt_graph_count_nodes(cudaGraph_t graph, long long* counts) {
+  size_t n = 0;
+  cudaError_t e = cudaGraphGetNodes(graph, nullptr, &n);
+  if (e != cudaSuccess || n == 0) return e;
+  cudaGraphNode_t* nodes = new cudaGraphNode_t[n];
+  e = cudaGraphGetNodes(graph, nodes, &n);
+  for (size_t i = 0; e == cudaSuccess && i < n; ++i) {
+    cudaGraphNodeType t;
+    e = cudaGraphNodeGetType(nodes[i], &t);
+    if (e != cudaSuccess) break;
+    if (t == cudaGraphNodeTypeKernel) {
+      ++counts[0];
+    } else if (t == cudaGraphNodeTypeMemcpy) {
+      ++counts[1];
+    } else if (t == cudaGraphNodeTypeMemset) {
+      ++counts[2];
+    } else if (t == cudaGraphNodeTypeGraph) {
+      cudaGraph_t child;
+      e = cudaGraphChildGraphNodeGetGraph(nodes[i], &child);
+      if (e == cudaSuccess) e = static_cast<cudaError_t>(vpt_graph_count_nodes(child, counts));
+    }
+  }
+  delete[] nodes;
+  return e;
+}
+
 int vpt_graph_instantiate(cudaGraph_t graph, cudaGraphExec_t* exec) { return cudaGraphInstantiate(exec, graph, 0); }
 
 int vpt_graph_launch(cudaGraphExec_t exec, cudaStream_t stream) {

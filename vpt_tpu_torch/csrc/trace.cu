@@ -16,15 +16,16 @@
 //   - the ray moves to the instance's local space (direction unnormalised, so
 //     t stays world-parametric; local inverse 1 / where(|d| > 1e-20, d, 1e-20));
 //   - the sub-block cull of stream.py:283-331 and occlude.py:137-207: each of
-//     the cluster's 8 mesh-local sub-block boxes (16 triangles each; an empty
-//     one, its box inverted, is never entered) is slab-tested, and its 16
+//     the cluster's 8 mesh-local sub-block boxes (K / 8 triangles each; an
+//     empty one, its box inverted, is never entered) is slab-tested, and its
 //     Moller-Trumbore tests run only while its entry distance is within the
 //     current best t.
 // A group box is the exact union of its members' boxes, so its slab never
 // rejects a member the member's own slab would enter (the roundings are
 // monotone): the group test only saves work.  Tie rules: the lower index
-// wins equal t inside a sub-block and, since two sub-blocks are tested at
-// once, across that pair in index order; otherwise only a strictly closer hit
+// wins equal t inside a sub-block and, since a pass tests several sub-blocks
+// at once, across the pass in index order; otherwise (a later pass, a later
+// chunk of a sub-block above 32 triangles) only a strictly closer hit
 // replaces the current one.  An any-hit ray (flags bit 1) stops at its first
 // hit; an occlusion ray stops at its first triangle whose virtual id differs
 // from its exclude id.
@@ -44,20 +45,23 @@
 //   - the candidate walk takes 32 groups per step (lane k: candidate g0 + k;
 //     its entry, id, supertile bit, supertile entry and group box), and one
 //     ballot keeps the groups the ray enters;
-//   - lanes 0..7 slab-test the group's 8 member boxes, loading each member's
-//     count, block, triangle base and instance alongside for the warp to
-//     share by shuffles;
+//   - lanes 0..G-1 slab-test the group's G member boxes (G <= 32), loading
+//     each member's count, block, triangle base and instance alongside for
+//     the warp to share by shuffles;
 //   - lanes 0..7 slab-test the entered cluster's 8 sub-block boxes;
-//   - lanes 0..15 and 16..31 run the Moller-Trumbore tests of the next two
-//     open sub-blocks, each lane loading its own triangle's 9 components
-//     (coalesced: a sub-block's component row is 64 contiguous bytes), and a
-//     warp min-reduction picks the hit.  No lane ever needs another lane's
-//     triangle, so nothing is staged in shared memory.
+//   - the lanes run the Moller-Trumbore tests of the next open sub-blocks
+//     (traverse.cuh TriLayout: at K = 128 lanes 0..15 and 16..31 take two
+//     sub-blocks of 16), each lane loading its own triangle's 9 components
+//     (coalesced: a sub-block's component row is 4K / 8 contiguous bytes),
+//     and a warp min-reduction picks the hit.  No lane ever needs another
+//     lane's triangle, so nothing is staged in shared memory.
 // Loads are issued before the gates that use them, so a walk step costs two
-// dependent round trips and a cluster three.  K = 128, 8 sub-blocks and 8
-// members per group are compile-time constants; the wrappers raise on other
-// shapes.  63-72 registers (-Xptxas -v); capping them for occupancy spilled
-// and ran slower.
+// dependent round trips and a cluster three.  The layout (VPT_CLUSTER_SIZE,
+// VPT_GROUP_SIZE): K is a template constant for 32, 64, 128 (the default),
+// 256, 512 and 1024 and a run-time value for any other multiple of 8
+// (traverse.cuh VPT_DISPATCH_K); the group size is a run-time value; the
+// wrappers raise on a layout outside these.  At K = 128, 64-72 registers
+// (-Xptxas -v); capping them for occupancy spilled and ran slower.
 //
 // Built with --fmad=false so the slab and Moller-Trumbore arithmetic rounds
 // exactly like the plain torch versions, which makes culling decisions agree.
@@ -105,7 +109,7 @@ struct Search {
 // A member cluster with triangles, entered by the warp's ray.
 template <bool OCCLUDE, bool INSTANCED>
 __device__ __forceinline__ void visit_cluster(const Tables& tb, const Member& mc, const Ray& w, float t_min,
-                                              Search& S, int lane) {
+                                              Search& S, int lane, const TriLayout& L) {
   const int cnt = mc.count;
   const Ray l = INSTANCED ? to_instance(w, tb.inv_rows + 12 * (size_t)mc.inst) : w;
   const int blk = mc.block;
@@ -113,57 +117,62 @@ __device__ __forceinline__ void visit_cluster(const Tables& tb, const Member& mc
   // Lanes 0..7: the sub-block slabs, tf = the current best t.
   float tn_s = INFINITY;
   bool in_s = false;
-  if (lane < kNSub && lane * kSub < cnt) {
+  if (lane < kNSub && lane * L.sub < cnt) {
     in_s = slab6(tb.sub_aabbs + ((size_t)blk * kNSub + lane) * 6, l, t_min, S.best, tn_s);
   }
-  const float* block = tb.tris + (size_t)blk * 16 * kTris;
-  const int half = lane >> 4, k = lane & 15;
+  const float* block = tb.tris + (size_t)blk * 16 * L.k;
+  const int slot = lane / L.lanes, k0 = lane - slot * L.lanes;
   while (S.live) {
-    // The next two sub-blocks whose entry is still within the best t, tested
-    // together: lanes 0-15 take the first one's triangles, 16-31 the second's.
+    // The next per_pass sub-blocks whose entry is still within the best t,
+    // tested together: lane slot * lanes + k0 takes triangle k0 of the
+    // slot-th (with K = 128, lanes 0-15 the first sub-block, 16-31 the
+    // second).
     const unsigned open = __ballot_sync(kFull, in_s && tn_s <= S.best);
     if (open == 0) break;
-    const int sa = __ffs(open) - 1;
-    const unsigned rest = open & (open - 1u);
-    const int sb = rest ? __ffs(rest) - 1 : -1;
-    if (lane == sa || lane == sb) in_s = false;
-    const int s = half ? sb : sa;
-    float t = INFINITY, u = 0.0f, v = 0.0f;
-    bool valid = false;
-    if (s >= 0 && s * kSub + k < cnt) {
-      t = moller_trumbore(block + s * kSub + k, l, t_min, u, v, valid);
-      valid = valid && t < S.best;
-    }
-    const int32_t id = base + s * kSub + k;
-    if (OCCLUDE) {
-      if (__any_sync(kFull, valid && id != S.extri)) {
-        S.blocked = true;
-        S.live = false;
+    const int s = pass_block(open, L, lane, slot, in_s);
+    for (int c = 0; c < L.chunks; ++c) {
+      if (c > 0 && !S.live) break;
+      const int k = L.chunks == 1 ? k0 : c * 32 + k0;
+      float t = INFINITY, u = 0.0f, v = 0.0f;
+      bool valid = false;
+      if (s >= 0 && (L.chunks == 1 || k < L.sub) && s * L.sub + k < cnt) {
+        t = moller_trumbore(block + s * L.sub + k, l, t_min, u, v, valid, L.k);
+        valid = valid && t < S.best;
       }
-    } else {
-      // Closest hit, the lower lane on equal t (index order: sa before sb).
-      // Valid t are > t_min > 0, so their bit patterns order like the floats.
-      const unsigned tbits = valid ? __float_as_uint(t) : kInfBits;
-      const unsigned low = __reduce_min_sync(kFull, tbits);
-      if (low != kInfBits) {
-        const int win = __ffs(__ballot_sync(kFull, valid && tbits == low)) - 1;
-        S.best = __uint_as_float(low);
-        S.best_tri = __shfl_sync(kFull, id, win);
-        S.best_u = __shfl_sync(kFull, u, win);
-        S.best_v = __shfl_sync(kFull, v, win);
-        if (S.anyhit) S.live = false;
+      const int32_t id = base + s * L.sub + k;
+      if (OCCLUDE) {
+        if (__any_sync(kFull, valid && id != S.extri)) {
+          S.blocked = true;
+          S.live = false;
+        }
+      } else {
+        // Closest hit, the lower lane on equal t (index order: the pass's
+        // sub-blocks in ascending order, a later chunk only if closer).
+        // Valid t are > t_min > 0, so their bit patterns order like the
+        // floats.
+        const unsigned tbits = valid ? __float_as_uint(t) : kInfBits;
+        const unsigned low = __reduce_min_sync(kFull, tbits);
+        if (low != kInfBits) {
+          const int win = __ffs(__ballot_sync(kFull, valid && tbits == low)) - 1;
+          S.best = __uint_as_float(low);
+          S.best_tri = __shfl_sync(kFull, id, win);
+          S.best_u = __shfl_sync(kFull, u, win);
+          S.best_v = __shfl_sync(kFull, v, win);
+          if (S.anyhit) S.live = false;
+        }
       }
     }
   }
 }
 
-template <bool OCCLUDE, bool INSTANCED>
+template <bool OCCLUDE, bool INSTANCED, int K>
 __global__ void __launch_bounds__(kThreads) trace_kernel(
     Tables tb, const float* __restrict__ origin, const float* __restrict__ direction,
     const float* __restrict__ tmax_in, const int32_t* __restrict__ flags,
-    const int32_t* __restrict__ extri_in, int n, int tiles, int gp, float t_min,
+    const int32_t* __restrict__ extri_in, int n, int tiles, int gp, int group, int k_tris, float t_min,
     float* __restrict__ t_out, int32_t* __restrict__ tri_out, float* __restrict__ u_out,
     float* __restrict__ v_out, int32_t* __restrict__ blocked_out) {
+  const TriLayout L = tri_layout<K>(k_tris);
   const int lane = threadIdx.x & 31;
   const int i = blockIdx.x * kWarps + (threadIdx.x >> 5);  // the warp's ray
   if (i >= n) return;
@@ -213,13 +222,13 @@ __global__ void __launch_bounds__(kThreads) trace_kernel(
       todo &= todo - 1u;
       const int gg = __shfl_sync(kFull, g, src);
       if (!(__shfl_sync(kFull, tn_g, src) <= S.best)) continue;
-      // Lanes 0..7: the member clusters' world slabs, with each member's
+      // Lanes 0..G-1: the member clusters' world slabs, with each member's
       // table row loaded alongside for the lanes to share.
-      const int c = gg * kGroup + (lane & (kGroup - 1));
+      const int c = gg * group + lane;
       Member mb{0, 0, 0, 0};
       float tn_m = INFINITY;
       bool in_m = false;
-      if (lane < kGroup) {
+      if (lane < group) {
         mb = Member{tb.count[c], tb.block_id[c], tb.start[c], INSTANCED ? tb.inst[c] : 0};
         in_m = slab6(tb.aabbs + 6 * (size_t)c, w, t_min, S.best, tn_m) && mb.count > 0;
       }
@@ -230,7 +239,7 @@ __global__ void __launch_bounds__(kThreads) trace_kernel(
         if (!(__shfl_sync(kFull, tn_m, m) <= S.best)) continue;
         const Member cm{__shfl_sync(kFull, mb.count, m), __shfl_sync(kFull, mb.block, m),
                         __shfl_sync(kFull, mb.start, m), __shfl_sync(kFull, mb.inst, m)};
-        visit_cluster<OCCLUDE, INSTANCED>(tb, cm, w, t_min, S, lane);
+        visit_cluster<OCCLUDE, INSTANCED>(tb, cm, w, t_min, S, lane, L);
       }
     }
     if (last) break;
@@ -249,21 +258,24 @@ __global__ void __launch_bounds__(kThreads) trace_kernel(
 template <bool OCCLUDE>
 int launch(const Tables& tb, const float* origin, const float* direction,
            const float* tmax, const int32_t* flags, const int32_t* extri, int n,
-           int tiles, int gp, int group_size, float t_min, int instanced,
+           int tiles, int gp, int group_size, int k_tris, float t_min, int instanced,
            float* t_out, int32_t* tri_out, float* u_out, float* v_out,
            int32_t* blocked_out, cudaStream_t stream) {
-  if (group_size != kGroup) return (int)cudaErrorInvalidValue;
+  if (!layout_ok(k_tris, group_size)) return (int)cudaErrorInvalidValue;
   if (n <= 0) return 0;
   const int blocks = (n + kWarps - 1) / kWarps;
-  if (instanced) {
-    trace_kernel<OCCLUDE, true><<<blocks, kThreads, 0, stream>>>(
-        tb, origin, direction, tmax, flags, extri, n, tiles, gp, t_min, t_out, tri_out,
-        u_out, v_out, blocked_out);
-  } else {
-    trace_kernel<OCCLUDE, false><<<blocks, kThreads, 0, stream>>>(
-        tb, origin, direction, tmax, flags, extri, n, tiles, gp, t_min, t_out, tri_out,
-        u_out, v_out, blocked_out);
+#define VPT_TRACE_LAUNCH(K)                                                                             \
+  if (instanced) {                                                                                      \
+    trace_kernel<OCCLUDE, true, K><<<blocks, kThreads, 0, stream>>>(                                    \
+        tb, origin, direction, tmax, flags, extri, n, tiles, gp, group_size, k_tris, t_min, t_out, tri_out, \
+        u_out, v_out, blocked_out);                                                                     \
+  } else {                                                                                              \
+    trace_kernel<OCCLUDE, false, K><<<blocks, kThreads, 0, stream>>>(                                   \
+        tb, origin, direction, tmax, flags, extri, n, tiles, gp, group_size, k_tris, t_min, t_out, tri_out, \
+        u_out, v_out, blocked_out);                                                                     \
   }
+  VPT_DISPATCH_K(k_tris, VPT_TRACE_LAUNCH)
+#undef VPT_TRACE_LAUNCH
   return (int)cudaGetLastError();
 }
 
@@ -276,13 +288,13 @@ extern "C" int vpt_stream(
     const float* aabbs, const int32_t* count, const int32_t* start,
     const int32_t* block_id, const int32_t* inst, const float* inv_rows,
     const float* tris, const float* sub_aabbs, const float* group_min,
-    const float* group_max, int n, int tiles, int gp, int group_size, float t_min,
+    const float* group_max, int n, int tiles, int gp, int group_size, int k_tris, float t_min,
     int instanced, float* t_out, int32_t* tri_out, float* u_out, float* v_out,
     void* stream) {
   const Tables tb{ngrp, order, entry_sorted, bits, sent, aabbs, count, start, block_id,
                   inst, inv_rows, tris, sub_aabbs, group_min, group_max};
   return launch<false>(tb, origin, direction, tmax, flags, nullptr, n, tiles, gp,
-                       group_size, t_min, instanced, t_out, tri_out, u_out, v_out,
+                       group_size, k_tris, t_min, instanced, t_out, tri_out, u_out, v_out,
                        nullptr, (cudaStream_t)stream);
 }
 
@@ -294,10 +306,10 @@ extern "C" int vpt_occlude(
     const int32_t* start, const int32_t* block_id, const int32_t* inst,
     const float* inv_rows, const float* tris, const float* sub_aabbs,
     const float* group_min, const float* group_max, int n, int tiles, int gp,
-    int group_size, float t_min, int instanced, int32_t* blocked_out, void* stream) {
+    int group_size, int k_tris, float t_min, int instanced, int32_t* blocked_out, void* stream) {
   const Tables tb{ngrp, order, entry_sorted, bits, sent, aabbs, count, start, block_id,
                   inst, inv_rows, tris, sub_aabbs, group_min, group_max};
   return launch<true>(tb, origin, direction, tmax, act, extri, n, tiles, gp,
-                      group_size, t_min, instanced, nullptr, nullptr, nullptr,
+                      group_size, k_tris, t_min, instanced, nullptr, nullptr, nullptr,
                       nullptr, blocked_out, (cudaStream_t)stream);
 }

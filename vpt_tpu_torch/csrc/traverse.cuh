@@ -1,8 +1,21 @@
 // Device helpers shared by the warp-per-ray traversal kernels, trace.cu
-// (stream, occlude) and visit.cu (the packet visit): the cluster shape, the
+// (stream, occlude) and visit.cu (the packet visit): the cluster layout, the
 // NaN-propagating slab test, the instance transform and Moller-Trumbore.
 // Every formula rounds like its plain torch version in
 // vpt_tpu_torch/accel/traverse.py when built with --fmad=false.
+//
+// The cluster layout (VPT_CLUSTER_SIZE, VPT_GROUP_SIZE).  A cluster block
+// holds K triangles (a multiple of 8) in 8 sub-blocks of K / 8; a group
+// holds 1 to 32 member clusters, which lanes 0..G-1 test in one step.  The
+// kernels are compiled for K in {32, 64, 128, 256, 512, 1024} (the default,
+// 128, keeps its constants) and once more with K read at run time (K = 0 in
+// the templates), which takes every other multiple of 8.  `TriLayout` says
+// how one warp runs a cluster's triangle tests: a pass takes `per_pass`
+// open sub-blocks at once, `lanes` lanes each (lane q * lanes + k takes
+// triangle k of the pass's q-th sub-block), and a sub-block of more than 32
+// triangles takes `chunks` passes of 32.  K = 128: two sub-blocks of 16 per
+// pass, as before the layout knobs; K = 64: four of 8; K = 256: one of 32;
+// K = 1024: one sub-block in four passes.
 
 #pragma once
 
@@ -12,11 +25,49 @@
 
 namespace vpt {
 
-constexpr int kTris = 128;           // K, triangles per cluster block
-constexpr int kNSub = 8;             // sub-blocks per cluster
-constexpr int kSub = kTris / kNSub;  // 16 triangles per sub-block
-constexpr int kGroup = 8;            // member clusters per group
+constexpr int kNSub = 8;     // sub-blocks per cluster
+constexpr int kMaxGroup = 32;  // member clusters per group: at most one per lane
 constexpr unsigned kFull = 0xffffffffu;
+
+struct TriLayout {
+  int k;         // K, triangles per cluster block: the stride of a block's component rows
+  int sub;       // K / 8, triangles per sub-block
+  int lanes;     // lanes per sub-block in a pass: min(sub, 32)
+  int per_pass;  // sub-blocks per pass: min(32 / sub, 8), 1 above 32 triangles
+  int chunks;    // passes over one sub-block: ceil(sub / 32)
+};
+
+// The layout of K triangles per cluster: compile-time constants for K > 0,
+// from `k_rt` for K = 0.
+template <int K>
+__device__ __forceinline__ TriLayout tri_layout(int k_rt) {
+  const int k = K > 0 ? K : k_rt;
+  const int sub = k / kNSub;
+  const int lanes = sub < 32 ? sub : 32;
+  const int fit = 32 / lanes;
+  return TriLayout{k, sub, lanes, sub > 32 ? 1 : (fit < kNSub ? fit : kNSub), (sub + 31) / 32};
+}
+
+// A pass over the open sub-blocks (`open`, warp-uniform: bit s set where
+// sub-block s is still entered within the best t): its sub-blocks are the
+// first per_pass set bits, in ascending index, each walked by every lane
+// alike.  The lanes holding them (lanes 0..7 hold one sub-block each) take
+// them out of `in_s`; returns the sub-block of this lane's slot, -1 if the
+// pass has none for it.  At K = 128 this is the first two open sub-blocks,
+// lanes 0-15 taking the first and 16-31 the second.
+__device__ __forceinline__ int pass_block(unsigned open, const TriLayout& L, int lane, int slot, bool& in_s) {
+  int s = -1;
+  unsigned rest = open;
+#pragma unroll
+  for (int q = 0; q < kNSub; ++q) {
+    if (q >= L.per_pass) break;
+    const int sq = rest ? __ffs(rest) - 1 : -1;
+    if (lane == sq) in_s = false;
+    if (slot == q) s = sq;
+    rest &= rest - 1u;
+  }
+  return s;
+}
 
 __device__ __forceinline__ float pmin(float a, float b) {
   return (a != a || b != b) ? __int_as_float(0x7fc00000) : fminf(a, b);
@@ -88,12 +139,13 @@ __device__ __forceinline__ Ray to_instance(const Ray& w, const float* T) {
   return l;
 }
 
-// Moller-Trumbore of the local ray against one triangle of a (16, K) block.
+// Moller-Trumbore of the local ray against one triangle of a (16, K) block,
+// its component rows `k` floats apart.
 __device__ __forceinline__ float moller_trumbore(const float* tri, const Ray& l, float t_min, float& u, float& v,
-                                                 bool& ok) {
-  const float p0x = tri[0 * kTris], p0y = tri[1 * kTris], p0z = tri[2 * kTris];
-  const float e1x = tri[3 * kTris], e1y = tri[4 * kTris], e1z = tri[5 * kTris];
-  const float e2x = tri[6 * kTris], e2y = tri[7 * kTris], e2z = tri[8 * kTris];
+                                                 bool& ok, int k) {
+  const float p0x = tri[0 * k], p0y = tri[1 * k], p0z = tri[2 * k];
+  const float e1x = tri[3 * k], e1y = tri[4 * k], e1z = tri[5 * k];
+  const float e2x = tri[6 * k], e2y = tri[7 * k], e2z = tri[8 * k];
   const float pvx = l.dy * e2z - l.dz * e2y;
   const float pvy = l.dz * e2x - l.dx * e2z;
   const float pvz = l.dx * e2y - l.dy * e2x;
@@ -115,5 +167,24 @@ __device__ __forceinline__ float moller_trumbore(const float* tri, const Ray& l,
 struct Member {
   int count, block, start, inst;
 };
+
+// Launch `kernel` compiled for K = k_tris, or its run-time-K build (K = 0)
+// for a K outside {32, 64, 128, 256, 512, 1024}.
+#define VPT_DISPATCH_K(k_tris, LAUNCH) \
+  switch (k_tris) {                     \
+    case 32: LAUNCH(32); break;         \
+    case 64: LAUNCH(64); break;         \
+    case 128: LAUNCH(128); break;       \
+    case 256: LAUNCH(256); break;       \
+    case 512: LAUNCH(512); break;       \
+    case 1024: LAUNCH(1024); break;     \
+    default: LAUNCH(0); break;          \
+  }
+
+// Whether the kernels take a layout: K a positive multiple of 8, 1 to 32
+// clusters per group.
+inline bool layout_ok(int k_tris, int group_size) {
+  return k_tris > 0 && k_tris % kNSub == 0 && group_size >= 1 && group_size <= kMaxGroup;
+}
 
 }  // namespace vpt

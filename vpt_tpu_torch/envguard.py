@@ -7,7 +7,12 @@
   * the bench module calls `require_clean_env()`, which refuses any `VPT_*`
     variable, so a benchmark always measures the default configuration.
 
-The port reads one knob, `VPT_TRACE` (render/integrator.py).
+The knobs the port reads, each at import as in the JAX package:
+`VPT_TRACE` and `VPT_SORT_RAYS` (render/integrator.py), which this guard
+fences as the JAX package does, and the layout knobs of accel/cluster.py,
+`VPT_CLUSTER_SIZE`, `VPT_GROUP_SIZE`, `VPT_PACKET_SIZE` and
+`VPT_SORT_KEY`, which change only the schedule (the results stay the same
+up to hits at equal t) and which the JAX package does not fence either.
 """
 
 from __future__ import annotations
@@ -17,6 +22,7 @@ import os
 # Knobs the port reads, with their defaults.
 ABLATION_DEFAULTS = {
     "VPT_TRACE": "stream",  # the packet trace: the same results, not the main path
+    "VPT_SORT_RAYS": "1",  # the packet trace's regroup by sort key
 }
 
 

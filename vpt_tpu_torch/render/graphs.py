@@ -369,6 +369,14 @@ def _build(graph, nodes: list, handles: dict) -> None:
         dep = out
 
 
+def device_nodes(graph) -> int:
+    """The kernel, memcpy and memset nodes of a captured torch graph: the
+    device events one replay of it runs."""
+    counts = (ctypes.c_longlong * 3)()
+    _call("vpt_graph_count_nodes", graph.raw_cuda_graph(), ctypes.addressof(counts))
+    return sum(counts)
+
+
 def _destroy(graph, exe) -> None:
     with contextlib.suppress(Exception):
         kernels.library()["vpt_graph_destroy"](graph, exe)

@@ -25,10 +25,12 @@ launch.  Eagerly (a CPU device, or graphs.CAPTURE False) the host reads
 
 Large scenes trace through the cluster tables in one of two modes, read
 from `VPT_TRACE` once at import as in the JAX package: "stream" (default;
-kernels 1-4) or "packet" (the packet trace through kernel 5); under
-`VPT_REQUIRE_GOLDENS` a non-default value refuses the import
-(envguard.guard_ablations).  Switch in
-code with `mock.patch.object(integrator, "TRACE_MODE", "packet")`.
+kernels 1-4) or "packet" (the packet trace through kernel 5), whose rays
+are regrouped by their sort key unless `VPT_SORT_RAYS` is "0"
+(`_SORT_RAYS`, vpt_tpu/render/integrator.py:30); under
+`VPT_REQUIRE_GOLDENS` a non-default value of either refuses the import
+(envguard.guard_ablations).  Switch in code with
+`mock.patch.object(integrator, "TRACE_MODE", "packet")`.
 """
 
 from __future__ import annotations
@@ -39,7 +41,7 @@ import os
 import numpy as np
 import torch
 
-from vpt_tpu_torch.accel import traverse
+from vpt_tpu_torch.accel import cluster, traverse
 from vpt_tpu_torch.accel.cluster import intersect_clusters
 from vpt_tpu_torch.accel.occlude import occlude_stream
 from vpt_tpu_torch.accel.stream import intersect_stream
@@ -58,6 +60,7 @@ from vpt_tpu_torch.render.params import RenderFlags, RenderParams
 
 guard_ablations()
 TRACE_MODE = os.environ.get("VPT_TRACE", "stream")  # stream | packet
+_SORT_RAYS = os.environ.get("VPT_SORT_RAYS", "1") == "1"  # the packet trace's regroup by sort key
 
 
 def trace(scene, meta, origin, direction, active, t_min=traverse.T_MIN, t_max=traverse.T_MAX):
@@ -74,7 +77,8 @@ def trace(scene, meta, origin, direction, active, t_min=traverse.T_MIN, t_max=tr
             t=torch.where(active, hit.t, -1.0), tri=torch.where(active, hit.tri, -1), u=hit.u, v=hit.v,
         )
     if TRACE_MODE == "packet":
-        return intersect_clusters(origin, direction, scene.clusters, t_min, t_max, active=active, sort_rays=True)
+        return intersect_clusters(origin, direction, scene.clusters, t_min, t_max, active=active,
+                                  sort_rays=_SORT_RAYS)
     return intersect_stream(origin, direction, scene.clusters, t_min, t_max, active=active)
 
 
@@ -550,12 +554,14 @@ def dispatch_step(scene, meta, flags: RenderFlags, params: RenderParams, pixel_x
                   sample_seed, n_samples: int = 1, sample_offset=0) -> graphs.Step:
     """The configuration's cached step, keyed as the JAX package keys its
     compiled `_render_step` (the identity of the scene's tensors, `meta`,
-    `flags`, the resolution, `n_samples`) and by the lane count, TRACE_MODE
-    and the device; loaded with this dispatch's parameters, seed, sample
-    offset and pixels, and its carry at the loop's start."""
+    `flags`, the resolution, `n_samples`) and by the lane count, the device
+    and the trace's knobs that a captured step bakes in (`trace_knobs`);
+    loaded with this dispatch's parameters, seed, sample offset and pixels,
+    and its carry at the loop's start.  The cluster size and group size need
+    no entry: they shape the scene's tensors, whose ids the key holds."""
     n, dev = pixel_xy.shape[0], pixel_xy.device
     resolution = tuple(resolution)
-    key = (graphs.leaf_ids(scene), meta, flags, resolution, n, n_samples, TRACE_MODE, dev)
+    key = (graphs.leaf_ids(scene), meta, flags, resolution, n, n_samples, trace_knobs(), dev)
 
     def make():
         inputs = dict(params=RenderParams(*(graphs.buffer(v, torch.float32, dev) for v in params)),
@@ -570,6 +576,13 @@ def dispatch_step(scene, meta, flags: RenderFlags, params: RenderParams, pixel_x
               sample_offset=sample_offset)
     step.start(prologue(step.inputs, resolution, n_samples), capture=graphs.capturable(dev))
     return step
+
+
+def trace_knobs() -> tuple:
+    """The knobs read while a step's iteration runs, which its captured
+    graphs bake in: TRACE_MODE, _SORT_RAYS and the packet trace's
+    cluster.PACKET_SIZE and cluster._SORT_KEY."""
+    return TRACE_MODE, _SORT_RAYS, cluster.PACKET_SIZE, cluster._SORT_KEY
 
 
 def _iteration(meta, flags, resolution, n_samples, scene, carry, inputs, media):

@@ -14,7 +14,8 @@ from __future__ import annotations
 import numpy as np
 
 from vpt_tpu_torch.accel.bvh import LEAF_SIZE, build_bvh
-from vpt_tpu_torch.accel.cluster import CLUSTER_SIZE, assemble_clusters, build_mesh_clusters
+from vpt_tpu_torch.accel import cluster as cluster_mod
+from vpt_tpu_torch.accel.cluster import assemble_clusters, build_mesh_clusters
 from vpt_tpu_torch.device import resolve_device
 from vpt_tpu_torch.render.lookup_fit import constant_fit, fit_table
 from vpt_tpu_torch.scene.envmap import constant_environment, default_sky, prepare_environment
@@ -195,7 +196,7 @@ def compile_scene(scene: Scene, device, lookup_tables=None):
             order=order_m, inv_perm=inv_perm_m,
             mc=build_mesh_clusters(
                 bvh_m, lv0[order_m], (lv1 - lv0)[order_m], (lv2 - lv0)[order_m],
-                cluster_size=CLUSTER_SIZE,
+                cluster_size=cluster_mod.CLUSTER_SIZE,  # read when called, as vpt_tpu/scene/build.py:254 does
             ),
             lp=(lv0[order_m], lv1[order_m], lv2[order_m]),
             ln=(nrm[idx[:, 0]][order_m], nrm[idx[:, 1]][order_m], nrm[idx[:, 2]][order_m]),

@@ -169,7 +169,7 @@ class ClusterData(NamedTuple):
     inst: torch.Tensor  # (C,) i32 owning instance
     inv_rows: torch.Tensor  # (n_inst, 12) f32 row-major [R | T] world->local
     tris: torch.Tensor  # (B, 16, K) f32 rows 0-8 = p0.xyz, e1.xyz, e2.xyz
-    sub_aabbs: torch.Tensor  # (B, 8, 6) f32 mesh-local box of each 16-triangle
+    sub_aabbs: torch.Tensor  # (B, 8, 6) f32 mesh-local box of each K / 8-triangle
     # sub-block [lo.xyz, hi.xyz]; lo = 3e9, hi = -3e9 where the sub-block is empty
 
 
