@@ -170,8 +170,9 @@ Phases, each of which raises on failure:
         one JSON line "gallery".
  14. the layout knobs and the dispatch tools (vpt_tpu_torch/tools):
      a. colonnade compiled at K = 64 and 256 (cluster.CLUSTER_SIZE, which
-        compile_scene reads when called) and at groups of 4 and 16 with K =
-        128 (cluster.GROUP_SIZE), each with phase 4's baked fits: at phase
+        compile_scene reads when called) and at groups of 4, 16, 48 and 64
+        with K = 128 (cluster.GROUP_SIZE; 48 and 64 above the 32 members a
+        warp tests at a time), each with phase 4's baked fits: at phase
         3's bounce and shadow shapes ray_keys and supertile_tables equal
         their plain versions, stream by the tie rule, occlude and the
         packet cull exactly, visit exactly on VISIT_SLICE bounce packets
@@ -181,9 +182,11 @@ Phases, each of which raises on failure:
         dispatch at
         512x512, depth 8, 4 spp, at GRAPH_SEED after the one that captures:
         s/dispatch, segments and the image's PSNR against phase 4's K = 128
-        image at that seed (above LAYOUT_PSNR);
+        image at that seed (above LAYOUT_PSNR), and whether image and
+        segments equal the default layout's;
      b. the packet path (integrator.TRACE_MODE "packet") at
-        PACKET_LAYOUTS (cluster.PACKET_SIZE 256 and 1024, _SORT_KEY "fe",
+        PACKET_LAYOUTS (cluster.PACKET_SIZE 256, 1024, and 64, 384 and 2048,
+        which supertile_tables runs in its run-time tile, _SORT_KEY "fe",
         integrator._SORT_RAYS False): the packet cull at PACKET_SIZE-ray
         tiles against its plain version and the dense cull, the key-sorted
         (or unsorted) packets' visit on VISIT_SLICE packets spread over
@@ -203,6 +206,22 @@ Phases, each of which raises on failure:
         k64,k128,k256`, as subprocesses: each RESULT line with the card's
         name and power limit;
      one JSON line "layouts".
+ 15. the probe kernels (csrc/probe.cu, tools/hopper_probe.py: the
+     counterparts of scripts/mosaic_probe.py's and scripts/smem_probe.py's
+     Pallas kernels), a path of their own: the counts set to 0, `python -m
+     vpt_tpu_torch.tools.hopper_probe`'s run (tools.hopper_probe.Prober) in
+     this process, every probe PASS and every probe kernel launched, its
+     lines logged; the shared-memory boundary: probe8 and smem_probe run
+     at hopper_probe.SMEM_LIMIT bytes (227 KB) of dynamic shared memory and
+     are refused 16 bytes above it; then each of the 11 kernels against
+     its plain version at its probe's shapes (hopper_probe.cases, bitwise,
+     probe2's bins as sets), timed beside its bound, its plain version
+     and, where one exists, its library call: a probe kernel is one small
+     block that runs shorter than the host takes to issue it, so its ms
+     (and the library call's) is per launch in a CUDA graph of 20 (the
+     CUDA-event median of 5 replays), printed beside the median of 5
+     event pairs around 20 back-to-back launches (`event_ms`, the host's
+     issue rate); one JSON line "probes".
 Every drive of phases 4-11, 13 and 14 checks that its loop ran captured (a
 graph launch per dispatch); the plain-version renders run eagerly.
 The last lines are the card's name and power limit, the kernel table as
@@ -292,6 +311,7 @@ from vpt_tpu_torch.scene.procedural import colonnade, colonnade_textured, furnac
 from vpt_tpu_torch.scene.types import Volume, tree_to_device
 from vpt_tpu_torch.scene.vdb import load_grid, procedural_cloud
 from vpt_tpu_torch.scene.vdb_reader import read_vdb, write_vdb
+from vpt_tpu_torch.tools import hopper_probe
 from vpt_tpu_torch.tools import profile_dispatch as profile_tool
 from vpt_tpu_torch.viewer import TerminalViewer
 
@@ -1721,9 +1741,13 @@ def gallery_full(dev, smi: str) -> None:
 
 # Phase 14: the layout knobs and the dispatch tools.
 LAYOUT_KS = (64, 256)  # cluster sizes beside the default 128
-LAYOUT_GROUPS = (4, 16)  # group sizes beside the default 8, at K = 128
-# (VPT_PACKET_SIZE, VPT_SORT_KEY, VPT_SORT_RAYS) of the packet path beside (512, fs, sorted).
-PACKET_LAYOUTS = ((256, "fs", True), (1024, "fs", True), (512, "fe", True), (512, "fs", False))
+# Group sizes beside the default 8, at K = 128: 48 and 64 above the 32 members
+# one warp tests at a time (a partial second chunk, two full ones).
+LAYOUT_GROUPS = (4, 16, 48, 64)
+# (VPT_PACKET_SIZE, VPT_SORT_KEY, VPT_SORT_RAYS) of the packet path beside (512,
+# fs, sorted); 64, 384 and 2048 rays run supertile_tables' run-time tile.
+PACKET_LAYOUTS = ((256, "fs", True), (1024, "fs", True), (512, "fe", True), (512, "fs", False), (64, "fs", True),
+                  (384, "fs", True), (2048, "fs", True))
 VISIT_SLICE = 32  # packets whose visit phase 14 holds against the plain version (the plain visit takes ~80 ms a packet)
 # A layout may change which of two triangles at equal t a ray takes; the
 # path of such a sample continues elsewhere, an independent sample in that
@@ -1826,10 +1850,12 @@ def layout_kernels(data, meta, aux, dev, label: str, table) -> dict:
     return row
 
 
-def layout_dispatch(data, meta, flags, params, base, label: str, mode: str = "stream") -> dict:
+def layout_dispatch(data, meta, flags, params, base, label: str, mode: str = "stream", default=None) -> dict:
     """One captured dispatch of a layout at GRAPH_SEED (after the one that
     captures): s/dispatch, segments, launches and the image's PSNR against
-    `base` (phase 4's configuration at K = 128, the same seed)."""
+    `base` (phase 4's configuration at K = 128, the same seed), and whether
+    image and segments equal those of `default`, the default layout's
+    dispatch in the same mode (`base` where None)."""
     zeros = torch.zeros((H, W, 3), device=params.view_inverse.device)
 
     def dispatch():
@@ -1848,16 +1874,22 @@ def layout_dispatch(data, meta, flags, params, base, label: str, mode: str = "st
     check(bool(np.isfinite(img).all()) and float(img.mean()) > 0.0, f"{label}: the image is finite with mean > 0")
     p = psnr(np.clip(img, 0, 10), np.clip(base["img"].cpu().numpy(), 0, 10), 10.0)
     check(p > LAYOUT_PSNR, f"{label}: the image within {LAYOUT_PSNR} dB of the K = 128 stream image")
+    default = base if default is None else default
     out = {"s_per_dispatch": run_["s"], "segments": run_["segments"], "segments_per_s": run_["segments"] / run_["s"],
            "psnr_vs_k128": p, "segments_vs_k128": run_["segments"] / base["segments"] - 1.0,
-           "launches": {k: v for k, v in launches.items()}}
+           "image_equals_default": bool(torch.equal(run_["img"], default["img"])),
+           "segments_equal_default": run_["segments"] == default["segments"],
+           "launches": {k: v for k, v in launches.items() if v}}
     log(f"layout {label} dispatch ({mode}, 512x512, 4 spp, seed {GRAPH_SEED}): {run_['s']:.3f} s, "
         f"{run_['segments']} segments ({100 * out['segments_vs_k128']:+.4f}% against K = 128), "
-        f"{out['segments_per_s'] / 1e6:.3f} M segs/s, PSNR {p:.1f} dB against the K = 128 image; launches {launches}")
+        f"{out['segments_per_s'] / 1e6:.3f} M segs/s, PSNR {p:.1f} dB against the K = 128 image; image "
+        f"{'equal to' if out['image_equals_default'] else 'NOT equal to'} and segments "
+        f"{'equal to' if out['segments_equal_default'] else 'NOT equal to'} the default layout's ({mode}); "
+        f"launches {out['launches']}")
     return out
 
 
-def packet_layout(stream_r: Renderer, p3: dict, size: int, key: str, sort: bool, base, table) -> dict:
+def packet_layout(stream_r: Renderer, p3: dict, size: int, key: str, sort: bool, base, table, default) -> dict:
     """Phase 14b at one packet layout: the cull, the keys and the visit
     against their plain versions, their times and bounds, one dispatch."""
     data, t_min, bounce, shadow = p3["data"], p3["t_min"], p3["bounce"], p3["shadow"]
@@ -1902,7 +1934,7 @@ def packet_layout(stream_r: Renderer, p3: dict, size: int, key: str, sort: bool,
                 for k, v in row["kernels"].items()))
         with mock.patch.object(integrator, "TRACE_MODE", "packet"):
             row.update(layout_dispatch(stream_r.scene_data, stream_r.meta, stream_r.flags, stream_r.params, base, label,
-                                       mode="packet"))
+                                       mode="packet", default=default))
     return row
 
 
@@ -1945,8 +1977,11 @@ def layouts_phase(dev, smi: str, table, p3: dict, stream_r: Renderer, media_r: R
     log(f"phase 14a (cluster layouts): {time.perf_counter() - t_phase:.1f} s")
     # 14b. Packet layouts.
     t0 = time.perf_counter()
+    with mock.patch.object(integrator, "TRACE_MODE", "packet"):
+        captured_or_eager(stepper(stream_r), True)
+        packet_base = captured_or_eager(stepper(stream_r), True)  # the packet path at 512-ray packets, fs, sorted
     for size, key, sort in PACKET_LAYOUTS:
-        rows.append(packet_layout(stream_r, p3, size, key, sort, base, table))
+        rows.append(packet_layout(stream_r, p3, size, key, sort, base, table, packet_base))
     log(f"phase 14b (packet layouts): {time.perf_counter() - t0:.1f} s")
     # 14c. The profile tool against the WHILE launch.
     t0 = time.perf_counter()
@@ -1988,6 +2023,96 @@ def layouts_phase(dev, smi: str, table, p3: dict, stream_r: Renderer, media_r: R
     print(json.dumps({"layouts": rows, "k128": {"s_per_dispatch": base["s"], "segments": base["segments"]},
                       "profiles": profiles, "tools": results, "device": smi}), flush=True)
     log(f"phase 14 (the layouts and the tools): {time.perf_counter() - t_phase:.1f} s")
+
+
+# Phase 15: the probe kernels of csrc/probe.cu (tools/hopper_probe.py).
+PROBE_SOURCE = "vpt_tpu_torch/csrc/probe.cu"
+
+
+def graph_ms(fn, calls: int = LAUNCHES_PER_PAIR) -> float:
+    """Milliseconds per call of fn inside a CUDA graph: `calls` calls
+    captured into one graph (relaxed capture: a probe's
+    cudaFuncSetAttribute may run while capturing), the median of 5 event
+    pairs around its replay, over `calls`.  For a call shorter than the
+    host's ~20 us to issue it (a probe kernel's single block), where an
+    event pair around back-to-back calls times the host."""
+    fn()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, capture_error_mode="relaxed"):
+        for _ in range(calls):
+            fn()
+    return cuda_ms(graph.replay) / calls
+
+
+def probe_phase(dev, smi: str, table) -> None:
+    """Phase 15: `python -m vpt_tpu_torch.tools.hopper_probe`'s run in this
+    process with the counts set to 0 just before (its lines, every probe
+    PASS, each probe kernel launched), the shared-memory boundary, then
+    each kernel against its plain version at its probe's shapes and timed
+    beside its bound, its plain version and its library call."""
+    t_phase = time.perf_counter()
+    lines = []
+    prober = hopper_probe.Prober(dev, out=lines.append)
+    kernels.reset_launches()
+    ok = prober.run()
+    launches = {k: kernels.LAUNCHES[k] for k in kernels.PROBES}
+    for line in lines:
+        log(f"hopper_probe: {line}")
+    check(ok, "hopper_probe: every probe's result is right")
+    check(lines[-1] == smi, "hopper_probe ends with the card's name and power limit")
+    check(all(n > 0 for n in launches.values()), f"hopper_probe launched every probe kernel: {launches}")
+    # The boundary: a block takes SMEM_LIMIT bytes of dynamic shared memory and no more.
+    limit = hopper_probe.SMEM_LIMIT
+    x8 = torch.ones((1, 1), dtype=torch.int32, device=dev)
+    xs = torch.arange(limit // 4 + 4, dtype=torch.float32, device=dev).reshape(1, -1)
+    boundary = {}
+    for name, fn, at, above, want in (
+            ("probe8", hopper_probe.probe8, (x8, limit // 4), (x8, limit // 4 + 4), 3.0),
+            ("smem_probe", hopper_probe.smem_probe, (xs[:, : limit // 4].contiguous(),), (xs,), float(limit // 4 - 1))):
+        try:
+            value = float(fn(*at)[0, 0])
+        except hopper_probe.Refused as e:
+            raise RuntimeError(f"check failed: {name} refused at {limit} bytes ({e.name})") from e
+        check(value == want, f"{name} at {limit} bytes of shared memory gives {want}")
+        try:
+            fn(*above)
+            refused = None
+        except hopper_probe.Refused as e:
+            refused = e.name
+        check(refused is not None, f"{name} above {limit} bytes of shared memory is refused")
+        boundary[name] = {"runs_at_bytes": limit, "refused_at_bytes": limit + 16, "error": refused}
+        log(f"{name}: runs at {limit} bytes of dynamic shared memory (value {value}), refused at {limit + 16} "
+            f"({refused})")
+    torch.cuda.synchronize()
+    # Each kernel against its plain version, and its times.
+    for name, case in hopper_probe.cases(dev).items():
+        got, want = case.fn(*case.args), case.plain(*case.args)
+        torch.cuda.synchronize()
+        check(hopper_probe.same_result(name, got, want), f"{name} equals its plain version")
+        outs = got if isinstance(got, tuple) else (got,)
+        moved = nbytes(*(a for a in case.args if torch.is_tensor(a)), *outs)
+        row = table.setdefault(name, {"name": name, "route": "cuda", "source": PROBE_SOURCE,
+                                      "replaces": case.replaces})
+        row.update(bound(case.ops, moved), launches=launches[name],
+                   max_abs_err=0.0 if name == "probe2" else max_abs_err(got.double(), want.double()),
+                   ms=graph_ms(lambda: case.fn(*case.args)),
+                   event_ms=cuda_ms(lambda: case.fn(*case.args), launches=LAUNCHES_PER_PAIR),
+                   plain_ms=cuda_ms(lambda: case.plain(*case.args)),
+                   library_ms=None if case.library is None else graph_ms(case.library))
+        log(f"{name}: kernel {row['ms'] * 1e3:.2f} us per launch in a graph of {LAUNCHES_PER_PAIR}, "
+            f"{row['event_ms'] * 1e3:.2f} us per launch back to back (event pairs: the host's issue rate), plain "
+            f"{row['plain_ms']:.3f} ms, library "
+            + ("none" if row["library_ms"] is None else f"{row['library_ms'] * 1e3:.2f} us per call in a graph")
+            + f"; bound {row['bound_ms'] * 1e6:.2f} ns by {row['bound_by']} ({moved} bytes, {case.ops:.0f} "
+            f"operations), the kernel at {100 * row['bound_ms'] / row['ms']:.4f}% of it; launches {launches[name]}")
+    print(json.dumps({"probes": {"lines": lines, "launches": launches, "boundary": boundary, "refused": prober.refused,
+                                 "device": smi}}), flush=True)
+    log(f"phase 15 (the probe kernels): {time.perf_counter() - t_phase:.1f} s")
 
 
 def main() -> int:
@@ -2219,6 +2344,9 @@ def run(dev, smi: str, other_builds=()) -> None:
 
     # 14. The layout knobs and the dispatch tools.
     layouts_phase(dev, smi, table, p3, stream_r, media_r)
+
+    # 15. The probe kernels.
+    probe_phase(dev, smi, table)
 
     print(smi)
     print(json.dumps({"kernels": list(table.values())}))

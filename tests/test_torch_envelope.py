@@ -26,6 +26,7 @@ import torch
 
 from envelope_rays import SCENES, dense_keys, wavefronts
 from test_envelope import T_MIN, _scene
+from vpt_tpu.accel import cluster as jcluster
 from vpt_tpu.accel import envelope as jenv
 from vpt_tpu_torch.accel import envelope as tenv
 from vpt_tpu_torch.accel import stream
@@ -141,26 +142,46 @@ def test_envelope_work_culls_on_colonnade(kind):
                                                                          t_min)).sum())
 
 
-def test_wrappers_refuse_what_the_kernels_do_not_take():
+@pytest.mark.parametrize("case", ["t_min", "groups", "levels", "tile 384", "rays"])
+def test_wrappers_refuse_what_the_kernels_do_not_take(case):
     """Any t_min is taken: at t_min 0 and below, the tables equal the JAX
-    kernel's in interpret mode (values: a -0.0 entry equals +0.0).  Refused:
-    a group count that is not a multiple of 8, levels other than 1 and 2,
-    tiles other than 512 and 1024, and a ray count that is not a multiple
-    of the tile."""
-    o, _, inv, tmax, gmin, gmax, _ = _scene(0, n=1024, g=29, gp=32)
+    kernel's in interpret mode (values: a -0.0 entry equals +0.0).  Any
+    tile is taken: at 384-ray tiles (a VPT_PACKET_SIZE the kernel runs in
+    its run-time-tile build) the tables equal JAX's packet cull,
+    cluster.py's per-packet minimum of _slab_tn_tf entries.  Refused: a
+    group count that is not a multiple of 8, levels other than 1 and 2, and
+    a ray count that is not a multiple of the tile."""
+    o, d, inv, tmax, gmin, gmax, _ = _scene(0, n=1024, g=29, gp=32)
     args = _t(o, inv, tmax, gmin, gmax)
-    for t_min in (0.0, -1e-4):
-        want = np.asarray(jenv.supertile_tables(*(jnp.asarray(a) for a in (o, inv, tmax, gmin, gmax)), t_min=t_min,
-                                                interpret=True))
-        got = tenv.supertile_tables_plain(*args, t_min, tile=1024).numpy()
+    if case == "t_min":
+        for t_min in (0.0, -1e-4):
+            want = np.asarray(jenv.supertile_tables(*(jnp.asarray(a) for a in (o, inv, tmax, gmin, gmax)),
+                                                    t_min=t_min, interpret=True))
+            got = tenv.supertile_tables_plain(*args, t_min, tile=1024).numpy()
+            np.testing.assert_array_equal(got, want)
+            assert torch.equal(tenv.supertile_tables(*args, t_min=t_min), torch.as_tensor(got))
+            assert np.isfinite(got).any() and (got <= 0).any(), t_min  # entries at or below 0 were taken
+    elif case == "groups":
+        with pytest.raises(ValueError, match="multiple of 8"):
+            tenv.ray_keys(*args[:3], args[3][:, :30], args[4][:, :30], t_min=T_MIN, levels=2)
+    elif case == "levels":
+        with pytest.raises(ValueError, match="levels"):
+            tenv.ray_keys(*args, t_min=T_MIN, levels=3)
+    elif case == "tile 384":
+        n = 768
+        tn, tf = jcluster._slab_tn_tf(*(jnp.asarray(a[:n]).reshape(n // 384, 384, -1) for a in (o, d)),
+                                      jnp.asarray(tmax[:n]).reshape(n // 384, 384), jnp.asarray(gmin),
+                                      jnp.asarray(gmax), T_MIN)
+        want = np.asarray(jnp.min(jnp.where(tn <= tf, tn, jnp.inf), axis=1))
+        got = tenv.supertile_tables(*(a[:n] for a in args[:3]), *args[3:], t_min=T_MIN, tile=384).numpy()
+        assert got.shape == want.shape == (2, 32)
         np.testing.assert_array_equal(got, want)
-        assert torch.equal(tenv.supertile_tables(*args, t_min=t_min), torch.as_tensor(got))
-        assert np.isfinite(got).any() and (got <= 0).any(), t_min  # entries at or below 0 were taken
-    with pytest.raises(ValueError, match="multiple of 8"):
-        tenv.ray_keys(*args[:3], args[3][:, :30], args[4][:, :30], t_min=T_MIN, levels=2)
-    with pytest.raises(ValueError, match="levels"):
-        tenv.ray_keys(*args, t_min=T_MIN, levels=3)
-    with pytest.raises(ValueError, match="tiles of 128, 256, 512 or 1024"):
-        tenv.supertile_tables(*args, t_min=T_MIN, tile=384)
-    with pytest.raises(ValueError, match="multiple of 512"):
-        tenv.supertile_tables(*(a[:768] for a in args[:3]), *args[3:], t_min=T_MIN, tile=512)
+        assert np.isfinite(got).sum() > 20
+        # Above the plain version's 32,768-ray slab blocks, which hold whole tiles.
+        o5, _, inv5, tmax5, gmin5, gmax5, _ = _scene(5, n=384 * 90, g=29, gp=32)
+        big = _t(o5, inv5, tmax5, gmin5, gmax5)
+        dense = tenv.slab_entry(*big, T_MIN).reshape(90, 384, 32).amin(dim=1)
+        assert torch.equal(tenv.supertile_tables(*big, t_min=T_MIN, tile=384), dense)
+    else:
+        with pytest.raises(ValueError, match="multiple of 512"):
+            tenv.supertile_tables(*(a[:768] for a in args[:3]), *args[3:], t_min=T_MIN, tile=512)

@@ -1,8 +1,10 @@
-"""The five hand-written CUDA kernels of vpt_tpu_torch against their plain
-torch versions, on a CUDA device at small shapes and at the cluster and
-packet layouts of the layout knobs (VPT_CLUSTER_SIZE, VPT_GROUP_SIZE,
-VPT_PACKET_SIZE, VPT_SORT_KEY, VPT_SORT_RAYS), the wrappers' layout
-checks, and the captured loop (render/graphs.py) against the eager one.  These tests skip where
+"""The five hand-written CUDA trace kernels of vpt_tpu_torch against their
+plain torch versions, on a CUDA device at small shapes and at the cluster
+and packet layouts of the layout knobs (VPT_CLUSTER_SIZE, VPT_GROUP_SIZE,
+VPT_PACKET_SIZE, VPT_SORT_KEY, VPT_SORT_RAYS; groups above a warp's 32
+members, packets of any size), the wrappers' layout checks, the probe
+kernels of csrc/probe.cu (tools/hopper_probe.py) and the shared-memory
+boundary, and the captured loop (render/graphs.py) against the eager one.  These tests skip where
 there is no CUDA device; they import no JAX, so on a GPU machine without
 JAX run them with
 
@@ -212,7 +214,9 @@ def test_trace_kernels_match_plain_with_empty_sub_blocks(cuda, instanced):
 
 
 def _refused(dev, shape):
-    """Cluster tables of a layout the trace kernels refuse."""
+    """Cluster tables of a layout outside the default: groups of 33 (a
+    partial second chunk of 32 members, which the kernels take) or 4
+    sub-blocks (which they refuse)."""
     if shape == "groups of 33":
         return _clusters(dev, instanced=False, group_size=33)
     cl, rng = _clusters(dev, instanced=False)
@@ -222,24 +226,37 @@ def _refused(dev, shape):
 @pytest.mark.parametrize("shape", ["groups of 33", "4 sub-blocks"])
 def test_trace_wrappers_raise_on_other_cluster_shapes(cuda, shape):
     """vpt_stream / vpt_occlude take any K that is a multiple of 8 in 8
-    sub-blocks and 1 to 32 clusters per group: the wrappers raise on
-    anything else, naming the layout, and launch nothing."""
+    sub-blocks and groups of any size: groups of 33 equal the plain
+    versions (stream by the tie rule, occlusion exactly); on 4 sub-blocks
+    the wrappers raise, naming the layout, and launch nothing."""
     cl, rng = _refused(cuda, shape)
     org, d = _rays(rng, cuda, n=1000)
     active = torch.ones(org.shape[0], dtype=torch.bool, device=cuda)
     b = stream.trace_bands(org, d, cl, T_MIN, 1e8, active, torch.zeros_like(active))
     sb = occlude.shadow_bands(org, d, cl, T_MIN, 1e8, active, torch.full_like(active, -1, dtype=torch.int32))
     before = dict(kernels.LAUNCHES)
-    with pytest.raises(ValueError, match="a multiple of 8 triangles per cluster in 8 sub-blocks and 1 to 32"):
+    if shape == "groups of 33":
+        tk, trk, _, _ = stream.stream_trace(b, cl, T_MIN)
+        tp, trp, _, _ = stream.stream_trace_plain(b, cl, T_MIN)
+        torch.cuda.synchronize()
+        assert torch.allclose(tk, tp, rtol=1e-5, atol=1e-6)
+        tie = (tk - tp).abs() <= 1e-5 + 1e-5 * tp.abs()
+        assert bool(((trk == trp) | (tie & (trp >= 0))).all()) and int((trk >= 0).sum()) > 100
+        assert torch.equal(occlude.occlude_trace(sb, cl, T_MIN), occlude.occlude_trace_plain(sb, cl, T_MIN))
+        assert kernels.LAUNCHES["stream"] == before["stream"] + 1
+        return
+    with pytest.raises(ValueError, match="a multiple of 8 triangles per cluster in 8 sub-blocks and at least one"):
         stream.stream_trace(b, cl, T_MIN)
-    with pytest.raises(ValueError, match="a multiple of 8 triangles per cluster in 8 sub-blocks and 1 to 32"):
+    with pytest.raises(ValueError, match="a multiple of 8 triangles per cluster in 8 sub-blocks and at least one"):
         occlude.occlude_trace(sb, cl, T_MIN)
     assert kernels.LAUNCHES == before
 
 
 # The cluster layouts beside the default (K = 128, groups of 8): the compiled
-# K of 64, 256 and 1024, a K taken at run time (40), and groups of 4, 16 and 3.
-LAYOUTS = [(64, 8), (256, 8), (1024, 8), (40, 8), (128, 4), (128, 16), (64, 3)]
+# K of 64, 256 and 1024, a K taken at run time (40), and groups of 4, 16 and
+# 3, and above a warp's 32 members: 48 (a partial second chunk), 64 (two
+# full chunks) and 33 at K = 64.
+LAYOUTS = [(64, 8), (256, 8), (1024, 8), (40, 8), (128, 4), (128, 16), (64, 3), (128, 48), (128, 64), (64, 33)]
 
 
 @pytest.mark.parametrize("k,g", LAYOUTS)
@@ -291,7 +308,8 @@ def test_visit_kernel_matches_plain_at_layouts(cuda, k, g, any_hit):
 
 @pytest.mark.parametrize("size,key,sort", [(128, "fs", True), (256, "fs", True), (1024, "fs", True),
                                            (512, "fe", True), (256, "fe", True), (512, "fs", False),
-                                           (1024, "fs", False)])
+                                           (1024, "fs", False), (64, "fs", True), (384, "fs", True),
+                                           (2048, "fs", True), (100, "fe", False)])
 def test_packet_layouts_match_plain(cuda, size, key, sort):
     """VPT_PACKET_SIZE, VPT_SORT_KEY and VPT_SORT_RAYS on the card: the
     keys (fe through ray_keys' mode 3), the packet cull at `size`-ray tiles
@@ -366,20 +384,70 @@ def test_visit_kernel_matches_plain_at_any_t_min(cuda, t_min):
 
 @pytest.mark.parametrize("shape", ["groups of 33", "4 sub-blocks", "384-ray packets"])
 def test_visit_wrapper_raises_on_other_cluster_shapes(cuda, shape):
-    """vpt_visit takes the layouts the trace kernels take and packets of 128,
-    256, 512 or 1024 rays: the wrapper raises on anything else, naming the
-    layout, and launches nothing."""
+    """vpt_visit takes the layouts the trace kernels take and packets of any
+    size: groups of 33 and 384-ray packets equal the plain version; on 4
+    sub-blocks the wrapper raises, naming the layout, and launches
+    nothing."""
     cl, rng = _refused(cuda, shape) if shape != "384-ray packets" else _clusters(cuda, instanced=False)
     org, d = _rays(rng, cuda, n=1536)
     pk = prepare_packets(org, d, cl, T_MIN, 1e8, None, sort_rays=False)
     args = (pk.nvis, pk.order, pk.entry_sorted, pk.origin, pk.direction, pk.active, pk.tmax)
     if shape == "384-ray packets":
-        args = (pk.nvis[:4], pk.order[:4], pk.entry_sorted[:4], *(x.reshape(4, 384, *x.shape[2:]) for x in args[3:]))
+        with mock.patch.object(cluster, "PACKET_SIZE", 384):
+            pk = prepare_packets(org, d, cl, T_MIN, 1e8, None, sort_rays=False)
+        args = (pk.nvis, pk.order, pk.entry_sorted, pk.origin, pk.direction, pk.active, pk.tmax)
+        assert pk.active.shape == (4, 384)
     before = dict(kernels.LAUNCHES)
-    match = "packets of 128, 256, 512 or 1024 rays" if shape == "384-ray packets" else "1 to 32 clusters per group"
-    with pytest.raises(ValueError, match=match):
+    if shape != "4 sub-blocks":
+        got = visit.visit_trace(*args, cl, T_MIN)
+        want = visit.visit_trace_plain(*args, cl, T_MIN)
+        torch.cuda.synchronize()
+        for name, a, b in zip(("t", "tri", "u", "v"), got, want):
+            assert torch.equal(a, b), name
+        assert int((got[1] >= 0).sum()) > 100 and kernels.LAUNCHES["visit"] == before["visit"] + 1
+        return
+    with pytest.raises(ValueError, match="at least one cluster per group"):
         visit.visit_trace(*args, cl, T_MIN)
     assert kernels.LAUNCHES == before
+
+
+@pytest.mark.parametrize("probe", kernels.PROBES)
+def test_probe_kernels_match_plain(cuda, probe):
+    """Each kernel of csrc/probe.cu equals its plain version at its probe's
+    shapes (tools.hopper_probe.cases: the JAX probes' inputs, a random tile
+    where a sum's order decides its rounding): bitwise, probe2's bins as
+    sets and its counts exactly; one launch counted."""
+    from vpt_tpu_torch.tools import hopper_probe as hp
+
+    case = hp.cases(cuda)[probe]
+    before = kernels.LAUNCHES[probe]
+    got = case.fn(*case.args)
+    assert kernels.LAUNCHES[probe] == before + 1
+    want = case.plain(*case.args)
+    torch.cuda.synchronize()
+    assert hp.same_result(probe, got, want)
+
+
+def test_shared_memory_boundary(cuda):
+    """probe8 and smem_probe run at 227 KB (232,448 bytes) of dynamic shared
+    memory and are refused 16 bytes above it, with the CUDA error named and
+    cleared: a launch after the refusal succeeds."""
+    from vpt_tpu_torch.tools import hopper_probe as hp
+
+    x8 = torch.ones((1, 1), dtype=torch.int32, device=cuda)
+    limit = hp.SMEM_LIMIT // 4
+    assert int(hp.probe8(x8, limit)[0, 0]) == 3
+    xs = torch.arange(limit + 4, dtype=torch.float32, device=cuda).reshape(1, -1)
+    assert float(hp.smem_probe(xs[:, :limit].contiguous())[0, 0]) == float(limit - 1)
+    before = dict(kernels.LAUNCHES)
+    with pytest.raises(hp.Refused) as refused:
+        hp.probe8(x8, limit + 4)
+    assert refused.value.name.startswith("cuda")
+    with pytest.raises(hp.Refused):
+        hp.smem_probe(xs)
+    assert kernels.LAUNCHES == before
+    assert int(hp.probe8(x8, 16)[0, 0]) == 3
+    torch.cuda.synchronize()
 
 
 def test_one_rank_nccl_render_sharded_equals_render_samples(cuda, tmp_path):

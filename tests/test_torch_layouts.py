@@ -5,7 +5,10 @@ the same layouts, on the CPU with the kernels' plain versions.
 The cluster size and the sort key are read when called on both sides, so
 they are set in this process (monkeypatch); the JAX package binds the group
 size at import in four modules, so tests/jax_layouts.py builds its tables,
-traces and render in a process of its own per group size.  Inputs come from
+traces and render in a process of its own per group size (groups of 4, 16
+and 48, the last above the 32 members one warp tests at a time).  Packets
+of 64, 384 and 2048 rays are neither a warp's multiple of a block nor at
+most 1024 rays: the sizes the CUDA kernels took last.  Inputs come from
 seeded numpy (tests/jax_layouts.py).
 
 Tolerances: cluster tables and sort permutations bitwise; closest hits by
@@ -58,12 +61,12 @@ torch.set_num_threads(1)
 TESTS = os.path.dirname(os.path.abspath(__file__))
 REPO = os.path.dirname(TESTS)
 CLUSTER_SIZES = [40, 64, 256]
-GROUP_SIZES = [4, 16]
+GROUP_SIZES = [4, 16, 48]  # 48: a warp's 32 members and a partial second chunk of 16
 
 
 @pytest.fixture(scope="module")
 def jax_groups(tmp_path_factory):
-    """{group size: tests/jax_layouts.py's arrays}, both processes run at once."""
+    """{group size: tests/jax_layouts.py's arrays}, the processes run at once."""
     out = tmp_path_factory.mktemp("jax_layouts")
     env = dict(os.environ, JAX_PLATFORMS="cpu", PYTHONPATH=os.pathsep.join([REPO, TESTS]))
     procs = {g: subprocess.Popen([sys.executable, os.path.join(TESTS, "jax_layouts.py"), str(out / f"g{g}.npz")]
@@ -239,7 +242,8 @@ class _RaySort:
 
 
 @pytest.mark.parametrize("packet,key,sort", [(256, "fs", True), (1024, "fs", True), (512, "fe", True),
-                                             (256, "fe", True), (512, "fs", False), (1024, "fe", False)])
+                                             (256, "fe", True), (512, "fs", False), (1024, "fe", False),
+                                             (64, "fs", True), (384, "fs", True), (2048, "fs", True)])
 def test_packet_layouts_match_jax(packet, key, sort):
     """VPT_PACKET_SIZE, VPT_SORT_KEY and VPT_SORT_RAYS: the port's packets
     against JAX's intersect_clusters(packet=..., sort_rays=...) with its

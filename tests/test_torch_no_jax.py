@@ -59,6 +59,11 @@ SLICE_MODULES = [
     "vpt_tpu_torch.dist",
     "vpt_tpu_torch.dist.mesh",
     "vpt_tpu_torch.dist.dryrun",
+    "vpt_tpu_torch.tools.common",
+    "vpt_tpu_torch.tools.profile_dispatch",
+    "vpt_tpu_torch.tools.quick_bench",
+    "vpt_tpu_torch.tools.sweep_bench",
+    "vpt_tpu_torch.tools.hopper_probe",
 ]
 
 _ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))

@@ -25,9 +25,8 @@ package's names and defaults: `VPT_CLUSTER_SIZE` (K, 128; any multiple of
 ("fs").  They change the schedule, not the results (up to hits at equal
 t).  The builders and `prepare_packets` read the module constants when
 they are called, so code (and a test) may set them; the kernels take every
-layout the JAX package takes but groups of more than 32 clusters
-(`traverse.check_kernel_clusters`) and packets other than 128, 256, 512 or
-1024 rays (`visit.PACKETS`), and raise on those.
+layout the JAX package takes: K a multiple of 8, groups of any size,
+packets of any size.
 """
 
 from __future__ import annotations

@@ -10,7 +10,7 @@ Two kernels, each with a plain torch version of the same signature:
                       vpt_ray_keys, replacing the Pallas _keys_kernel);
   supertile_tables  - for every tile of the sorted rays (a 1024-ray
                       supertile of the stream path, or a packet of the
-                      packet trace: 128, 256, 512 or 1024 rays) and every
+                      packet trace, VPT_PACKET_SIZE rays) and every
                       group, the minimum slab entry distance, +inf where no
                       ray enters (CUDA: vpt_supertile_tables, replacing the
                       Pallas _tables_kernel).
@@ -36,7 +36,6 @@ import torch
 from vpt_tpu_torch.accel import kernels
 
 SUPERTILE = 1024
-TILES = (128, 256, 512, SUPERTILE)  # the tile sizes vpt_supertile_tables is built for
 DEPTH_STEPS = 1024  # the "fe" key's entry-depth levels per group (cluster.py:507-510)
 CHUNK = 8  # groups per union box
 WARP = 32
@@ -130,9 +129,8 @@ def ray_keys(origin, inv, tmax, gmin_pad, gmax_pad, t_min: float, levels: int, d
 
 
 def _check_tile(n: int, tile: int) -> None:
-    if tile not in TILES:
-        raise ValueError(f"supertile_tables takes tiles of {', '.join(map(str, TILES[:-1]))} or {TILES[-1]} rays "
-                         f"(VPT_PACKET_SIZE), got {tile}")
+    if tile < 1:
+        raise ValueError(f"supertile_tables takes tiles of at least one ray (VPT_PACKET_SIZE), got {tile}")
     if n % tile:
         raise ValueError(f"supertile_tables needs a multiple of {tile} rays, got {n}")
 
@@ -140,9 +138,10 @@ def _check_tile(n: int, tile: int) -> None:
 def supertile_tables_plain(origin, inv, tmax_eff, gmin_pad, gmax_pad, t_min: float, tile: int = SUPERTILE):
     _check_tile(origin.shape[0], tile)
     gp = gmin_pad.shape[1]
+    step = max(1, _CHUNK_RAYS // tile) * tile  # whole tiles per slab block
     out = []
-    for s in range(0, origin.shape[0], _CHUNK_RAYS):
-        rows = slice(s, s + _CHUNK_RAYS)
+    for s in range(0, origin.shape[0], step):
+        rows = slice(s, s + step)
         ent = slab_entry(origin[rows], inv[rows], tmax_eff[rows], gmin_pad, gmax_pad, t_min)
         out.append(ent.reshape(-1, tile, gp).amin(dim=1))
     return torch.cat(out)
@@ -150,8 +149,9 @@ def supertile_tables_plain(origin, inv, tmax_eff, gmin_pad, gmax_pad, t_min: flo
 
 def supertile_tables(origin, inv, tmax_eff, gmin_pad, gmax_pad, t_min: float, tile: int = SUPERTILE):
     """(N // tile, Gp) minimum entry per (tile, group), +inf where no ray
-    of the tile enters; tile is 1024 (supertiles) or a packet's 128, 256,
-    512 or 1024 rays.  Rays arrive sorted; tmax_eff already folds the
+    of the tile enters; tile is 1024 (supertiles) or a packet's rays (any
+    VPT_PACKET_SIZE; the kernel is compiled for tiles of 128, 256, 512 and
+    1024 rays and runs other tiles in its run-time-tile build).  Rays arrive sorted; tmax_eff already folds the
     active mask: the stream path gives inactive rays t_min (JAX's rule,
     which still enters a box around the origin), the packet cull -inf
     (enters nothing).  Any t_min: the kernel orders entries by an

@@ -37,7 +37,11 @@ NVCC_FLAGS = (
     "--fmad=false", "-shared", "-Xcompiler", "-fPIC",
 )
 
-LAUNCHES = {"ray_keys": 0, "supertile_tables": 0, "stream": 0, "occlude": 0, "visit": 0, "loop_cond": 0}
+# The probe kernels of csrc/probe.cu (tools/hopper_probe.py) count under their probe's name.
+PROBES = ("probe1", "probe2", "probe3", "probe4", "probe5", "probe6", "probe8", "probe9", "probe10", "probe11",
+          "smem_probe")
+LAUNCHES = {"ray_keys": 0, "supertile_tables": 0, "stream": 0, "occlude": 0, "visit": 0, "loop_cond": 0,
+            **dict.fromkeys(PROBES, 0)}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -54,6 +58,20 @@ SOURCES = {  # source -> {entry point: argument types}
         "vpt_occlude": [_P] * 20 + [_I] * 5 + [_F, _I] + [_P] * 2,
     },
     "visit.cu": {"vpt_visit": [_P] * 15 + [_I] * 5 + [_F, _I, _I] + [_P] * 5},
+    "probe.cu": {  # tools/hopper_probe.py
+        "vpt_probe1": [_P] * 4,
+        "vpt_probe2": [_P] + [_I] * 3 + [_P] * 3,
+        "vpt_probe3": [_P] * 2 + [_I] * 2 + [_P] * 2,
+        "vpt_probe4": [_P] * 2 + [_I] + [_P] * 2,
+        "vpt_probe5": [_P, _I, _P, _P],
+        "vpt_probe6": [_P, _I, _P, _P],
+        "vpt_probe8": [_P, _I, _P, _P],
+        "vpt_probe9": [_P] * 3,
+        "vpt_probe10": [_P] * 2 + [_I] * 2 + [_P] * 2,
+        "vpt_probe11": [_P, _I, _P, _P],
+        "vpt_smem_probe": [_P, _I, _P, _P],
+        "vpt_probe_error_name": [_I, _P, _I],  # no stream: the name of a CUDA error
+    },
     "graph_loop.cu": {  # the dispatch graph's WHILE nodes and their condition (render/graphs.py)
         "vpt_graph_versions": [_P, _P],
         "vpt_graph_create": [_P],

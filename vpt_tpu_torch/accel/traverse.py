@@ -18,12 +18,11 @@ from vpt_tpu_torch.core.vecmath import cross, dot
 T_MIN = 1e-4
 T_MAX = 1e8
 # The cluster layouts of the warp-per-ray kernels (csrc/trace.cu,
-# csrc/visit.cu): the default layout, and the largest group, whose members
-# one warp tests in one step.  They take any K that is a multiple of 8.
+# csrc/visit.cu): the default layout.  They take any K that is a multiple
+# of 8 and groups of any size, whose members one warp tests 32 at a time.
 KERNEL_K = 128  # triangles per cluster block, the default
 KERNEL_N_SUB = 8  # sub-blocks per cluster block
 KERNEL_GROUP = 8  # member clusters per group, the default
-MAX_GROUP = 32  # the largest group the kernels take
 
 
 class Hit(NamedTuple):
@@ -176,14 +175,14 @@ def group_size(cl) -> int:
 
 def check_kernel_clusters(cl, kernel: str) -> None:
     """Raise unless the kernels take the cluster tables' layout (K a
-    multiple of 8 triangles in 8 sub-blocks, at most MAX_GROUP clusters per
+    multiple of 8 triangles in 8 sub-blocks, at least one cluster per
     group) and the tables the kernels read in vectors (aabbs, inv_rows,
     sub_aabbs) start on 16-byte boundaries."""
     k_tris, n_sub, group = cl.tris.shape[2], cl.sub_aabbs.shape[1], group_size(cl)
     if (k_tris % KERNEL_N_SUB or k_tris == 0 or n_sub != KERNEL_N_SUB or cl.tris.shape[1] != 16
-            or not 1 <= group <= MAX_GROUP):
+            or group < 1):
         raise ValueError(f"{kernel} take K = a multiple of 8 triangles per cluster in {KERNEL_N_SUB} sub-blocks and "
-                         f"1 to {MAX_GROUP} clusters per group (VPT_CLUSTER_SIZE, VPT_GROUP_SIZE), got K = {k_tris}, "
+                         f"at least one cluster per group (VPT_CLUSTER_SIZE, VPT_GROUP_SIZE), got K = {k_tris}, "
                          f"{n_sub} sub-blocks and {group} clusters per group")
     if any(t.data_ptr() % 16 for t in (cl.aabbs, cl.inv_rows, cl.sub_aabbs)):
         raise ValueError(f"{kernel} read aabbs, inv_rows and sub_aabbs in vectors: "

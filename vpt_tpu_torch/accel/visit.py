@@ -22,7 +22,7 @@ CUDA kernel runs a warp per ray (csrc/visit.cu says why).  `visit_trace`
 launches CUDA csrc/visit.cu vpt_visit (replacing the Pallas _visit_kernel)
 for CUDA tensors and `visit_trace_plain` for CPU tensors.  The plain version
 keeps the kernel's gates, in the kernel's order, so the two agree exactly,
-ties included.  Both take packets of PACKETS rays (cluster.PACKET_SIZE,
+ties included.  Both take packets of any size (cluster.PACKET_SIZE,
 `VPT_PACKET_SIZE`) and any cluster layout check_kernel_clusters admits.
 """
 
@@ -38,7 +38,6 @@ from vpt_tpu_torch.accel.traverse import (check_kernel_clusters, group_size, gua
 from vpt_tpu_torch.scene.types import ClusterData
 
 F32, I32 = torch.float32, torch.int32
-PACKETS = (128, 256, 512, 1024)  # the packet sizes (rays) vpt_visit and the packet cull take
 WARP = 32  # candidates per walk step of the kernel
 _PACKETS = 64  # packets per block of the plain version
 
@@ -127,9 +126,6 @@ def visit_trace(nvis, order, entry_sorted, o_p, d_p, act_p, tmax_p, cl: ClusterD
     if not o_p.is_cuda:
         return visit_trace_plain(nvis, order, entry_sorted, o_p, d_p, act_p, tmax_p, cl, t_min, any_hit)
     n_pk, pk = act_p.shape
-    if pk not in PACKETS:
-        raise ValueError(f"vpt_visit takes packets of {', '.join(map(str, PACKETS[:-1]))} or {PACKETS[-1]} rays "
-                         f"(VPT_PACKET_SIZE), got {pk}")
     check_kernel_clusters(cl, "vpt_visit")
     dev = o_p.device
     out = (torch.empty((n_pk, pk), dtype=F32, device=dev), torch.empty((n_pk, pk), dtype=I32, device=dev),

@@ -52,9 +52,13 @@
 // caller never waits for it), and Gp * 1024 for a ray that enters nothing.
 //
 // vpt_supertile_tables: one block per tile of sorted rays, one ray per
-// thread, at four tile sizes: 1024 (the stream path's supertiles) and 128,
-// 256, 512 or 1024 (the packet trace's packets, VPT_PACKET_SIZE, whose
-// per-group nearest entry is the packet cull).
+// thread, compiled for four tile sizes: 1024 (the stream path's
+// supertiles) and 128, 256, 512 or 1024 (the packet trace's packets,
+// VPT_PACKET_SIZE, whose per-group nearest entry is the packet cull).  Any
+// other tile (another VPT_PACKET_SIZE) runs the run-time-tile build: a
+// block of whole warps, the tile rounded up to 32 threads and at most
+// 1024, loops over its tile's rays, kMaxThreads at a time; a thread past
+// the tile's end enters nothing.
 // Per chunk each lane tests its ray against the union; where any lane of the
 // warp entered, the lanes whose ray entered test the 8 members, each member's
 // warp minimum is taken by __reduce_min_sync on an order-preserving unsigned
@@ -74,6 +78,7 @@ namespace {
 
 constexpr int kChunk = 8;  // groups per union box
 constexpr int kKeysThreads = 256;
+constexpr int kMaxThreads = 1024;  // a block of the run-time-tile tables
 constexpr unsigned kFull = 0xffffffffu;
 
 // An unsigned key that orders like the float, for every float but NaN: the
@@ -195,10 +200,10 @@ __global__ void __launch_bounds__(kKeysThreads) ray_keys_kernel(
   }
 }
 
-template <int kTile>
-__global__ void __launch_bounds__(kTile) supertile_tables_kernel(
+template <int kTile>  // 0: a run-time tile, `tile` rays, that a block of blockDim.x threads loops over
+__global__ void __launch_bounds__(kTile > 0 ? kTile : kMaxThreads) supertile_tables_kernel(
     const float* __restrict__ origin, const float* __restrict__ inv, const float* __restrict__ tmax,
-    const float* __restrict__ gmin, const float* __restrict__ gmax, int gp, float t_min,
+    const float* __restrict__ gmin, const float* __restrict__ gmax, int gp, float t_min, int tile,
     float* __restrict__ out) {
   extern __shared__ float4 smem[];
   float4* box = smem;
@@ -206,20 +211,26 @@ __global__ void __launch_bounds__(kTile) supertile_tables_kernel(
   unsigned* best = reinterpret_cast<unsigned*>(uni + 2 * (gp / kChunk));
   for (int g = threadIdx.x; g < gp; g += blockDim.x) best[g] = kInfKey;
   stage_boxes(gmin, gmax, gp, box, uni);  // its barriers also publish `best`
-  const Ray r = load_ray(origin, inv, tmax, blockIdx.x * kTile + threadIdx.x);
+  const int rays = kTile > 0 ? kTile : tile;
+  const int step = kTile > 0 ? kTile : (int)blockDim.x;  // every thread runs the same number of rounds
   const int lane = threadIdx.x & 31;
-  for (int c = 0; c < gp / kChunk; ++c) {
-    const bool in = slab_entry(r, uni[2 * c], uni[2 * c + 1], t_min) < INFINITY;
-    if (!__any_sync(kFull, in)) continue;
-    unsigned mine = kInfKey;  // lane m < 8 keeps member m's warp minimum
+  for (int r0 = 0; r0 < rays; r0 += step) {
+    const int k = r0 + threadIdx.x;
+    const bool real = kTile > 0 || k < rays;  // a thread past the tile's end enters nothing
+    const Ray r = real ? load_ray(origin, inv, tmax, blockIdx.x * rays + k) : Ray{};
+    for (int c = 0; c < gp / kChunk; ++c) {
+      const bool in = real && slab_entry(r, uni[2 * c], uni[2 * c + 1], t_min) < INFINITY;
+      if (!__any_sync(kFull, in)) continue;
+      unsigned mine = kInfKey;  // lane m < 8 keeps member m's warp minimum
 #pragma unroll
-    for (int m = 0; m < kChunk; ++m) {
-      const int g = c * kChunk + m;
-      const float e = in ? slab_entry(r, box[2 * g], box[2 * g + 1], t_min) : INFINITY;
-      const unsigned w = __reduce_min_sync(kFull, order_key(e));
-      if (lane == m) mine = w;
+      for (int m = 0; m < kChunk; ++m) {
+        const int g = c * kChunk + m;
+        const float e = in ? slab_entry(r, box[2 * g], box[2 * g + 1], t_min) : INFINITY;
+        const unsigned w = __reduce_min_sync(kFull, order_key(e));
+        if (lane == m) mine = w;
+      }
+      if (lane < kChunk && mine != kInfKey) atomicMin(&best[c * kChunk + lane], mine);
     }
-    if (lane < kChunk && mine != kInfKey) atomicMin(&best[c * kChunk + lane], mine);
   }
   __syncthreads();
   for (int g = threadIdx.x; g < gp; g += blockDim.x) out[(size_t)blockIdx.x * gp + g] = from_order_key(best[g]);
@@ -264,13 +275,17 @@ extern "C" int vpt_ray_keys(
 
 template <int kTile>
 int launch_tables(const float* origin, const float* inv, const float* tmax, const float* gmin,
-                  const float* gmax, int n, int gp, float t_min, float* out, cudaStream_t stream) {
+                  const float* gmax, int n, int gp, float t_min, int tile, float* out, cudaStream_t stream) {
   const size_t smem = box_bytes(gp) + (size_t)gp * sizeof(unsigned);
-  const int blocks = n / kTile;
+  const int blocks = n / tile;
   if (blocks == 0) return (int)cudaSuccess;
+  // The run-time tile: whole warps, up to kMaxThreads, each thread taking
+  // rays k, k + threads, ... of its tile.
+  const int threads = kTile > 0 ? kTile : (tile >= kMaxThreads ? kMaxThreads : (tile + 31) / 32 * 32);
   cudaError_t err = allow_smem(supertile_tables_kernel<kTile>, smem);
   if (err != cudaSuccess) return (int)err;
-  supertile_tables_kernel<kTile><<<blocks, kTile, smem, stream>>>(origin, inv, tmax, gmin, gmax, gp, t_min, out);
+  supertile_tables_kernel<kTile><<<blocks, threads, smem, stream>>>(origin, inv, tmax, gmin, gmax, gp, t_min, tile,
+                                                                    out);
   return (int)cudaGetLastError();
 }
 
@@ -280,10 +295,10 @@ extern "C" int vpt_supertile_tables(
   if (gp % kChunk != 0 || tile <= 0 || n % tile != 0) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   switch (tile) {
-    case 128: return launch_tables<128>(origin, inv, tmax, gmin, gmax, n, gp, t_min, out, s);
-    case 256: return launch_tables<256>(origin, inv, tmax, gmin, gmax, n, gp, t_min, out, s);
-    case 512: return launch_tables<512>(origin, inv, tmax, gmin, gmax, n, gp, t_min, out, s);
-    case 1024: return launch_tables<1024>(origin, inv, tmax, gmin, gmax, n, gp, t_min, out, s);
-    default: return (int)cudaErrorInvalidValue;
+    case 128: return launch_tables<128>(origin, inv, tmax, gmin, gmax, n, gp, t_min, tile, out, s);
+    case 256: return launch_tables<256>(origin, inv, tmax, gmin, gmax, n, gp, t_min, tile, out, s);
+    case 512: return launch_tables<512>(origin, inv, tmax, gmin, gmax, n, gp, t_min, tile, out, s);
+    case 1024: return launch_tables<1024>(origin, inv, tmax, gmin, gmax, n, gp, t_min, tile, out, s);
+    default: return launch_tables<0>(origin, inv, tmax, gmin, gmax, n, gp, t_min, tile, out, s);
   }
 }

@@ -45,9 +45,10 @@
 //   - the candidate walk takes 32 groups per step (lane k: candidate g0 + k;
 //     its entry, id, supertile bit, supertile entry and group box), and one
 //     ballot keeps the groups the ray enters;
-//   - lanes 0..G-1 slab-test the group's G member boxes (G <= 32), loading
-//     each member's count, block, triangle base and instance alongside for
-//     the warp to share by shuffles;
+//   - the lanes slab-test the group's G member boxes, 32 a step (lane k
+//     member c0 + k; traverse.cuh walk_members), loading each member's
+//     count, block, triangle base and instance alongside for the warp to
+//     share by shuffles;
 //   - lanes 0..7 slab-test the entered cluster's 8 sub-block boxes;
 //   - the lanes run the Moller-Trumbore tests of the next open sub-blocks
 //     (traverse.cuh TriLayout: at K = 128 lanes 0..15 and 16..31 take two
@@ -59,8 +60,9 @@
 // dependent round trips and a cluster three.  The layout (VPT_CLUSTER_SIZE,
 // VPT_GROUP_SIZE): K is a template constant for 32, 64, 128 (the default),
 // 256, 512 and 1024 and a run-time value for any other multiple of 8
-// (traverse.cuh VPT_DISPATCH_K); the group size is a run-time value; the
-// wrappers raise on a layout outside these.  At K = 128, 64-72 registers
+// (traverse.cuh VPT_DISPATCH_K); the group size, any G >= 1, is a run-time
+// value, and groups above 32 members run the run-time-K build with the
+// chunked member walk (WIDE); the wrappers raise on a layout outside these.  At K = 128, 64-72 registers
 // (-Xptxas -v); capping them for occupancy spilled and ran slower.
 //
 // Built with --fmad=false so the slab and Moller-Trumbore arithmetic rounds
@@ -165,7 +167,7 @@ __device__ __forceinline__ void visit_cluster(const Tables& tb, const Member& mc
   }
 }
 
-template <bool OCCLUDE, bool INSTANCED, int K>
+template <bool OCCLUDE, bool INSTANCED, int K, bool WIDE>
 __global__ void __launch_bounds__(kThreads) trace_kernel(
     Tables tb, const float* __restrict__ origin, const float* __restrict__ direction,
     const float* __restrict__ tmax_in, const int32_t* __restrict__ flags,
@@ -222,25 +224,10 @@ __global__ void __launch_bounds__(kThreads) trace_kernel(
       todo &= todo - 1u;
       const int gg = __shfl_sync(kFull, g, src);
       if (!(__shfl_sync(kFull, tn_g, src) <= S.best)) continue;
-      // Lanes 0..G-1: the member clusters' world slabs, with each member's
-      // table row loaded alongside for the lanes to share.
-      const int c = gg * group + lane;
-      Member mb{0, 0, 0, 0};
-      float tn_m = INFINITY;
-      bool in_m = false;
-      if (lane < group) {
-        mb = Member{tb.count[c], tb.block_id[c], tb.start[c], INSTANCED ? tb.inst[c] : 0};
-        in_m = slab6(tb.aabbs + 6 * (size_t)c, w, t_min, S.best, tn_m) && mb.count > 0;
-      }
-      unsigned members = __ballot_sync(kFull, in_m);
-      while (members != 0 && S.live) {
-        const int m = __ffs(members) - 1;
-        members &= members - 1u;
-        if (!(__shfl_sync(kFull, tn_m, m) <= S.best)) continue;
-        const Member cm{__shfl_sync(kFull, mb.count, m), __shfl_sync(kFull, mb.block, m),
-                        __shfl_sync(kFull, mb.start, m), __shfl_sync(kFull, mb.inst, m)};
+      // The member clusters' world slabs, 32 members a step (traverse.cuh).
+      walk_members<INSTANCED, WIDE>(tb, gg, group, w, t_min, S, lane, [&](const Member& cm) {
         visit_cluster<OCCLUDE, INSTANCED>(tb, cm, w, t_min, S, lane, L);
-      }
+      });
     }
     if (last) break;
   }
@@ -264,18 +251,24 @@ int launch(const Tables& tb, const float* origin, const float* direction,
   if (!layout_ok(k_tris, group_size)) return (int)cudaErrorInvalidValue;
   if (n <= 0) return 0;
   const int blocks = (n + kWarps - 1) / kWarps;
-#define VPT_TRACE_LAUNCH(K)                                                                             \
+#define VPT_TRACE_LAUNCH_W(K, WIDE)                                                                     \
   if (instanced) {                                                                                      \
-    trace_kernel<OCCLUDE, true, K><<<blocks, kThreads, 0, stream>>>(                                    \
+    trace_kernel<OCCLUDE, true, K, WIDE><<<blocks, kThreads, 0, stream>>>(                              \
         tb, origin, direction, tmax, flags, extri, n, tiles, gp, group_size, k_tris, t_min, t_out, tri_out, \
         u_out, v_out, blocked_out);                                                                     \
   } else {                                                                                              \
-    trace_kernel<OCCLUDE, false, K><<<blocks, kThreads, 0, stream>>>(                                   \
+    trace_kernel<OCCLUDE, false, K, WIDE><<<blocks, kThreads, 0, stream>>>(                             \
         tb, origin, direction, tmax, flags, extri, n, tiles, gp, group_size, k_tris, t_min, t_out, tri_out, \
         u_out, v_out, blocked_out);                                                                     \
   }
-  VPT_DISPATCH_K(k_tris, VPT_TRACE_LAUNCH)
+#define VPT_TRACE_LAUNCH(K) VPT_TRACE_LAUNCH_W(K, false)
+  if (group_size > kWideGroup) {
+    VPT_TRACE_LAUNCH_W(0, true)
+  } else {
+    VPT_DISPATCH_K(k_tris, VPT_TRACE_LAUNCH)
+  }
 #undef VPT_TRACE_LAUNCH
+#undef VPT_TRACE_LAUNCH_W
   return (int)cudaGetLastError();
 }
 

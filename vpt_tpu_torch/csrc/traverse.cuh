@@ -6,7 +6,9 @@
 //
 // The cluster layout (VPT_CLUSTER_SIZE, VPT_GROUP_SIZE).  A cluster block
 // holds K triangles (a multiple of 8) in 8 sub-blocks of K / 8; a group
-// holds 1 to 32 member clusters, which lanes 0..G-1 test in one step.  The
+// holds any number G of member clusters, which the warp tests in chunks of
+// 32, lane k taking member c0 + k of the chunk at c0 (`walk_members`;
+// groups above 32 run the run-time-K build, `kWideGroup`).  The
 // kernels are compiled for K in {32, 64, 128, 256, 512, 1024} (the default,
 // 128, keeps its constants) and once more with K read at run time (K = 0 in
 // the templates), which takes every other multiple of 8.  `TriLayout` says
@@ -25,8 +27,7 @@
 
 namespace vpt {
 
-constexpr int kNSub = 8;     // sub-blocks per cluster
-constexpr int kMaxGroup = 32;  // member clusters per group: at most one per lane
+constexpr int kNSub = 8;  // sub-blocks per cluster
 constexpr unsigned kFull = 0xffffffffu;
 
 struct TriLayout {
@@ -168,6 +169,52 @@ struct Member {
   int count, block, start, inst;
 };
 
+// The member clusters of group `gg` (G = `group` of them) that the warp's
+// ray enters within its best t, each run by `visit(member)` in index order.
+// The members go in chunks of 32, in index order: lane k slab-tests member
+// c0 + k of the chunk at c0 (tf = the current best t) and loads its table
+// row alongside for the warp to share, one ballot keeps the entered ones,
+// and __ffs takes them lowest first, each re-gated on the best t that the
+// members before it left.  A later chunk's slabs take the best t its
+// chunk starts with: a member entered within an earlier, larger best t
+// and re-gated on the new one passes the same test (tn does not depend on
+// tf), so the chunks give the sequential walk's members and order.  An
+// empty chunk (no member entered) goes on to the next; the walk ends when
+// the ray stops searching.  `S` holds `best` and `live`, the same on every
+// lane.  WIDE false takes groups of at most 32 as one chunk, with no chunk
+// state live across the members' visits (a chunk loop there cost the
+// default layout 8 registers and up to 8% on an H100); WIDE true takes any
+// G, in the run-time-K build only (`kWideGroup`).
+template <bool INSTANCED, bool WIDE, typename Tables, typename Search, typename Visit>
+__device__ __forceinline__ void walk_members(const Tables& tb, int gg, int group, const Ray& w, float t_min,
+                                             Search& S, int lane, Visit&& visit) {
+  for (int c0 = 0; c0 < (WIDE ? group : 1); c0 += 32) {
+    if (WIDE && !S.live) break;
+    const int mi = c0 + lane;
+    const int c = gg * group + mi;
+    Member mb{0, 0, 0, 0};
+    float tn_m = INFINITY;
+    bool in_m = false;
+    if (mi < group) {
+      mb = Member{tb.count[c], tb.block_id[c], tb.start[c], INSTANCED ? tb.inst[c] : 0};
+      in_m = slab6(tb.aabbs + 6 * (size_t)c, w, t_min, S.best, tn_m) && mb.count > 0;
+    }
+    unsigned members = __ballot_sync(kFull, in_m);
+    while (members != 0 && S.live) {
+      const int m = __ffs(members) - 1;
+      members &= members - 1u;
+      if (!(__shfl_sync(kFull, tn_m, m) <= S.best)) continue;
+      const Member cm{__shfl_sync(kFull, mb.count, m), __shfl_sync(kFull, mb.block, m),
+                      __shfl_sync(kFull, mb.start, m), __shfl_sync(kFull, mb.inst, m)};
+      visit(cm);
+    }
+  }
+}
+
+// Groups above this many members run the kernels' WIDE build: the
+// run-time-K kernel walking the members in chunks of 32.
+constexpr int kWideGroup = 32;
+
 // Launch `kernel` compiled for K = k_tris, or its run-time-K build (K = 0)
 // for a K outside {32, 64, 128, 256, 512, 1024}.
 #define VPT_DISPATCH_K(k_tris, LAUNCH) \
@@ -181,10 +228,10 @@ struct Member {
     default: LAUNCH(0); break;          \
   }
 
-// Whether the kernels take a layout: K a positive multiple of 8, 1 to 32
-// clusters per group.
+// Whether the kernels take a layout: K a positive multiple of 8, at least
+// one cluster per group.
 inline bool layout_ok(int k_tris, int group_size) {
-  return k_tris > 0 && k_tris % kNSub == 0 && group_size >= 1 && group_size <= kMaxGroup;
+  return k_tris > 0 && k_tris % kNSub == 0 && group_size >= 1;
 }
 
 }  // namespace vpt

@@ -41,9 +41,9 @@
 //     monotone, so a ray that misses the union misses every member: the group
 //     test only saves work.  One ballot keeps the groups entered within best
 //     t;
-//   - lanes 0..G-1 test the group's G member boxes (G <= 32), loading each
-//     member's count, block, triangle base and instance for the warp to
-//     share;
+//   - the lanes test the group's G member boxes, 32 a step (lane k member
+//     c0 + k; traverse.cuh walk_members), loading each member's count,
+//     block, triangle base and instance for the warp to share;
 //   - lanes 0..7 test the entered cluster's 8 sub-block boxes;
 //   - the lanes run the Moller-Trumbore tests of the next entered
 //     sub-blocks s < s' < ... (traverse.cuh TriLayout: at K = 128 lanes
@@ -54,8 +54,11 @@
 //     sub-block above 32 triangles takes passes of 32, a later one only a
 //     closer hit.
 // The layout as in trace.cu: K a template constant for 32-1024 in powers of
-// two and a run-time value otherwise, the group size and P run-time values;
-// the wrapper raises on a layout outside these.
+// two and a run-time value otherwise (and for groups above 32 members, the
+// WIDE build), the group size (any G >= 1) and P
+// (any packet size) run-time values; the last block of the launch holds
+// the ray count's remainder (a warp per ray, so a ray past the end leaves
+// its whole warp idle).  The wrapper raises on a layout outside these.
 //
 // Built with --fmad=false so the slab and Moller-Trumbore arithmetic rounds
 // exactly like the plain torch version, which makes every gate agree.
@@ -200,7 +203,7 @@ __device__ __forceinline__ void group_box(const float* aabbs, int g, int group, 
   }
 }
 
-template <bool ANY_HIT, bool INSTANCED, int K>
+template <bool ANY_HIT, bool INSTANCED, int K, bool WIDE>
 __global__ void __launch_bounds__(kThreads) visit_kernel(
     Tables tb, const int32_t* __restrict__ nvis, const int32_t* __restrict__ order,
     const float* __restrict__ entry, const float* __restrict__ origin, const float* __restrict__ direction,
@@ -241,25 +244,10 @@ __global__ void __launch_bounds__(kThreads) visit_kernel(
         break;
       }
       if (!(__shfl_sync(kFull, tn_g, src) <= S.best)) continue;
-      // Lanes 0..G-1: the member clusters' world slabs, with each member's
-      // table row loaded alongside for the lanes to share.
-      const int c = __shfl_sync(kFull, g, src) * group + lane;
-      Member mb{0, 0, 0, 0};
-      float tn_m = INFINITY;
-      bool in_m = false;
-      if (lane < group) {
-        mb = Member{tb.count[c], tb.block_id[c], tb.start[c], INSTANCED ? tb.inst[c] : 0};
-        in_m = slab6(tb.aabbs + 6 * (size_t)c, w, t_min, S.best, tn_m) && mb.count > 0;
-      }
-      unsigned members = __ballot_sync(kFull, in_m);
-      while (members != 0 && S.live) {
-        const int m = __ffs(members) - 1;
-        members &= members - 1u;
-        if (!(__shfl_sync(kFull, tn_m, m) <= S.best)) continue;
-        const Member cm{__shfl_sync(kFull, mb.count, m), __shfl_sync(kFull, mb.block, m),
-                        __shfl_sync(kFull, mb.start, m), __shfl_sync(kFull, mb.inst, m)};
+      // The member clusters' world slabs, 32 members a step (traverse.cuh).
+      walk_members<INSTANCED, WIDE>(tb, __shfl_sync(kFull, g, src), group, w, t_min, S, lane, [&](const Member& cm) {
         visit_cluster<ANY_HIT, INSTANCED>(tb, cm, w, t_min, S, lane, L);
-      }
+      });
     }
     if (!S.live) walking = false;
   }
@@ -279,30 +267,36 @@ extern "C" int vpt_visit(
     const float* inv_rows, const float* tris, const float* sub_aabbs, int n_pk, int packet, int gp,
     int group_size, int k_tris, float t_min, int any_hit, int instanced, float* t_out,
     int32_t* tri_out, float* u_out, float* v_out, void* stream) {
-  if (!layout_ok(k_tris, group_size) || packet <= 0 || packet % kWarps != 0) return (int)cudaErrorInvalidValue;
+  if (!layout_ok(k_tris, group_size) || packet <= 0) return (int)cudaErrorInvalidValue;
   if (n_pk <= 0) return 0;
   const Tables tb{aabbs, count, start, block_id, inst, inv_rows, tris, sub_aabbs};
   const int n = n_pk * packet;
-  const int blocks = n / kWarps;
+  const int blocks = (n + kWarps - 1) / kWarps;
   cudaStream_t s = (cudaStream_t)stream;
-#define VPT_VISIT_ONE(A, I, K)                                                                             \
-  visit_kernel<A, I, K><<<blocks, kThreads, 0, s>>>(tb, nvis, order, entry, origin, direction, act, tmax, n, \
-                                                    packet, gp, group_size, k_tris, t_min, t_out, tri_out,  \
-                                                    u_out, v_out)
-#define VPT_VISIT_LAUNCH(K)                      \
+#define VPT_VISIT_ONE(A, I, K, W)                                                                          \
+  visit_kernel<A, I, K, W><<<blocks, kThreads, 0, s>>>(tb, nvis, order, entry, origin, direction, act, tmax, n, \
+                                                       packet, gp, group_size, k_tris, t_min, t_out, tri_out,  \
+                                                       u_out, v_out)
+#define VPT_VISIT_LAUNCH_W(K, W)                 \
   if (any_hit) {                                 \
     if (instanced) {                             \
-      VPT_VISIT_ONE(true, true, K);              \
+      VPT_VISIT_ONE(true, true, K, W);           \
     } else {                                     \
-      VPT_VISIT_ONE(true, false, K);             \
+      VPT_VISIT_ONE(true, false, K, W);          \
     }                                            \
   } else if (instanced) {                        \
-    VPT_VISIT_ONE(false, true, K);               \
+    VPT_VISIT_ONE(false, true, K, W);            \
   } else {                                       \
-    VPT_VISIT_ONE(false, false, K);              \
+    VPT_VISIT_ONE(false, false, K, W);           \
   }
-  VPT_DISPATCH_K(k_tris, VPT_VISIT_LAUNCH)
+#define VPT_VISIT_LAUNCH(K) VPT_VISIT_LAUNCH_W(K, false)
+  if (group_size > kWideGroup) {
+    VPT_VISIT_LAUNCH_W(0, true)
+  } else {
+    VPT_DISPATCH_K(k_tris, VPT_VISIT_LAUNCH)
+  }
 #undef VPT_VISIT_LAUNCH
+#undef VPT_VISIT_LAUNCH_W
 #undef VPT_VISIT_ONE
   return (int)cudaGetLastError();
 }
