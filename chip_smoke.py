@@ -222,6 +222,26 @@ Phases, each of which raises on failure:
      CUDA-event median of 5 replays), printed beside the median of 5
      event pairs around 20 back-to-back launches (`event_ms`, the host's
      issue rate); one JSON line "probes".
+ 16. the gaps against the JAX package closed last:
+     a. the host C libraries (csrc/bvh_builder.cpp with g++, csrc/lz4_block.c
+        with gcc) built from the port's own sources into a fresh temporary
+        directory and loaded, their sources printed;
+     b. build_bvh(use_native=False) (the NumPy builder) and the C++ builder
+        on colonnade's largest unique mesh (11,264 triangles; a seeded
+        20,000-triangle soup were it larger), each builder's host seconds;
+        262,144 seeded rays (two thirds aimed at triangle centroids) traced
+        through both trees with traverse.intersect_bvh on the card: t to
+        rtol 1e-4 / atol 1e-5 and more than 99% of triangle ids equal
+        (tests/test_native_bvh.py's bars);
+     c. integrator.trace on phase 3's bounce rays with any_hit=True, then
+        with a half-true anyhit_mask, in stream and in packet mode: the rays
+        that hit are the closest-hit trace's, an any hit lies no nearer than
+        the closest one, and the rays outside the mask keep their closest
+        hits bit for bit;
+     d. cluster.intersect_clusters(packet=P) on the bounce rays at P 64, 384
+        and 2048 equals, bit for bit, the trace with cluster.PACKET_SIZE set
+        to P (as phase 14b sets it);
+     one JSON line "port_gaps".
 Every drive of phases 4-11, 13 and 14 checks that its loop ran captured (a
 graph launch per dispatch); the plain-version renders run eagerly.
 The last lines are the card's name and power limit, the kernel table as
@@ -289,7 +309,7 @@ import torch
 import torch.distributed as dist
 
 from vpt_tpu_torch import Renderer, RenderFlags, gallery
-from vpt_tpu_torch.accel import cluster, envelope, kernels, occlude, stream, visit
+from vpt_tpu_torch.accel import bvh, cluster, envelope, kernels, occlude, stream, traverse, visit
 from vpt_tpu_torch.accel.traverse import KERNEL_GROUP, T_MAX, T_MIN, guarded_inverse
 from vpt_tpu_torch.api import render_step
 from vpt_tpu_torch.bench import card_description
@@ -458,7 +478,7 @@ def main_path_inputs(data, meta, aux, dev):
     """Primary rays, one diffuse bounce and the 2N shadow batch at 512x512."""
     view_inv = np.linalg.inv(aux["camera_view"])
     proj_inv = np.linalg.inv(perspective(np.radians(aux["camera_fov_deg"]), W / H))
-    params = default_params(dev, view_inv, proj_inv)
+    params = default_params(view_inv, proj_inv, device=dev)
     pxy, pidx, _, _ = tiled_pixel_order(W, H)
     state = rng.seed(torch.as_tensor(pidx.astype(np.int64), device=dev), 0, 12345)
     state, org, d = generate_primary_rays(params.view_inverse, params.proj_inverse,
@@ -468,13 +488,13 @@ def main_path_inputs(data, meta, aux, dev):
     hit = stream.intersect_stream(org, d, data.clusters, t_min, T_MAX)
     found = hit.t >= 0
     tri = torch.clamp(hit.tri.to(torch.int64), 0, data.tri_p0.shape[0] - 1)
-    surf = surface.make_surface(data, tri, hit.u, hit.v, d, False, meta.has_textures)
+    surf = surface.make_surface(data, hit._replace(tri=tri), d, False, meta.has_textures)
     center = torch.tensor(meta.scene_center, device=dev)
     p_mag = torch.linalg.vector_norm(surf.world_pos - center, dim=-1) + 0.0346 * meta.scene_scale
     bounce_org = surf.world_pos + surf.geom_normal * (5.8e-4 * p_mag)[:, None]
     state, bounce_dir = sampling.sample_cosine_hemisphere(state, surf.geom_normal)
     state, to_sky, _ = lights.importance_sample_env(state, data.env, params.sky_rotation_azimuth,
-                                                    params.sky_rotation_altitude)
+                                                    params.sky_rotation_altitude, found.shape)
     state, to_light, _, light_pdf, light_tri, light_dist = lights.sample_emissive_triangle(
         state, data, surf.world_pos, meta.n_emissive, meta.has_textures)
     light_eps = 5e-3 * (light_dist + 0.0346 * meta.scene_scale)
@@ -1171,7 +1191,7 @@ def entry_points(dev, smi: str, flags, square, stream_s: float, stream_segs: flo
         scene = textured_colonnade(dev, flags, square, (stream_s, stream_segs), tmp)
         glb_through_cli(dev, scene, tmp)
     # 9c. The furnace self-test: 960 triangles, the brute-force trace.
-    _, meta, _ = compile_scene(furnace_sphere(), dev)
+    _, meta, _ = compile_scene(furnace_sphere(), device=dev)
     check(meta.n_tris == 960 and meta.n_tris <= BRUTE_FORCE_MAX_TRIS and meta.use_brute_force,
           "furnace_sphere (960 triangles) takes the brute-force trace, no kernel")
     line = run_cli("furnace")
@@ -1233,7 +1253,7 @@ def sharded_path(dev, r: Renderer, stream_s: float, table, media_r: Renderer) ->
             frame = torch.zeros((W * H, 3), device=dev)
             all_reduce_ms = cuda_ms(lambda: dist.all_reduce(frame), reps=5, launches=LAUNCHES_PER_PAIR)
             small_data = tree_to_device(host, dev)
-            small, _ = dmesh.render_sharded(small_data, meta, flags, default_params(dev, *cameras),
+            small, _ = dmesh.render_sharded(small_data, meta, flags, default_params(*cameras, device=dev),
                                             (DRYRUN_SIZE, DRYRUN_SIZE), 99, 4, m)
             small = small.cpu().numpy()
             # One media dispatch through the sharded path, its loop captured.
@@ -1967,7 +1987,7 @@ def layouts_phase(dev, smi: str, table, p3: dict, stream_r: Renderer, media_r: R
             label = f"K{value}" if knob == "CLUSTER_SIZE" else f"G{value}"
             t0 = time.perf_counter()
             with mock.patch.object(cluster, knob, value):
-                data, meta, aux = compile_scene(colonnade(), dev, lookup_tables=tables)
+                data, meta, aux = compile_scene(colonnade(), tables, device=dev)
             torch.cuda.synchronize()
             log(f"compile_scene(colonnade) at {label}: {time.perf_counter() - t0:.1f} s")
             row = layout_kernels(data, meta, aux, dev, label, table)
@@ -2115,6 +2135,157 @@ def probe_phase(dev, smi: str, table) -> None:
     log(f"phase 15 (the probe kernels): {time.perf_counter() - t_phase:.1f} s")
 
 
+GAP_RAYS = 262_144  # phase 16b's rays through the two BVH builders' trees
+GAP_SOUP = 20_000  # 16b's triangles at most: a larger mesh gives way to a seeded soup of this size
+GAP_PACKETS = (64, 384, 2048)  # 16d's packet sizes
+
+
+def host_libraries(tmp: str) -> dict:
+    """16a: the BVH builder and the LZ4 codec built from csrc/ into `tmp`
+    and loaded: {source: seconds}."""
+    out = {}
+    for mod, what, symbols in ((bvh, "the BVH builder", ("vpt_build_bvh",)),
+                               (blosc, "the LZ4 codec", ("vpt_lz4_compress", "vpt_lz4_decompress"))):
+        check(os.path.dirname(mod._SRC) == kernels.CSRC_DIR, f"{what} builds from the port's csrc/")
+        t0 = time.perf_counter()
+        lib = ctypes.CDLL(kernels.host_library(mod._SRC, os.path.join(tmp, os.path.basename(mod._LIB)), mod._CMD,
+                                               what))
+        sec = time.perf_counter() - t0
+        check(all(hasattr(lib, name) for name in symbols), f"{what}'s library exports {symbols}")
+        rel = os.path.relpath(mod._SRC, ROOT)
+        out[rel] = sec
+        log(f"16a: {what} built from {rel} ({' '.join(mod._CMD)}) into a fresh directory in {sec:.2f} s")
+    return out
+
+
+def builders_phase(dev) -> dict:
+    """16b: the NumPy and the C++ BVH builders on colonnade's largest unique
+    mesh, and both trees traced on the card."""
+    scene = colonnade()
+    sizes = {i: np.asarray(scene.meshes[i].indices).size // 3 for i in sorted({x.mesh for x in scene.instances})}
+    mi = max(sizes, key=sizes.get)
+    if sizes[mi] <= GAP_SOUP:
+        mesh = scene.meshes[mi]
+        idx = np.asarray(mesh.indices).reshape(-1, 3)
+        pos = np.asarray(mesh.positions, np.float32)
+        v0, v1, v2 = pos[idx[:, 0]], pos[idx[:, 1]], pos[idx[:, 2]]
+        what = f"colonnade mesh {mi} ({v0.shape[0]} triangles)"
+    else:
+        g = np.random.default_rng(5)
+        v0 = g.uniform(-5, 5, (GAP_SOUP, 3)).astype(np.float32)
+        v1 = v0 + g.uniform(-0.5, 0.5, (GAP_SOUP, 3)).astype(np.float32)
+        v2 = v0 + g.uniform(-0.5, 0.5, (GAP_SOUP, 3)).astype(np.float32)
+        what = f"a seeded soup of {GAP_SOUP} triangles (colonnade's largest mesh has {sizes[mi]})"
+    n = v0.shape[0]
+    g = np.random.default_rng(16)
+    lo, hi = np.minimum(v0, np.minimum(v1, v2)).min(0), np.maximum(v0, np.maximum(v1, v2)).max(0)
+    span = hi - lo
+    org = g.uniform(lo - 0.25 * span, hi + 0.25 * span, (GAP_RAYS, 3)).astype(np.float32)
+    aim = ((v0 + v1 + v2) / 3)[g.integers(0, n, GAP_RAYS)]
+    d = np.where((np.arange(GAP_RAYS) % 3 != 0)[:, None], aim - org, g.normal(size=(GAP_RAYS, 3))).astype(np.float32)
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    org_t, d_t = torch.as_tensor(org, device=dev), torch.as_tensor(d, device=dev)
+    row, res = {"mesh": what, "triangles": n, "rays": GAP_RAYS}, []
+    for name, native in (("numpy", False), ("native", True)):
+        t0 = time.perf_counter()
+        tree = bvh.build_bvh(v0, v1, v2, use_native=native)
+        row[f"{name}_build_s"] = time.perf_counter() - t0
+        row[f"{name}_nodes"] = tree.n_nodes
+        order = tree.tri_order
+
+        def pad(a):
+            return np.concatenate([a[order], np.zeros((bvh.LEAF_SIZE, 3), np.float32)])
+
+        tables = [torch.as_tensor(x, device=dev) for x in (tree.aabb_min, tree.aabb_max, tree.first_tri,
+                                                              tree.tri_count, tree.skip, pad(v0), pad(v1 - v0),
+                                                              pad(v2 - v0))]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        hit = traverse.intersect_bvh(org_t, d_t, *tables)
+        torch.cuda.synchronize()
+        row[f"{name}_trace_s"] = time.perf_counter() - t0
+        tri = hit.tri.cpu().numpy()
+        res.append((hit.t.cpu().numpy(), np.where(tri >= 0, order[np.clip(tri, 0, n - 1)], -1)))
+    (t_np, id_np), (t_nat, id_nat) = res
+    hits = t_np >= 0
+    row["hits"] = int(hits.sum())
+    row["t_max_abs_diff"] = float(np.abs(t_np - t_nat).max())
+    row["ids_agree"] = float(((id_np == id_nat) | ~hits).mean())
+    log(f"16b: {what}: NumPy builder {row['numpy_build_s']:.3f} s ({row['numpy_nodes']} nodes), C++ builder "
+        f"{row['native_build_s']:.4f} s ({row['native_nodes']} nodes), host seconds, "
+        f"{row['numpy_build_s'] / row['native_build_s']:.0f}x; {GAP_RAYS} rays through each tree on the card: "
+        f"{row['hits']} hit, t max |diff| {row['t_max_abs_diff']:.3g}, ids agree on {100 * row['ids_agree']:.3f}% "
+        f"(traces {row['numpy_trace_s']:.2f} / {row['native_trace_s']:.2f} s)")
+    check(row["hits"] > GAP_RAYS // 4, "16b: most of the aimed rays hit")
+    check(bool(np.allclose(t_np, t_nat, rtol=1e-4, atol=1e-5)), "16b: both trees give the same closest t")
+    check(row["ids_agree"] > 0.99, "16b: more than 99% of the triangle ids agree")
+    return row
+
+
+def any_hit_phase(data, meta, p3: dict) -> dict:
+    """16c: integrator.trace's any_hit and anyhit_mask in both trace modes on
+    phase 3's bounce rays."""
+    org, d, act = p3["bounce"]
+    t_min = p3["t_min"]
+    mask = torch.as_tensor(np.random.default_rng(17).uniform(size=org.shape[0]) < 0.5, device=org.device)
+    out = {}
+    for mode in ("stream", "packet"):
+        with mock.patch.object(integrator, "TRACE_MODE", mode):
+            kernels.reset_launches()
+            closest = integrator.trace(data, meta, org, d, act, t_min)
+            any_all = integrator.trace(data, meta, org, d, act, t_min, T_MAX, True)
+            any_mask = integrator.trace(data, meta, org, d, act, t_min, anyhit_mask=mask)
+            torch.cuda.synchronize()
+            launches = dict(kernels.LAUNCHES)
+        kernel = "stream" if mode == "stream" else "visit"
+        check(launches[kernel] == 3, f"16c {mode}: the three traces launched {kernel}")
+        hits = closest.t >= 0
+        for label, got in (("any_hit", any_all), ("anyhit_mask", any_mask)):
+            check(torch.equal(got.t >= 0, hits), f"16c {mode} {label}: the rays that hit are the closest trace's")
+            check(bool((got.t[hits] >= closest.t[hits]).all()),
+                  f"16c {mode} {label}: no any hit nearer than the closest")
+        outside = ~mask
+        check(all(torch.equal(getattr(any_mask, f)[outside], getattr(closest, f)[outside])
+                  for f in ("t", "tri", "u", "v")),
+              f"16c {mode}: rays outside the mask keep their closest hits bit for bit")
+        farther = int((any_all.t[hits] > closest.t[hits]).sum())
+        out[mode] = {"hits": int(hits.sum()), "any_hit_farther": farther,
+                     "masked_farther": int((any_mask.t[hits & mask] > closest.t[hits & mask]).sum())}
+        log(f"16c {mode}: {out[mode]['hits']} of {org.shape[0]} bounce rays hit in each trace; any_hit stopped "
+            f"{farther} of them beyond the closest hit, anyhit_mask {out[mode]['masked_farther']} (inside the mask)")
+    return out
+
+
+def packet_argument_phase(data, p3: dict) -> dict:
+    """16d: intersect_clusters(packet=P) against the trace at
+    cluster.PACKET_SIZE = P."""
+    org, d, act = p3["bounce"]
+    cl, t_min = data.clusters, p3["t_min"]
+    out = {}
+    for size in GAP_PACKETS:
+        got = cluster.intersect_clusters(org, d, cl, t_min, T_MAX, act, packet=size, sort_rays=True)
+        with mock.patch.object(cluster, "PACKET_SIZE", size):
+            want = cluster.intersect_clusters(org, d, cl, t_min, T_MAX, act, sort_rays=True)
+        torch.cuda.synchronize()
+        check(all(torch.equal(getattr(got, f), getattr(want, f)) for f in got._fields),
+              f"16d: intersect_clusters(packet={size}) equals the trace at PACKET_SIZE = {size}")
+        out[size] = int((got.t >= 0).sum())
+        log(f"16d: packet={size}: {out[size]} hits, bitwise the PACKET_SIZE = {size} trace's")
+    return out
+
+
+def port_gaps_phase(dev, smi: str, data, meta, p3: dict) -> None:
+    """Phase 16: the port's own C sources, the NumPy BVH builder, the any-hit
+    flags of integrator.trace and intersect_clusters' packet argument."""
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        built = host_libraries(tmp)
+    row = {"device": smi, "host_libraries_s": built, "builders": builders_phase(dev),
+           "any_hit": any_hit_phase(data, meta, p3), "packets": packet_argument_phase(data, p3)}
+    print(json.dumps({"port_gaps": row}))
+    log(f"phase 16 (the gaps against the JAX package): {time.perf_counter() - t_phase:.1f} s")
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--compare", metavar="OTHER_CU", nargs="+", default=[],
@@ -2144,7 +2315,7 @@ def run(dev, smi: str, other_builds=()) -> None:
     """Phases 3-13 on `dev`, then the result lines."""
     # 3. Kernels against plain versions at the main path's shapes.
     t0 = time.perf_counter()
-    data, meta, aux = compile_scene(colonnade(), dev)
+    data, meta, aux = compile_scene(colonnade(), device=dev)
     torch.cuda.synchronize()
     log(f"compile_scene(colonnade): {time.perf_counter() - t0:.1f} s, {meta.n_tris} triangles, "
         f"{data.clusters.count.shape[0]} clusters, {data.clusters.group_min.shape[0]} groups, "
@@ -2290,8 +2461,8 @@ def run(dev, smi: str, other_builds=()) -> None:
         check(png.shape == (H, W, 3) and float(png.mean()) > 0.0, "the saved PNG reads back (512, 512) with mean > 0")
 
     # 6. Kernel renders against plain renders.
-    square = default_params(dev, np.linalg.inv(aux["camera_view"]),
-                            np.linalg.inv(perspective(np.radians(aux["camera_fov_deg"]), 1.0)))
+    square = default_params(np.linalg.inv(aux["camera_view"]),
+                            np.linalg.inv(perspective(np.radians(aux["camera_fov_deg"]), 1.0)), device=dev)
     kernel_vs_plain_render(data, meta, flags, square, dev, "stream")
     with mock.patch.object(integrator, "TRACE_MODE", "packet"):
         kernel_vs_plain_render(data, meta, flags, square, dev, "packet", exact=True)
@@ -2347,6 +2518,9 @@ def run(dev, smi: str, other_builds=()) -> None:
 
     # 15. The probe kernels.
     probe_phase(dev, smi, table)
+
+    # 16. The gaps against the JAX package.
+    port_gaps_phase(dev, smi, data, meta, p3)
 
     print(smi)
     print(json.dumps({"kernels": list(table.values())}))

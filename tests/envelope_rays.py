@@ -36,12 +36,12 @@ def wavefronts(name):
     """(clusters, t_min, {kind: (origin, direction, t_max, active)}) on the
     CPU, kind in primary, bounce, shadow (a sky direction and a point in the
     scene); the module docstring lists the adversarial rays."""
-    data, meta, aux = compile_scene(SCENES[name](), "cpu")
+    data, meta, aux = compile_scene(SCENES[name](), device="cpu")
     cl = data.clusters
     t_min = 1e-4 * meta.scene_scale
     view_inv = np.linalg.inv(aux["camera_view"])
     proj_inv = np.linalg.inv(perspective(np.radians(aux["camera_fov_deg"]), 1.0))
-    params = default_params("cpu", view_inv, proj_inv)
+    params = default_params(view_inv, proj_inv, device="cpu")
     pxy, pidx, _, _ = tiled_pixel_order(SIZE, SIZE)
     state = rng.seed(torch.as_tensor(pidx.astype(np.int64)), 0, 12345)
     _, org, d = generate_primary_rays(params.view_inverse, params.proj_inverse, torch.as_tensor(pxy),

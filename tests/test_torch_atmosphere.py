@@ -42,7 +42,7 @@ SETUPS = {
 
 
 def _params(setup):
-    jp, tp = jparams(), default_params("cpu")
+    jp, tp = jparams(), default_params(device="cpu")
     for k, v in SETUPS[setup].items():
         jp = jp._replace(**{k: jnp.asarray(v, jnp.float32)})
         tp = tp._replace(**{k: vec3(v, "cpu") if isinstance(v, tuple) else scalar(v, "cpu")})
@@ -114,7 +114,7 @@ def test_sun_disk_matches_jax(az, al, intensity):
     sun = np.array([1.0, 0.9, 0.7], np.float32)
     want = jlights.sample_sun_disk(jnp.asarray(s), jnp.asarray(sun), jnp.float32(intensity), jnp.float32(az),
                                    jnp.float32(al), (N,))
-    got = tlights.sample_sun_disk(_t(s), _t(sun), scalar(intensity, "cpu"), scalar(az, "cpu"), scalar(al, "cpu"), N)
+    got = tlights.sample_sun_disk(_t(s), _t(sun), scalar(intensity, "cpu"), scalar(az, "cpu"), scalar(al, "cpu"), (N,))
     assert_agree(*zip(got, want))
     axis = np.asarray(want[1]).mean(0)
     cos_max = np.cos(np.float32(tlights.SUN_THETA))

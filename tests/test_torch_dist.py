@@ -36,14 +36,14 @@ BANDS = [2, 3]  # 3 bands of 6 rows: the last one is short (4 rows + 2 pad rows)
 
 @pytest.fixture(scope="module")
 def setup():
-    data, meta, aux = compile_scene(cornell_box(with_boxes=False), "cpu")
+    data, meta, aux = compile_scene(cornell_box(with_boxes=False), device="cpu")
     cameras = (np.linalg.inv(aux["camera_view"]), np.linalg.inv(perspective(np.radians(aux["camera_fov_deg"]), 1.0)))
     return data, meta, cameras
 
 
 def _one_process(setup, pixel_xy, pixel_index, resolution, seed, n_samples, sample_offset=0):
     data, meta, cameras = setup
-    rad, segs, _ = integrator.render_samples(data, meta, FLAGS, default_params("cpu", *cameras),
+    rad, segs, _ = integrator.render_samples(data, meta, FLAGS, default_params(*cameras, device="cpu"),
                                              torch.as_tensor(pixel_xy), torch.as_tensor(pixel_index), resolution,
                                              seed, n_samples, sample_offset=sample_offset)
     return rad.numpy(), int(segs)
@@ -171,7 +171,7 @@ def test_make_mesh_asserts_its_size_and_renders_one_rank_bitwise(one_rank_group,
     m = mesh.make_mesh(device_type="cpu")
     assert m.mesh_dim_names == ("tile", "spp") and tuple(m.mesh.shape) == (1, 1)
     data, meta, cameras = setup
-    img, segs = mesh.render_sharded(data, meta, FLAGS, default_params("cpu", *cameras), (SIZE, SIZE), 99, 4, m)
+    img, segs = mesh.render_sharded(data, meta, FLAGS, default_params(*cameras, device="cpu"), (SIZE, SIZE), 99, 4, m)
     assert segs.dtype == torch.int64 and segs.ndim == 0 and int(segs) == single[99][1]
     assert np.array_equal(img.numpy(), single[99][0].reshape(SIZE, SIZE, 3))
 

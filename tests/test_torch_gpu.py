@@ -463,10 +463,10 @@ def test_one_rank_nccl_render_sharded_equals_render_samples(cuda, tmp_path):
     from vpt_tpu_torch.scene.build import compile_scene
     from vpt_tpu_torch.scene.procedural import sphere_garden
 
-    data, meta, aux = compile_scene(sphere_garden(), cuda)
+    data, meta, aux = compile_scene(sphere_garden(), device=cuda)
     assert not meta.use_brute_force
-    params = default_params(cuda, np.linalg.inv(aux["camera_view"]),
-                            np.linalg.inv(perspective(np.radians(aux["camera_fov_deg"]), 1.0)))
+    params = default_params(np.linalg.inv(aux["camera_view"]),
+                            np.linalg.inv(perspective(np.radians(aux["camera_fov_deg"]), 1.0)), device=cuda)
     flags = RenderFlags(max_depth=4, max_medium_events=2)
     pxy, pidx = mesh.pixel_grid(64, 64)
     want, want_segs, _ = integrator.render_samples(data, meta, flags, params, torch.as_tensor(pxy, device=cuda),
@@ -504,7 +504,7 @@ def _dispatches(dev, compiled, size: int, capture: bool, mode: str):
     kernels.reset_launches()
     with mock.patch.object(graphs, "CAPTURE", capture), mock.patch.object(integrator, "TRACE_MODE", mode):
         for i, (view_inv, seed) in enumerate(zip(views, (2654435761, 99))):
-            params = default_params(dev, view_inv, proj_inv)._replace(sky_rotation_azimuth=scalar(25.0 * i, dev))
+            params = default_params(view_inv, proj_inv, device=dev)._replace(sky_rotation_azimuth=scalar(25.0 * i, dev))
             accum, segs, stats = render_step(data, meta, flags, params, seed, (size, size), accum, i, 2)
             out.append((accum.clone(), int(segs), dataclasses.astuple(stats)))
     torch.cuda.synchronize()
@@ -537,7 +537,7 @@ def test_captured_dispatches_equal_eager_ones(cuda, name, size, mode):
     from vpt_tpu_torch.scene.build import compile_scene
 
     graphs.clear()
-    compiled = compile_scene(getattr(procedural, name)(), cuda)
+    compiled = compile_scene(getattr(procedural, name)(), device=cuda)
     eager, eager_launches = _dispatches(cuda, compiled, size, False, mode)
     captured, captured_launches = _dispatches(cuda, compiled, size, True, mode)
     steps = graphs.steps()
@@ -567,7 +567,7 @@ def test_captured_media_dispatches_equal_eager_ones(cuda, case):
     from vpt_tpu_torch.scene.types import Volume
     from vpt_tpu_torch.scene.vdb import procedural_cloud
 
-    data, meta, aux = compile_scene(colonnade(n_columns=2, column_res=(24, 8)), cuda)
+    data, meta, aux = compile_scene(colonnade(n_columns=2, column_res=(24, 8)), device=cuda)
     if case != "atmosphere":
         vols = [Volume(corner_min=(-6, 3, -4), corner_max=(6, 9, 4), density=8.0, anisotropy=0.3,
                        density_grid=procedural_cloud((32, 32, 32), coverage=0.6)),
@@ -583,7 +583,7 @@ def test_captured_media_dispatches_equal_eager_ones(cuda, case):
         kernels.reset_launches()
         with mock.patch.object(graphs, "CAPTURE", capture):
             for i, (view_inv, seed) in enumerate(zip(views, (2654435761, 99))):
-                params = default_params(cuda, view_inv, proj_inv)._replace(
+                params = default_params(view_inv, proj_inv, device=cuda)._replace(
                     planet_position=vec3((0.0, -6360e3, 0.0), cuda), sky_rotation_altitude=scalar(30.0, cuda))
                 accum, segs, stats = render_step(data, meta, flags, params, seed, (64, 64), accum, i, 2)
                 out.append((accum.clone(), int(segs), dataclasses.astuple(stats)))
@@ -647,7 +647,7 @@ def test_a_sync_in_the_body_makes_the_capture_raise(cuda):
     from vpt_tpu_torch.scene.build import compile_scene
     from vpt_tpu_torch.scene.procedural import cornell_box
 
-    data, meta, _ = compile_scene(cornell_box(), cuda)
+    data, meta, _ = compile_scene(cornell_box(), device=cuda)
     body = integrator.body
 
     def syncing_body(*args):
@@ -658,7 +658,7 @@ def test_a_sync_in_the_body_makes_the_capture_raise(cuda):
     graphs.clear()
     try:
         with mock.patch.object(integrator, "body", syncing_body), pytest.raises(RuntimeError):
-            render_step(data, meta, RenderFlags(max_depth=2), default_params(cuda), 7, (16, 16),
+            render_step(data, meta, RenderFlags(max_depth=2), default_params(device=cuda), 7, (16, 16),
                         torch.zeros((16, 16, 3), device=cuda), 0, 1)
         assert not graphs.steps()[0].segments
     finally:

@@ -283,7 +283,7 @@ DISPATCHES = [dict(eye_shift=0.0, azimuth=0.0, altitude=0.0, seed=SEED, frame_co
 
 def _params(aux, d):
     view_inv, proj_inv = _cameras(aux, d["eye_shift"])
-    tp = default_params("cpu", view_inv, proj_inv)._replace(sky_rotation_azimuth=scalar(d["azimuth"], "cpu"),
+    tp = default_params(view_inv, proj_inv, device="cpu")._replace(sky_rotation_azimuth=scalar(d["azimuth"], "cpu"),
                                                             sky_rotation_altitude=scalar(d["altitude"], "cpu"))
     jp = jparams(view_inv, proj_inv)._replace(sky_rotation_azimuth=jnp.float32(d["azimuth"]),
                                               sky_rotation_altitude=jnp.float32(d["altitude"]))
@@ -383,7 +383,7 @@ def test_media_is_captured_on_a_capturable_device(cornell):
     atmosphere as it captures one without (graphs.CAPTURE False keeps it
     eager): one segment more than its loop sites."""
     tdata, tmeta, aux = cornell
-    tp = default_params("cpu", *_cameras(aux))
+    tp = default_params(*_cameras(aux), device="cpu")
     pxy, pidx, _, _ = tiled_pixels(8, 8, "cpu")
     flags = RenderFlags(max_depth=1, max_medium_events=1, enable_atmosphere=True)
     with taped():
@@ -458,7 +458,7 @@ def cornell():
 def _step(cornell, size=8, flags=RenderFlags(max_depth=2), n_samples=1, tp=None, data=None):
     tdata, tmeta, aux = cornell
     pxy, pidx, _, _ = tiled_pixels(size, size, "cpu")
-    tp = default_params("cpu", *_cameras(aux)) if tp is None else tp
+    tp = default_params(*_cameras(aux), device="cpu") if tp is None else tp
     return integrator.dispatch_step(tdata if data is None else data, tmeta, flags, tp, pxy, pidx, (size, size), 5,
                                     n_samples)
 
@@ -466,7 +466,7 @@ def _step(cornell, size=8, flags=RenderFlags(max_depth=2), n_samples=1, tp=None,
 def test_new_params_seed_or_offset_reuse_the_step(cornell):
     tdata, tmeta, aux = cornell
     step = _step(cornell)
-    tp = default_params("cpu", *_cameras(aux, 2.0))._replace(environment_intensity=scalar(3.0, "cpu"))
+    tp = default_params(*_cameras(aux, 2.0), device="cpu")._replace(environment_intensity=scalar(3.0, "cpu"))
     again = _step(cornell, tp=tp)
     pxy, pidx, _, _ = tiled_pixels(8, 8, "cpu")
     third = integrator.dispatch_step(tdata, tmeta, RenderFlags(max_depth=2), tp, pxy, pidx, (8, 8), 99, 1,

@@ -102,7 +102,7 @@ def _assert_tables_equal(own: ClusterData, carried: ClusterData):
 
 
 def _colonnade_tables_equal(want_clusters):
-    got, _, _ = tbuild.compile_scene(jl.reduced_colonnade(tproc), "cpu")
+    got, _, _ = tbuild.compile_scene(jl.reduced_colonnade(tproc), device="cpu")
     want = tree_to_device(clusters_from_numpy(want_clusters), "cpu")
     for f in ClusterData._fields:
         assert torch.equal(getattr(got.clusters, f), getattr(want, f)), f
@@ -301,7 +301,7 @@ def _render_port(data, meta, aux):
     view_inv = np.linalg.inv(aux["camera_view"])
     proj_inv = np.linalg.inv(perspective(np.radians(aux["camera_fov_deg"]), 1.0))
     img, segs, _ = render_step(data, meta, RenderFlags(max_depth=jl.DEPTH, max_medium_events=8),
-                               default_params("cpu", view_inv, proj_inv), jl.SEED, (jl.SIZE, jl.SIZE),
+                               default_params(view_inv, proj_inv, device="cpu"), jl.SEED, (jl.SIZE, jl.SIZE),
                                torch.zeros((jl.SIZE, jl.SIZE, 3)), 0, 1)
     return img.numpy(), int(segs)
 
@@ -318,7 +318,7 @@ def test_render_matches_jax_at_layouts(layout, jax_groups, monkeypatch):
     else:
         monkeypatch.setattr(cluster, "GROUP_SIZE", 4)
         want, want_segs = jax_groups[4]["img"], float(jax_groups[4]["segs"])
-    data, meta, aux = tbuild.compile_scene(jl.reduced_colonnade(tproc), "cpu")
+    data, meta, aux = tbuild.compile_scene(jl.reduced_colonnade(tproc), device="cpu")
     assert not meta.use_brute_force
     assert data.clusters.tris.shape[2] == (64 if layout == "K64" else 128)
     assert data.clusters.count.shape[0] == (4 if layout == "G4" else 8) * data.clusters.group_min.shape[0]
@@ -329,7 +329,7 @@ def test_render_matches_jax_at_layouts(layout, jax_groups, monkeypatch):
 
 @pytest.fixture(scope="module")
 def small_scene():
-    return tbuild.compile_scene(jl.reduced_colonnade(tproc), "cpu")
+    return tbuild.compile_scene(jl.reduced_colonnade(tproc), device="cpu")
 
 
 @pytest.mark.parametrize("knob,value", [("PACKET_SIZE", 256), ("_SORT_KEY", "fe"), ("_SORT_RAYS", False)])
@@ -340,7 +340,7 @@ def test_step_key_holds_the_trace_knobs(knob, value, small_scene):
     data, meta, aux = small_scene
     view_inv = np.linalg.inv(aux["camera_view"])
     proj_inv = np.linalg.inv(perspective(np.radians(aux["camera_fov_deg"]), 1.0))
-    params = default_params("cpu", view_inv, proj_inv)
+    params = default_params(view_inv, proj_inv, device="cpu")
     flags = RenderFlags(max_depth=2, max_medium_events=8)
 
     def dispatch():

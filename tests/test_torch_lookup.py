@@ -66,15 +66,15 @@ def test_compile_scene_fits_match_jax(baked):
     keeps them tables while the JAX package fits them in seconds."""
     tables = (baked["reflect"][1],) + tuple(baked[k][1][:, ::4, ::4] for k in ("refract_out", "refract_in"))
     jdata, _, _ = jcompile(jcornell(), lookup_tables=tables)
-    data, _, _ = compile_scene(cornell_box(), "cpu", lookup_tables=tables)
+    data, _, _ = compile_scene(cornell_box(), lookup_tables=tables, device="cpu")
     for f in ("lookup_reflect", "lookup_refract_out", "lookup_refract_in"):
         np.testing.assert_allclose(getattr(data, f).numpy(), np.asarray(getattr(jdata, f)), rtol=0, atol=1e-6,
                                    err_msg=f)
     # Fits pass through as they are, and None is the constant fit.
     fits = tuple(getattr(data, f).numpy() for f in ("lookup_reflect", "lookup_refract_out", "lookup_refract_in"))
-    again, _, _ = compile_scene(cornell_box(), "cpu", lookup_tables=fits)
+    again, _, _ = compile_scene(cornell_box(), lookup_tables=fits, device="cpu")
     np.testing.assert_array_equal(again.lookup_refract_in.numpy(), fits[2])
-    const, _, _ = compile_scene(cornell_box(), "cpu")
+    const, _, _ = compile_scene(cornell_box(), device="cpu")
     np.testing.assert_array_equal(const.lookup_reflect.numpy(), lookup_fit.constant_fit(1.0))
 
 

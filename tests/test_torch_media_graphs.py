@@ -94,7 +94,7 @@ def _sites(n_volumes: int, atmo: bool) -> list:
 
 @pytest.fixture(scope="module")
 def scene():
-    return compile_scene(colonnade(n_columns=2, column_res=(24, 8)), "cpu")
+    return compile_scene(colonnade(n_columns=2, column_res=(24, 8)), device="cpu")
 
 
 @pytest.fixture(autouse=True)
@@ -123,7 +123,7 @@ def _dispatches(scene, case: str):
     views = [np.linalg.inv(aux["camera_view"]), np.linalg.inv(look_at((3.0, 4.0, 18.0), (0.0, 3.0, 0.0), (0, 1, 0)))]
     accum, out = torch.zeros((H, W, 3)), []
     for i, (view_inv, seed) in enumerate(zip(views, (2654435761, 77))):
-        params = default_params("cpu", view_inv, proj_inv)
+        params = default_params(view_inv, proj_inv, device="cpu")
         if atmo:
             params = params._replace(planet_position=vec3(PLANET, "cpu"), sky_rotation_altitude=scalar(30.0, "cpu"))
         accum, segs, stats = render_step(data, meta, flags, params, seed, (W, H), accum, i, 1)
@@ -155,8 +155,8 @@ def test_captured_media_dispatches_equal_eager_ones(scene, case):
 
 def test_captured_one_rank_sharded_media_render_equals_render_samples(scene):
     data, meta, flags, aux = _configuration(scene, "cloud_and_haze")
-    params = default_params("cpu", np.linalg.inv(aux["camera_view"]),
-                            np.linalg.inv(perspective(np.radians(aux["camera_fov_deg"]), W / H)))
+    params = default_params(np.linalg.inv(aux["camera_view"]),
+                            np.linalg.inv(perspective(np.radians(aux["camera_fov_deg"]), W / H)), device="cpu")
     pxy, pidx = (torch.as_tensor(a) for a in mesh.pixel_grid(W, H))
     want, want_segs, _ = integrator.render_samples(data, meta, flags, params, pxy, pidx, (W, H), 99, 2)
     graphs.clear()

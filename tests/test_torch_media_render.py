@@ -142,7 +142,7 @@ def _render_both(scene, case):
     view_inv = np.linalg.inv(aux["camera_view"])
     proj_inv = np.linalg.inv(perspective(np.radians(aux["camera_fov_deg"]), W / H))
     jp = jparams(view_inv, proj_inv)
-    tp = default_params("cpu", view_inv, proj_inv)
+    tp = default_params(view_inv, proj_inv, device="cpu")
     if atmo:
         jp = jp._replace(planet_position=jnp.asarray(PLANET, jnp.float32), sky_rotation_altitude=jnp.float32(30.0))
         tp = tp._replace(planet_position=vec3(PLANET, "cpu"), sky_rotation_altitude=scalar(30.0, "cpu"))

@@ -124,3 +124,50 @@ def test_entry_points_default_to_the_card(module):
                 if "device" in p.name and _is_cpu(p.default):
                     found.append(f"{qual}({p.name}={p.default!r})")
     assert not found, f"{module}: device parameters that default to the CPU: {found}"
+
+
+_ALONE = """
+import importlib.util, os, sys
+import numpy as np
+assert importlib.util.find_spec("vpt_tpu") is None, "the JAX package is importable"
+from vpt_tpu_torch.accel import bvh
+from vpt_tpu_torch.scene import blosc, vdb, vdb_reader
+here = os.getcwd()
+rng = np.random.default_rng(0)
+v0 = rng.uniform(-5, 5, (2000, 3)).astype(np.float32)
+v1 = v0 + rng.uniform(-0.5, 0.5, (2000, 3)).astype(np.float32)
+v2 = v0 + rng.uniform(-0.5, 0.5, (2000, 3)).astype(np.float32)
+for use_native in (True, False):
+    tree = bvh.build_bvh(v0, v1, v2, use_native=use_native)
+    assert sorted(tree.tri_order.tolist()) == list(range(2000)) and tree.tri_count.sum() == 2000
+vals = vdb.procedural_cloud((40, 32, 48), coverage=0.6, seed=2)
+path = os.path.join(here, "cloud.vdb")
+vdb_reader.write_vdb(path, vals, voxel_size=0.25, compress="blosc")
+got = vdb_reader.read_vdb(path)
+ox, oy, oz = (int(v) for v in got.origin_ijk)
+d, h, w = got.values.shape
+assert np.array_equal(got.values, vals[oz:oz + d, oy:oy + h, ox:ox + w])
+assert np.array_equal(vdb.load_grid(path)[oz:oz + d, oy:oy + h, ox:ox + w], got.values)
+for mod, lib in ((bvh, "libvpt_bvh.so"), (blosc, "libvpt_lz4.so")):
+    assert mod._lib is not None and mod._SRC.startswith(here) and mod._LIB.startswith(here), mod._SRC
+    assert os.path.exists(os.path.join(here, "vpt_tpu_torch", "build", lib)), lib
+assert not any(m.split(".")[0] in ("jax", "vpt_tpu") for m in sys.modules)
+print("alone ok")
+"""
+
+
+def test_the_port_alone_builds_and_reads(tmp_path):
+    """vpt_tpu_torch/ copied without vpt_tpu/ beside it (its build/ left
+    behind): in a process that can import nothing of the repository but the
+    copy, both BVH builders run on a seeded soup, and a .vdb that the port's
+    writer compresses with blosc reads back equal.  So the C BVH builder and
+    the LZ4 codec build from the port's own csrc/, and nothing reads a file
+    of the JAX package."""
+    import shutil
+
+    shutil.copytree(os.path.join(_ROOT, "vpt_tpu_torch"), str(tmp_path / "vpt_tpu_torch"),
+                    ignore=shutil.ignore_patterns("build", "__pycache__", "*.so"))
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    proc = subprocess.run([sys.executable, "-c", _ALONE], cwd=str(tmp_path), env=env, capture_output=True,
+                          text=True, timeout=600)
+    assert proc.returncode == 0 and "alone ok" in proc.stdout, proc.stderr[-3000:]

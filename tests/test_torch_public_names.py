@@ -98,7 +98,7 @@ def _balance_case(seed):
 def _length_case(seed):
     v = np.random.default_rng(seed).normal(size=(N, 3)).astype(np.float32) * 3.0
     return [], [], [(vecmath.length(torch.as_tensor(v)), jvec.length(jnp.asarray(v))),
-                    (vecmath.length(torch.as_tensor(v), keepdim=True), jvec.length(jnp.asarray(v), keepdims=True))]
+                    (vecmath.length(torch.as_tensor(v), keepdims=True), jvec.length(jnp.asarray(v), keepdims=True))]
 
 
 def _lambda_case(seed):

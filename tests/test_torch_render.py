@@ -46,8 +46,8 @@ def _render_both(scene, trace_mode="stream"):
         jnp.uint32(SEED), (W, H), jnp.zeros((H, W, 3), jnp.float32), jnp.int32(0), 1,
     )
     tdata, tmeta = scene_from_numpy(jax.tree.map(np.asarray, data), meta, "cpu")
-    args = (tdata, tmeta, RenderFlags(max_depth=3, max_medium_events=8), default_params("cpu", view_inv, proj_inv),
-            SEED, (W, H), torch.zeros((H, W, 3)), 0, 1)
+    args = (tdata, tmeta, RenderFlags(max_depth=3, max_medium_events=8),
+            default_params(view_inv, proj_inv, device="cpu"), SEED, (W, H), torch.zeros((H, W, 3)), 0, 1)
     got, segs, stats = render_step(*args)
     packet = None
     if not meta.use_brute_force:

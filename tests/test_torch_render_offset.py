@@ -50,7 +50,7 @@ def test_render_samples_with_offset_matches_jax(scene, n_samples, sample_offset)
                            frame_seed=jnp.uint32(SEED), sample_offset=jnp.uint32(sample_offset))
     tdata, tmeta = scene_from_numpy(jax.tree.map(np.asarray, data), meta, "cpu")
     got, segs, _ = integrator.render_samples(
-        tdata, tmeta, RenderFlags(max_depth=3, max_medium_events=2), default_params("cpu", *cameras),
+        tdata, tmeta, RenderFlags(max_depth=3, max_medium_events=2), default_params(*cameras, device="cpu"),
         torch.as_tensor(pxy), torch.as_tensor(pidx.astype(np.int64)), (SIZE, SIZE), SEED, n_samples,
         sample_offset=sample_offset)
     got, want = got.numpy(), np.asarray(want)
@@ -72,7 +72,7 @@ def test_reseeding_keeps_no_per_sample_ray_sets(scene, monkeypatch):
     monkeypatch.setattr(integrator, "generate_primary_rays", lambda *a: calls.append(1) or real(*a))
     pxy, pidx = pixel_grid(4, 4)
     flags = RenderFlags(max_depth=3, max_medium_events=2)
-    _, _, stats = integrator.render_samples(tdata, tmeta, flags, default_params("cpu", *cameras),
+    _, _, stats = integrator.render_samples(tdata, tmeta, flags, default_params(*cameras, device="cpu"),
                                             torch.as_tensor(pxy), torch.as_tensor(pidx.astype(np.int64)), (4, 4),
                                             SEED, 12)
     assert stats.syncs < 12 * 5  # the loop ended before its cap, on its last alive check

@@ -38,7 +38,7 @@ def test_compile_scene_matches_jax_leaf_by_leaf(name):
     use_native_jax_bvh()  # both sides' BVHs come from the same C++ builder
     jdata, jmeta, jaux = jbuild.compile_scene(getattr(jproc, name)(**SCENES[name]))
     want, want_meta = scene_from_numpy(jax.tree.map(np.asarray, jdata), jmeta, "cpu")
-    got, meta, aux = tbuild.compile_scene(getattr(tproc, name)(**SCENES[name]), "cpu")
+    got, meta, aux = tbuild.compile_scene(getattr(tproc, name)(**SCENES[name]), device="cpu")
     assert meta == want_meta
     np.testing.assert_array_equal(aux["camera_view"], jaux["camera_view"])
     assert (aux["camera_fov_deg"], aux["camera_aspect"]) == (jaux["camera_fov_deg"], jaux["camera_aspect"])

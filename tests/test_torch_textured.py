@@ -78,8 +78,8 @@ def test_textured_render_matches_jax():
     want, want_segs = _render_step(data, meta, JFlags(**flags), jparams(view_inv, proj_inv), jnp.uint32(SEED),
                                    (W, H), jnp.zeros((H, W, 3), jnp.float32), jnp.int32(0), 1)
     tdata, tmeta = scene_from_numpy(jax.tree.map(np.asarray, data), meta, "cpu")
-    got, segs, _ = render_step(tdata, tmeta, RenderFlags(**flags), default_params("cpu", view_inv, proj_inv), SEED,
-                               (W, H), torch.zeros((H, W, 3)), 0, 1)
+    got, segs, _ = render_step(tdata, tmeta, RenderFlags(**flags), default_params(view_inv, proj_inv, device="cpu"),
+                               SEED, (W, H), torch.zeros((H, W, 3)), 0, 1)
     got, want = got.numpy(), np.asarray(want)
     assert got.shape == (H, W, 3) and np.isfinite(got).all() and got.mean() > 0
     p = psnr(np.clip(got, 0, 10), np.clip(want, 0, 10), data_range=10.0)

@@ -349,13 +349,14 @@ def sort_keys(origin, inv, tmax, cl: ClusterData, gmin_pad, gmax_pad, t_min):
     raise ValueError(f"VPT_SORT_KEY must be fs or fe, got {_SORT_KEY!r}")
 
 
-def prepare_packets(origin, direction, cl: ClusterData, t_min, t_max, active, sort_rays: bool) -> Packets:
+def prepare_packets(origin, direction, cl: ClusterData, t_min, t_max, active, sort_rays: bool,
+                    packet: Optional[int] = None) -> Packets:
     """Pad, bound, sort and cull a wavefront (cluster.py:441-553) into
-    PACKET_SIZE-ray packets; unsorted (`sort_rays` False) the packets keep
-    the wavefront's order."""
+    `packet`-ray packets (PACKET_SIZE, read now, when None); unsorted
+    (`sort_rays` False) the packets keep the wavefront's order."""
     dev = origin.device
     n_orig = origin.shape[0]
-    size = PACKET_SIZE
+    size = PACKET_SIZE if packet is None else int(packet)
     tmax = ray_tmax(t_max, n_orig, dev)
     if active is None:
         active = torch.ones(n_orig, dtype=torch.bool, device=dev)
@@ -407,11 +408,14 @@ def unpack(pk: Packets, values):
 
 
 def intersect_clusters(origin, direction, cl: ClusterData, t_min=T_MIN, t_max=T_MAX, active=None,
-                       any_hit: bool = False, sort_rays: bool = False) -> Hit:
-    """Closest-hit (or, with `any_hit`, any-hit) packet trace of a wavefront;
-    `t_max` may be per-ray.  With `sort_rays` the rays are regrouped by their
+                       any_hit: bool = False, packet: Optional[int] = None, sort_rays: bool = False) -> Hit:
+    """Closest-hit (or, with `any_hit`, any-hit) packet trace of a wavefront
+    in `packet`-ray packets; `t_max` may be per-ray.  `packet` None is
+    PACKET_SIZE as it stands when the trace runs (the JAX package binds
+    its default at import; the port's tests and tools set the module
+    constant).  With `sort_rays` the rays are regrouped by their
     `_SORT_KEY` first, so packet mates share candidates."""
-    pk = prepare_packets(origin, direction, cl, t_min, t_max, active, sort_rays)
+    pk = prepare_packets(origin, direction, cl, t_min, t_max, active, sort_rays, packet)
     t, tri, u, v = visit.visit_trace(pk.nvis, pk.order, pk.entry_sorted, pk.origin, pk.direction, pk.active,
                                      pk.tmax, cl, t_min, any_hit=any_hit)
     t = torch.where(tri >= 0, t, -1.0)

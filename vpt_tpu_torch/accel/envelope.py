@@ -81,12 +81,12 @@ def fe_key(first, v, gp: int, diag):
     return torch.where(entered, first, gp) * DEPTH_STEPS + torch.where(entered, q, 0.0).to(torch.int32)
 
 
-def ray_keys_plain(origin, inv, tmax, gmin_pad, gmax_pad, t_min: float, levels: int, diag=None):
+def ray_keys_plain(origin, direction_inv, tmax, gmin_pad, gmax_pad, t_min: float, levels: int = 2, diag=None):
     gp = gmin_pad.shape[1]
     out = []
     for s in range(0, origin.shape[0], _CHUNK_RAYS):
         rows = slice(s, s + _CHUNK_RAYS)
-        ent = slab_entry(origin[rows], inv[rows], tmax[rows], gmin_pad, gmax_pad, t_min)
+        ent = slab_entry(origin[rows], direction_inv[rows], tmax[rows], gmin_pad, gmax_pad, t_min)
         v0, g0 = torch.min(ent, dim=1)  # first minimum: ties go to the lower id
         l0 = torch.where(torch.isfinite(v0), g0, gp)
         if diag is not None:
@@ -101,19 +101,19 @@ def ray_keys_plain(origin, inv, tmax, gmin_pad, gmax_pad, t_min: float, levels: 
     return torch.cat(out).to(torch.int32)
 
 
-def ray_keys(origin, inv, tmax, gmin_pad, gmax_pad, t_min: float, levels: int, diag=None):
+def ray_keys(origin, direction_inv, tmax, gmin_pad, gmax_pad, t_min: float, levels: int = 2, diag=None):
     """(N,) int32 key: levels=2 -> g0 * (Gp + 1) + g1, levels=1 -> g0, with
     the sentinel Gp for an absent entry; levels=1 with `diag` (a (1,)
     float32 tensor, the root box's diagonal) -> the "fe" key (`fe_key`).
-    origin/inv (N, 3), tmax (N,), gmin_pad/gmax_pad (3, Gp), Gp a multiple
-    of CHUNK."""
+    origin/direction_inv (N, 3), tmax (N,), gmin_pad/gmax_pad (3, Gp), Gp a
+    multiple of CHUNK."""
     if levels not in (1, 2):
         raise ValueError(f"ray_keys takes levels 1 or 2, got {levels}")
     if diag is not None and (levels != 1 or diag.shape != (1,) or diag.dtype != torch.float32):
         raise ValueError("ray_keys' fe key takes levels 1 and diag a (1,) float32 tensor")
     _check_groups(gmin_pad)
     if not origin.is_cuda:
-        return ray_keys_plain(origin, inv, tmax, gmin_pad, gmax_pad, t_min, levels, diag)
+        return ray_keys_plain(origin, direction_inv, tmax, gmin_pad, gmax_pad, t_min, levels, diag)
     n, gp = origin.shape[0], gmin_pad.shape[1]
     if diag is not None and gp * DEPTH_STEPS >= 2**31:
         raise ValueError(f"the fe key of {gp} padded groups overflows int32")
@@ -121,9 +121,10 @@ def ray_keys(origin, inv, tmax, gmin_pad, gmax_pad, t_min: float, levels: int, d
     f32 = torch.float32
     kernels.launch(
         "vpt_ray_keys", "ray_keys",
-        kernels.ptr(origin, f32), kernels.ptr(inv, f32), kernels.ptr(tmax, f32), kernels.ptr(gmin_pad, f32),
-        kernels.ptr(gmax_pad, f32), n, gp, float(t_min), int(levels) if diag is None else 3,
-        None if diag is None else kernels.ptr(diag, f32), kernels.ptr(key, torch.int32),
+        kernels.ptr(origin, f32), kernels.ptr(direction_inv, f32), kernels.ptr(tmax, f32),
+        kernels.ptr(gmin_pad, f32), kernels.ptr(gmax_pad, f32), n, gp, float(t_min),
+        int(levels) if diag is None else 3, None if diag is None else kernels.ptr(diag, f32),
+        kernels.ptr(key, torch.int32),
     )
     return key
 
@@ -135,19 +136,20 @@ def _check_tile(n: int, tile: int) -> None:
         raise ValueError(f"supertile_tables needs a multiple of {tile} rays, got {n}")
 
 
-def supertile_tables_plain(origin, inv, tmax_eff, gmin_pad, gmax_pad, t_min: float, tile: int = SUPERTILE):
+def supertile_tables_plain(origin, direction_inv, tmax_eff, gmin_pad, gmax_pad, t_min: float,
+                           tile: int = SUPERTILE):
     _check_tile(origin.shape[0], tile)
     gp = gmin_pad.shape[1]
     step = max(1, _CHUNK_RAYS // tile) * tile  # whole tiles per slab block
     out = []
     for s in range(0, origin.shape[0], step):
         rows = slice(s, s + step)
-        ent = slab_entry(origin[rows], inv[rows], tmax_eff[rows], gmin_pad, gmax_pad, t_min)
+        ent = slab_entry(origin[rows], direction_inv[rows], tmax_eff[rows], gmin_pad, gmax_pad, t_min)
         out.append(ent.reshape(-1, tile, gp).amin(dim=1))
     return torch.cat(out)
 
 
-def supertile_tables(origin, inv, tmax_eff, gmin_pad, gmax_pad, t_min: float, tile: int = SUPERTILE):
+def supertile_tables(origin, direction_inv, tmax_eff, gmin_pad, gmax_pad, t_min: float, tile: int = SUPERTILE):
     """(N // tile, Gp) minimum entry per (tile, group), +inf where no ray
     of the tile enters; tile is 1024 (supertiles) or a packet's rays (any
     VPT_PACKET_SIZE; the kernel is compiled for tiles of 128, 256, 512 and
@@ -159,14 +161,15 @@ def supertile_tables(origin, inv, tmax_eff, gmin_pad, gmax_pad, t_min: float, ti
     _check_tile(origin.shape[0], tile)
     _check_groups(gmin_pad)
     if not origin.is_cuda:
-        return supertile_tables_plain(origin, inv, tmax_eff, gmin_pad, gmax_pad, t_min, tile)
+        return supertile_tables_plain(origin, direction_inv, tmax_eff, gmin_pad, gmax_pad, t_min, tile)
     n, gp = origin.shape[0], gmin_pad.shape[1]
     out = torch.empty((n // tile, gp), dtype=torch.float32, device=origin.device)
     f32 = torch.float32
     kernels.launch(
         "vpt_supertile_tables", "supertile_tables",
-        kernels.ptr(origin, f32), kernels.ptr(inv, f32), kernels.ptr(tmax_eff, f32), kernels.ptr(gmin_pad, f32),
-        kernels.ptr(gmax_pad, f32), n, gp, float(t_min), int(tile), kernels.ptr(out, f32),
+        kernels.ptr(origin, f32), kernels.ptr(direction_inv, f32), kernels.ptr(tmax_eff, f32),
+        kernels.ptr(gmin_pad, f32), kernels.ptr(gmax_pad, f32), n, gp, float(t_min), int(tile),
+        kernels.ptr(out, f32),
     )
     return out
 

@@ -17,6 +17,10 @@ round exactly like their plain torch versions.
 `LAUNCHES` counts the launches of each kernel: a wrapper adds one where it
 launches its kernel and nowhere else; a kernel inside a CUDA graph counts
 once per run of its node (render/graphs.py).  Nothing here runs at import time.
+
+The host C sources of csrc/ (the BVH builder, the LZ4 codec and the image
+codec) are built into the same directory with g++ / gcc by `host_library`,
+each at its first use.
 """
 
 from __future__ import annotations
@@ -89,6 +93,20 @@ SOURCES = {  # source -> {entry point: argument types}
 
 _entry = None
 build_seconds = None
+
+
+def host_library(src: str, out: str, cmd: tuple, what: str) -> str:
+    """`out`, the host C source `src` built by `cmd` (g++ or gcc and its
+    flags) when `out` is missing or older than the source.  A failed build
+    raises, naming `what`: there is no fallback."""
+    if not os.path.exists(out) or os.path.getmtime(out) < os.path.getmtime(src):
+        os.makedirs(os.path.dirname(out), exist_ok=True)
+        tmp = f"{out}.{os.getpid()}.tmp"
+        proc = subprocess.run([*cmd, src, "-o", tmp], capture_output=True, text=True, timeout=300)
+        if proc.returncode != 0:
+            raise RuntimeError(f"{cmd[0]} failed to build {what} from {src}:\n{proc.stderr}")
+        os.replace(tmp, out)
+    return out
 
 
 def reset_launches() -> None:

@@ -100,7 +100,7 @@ class Renderer:
             else:
                 raise ValueError('lookup_tables must be "auto", "reference", None or three tables, '
                                  f"not {lookup_tables!r}")
-        self.scene_data, self.meta, aux = compile_scene(scene, self.device, lookup_tables)
+        self.scene_data, self.meta, aux = compile_scene(scene, lookup_tables, device=self.device)
         self.volumes = []  # host Volume list; add_volume and friends rebuild the table
         self.flags = flags
         self.post = PostSettings()
@@ -112,7 +112,7 @@ class Renderer:
         if view is None:
             view = look_at((0.0, 0.0, 5.0), (0.0, 0.0, 0.0), (0.0, 1.0, 0.0))
         proj = perspective(np.radians(aux["camera_fov_deg"]), width / height)
-        self.params = default_params(self.device, np.linalg.inv(view), np.linalg.inv(proj))
+        self.params = default_params(np.linalg.inv(view), np.linalg.inv(proj), device=self.device)
         self.camera = FlyCamera.from_matrices(view, proj)
         self.samples_per_frame = samples_per_frame
         self.max_samples = max_samples

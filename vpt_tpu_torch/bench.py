@@ -106,9 +106,9 @@ def main(device="cuda") -> dict:
         raise RuntimeError(f"the benchmark measures a CUDA device, not {dev}")
     described = card_description(dev.index or 0)
 
-    data, meta, aux = compile_scene(colonnade(), dev)  # the constant fits, as the JAX bench compiles it
+    data, meta, aux = compile_scene(colonnade(), device=dev)  # the constant fits, as the JAX bench compiles it
     proj = perspective(np.radians(aux["camera_fov_deg"]), WIDTH / HEIGHT)
-    params = default_params(dev, np.linalg.inv(aux["camera_view"]), np.linalg.inv(proj))
+    params = default_params(np.linalg.inv(aux["camera_view"]), np.linalg.inv(proj), device=dev)
     flags = RenderFlags(max_depth=8, max_medium_events=8)
 
     def dispatch(seed, accum, frame):

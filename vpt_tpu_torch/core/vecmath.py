@@ -14,31 +14,31 @@ import torch
 EPS = 1e-30
 
 
-def dot(a, b, keepdim: bool = False):
-    return (a * b).sum(dim=-1, keepdim=keepdim)
+def dot(a, b, keepdims: bool = False):
+    return (a * b).sum(dim=-1, keepdim=keepdims)
 
 
 def cross(a, b):
     return torch.linalg.cross(a, b, dim=-1)
 
 
-def length(v, keepdim: bool = False):
-    return torch.sqrt(torch.clamp(dot(v, v, keepdim=keepdim), min=0.0))
+def length(v, keepdims: bool = False):
+    return torch.sqrt(torch.clamp(dot(v, v, keepdims=keepdims), min=0.0))
 
 
 def normalize(v):
-    return v * torch.rsqrt(torch.clamp(dot(v, v, keepdim=True), min=EPS))
+    return v * torch.rsqrt(torch.clamp(dot(v, v, keepdims=True), min=EPS))
 
 
 def reflect(i, n):
     """GLSL reflect: i - 2 dot(n, i) n."""
-    return i - 2.0 * dot(n, i, keepdim=True) * n
+    return i - 2.0 * dot(n, i, keepdims=True) * n
 
 
 def refract(i, n, eta):
     """GLSL refract; eta is (...,); returns 0 on total internal reflection."""
     eta = eta[..., None]
-    cosi = -dot(i, n, keepdim=True)
+    cosi = -dot(i, n, keepdims=True)
     k = 1.0 - eta * eta * (1.0 - cosi * cosi)
     t = eta * i + (eta * cosi - torch.sqrt(torch.clamp(k, min=0.0))) * n
     return torch.where(k < 0.0, torch.zeros_like(t), t)
@@ -50,13 +50,41 @@ def unit_axis(i: int, like):
     return (torch.arange(3, device=like.device) == i).to(like.dtype)
 
 
-def rotate_axis_angle(v, axis: int, theta: torch.Tensor):
-    """Rodrigues rotation about unit axis `axis` (0, 1, 2) by a 0-d float32
-    angle, its cosine and sine taken in float32 on the device as the JAX
-    package takes them."""
-    axis = unit_axis(axis, v).expand(v.shape)
+def _axis_vector(axis, like):
+    """`axis` as a (3,) or broadcastable tensor on `like`'s device: an index
+    0-2 is the exact unit axis; a tuple is built from fills and adds of its
+    float32 values, as a host-to-device copy would synchronise (and break a
+    capture); a tensor is taken as it is.  Whether it needs normalising is
+    the second value: a unit axis does not (JAX's normalize multiplies it by
+    rsqrt(1) = 1), so its rotation stays bitwise the index's."""
+    if torch.is_tensor(axis):
+        return axis.to(device=like.device, dtype=like.dtype), True
+    if isinstance(axis, (int, np.integer)):
+        return unit_axis(int(axis), like), False
+    vals = [float(np.float32(a)) for a in axis]
+    if len(vals) != 3:
+        raise ValueError(f"rotate_axis_angle takes an axis of 3 components, got {axis!r}")
+    if sorted(vals) == [0.0, 0.0, 1.0]:
+        return unit_axis(vals.index(1.0), like), False
+    return sum(unit_axis(i, like) * a for i, a in enumerate(vals)), True
+
+
+def rotate_axis_angle(v, axis, theta):
+    """Rodrigues rotation about `axis` by `theta` (RTCommon.slang:37-45), as
+    vpt_tpu/core/vecmath.py:57-66: `axis` an index 0-2, a 3-tuple or a tensor
+    broadcastable to v, normalised; `theta` a number, a 0-d tensor or one
+    angle per lane (`theta.ndim == v.ndim - 1`), its cosine and sine taken
+    in float32 on v's device."""
+    axis, unnormalised = _axis_vector(axis, v)
+    axis = axis.expand(v.shape)
+    if unnormalised:
+        axis = normalize(axis)
+    if not torch.is_tensor(theta):
+        theta = torch.full((), float(np.float32(theta)), dtype=v.dtype, device=v.device)
     c, s = torch.cos(theta), torch.sin(theta)
-    return v * c + cross(axis, v) * s + axis * dot(axis, v, keepdim=True) * (1.0 - c)
+    if c.ndim == v.ndim - 1:
+        c, s = c[..., None], s[..., None]
+    return v * c + cross(axis, v) * s + axis * dot(axis, v, keepdims=True) * (1.0 - c)
 
 
 def onb_from_z(w):

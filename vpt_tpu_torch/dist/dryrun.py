@@ -108,7 +108,7 @@ def render_jobs(host_data, meta, flags, cameras, jobs, device):
     if dev.type == "cuda":
         dev = torch.device("cuda", torch.cuda.current_device())
     data = tree_to_device(host_data, dev)
-    params = default_params(dev, *cameras)
+    params = default_params(*cameras, device=dev)
     meshes, out = {}, []
     for kind, shape, resolution, seed, n_samples, *rest in jobs:
         if shape not in meshes:
@@ -126,7 +126,7 @@ def scene_setup(scene: str = "cornell", max_depth: int = 3):
     """JAX's dry-run setup on the host: the compiled scene as numpy leaves,
     its meta, the flags and the (view_inverse, proj_inverse) of a square
     frame."""
-    data, meta, aux = compile_scene(SCENES[scene](), "cpu")
+    data, meta, aux = compile_scene(SCENES[scene](), device="cpu")
     cameras = (np.linalg.inv(aux["camera_view"]), np.linalg.inv(perspective(np.radians(aux["camera_fov_deg"]), 1.0)))
     return host_tree(data), meta, RenderFlags(max_depth=max_depth, max_medium_events=2), cameras
 
@@ -138,7 +138,7 @@ def _cornell_setup(size, max_depth, device):
     pixel_xy = torch.as_tensor(np.stack([xs.reshape(-1), ys.reshape(-1)], axis=-1).astype(np.float32), device=dev)
     # The transposed stream ids of the JAX package's entry, kept as they are.
     pixel_index = torch.as_tensor((ys.reshape(-1) + size * xs.reshape(-1)).astype(np.int64), device=dev)
-    return (tree_to_device(data, dev), meta, flags, default_params(dev, *cameras), pixel_xy, pixel_index,
+    return (tree_to_device(data, dev), meta, flags, default_params(*cameras, device=dev), pixel_xy, pixel_index,
             (size, size))
 
 

@@ -9,15 +9,15 @@ from __future__ import annotations
 
 import ctypes
 import os
-import subprocess
 import threading
 
 import numpy as np
 
-from vpt_tpu_torch.accel.kernels import BUILD_DIR, CSRC_DIR
+from vpt_tpu_torch.accel.kernels import BUILD_DIR, CSRC_DIR, host_library
 
 _SRC = os.path.join(CSRC_DIR, "imgcodec.c")
 _LIB = os.path.join(BUILD_DIR, "libvpt_imgcodec.so")
+_CMD = ("gcc", "-O3", "-shared", "-fPIC")
 _lib = None
 _lock = threading.Lock()
 
@@ -38,15 +38,7 @@ def library():
     global _lib
     with _lock:
         if _lib is None:
-            if not os.path.exists(_LIB) or os.path.getmtime(_LIB) < os.path.getmtime(_SRC):
-                os.makedirs(BUILD_DIR, exist_ok=True)
-                tmp = f"{_LIB}.{os.getpid()}.tmp"
-                proc = subprocess.run(["gcc", "-O3", "-shared", "-fPIC", _SRC, "-o", tmp],
-                                      capture_output=True, text=True, timeout=120)
-                if proc.returncode != 0:
-                    raise RuntimeError(f"gcc failed to build the image codec from {_SRC}:\n{proc.stderr}")
-                os.replace(tmp, _LIB)
-            lib = ctypes.CDLL(_LIB)
+            lib = ctypes.CDLL(host_library(_SRC, _LIB, _CMD, "the image codec"))
             p = ctypes.c_void_p
             lib.vpt_png_unfilter.restype = ctypes.c_int
             lib.vpt_png_unfilter.argtypes = [p, p, ctypes.c_int64, ctypes.c_int64, ctypes.c_int64]

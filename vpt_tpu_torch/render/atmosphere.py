@@ -15,6 +15,7 @@ root, as the JAX package computes it.
 from __future__ import annotations
 
 import functools
+from typing import Optional
 
 import numpy as np
 import torch
@@ -95,7 +96,7 @@ def _densities(params, h, cr, cm, co):
     return rayleigh_density(params, h) * cr, mie_density(params, h) * cm, ozone_density(params, h) * co
 
 
-def transmittance(state, params, origin, direction, channel, active, stats: LoopStats):
+def transmittance(state, params, origin, direction, channel, active, stats: Optional[LoopStats] = None):
     """CalculateTransmittanceThroughAtmosphere for one channel per ray
     (Atmosphere.slang:33-106): (state, (N,) transmittance)."""
     _, p_far = intersect_sphere(origin, direction, params.planet_position, params.planet_radius)
@@ -128,7 +129,7 @@ def transmittance(state, params, origin, direction, channel, active, stats: Loop
     return out["state"], torch.where(occluded, 0.0, torch.where(outside | no_atmo, 1.0, out["tr"]))
 
 
-def sample_scatter_distance(state, params, origin, direction, channel, active, stats: LoopStats):
+def sample_scatter_distance(state, params, origin, direction, channel, active, stats: Optional[LoopStats] = None):
     """SampleAtmosphereScatterDistance (Atmosphere.slang:116-202): (state,
     t (N,) with -1 for none, component (N,))."""
     a_near, a_far = intersect_sphere(origin, direction, params.planet_position, _top_radius(params))

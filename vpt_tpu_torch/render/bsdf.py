@@ -16,6 +16,10 @@ from vpt_tpu_torch.render import sampling
 from vpt_tpu_torch.render.lookup_fit import eval_fit, layer_coord
 from vpt_tpu_torch.render.surface import sample_texture
 
+# Lobe ids (BSDFComponent, Material.slang:20-27): sample_bsdf's `component`.
+METALLIC, DIFFUSE, SPECULAR_DIELECTRIC, GLASS_REFLECT, GLASS_REFRACT = range(5)
+
+
 class MaterialProps(NamedTuple):
     base_color: torch.Tensor  # (N, 3)
     emissive_color: torch.Tensor  # (N, 3)
@@ -34,7 +38,7 @@ class MaterialProps(NamedTuple):
     ay: torch.Tensor
 
 
-def make_material(scene, mat_row, uv, hit_from_inside, furnace_test_mode: bool, has_textures: bool):
+def make_material(scene, mat_row, uv, hit_from_inside, furnace_test_mode: bool, has_textures: bool = True):
     """Per-ray material from the packed (N, MAT_ATTR_COLS) rows, textures applied."""
     base = mat_row[:, 0:3]
     emissive = mat_row[:, 3:6]
@@ -175,9 +179,11 @@ def evaluate_refraction(v, l, f_color, eta, ax, ay):
     return torch.where(bad[..., None], 0.0, bsdf_s[..., None] * f_color), torch.where(bad, 0.0, pdf)
 
 
-def evaluate_bsdf(props: MaterialProps, v, l, use_energy_compensation: bool, comp):
+def evaluate_bsdf(props: MaterialProps, scene, v, l, use_energy_compensation: bool, comp=None):
     """One-sample-MIS evaluation over all lobes: (bxdf (N, 3), pdf (N,)).
-    `comp` is the (refl_e, glass_comp) pair from energy_comp_terms."""
+    `comp` is the (refl_e, glass_comp) pair from energy_comp_terms, which
+    depends only on (v, material), so a bounce's evaluations share one; with
+    None it is computed here from `scene`'s fits."""
     p_metal, p_diel, p_glass = lobe_probabilities(props)
     refracted = l[..., 2] < 0.0
     h_refl = normalize(v + l)
@@ -188,6 +194,8 @@ def evaluate_bsdf(props: MaterialProps, v, l, use_energy_compensation: bool, com
     ldoth = dot(l, h)
     valid_refraction = ((vdoth > 0.0) & (ldoth < 0.0)) | ((vdoth < 0.0) & (ldoth > 0.0))
     f_diel = dielectric_fresnel(torch.abs(vdoth), props.eta)
+    if comp is None:
+        comp = energy_comp_terms(props, scene, v[..., 2], use_energy_compensation)
     refl_e, glass_comp = comp
     not_refr = (~refracted)[..., None]
 
@@ -237,9 +245,10 @@ def evaluate_bsdf(props: MaterialProps, v, l, use_energy_compensation: bool, com
     return bxdf, pdf
 
 
-def sample_bsdf(state, props: MaterialProps, v, h, use_energy_compensation: bool, comp):
+def sample_bsdf(state, props: MaterialProps, scene, v, h, use_energy_compensation: bool, comp=None):
     """Lobe selection, direction sampling and full evaluation from the
-    pre-sampled VNDF half-vector `h`: (state, l, bxdf, pdf)."""
+    pre-sampled VNDF half-vector `h`: (state, l, bxdf, pdf, component), the
+    last the picked lobe's id (int32)."""
     p_metal, p_diel, _ = lobe_probabilities(props)
     f_diel = dielectric_fresnel(dot(v, h), props.eta)
     state, x1 = rng.next_float(state)
@@ -253,11 +262,15 @@ def sample_bsdf(state, props: MaterialProps, v, h, use_energy_compensation: bool
     pick_diel = (~pick_metal) & (x1 < p_metal + p_diel)
     pick_glass = (~pick_metal) & (~pick_diel)
     reflect_branch = x2 < f_diel
+    component = torch.where(
+        pick_metal, METALLIC,
+        torch.where(pick_diel, torch.where(reflect_branch, SPECULAR_DIELECTRIC, DIFFUSE),
+                    torch.where(reflect_branch, GLASS_REFLECT, GLASS_REFRACT))).to(torch.int32)
     use_reflect = pick_metal | (pick_diel & reflect_branch) | (pick_glass & reflect_branch)
     use_diffuse = pick_diel & ~reflect_branch
     l = torch.where(use_reflect[..., None], l_reflect, torch.where(use_diffuse[..., None], l_diffuse, l_refract))
     refracted = pick_glass & ~reflect_branch
     invalid = (~refracted & (l[..., 2] < 0.0)) | (refracted & (l[..., 2] >= 0.0))
 
-    bxdf, pdf = evaluate_bsdf(props, v, l, use_energy_compensation, comp)
-    return state, l, torch.where(invalid[..., None], 0.0, bxdf), torch.where(invalid, 0.0, pdf)
+    bxdf, pdf = evaluate_bsdf(props, scene, v, l, use_energy_compensation, comp)
+    return state, l, torch.where(invalid[..., None], 0.0, bxdf), torch.where(invalid, 0.0, pdf), component

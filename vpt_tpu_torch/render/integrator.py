@@ -63,10 +63,14 @@ TRACE_MODE = os.environ.get("VPT_TRACE", "stream")  # stream | packet
 _SORT_RAYS = os.environ.get("VPT_SORT_RAYS", "1") == "1"  # the packet trace's regroup by sort key
 
 
-def trace(scene, meta, origin, direction, active, t_min=traverse.T_MIN, t_max=traverse.T_MAX):
-    """Closest hit: brute force for small scenes, else the cluster stream
-    trace, or the key-sorted packet trace in "packet" mode.  Inactive rays
-    report a miss."""
+def trace(scene, meta, origin, direction, active, t_min=traverse.T_MIN, t_max=traverse.T_MAX, any_hit: bool = False,
+          sort_rays: bool = True, anyhit_mask=None):
+    """Brute force for small scenes, else the cluster stream trace, or the
+    packet trace in "packet" mode (vpt_tpu/render/integrator.py:45-91).
+    The hit is the closest unless `any_hit` (every ray) or `anyhit_mask`
+    (per ray) lets a ray stop at its first hit; brute force ignores both,
+    as a closest hit is also an any hit.  `sort_rays` regroups the packet
+    trace's rays by their sort key.  Inactive rays report a miss."""
     if meta.use_brute_force:
         n_real = meta.n_tris
         hit = traverse.intersect_brute(
@@ -78,8 +82,10 @@ def trace(scene, meta, origin, direction, active, t_min=traverse.T_MIN, t_max=tr
         )
     if TRACE_MODE == "packet":
         return intersect_clusters(origin, direction, scene.clusters, t_min, t_max, active=active,
-                                  sort_rays=_SORT_RAYS)
-    return intersect_stream(origin, direction, scene.clusters, t_min, t_max, active=active)
+                                  any_hit=any_hit and anyhit_mask is None, sort_rays=sort_rays)
+    if anyhit_mask is None and any_hit:
+        anyhit_mask = torch.ones(origin.shape[0], dtype=torch.bool, device=origin.device)
+    return intersect_stream(origin, direction, scene.clusters, t_min, t_max, active=active, anyhit=anyhit_mask)
 
 
 def occlude(scene, meta, origin, direction, active, t_min=traverse.T_MIN, t_max=traverse.T_MAX,
@@ -91,7 +97,7 @@ def occlude(scene, meta, origin, direction, active, t_min=traverse.T_MIN, t_max=
     if not meta.use_brute_force and TRACE_MODE != "packet":
         return occlude_stream(origin, direction, scene.clusters, t_min, t_max, active=active,
                               exclude_tri=exclude_tri)
-    hit = trace(scene, meta, origin, direction, active, t_min=t_min, t_max=t_max)
+    hit = trace(scene, meta, origin, direction, active, t_min=t_min, t_max=t_max, sort_rays=_SORT_RAYS)
     return (hit.t >= 0.0) & (hit.tri != exclude_tri)
 
 
@@ -195,7 +201,7 @@ def body(scene, meta, flags: RenderFlags, resolution, n_samples: int, carry: dic
     if use_atmo:
         # Below the planet surface: the path ends (RayGen.slang:76-84).
         alive = alive & ~(atmo.atmosphere_height(params, origin) < 0.0)
-    hit = trace(scene, meta, origin, direction, alive, t_min=t_min_s)
+    hit = trace(scene, meta, origin, direction, alive, t_min=t_min_s, sort_rays=_SORT_RAYS)
     hit_found = hit.t >= 0.0
 
     # Volume and atmosphere scattering (ScatteredInVolume, RayGen.slang:162-263).
@@ -262,8 +268,8 @@ def body(scene, meta, flags: RenderFlags, resolution, n_samples: int, carry: dic
 
     # Surface and material (Surface.slang / Material.slang).
     safe_tri = torch.clamp(hit.tri.to(torch.int64), 0, scene.tri_p0.shape[0] - 1)
-    surf = surface_mod.make_surface(scene, safe_tri, hit.u, hit.v, direction,
-                                    flags.use_only_geometry_normals, meta.has_textures)
+    surf = surface_mod.make_surface(scene, hit._replace(tri=safe_tri), direction, flags.use_only_geometry_normals,
+                                    meta.has_textures)
     props = bsdf_mod.make_material(scene, surf.mat_row, surf.uv, surf.hit_from_inside,
                                    flags.furnace_test_mode, meta.has_textures)
     surf = surface_mod.rotate_tangents(surf, props.anisotropy_rotation)
@@ -276,10 +282,10 @@ def body(scene, meta, flags: RenderFlags, resolution, n_samples: int, carry: dic
         if use_atmo:
             state, to_sky, sky_rgb, sky_pdf = lights.sample_sun_disk(
                 state, params.sun_color, params.environment_intensity, params.sky_rotation_azimuth,
-                params.sky_rotation_altitude, n)
+                params.sky_rotation_altitude, (n,))
         else:
             state, to_sky, sky_rgba = lights.importance_sample_env(
-                state, scene.env, params.sky_rotation_azimuth, params.sky_rotation_altitude)
+                state, scene.env, params.sky_rotation_azimuth, params.sky_rotation_altitude, (n,))
             sky_rgb = sky_rgba[:, :3] * params.environment_intensity
             sky_pdf = sky_rgba[:, 3]
         # ClosestHit.slang:133 applies the intensity a second time.
@@ -326,8 +332,8 @@ def body(scene, meta, flags: RenderFlags, resolution, n_samples: int, carry: dic
 
     # BSDF sampling (ClosestHit.slang:191-238).
     state, h_tan = sampling.sample_ggx_vndf(state, v_tan, props.ax, props.ay)
-    state, l_tan, bxdf_s, pdf_s = bsdf_mod.sample_bsdf(state, props, v_tan, h_tan,
-                                                       flags.use_energy_compensation, ec_comp)
+    state, l_tan, bxdf_s, pdf_s, _ = bsdf_mod.sample_bsdf(state, props, scene, v_tan, h_tan,
+                                                          flags.use_energy_compensation, ec_comp)
     was_refracted = l_tan[:, 2] < 0.0
     scatter_world = surface_mod.tangent_to_world(surf, l_tan)
     leak = ~was_refracted & (dot(scatter_world, surf.geom_normal) < 0.0)
@@ -363,8 +369,8 @@ def body(scene, meta, flags: RenderFlags, resolution, n_samples: int, carry: dic
 
     # NEE evaluation (ClosestHit.slang:240-256, 326-372).
     if sky_half:
-        sky_bxdf, sky_eval_pdf = bsdf_mod.evaluate_bsdf(
-            props, v_tan, surface_mod.world_to_tangent(surf, to_sky), flags.use_energy_compensation, ec_comp)
+        sky_bxdf, sky_eval_pdf = bsdf_mod.evaluate_bsdf(props, scene, v_tan, surface_mod.world_to_tangent(surf, to_sky),
+                                                        flags.use_energy_compensation, ec_comp)
         if any_media:
             state, sky_trans = nee_transmittance(state, sky_org, to_sky, torch.zeros_like(depth), can_hit_sky,
                                                  True)
@@ -374,8 +380,8 @@ def body(scene, meta, flags: RenderFlags, resolution, n_samples: int, carry: dic
                        * power_heuristic(sky_pdf, sky_eval_pdf)[:, None])
         emitted = emitted + _sel(sky_ok, sky_contrib, 0.0)
     if use_mesh_nee:
-        l_bxdf, l_eval_pdf = bsdf_mod.evaluate_bsdf(
-            props, v_tan, surface_mod.world_to_tangent(surf, to_light), flags.use_energy_compensation, ec_comp)
+        l_bxdf, l_eval_pdf = bsdf_mod.evaluate_bsdf(props, scene, v_tan, surface_mod.world_to_tangent(surf, to_light),
+                                                    flags.use_energy_compensation, ec_comp)
         if any_media:
             state, l_trans = nee_transmittance(state, light_org, to_light, torch.zeros_like(depth), can_hit_light,
                                                False)

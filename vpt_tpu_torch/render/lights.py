@@ -13,7 +13,8 @@ from vpt_tpu_torch.core import rng
 from vpt_tpu_torch.core.vecmath import cross, direction_to_uv, dot, normalize, rotate_axis_angle, sqrt32, unit_axis
 from vpt_tpu_torch.render.surface import sample_texture
 
-X_AXIS, Y_AXIS = 0, 1
+X_AXIS = (1.0, 0.0, 0.0)
+Y_AXIS = (0.0, 1.0, 0.0)
 SUN_THETA = 0.004675  # radians (Sampler.slang:469)
 SUN_RADIANCE_SCALE = 2e5  # Sampler.slang:459
 
@@ -48,8 +49,10 @@ def env_radiance(env, direction, azimuth_deg, altitude_deg):
     return _env_bilinear(env, *direction_to_uv(d))
 
 
-def importance_sample_env(state, env, azimuth_deg, altitude_deg):
-    """Alias-map env sampling: (state, to_light (N, 3), rgba (N, 4))."""
+def importance_sample_env(state, env, azimuth_deg, altitude_deg, shape):
+    """Alias-map env sampling: (state, to_light (N, 3), rgba (N, 4)).
+    `shape`, the wavefront's shape (N,), is taken as the JAX package takes
+    it: the draws take their shape from `state`."""
     h, w = env.image.shape[0], env.image.shape[1]
     size = h * w
     state, xi = rng.next_float3(state)
@@ -80,12 +83,14 @@ def importance_sample_env(state, env, azimuth_deg, altitude_deg):
     return state, to_light, _env_bilinear(env, u, v)
 
 
-def sample_sun_disk(state, sun_color, environment_intensity, azimuth_deg, altitude_deg, n: int):
+def sample_sun_disk(state, sun_color, environment_intensity, azimuth_deg, altitude_deg, shape):
     """Sun-disk cone sampling for the atmosphere mode (Sampler.slang:430-462):
-    (state, to_light (n, 3), colour (n, 3), pdf (n,)).  The float32 cone
+    (state, to_light (*shape, 3), colour (*shape, 3), pdf `shape`), `shape`
+    the wavefront's shape, a tuple as in the JAX package.  The float32 cone
     constants are computed on the host in float32: 1 - cos(SUN_THETA) keeps
     only a few bits there, and they must be the JAX package's bits."""
-    base = -unit_axis(2, sun_color).expand(n, 3)
+    shape = tuple(shape)
+    base = -unit_axis(2, sun_color).expand(*shape, 3)
     sun_dir = rotate_axis_angle(base, X_AXIS, altitude_deg / 180.0 * math.pi)
     sun_dir = rotate_axis_angle(sun_dir, Y_AXIS, azimuth_deg / 180.0 * math.pi)
 
@@ -104,12 +109,12 @@ def sample_sun_disk(state, sun_color, environment_intensity, azimuth_deg, altitu
     to_light = u_ax * local[..., 0:1] + v_ax * local[..., 1:2] + wz * local[..., 2:3]
 
     solid_angle = np.float32(2.0 * math.pi) * (np.float32(1.0) - cos_max)
-    pdf = torch.full((n,), float(np.float32(1.0) / solid_angle), dtype=torch.float32, device=u1.device)
-    color = (sun_color * SUN_RADIANCE_SCALE * environment_intensity).expand(n, 3)
+    pdf = torch.full(shape, float(np.float32(1.0) / solid_angle), dtype=torch.float32, device=u1.device)
+    color = (sun_color * SUN_RADIANCE_SCALE * environment_intensity).expand(*shape, 3)
     return state, to_light, color, pdf
 
 
-def sample_emissive_triangle(state, scene, position, n_emissive: int, has_textures: bool):
+def sample_emissive_triangle(state, scene, position, n_emissive: int, has_textures: bool = True):
     """Uniform mesh -> uniform triangle -> uniform barycentric NEE sample.
 
     Returns (state, to_light, color, pdf, virtual tri id, distance); the id

@@ -3,7 +3,7 @@ vpt_tpu/render/lookup_fit.py).
 
 Each baked table (render/lookup.py) is fitted once on the host by a
 least-squares tensor-product Chebyshev polynomial; shading evaluates the
-fit instead of gathering texels.  `compile_scene(scene, device,
+fit instead of gathering texels.  `compile_scene(scene,
 lookup_tables=None)` carries the constant fit, as the JAX package's does.
 """
 

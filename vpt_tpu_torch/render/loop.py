@@ -25,6 +25,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import threading
+from typing import Optional
 
 import torch
 
@@ -104,9 +105,10 @@ def drive(read, run_chunk, max_steps: int, stats: LoopStats) -> None:
     stats.steps += int(read()[1])
 
 
-def while_live(body, carry: dict, max_steps: int, stats: LoopStats) -> dict:
+def while_live(body, carry: dict, max_steps: int, stats: Optional[LoopStats] = None) -> dict:
     """carry = body(carry) while any(carry["live"]), at most max_steps times.
-    Every value of `carry` is a tensor; `body` returns the same keys."""
+    Every value of `carry` is a tensor; `body` returns the same keys.  The
+    loop's counts go to `stats` (to none when None)."""
     site = getattr(_capture, "site", None)
     if site is not None:
         return site(body, carry, max_steps)
@@ -115,5 +117,5 @@ def while_live(body, carry: dict, max_steps: int, stats: LoopStats) -> dict:
     def chunk(n):
         run["carry"], run["steps"] = gated_steps(body, run["carry"], run["steps"], n)
 
-    drive(lambda: flag(run["carry"], run["steps"]), chunk, max_steps, stats)
+    drive(lambda: flag(run["carry"], run["steps"]), chunk, max_steps, LoopStats() if stats is None else stats)
     return run["carry"]

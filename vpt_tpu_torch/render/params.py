@@ -70,7 +70,9 @@ def vec3(v, device) -> torch.Tensor:
     return torch.as_tensor(np.asarray(v, np.float32).reshape(3), device=device)
 
 
-def default_params(device, view_inverse=None, proj_inverse=None) -> RenderParams:
+def default_params(view_inverse=None, proj_inverse=None, *, device="cuda") -> RenderParams:
+    """The JAX package's defaults on `device` (the card unless the caller
+    asks for the CPU); the matrices default to the identity."""
     def mat(m):
         m = np.eye(4, dtype=np.float32) if m is None else np.asarray(m, np.float32)
         return torch.as_tensor(m, device=device)

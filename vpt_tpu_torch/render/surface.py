@@ -60,13 +60,14 @@ def sample_texture(textures, tex_dims, tex_id, uv):
     return top * (1 - fy) + bot * fy
 
 
-def make_surface(scene, tri, u, v, ray_dir, use_only_geometry_normals: bool, has_textures: bool):
-    """Surface.slang:26-117 for a wavefront.  `tri` must already be clamped
-    to a valid slot for missed lanes (their results are masked later)."""
-    row = scene.tri_attr[tri]  # (N, 32)
+def make_surface(scene, hit, ray_dir, use_only_geometry_normals: bool, has_textures: bool = True):
+    """Surface.slang:26-117 for a wavefront at `hit` (a traverse.Hit, or
+    anything with tri, u and v).  `hit.tri` must already be clamped to a
+    valid slot for missed lanes (their results are masked later)."""
+    row = scene.tri_attr[hit.tri]  # (N, 32)
     p0, e1, e2 = row[:, 0:3], row[:, 3:6], row[:, 6:9]
-    u = u[:, None]
-    v = v[:, None]
+    u = hit.u[:, None]
+    v = hit.v[:, None]
     world_pos = p0 + u * e1 + v * e2
     uv = row[:, 18:20] * (1.0 - u - v) + row[:, 20:22] * u + row[:, 22:24] * v
     mat_id = torch.clamp(row[:, 24].to(torch.int64), 0, scene.material_attr.shape[0] - 1)
@@ -119,7 +120,7 @@ def rotate_tangents(surf: SurfaceGeom, rotation_degrees) -> SurfaceGeom:
     c = torch.cos(rot)[:, None]
     s = torch.sin(rot)[:, None]
     n, t = surf.normal, surf.tangent
-    t_new = t * c + cross(n, t) * s + n * dot(n, t, keepdim=True) * (1.0 - c)
+    t_new = t * c + cross(n, t) * s + n * dot(n, t, keepdims=True) * (1.0 - c)
     return surf._replace(tangent=t_new, bitangent=cross(t_new, n))
 
 

@@ -16,6 +16,8 @@ indexes with a 0-dim tensor, which would read it back to the host.
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 
 from vpt_tpu_torch.core import rng
@@ -123,7 +125,7 @@ class _Blocks:
         return state, t_new, ~bad_block & ~advance_block, max_density
 
 
-def scatter_distance_in_volume(state, vol, vi: int, origin, direction, ray_depth, active, stats: LoopStats):
+def scatter_distance_in_volume(state, vol, vi: int, origin, direction, ray_depth, active, stats: Optional[LoopStats] = None):
     """DoesRayScatterInVolume for volume vi over the wavefront
     (Volume.slang:256-356): (state, t) with t = -1 for no scatter."""
     v = slice(vi, vi + 1)
@@ -173,7 +175,7 @@ def _at(table, slot):
     return table.gather(1, slot[:, None])[:, 0]
 
 
-def scatter_distance_merged(state, vol, n_volumes: int, origin, direction, ray_depth, active, stats: LoopStats):
+def scatter_distance_merged(state, vol, n_volumes: int, origin, direction, ray_depth, active, stats: Optional[LoopStats] = None):
     """One entry-sorted march over all volumes per ray (ScatteredInVolume,
     RayGen.slang:162-208): each lane delta-tracks its current volume and
     moves to the next when it exits, bounded by the nearest scatter found
@@ -235,7 +237,7 @@ def scatter_distance_merged(state, vol, n_volumes: int, origin, direction, ray_d
     return out["state"], out["result"], out["result_vol"]
 
 
-def volumes_transmittance(state, vol, n_volumes: int, origin, direction, ray_depth, active, stats: LoopStats):
+def volumes_transmittance(state, vol, n_volumes: int, origin, direction, ray_depth, active, stats: Optional[LoopStats] = None):
     """CalculateVolumesTransmittance, one volume after another
     (Volume.slang:419-517): (state, (N,) transmittance)."""
     trans = torch.ones(origin.shape[0], device=origin.device)
@@ -278,7 +280,7 @@ def volumes_transmittance(state, vol, n_volumes: int, origin, direction, ray_dep
 
 
 def volumes_transmittance_merged(state, vol, n_volumes: int, origin, direction, ray_depth, active,
-                                 stats: LoopStats):
+                                 stats: Optional[LoopStats] = None):
     """Ratio-tracked transmittance across all volumes per ray in one loop
     (Volume.slang:419-517): each lane marches its entry-sorted volumes,
     homogeneous ones in a single analytic step.  (state, (N,) transmittance)."""

@@ -17,9 +17,9 @@ blosc1 chunk container from the format spec:
   verbatim when cbytes equals the stream's uncompressed size.  Shuffled
   blocks unshuffle bytewise after the streams concatenate.
 
-LZ4 blocks are encoded and decoded by the JAX package's C codec,
-vpt_tpu/scene/cpp/lz4_block.c, compiled by path with gcc into
-vpt_tpu_torch/build/ at first use and loaded with ctypes.  A failed build
+LZ4 blocks are encoded and decoded by the port's C codec, csrc/lz4_block.c
+(a copy of the JAX package's), built with gcc into vpt_tpu_torch/build/ at
+first use (kernels.host_library) and loaded with ctypes.  A failed build
 raises: there is no silent fallback.  `_lz4_decompress_py` is the plain
 Python decoder that the tests hold the C codec against.  zlib and zstd
 streams go to the standard library and the `zstandard` module.
@@ -30,15 +30,15 @@ from __future__ import annotations
 import ctypes
 import os
 import struct
-import subprocess
 import zlib
 
 import numpy as np
 
-from vpt_tpu_torch.accel.kernels import BUILD_DIR, PKG_DIR
+from vpt_tpu_torch.accel.kernels import BUILD_DIR, CSRC_DIR, host_library
 
-_SRC = os.path.join(os.path.dirname(PKG_DIR), "vpt_tpu", "scene", "cpp", "lz4_block.c")
+_SRC = os.path.join(CSRC_DIR, "lz4_block.c")
 _LIB = os.path.join(BUILD_DIR, "libvpt_lz4.so")
+_CMD = ("gcc", "-O3", "-shared", "-fPIC")
 _lib = None
 
 _FLAG_BYTE_SHUFFLE = 0x1
@@ -62,15 +62,7 @@ def _library():
     """The C LZ4 codec, built with gcc on first use."""
     global _lib
     if _lib is None:
-        if not os.path.exists(_LIB) or os.path.getmtime(_LIB) < os.path.getmtime(_SRC):
-            os.makedirs(BUILD_DIR, exist_ok=True)
-            tmp = f"{_LIB}.{os.getpid()}.tmp"
-            proc = subprocess.run(["gcc", "-O3", "-shared", "-fPIC", _SRC, "-o", tmp],
-                                  capture_output=True, text=True, timeout=120)
-            if proc.returncode != 0:
-                raise RuntimeError(f"gcc failed to build the LZ4 codec from {_SRC}:\n{proc.stderr}")
-            os.replace(tmp, _LIB)
-        lib = ctypes.CDLL(_LIB)
+        lib = ctypes.CDLL(host_library(_SRC, _LIB, _CMD, "the LZ4 codec"))
         for fn in (lib.vpt_lz4_decompress, lib.vpt_lz4_compress):
             fn.restype = ctypes.c_int
             fn.argtypes = [ctypes.c_char_p, ctypes.c_int, ctypes.POINTER(ctypes.c_uint8), ctypes.c_int]

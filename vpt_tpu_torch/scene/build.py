@@ -172,9 +172,11 @@ def texture_dims(textures) -> np.ndarray:
     return np.array(rows, np.int32)
 
 
-def compile_scene(scene: Scene, device, lookup_tables=None):
+def compile_scene(scene: Scene, lookup_tables=None, *, device="cuda"):
     """Returns (SceneData on `device`, SceneMeta, aux) where aux holds the
-    camera's view matrix, field of view and aspect.  `lookup_tables` is None
+    camera's view matrix, field of view and aspect.  The JAX package's
+    parameters in its order, then the keyword-only device (the card unless
+    the caller asks for the CPU).  `lookup_tables` is None
     (the constant energy-compensation fit) or three baked tables or fits
     (reflect, refract_out, refract_in); tables are fitted here."""
     unique_meshes = sorted({inst.mesh for inst in scene.instances})

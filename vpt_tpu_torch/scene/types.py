@@ -172,6 +172,22 @@ class ClusterData(NamedTuple):
     sub_aabbs: torch.Tensor  # (B, 8, 6) f32 mesh-local box of each K / 8-triangle
     # sub-block [lo.xyz, hi.xyz]; lo = 3e9, hi = -3e9 where the sub-block is empty
 
+    @property
+    def p0(self):
+        return self.tris[:, 0:3, :]
+
+    @property
+    def e1(self):
+        return self.tris[:, 3:6, :]
+
+    @property
+    def e2(self):
+        return self.tris[:, 6:9, :]
+
+    @property
+    def n_clusters(self) -> int:
+        return int(self.aabbs.shape[0])
+
 
 class EnvMapData(NamedTuple):
     image: torch.Tensor  # (H, W, 4) f32; alpha = sampling PDF

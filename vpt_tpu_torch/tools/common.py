@@ -22,9 +22,9 @@ def bench_scene(scene_name: str, device):
     JAX scripts compile it (the constant energy-compensation fit), with its
     camera at a square aspect."""
     dev = resolve_device(device)
-    data, meta, aux = compile_scene(getattr(procedural, scene_name)(), dev)
+    data, meta, aux = compile_scene(getattr(procedural, scene_name)(), device=dev)
     proj = perspective(np.radians(aux["camera_fov_deg"]), 1.0)
-    return data, meta, default_params(dev, np.linalg.inv(aux["camera_view"]), np.linalg.inv(proj))
+    return data, meta, default_params(np.linalg.inv(aux["camera_view"]), np.linalg.inv(proj), device=dev)
 
 
 def dispatch(scene_data, meta, flags, params, seed: int, size: int, spp: int, accum=None):
