@@ -242,6 +242,25 @@ Phases, each of which raises on failure:
         and 2048 equals, bit for bit, the trace with cluster.PACKET_SIZE set
         to P (as phase 14b sets it);
      one JSON line "port_gaps".
+ 17. the image formats, on a machine without PIL or imageio:
+     a. every fixture of tests/torch_formats/ (TIFF, GIF, BMP, CMYK / YCCK,
+        4:4:0 / 4:1:1 and block-smoothed JPEGs) through decode_rgba and
+        load_hdr against its manifest: the sha256 of the JAX package's
+        decode, or a ValueError where it refuses; the C codec loaded;
+     b. a 4096x2048 float32 RGB sky (default_sky) written by
+        `write_float_tiff` here as Deflate 256x256 tiles and as
+        uncompressed strips: load_hdr gives it back bitwise; its host
+        seconds (median of 5) beside load_radiance_hdr of the same sky by
+        save_radiance_hdr, with the card's name and power limit; the
+        Deflate read under FORMAT_LIMIT_S;
+     c. `python -m vpt_tpu_torch render garden` at 512x512, depth 8, 8 spp
+        with --env sky.tif against --env sky.npy of the same array (two
+        processes at once): bitwise equal; then the colonnade as a .glb with
+        a GIF, an RLE8 BMP, an LZW TIFF and a CMYK JPEG base colour through
+        the CLI, bitwise its in-memory render with those decodes (each the
+        manifest's sha256);
+     one JSON line "image_formats".  `--image-formats` runs this phase alone
+     (after the build).
 Every drive of phases 4-11, 13 and 14 checks that its loop ran captured (a
 graph launch per dispatch); the plain-version renders run eagerly.
 The last lines are the card's name and power limit, the kernel table as
@@ -300,6 +319,7 @@ import sys
 import tempfile
 import time
 import weakref
+import zlib
 from contextlib import ExitStack
 from typing import NamedTuple
 from unittest import mock
@@ -319,13 +339,14 @@ from vpt_tpu_torch.core.tiling import tiled_pixel_order
 from vpt_tpu_torch.dist import dryrun
 from vpt_tpu_torch.dist import mesh as dmesh
 from vpt_tpu_torch.io import codec
-from vpt_tpu_torch.io.image import decode_rgba, load_png, read_png
+from vpt_tpu_torch.io.image import decode_rgba, load_png, load_radiance_hdr, read_png, save_radiance_hdr
 from vpt_tpu_torch.io.metrics import psnr, ssim
 from vpt_tpu_torch.render import graphs, integrator, lights, lookup, loop, sampling, surface
 from vpt_tpu_torch.render.lookup_fit import constant_fit
 from vpt_tpu_torch.render.params import default_params, scalar
 from vpt_tpu_torch.scene import blosc
 from vpt_tpu_torch.scene.build import BRUTE_FORCE_MAX_TRIS, compile_scene
+from vpt_tpu_torch.scene.envmap import default_sky, load_hdr
 from vpt_tpu_torch.scene.gltf import load_gltf
 from vpt_tpu_torch.scene.procedural import colonnade, colonnade_textured, furnace_sphere, sphere_garden
 from vpt_tpu_torch.scene.types import Volume, tree_to_device
@@ -2286,12 +2307,191 @@ def port_gaps_phase(dev, smi: str, data, meta, p3: dict) -> None:
     log(f"phase 16 (the gaps against the JAX package): {time.perf_counter() - t_phase:.1f} s")
 
 
+FORMAT_SKY = (2048, 4096)  # 17b's sky, rows x columns: the 4K equirectangular maps of the reference
+FORMAT_TILE = 256  # 17b's Deflate tiles
+FORMAT_RENDER_SKY = (512, 1024)  # 17c's sky
+FORMAT_LIMIT_S = 2.0  # 17b: host seconds for load_hdr of the Deflate-tiled 4096x2048 float TIFF
+# 17c's .glb: a fixture of tests/torch_formats/ as the base colour of each material.
+FORMAT_TEXTURES = {"gif-local-interlaced-inside-transparent.gif": ("stone", "image/gif"),
+                   "bmp-rle8-runs-h40.bmp": ("floor", "image/bmp"),
+                   "pil-tiff-RGB-tiff_lzw.tif": ("drape-red", "image/tiff"),
+                   "jpeg-pil-cmyk-q90.jpg": ("drape-green", "image/jpeg")}
+
+
+def write_float_tiff(path: str, img: np.ndarray, tile: int = 0) -> None:
+    """A baseline TIFF of an (H, W, 3) float32 image: little-endian, one
+    directory, Deflate-compressed `tile` x `tile` tiles, or uncompressed
+    strips of 16 rows for tile 0."""
+    h, w, c = img.shape
+    img = img.astype("<f4")
+    if tile:
+        pad = np.zeros((-(-h // tile) * tile, -(-w // tile) * tile, c), "<f4")
+        pad[:h, :w] = img
+        segs = [zlib.compress(pad[y : y + tile, x : x + tile].tobytes(), 6) for y in range(0, h, tile)
+                for x in range(0, w, tile)]
+    else:
+        segs = [img[y : y + 16].tobytes() for y in range(0, h, 16)]
+    n, body = len(segs), b"".join(segs)
+    offsets = np.cumsum([8] + [len(x) for x in segs[:-1]]).tolist()
+    tags = {256: (4, [w]), 257: (4, [h]), 258: (3, [32] * c), 259: (3, [8 if tile else 1]), 262: (3, [2]),
+            277: (3, [c]), 284: (3, [1]), 339: (3, [3] * c)}
+    tags.update({322: (4, [tile]), 323: (4, [tile]), 324: (4, offsets), 325: (4, [len(x) for x in segs])} if tile
+                else {273: (4, offsets), 278: (4, [16]), 279: (4, [len(x) for x in segs])})
+    ifd_at = 8 + len(body)
+    extra_at = ifd_at + 2 + 12 * len(tags) + 4
+    entries, extra = b"", b""
+    for code in sorted(tags):
+        kind, values = tags[code]
+        raw = struct.pack(f"<{len(values)}{'H' if kind == 3 else 'I'}", *values)
+        field = raw.ljust(4, b"\0") if len(raw) <= 4 else struct.pack("<I", extra_at + len(extra))
+        extra += b"" if len(raw) <= 4 else raw
+        entries += struct.pack("<HHI", code, kind, len(values)) + field
+    with open(path, "wb") as f:
+        f.write(b"II*\0" + struct.pack("<I", ifd_at) + body + struct.pack("<H", len(tags)) + entries + bytes(4) + extra)
+    check(n == len(offsets), "the TIFF writer's segments")
+
+
+def fixture_array(name: str, key: str, manifest: dict):
+    """17a: fixture `name` of tests/torch_formats/ through the texture decode
+    ("rgba") or load_hdr, held to its manifest entry: the array (its sha256
+    that of the JAX package's decode), or None where the entry says the JAX
+    package refuses it and the port raised a ValueError."""
+    path = os.path.join(gltf_scenes.FORMAT_DIR, name)
+    want = manifest[name][key]
+    try:
+        if key == "rgba":
+            with open(path, "rb") as f:
+                got = decode_rgba(f.read(), name)
+        else:
+            got = load_hdr(path)
+    except ValueError as e:
+        check(want is None, f"17a: {name} ({key}) decodes, as the JAX package's does; the port raised {e}")
+        return None
+    check(want == [list(got.shape), str(got.dtype), hashlib.sha256(got.tobytes()).hexdigest()],
+          f"17a: {name} ({key}) decodes to its manifest entry {want}")
+    return got
+
+
+def image_formats_phase(dev, smi: str) -> None:
+    """Phase 17: the TIFF, GIF, BMP and CMYK / any-sampling / smoothed JPEG
+    decoders on the card's machine (no PIL there) against the manifest of
+    tests/torch_formats/, a 4096x2048 float TIFF sky read back bitwise and
+    timed, a render with a .tif sky against the same array as .npy, and a
+    .glb with GIF, RLE8 BMP, LZW TIFF and CMYK JPEG textures through the CLI
+    against its in-memory render."""
+    t_phase = time.perf_counter()
+    # 17a. The fixtures.
+    with open(os.path.join(gltf_scenes.FORMAT_DIR, "manifest.json")) as f:
+        manifest = json.load(f)
+    check(sorted(manifest) == sorted(gltf_scenes.FORMAT_FIXTURES), "17a: the manifest names every fixture")
+    decoded = {(name, key): fixture_array(name, key, manifest) for name in gltf_scenes.FORMAT_FIXTURES
+               for key in ("rgba", "load_hdr")}
+    refused = sorted(f"{n} ({k})" for (n, k), v in decoded.items() if v is None)
+    check(codec._lib is not None and hasattr(codec._lib, "vpt_tiff_lzw"), "17a: the decoders ran the C codec")
+    log(f"17a: {len(gltf_scenes.FORMAT_FIXTURES)} fixtures of tests/torch_formats/ decode to their manifest through "
+        f"the texture decode and load_hdr ({len(decoded) - len(refused)} arrays by sha256; {len(refused)} refused "
+        f"where the JAX package refuses: {', '.join(refused)})")
+
+    # 17b. A 4096x2048 float TIFF sky.
+    sky = default_sky(size=FORMAT_SKY)
+    row = {"device": smi, "sky": list(sky.shape)}
+    with tempfile.TemporaryDirectory() as tmp:
+        paths = {"deflate_tiles": os.path.join(tmp, "sky_tiles.tif"), "strips": os.path.join(tmp, "sky_strips.tif")}
+        t0 = time.perf_counter()
+        write_float_tiff(paths["deflate_tiles"], sky, FORMAT_TILE)
+        write_float_tiff(paths["strips"], sky)
+        hdr = os.path.join(tmp, "sky.hdr")
+        save_radiance_hdr(hdr, sky)
+        row["write_s"] = time.perf_counter() - t0
+        for label, path in paths.items():
+            got = load_hdr(path)
+            check(got.dtype == np.float32 and got.shape == sky.shape and np.array_equal(got, sky),
+                  f"17b: load_hdr gives the {label} TIFF sky back bitwise")
+            row[f"{label}_bytes"] = os.path.getsize(path)
+            row[f"{label}_s"], row[f"{label}_all_s"] = host_seconds(lambda: load_hdr(path))
+        row["radiance_bytes"] = os.path.getsize(hdr)
+        row["radiance_s"], row["radiance_all_s"] = host_seconds(lambda: load_radiance_hdr(hdr))
+    log(f"17b: load_hdr host seconds (median of 5; {smi}, host {os.cpu_count()} CPUs) of the {FORMAT_SKY[1]}x"
+        f"{FORMAT_SKY[0]} float32 RGB sky: Deflate {FORMAT_TILE}x{FORMAT_TILE} tiles ({row['deflate_tiles_bytes']} "
+        f"bytes) {row['deflate_tiles_s']:.4f} s {row['deflate_tiles_all_s']}; uncompressed strips "
+        f"({row['strips_bytes']} bytes) {row['strips_s']:.4f} s {row['strips_all_s']}; load_radiance_hdr of the "
+        f"same sky by save_radiance_hdr ({row['radiance_bytes']} bytes) {row['radiance_s']:.4f} s "
+        f"{row['radiance_all_s']}; both TIFFs bitwise the array")
+    check(row["deflate_tiles_s"] < FORMAT_LIMIT_S, f"17b: the Deflate TIFF sky reads in under {FORMAT_LIMIT_S} s")
+
+    # 17c. A .tif sky against the .npy of the same array; a .glb of the new formats.
+    with tempfile.TemporaryDirectory() as tmp:
+        small = default_sky(size=FORMAT_RENDER_SKY)
+        np.save(os.path.join(tmp, "sky.npy"), small)
+        write_float_tiff(os.path.join(tmp, "sky.tif"), small, FORMAT_TILE)
+        args = ("--width", str(W), "--height", str(H), "--spp", "8", "--spp-per-frame", "4", "--depth", "8")
+        procs = {ext: subprocess.Popen([sys.executable, "-m", "vpt_tpu_torch", "render", "garden", "-o",
+                                        os.path.join(tmp, f"garden_{ext}.png"), "--hdr-output",
+                                        os.path.join(tmp, f"garden_{ext}.npy"), "--env", os.path.join(tmp, f"sky.{ext}"),
+                                        *args], cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+                 for ext in ("tif", "npy")}
+        outs = {ext: p.communicate(timeout=600) for ext, p in procs.items()}
+        for ext, p in procs.items():
+            check(p.returncode == 0, f"17c: render garden --env sky.{ext} exits 0:\n{outs[ext][0][-2000:]}\n"
+                                     f"{outs[ext][1][-4000:]}")
+        stats = {ext: json.loads(outs[ext][0].strip().splitlines()[-1]) for ext in outs}
+        got, want = (np.load(os.path.join(tmp, f"garden_{ext}.npy")) for ext in ("tif", "npy"))
+        row["env_render"] = {ext: {k: stats[ext][k] for k in ("seconds", "segments")} for ext in stats}
+        log(f"17c: render garden {W}x{H} depth 8, 8 spp with --env sky.tif (Deflate tiles) and --env sky.npy "
+            f"({FORMAT_RENDER_SKY[1]}x{FORMAT_RENDER_SKY[0]}, the same array), at once: bitwise equal "
+            f"{bool(np.array_equal(got, want))}, segments {stats['tif']['segments']} vs {stats['npy']['segments']}")
+        check(got.shape == (H, W, 3) and np.isfinite(got).all() and float(got.mean()) > 0.0,
+              "17c: the --env sky.tif render is finite and lit")
+        check(np.array_equal(got, want), "17c: the --env sky.tif render is bitwise the --env sky.npy render")
+
+        scene = colonnade()
+        images, textures = {}, {}
+        for name, (material, mime) in FORMAT_TEXTURES.items():
+            textures[name] = decoded[name, "rgba"]
+            check(textures[name] is not None, f"17c: {name} is a texture the JAX package reads")
+            scene.textures.append(textures[name])
+            slot = len(scene.textures) - 1
+            next(m for m in scene.materials if m.name == material).base_color_texture = slot
+            with open(os.path.join(gltf_scenes.FORMAT_DIR, name), "rb") as f:
+                images[slot] = (f.read(), mime)
+        glb = gltf_scenes.scene_to_gltf(scene, os.path.join(tmp, "formats.glb"), images=images)
+        sky_path = os.path.join(tmp, "colonnade_sky.npy")
+        np.save(sky_path, scene.env_map)
+        hdr_out = os.path.join(tmp, "formats.npy")
+        cli = run_cli("render", glb, "-o", os.path.join(tmp, "formats.png"), "--hdr-output", hdr_out, "--env",
+                      sky_path, *args)
+        got = np.load(hdr_out)
+        ref_scene = load_gltf(glb)
+    ref_scene.env_map = scene.env_map
+    for name, (material, _) in FORMAT_TEXTURES.items():
+        ref_scene.textures[next(m for m in ref_scene.materials if m.name == material).base_color_texture] = \
+            textures[name]
+    ref = Renderer(ref_scene, width=W, height=H, flags=RenderFlags(max_depth=8), samples_per_frame=4, max_samples=8,
+                   device=dev)
+    while not ref.path_trace():
+        pass
+    want = ref.hdr_image()
+    row["glb_render"] = {"seconds": cli["seconds"], "segments": cli["segments"],
+                         "bitwise": bool(np.array_equal(got, want))}
+    log(f"17c: CLI render of the .glb with {', '.join(f'{n} ({m})' for n, (m, _) in FORMAT_TEXTURES.items())} "
+        f"decoded by the port vs the in-memory render with the decodes whose sha256 is the manifest's, {W}x{H} "
+        f"depth 8, 8 spp: bitwise equal {row['glb_render']['bitwise']}, segments {cli['segments']} vs "
+        f"{ref.segments_traced}")
+    check(got.shape == (H, W, 3) and np.isfinite(got).all(), "17c: the .glb render is finite, (512, 512, 3)")
+    check(row["glb_render"]["bitwise"], "17c: the .glb render through the CLI is bitwise its in-memory render")
+    row["phase_s"] = time.perf_counter() - t_phase
+    print(json.dumps({"image_formats": row}))
+    log(f"phase 17 (the image formats): {row['phase_s']:.1f} s")
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--compare", metavar="OTHER_CU", nargs="+", default=[],
                         help="also time other versions of a csrc/ kernel source against the current kernels")
     parser.add_argument("--gallery-full", action="store_true",
                         help="only render the gallery at the committed TPU renders' sizes and samples")
+    parser.add_argument("--image-formats", action="store_true",
+                        help="only run phase 17, the image formats (after the kernel build)")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script needs a CUDA GPU", file=sys.stderr)
@@ -2307,12 +2507,17 @@ def main() -> int:
         gallery_full(dev, smi)
         print(smi)
         return 0
+    if args.image_formats:
+        lookup.get_lookup_tables(device=dev)  # the CLI's renders read the cached tables, as after phase 4
+        image_formats_phase(dev, smi)
+        print(smi)
+        return 0
     run(dev, smi, args.compare)
     return 0
 
 
 def run(dev, smi: str, other_builds=()) -> None:
-    """Phases 3-13 on `dev`, then the result lines."""
+    """Phases 3-17 on `dev`, then the result lines."""
     # 3. Kernels against plain versions at the main path's shapes.
     t0 = time.perf_counter()
     data, meta, aux = compile_scene(colonnade(), device=dev)
@@ -2521,6 +2726,9 @@ def run(dev, smi: str, other_builds=()) -> None:
 
     # 16. The gaps against the JAX package.
     port_gaps_phase(dev, smi, data, meta, p3)
+
+    # 17. The image formats.
+    image_formats_phase(dev, smi)
 
     print(smi)
     print(json.dumps({"kernels": list(table.values())}))

@@ -16,7 +16,9 @@ filters, Adam7), the files PIL cannot write.  `IMAGE_FIXTURES` names the
 decoder fixtures in tests/torch_images/ (written by
 tests/make_torch_images.py with PIL): each NAME has NAME.ref.png beside
 it, PIL's decode of it as 8-bit RGBA; the large `TIMING_JPEG` has the
-sha256 of that decode in TIMING_JPEG.sha256 instead.
+sha256 of that decode in TIMING_JPEG.sha256 instead.  `FORMAT_FIXTURES`
+names the TIFF, GIF, BMP and JPEG fixtures of tests/torch_formats/ and
+their manifest.json.
 """
 
 from __future__ import annotations
@@ -45,6 +47,23 @@ IMAGE_FIXTURES = (
     "png_adam7_rgb8.png", "png_adam7_rgba16.png", "png_gray1.png", "png_gray2.png", "png_gray4.png",
 )
 TIMING_JPEG = "jpeg_1024_420.jpg"
+# The TIFF, GIF, BMP and JPEG fixtures of tests/torch_formats/ (written by
+# tests/make_torch_formats.py from tests/format_cases.py, each the case of
+# its name): manifest.json holds, per file, the shape, dtype and sha256 of
+# the bytes of the JAX package's decodes, its glTF texture decode ("rgba")
+# and its load_hdr ("load_hdr").
+FORMAT_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "torch_formats")
+FORMAT_FIXTURES = (
+    "tifffile-f32-rgb-zlib.tif", "tifffile-f16-rgb.tif", "tifffile-f64-rgb-tiles.tif", "tifffile-f32-rgb-planar.tif",
+    "tifffile-f32-rgb-big-endian.tif", "tifffile-f32-rgb-bigtiff.tif", "tifffile-u16-rgb-predictor.tif",
+    "spec-mm-lzw-p3-strips.tif", "spec-ii-lzw-p2-tiles.tif", "spec-palette-8bit-lzw-mm.tif",
+    "spec-min-is-white-packbits-mm.tif", "pil-tiff-RGB-tiff_lzw.tif", "pil-tiff-CMYK-tiff_adobe_deflate.tif",
+    "gif-local-interlaced-inside-transparent.gif", "gif-256-colours-table-resets.gif", "gif-pil-gray.gif",
+    "bmp-rle8-runs-h40.bmp", "bmp-rle4-noise-h124.bmp", "bmp-bitfields-565-h56.bmp", "bmp-bitfields-bgra-h124.bmp",
+    "bmp-p4-h12.bmp", "bmp-24-h40-top-down.bmp", "jpeg-pil-cmyk-q90.jpg", "jpeg-4-components-adobe-2-420.jpg",
+    "jpeg-sampling-440-37x29.jpg", "jpeg-sampling-411-37x29.jpg", "jpeg-smoothing-420-17x70-2-scans.jpg",
+    "jpeg-smoothing-gray-37x29-1-scans.jpg",
+)
 # Adam7 passes: first column, first row, column step, row step.
 ADAM7 = ((0, 0, 8, 8), (4, 0, 8, 8), (0, 4, 4, 8), (2, 0, 4, 4), (0, 2, 2, 4), (1, 0, 2, 2), (0, 1, 1, 2))
 

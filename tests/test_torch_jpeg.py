@@ -19,11 +19,14 @@ dtypes included.
   JPEG files against JAX's (imageio).
 - The committed fixtures of tests/torch_images/ against their recorded PIL
   decodes and against PIL here.
-- The refusals that stay, each naming the format: CMYK, truncated,
-  arithmetic-coded, 12-bit, lossless and 4:4:0 JPEGs, a progressive JPEG
-  that libjpeg would smooth, GIF, `.exr`, `.tif` and `.pfm` environment
-  maps; corrupt files raise ValueErrors only; a failed gcc build of the
-  codec raises; threads share one build.
+- The refusals that stay, each naming the format: truncated,
+  arithmetic-coded, 12-bit and lossless JPEGs, lossless and lossy WebP, an
+  OpenEXR texture, a colour PFM environment map, `.exr` and `.pfm`
+  environment maps.  The CMYK and 4:4:0 JPEGs, the progressive JPEG that
+  libjpeg smooths, the GIF and the `.tif` environment map once refused here
+  now equal the JAX package's decodes (tests/test_torch_image_formats.py
+  holds every such format); corrupt files raise ValueErrors only; a failed
+  gcc build of the codec raises; threads share one build.
 """
 
 import base64
@@ -38,6 +41,7 @@ import numpy as np
 import pytest
 from PIL import Image
 
+import format_writers
 import gltf_scenes
 from vpt_tpu.io import image as jimage
 from vpt_tpu.scene import envmap as jenvmap
@@ -321,46 +325,90 @@ def incomplete_progressive() -> bytes:
     return data[: starts[4]] + b"\xff\xd9"
 
 
+def gif_bytes() -> bytes:
+    out = io.BytesIO()
+    Image.fromarray(photo(9, 13, 11)).save(out, format="GIF")
+    return out.getvalue()
+
+
+def webp_bytes(lossless: bool) -> bytes:
+    out = io.BytesIO()
+    Image.fromarray(photo(10, 13, 11)).save(out, format="WEBP", lossless=lossless)
+    return out.getvalue()
+
+
+def pfm_bytes() -> bytes:
+    """A colour PFM: little-endian float32 rows, bottom row first."""
+    rgb = np.random.default_rng(11).uniform(0, 7, (5, 6, 3)).astype("<f4")
+    return b"PF\n6 5\n-1.0\n" + rgb[::-1].tobytes()
+
+
 def refusal_cases() -> dict:
+    """case -> (bytes, the refusal's words, or None for a file the port now
+    reads as PIL does)."""
     rgb = jpeg_bytes(photo(8, 24, 16))
     cmyk = io.BytesIO()
     Image.new("CMYK", (9, 7), (10, 20, 30, 40)).save(cmyk, format="JPEG")
     sof = b"\xff\xc0"
     return {
-        "cmyk": (cmyk.getvalue(), "CMYK"),
+        "cmyk": (cmyk.getvalue(), None),
         "truncated": (rgb[: len(rgb) // 2], "truncated"),
         "no-eoi": (rgb[:-2], "truncated"),
         "arithmetic": (patched(rgb, sof, 1, 0xC9), "arithmetic-coded"),
         "12-bit": (patched(rgb, sof, 4, 12), "12-bit"),
         "lossless": (patched(rgb, sof, 1, 0xC3), "lossless"),
-        "sampling-440": (patched(patched(rgb, sof, 11, 0x12), sof, 14, 0x11), "sampling factors 1x2"),
-        "smoothing": (incomplete_progressive(), "incomplete"),
-        "gif": (b"GIF89a" + bytes(20), "GIF"),
+        "sampling-440": (patched(patched(rgb, sof, 11, 0x12), sof, 14, 0x11), None),
+        "smoothing": (incomplete_progressive(), None),
+        "gif": (gif_bytes(), None),
+        "webp-lossless": (webp_bytes(True), "WebP"),
+        "webp-lossy": (webp_bytes(False), "WebP"),
+        "exr": (b"\x76\x2f\x31\x01" + bytes(64), "OpenEXR"),
+        "pfm": (pfm_bytes(), "PFM"),
     }
 
 
 @pytest.mark.parametrize("case", ["cmyk", "truncated", "no-eoi", "arithmetic", "12-bit", "lossless",
-                                  "sampling-440", "smoothing", "gif"])
+                                  "sampling-440", "smoothing", "gif", "webp-lossless", "webp-lossy", "exr", "pfm"])
 def test_refusals_name_the_format(tmp_path, case):
+    """What the port refuses it refuses naming the format and the image.
+    The CMYK JPEG, the 4:4:0 one, the progressive one that libjpeg smooths
+    and the GIF, once refused, now decode as PIL decodes them (the JAX
+    package's `_load_image`)."""
     data, reason = refusal_cases()[case]
-    with pytest.raises(ValueError, match=reason):
-        timage.decode_rgba(data, "wall")
     doc = gltf_image(data, "image/jpeg")
     doc["images"][0]["name"] = "wall"
+    if reason is None:
+        want = jgltf._load_image(doc, [], str(tmp_path), 0)
+        assert want.shape[2] == 4
+        assert_same(timage.decode_rgba(data, "wall"), want)
+        assert_same(tgltf._load_image(doc, [], str(tmp_path), 0), want)
+        return
+    with pytest.raises(ValueError, match=reason):
+        timage.decode_rgba(data, "wall")
     with pytest.raises(ValueError, match=f"wall: .*{reason}"):
         tgltf._load_image(doc, [], str(tmp_path), 0)
     if case in ("truncated", "no-eoi"):  # PIL refuses these too
         with pytest.raises(OSError):
             jgltf._load_image(doc, [], str(tmp_path), 0)
-    elif case in ("cmyk", "smoothing"):  # PIL reads these
-        assert jgltf._load_image(doc, [], str(tmp_path), 0).shape[2] == 4
+    if case == "pfm":  # as an environment map too, though imageio reads one (as uint8)
+        path = tmp_path / "sky.pfm"
+        path.write_bytes(data)
+        with pytest.raises(ValueError, match=r"\.pfm"):
+            tenvmap.load_hdr(str(path))
 
 
 @pytest.mark.parametrize("ext", [".exr", ".tif", ".pfm"])
 def test_load_hdr_other_formats_raise(tmp_path, ext):
-    """EXR, TIFF and PFM raise naming the extension.  The JAX package
-    cannot read EXR here either (imageio finds no backend)."""
+    """EXR and PFM raise naming the extension (the JAX package cannot read
+    EXR here either: imageio finds no backend).  A float TIFF, once refused,
+    now equals the JAX package's load_hdr (imageio's tifffile)."""
     path = tmp_path / f"sky{ext}"
+    if ext == ".tif":
+        sky = np.random.default_rng(12).uniform(0, 50, (6, 10, 3)).astype(np.float32)
+        path.write_bytes(format_writers.encode_tiff(sky, compression=8, predictor=3, rows_per_strip=4))
+        assert_same(tenvmap.load_hdr(str(path)), jenvmap.load_hdr(str(path)))
+        np.testing.assert_array_equal(tenvmap.load_hdr(str(path)), sky)
+        return
     path.write_bytes(b"\x76\x2f\x31\x01" + bytes(64))
     with pytest.raises(ValueError, match=ext.replace(".", r"\.")):
         tenvmap.load_hdr(str(path))

@@ -1,6 +1,6 @@
 """The port runs where JAX, PIL and imageio are not installed: importing
 vpt_tpu_torch and every module of the ported slice, or chip_smoke.py, must
-pull in neither `jax`, `vpt_tpu`, `PIL` nor `imageio`."""
+pull in neither `jax`, `vpt_tpu`, `PIL`, `imageio` nor `tifffile`."""
 
 import os
 import subprocess
@@ -32,6 +32,9 @@ SLICE_MODULES = [
     "vpt_tpu_torch.io.image",
     "vpt_tpu_torch.io.codec",
     "vpt_tpu_torch.io.jpeg",
+    "vpt_tpu_torch.io.tiff",
+    "vpt_tpu_torch.io.gif",
+    "vpt_tpu_torch.io.bmp",
     "vpt_tpu_torch.io.metrics",
     "vpt_tpu_torch.io.metrics_log",
     "vpt_tpu_torch.post.tonemap",
@@ -77,7 +80,7 @@ def test_imports_pull_in_no_jax(script):
         code = "import importlib.util, sys\nsys.path.insert(0, '.')\nimport chip_smoke\n"
     code += (
         "import sys\n"
-        "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'vpt_tpu', 'PIL', 'imageio'))\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'vpt_tpu', 'PIL', 'imageio', 'tifffile'))\n"
         "assert not bad, bad\n"
     )
     proc = subprocess.run([sys.executable, "-c", code], cwd=_ROOT, capture_output=True, text=True, timeout=120)

@@ -1,16 +1,24 @@
-/* The host hot loops of the port's image decoders: the PNG row unfilter and
- * the JPEG entropy decoder and inverse DCT.  Plain C with a C interface,
- * built with gcc into vpt_tpu_torch/build/ at first use and called through
- * ctypes (io/image.py, io/jpeg.py); the marker parsing, the PNG chunk walk,
- * upsampling and colour conversion stay in Python and numpy.
+/* The host hot loops of the port's image decoders: the PNG row unfilter, the
+ * JPEG entropy decoder, inverse DCT and block smoothing, the TIFF LZW and
+ * PackBits decoders and predictors, the GIF LZW decoder and the BMP RLE
+ * decoder.  Plain C with a C interface, built with gcc into
+ * vpt_tpu_torch/build/ at first use and called through ctypes (io/codec.py);
+ * the marker, chunk, tag and header parsing, upsampling and colour
+ * conversion stay in Python and numpy.
  *
  * Written from the specifications: the PNG specification (section 9, the
- * five row filters) and ITU-T T.81 (Annex C, Huffman tables; Annex F,
- * sequential decoding; Annex G, progressive decoding; A.3.3, the IDCT).  The
+ * five row filters), ITU-T T.81 (Annex C, Huffman tables; Annex F,
+ * sequential decoding; Annex G, progressive decoding; A.3.3, the IDCT), TIFF
+ * 6.0 (sections 9 and 13-14, PackBits, LZW and the horizontal predictor)
+ * with Adobe's technical note 3 (the floating-point predictor), GIF89a
+ * (appendix F, variable-length LZW) and the BMP RLE8 / RLE4 encodings.  The
  * IDCT is the fixed-point "islow" algorithm whose constants and rounding
  * libjpeg-turbo's default decoder uses (13 fraction bits, 2 extra bits
  * between the passes, round-half-up descaling), so the samples equal those
  * of the libjpeg-turbo decoder behind PIL; a sample out of 0..255 saturates.
+ * Where a reader's behaviour goes beyond its specification (block smoothing,
+ * where LZW and RLE streams end), the decoders follow what PIL and imageio
+ * give, as the comments at each say.
  */
 
 #include <stdint.h>
@@ -550,4 +558,470 @@ void vpt_jpeg_idct(const int16_t *coefs, int64_t nby, int64_t nbx, const int32_t
             }
         }
     }
+}
+
+/* ------------------------------------------------ JPEG: block smoothing */
+
+/* Natural positions of zigzag coefficients 1..9 (AC01, AC10, AC20, AC11,
+ * AC02, AC03, AC12, AC21, AC30). */
+static const int SMOOTH_POS[10] = {0, 1, 8, 16, 9, 2, 3, 10, 17, 24};
+
+/* An estimate of a coefficient whose quantiser is q from `num` (a weighted
+ * sum of DC values times the DC quantiser), rounded to the nearest multiple
+ * of q and held under 2^al when al > 0 (al: the successive-approximation bit
+ * the coefficient is known to, -1 if it never was coded). */
+static inline int16_t smooth_pred(int64_t num, int64_t q, int al) {
+    int64_t pred;
+    if (num >= 0) {
+        pred = ((q << 7) + num) / (q << 8);
+        if (al > 0 && pred >= ((int64_t)1 << al)) pred = ((int64_t)1 << al) - 1;
+    } else {
+        pred = ((q << 7) - num) / (q << 8);
+        if (al > 0 && pred >= ((int64_t)1 << al)) pred = ((int64_t)1 << al) - 1;
+        pred = -pred;
+    }
+    return (int16_t)pred;
+}
+
+/* The interblock smoothing libjpeg-turbo applies to a progressive JPEG whose
+ * first 9 AC coefficients are not all complete (decompress_smooth_data in
+ * its jdcoefct.c): each still-zero coefficient of those 9 that is not known
+ * to full precision is estimated from the DC values of the block's 5x5
+ * neighbourhood (edges replicated), and when no AC coefficient was coded at
+ * all the DC value is smoothed too.  coefs: one component's (bh, bw, 64)
+ * int16 coefficients (natural order, its MCU-padded array); the nby x nbx
+ * blocks that hold samples go to out, (nby, nbx, 64).  The neighbourhood's
+ * columns stop at the component's last block that holds samples; its rows
+ * may reach into the MCU padding below.  v: its vertical
+ * sampling factor; rows: the frame's iMCU rows; qt: its 64 quantisers;
+ * bits: the successive-approximation bit of coefficients 0..9 after the last
+ * scan (-1 never coded).  The rows are walked per iMCU row as libjpeg-turbo
+ * walks them: in the last iMCU row, whose block rows may be fewer than v,
+ * the test for a row above or below counts those fewer rows. */
+void vpt_jpeg_smooth(const int16_t *coefs, int16_t *out, int64_t bw, int64_t nbx, int64_t nby, int v, int64_t rows,
+                     const int32_t *qt, const int32_t *bits) {
+    int64_t q[10];
+    for (int k = 0; k < 10; k++) q[k] = qt[SMOOTH_POS[k]];
+    int change_dc = 1;
+    for (int k = 1; k < 10; k++) change_dc &= bits[k] == -1;
+    int64_t last = nbx - 1;
+    for (int64_t r = 0; r < rows; r++) {
+        int64_t block_rows = v;
+        if (r == rows - 1) {
+            block_rows = nby % v;
+            if (block_rows == 0) block_rows = v;
+        }
+        int64_t image_rows = block_rows * rows;
+        for (int64_t b = 0; b < block_rows; b++) {
+            int64_t y = r * v + b, iy = r * block_rows + b;
+            if (y >= nby) continue;
+            int64_t ym1 = iy > 0 ? y - 1 : y;
+            int64_t ym2 = iy > 1 ? y - 2 : ym1;
+            int64_t yp1 = iy < image_rows - 1 ? y + 1 : y;
+            int64_t yp2 = iy < image_rows - 2 ? y + 2 : yp1;
+            const int16_t *row[5] = {coefs + ym2 * bw * 64, coefs + ym1 * bw * 64, coefs + y * bw * 64,
+                                     coefs + yp1 * bw * 64, coefs + yp2 * bw * 64};
+            for (int64_t x = 0; x <= last; x++) {
+                int dc[5][5];  /* dc[row][col]: rows y-2..y+2, columns x-2..x+2 (the edge columns repeated) */
+                int16_t ws[64];
+                memcpy(ws, row[2] + x * 64, sizeof(ws));
+                for (int i = 0; i < 5; i++)
+                    for (int j = 0; j < 5; j++) {
+                        int64_t xx = x + j - 2;
+                        xx = xx < 0 ? 0 : (xx > last ? last : xx);
+                        dc[i][j] = row[i][xx * 64];
+                    }
+#define D(n) ((int64_t)dc[((n) - 1) / 5][((n) - 1) % 5])
+                int64_t q00 = q[0], num;
+                int al;
+                if ((al = bits[1]) != 0 && ws[1] == 0) {
+                    num = q00 * (change_dc ? (-D(1) - D(2) + D(4) + D(5) - 3 * D(6) + 13 * D(7) - 13 * D(9) + 3 * D(10)
+                                              - 3 * D(11) + 38 * D(12) - 38 * D(14) + 3 * D(15) - 3 * D(16)
+                                              + 13 * D(17) - 13 * D(19) + 3 * D(20) - D(21) - D(22) + D(24) + D(25))
+                                           : (-7 * D(11) + 50 * D(12) - 50 * D(14) + 7 * D(15)));
+                    ws[1] = smooth_pred(num, q[1], al);
+                }
+                if ((al = bits[2]) != 0 && ws[8] == 0) {
+                    num = q00 * (change_dc ? (-D(1) - 3 * D(2) - 3 * D(3) - 3 * D(4) - D(5) - D(6) + 13 * D(7)
+                                              + 38 * D(8) + 13 * D(9) - D(10) + D(16) - 13 * D(17) - 38 * D(18)
+                                              - 13 * D(19) + D(20) + D(21) + 3 * D(22) + 3 * D(23) + 3 * D(24) + D(25))
+                                           : (-7 * D(3) + 50 * D(8) - 50 * D(18) + 7 * D(23)));
+                    ws[8] = smooth_pred(num, q[2], al);
+                }
+                if ((al = bits[3]) != 0 && ws[16] == 0) {
+                    num = q00 * (change_dc ? (D(3) + 2 * D(7) + 7 * D(8) + 2 * D(9) - 5 * D(12) - 14 * D(13)
+                                              - 5 * D(14) + 2 * D(17) + 7 * D(18) + 2 * D(19) + D(23))
+                                           : (-D(3) + 13 * D(8) - 24 * D(13) + 13 * D(18) - D(23)));
+                    ws[16] = smooth_pred(num, q[3], al);
+                }
+                if ((al = bits[4]) != 0 && ws[9] == 0) {
+                    num = q00 * (change_dc ? (-D(1) + D(5) + 9 * D(7) - 9 * D(9) - 9 * D(17) + 9 * D(19) + D(21)
+                                              - D(25))
+                                           : (D(10) + D(16) - 10 * D(17) + 10 * D(19) - D(2) - D(20) + D(22)
+                                              - D(24) + D(4) - D(6) + 10 * D(7) - 10 * D(9)));
+                    ws[9] = smooth_pred(num, q[4], al);
+                }
+                if ((al = bits[5]) != 0 && ws[2] == 0) {
+                    num = q00 * (change_dc ? (2 * D(7) - 5 * D(8) + 2 * D(9) + D(11) + 7 * D(12) - 14 * D(13)
+                                              + 7 * D(14) + D(15) + 2 * D(17) - 5 * D(18) + 2 * D(19))
+                                           : (-D(11) + 13 * D(12) - 24 * D(13) + 13 * D(14) - D(15)));
+                    ws[2] = smooth_pred(num, q[5], al);
+                }
+                if (change_dc) {
+                    if ((al = bits[6]) != 0 && ws[3] == 0) {
+                        num = q00 * (D(7) - D(9) + 2 * D(12) - 2 * D(14) + D(17) - D(19));
+                        ws[3] = smooth_pred(num, q[6], al);
+                    }
+                    if ((al = bits[7]) != 0 && ws[10] == 0) {
+                        num = q00 * (D(7) - 3 * D(8) + D(9) - D(17) + 3 * D(18) - D(19));
+                        ws[10] = smooth_pred(num, q[7], al);
+                    }
+                    if ((al = bits[8]) != 0 && ws[17] == 0) {
+                        num = q00 * (D(7) - D(9) - 3 * D(12) + 3 * D(14) + D(17) - D(19));
+                        ws[17] = smooth_pred(num, q[8], al);
+                    }
+                    if ((al = bits[9]) != 0 && ws[24] == 0) {
+                        num = q00 * (D(7) + 2 * D(8) + D(9) - D(17) - 2 * D(18) - D(19));
+                        ws[24] = smooth_pred(num, q[9], al);
+                    }
+                    num = q00 * (-2 * D(1) - 6 * D(2) - 8 * D(3) - 6 * D(4) - 2 * D(5) - 6 * D(6) + 6 * D(7)
+                                 + 42 * D(8) + 6 * D(9) - 6 * D(10) - 8 * D(11) + 42 * D(12) + 152 * D(13)
+                                 + 42 * D(14) - 8 * D(15) - 6 * D(16) + 6 * D(17) + 42 * D(18) + 6 * D(19)
+                                 - 6 * D(20) - 2 * D(21) - 6 * D(22) - 8 * D(23) - 6 * D(24) - 2 * D(25));
+                    ws[0] = smooth_pred(num, q00, 0);
+                }
+#undef D
+                memcpy(out + (y * nbx + x) * 64, ws, sizeof(ws));
+            }
+        }
+    }
+}
+
+/* ------------------------------------------------------ TIFF: LZW, PackBits */
+
+/* A TIFF LZW strip (MSB-first codes, 9-12 bits, the width growing one code
+ * early, at 511, 1023 and 2047 entries) decoded as imageio's bundled tifffile
+ * decodes it: the strip must begin with CLEAR; it ends at EOI or where a code
+ * would end at or past the last bit (that code is dropped); the code one past
+ * the table is the previous string plus its first byte.  The first cap bytes
+ * go to out.  Returns the decoded length (all of it, not only what fit), -1
+ * for a strip that does not begin with CLEAR or is under 4 bytes, -2 for a
+ * code after CLEAR that is no byte or a code further past the table. */
+int64_t vpt_tiff_lzw(const uint8_t *in, int64_t n, uint8_t *out, int64_t cap) {
+    static const int WIDTH_AT[4][2] = {{511, 10}, {1023, 11}, {2047, 12}, {0, 0}};
+    if (n < 4) return -1;
+    int32_t *prefix = (int32_t *)malloc(sizeof(int32_t) * 4096);
+    uint8_t *last = (uint8_t *)malloc(4096), *first = (uint8_t *)malloc(4096);
+    int32_t *length = (int32_t *)malloc(sizeof(int32_t) * 4096);
+    uint8_t *stack = (uint8_t *)malloc(4096);
+    int64_t total = 0, ret;
+    if (!prefix || !last || !first || !length || !stack) {
+        ret = -1;
+        goto done;
+    }
+    for (int i = 0; i < 256; i++) {
+        prefix[i] = -1;
+        last[i] = first[i] = (uint8_t)i;
+        length[i] = 1;
+    }
+    int64_t bitcount = 0, bitmax = n * 8;
+    int width = 9, lentable = 258;
+    int64_t tablen = 258;  /* entries tifffile's table would hold (it never stops growing) */
+    int32_t oldcode = 0, code = 0;
+#define NEXT_CODE()                                                               \
+    do {                                                                          \
+        int64_t start = bitcount >> 3;                                            \
+        uint32_t word = 0;                                                        \
+        for (int k = 0; k < 4; k++) word = (word << 8) | (start + k < n ? in[start + k] : 0); \
+        code = (int32_t)(((word << (bitcount & 7)) & 0xFFFFFFFFu) >> (32 - width)); \
+    } while (0)
+#define EMIT(c)                                                                   \
+    do {                                                                          \
+        int32_t e = (c), len = length[e];                                         \
+        for (int32_t k = len - 1; k >= 0; k--) {                                   \
+            stack[k] = last[e];                                                   \
+            e = prefix[e];                                                        \
+        }                                                                         \
+        for (int32_t k = 0; k < len; k++, total++) if (total < cap) out[total] = stack[k]; \
+    } while (0)
+    NEXT_CODE();
+    if (code != 256) {
+        ret = -1;
+        goto done;
+    }
+    for (;;) {
+        NEXT_CODE();
+        bitcount += width;
+        if (code == 257 || bitcount >= bitmax) break;
+        if (code == 256) {
+            width = 9;
+            lentable = 258;
+            tablen = 258;
+            NEXT_CODE();
+            bitcount += width;
+            if (code == 257) break;
+            if (code > 255) {
+                ret = -2;
+                goto done;
+            }
+            EMIT(code);
+        } else {
+            if (code > tablen) {
+                ret = -2;
+                goto done;
+            }
+            if (code < tablen) {
+                EMIT(code);
+            } else {
+                EMIT(oldcode);
+                if (total < cap) out[total] = first[oldcode];
+                total++;
+            }
+            if (lentable < 4096) {  /* the entry appended: the old string and the first byte of this one */
+                prefix[lentable] = oldcode;
+                last[lentable] = code < tablen ? first[code] : first[oldcode];
+                first[lentable] = first[oldcode];
+                length[lentable] = length[oldcode] + 1;
+                lentable++;
+            }
+            tablen++;
+        }
+        oldcode = code;
+        for (int k = 0; WIDTH_AT[k][0]; k++) {
+            if (tablen == WIDTH_AT[k][0]) width = WIDTH_AT[k][1];
+        }
+    }
+#undef NEXT_CODE
+#undef EMIT
+    ret = total;
+done:
+    free(prefix);
+    free(last);
+    free(first);
+    free(length);
+    free(stack);
+    return ret;
+}
+
+/* A PackBits run (TIFF compression 32773) decoded as tifffile decodes it:
+ * n + 1 literal bytes for a header n < 128, the next byte 257 - n times for
+ * n > 128, nothing for 128; a run cut by the end of the data gives what is
+ * there.  The first cap bytes go to out; returns the decoded length. */
+int64_t vpt_packbits(const uint8_t *in, int64_t n, uint8_t *out, int64_t cap) {
+    int64_t i = 0, total = 0;
+    while (i < n) {
+        int h = in[i++];
+        if (h < 128) {
+            int64_t len = h + 1;
+            if (len > n - i) len = n - i;
+            for (int64_t k = 0; k < len; k++, total++) if (total < cap) out[total] = in[i + k];
+            i += h + 1;
+        } else if (h > 128) {
+            if (i >= n) break;
+            for (int k = 0; k < 257 - h; k++, total++) if (total < cap) out[total] = in[i];
+            i++;
+        }
+    }
+    return total;
+}
+
+/* ------------------------------------------------------ TIFF: predictors */
+
+/* Undo the horizontal predictor (2) on rows of native-order integer samples
+ * in place: buf holds `rows` rows of `count` samples of `size` bytes (1, 2,
+ * 4 or 8), each sample the difference from the one `stride` samples to its
+ * left (stride: the samples per pixel), wrapping as the samples do. */
+void vpt_tiff_unpredict(uint8_t *buf, int64_t rows, int64_t count, int64_t stride, int size) {
+#define UNDO(T)                                                                   \
+    for (int64_t r = 0; r < rows; r++) {                                          \
+        T *p = (T *)buf + r * count;                                              \
+        for (int64_t i = stride; i < count; i++) p[i] = (T)(p[i] + p[i - stride]); \
+    }
+    switch (size) {
+    case 1: UNDO(uint8_t); break;
+    case 2: UNDO(uint16_t); break;
+    case 4: UNDO(uint32_t); break;
+    default: UNDO(uint64_t); break;
+    }
+#undef UNDO
+}
+
+/* Undo the floating-point predictor (3): each of `rows` rows of `count`
+ * samples of `size` bytes (2, 4 or 8) holds the bytes of its samples as
+ * byte planes, most significant first, each byte the difference from the
+ * one `stride` bytes to its left.  The samples go to out in native
+ * (little-endian) order. */
+void vpt_tiff_unpredict_float(uint8_t *buf, uint8_t *out, int64_t rows, int64_t count, int64_t stride, int size) {
+    int64_t nbytes = count * size;
+    for (int64_t r = 0; r < rows; r++) {
+        uint8_t *p = buf + r * nbytes, *o = out + r * nbytes;
+        for (int64_t i = stride; i < nbytes; i++) p[i] = (uint8_t)(p[i] + p[i - stride]);
+        for (int64_t i = 0; i < count; i++)
+            for (int b = 0; b < size; b++) o[i * size + b] = p[(int64_t)(size - 1 - b) * count + i];
+    }
+}
+
+/* --------------------------------------------------------------- GIF: LZW */
+
+/* The first frame of a GIF: LSB-first LZW codes (bits: the minimum code
+ * size; the sub-blocks already joined into `in`) decoded as PIL's GIF
+ * decoder decodes them into a w x h frame of palette indices (rows in the
+ * interlaced order when `interlace`: every 8th from 0, from 4, every 4th from
+ * 2, every 2nd from 1).  A CLEAR resets the table, the first code after it
+ * is taken as is, a code one past the table is its previous string plus that
+ * string's first byte; the table holds 4096 entries and stops growing when
+ * full.  Returns 0 when the frame is full (later codes are not read), 1 when
+ * EOI comes first, 2 when the data ends first, -1 for a code past the table
+ * or a bad first code, -2 for a bad code size. */
+int vpt_gif_lzw(const uint8_t *in, int64_t n, int bits, uint8_t *out, int64_t w, int64_t h, int interlace) {
+    if (bits < 0 || bits > 12) return -2;
+    if (w <= 0 || h <= 0) return 0;
+    int32_t clear = 1 << bits, end = clear + 1, next = clear + 2, codesize = bits + 1;
+    int32_t codemask = (1 << codesize) - 1, lastcode = 0, lastdata = 0;
+    int state = 2;  /* 2: the next code follows a CLEAR */
+    uint8_t data[4096], buffer[4096];
+    int32_t link[4096];
+    uint64_t bitbuf = 0;
+    int bitcount = 0;
+    int64_t pos = 0, x = 0, y = 0, step = interlace ? 8 : 1;
+    int pass = interlace ? 1 : 0;
+    for (;;) {
+        while (bitcount < codesize) {
+            if (pos >= n) return 2;
+            bitbuf |= (uint64_t)in[pos++] << bitcount;
+            bitcount += 8;
+        }
+        int32_t c = (int32_t)(bitbuf & (uint64_t)codemask);
+        bitbuf >>= codesize;
+        bitcount -= codesize;
+        if (c == clear) {
+            next = clear + 2;
+            codesize = bits + 1;
+            codemask = (1 << codesize) - 1;
+            state = 2;
+            continue;
+        }
+        if (c == end) return 1;
+        const uint8_t *p;
+        int32_t len;
+        if (state == 2) {
+            if (c > clear) return -1;
+            lastdata = lastcode = c;
+            buffer[4095] = (uint8_t)c;
+            p = buffer + 4095;
+            len = 1;
+            state = 3;
+        } else {
+            int32_t thiscode = c, bi = 4096;
+            if (c > next) return -1;
+            if (c == next) {
+                buffer[--bi] = (uint8_t)lastdata;
+                c = lastcode;
+            }
+            while (c >= clear) {
+                if (bi <= 0 || c >= 4096) return -1;
+                buffer[--bi] = data[c];
+                c = link[c];
+            }
+            buffer[--bi] = (uint8_t)c;
+            lastdata = c;
+            if (next < 4096) {
+                data[next] = (uint8_t)c;
+                link[next] = lastcode;
+                if (next == codemask && codesize < 12) {
+                    codesize++;
+                    codemask = (1 << codesize) - 1;
+                }
+                next++;
+            }
+            lastcode = thiscode;
+            p = buffer + bi;
+            len = 4096 - bi;
+        }
+        for (int32_t k = 0; k < len; k++) {
+            out[y * w + x] = p[k];
+            if (++x >= w) {
+                x = 0;
+                y += step;
+                while (y >= h) {
+                    if (pass == 1) {
+                        y = 4;
+                        pass = 2;
+                    } else if (pass == 2) {
+                        step = 4;
+                        y = 2;
+                        pass = 3;
+                    } else if (pass == 3) {
+                        step = 2;
+                        y = 1;
+                        pass = 0;
+                    } else {
+                        return 0;
+                    }
+                }
+            }
+        }
+    }
+}
+
+/* ----------------------------------------------------------------- BMP RLE */
+
+/* BMP RLE8 / RLE4 pixel data (one index per output byte) decoded as PIL's
+ * BMP RLE decoder decodes it, row after row from the first stored row: an
+ * encoded run is cut at the row's end; end of line pads the output to a
+ * whole number of rows; end of bitmap stops; a delta reads two bytes and
+ * then two more, and moves by the second pair (right, then up rows); an
+ * absolute run of RLE4 reads count / 2 bytes (two indices each); after an
+ * absolute run the reader skips a byte when its offset in the file
+ * (`start`: the offset of in[0]) is odd.  Decoding stops when w * h indices
+ * are out or the data ends.  Returns the number of indices out (the first
+ * cap of them written), or -1 for a delta whose second pair is cut off. */
+int64_t vpt_bmp_rle(const uint8_t *in, int64_t n, int64_t start, int64_t w, int64_t h, int rle4, uint8_t *out,
+                    int64_t cap) {
+    int64_t len = 0, x = 0, i = 0, dest = w * h;
+#define PUT(v)                                 \
+    do {                                       \
+        if (len < cap) out[len] = (uint8_t)(v); \
+        len++;                                 \
+    } while (0)
+    while (len < dest) {
+        if (i + 2 > n) break;
+        int count = in[i], byte = in[i + 1];
+        i += 2;
+        if (count) {
+            int64_t num = count;
+            if (x + num > w) num = w - x > 0 ? w - x : 0;
+            for (int64_t k = 0; k < num; k++) PUT(rle4 ? ((k % 2 == 0) ? byte >> 4 : byte & 15) : byte);
+            x += num;
+        } else if (byte == 0) {
+            while (w && len % w) PUT(0);
+            x = 0;
+        } else if (byte == 1) {
+            break;
+        } else if (byte == 2) {
+            if (i + 2 > n) break;
+            i += 2;
+            if (i + 2 > n) return -1;
+            int64_t right = in[i], up = in[i + 1];
+            i += 2;
+            for (int64_t k = 0; k < right + up * w; k++) PUT(0);
+            x = w ? len % w : 0;
+        } else {
+            int64_t want = rle4 ? byte / 2 : byte, got = n - i < want ? n - i : want;
+            for (int64_t k = 0; k < got; k++) {
+                if (rle4) {
+                    PUT(in[i + k] >> 4);
+                    PUT(in[i + k] & 15);
+                } else {
+                    PUT(in[i + k]);
+                }
+            }
+            i += got;
+            if (got < want) break;
+            x += byte;
+            if ((start + i) % 2) i++;
+        }
+    }
+#undef PUT
+    return len;
 }

@@ -1,8 +1,10 @@
-"""The C image codec (csrc/imgcodec.c): the PNG row unfilter and the JPEG
-entropy decoder and inverse DCT, built with gcc into vpt_tpu_torch/build/
-at first use and called through ctypes, which releases the interpreter
-lock, so `load_gltf`'s thread pool decodes images in parallel.  A failed
-build raises; there is no Python decoder to fall back to.
+"""The C image codec (csrc/imgcodec.c): the PNG row unfilter, the JPEG
+entropy decoder, inverse DCT and block smoothing, the TIFF LZW and PackBits
+decoders and predictors, the GIF LZW decoder and the BMP RLE decoder, built
+with gcc into vpt_tpu_torch/build/ at first use and called through ctypes,
+which releases the interpreter lock, so `load_gltf`'s thread pool decodes
+images in parallel.  A failed build raises; there is no Python decoder to
+fall back to.
 """
 
 from __future__ import annotations
@@ -46,12 +48,37 @@ def library():
             lib.vpt_jpeg_scan.argtypes = [p, ctypes.c_int64, ctypes.c_int, p, p, p, p] + [ctypes.c_int] * 8
             lib.vpt_jpeg_idct.restype = None
             lib.vpt_jpeg_idct.argtypes = [p, ctypes.c_int64, ctypes.c_int64, p, p]
+            i64 = ctypes.c_int64
+            lib.vpt_jpeg_smooth.restype = None
+            lib.vpt_jpeg_smooth.argtypes = [p, p, i64, i64, i64, ctypes.c_int, i64, p, p]
+            for name in ("vpt_tiff_lzw", "vpt_packbits"):
+                getattr(lib, name).restype = i64
+                getattr(lib, name).argtypes = [p, i64, p, i64]
+            lib.vpt_tiff_unpredict.restype = None
+            lib.vpt_tiff_unpredict.argtypes = [p, i64, i64, i64, ctypes.c_int]
+            lib.vpt_tiff_unpredict_float.restype = None
+            lib.vpt_tiff_unpredict_float.argtypes = [p, p, i64, i64, i64, ctypes.c_int]
+            lib.vpt_gif_lzw.restype = ctypes.c_int
+            lib.vpt_gif_lzw.argtypes = [p, i64, ctypes.c_int, p, i64, i64, ctypes.c_int]
+            lib.vpt_bmp_rle.restype = i64
+            lib.vpt_bmp_rle.argtypes = [p, i64, i64, i64, i64, ctypes.c_int, p, i64]
             _lib = lib
     return _lib
 
 
 def _ptr(arr: np.ndarray) -> int:
     return arr.ctypes.data
+
+
+# PIL's decompression-bomb limit: Image.open refuses an image of more than
+# twice Image.MAX_IMAGE_PIXELS pixels.
+MAX_PIXELS = 2 * (1024 * 1024 * 1024 // 4 // 3)
+
+
+def check_size(w: int, h: int, name: str) -> None:
+    """Refuse an image larger than PIL opens, before anything is allocated."""
+    if w * h > MAX_PIXELS:
+        raise ValueError(f"{name}: image of {w}x{h} pixels is larger than PIL opens ({MAX_PIXELS} pixels)")
 
 
 def png_unfilter(raw: np.ndarray, h: int, stride: int, bpp: int) -> np.ndarray:
@@ -98,3 +125,97 @@ def jpeg_idct(coefs: np.ndarray, qt: np.ndarray) -> np.ndarray:
     plane = np.empty((nby * 8, nbx * 8), np.uint8)
     library().vpt_jpeg_idct(_ptr(coefs), nby, nbx, _ptr(qt), _ptr(plane))
     return plane
+
+
+def jpeg_smooth(coefs: np.ndarray, nbx: int, nby: int, v: int, rows: int, qt: np.ndarray,
+                bits: np.ndarray) -> np.ndarray:
+    """libjpeg-turbo's block smoothing of one progressive component: its
+    MCU-padded (bh, bw, 64) int16 coefficients to the (nby, nbx, 64) blocks
+    the IDCT takes (v: its vertical sampling factor; rows: the frame's iMCU
+    rows; bits: the successive-approximation bit of coefficients 0..9, -1
+    where never coded)."""
+    coefs = np.ascontiguousarray(coefs, np.int16)
+    if coefs.ndim != 3 or coefs.shape[2] != 64 or nbx > coefs.shape[1] or nby > coefs.shape[0] or \
+            coefs.shape[0] < rows * v or qt.size != 64 or bits.size != 10:
+        raise ValueError("jpeg_smooth: the coefficients do not hold the component's blocks")
+    out = np.empty((nby, nbx, 64), np.int16)
+    qt, bits = (np.ascontiguousarray(a, np.int32) for a in (qt, bits))
+    library().vpt_jpeg_smooth(_ptr(coefs), _ptr(out), coefs.shape[1], nbx, nby, v, rows, _ptr(qt), _ptr(bits))
+    return out
+
+
+def _bytes(data) -> np.ndarray:
+    return np.frombuffer(data, np.uint8) if isinstance(data, (bytes, bytearray, memoryview)) else \
+        np.ascontiguousarray(data, np.uint8)
+
+
+def tiff_lzw(data, size: int, count: bool = False):
+    """A TIFF LZW strip as imageio's tifffile decodes it: its first `size`
+    bytes (fewer if it decodes to fewer), or with `count` the length of all
+    of it.  A strip that does not begin with CLEAR, or holds a code that no
+    table entry can be, raises a ValueError."""
+    src = _bytes(data)
+    out = np.empty(max(size, 1), np.uint8)
+    n = library().vpt_tiff_lzw(_ptr(src), src.size, _ptr(out), size)
+    if n == -1:
+        raise ValueError("LZW strip does not begin with a CLEAR code")
+    if n < 0:
+        raise ValueError("LZW strip holds a code past its table")
+    return int(n) if count else out[: min(n, size)]
+
+
+def packbits(data, size: int, count: bool = False):
+    """A PackBits run's first `size` decoded bytes (fewer if it decodes to
+    fewer), or with `count` the length of all of it."""
+    src = _bytes(data)
+    out = np.empty(max(size, 1), np.uint8)
+    n = library().vpt_packbits(_ptr(src), src.size, _ptr(out), size)
+    return int(n) if count else out[: min(n, size)]
+
+
+def tiff_unpredict(samples: np.ndarray, stride: int) -> None:
+    """Undo TIFF's horizontal predictor in place on (rows, count) native
+    unsigned or signed integer samples (stride: samples per pixel)."""
+    if not samples.flags.c_contiguous or samples.dtype.itemsize not in (1, 2, 4, 8) or samples.ndim != 2 or stride < 1:
+        raise ValueError("the predictor needs C-contiguous (rows, count) 8-64-bit samples and a stride of 1 or more")
+    rows, count = samples.shape
+    library().vpt_tiff_unpredict(_ptr(samples), rows, count, stride, samples.dtype.itemsize)
+
+
+def tiff_unpredict_float(raw: np.ndarray, rows: int, count: int, stride: int, size: int) -> np.ndarray:
+    """Undo TIFF's floating-point predictor: rows x (count samples of `size`
+    bytes, as byte planes with byte differences at `stride`) to the samples'
+    native bytes, (rows, count * size) uint8."""
+    if size not in (2, 4, 8) or stride < 1:
+        raise ValueError(f"the floating-point predictor takes 2-, 4- or 8-byte samples, not {size}")
+    raw = np.array(raw, np.uint8).reshape(rows, count * size)
+    out = np.empty_like(raw)
+    library().vpt_tiff_unpredict_float(_ptr(raw), _ptr(out), rows, count, stride, size)
+    return out
+
+
+def gif_lzw(data: bytes, bits: int, w: int, h: int, interlace: bool) -> tuple:
+    """A GIF frame's LZW data (its sub-blocks joined) as PIL decodes it:
+    ((h, w) uint8 indices, status) with status 0 when the frame filled, 1 when
+    EOI came first, 2 when the data ended first (indices past that point 0).
+    A corrupt code raises a ValueError."""
+    src = _bytes(data)
+    out = np.zeros((h, w), np.uint8)
+    rc = library().vpt_gif_lzw(_ptr(src), src.size, bits, _ptr(out), w, h, int(interlace))
+    if rc == -2:
+        raise ValueError(f"bad LZW code size {bits}")
+    if rc < 0:
+        raise ValueError("corrupt LZW data (a code past its table)")
+    return out, rc
+
+
+def bmp_rle(data, start: int, w: int, h: int, rle4: bool) -> np.ndarray:
+    """BMP RLE8 / RLE4 data (starting at file offset `start`) as PIL's decoder
+    gives it: up to w * h indices, one per byte.  A delta cut off inside its
+    second pair raises a ValueError."""
+    src = _bytes(data)
+    out = np.empty(max(w * h, 1), np.uint8)
+    n = library().vpt_bmp_rle(_ptr(src), src.size, start, w, h, int(rle4), _ptr(out), w * h)
+    if n < 0:
+        raise ValueError("RLE data ends inside a delta")
+    return out[: min(n, w * h)]

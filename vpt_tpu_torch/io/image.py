@@ -1,6 +1,6 @@
 """Image export and import: PNG (LDR), and NPY or Radiance RGBE `.hdr` (HDR)
-(port of vpt_tpu/io/image.py), and the PNG and JPEG decoding that the
-glTF loader and `load_hdr` use.
+(port of vpt_tpu/io/image.py), and the image decoding that the glTF loader
+and `load_hdr` use.
 
 PNG is written with the standard library's `zlib` and `struct` alone:
 `save_png` writes 8-bit RGB or RGBA, one IDAT chunk, filter 0 on every
@@ -8,18 +8,33 @@ row; the quantisation is the JAX package's, clip(x, 0, 1) * 255 + 0.5
 truncated.
 
 Reading gives what the JAX package gets from PIL, which opens a file by
-its content.  PNG: every colour type and bit depth (1-16), Adam7
-interlacing, IDAT split over chunks, all five row filters (undone by the
-C codec, io/codec.py), tRNS.  JPEG: io/jpeg.py.  The arrays are PIL's:
-a 16-bit RGB, RGBA or gray+alpha PNG gives its samples' high bytes (the
-gray+alpha one as RGBA), a 16-bit gray one its full uint16 values, a 1-bit
-gray one booleans and a 2- or 4-bit gray one samples scaled to 0..255;
-a palette PNG its indices.  `load_png` is that array as float32 / 255,
-as the JAX package's `load_png` gives it; `decode_rgba` expands it as
-PIL's `convert("RGBA")` does (the glTF texture decode); `decode_samples`
-gives it as imageio gives it to the JAX package's `load_hdr` (a palette
-PNG as its RGB colours).  Other formats raise a ValueError that names
-them.
+its content:
+
+- PNG: every colour type and bit depth (1-16), Adam7 interlacing, IDAT
+  split over chunks, all five row filters (undone by the C codec,
+  io/codec.py), tRNS;
+- JPEG (io/jpeg.py): baseline, extended and progressive Huffman-coded, gray,
+  YCbCr / RGB and CMYK / YCCK, any sampling factors libjpeg accepts, and the
+  block smoothing libjpeg gives a progressive file whose first AC
+  coefficients are incomplete;
+- TIFF (io/tiff.py): strips and tiles, classic and BigTIFF, none / LZW /
+  Deflate / PackBits, predictors 2 and 3, the modes PIL has for them;
+- GIF (io/gif.py): the first frame, with its transparency index;
+- BMP (io/bmp.py): every header, palettes, 16 / 24 / 32-bit, bit fields,
+  RLE8 and RLE4.
+
+The arrays are PIL's: a 16-bit RGB, RGBA or gray+alpha PNG gives its
+samples' high bytes (the gray+alpha one as RGBA), a 16-bit gray one its
+full uint16 values, a 1-bit gray one booleans and a 2- or 4-bit gray one
+samples scaled to 0..255; a palette image its indices; a CMYK JPEG 255 -
+its samples (PIL's "CMYK;I"); a float TIFF float32, a signed or 32-bit one
+int32.  `load_png` is that array as float32 / 255, as the JAX package's
+`load_png` gives it; `decode_rgba` expands it as PIL's `convert("RGBA")`
+does (the glTF texture decode); `decode_samples` gives it as imageio's PIL
+route gives it to the JAX package's `load_hdr` (a palette image as its RGB
+colours).  WebP, KTX2, OpenEXR, Radiance HDR and PFM data, the formats that
+stay refused, raise a ValueError that names them, as does any other file
+PIL would not open.
 """
 
 from __future__ import annotations
@@ -29,7 +44,7 @@ import zlib
 
 import numpy as np
 
-from vpt_tpu_torch.io import codec
+from vpt_tpu_torch.io import bmp, codec, gif, tiff
 from vpt_tpu_torch.io.jpeg import decode_jpeg
 
 _PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
@@ -40,9 +55,8 @@ _DEPTHS = {0: (1, 2, 4, 8, 16), 2: (8, 16), 3: (1, 2, 4, 8), 4: (8, 16), 6: (8, 
 _ADAM7 = ((0, 0, 8, 8), (4, 0, 8, 8), (0, 4, 4, 8), (2, 0, 4, 4), (0, 2, 2, 4), (1, 0, 2, 2), (0, 1, 1, 2))
 # Leading bytes of image formats that glTF assets or environment maps come
 # in and that the port does not read, to name them in the refusal.
-_OTHER_FORMATS = ((b"GIF8", "GIF"), (b"BM", "BMP"), (b"II*\0", "TIFF"), (b"MM\0*", "TIFF"), (b"RIFF", "WebP"),
-                  (b"\xabKTX 20\xbb", "KTX2"), (b"\x76\x2f\x31\x01", "OpenEXR"), (b"#?RADIANCE", "Radiance HDR"),
-                  (b"#?RGBE", "Radiance HDR"))
+_OTHER_FORMATS = ((b"RIFF", "WebP"), (b"\xabKTX 20\xbb", "KTX2"), (b"\x76\x2f\x31\x01", "OpenEXR"),
+                  (b"#?RADIANCE", "Radiance HDR"), (b"#?RGBE", "Radiance HDR"), (b"PF\n", "PFM"), (b"Pf\n", "PFM"))
 
 
 def to_uint8(image) -> np.ndarray:
@@ -144,18 +158,30 @@ def _decode_png(data: bytes, name: str):
 def _pil_image(data: bytes, name: str):
     """The image as PIL opens it: (array, mode, palette, transparency).
     The array is `np.asarray` of PIL's image; the palette is (256, 3)
-    (unlisted entries black) with PIL's transparency for a palette PNG
-    (the tRNS alphas) or None; the transparency is PIL's `info` value
-    (a gray level, an RGB triple, palette alphas) or None."""
+    (unlisted entries black) for modes "P" and "PA", else None; the
+    transparency is PIL's `info` value (a gray level, an RGB triple) or, for
+    a palette image, its entries' alphas as a PNG tRNS chunk gives them, or
+    None."""
     if data[:8] == _PNG_SIGNATURE:
         samples, depth, ctype, palette, trns = _decode_png(data, name)
     elif data[:3] == _JPEG_SOI:
         arr = decode_jpeg(data, name)
-        return arr, ("L" if arr.ndim == 2 else "RGB"), None, None
+        return arr, "L" if arr.ndim == 2 else ("RGB", "CMYK")[arr.shape[2] == 4], None, None
+    elif data[:4] in tiff.MAGIC:
+        arr, mode, table = tiff.read_pil(data, name)
+        return arr, mode, table, None
+    elif data[:6] in (b"GIF87a", b"GIF89a"):
+        arr, mode, table, index = gif.read_pil(data, name)
+        if mode == "P" and index is not None:  # alpha 0 at the transparency index, as tRNS alphas
+            return arr, mode, table, bytes([255] * index + [0])
+        return arr, mode, table, index
+    elif data[:2] == b"BM":
+        arr, mode, table = bmp.read_pil(data, name)
+        return arr, mode, table, None
     else:
         kind = next((f for magic, f in _OTHER_FORMATS if data.startswith(magic)), None)
         raise ValueError(f"{name}: {kind + ' images are' if kind else 'a file of unknown format is'} not read "
-                         f"(only PNG and JPEG)")
+                         f"(only PNG, JPEG, TIFF, GIF and BMP)")
     gray_key = struct.unpack(">H", trns[:2])[0] if trns is not None and len(trns) >= 2 else None
     rgb_key = struct.unpack(">3H", trns[:6]) if trns is not None and len(trns) >= 6 else None
     if ctype == 3:
@@ -210,24 +236,41 @@ def _unit(arr: np.ndarray) -> np.ndarray:
     return out
 
 
+def _muldiv255(a: np.ndarray, b: np.ndarray) -> np.ndarray:
+    """PIL's MULDIV255: a * b / 255, rounded, in integers."""
+    t = a.astype(np.int32) * b + 128
+    return ((t >> 8) + t) >> 8
+
+
 def decode_rgba(data: bytes, name: str = "image") -> np.ndarray:
-    """A PNG's or JPEG's bytes as (H, W, 4) float32 in [0, 1], expanded as
-    PIL's `convert("RGBA")` expands each mode: gray g -> (g, g, g, 255)
-    (16-bit gray clipped to 255 first), gray+alpha -> (g, g, g, a), RGB ->
-    alpha 255, palette -> its entries with the tRNS alphas; a pixel whose
-    gray or RGB value equals the tRNS key's low bytes gets alpha 0."""
+    """An image's bytes as (H, W, 4) float32 in [0, 1], expanded as PIL's
+    `convert("RGBA")` expands each mode: gray g -> (g, g, g, 255) (16- and
+    32-bit gray clipped to 0..255 first, float gray truncated), gray+alpha
+    -> (g, g, g, a), RGB -> alpha 255, palette -> its entries with their
+    alphas (a PNG's tRNS, a GIF's transparency index, a TIFF's alpha
+    samples), CMYK -> RGB by PIL's cmyk2rgb (255 - k - (255 - k) * c / 255,
+    rounded); a pixel whose gray or RGB value equals the tRNS key's low bytes
+    gets alpha 0."""
     arr, mode, table, trns = _pil_image(data, name)
     if mode == "P":
         rgba = _palette_colours(arr, table, trns)
         if rgba.shape[2] == 3:
             rgba = np.concatenate([rgba, np.full(rgba.shape[:2] + (1,), 255, np.uint8)], axis=-1)
         return _unit(rgba)
+    if mode == "PA":
+        return _unit(np.concatenate([table[arr[..., 0]], arr[..., 1:2]], axis=-1))
     if mode == "RGBA":
         return _unit(arr)
+    if mode == "CMYK":
+        nk = 255 - arr[..., 3:4].astype(np.int32)
+        rgb = np.clip(nk - _muldiv255(arr[..., :3], nk), 0, 255)
+        return _unit(np.concatenate([rgb, np.full(arr.shape[:2] + (1,), 255)], axis=-1).astype(np.uint8))
     if mode == "1":
         arr = arr.astype(np.uint8) * np.uint8(255)
-    elif mode == "I;16":
-        arr = np.minimum(arr, 255).astype(np.uint8)
+    elif mode in ("I;16", "I;16B", "I"):
+        arr = np.clip(arr, 0, 255).astype(np.uint8)
+    elif mode == "F":  # through "L": truncated, NaN as 0
+        arr = np.where(arr >= 255.0, 255, np.where(arr > 0.0, arr, 0)).astype(np.uint8)
     rgba = np.empty(arr.shape[:2] + (4,), np.uint8)
     if mode == "LA":
         rgba[..., :3] = arr[..., :1]
@@ -242,16 +285,16 @@ def decode_rgba(data: bytes, name: str = "image") -> np.ndarray:
 
 
 def decode_samples(data: bytes, name: str = "image") -> np.ndarray:
-    """A PNG's or JPEG's samples as imageio reads them through PIL: PIL's
-    array, a palette PNG converted to its RGB colours."""
+    """An image's samples as imageio reads them through PIL: PIL's array, a
+    palette image converted to its RGB colours."""
     arr, mode, table, _ = _pil_image(data, name)
     return table[arr] if mode == "P" else arr
 
 
 def load_png(path: str) -> np.ndarray:
-    """The pixels of a PNG or JPEG file, by its content, as float32 PIL
-    array / 255 (vpt_tpu's io/image.load_png): (H, W) for gray, 1-bit and
-    palette images (palette indices), else (H, W, channels)."""
+    """The pixels of an image file, by its content, as float32 PIL array /
+    255 (vpt_tpu's io/image.load_png): (H, W) for gray, 1-bit and palette
+    images (palette indices), else (H, W, channels)."""
     with open(path, "rb") as f:
         arr = _pil_image(f.read(), path)[0]
     return np.asarray(arr, np.float32) / 255.0

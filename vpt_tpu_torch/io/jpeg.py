@@ -7,26 +7,35 @@ fixed-point "islow" IDCT.  Upsampling and colour conversion follow
 libjpeg-turbo's default decompression (the library behind PIL), in integer
 numpy arithmetic, so the samples equal PIL's:
 
-- chroma at half width (4:2:2) or half width and height (4:2:0) is
-  upsampled with the triangle ("fancy") filters: 3/4 of the nearer sample
-  and 1/4 of the farther one in each halved dimension, the results rounded
-  with biases 1 and 2 (of 4) horizontally, and 8 and 7 (of 16) in two
-  dimensions; the sample beyond each edge of the component's own size
-  repeats the edge sample.  A component 1 or 2 samples wide is replicated
-  instead;
+- a component at half the frame's width (h2v1), half its height (h1v2) or
+  both (h2v2) is upsampled with the triangle ("fancy") filters: 3/4 of the
+  nearer sample and 1/4 of the farther one in each halved dimension, the
+  results rounded with biases 1 and 2 (of 4) in one dimension, and 8 and 7
+  (of 16) in two; the sample beyond each edge of the component's own size
+  repeats the edge sample.  An h2v1 or h2v2 component 1 or 2 samples wide,
+  and a component at any other integral ratio (4:1:1, 4:1:0, mixed factors),
+  is replicated instead; a ratio that is no integer raises, as in libjpeg;
 - YCbCr becomes RGB with 16-bit fixed-point factors 1.402, 0.34414,
-  0.71414 and 1.772, rounded half up, then clamped to 0..255.
+  0.71414 and 1.772, rounded half up, then clamped to 0..255;
+- four components are CMYK, or YCCK under an Adobe APP14 marker whose
+  transform is not 0 (libjpeg's guess): YCCK's first three become C, M, Y as
+  255 - the RGB of its YCbCr, K passes through; PIL reads the result as
+  Adobe's inverted CMYK ("CMYK;I"), so the array holds 255 - each sample;
+- a progressive file whose first 9 AC coefficients are not all complete is
+  block-smoothed as libjpeg-turbo smooths it (codec.jpeg_smooth, the C
+  `vpt_jpeg_smooth`: each still-zero one of those coefficients estimated
+  from the 5x5 neighbourhood of DC values).
 
 Read: baseline and extended sequential Huffman frames (SOF0, SOF1) and
-progressive Huffman frames (SOF2) of 8-bit samples; 1 component (gray) or 3
+progressive Huffman frames (SOF2) of 8-bit samples; 1 component (gray), 3
 (YCbCr, or RGB by an Adobe APP14 transform 0 or component ids 'R', 'G', 'B',
-as libjpeg decides); sampling 4:4:4, 4:2:2 and 4:2:0; 8- and 16-bit
-quantisation tables; restart intervals; any image size.  CMYK and YCCK
-(4 components), arithmetic coding, 12-bit samples, lossless and
-hierarchical frames, other sampling factors, and a progressive file whose
-first 9 AC coefficients stay incomplete (libjpeg smooths its blocks)
-raise a ValueError that names the format and the image, as does a
-truncated file (PIL raises on one too).
+as libjpeg decides) or 4 (CMYK, YCCK); any sampling factors 1-4 whose
+ratios to the largest are integers, with at most 10 blocks in an MCU; 8-
+and 16-bit quantisation tables; restart intervals; any image size.
+Arithmetic coding, 12-bit samples, lossless and hierarchical frames, 2
+components and sampling ratios that are no integers raise a ValueError that
+names the format and the image, as does a truncated file (PIL raises on one
+too).
 """
 
 from __future__ import annotations
@@ -112,34 +121,50 @@ def _dht(seg: bytes, tables: dict, name: str) -> None:
         i += 17 + n
 
 
+def _fancy(p: np.ndarray, axis: int) -> tuple:
+    """The two triangle-filter taps of each sample along `axis` (the edge
+    samples repeated): (3 p + previous, 3 p + next)."""
+    first = np.take(p, [0], axis=axis)
+    last = np.take(p, [-1], axis=axis)
+    n = p.shape[axis]
+    prev = np.concatenate([first, np.take(p, np.arange(n - 1), axis=axis)], axis=axis)
+    nxt = np.concatenate([np.take(p, np.arange(1, n), axis=axis), last], axis=axis)
+    return 3 * p + prev, 3 * p + nxt
+
+
+def _interleave(a: np.ndarray, b: np.ndarray, axis: int) -> np.ndarray:
+    return np.stack([a, b], axis=axis + 1).reshape(a.shape[:axis] + (2 * a.shape[axis],) + a.shape[axis + 1 :])
+
+
 def _upsample(plane: np.ndarray, fx: int, fy: int, w: int) -> np.ndarray:
     """A component's (dh, dw) samples at fx times its width and fy times its
-    height: libjpeg-turbo's fancy h2v1 / h2v2 filters, or replication for a
-    component 1 or 2 samples wide."""
+    height, by the method libjpeg-turbo's jdsample.c picks with fancy
+    upsampling on: the h2v1 / h2v2 triangle filters (replication for a
+    component 1 or 2 samples wide), the h1v2 triangle filter, or
+    replication for any other integral ratio."""
     if fx == fy == 1:
         return plane
     p = plane.astype(np.int32)
-    if w <= 2:
+    if (fx, fy) == (1, 2):
+        up, down = _fancy(p, 0)
+        return _interleave((up + 1) >> 2, (down + 2) >> 2, 0)
+    if (fx, fy) not in ((2, 1), (2, 2)) or w <= 2:
         return np.repeat(np.repeat(p, fx, axis=1), fy, axis=0)
-    if fy == 2:  # vertical neighbours, the edge rows repeated
-        above = np.concatenate([p[:1], p[:-1]])
-        below = np.concatenate([p[1:], p[-1:]])
-        rows = np.stack([3 * p + above, 3 * p + below], axis=1).reshape(-1, p.shape[1])
+    if fy == 2:  # vertical taps first, kept at 4x
+        up, down = _fancy(p, 0)
+        rows = _interleave(up, down, 0)
         shift, bias = 4, (8, 7)
     else:
         rows = p
         shift, bias = 2, (1, 2)
-    left = np.concatenate([rows[:, :1], rows[:, :-1]], axis=1)
-    right = np.concatenate([rows[:, 1:], rows[:, -1:]], axis=1)
-    out = np.empty((rows.shape[0], 2 * rows.shape[1]), np.int32)
-    out[:, 0::2] = (3 * rows + left + bias[0]) >> shift
-    out[:, 1::2] = (3 * rows + right + bias[1]) >> shift
-    return out
+    left, right = _fancy(rows, 1)
+    return _interleave((left + bias[0]) >> shift, (right + bias[1]) >> shift, 1)
 
 
 def decode_jpeg(data: bytes, name: str = "image") -> np.ndarray:
     """A JPEG file's bytes as PIL decodes them: (H, W) uint8 for a gray
-    image, else (H, W, 3) uint8 RGB."""
+    image, (H, W, 3) uint8 RGB, or (H, W, 4) uint8 for a CMYK or YCCK one
+    (PIL's "CMYK" array: 255 - the CMYK samples)."""
     buf = np.frombuffer(data, np.uint8)
     if data[:2] != b"\xff\xd8":
         raise ValueError(f"{name} is not a JPEG file")
@@ -198,14 +223,25 @@ def decode_jpeg(data: bytes, name: str = "image") -> np.ndarray:
         raise ValueError(f"{name}: JPEG file is truncated (no frame header)")
     if not eoi or any(c.coefs is None for c in comps):
         raise ValueError(f"{name}: JPEG file is truncated")
-    if progressive:
-        _refuse_smoothing(comps, name)
+    smooth = progressive and _smoothing_ok(comps)
     planes = []
     for c in comps:
-        plane = codec.jpeg_idct(c.coefs, c.qt)[: c.dh, : c.dw]
+        coefs = c.coefs
+        if smooth:
+            coefs = codec.jpeg_smooth(coefs, c.nbx, c.nby, c.v, frame["mcuy"], c.qt, c.bits)
+        plane = codec.jpeg_idct(coefs, c.qt)[: c.dh, : c.dw]
         planes.append(_upsample(plane, frame["hmax"] // c.h, frame["vmax"] // c.v, c.dw)[: frame["y"], : frame["x"]])
     if len(comps) == 1:
         return planes[0].astype(np.uint8)
+    if len(comps) == 4:
+        if adobe is None or adobe == 0:  # CMYK as it is stored
+            cmyk = np.stack(planes, axis=-1)
+        else:  # YCCK: C, M, Y = 255 - the RGB of the YCbCr; K as it is
+            y = planes[0].astype(np.int64)
+            cb, cr = planes[1], planes[2]
+            rgb = np.stack([y + _CR_R[cr], y + ((_CB_G[cb] + _CR_G[cr]) >> 16), y + _CB_B[cb]], axis=-1)
+            cmyk = np.concatenate([np.clip(255 - rgb, 0, 255), planes[3][..., None]], axis=-1)
+        return (255 - cmyk).astype(np.uint8)  # PIL's "CMYK;I": Adobe's inverted samples
     if jfif:  # libjpeg's guess of the colour space of 3 components
         rgb = False
     elif adobe is not None:
@@ -226,10 +262,8 @@ def _frame(seg: bytes, name: str) -> dict:
     precision, y, x, n = seg[0], (seg[1] << 8) | seg[2], (seg[3] << 8) | seg[4], seg[5]
     if precision != 8:
         raise ValueError(f"{name}: {precision}-bit JPEG images are not read, only 8-bit")
-    if n == 4:
-        raise ValueError(f"{name}: CMYK / YCCK JPEG images (4 components) are not read")
-    if n not in (1, 3):
-        raise ValueError(f"{name}: JPEG images with {n} components are not read (only 1 or 3)")
+    if n not in (1, 3, 4):
+        raise ValueError(f"{name}: JPEG images with {n} components are not read (only 1, 3 or 4)")
     if y == 0 or x == 0:
         raise ValueError(f"{name}: JPEG images with a height from a DNL marker, or of zero size, are not read")
     if len(seg) < 6 + 3 * n:
@@ -242,10 +276,10 @@ def _frame(seg: bytes, name: str) -> dict:
             raise ValueError(f"{name}: JPEG has bad sampling factors or table index")
         comps.append(_Component(cid, h, v, tq))
     hmax, vmax = max(c.h for c in comps), max(c.v for c in comps)
-    if n == 3 and any((hmax % c.h, vmax % c.v) != (0, 0) or (hmax // c.h, vmax // c.v) not in ((1, 1), (2, 1), (2, 2))
-                      for c in comps):
+    if n > 1 and any(hmax % c.h or vmax % c.v for c in comps):
         factors = ", ".join(f"{c.h}x{c.v}" for c in comps)
-        raise ValueError(f"{name}: JPEG sampling factors {factors} are not read (only 4:4:4, 4:2:2 and 4:2:0)")
+        raise ValueError(f"{name}: JPEG sampling factors {factors} are not read (ratios that are no integers; "
+                         f"libjpeg refuses them too)")
     if n == 1:  # one component: its own size, whatever its factors say
         comps[0].h = comps[0].v = hmax = vmax = 1
     mcux, mcuy = -(-x // (8 * hmax)), -(-y // (8 * vmax))
@@ -290,6 +324,8 @@ def _scan(seg: bytes, buf: np.ndarray, start: int, frame: dict, qtables: dict, h
             lo, hi = ss, min(se, 9)
             if lo <= hi:
                 c.bits[lo : hi + 1] = al
+    if ns > 1 and sum(c.h * c.v for c in members) > 10:
+        raise ValueError(f"{name}: JPEG scan has more than 10 blocks in an MCU (libjpeg refuses it too)")
     geom = np.array([[c.h, c.v, c.bw, c.nbx, c.nby] for c in members], np.int32)
     try:
         end = codec.jpeg_scan(buf[start:], [c.coefs for c in members], geom, np.stack(dc), np.stack(ac),
@@ -299,12 +335,10 @@ def _scan(seg: bytes, buf: np.ndarray, start: int, frame: dict, qtables: dict, h
     return start + end
 
 
-def _refuse_smoothing(comps, name: str) -> None:
-    """libjpeg smooths the blocks of a progressive file whose first 9 AC
-    coefficients are not all complete (DC known, the quantisers of
-    coefficients 0..9 nonzero): such files are not read."""
+def _smoothing_ok(comps) -> bool:
+    """libjpeg-turbo's smoothing_ok: every component's DC known and the
+    quantisers of coefficients 0..9 nonzero, and some component's first 9 AC
+    coefficients not all complete."""
     natural = ZIGZAG[:10]
-    if all(c.bits[0] >= 0 and (c.qt[natural] != 0).all() for c in comps) and any((c.bits[1:] != 0).any()
-                                                                                   for c in comps):
-        raise ValueError(f"{name}: progressive JPEG whose first AC coefficients are incomplete (libjpeg smooths "
-                         f"its blocks) is not read")
+    return all(c.bits[0] >= 0 and (c.qt[natural] != 0).all() for c in comps) and any((c.bits[1:] != 0).any()
+                                                                                      for c in comps)

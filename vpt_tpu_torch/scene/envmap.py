@@ -11,30 +11,43 @@ import os
 
 import numpy as np
 
+from vpt_tpu_torch.io import tiff
 from vpt_tpu_torch.io.image import decode_samples, load_radiance_hdr
 from vpt_tpu_torch.scene.types import EnvMapData
 
-# Extensions read as images, by their content, as imageio reads them for
-# the JAX package: the decoded integer samples, not divided by 255.
-_IMAGE_EXTENSIONS = (".png", ".jpg", ".jpeg")
+# Extensions imageio reads for the JAX package, and how: a TIFF by its
+# bundled tifffile (the samples in their own dtype), the rest, and a .tif
+# file that is no TIFF, by PIL, which opens a file by its content.  The
+# samples are not divided by 255.
+_TIFF_EXTENSIONS = (".tif", ".tiff")
+_PIL_EXTENSIONS = (".png", ".jpg", ".jpeg", ".bmp", ".gif")
 
 
 def load_hdr(path: str) -> np.ndarray:
     """An environment image as float32 (H, W, 3) from a `.npy` array, a
-    Radiance `.hdr` file, or a PNG or JPEG file (its samples as they are,
-    gray repeated to three channels).  Other formats (EXR, TIFF, PFM and
-    the rest of imageio's) raise a ValueError that names the extension."""
+    Radiance `.hdr` file, a `.tif` / `.tiff` file (its first series as
+    imageio's tifffile reads it: float16 / 32 / 64 and integer samples as
+    they are, strips or tiles, none / LZW / Deflate / PackBits compression),
+    or a `.png`, `.jpg`, `.jpeg`, `.bmp` or `.gif` file read by its content
+    as imageio reads it through PIL (palette images as their colours, a
+    CMYK JPEG's first three of its four channels).  Gray is repeated to
+    three channels.  Other extensions (EXR, PFM, WebP and the rest of
+    imageio's) raise a ValueError that names the extension."""
     if path.endswith(".npy"):
         img = np.load(path)
     elif path.endswith(".hdr"):
         img = load_radiance_hdr(path)
-    elif path.lower().endswith(_IMAGE_EXTENSIONS):
+    elif path.lower().endswith(_TIFF_EXTENSIONS + _PIL_EXTENSIONS):
         with open(path, "rb") as f:
-            img = decode_samples(f.read(), path)
+            data = f.read()
+        if path.lower().endswith(_TIFF_EXTENSIONS) and data[:4] in tiff.MAGIC:
+            img = tiff.read_array(data, path)
+        else:
+            img = decode_samples(data, path)
     else:
         ext = os.path.splitext(path)[1] or "extensionless"
-        raise ValueError(f"{path}: {ext} files are not read as environment maps (only .npy, .hdr, .png, .jpg "
-                         f"and .jpeg)")
+        raise ValueError(f"{path}: {ext} files are not read as environment maps (only .npy, .hdr, .tif, .tiff, "
+                         f".png, .jpg, .jpeg, .bmp and .gif)")
     img = np.asarray(img, np.float32)
     if img.ndim == 2:
         img = np.repeat(img[..., None], 3, axis=-1)
