@@ -244,21 +244,28 @@ Phases, each of which raises on failure:
      one JSON line "port_gaps".
  17. the image formats, on a machine without PIL or imageio:
      a. every fixture of tests/torch_formats/ (TIFF, GIF, BMP, CMYK / YCCK,
-        4:4:0 / 4:1:1 and block-smoothed JPEGs) through decode_rgba and
-        load_hdr against its manifest: the sha256 of the JAX package's
-        decode, or a ValueError where it refuses; the C codec loaded;
+        4:4:0 / 4:1:1 and block-smoothed JPEGs) and of tests/torch_webp/
+        (WebP: the simple and normal loop filters at each sharpness, 2 / 4 /
+        8 token partitions, segments, ALPH chunks under each filter, raw
+        and lossless, lossless files, an animation's first frame at an
+        offset) through decode_rgba and load_hdr against its manifest: the
+        sha256 of the JAX package's decode, or a ValueError where it
+        refuses; the C codec and the C WebP decoders loaded;
      b. a 4096x2048 float32 RGB sky (default_sky) written by
         `write_float_tiff` here as Deflate 256x256 tiles and as
         uncompressed strips: load_hdr gives it back bitwise; its host
         seconds (median of 5) beside load_radiance_hdr of the same sky by
         save_radiance_hdr, with the card's name and power limit; the
-        Deflate read under FORMAT_LIMIT_S;
+        Deflate read under FORMAT_LIMIT_S; decode_rgba of the two 2048x2048
+        WebP textures of tests/torch_webp/ (lossy with ALPH, lossless), host
+        seconds (median of 5), each under WEBP_LIMIT_S;
      c. `python -m vpt_tpu_torch render garden` at 512x512, depth 8, 8 spp
         with --env sky.tif against --env sky.npy of the same array (two
         processes at once): bitwise equal; then the colonnade as a .glb with
-        a GIF, an RLE8 BMP, an LZW TIFF and a CMYK JPEG base colour through
-        the CLI, bitwise its in-memory render with those decodes (each the
-        manifest's sha256);
+        a GIF, an RLE8 BMP, an LZW TIFF and a CMYK JPEG base colour, a lossy
+        WebP with ALPH on the back wall and a lossless WebP on the brass,
+        through the CLI, bitwise its in-memory render with those decodes
+        (each the manifest's sha256);
      one JSON line "image_formats".  `--image-formats` runs this phase alone
      (after the build).
 Every drive of phases 4-11, 13 and 14 checks that its loop ran captured (a
@@ -306,6 +313,7 @@ import argparse
 import collections
 import contextlib
 import ctypes
+import dataclasses
 import gc
 import hashlib
 import json
@@ -2315,7 +2323,11 @@ FORMAT_LIMIT_S = 2.0  # 17b: host seconds for load_hdr of the Deflate-tiled 4096
 FORMAT_TEXTURES = {"gif-local-interlaced-inside-transparent.gif": ("stone", "image/gif"),
                    "bmp-rle8-runs-h40.bmp": ("floor", "image/bmp"),
                    "pil-tiff-RGB-tiff_lzw.tif": ("drape-red", "image/tiff"),
-                   "jpeg-pil-cmyk-q90.jpg": ("drape-green", "image/jpeg")}
+                   "jpeg-pil-cmyk-q90.jpg": ("drape-green", "image/jpeg"),
+                   # fixtures of tests/torch_webp/: lossy with ALPH on the back wall's own copy of stone, lossless
+                   "vp8-alph-lossless-filter-best.webp": ("stone-wall-back", "image/webp"),
+                   "vp8l-m6-q100-exact.webp": ("brass", "image/webp")}
+WEBP_LIMIT_S = 1.0  # 17b: host seconds for decode_rgba of each 2048x2048 WebP texture
 
 
 def write_float_tiff(path: str, img: np.ndarray, tile: int = 0) -> None:
@@ -2351,12 +2363,13 @@ def write_float_tiff(path: str, img: np.ndarray, tile: int = 0) -> None:
     check(n == len(offsets), "the TIFF writer's segments")
 
 
-def fixture_array(name: str, key: str, manifest: dict):
-    """17a: fixture `name` of tests/torch_formats/ through the texture decode
-    ("rgba") or load_hdr, held to its manifest entry: the array (its sha256
-    that of the JAX package's decode), or None where the entry says the JAX
-    package refuses it and the port raised a ValueError."""
-    path = os.path.join(gltf_scenes.FORMAT_DIR, name)
+def fixture_array(folder: str, name: str, key: str, manifest: dict):
+    """17a: fixture `name` of tests/torch_formats/ or tests/torch_webp/
+    (`folder`) through the texture decode ("rgba") or load_hdr, held to its
+    manifest entry: the array (its sha256 that of the JAX package's decode),
+    or None where the entry says the JAX package refuses it and the port
+    raised a ValueError."""
+    path = os.path.join(folder, name)
     want = manifest[name][key]
     try:
         if key == "rgba":
@@ -2373,24 +2386,32 @@ def fixture_array(name: str, key: str, manifest: dict):
 
 
 def image_formats_phase(dev, smi: str) -> None:
-    """Phase 17: the TIFF, GIF, BMP and CMYK / any-sampling / smoothed JPEG
-    decoders on the card's machine (no PIL there) against the manifest of
-    tests/torch_formats/, a 4096x2048 float TIFF sky read back bitwise and
-    timed, a render with a .tif sky against the same array as .npy, and a
-    .glb with GIF, RLE8 BMP, LZW TIFF and CMYK JPEG textures through the CLI
+    """Phase 17: the TIFF, GIF, BMP, CMYK / any-sampling / smoothed JPEG and
+    WebP decoders on the card's machine (no PIL there) against the manifests
+    of tests/torch_formats/ and tests/torch_webp/, a 4096x2048 float TIFF
+    sky read back bitwise and timed, the 2048x2048 WebP textures timed, a
+    render with a .tif sky against the same array as .npy, and a .glb with
+    GIF, RLE8 BMP, LZW TIFF, CMYK JPEG and WebP textures through the CLI
     against its in-memory render."""
     t_phase = time.perf_counter()
     # 17a. The fixtures.
-    with open(os.path.join(gltf_scenes.FORMAT_DIR, "manifest.json")) as f:
-        manifest = json.load(f)
-    check(sorted(manifest) == sorted(gltf_scenes.FORMAT_FIXTURES), "17a: the manifest names every fixture")
-    decoded = {(name, key): fixture_array(name, key, manifest) for name in gltf_scenes.FORMAT_FIXTURES
+    decoded = {}
+    for folder, names in ((gltf_scenes.FORMAT_DIR, gltf_scenes.FORMAT_FIXTURES),
+                          (gltf_scenes.WEBP_DIR, gltf_scenes.WEBP_FIXTURES)):
+        with open(os.path.join(folder, "manifest.json")) as f:
+            manifest = json.load(f)
+        check(sorted(manifest) == sorted(names), f"17a: the manifest of {folder} names every fixture")
+        t0 = time.perf_counter()
+        got = {(name, key): fixture_array(folder, name, key, manifest) for name in names
                for key in ("rgba", "load_hdr")}
-    refused = sorted(f"{n} ({k})" for (n, k), v in decoded.items() if v is None)
+        decoded.update(got)
+        refused = sorted(f"{n} ({k})" for (n, k), v in got.items() if v is None)
+        log(f"17a: {len(names)} fixtures of tests/{os.path.basename(folder)}/ decode to their manifest through the "
+            f"texture decode and load_hdr ({len(got) - len(refused)} arrays by sha256; {len(refused)} refused where "
+            f"the JAX package refuses{': ' if refused else ''}{', '.join(refused)}; {time.perf_counter() - t0:.2f} s)")
     check(codec._lib is not None and hasattr(codec._lib, "vpt_tiff_lzw"), "17a: the decoders ran the C codec")
-    log(f"17a: {len(gltf_scenes.FORMAT_FIXTURES)} fixtures of tests/torch_formats/ decode to their manifest through "
-        f"the texture decode and load_hdr ({len(decoded) - len(refused)} arrays by sha256; {len(refused)} refused "
-        f"where the JAX package refuses: {', '.join(refused)})")
+    check(codec._webp_lib is not None and hasattr(codec._webp_lib, "vpt_vp8_decode"),
+          "17a: the WebP fixtures ran the port's C WebP decoders")
 
     # 17b. A 4096x2048 float TIFF sky.
     sky = default_sky(size=FORMAT_SKY)
@@ -2418,6 +2439,15 @@ def image_formats_phase(dev, smi: str) -> None:
         f"same sky by save_radiance_hdr ({row['radiance_bytes']} bytes) {row['radiance_s']:.4f} s "
         f"{row['radiance_all_s']}; both TIFFs bitwise the array")
     check(row["deflate_tiles_s"] < FORMAT_LIMIT_S, f"17b: the Deflate TIFF sky reads in under {FORMAT_LIMIT_S} s")
+    row["webp"] = {}
+    for name in gltf_scenes.WEBP_TIMING:
+        with open(os.path.join(gltf_scenes.WEBP_DIR, name), "rb") as f:
+            data = f.read()
+        median, every = host_seconds(lambda: decode_rgba(data, name))
+        row["webp"][name] = {"bytes": len(data), "s": median, "all_s": every}
+        log(f"17b: decode_rgba of {name} (2048x2048, {len(data)} bytes; {smi}, host {os.cpu_count()} CPUs): "
+            f"{median:.4f} s median of 5 {every}")
+        check(median < WEBP_LIMIT_S, f"17b: {name} decodes in under {WEBP_LIMIT_S} s")
 
     # 17c. A .tif sky against the .npy of the same array; a .glb of the new formats.
     with tempfile.TemporaryDirectory() as tmp:
@@ -2445,6 +2475,9 @@ def image_formats_phase(dev, smi: str) -> None:
         check(np.array_equal(got, want), "17c: the --env sky.tif render is bitwise the --env sky.npy render")
 
         scene = colonnade()
+        back = next(i for i in scene.instances if i.name == "wall-back")  # its own copy of stone, for a WebP
+        scene.materials.append(dataclasses.replace(scene.materials[back.material], name="stone-wall-back"))
+        back.material = len(scene.materials) - 1
         images, textures = {}, {}
         for name, (material, mime) in FORMAT_TEXTURES.items():
             textures[name] = decoded[name, "rgba"]
@@ -2452,7 +2485,8 @@ def image_formats_phase(dev, smi: str) -> None:
             scene.textures.append(textures[name])
             slot = len(scene.textures) - 1
             next(m for m in scene.materials if m.name == material).base_color_texture = slot
-            with open(os.path.join(gltf_scenes.FORMAT_DIR, name), "rb") as f:
+            folder = gltf_scenes.WEBP_DIR if name.endswith(".webp") else gltf_scenes.FORMAT_DIR
+            with open(os.path.join(folder, name), "rb") as f:
                 images[slot] = (f.read(), mime)
         glb = gltf_scenes.scene_to_gltf(scene, os.path.join(tmp, "formats.glb"), images=images)
         sky_path = os.path.join(tmp, "colonnade_sky.npy")

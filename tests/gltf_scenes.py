@@ -18,7 +18,7 @@ tests/make_torch_images.py with PIL): each NAME has NAME.ref.png beside
 it, PIL's decode of it as 8-bit RGBA; the large `TIMING_JPEG` has the
 sha256 of that decode in TIMING_JPEG.sha256 instead.  `FORMAT_FIXTURES`
 names the TIFF, GIF, BMP and JPEG fixtures of tests/torch_formats/ and
-their manifest.json.
+their manifest.json, `WEBP_FIXTURES` the WebP ones of tests/torch_webp/.
 """
 
 from __future__ import annotations
@@ -63,6 +63,22 @@ FORMAT_FIXTURES = (
     "bmp-p4-h12.bmp", "bmp-24-h40-top-down.bmp", "jpeg-pil-cmyk-q90.jpg", "jpeg-4-components-adobe-2-420.jpg",
     "jpeg-sampling-440-37x29.jpg", "jpeg-sampling-411-37x29.jpg", "jpeg-smoothing-420-17x70-2-scans.jpg",
     "jpeg-smoothing-gray-37x29-1-scans.jpg",
+)
+# The WebP fixtures of tests/torch_webp/ (written by tests/make_torch_webp.py:
+# libwebp's encoder at settings PIL does not expose, cases of
+# tests/webp_cases.py, and the two 2048x2048 textures chip_smoke.py phase 17b
+# times), with a manifest.json as tests/torch_formats/ has.
+WEBP_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "torch_webp")
+WEBP_TIMING = ("timing-2048-lossy-alpha.webp", "timing-2048-lossless.webp")
+WEBP_FIXTURES = (
+    "vp8-filter-simple-sharpness-0.webp", "vp8-filter-simple-sharpness-4.webp", "vp8-filter-simple-sharpness-7.webp",
+    *(f"vp8-filter-normal-sharpness-{s}.webp" for s in range(1, 8)), "vp8-filter-off.webp",
+    "vp8-filter-strongest-q0.webp", "vp8-filter-auto.webp", "vp8-partitions-2.webp", "vp8-partitions-4.webp",
+    "vp8-partitions-8.webp", *(f"vp8-segments-{s}.webp" for s in range(1, 5)), "vp8-sharp-yuv-m6.webp",
+    *(f"vp8-alph-{c}-filter-{f}.webp" for c in ("raw", "lossless") for f in ("none", "fast", "best")),
+    "vp8-alph-quantised-q30.webp", "vp8l-m0-q0.webp", "vp8l-m6-q100-exact.webp",
+    *(f"alph-{c}-filter-{f}.webp" for c in ("raw", "lossless") for f in range(4)),
+    "animation-first-frame-lossy-alpha-12x9-at-6-4.webp", *WEBP_TIMING,
 )
 # Adam7 passes: first column, first row, column step, row step.
 ADAM7 = ((0, 0, 8, 8), (4, 0, 8, 8), (0, 4, 4, 8), (2, 0, 4, 4), (0, 2, 2, 4), (1, 0, 2, 2), (0, 1, 1, 2))

@@ -8,10 +8,10 @@ three KHR extensions.  Every Scene field must be equal, textures included;
 the textured colonnade written as a .glb loads back with its instances,
 triangles and textures (within the PNG's 1/255), and the CLI's render of
 it equals the procedural scene's; palette PNGs decode as
-PIL's convert("RGBA"); RGB and CMYK JPEG textures load as PIL reads them,
-and a WebP one raises, naming the format and the image
-(tests/test_torch_jpeg.py and tests/test_torch_image_formats.py hold every
-decoder case)."""
+PIL's convert("RGBA"); RGB and CMYK JPEG and lossy and lossless WebP
+textures load as PIL reads them, and a KTX2 one raises, naming the format
+and the image (tests/test_torch_jpeg.py, tests/test_torch_image_formats.py
+and tests/test_torch_webp.py hold every decoder case)."""
 
 import dataclasses
 import io
@@ -132,28 +132,34 @@ def test_glb_render_through_the_cli_equals_the_procedural_scene(tmp_path, capsys
 
 
 def test_jpeg_raises_naming_format_and_image(tmp_path):
-    """JPEG base colour textures, RGB and CMYK (which the port once
-    refused), load as the JAX loader loads them (PIL); a WebP one, which the
-    port does not read, raises a ValueError that names the format and the
-    image."""
+    """JPEG base colour textures, RGB and CMYK, and WebP ones, lossy RGB and
+    lossless RGBA (which the port once refused), load as the JAX loader
+    loads them (PIL); a KTX2 one, which neither package reads, raises a
+    ValueError that names the format and the image."""
     rng = np.random.default_rng(2)
     paths = {}
-    for mode, fmt in (("RGB", "JPEG"), ("CMYK", "JPEG"), ("RGB", "WEBP")):
+    for mode, fmt, kw in (("RGB", "JPEG", {}), ("CMYK", "JPEG", {}), ("RGB", "WEBP", {}),
+                          ("RGBA", "WEBP", {"lossless": True}), ("RGB", "KTX2", None)):
         out = io.BytesIO()
-        Image.fromarray(rng.integers(0, 256, (12, 10, len(mode))).astype(np.uint8), mode).save(out, format=fmt)
+        if kw is None:  # a KTX2 header and no more
+            out.write(b"\xabKTX 20\xbb\r\n\x1a\n" + bytes(68))
+        else:
+            Image.fromarray(rng.integers(0, 256, (12, 10, len(mode))).astype(np.uint8), mode).save(out, format=fmt,
+                                                                                                  **kw)
         w = gltf_scenes.GltfWriter()
         image = w.image(out.getvalue(), "wall", mime_type=f"image/{fmt.lower()}")
         mat = w.material(pbrMetallicRoughness={"baseColorTexture": {"index": w.texture(image)}})
         w.mesh([{"attributes": {"POSITION": w.accessor(np.eye(3, dtype=np.float32))}, "material": mat}])
         w.node(mesh=0)
         paths[mode, fmt] = w.save(str(tmp_path / f"{mode}.{fmt.lower()}.glb"))
-    for key in (("RGB", "JPEG"), ("CMYK", "JPEG")):
+    for key in (("RGB", "JPEG"), ("CMYK", "JPEG"), ("RGB", "WEBP"), ("RGBA", "WEBP")):
         got, want = load_gltf(paths[key]), jax_load_gltf(paths[key])
         assert len(got.textures) == len(want.textures) == 4
         np.testing.assert_array_equal(got.textures[3], want.textures[3])
-    assert len(jax_load_gltf(paths["RGB", "WEBP"]).textures) == 4  # PIL reads it
-    with pytest.raises(ValueError, match="wall: WebP"):
-        load_gltf(paths["RGB", "WEBP"])
+    with pytest.raises(OSError):  # PIL does not read KTX2
+        jax_load_gltf(paths["RGB", "KTX2"])
+    with pytest.raises(ValueError, match="wall: KTX2"):
+        load_gltf(paths["RGB", "KTX2"])
 
 
 def test_palette_png_decodes_as_pil_converts_it(tmp_path):

@@ -20,13 +20,14 @@ dtypes included.
 - The committed fixtures of tests/torch_images/ against their recorded PIL
   decodes and against PIL here.
 - The refusals that stay, each naming the format: truncated,
-  arithmetic-coded, 12-bit and lossless JPEGs, lossless and lossy WebP, an
-  OpenEXR texture, a colour PFM environment map, `.exr` and `.pfm`
-  environment maps.  The CMYK and 4:4:0 JPEGs, the progressive JPEG that
-  libjpeg smooths, the GIF and the `.tif` environment map once refused here
-  now equal the JAX package's decodes (tests/test_torch_image_formats.py
-  holds every such format); corrupt files raise ValueErrors only; a failed
-  gcc build of the codec raises; threads share one build.
+  arithmetic-coded, 12-bit and lossless JPEGs, an OpenEXR texture, a colour
+  PFM environment map, `.exr` and `.pfm` environment maps.  The CMYK and
+  4:4:0 JPEGs, the progressive JPEG that libjpeg smooths, the GIF, lossless
+  and lossy WebP and the `.tif` environment map once refused here now equal
+  the JAX package's decodes (tests/test_torch_image_formats.py and
+  tests/test_torch_webp.py hold every such format); corrupt files raise
+  ValueErrors only; a failed gcc build of the codec raises; threads share
+  one build.
 """
 
 import base64
@@ -360,8 +361,8 @@ def refusal_cases() -> dict:
         "sampling-440": (patched(patched(rgb, sof, 11, 0x12), sof, 14, 0x11), None),
         "smoothing": (incomplete_progressive(), None),
         "gif": (gif_bytes(), None),
-        "webp-lossless": (webp_bytes(True), "WebP"),
-        "webp-lossy": (webp_bytes(False), "WebP"),
+        "webp-lossless": (webp_bytes(True), None),
+        "webp-lossy": (webp_bytes(False), None),
         "exr": (b"\x76\x2f\x31\x01" + bytes(64), "OpenEXR"),
         "pfm": (pfm_bytes(), "PFM"),
     }
@@ -371,9 +372,9 @@ def refusal_cases() -> dict:
                                   "sampling-440", "smoothing", "gif", "webp-lossless", "webp-lossy", "exr", "pfm"])
 def test_refusals_name_the_format(tmp_path, case):
     """What the port refuses it refuses naming the format and the image.
-    The CMYK JPEG, the 4:4:0 one, the progressive one that libjpeg smooths
-    and the GIF, once refused, now decode as PIL decodes them (the JAX
-    package's `_load_image`)."""
+    The CMYK JPEG, the 4:4:0 one, the progressive one that libjpeg smooths,
+    the GIF and the lossless and lossy WebPs, once refused, now decode as
+    PIL decodes them (the JAX package's `_load_image`)."""
     data, reason = refusal_cases()[case]
     doc = gltf_image(data, "image/jpeg")
     doc["images"][0]["name"] = "wall"

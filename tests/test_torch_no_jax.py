@@ -1,6 +1,8 @@
 """The port runs where JAX, PIL and imageio are not installed: importing
 vpt_tpu_torch and every module of the ported slice, or chip_smoke.py, must
-pull in neither `jax`, `vpt_tpu`, `PIL`, `imageio` nor `tifffile`."""
+pull in neither `jax`, `vpt_tpu`, `PIL`, `imageio` nor `tifffile`; and the
+port alone decodes WebP with its own C decoders, where PIL (its `_webp`
+module) and imageio cannot be imported and no libwebp is loaded."""
 
 import os
 import subprocess
@@ -35,6 +37,7 @@ SLICE_MODULES = [
     "vpt_tpu_torch.io.tiff",
     "vpt_tpu_torch.io.gif",
     "vpt_tpu_torch.io.bmp",
+    "vpt_tpu_torch.io.webp",
     "vpt_tpu_torch.io.metrics",
     "vpt_tpu_torch.io.metrics_log",
     "vpt_tpu_torch.post.tonemap",
@@ -174,3 +177,43 @@ def test_the_port_alone_builds_and_reads(tmp_path):
     proc = subprocess.run([sys.executable, "-c", _ALONE], cwd=str(tmp_path), env=env, capture_output=True,
                           text=True, timeout=600)
     assert proc.returncode == 0 and "alone ok" in proc.stdout, proc.stderr[-3000:]
+
+
+_WEBP_ALONE = """
+import hashlib, json, os, sys
+for blocked in ("PIL", "PIL._webp", "imageio", "webp"):
+    sys.modules[blocked] = None  # any import of these raises
+from vpt_tpu_torch.io import codec, image
+from vpt_tpu_torch.scene import envmap
+here = os.getcwd()
+fixtures = sys.argv[1]
+with open(os.path.join(fixtures, "manifest.json")) as f:
+    manifest = json.load(f)
+for name, entry in sorted(manifest.items()):
+    with open(os.path.join(fixtures, name), "rb") as f:
+        got = image.decode_rgba(f.read(), name)
+    assert [list(got.shape), str(got.dtype), hashlib.sha256(got.tobytes()).hexdigest()] == entry["rgba"], name
+    sky = envmap.load_hdr(os.path.join(fixtures, name))
+    assert [list(sky.shape), str(sky.dtype), hashlib.sha256(sky.tobytes()).hexdigest()] == entry["load_hdr"], name
+assert codec._webp_lib is not None and codec._WEBP_SRC.startswith(here) and codec._WEBP_LIB.startswith(here)
+with open("/proc/self/maps") as f:
+    assert "libwebp" not in f.read()
+print("webp alone ok", len(manifest))
+"""
+
+
+def test_the_port_alone_decodes_webp(tmp_path):
+    """vpt_tpu_torch/ copied on its own (its build/ left behind), in a
+    process where PIL, PIL._webp and imageio cannot be imported: every
+    fixture of tests/torch_webp/ decodes, through the texture path and
+    load_hdr, to its manifest (the JAX package's decodes), with the WebP
+    decoders built from the copy's csrc/ and no libwebp mapped into the
+    process."""
+    import shutil
+
+    shutil.copytree(os.path.join(_ROOT, "vpt_tpu_torch"), str(tmp_path / "vpt_tpu_torch"),
+                    ignore=shutil.ignore_patterns("build", "__pycache__", "*.so"))
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    proc = subprocess.run([sys.executable, "-c", _WEBP_ALONE, os.path.join(_ROOT, "tests", "torch_webp")],
+                          cwd=str(tmp_path), env=env, capture_output=True, text=True, timeout=600)
+    assert proc.returncode == 0 and "webp alone ok" in proc.stdout, proc.stderr[-3000:]

@@ -1,7 +1,9 @@
 """The C image codec (csrc/imgcodec.c): the PNG row unfilter, the JPEG
 entropy decoder, inverse DCT and block smoothing, the TIFF LZW and PackBits
-decoders and predictors, the GIF LZW decoder and the BMP RLE decoder, built
-with gcc into vpt_tpu_torch/build/ at first use and called through ctypes,
+decoders and predictors, the GIF LZW decoder and the BMP RLE decoder; and
+the WebP decoders (csrc/webpdec.c): VP8L, VP8 key frames and ALPH planes.
+Each is built with gcc into vpt_tpu_torch/build/ at first use and called
+through ctypes,
 which releases the interpreter lock, so `load_gltf`'s thread pool decodes
 images in parallel.  A failed build raises; there is no Python decoder to
 fall back to.
@@ -141,6 +143,83 @@ def jpeg_smooth(coefs: np.ndarray, nbx: int, nby: int, v: int, rows: int, qt: np
     out = np.empty((nby, nbx, 64), np.int16)
     qt, bits = (np.ascontiguousarray(a, np.int32) for a in (qt, bits))
     library().vpt_jpeg_smooth(_ptr(coefs), _ptr(out), coefs.shape[1], nbx, nby, v, rows, _ptr(qt), _ptr(bits))
+    return out
+
+
+_WEBP_SRC = os.path.join(CSRC_DIR, "webpdec.c")
+_WEBP_LIB = os.path.join(BUILD_DIR, "libvpt_webpdec.so")
+_webp_lib = None
+
+# The WebP decoders' error codes (csrc/webpdec.c).
+WEBP_ERRORS = {
+    -1: "bad VP8L header",
+    -2: "corrupt VP8L data (libwebp refuses the lossless stream)",
+    -3: "out of memory",
+    -4: "bad ALPH header",
+    -5: "ALPH data shorter than the image",
+    -10: "bad VP8 frame header",
+    -11: "VP8 frame is no key frame",
+    -12: "VP8 frame is not shown",
+    -13: "bad VP8 start code",
+    -14: "VP8 first partition is truncated or corrupt",
+    -15: "VP8 token partitions are truncated",
+    -16: "VP8 modes end early (premature end of partition 0)",
+    -17: "VP8 coefficients end early (premature end of file)",
+    -18: "out of memory",
+    -19: "VP8 frame size differs from its header's",
+}
+
+
+def webp_library():
+    """The WebP decoders (csrc/webpdec.c), built with gcc on first use
+    (rebuilt when the source is newer)."""
+    global _webp_lib
+    with _lock:
+        if _webp_lib is None:
+            lib = ctypes.CDLL(host_library(_WEBP_SRC, _WEBP_LIB, _CMD, "the WebP decoders"))
+            p, i64, i = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
+            for name in ("vpt_vp8l_decode", "vpt_vp8_decode"):
+                getattr(lib, name).restype = i
+                getattr(lib, name).argtypes = [p, i64, i, i, p, i64]
+            lib.vpt_webp_alpha.restype = i
+            lib.vpt_webp_alpha.argtypes = [p, i64, i, i, p]
+            _webp_lib = lib
+    return _webp_lib
+
+
+def _webp_check(rc: int) -> None:
+    if rc:
+        raise ValueError(WEBP_ERRORS.get(rc, f"WebP decoder error {rc}"))
+
+
+def _rgba_target(out: np.ndarray, width: int, height: int) -> int:
+    if out.dtype != np.uint8 or out.shape != (height, width, 4) or out.strides[1:] != (4, 1):
+        raise ValueError(f"the output must be ({height}, {width}, 4) uint8 rows of packed pixels")
+    return out.strides[0]
+
+
+def vp8l_decode(payload, width: int, height: int, out: np.ndarray) -> None:
+    """A VP8L chunk's payload (the padding byte included) of a width x height
+    image into `out`, (height, width, 4) uint8 RGBA (a view with packed
+    pixels, rows at any stride)."""
+    src = _bytes(payload)
+    stride = _rgba_target(out, width, height)
+    _webp_check(webp_library().vpt_vp8l_decode(_ptr(src), src.size, width, height, _ptr(out), stride))
+
+
+def vp8_decode(payload, width: int, height: int, out: np.ndarray) -> None:
+    """A VP8 key frame (its chunk's payload, the padding byte included) into
+    `out` as vp8l_decode does, alpha 255."""
+    src = _bytes(payload)
+    stride = _rgba_target(out, width, height)
+    _webp_check(webp_library().vpt_vp8_decode(_ptr(src), src.size, width, height, _ptr(out), stride))
+
+
+def webp_alpha(payload, width: int, height: int) -> np.ndarray:
+    """An ALPH chunk's payload (unpadded) as the (height, width) uint8 alpha plane."""
+    src = _bytes(payload)
+    out = np.empty((height, width), np.uint8)
+    _webp_check(webp_library().vpt_webp_alpha(_ptr(src), src.size, width, height, _ptr(out)))
     return out
 
 

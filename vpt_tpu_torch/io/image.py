@@ -21,7 +21,9 @@ its content:
   Deflate / PackBits, predictors 2 and 3, the modes PIL has for them;
 - GIF (io/gif.py): the first frame, with its transparency index;
 - BMP (io/bmp.py): every header, palettes, 16 / 24 / 32-bit, bit fields,
-  RLE8 and RLE4.
+  RLE8 and RLE4;
+- WebP (io/webp.py): lossless and lossy (with its ALPH chunk), the first
+  frame of an animation, as "RGB" or "RGBA" as PIL's libwebp gives them.
 
 The arrays are PIL's: a 16-bit RGB, RGBA or gray+alpha PNG gives its
 samples' high bytes (the gray+alpha one as RGBA), a 16-bit gray one its
@@ -32,9 +34,9 @@ int32.  `load_png` is that array as float32 / 255, as the JAX package's
 `load_png` gives it; `decode_rgba` expands it as PIL's `convert("RGBA")`
 does (the glTF texture decode); `decode_samples` gives it as imageio's PIL
 route gives it to the JAX package's `load_hdr` (a palette image as its RGB
-colours).  WebP, KTX2, OpenEXR, Radiance HDR and PFM data, the formats that
-stay refused, raise a ValueError that names them, as does any other file
-PIL would not open.
+colours).  KTX2, OpenEXR, Radiance HDR and PFM data, the formats that stay
+refused, raise a ValueError that names them, as does any other file PIL
+would not open.
 """
 
 from __future__ import annotations
@@ -44,7 +46,7 @@ import zlib
 
 import numpy as np
 
-from vpt_tpu_torch.io import bmp, codec, gif, tiff
+from vpt_tpu_torch.io import bmp, codec, gif, tiff, webp
 from vpt_tpu_torch.io.jpeg import decode_jpeg
 
 _PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
@@ -55,7 +57,7 @@ _DEPTHS = {0: (1, 2, 4, 8, 16), 2: (8, 16), 3: (1, 2, 4, 8), 4: (8, 16), 6: (8, 
 _ADAM7 = ((0, 0, 8, 8), (4, 0, 8, 8), (0, 4, 4, 8), (2, 0, 4, 4), (0, 2, 2, 4), (1, 0, 2, 2), (0, 1, 1, 2))
 # Leading bytes of image formats that glTF assets or environment maps come
 # in and that the port does not read, to name them in the refusal.
-_OTHER_FORMATS = ((b"RIFF", "WebP"), (b"\xabKTX 20\xbb", "KTX2"), (b"\x76\x2f\x31\x01", "OpenEXR"),
+_OTHER_FORMATS = ((b"\xabKTX 20\xbb", "KTX2"), (b"\x76\x2f\x31\x01", "OpenEXR"),
                   (b"#?RADIANCE", "Radiance HDR"), (b"#?RGBE", "Radiance HDR"), (b"PF\n", "PFM"), (b"Pf\n", "PFM"))
 
 
@@ -178,10 +180,13 @@ def _pil_image(data: bytes, name: str):
     elif data[:2] == b"BM":
         arr, mode, table = bmp.read_pil(data, name)
         return arr, mode, table, None
+    elif data[:4] == b"RIFF" and data[8:12] == b"WEBP":
+        arr, mode = webp.read_pil(data, name)
+        return arr, mode, None, None
     else:
         kind = next((f for magic, f in _OTHER_FORMATS if data.startswith(magic)), None)
         raise ValueError(f"{name}: {kind + ' images are' if kind else 'a file of unknown format is'} not read "
-                         f"(only PNG, JPEG, TIFF, GIF and BMP)")
+                         f"(only PNG, JPEG, TIFF, GIF, BMP and WebP)")
     gray_key = struct.unpack(">H", trns[:2])[0] if trns is not None and len(trns) >= 2 else None
     rgb_key = struct.unpack(">3H", trns[:6]) if trns is not None and len(trns) >= 6 else None
     if ctype == 3:

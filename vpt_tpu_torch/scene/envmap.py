@@ -20,7 +20,7 @@ from vpt_tpu_torch.scene.types import EnvMapData
 # file that is no TIFF, by PIL, which opens a file by its content.  The
 # samples are not divided by 255.
 _TIFF_EXTENSIONS = (".tif", ".tiff")
-_PIL_EXTENSIONS = (".png", ".jpg", ".jpeg", ".bmp", ".gif")
+_PIL_EXTENSIONS = (".png", ".jpg", ".jpeg", ".bmp", ".gif", ".webp")
 
 
 def load_hdr(path: str) -> np.ndarray:
@@ -28,11 +28,12 @@ def load_hdr(path: str) -> np.ndarray:
     Radiance `.hdr` file, a `.tif` / `.tiff` file (its first series as
     imageio's tifffile reads it: float16 / 32 / 64 and integer samples as
     they are, strips or tiles, none / LZW / Deflate / PackBits compression),
-    or a `.png`, `.jpg`, `.jpeg`, `.bmp` or `.gif` file read by its content
-    as imageio reads it through PIL (palette images as their colours, a
-    CMYK JPEG's first three of its four channels).  Gray is repeated to
-    three channels.  Other extensions (EXR, PFM, WebP and the rest of
-    imageio's) raise a ValueError that names the extension."""
+    or a `.png`, `.jpg`, `.jpeg`, `.bmp`, `.gif` or `.webp` file read by its
+    content as imageio reads it through PIL (palette images as their
+    colours, a CMYK JPEG's first three of its four channels, a WebP
+    animation's first frame).  Gray is repeated to three channels.  Other
+    extensions (EXR, PFM and the rest of imageio's) raise a ValueError that
+    names the extension."""
     if path.endswith(".npy"):
         img = np.load(path)
     elif path.endswith(".hdr"):
@@ -47,7 +48,7 @@ def load_hdr(path: str) -> np.ndarray:
     else:
         ext = os.path.splitext(path)[1] or "extensionless"
         raise ValueError(f"{path}: {ext} files are not read as environment maps (only .npy, .hdr, .tif, .tiff, "
-                         f".png, .jpg, .jpeg, .bmp and .gif)")
+                         f".png, .jpg, .jpeg, .bmp, .gif and .webp)")
     img = np.asarray(img, np.float32)
     if img.ndim == 2:
         img = np.repeat(img[..., None], 3, axis=-1)
