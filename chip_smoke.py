@@ -244,13 +244,17 @@ Phases, each of which raises on failure:
      one JSON line "port_gaps".
  17. the image formats, on a machine without PIL or imageio:
      a. every fixture of tests/torch_formats/ (TIFF, GIF, BMP, CMYK / YCCK,
-        4:4:0 / 4:1:1 and block-smoothed JPEGs) and of tests/torch_webp/
+        4:4:0 / 4:1:1 and block-smoothed JPEGs), of tests/torch_webp/
         (WebP: the simple and normal loop filters at each sharpness, 2 / 4 /
         8 token partitions, segments, ALPH chunks under each filter, raw
         and lossless, lossless files, an animation's first frame at an
-        offset) through decode_rgba and load_hdr against its manifest: the
-        sha256 of the JAX package's decode, or a ValueError where it
-        refuses; the C codec and the C WebP decoders loaded;
+        offset) and of tests/torch_jpeg/ (arithmetic-coded sequential and
+        progressive JPEGs, DAC conditioning, restart intervals, a
+        block-smoothed SOF10, lossless JPEGs at predictors 1-7 and point
+        transforms 0-3) through decode_rgba and load_hdr against its
+        manifest: the sha256 of the JAX package's decode, or a ValueError
+        where it refuses; the C codec (its arithmetic and lossless scan
+        decoders too) and the C WebP decoders loaded;
      b. a 4096x2048 float32 RGB sky (default_sky) written by
         `write_float_tiff` here as Deflate 256x256 tiles and as
         uncompressed strips: load_hdr gives it back bitwise; its host
@@ -258,14 +262,18 @@ Phases, each of which raises on failure:
         save_radiance_hdr, with the card's name and power limit; the
         Deflate read under FORMAT_LIMIT_S; decode_rgba of the two 2048x2048
         WebP textures of tests/torch_webp/ (lossy with ALPH, lossless), host
-        seconds (median of 5), each under WEBP_LIMIT_S;
+        seconds (median of 5), each under WEBP_LIMIT_S; decode_rgba of the
+        2048x2048 4:2:0 SOF10 texture and the 1024x1024 lossless RGB image
+        of tests/torch_jpeg/, host seconds (median of 5), each under
+        JPEG_LIMIT_S;
      c. `python -m vpt_tpu_torch render garden` at 512x512, depth 8, 8 spp
         with --env sky.tif against --env sky.npy of the same array (two
         processes at once): bitwise equal; then the colonnade as a .glb with
         a GIF, an RLE8 BMP, an LZW TIFF and a CMYK JPEG base colour, a lossy
-        WebP with ALPH on the back wall and a lossless WebP on the brass,
-        through the CLI, bitwise its in-memory render with those decodes
-        (each the manifest's sha256);
+        WebP with ALPH on the back wall, a lossless WebP on the brass, a
+        SOF10 JPEG on the west wall and a lossless JPEG on the east wall
+        (each wall its own copy of stone), through the CLI, bitwise its
+        in-memory render with those decodes (each the manifest's sha256);
      one JSON line "image_formats".  `--image-formats` runs this phase alone
      (after the build).
 Every drive of phases 4-11, 13 and 14 checks that its loop ran captured (a
@@ -2326,8 +2334,15 @@ FORMAT_TEXTURES = {"gif-local-interlaced-inside-transparent.gif": ("stone", "ima
                    "jpeg-pil-cmyk-q90.jpg": ("drape-green", "image/jpeg"),
                    # fixtures of tests/torch_webp/: lossy with ALPH on the back wall's own copy of stone, lossless
                    "vp8-alph-lossless-filter-best.webp": ("stone-wall-back", "image/webp"),
-                   "vp8l-m6-q100-exact.webp": ("brass", "image/webp")}
+                   "vp8l-m6-q100-exact.webp": ("brass", "image/webp"),
+                   # fixtures of tests/torch_jpeg/: arithmetic-coded progressive, lossless
+                   "arith-prog-ycc420-37x29.jpg": ("stone-wall-west", "image/jpeg"),
+                   "lossless-rgb-p7-pt3-37x29.jpg": ("stone-wall-east", "image/jpeg")}
+FORMAT_FOLDERS = ((gltf_scenes.FORMAT_DIR, gltf_scenes.FORMAT_FIXTURES),
+                  (gltf_scenes.WEBP_DIR, gltf_scenes.WEBP_FIXTURES),
+                  (gltf_scenes.JPEG_DIR, gltf_scenes.JPEG_FIXTURES))
 WEBP_LIMIT_S = 1.0  # 17b: host seconds for decode_rgba of each 2048x2048 WebP texture
+JPEG_LIMIT_S = 1.0  # 17b: host seconds for decode_rgba of the SOF10 and lossless JPEG textures
 
 
 def write_float_tiff(path: str, img: np.ndarray, tile: int = 0) -> None:
@@ -2364,8 +2379,8 @@ def write_float_tiff(path: str, img: np.ndarray, tile: int = 0) -> None:
 
 
 def fixture_array(folder: str, name: str, key: str, manifest: dict):
-    """17a: fixture `name` of tests/torch_formats/ or tests/torch_webp/
-    (`folder`) through the texture decode ("rgba") or load_hdr, held to its
+    """17a: fixture `name` of tests/torch_formats/, tests/torch_webp/ or
+    tests/torch_jpeg/ (`folder`) through the texture decode ("rgba") or load_hdr, held to its
     manifest entry: the array (its sha256 that of the JAX package's decode),
     or None where the entry says the JAX package refuses it and the port
     raised a ValueError."""
@@ -2386,18 +2401,19 @@ def fixture_array(folder: str, name: str, key: str, manifest: dict):
 
 
 def image_formats_phase(dev, smi: str) -> None:
-    """Phase 17: the TIFF, GIF, BMP, CMYK / any-sampling / smoothed JPEG and
-    WebP decoders on the card's machine (no PIL there) against the manifests
-    of tests/torch_formats/ and tests/torch_webp/, a 4096x2048 float TIFF
-    sky read back bitwise and timed, the 2048x2048 WebP textures timed, a
-    render with a .tif sky against the same array as .npy, and a .glb with
-    GIF, RLE8 BMP, LZW TIFF, CMYK JPEG and WebP textures through the CLI
-    against its in-memory render."""
+    """Phase 17: the TIFF, GIF, BMP, CMYK / any-sampling / smoothed JPEG,
+    WebP and arithmetic-coded / lossless JPEG decoders on the card's machine
+    (no PIL there) against the manifests of tests/torch_formats/,
+    tests/torch_webp/ and tests/torch_jpeg/, a 4096x2048 float TIFF sky read
+    back bitwise and timed, the 2048x2048 WebP textures and the SOF10 and
+    lossless JPEG textures timed, a render with a .tif sky against the same
+    array as .npy, and a .glb with GIF, RLE8 BMP, LZW TIFF, CMYK JPEG, WebP,
+    SOF10 and lossless JPEG textures through the CLI against its in-memory
+    render."""
     t_phase = time.perf_counter()
     # 17a. The fixtures.
     decoded = {}
-    for folder, names in ((gltf_scenes.FORMAT_DIR, gltf_scenes.FORMAT_FIXTURES),
-                          (gltf_scenes.WEBP_DIR, gltf_scenes.WEBP_FIXTURES)):
+    for folder, names in FORMAT_FOLDERS:
         with open(os.path.join(folder, "manifest.json")) as f:
             manifest = json.load(f)
         check(sorted(manifest) == sorted(names), f"17a: the manifest of {folder} names every fixture")
@@ -2409,7 +2425,8 @@ def image_formats_phase(dev, smi: str) -> None:
         log(f"17a: {len(names)} fixtures of tests/{os.path.basename(folder)}/ decode to their manifest through the "
             f"texture decode and load_hdr ({len(got) - len(refused)} arrays by sha256; {len(refused)} refused where "
             f"the JAX package refuses{': ' if refused else ''}{', '.join(refused)}; {time.perf_counter() - t0:.2f} s)")
-    check(codec._lib is not None and hasattr(codec._lib, "vpt_tiff_lzw"), "17a: the decoders ran the C codec")
+    check(codec._lib is not None and hasattr(codec._lib, "vpt_tiff_lzw") and hasattr(codec._lib, "vpt_jpeg_arith_scan")
+          and hasattr(codec._lib, "vpt_jpeg_lossless_scan"), "17a: the decoders ran the C codec")
     check(codec._webp_lib is not None and hasattr(codec._webp_lib, "vpt_vp8_decode"),
           "17a: the WebP fixtures ran the port's C WebP decoders")
 
@@ -2448,6 +2465,16 @@ def image_formats_phase(dev, smi: str) -> None:
         log(f"17b: decode_rgba of {name} (2048x2048, {len(data)} bytes; {smi}, host {os.cpu_count()} CPUs): "
             f"{median:.4f} s median of 5 {every}")
         check(median < WEBP_LIMIT_S, f"17b: {name} decodes in under {WEBP_LIMIT_S} s")
+    row["jpeg"] = {}
+    for name in gltf_scenes.JPEG_TIMING:
+        with open(os.path.join(gltf_scenes.JPEG_DIR, name), "rb") as f:
+            data = f.read()
+        median, every = host_seconds(lambda: decode_rgba(data, name))
+        shape = decoded[name, "rgba"].shape
+        row["jpeg"][name] = {"bytes": len(data), "shape": list(shape), "s": median, "all_s": every}
+        log(f"17b: decode_rgba of {name} ({shape[1]}x{shape[0]}, {len(data)} bytes; {smi}, host {os.cpu_count()} "
+            f"CPUs): {median:.4f} s median of 5 {every}")
+        check(median < JPEG_LIMIT_S, f"17b: {name} decodes in under {JPEG_LIMIT_S} s")
 
     # 17c. A .tif sky against the .npy of the same array; a .glb of the new formats.
     with tempfile.TemporaryDirectory() as tmp:
@@ -2475,9 +2502,11 @@ def image_formats_phase(dev, smi: str) -> None:
         check(np.array_equal(got, want), "17c: the --env sky.tif render is bitwise the --env sky.npy render")
 
         scene = colonnade()
-        back = next(i for i in scene.instances if i.name == "wall-back")  # its own copy of stone, for a WebP
-        scene.materials.append(dataclasses.replace(scene.materials[back.material], name="stone-wall-back"))
-        back.material = len(scene.materials) - 1
+        for wall in ("wall-back", "wall-west", "wall-east"):  # each its own copy of stone, for a texture of its own
+            inst = next(i for i in scene.instances if i.name == wall)
+            scene.materials.append(dataclasses.replace(scene.materials[inst.material], name=f"stone-{wall}"))
+            inst.material = len(scene.materials) - 1
+        folders = {name: folder for folder, names in FORMAT_FOLDERS for name in names}
         images, textures = {}, {}
         for name, (material, mime) in FORMAT_TEXTURES.items():
             textures[name] = decoded[name, "rgba"]
@@ -2485,8 +2514,7 @@ def image_formats_phase(dev, smi: str) -> None:
             scene.textures.append(textures[name])
             slot = len(scene.textures) - 1
             next(m for m in scene.materials if m.name == material).base_color_texture = slot
-            folder = gltf_scenes.WEBP_DIR if name.endswith(".webp") else gltf_scenes.FORMAT_DIR
-            with open(os.path.join(folder, name), "rb") as f:
+            with open(os.path.join(folders[name], name), "rb") as f:
                 images[slot] = (f.read(), mime)
         glb = gltf_scenes.scene_to_gltf(scene, os.path.join(tmp, "formats.glb"), images=images)
         sky_path = os.path.join(tmp, "colonnade_sky.npy")

@@ -18,7 +18,8 @@ tests/make_torch_images.py with PIL): each NAME has NAME.ref.png beside
 it, PIL's decode of it as 8-bit RGBA; the large `TIMING_JPEG` has the
 sha256 of that decode in TIMING_JPEG.sha256 instead.  `FORMAT_FIXTURES`
 names the TIFF, GIF, BMP and JPEG fixtures of tests/torch_formats/ and
-their manifest.json, `WEBP_FIXTURES` the WebP ones of tests/torch_webp/.
+their manifest.json, `WEBP_FIXTURES` the WebP ones of tests/torch_webp/,
+`JPEG_FIXTURES` the arithmetic-coded and lossless JPEGs of tests/torch_jpeg/.
 """
 
 from __future__ import annotations
@@ -79,6 +80,31 @@ WEBP_FIXTURES = (
     "vp8-alph-quantised-q30.webp", "vp8l-m0-q0.webp", "vp8l-m6-q100-exact.webp",
     *(f"alph-{c}-filter-{f}.webp" for c in ("raw", "lossless") for f in range(4)),
     "animation-first-frame-lossy-alpha-12x9-at-6-4.webp", *WEBP_TIMING,
+)
+# The arithmetic-coded (SOF9, SOF10) and lossless (SOF3) JPEG fixtures of
+# tests/torch_jpeg/ (written by tests/make_torch_jpeg.py with libjpeg-turbo's
+# encoder: PIL writes neither), with a manifest.json as tests/torch_formats/
+# has; JPEG_TIMING are the two textures chip_smoke.py phase 17b times.
+JPEG_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "torch_jpeg")
+JPEG_TIMING = ("timing-2048-arith-prog-ycc420.jpg", "timing-1024-lossless-rgb.jpg")
+JPEG_FIXTURES = (
+    "arith-gray-q50-37x29.jpg", *(f"arith-ycc{s}-q50-37x29.jpg" for s in ("444", "422", "420", "440")),
+    "arith-rgb-adobe0-q75-37x29.jpg", "arith-cmyk-q75-37x29.jpg", "arith-ycck-q75-37x29.jpg",
+    "arith-ycc420-q5-16bit-tables-37x29.jpg", "arith-ycc420-q95-37x29.jpg", "arith-ycc420-rst1-37x29.jpg",
+    "arith-ycc444-rst3-37x29.jpg", "arith-gray-rst3-17x70.jpg", "arith-dac-L2-U6-K2-ycc420-37x29.jpg",
+    "arith-dac-L0-U0-K63-gray-37x29.jpg", "arith-ycc420-1x1.jpg", "arith-ycc422-17x70.jpg",
+    "arith-ycc420-rst3-255x3.jpg", "arith-prog-ycc420-37x29.jpg", "arith-prog-gray-37x29.jpg",
+    "arith-prog-ycc444-q95-37x29.jpg", "arith-prog-cmyk-37x29.jpg", "arith-prog-rst2-ycc422-37x29.jpg",
+    "arith-prog-sa-to-bit-0-ycc444-37x29.jpg", "arith-prog-smoothed-ycc420-37x29.jpg",
+    "arith-prog-smoothed-gray-17x70.jpg", "arith-prog-ycc420-1x1.jpg", "arith-prog-ycc420-255x3.jpg",
+    *(f"lossless-gray-p{p}-37x29.jpg" for p in range(1, 8)), "lossless-rgb-p1-pt0-37x29.jpg",
+    "lossless-rgb-p4-pt1-37x29.jpg", "lossless-rgb-p7-pt3-37x29.jpg",
+    *(f"lossless-rgb-sampling-{s}-p6-37x29.jpg" for s in ("11", "21", "22")), "lossless-cmyk-p5-37x29.jpg",
+    "lossless-rgb-p2-rst-rows-2-37x29.jpg", "lossless-rgb-sampling-22-p4-rst-rows-1-37x29.jpg",
+    "lossless-rgb-p3-per-component-scans-37x29.jpg", "lossless-gray-p7-1x1.jpg",
+    "lossless-rgb-sampling-21-p5-17x70.jpg", "lossless-gray-p4-pt1-rst-rows-1-255x3.jpg",
+    "lossless-rgb-restart-5-mcus-refused-37x29.jpg", "lossless-gray-6-bit-refused-37x29.jpg",
+    "lossless-ycc-adobe-1-refused-37x29.jpg", "lossless-ycck-adobe-2-refused-37x29.jpg", *JPEG_TIMING,
 )
 # Adam7 passes: first column, first row, column step, row step.
 ADAM7 = ((0, 0, 8, 8), (4, 0, 8, 8), (0, 4, 4, 8), (2, 0, 4, 4), (0, 2, 2, 4), (1, 0, 2, 2), (0, 1, 1, 2))

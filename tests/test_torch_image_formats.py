@@ -242,3 +242,46 @@ def test_format_fixture_matches_its_manifest(tmp_path, name):
         got = port()
         assert_same(got, want)
         assert [list(got.shape), str(got.dtype), hashlib.sha256(got.tobytes()).hexdigest()] == entry[key]
+
+
+# ------------------------------------------------- formats PIL opens, not yet read
+
+
+def pil_bytes(fmt: str, mode: str = "RGB", **kw) -> bytes:
+    from io import BytesIO
+
+    from PIL import Image
+
+    out = BytesIO()
+    img = Image.fromarray(np.random.default_rng(len(fmt)).integers(0, 256, (6, 7, 3), np.uint8)).convert(mode)
+    img.save(out, format=fmt, **kw)
+    return out.getvalue()
+
+
+PIL_ONLY = {  # case -> (the file, the format named in the refusal)
+    "ppm-p6": (lambda: pil_bytes("PPM"), "Netpbm (P6)"),
+    "pgm-p5": (lambda: pil_bytes("PPM", "L"), "Netpbm (P5)"),
+    "pbm-p4": (lambda: pil_bytes("PPM", "1"), "Netpbm (P4)"),
+    "pbm-p1-ascii": (lambda: b"P1\n3 2\n1 0 1\n0 1 0\n", "Netpbm (P1)"),
+    "pgm-p2-ascii": (lambda: b"P2\n3 2\n255\n0 128 255\n7 8 9\n", "Netpbm (P2)"),
+    "ppm-p3-ascii": (lambda: b"P3\n2 1\n255\n255 0 0 0 0 255\n", "Netpbm (P3)"),
+    "qoi": (lambda: pil_bytes("QOI"), "QOI"),
+    "dds": (lambda: pil_bytes("DDS"), "DDS"),
+    "jpeg2000-jp2": (lambda: pil_bytes("JPEG2000"), "JPEG 2000"),
+    "jpeg2000-codestream": (lambda: pil_bytes("JPEG2000", no_jp2=True), "JPEG 2000 (codestream)"),
+    "sgi": (lambda: pil_bytes("SGI"), "SGI"),
+    "avif": (lambda: pil_bytes("AVIF"), "AVIF"),
+}
+
+
+@pytest.mark.parametrize("case", list(PIL_ONLY))
+def test_formats_pil_opens_are_refused_by_name(tmp_path, case):
+    """Files that the JAX package reads (PIL opens them) but the port does
+    not read yet: the texture decode raises a ValueError naming the image,
+    the format and that PIL opens it, not "unknown format"."""
+    make, kind = PIL_ONLY[case]
+    data = make()
+    doc = {"images": [{"uri": "data:image/x;base64," + base64.b64encode(data).decode(), "name": "wall"}]}
+    assert jgltf._load_image(doc, [], str(tmp_path), 0).ndim == 3
+    with pytest.raises(ValueError, match=re.escape(f"wall: {kind} images are not read yet (PIL opens them")):
+        tgltf._load_image(doc, [], str(tmp_path), 0)

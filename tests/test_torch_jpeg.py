@@ -19,15 +19,20 @@ dtypes included.
   JPEG files against JAX's (imageio).
 - The committed fixtures of tests/torch_images/ against their recorded PIL
   decodes and against PIL here.
-- The refusals that stay, each naming the format: truncated,
-  arithmetic-coded, 12-bit and lossless JPEGs, an OpenEXR texture, a colour
-  PFM environment map, `.exr` and `.pfm` environment maps.  The CMYK and
-  4:4:0 JPEGs, the progressive JPEG that libjpeg smooths, the GIF, lossless
-  and lossy WebP and the `.tif` environment map once refused here now equal
-  the JAX package's decodes (tests/test_torch_image_formats.py and
-  tests/test_torch_webp.py hold every such format); corrupt files raise
-  ValueErrors only; a failed gcc build of the codec raises; threads share
-  one build.
+- The refusals that stay, each naming the format: truncated, 12-bit,
+  arithmetic-coded lossless (SOF11) and hierarchical (SOF5) JPEGs, a lossless
+  one whose scan names no predictor, an OpenEXR texture, a colour PFM
+  environment map, `.exr` and `.pfm` environment maps.  The CMYK and 4:4:0
+  JPEGs, the progressive JPEG that libjpeg smooths, a Huffman-coded file
+  whose frame says arithmetic coding (PIL decodes its data as arithmetic
+  code), the GIF, lossless and lossy WebP and the `.tif` environment map once
+  refused here now equal the JAX package's decodes
+  (tests/test_torch_image_formats.py, tests/test_torch_webp.py and
+  tests/test_torch_jpeg_arith_lossless.py hold every such format); corrupt
+  files raise ValueErrors only, and seeded mutants of Huffman-coded files
+  decode to PIL's pixels or raise where PIL raises; a Motion-JPEG frame (no
+  DHT) decodes with T.81's standard tables as in libjpeg; a failed gcc
+  build of the codec raises; threads share one build.
 """
 
 import base64
@@ -134,6 +139,57 @@ def test_jpeg_other_encodings_equal_jax(tmp_path, case):
     if case == "16-bit-tables":
         assert b"\xff\xdb" in data and data[data.index(b"\xff\xdb") + 4] >> 4 == 1  # a 16-bit DQT
     assert_decodes_as_jax(tmp_path, data, "image/jpeg", ".jpg")
+
+
+def without_dht(data: bytes) -> bytes:
+    """A JPEG with the DHT segments before its first scan taken out, as a
+    Motion-JPEG frame is."""
+    out, pos = bytearray(data[:2]), 2
+    while data[pos + 1] != 0xDA:
+        end = pos + 2 + ((data[pos + 2] << 8) | data[pos + 3])
+        if data[pos + 1] != 0xC4:
+            out += data[pos:end]
+        pos = end
+    return bytes(out + data[pos:])
+
+
+@pytest.mark.parametrize("kind", ["baseline-rgb", "baseline-gray", "baseline-rst", "progressive"])
+def test_jpeg_without_huffman_tables_as_libjpeg_reads_it(tmp_path, kind):
+    """libjpeg-turbo's sequential Huffman decoder puts T.81 K.3's tables in
+    the slots a file leaves undefined (Motion-JPEG frames carry no DHT): the
+    port decodes such a file as PIL does.  Its progressive decoder does not:
+    both refuse that one."""
+    img = photo(13, 29, 21)
+    kw = {"baseline-gray": {}, "baseline-rst": dict(restart_marker_blocks=2), "progressive": dict(progressive=True)}
+    data = without_dht(jpeg_bytes(img.mean(axis=-1).astype(np.uint8) if kind == "baseline-gray" else img,
+                                  quality=70, **kw.get(kind, {})))
+    assert b"\xff\xc4" not in data[: data.index(b"\xff\xda")]  # (a progressive file defines more between scans)
+    if kind == "progressive":
+        with pytest.raises(OSError):
+            jgltf._load_image(gltf_image(data, "image/jpeg"), [], str(tmp_path), 0)
+        with pytest.raises(ValueError, match="Huffman table it never defines"):
+            timage.decode_rgba(data)
+        return
+    assert_decodes_as_jax(tmp_path, data, "image/jpeg", ".jpg")
+
+
+def test_standard_huffman_tables_are_k3s():
+    """The port's copy of T.81 K.3's tables equals the DHT segments PIL's
+    libjpeg-turbo writes without optimize (its standard tables)."""
+    from vpt_tpu_torch.io import jpeg
+
+    data = jpeg_bytes(photo(14, 16, 16), quality=75, optimize=False)
+    written, pos = {}, 2
+    while data[pos + 1] != 0xDA:
+        end = pos + 2 + ((data[pos + 2] << 8) | data[pos + 3])
+        if data[pos + 1] == 0xC4:
+            seg, i = data[pos + 4 : end], 0
+            while i < len(seg):
+                n = sum(seg[i + 1 : i + 17])
+                written[(seg[i] >> 4, seg[i] & 15)] = (seg[i + 1 : i + 17].hex(), seg[i + 17 : i + 17 + n].hex())
+                i += 17 + n
+        pos = end
+    assert written == jpeg._STD_HUFFMAN
 
 
 # ------------------------------------------------------------------- PNG
@@ -355,9 +411,11 @@ def refusal_cases() -> dict:
         "cmyk": (cmyk.getvalue(), None),
         "truncated": (rgb[: len(rgb) // 2], "truncated"),
         "no-eoi": (rgb[:-2], "truncated"),
-        "arithmetic": (patched(rgb, sof, 1, 0xC9), "arithmetic-coded"),
+        "arithmetic": (patched(rgb, sof, 1, 0xC9), None),
         "12-bit": (patched(rgb, sof, 4, 12), "12-bit"),
         "lossless": (patched(rgb, sof, 1, 0xC3), "lossless"),
+        "arithmetic-lossless": (patched(rgb, sof, 1, 0xCB), "arithmetic-coded lossless"),
+        "hierarchical": (patched(rgb, sof, 1, 0xC5), "hierarchical"),
         "sampling-440": (patched(patched(rgb, sof, 11, 0x12), sof, 14, 0x11), None),
         "smoothing": (incomplete_progressive(), None),
         "gif": (gif_bytes(), None),
@@ -369,12 +427,16 @@ def refusal_cases() -> dict:
 
 
 @pytest.mark.parametrize("case", ["cmyk", "truncated", "no-eoi", "arithmetic", "12-bit", "lossless",
-                                  "sampling-440", "smoothing", "gif", "webp-lossless", "webp-lossy", "exr", "pfm"])
+                                  "arithmetic-lossless", "hierarchical", "sampling-440", "smoothing", "gif",
+                                  "webp-lossless", "webp-lossy", "exr", "pfm"])
 def test_refusals_name_the_format(tmp_path, case):
-    """What the port refuses it refuses naming the format and the image.
-    The CMYK JPEG, the 4:4:0 one, the progressive one that libjpeg smooths,
-    the GIF and the lossless and lossy WebPs, once refused, now decode as
-    PIL decodes them (the JAX package's `_load_image`)."""
+    """What the port refuses it refuses naming the format and the image:
+    SOF11, SOF5, 12-bit samples, and a lossless frame whose scan has Ss 0
+    (no predictor) as PIL refuses them.  The CMYK JPEG, the 4:4:0 one, the
+    progressive one that libjpeg smooths, the GIF, the lossless and lossy
+    WebPs, and the Huffman-coded file whose SOF0 says SOF9 (PIL decodes its
+    data as arithmetic code, to an image of noise), once refused, now decode
+    as PIL decodes them (the JAX package's `_load_image`)."""
     data, reason = refusal_cases()[case]
     doc = gltf_image(data, "image/jpeg")
     doc["images"][0]["name"] = "wall"
@@ -388,7 +450,8 @@ def test_refusals_name_the_format(tmp_path, case):
         timage.decode_rgba(data, "wall")
     with pytest.raises(ValueError, match=f"wall: .*{reason}"):
         tgltf._load_image(doc, [], str(tmp_path), 0)
-    if case in ("truncated", "no-eoi"):  # PIL refuses these too
+    if case in ("truncated", "no-eoi", "12-bit", "lossless", "arithmetic-lossless", "hierarchical"):
+        # PIL refuses these too
         with pytest.raises(OSError):
             jgltf._load_image(doc, [], str(tmp_path), 0)
     if case == "pfm":  # as an environment map too, though imageio reads one (as uint8)
@@ -446,6 +509,38 @@ def test_corrupt_files_raise_value_errors(seed):
         except ValueError:
             pass
     assert decoded > 0
+
+
+@pytest.mark.parametrize("seed", range(6))
+def test_corrupt_huffman_files_match_pil(seed):
+    """60 mutants per seed (a byte flipped, the file cut, a marker put in;
+    tests/test_torch_jpeg_arith_lossless.mutant) of baseline, progressive,
+    restart-marked and gray Huffman-coded JPEGs: where PIL decodes one the
+    port gives the same pixels, bit for bit (a code that is no code decodes
+    as 0, a marker inside the data leaves the MCUs after it, restart markers
+    are resynchronised, block smoothing of a cut progressive file takes the
+    bits before its last scan past the last good iMCU row, as libjpeg-turbo
+    does); where PIL raises the port raises a ValueError."""
+    from test_torch_jpeg_arith_lossless import mutant
+
+    rng = np.random.default_rng(100 + seed)
+    img = photo(seed, 37, 29)
+    seeds = [jpeg_bytes(img, quality=80), jpeg_bytes(img, progressive=True), jpeg_bytes(img, restart_marker_blocks=2),
+             jpeg_bytes(img.mean(axis=-1).astype(np.uint8), progressive=True, restart_marker_blocks=3)]
+    read = refused = 0
+    for i in range(60):
+        data = mutant(rng, seeds[i % len(seeds)], i % 3)
+        try:
+            want = np.asarray(Image.open(io.BytesIO(data)).convert("RGBA"), np.float32) / 255.0
+        except Exception:  # noqa: BLE001  (PIL raises many kinds; the port must raise a ValueError)
+            with pytest.raises(ValueError):
+                timage.decode_rgba(data)
+            refused += 1
+            continue
+        got = timage.decode_rgba(data)
+        assert got.shape == want.shape and np.array_equal(got, want), i
+        read += 1
+    assert read > 20 and refused > 5
 
 
 # ------------------------------------------------------------- the codec

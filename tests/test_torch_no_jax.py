@@ -217,3 +217,49 @@ def test_the_port_alone_decodes_webp(tmp_path):
     proc = subprocess.run([sys.executable, "-c", _WEBP_ALONE, os.path.join(_ROOT, "tests", "torch_webp")],
                           cwd=str(tmp_path), env=env, capture_output=True, text=True, timeout=600)
     assert proc.returncode == 0 and "webp alone ok" in proc.stdout, proc.stderr[-3000:]
+
+
+_JPEG_ALONE = """
+import hashlib, json, os, sys
+for blocked in ("PIL", "imageio"):
+    sys.modules[blocked] = None  # any import of these raises
+from vpt_tpu_torch.io import codec, image
+from vpt_tpu_torch.scene import envmap
+here = os.getcwd()
+fixtures = sys.argv[1]
+with open(os.path.join(fixtures, "manifest.json")) as f:
+    manifest = json.load(f)
+refused = 0
+for name, entry in sorted(manifest.items()):
+    path = os.path.join(fixtures, name)
+    for key, read in (("rgba", lambda: image.decode_rgba(open(path, "rb").read(), name)),
+                      ("load_hdr", lambda: envmap.load_hdr(path))):
+        try:
+            got = read()
+        except ValueError:
+            assert entry[key] is None, (name, key)
+            refused += 1
+            continue
+        assert [list(got.shape), str(got.dtype), hashlib.sha256(got.tobytes()).hexdigest()] == entry[key], name
+assert codec._lib is not None and codec._SRC.startswith(here) and codec._LIB.startswith(here)
+with open("/proc/self/maps") as f:
+    assert "libjpeg" not in f.read()
+print("jpeg alone ok", len(manifest), refused)
+"""
+
+
+def test_the_port_alone_decodes_arithmetic_and_lossless_jpegs(tmp_path):
+    """vpt_tpu_torch/ copied on its own (its build/ left behind), in a
+    process where PIL and imageio cannot be imported: every fixture of
+    tests/torch_jpeg/ (SOF9, SOF10, SOF3) decodes, through the texture path
+    and load_hdr, to its manifest, or raises a ValueError where the manifest
+    says the JAX package refuses it, with the codec built from the copy's
+    csrc/ and no libjpeg mapped into the process."""
+    import shutil
+
+    shutil.copytree(os.path.join(_ROOT, "vpt_tpu_torch"), str(tmp_path / "vpt_tpu_torch"),
+                    ignore=shutil.ignore_patterns("build", "__pycache__", "*.so"))
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    proc = subprocess.run([sys.executable, "-c", _JPEG_ALONE, os.path.join(_ROOT, "tests", "torch_jpeg")],
+                          cwd=str(tmp_path), env=env, capture_output=True, text=True, timeout=600)
+    assert proc.returncode == 0 and "jpeg alone ok 54 8" in proc.stdout, proc.stderr[-3000:]

@@ -1,5 +1,6 @@
 /* The host hot loops of the port's image decoders: the PNG row unfilter, the
- * JPEG entropy decoder, inverse DCT and block smoothing, the TIFF LZW and
+ * JPEG entropy decoders (Huffman, arithmetic and lossless), inverse DCT and
+ * block smoothing, the TIFF LZW and
  * PackBits decoders and predictors, the GIF LZW decoder and the BMP RLE
  * decoder.  Plain C with a C interface, built with gcc into
  * vpt_tpu_torch/build/ at first use and called through ctypes (io/codec.py);
@@ -7,15 +8,19 @@
  * conversion stay in Python and numpy.
  *
  * Written from the specifications: the PNG specification (section 9, the
- * five row filters), ITU-T T.81 (Annex C, Huffman tables; Annex F,
- * sequential decoding; Annex G, progressive decoding; A.3.3, the IDCT), TIFF
+ * five row filters), ITU-T T.81 (Annex C, Huffman tables; Annex D,
+ * arithmetic coding; Annex F, sequential decoding; Annex G, progressive
+ * decoding; Annex H, lossless decoding; A.3.3, the IDCT), TIFF
  * 6.0 (sections 9 and 13-14, PackBits, LZW and the horizontal predictor)
  * with Adobe's technical note 3 (the floating-point predictor), GIF89a
  * (appendix F, variable-length LZW) and the BMP RLE8 / RLE4 encodings.  The
  * IDCT is the fixed-point "islow" algorithm whose constants and rounding
  * libjpeg-turbo's default decoder uses (13 fraction bits, 2 extra bits
- * between the passes, round-half-up descaling), so the samples equal those
- * of the libjpeg-turbo decoder behind PIL; a sample out of 0..255 saturates.
+ * between the passes, round-half-up descaling) in the 16-bit lanes of its
+ * SIMD code, so the samples equal those of the libjpeg-turbo decoder behind
+ * PIL, for corrupt coefficients too.  The entropy decoders read the data as
+ * libjpeg-turbo's do (jdhuff.c, jdphuff.c, jdarith.c, jdlhuff.c), down to
+ * how each recovers from corrupt data.
  * Where a reader's behaviour goes beyond its specification (block smoothing,
  * where LZW and RLE streams end), the decoders follow what PIL and imageio
  * give, as the comments at each say.
@@ -171,155 +176,265 @@ static int build_huff(huff_t *t, const int32_t *table) {
     return 0;
 }
 
-/* ---------------------------------------------------- JPEG: bit reader */
+/* ------------------------------------------ JPEG: the data behind a scan */
 
+/* The scans' errors: the data ends where libjpeg wants more of it (PIL,
+ * whose decoder then suspends, finds no more and raises), a Huffman table
+ * that is no prefix code, bad arguments, and an arithmetic-coded scan that
+ * needs a byte of a block PIL has not handed libjpeg yet (see src_t). */
+enum { ERR_TRUNCATED = -1, ERR_TABLE = -3, ERR_ARGS = -6, ERR_FEED = -7 };
+
+/* The bytes of one scan as libjpeg-turbo's arithmetic decoder and bit reader
+ * fetch them when PIL drives it: one at a time from data[pos].  Only `limit`
+ * bytes are there to fetch: PIL hands libjpeg the file in blocks of 65536
+ * bytes, and a decoder that cannot suspend (the arithmetic one) fails when it
+ * needs a byte of a block not yet handed over; the end of the file ends the
+ * data too.  A fetch past it sets err and gives 0.  A marker (FF, any more
+ * FFs, then a byte neither 00 nor FF) read inside the data is kept in
+ * `unread` (its code) and marker_at (the offset of its last FF). */
 typedef struct {
-    const uint8_t *p, *end;
-    uint64_t buf;        /* the low `cnt` bits are unread, the oldest highest */
-    int cnt;
-    int marker;          /* a marker stopped the reader at p (p[0] == 0xFF) */
-    int64_t stuffed;     /* zero bytes fed in after a marker or the end */
-} bits_t;
+    const uint8_t *data;
+    int64_t pos, limit, len, marker_at;
+    int unread, err;
+} src_t;
 
-static void fill(bits_t *b) {
-    while (b->cnt <= 56) {
-        uint32_t c = 0;
-        if (!b->marker && b->p < b->end) {
-            c = *b->p;
-            if (c == 0xFF) {
-                const uint8_t *q = b->p + 1;
-                while (q < b->end && *q == 0xFF) q++;  /* fill bytes before a marker */
-                if (q < b->end && *q == 0) {
-                    b->p = q + 1;                        /* FF 00: a data byte FF */
-                } else {
-                    b->marker = 1;                       /* a marker, or FFs to the end */
-                    b->p = q - 1;
-                    c = 0;
-                    b->stuffed++;
-                }
-            } else {
-                b->p++;
-            }
-        } else {
-            b->stuffed++;
+static inline int src_byte(src_t *s) {
+    if (s->pos >= s->limit) {
+        if (!s->err) s->err = s->limit < s->len ? ERR_FEED : ERR_TRUNCATED;
+        return 0;
+    }
+    return s->data[s->pos++];
+}
+
+/* jdmarker.c's next_marker: skip to the next marker and keep it unread. */
+static void src_next_marker(src_t *s) {
+    for (;;) {
+        int c = src_byte(s);
+        while (c != 0xFF && !s->err) c = src_byte(s);
+        do c = src_byte(s);
+        while (c == 0xFF && !s->err);
+        if (s->err) return;
+        if (c != 0) {
+            s->unread = c;
+            s->marker_at = s->pos - 2;
+            return;
         }
-        b->buf = (b->buf << 8) | c;
-        b->cnt += 8;
     }
 }
 
-/* Whether bits that were fed in as padding were consumed: the segment was
- * shorter than its MCUs need. */
-static int overran(const bits_t *b) { return b->stuffed * 8 > b->cnt; }
+/* jdmarker.c's read_restart_marker with jpeg_resync_to_restart (PIL's
+ * choice): swallow the expected RSTn; otherwise decide as libjpeg does
+ * whether to discard the marker (1), scan on to the next one (2) or leave it
+ * unread, so that the interval decodes from no data (3).  next_rst counts
+ * the restarts modulo 8. */
+static void src_restart_marker(src_t *s, int *next_rst) {
+    if (!s->unread) src_next_marker(s);
+    if (s->err) return;
+    int desired = *next_rst;
+    *next_rst = (desired + 1) & 7;
+    for (;;) {
+        int m = s->unread, action;
+        if (m == 0xD0 + desired) {
+            action = 1;
+        } else if (m < 0xC0) {
+            action = 2;
+        } else if (m < 0xD0 || m > 0xD7) {
+            action = 3;
+        } else if (m == 0xD0 + ((desired + 1) & 7) || m == 0xD0 + ((desired + 2) & 7)) {
+            action = 3;
+        } else if (m == 0xD0 + ((desired - 1) & 7) || m == 0xD0 + ((desired - 2) & 7)) {
+            action = 2;
+        } else {
+            action = 1;
+        }
+        if (action == 1) {
+            s->unread = 0;
+            return;
+        }
+        if (action == 3) return;
+        s->unread = 0;
+        src_next_marker(s);
+        if (s->err) return;
+    }
+}
 
-static inline uint32_t get_bits(bits_t *b, int n) {
-    if (n == 0) return 0;
-    if (b->cnt < n) fill(b);
-    b->cnt -= n;
-    return (uint32_t)(b->buf >> b->cnt) & ((1u << n) - 1);
+/* The offset of the next marker at or after p (an FF followed by neither
+ * 00 nor FF, FFs before it being fill), or -1 if the data ends first. */
+static int64_t next_marker(const uint8_t *data, const uint8_t *p, const uint8_t *end) {
+    for (; p + 1 < end; p++) {
+        if (p[0] == 0xFF && p[1] != 0 && p[1] != 0xFF) return p - data;
+    }
+    return -1;
+}
+
+/* Where marker parsing goes on after a scan: the marker the scan stopped at,
+ * else the next one (data the decoder left is skipped, as libjpeg skips it),
+ * else the end of the data. */
+static int64_t src_end(const src_t *s) {
+    if (s->unread) return s->marker_at;
+    int64_t m = next_marker(s->data, s->data + s->pos, s->data + s->len);
+    return m < 0 ? s->len : m;
+}
+
+/* ---------------------------------------------------- JPEG: bit reader */
+
+/* libjpeg-turbo's bit reader (jdhuff.c) over src_t: the buffer is filled to
+ * 57 bits at a time; it stops at a marker, after which zero bits are fed in
+ * (and `insufficient` set) once a request needs more bits than are left.
+ * The end of the file where more bytes are wanted is an error: PIL's
+ * decoder suspends there and PIL, having no more data, raises. */
+typedef struct {
+    src_t *s;
+    uint64_t buf;
+    int left, insufficient;
+} hbits_t;
+
+static void hfill(hbits_t *b, int nbits) {
+    src_t *s = b->s;
+    if (!s->unread) {
+        while (b->left < 57) {
+            int c = src_byte(s);
+            if (s->err) return;
+            if (c == 0xFF) {
+                do c = src_byte(s);
+                while (c == 0xFF && !s->err);
+                if (s->err) return;
+                if (c == 0) {
+                    c = 0xFF;
+                } else {
+                    s->unread = c;
+                    s->marker_at = s->pos - 2;
+                    goto no_more;
+                }
+            }
+            b->buf = (b->buf << 8) | (uint64_t)c;
+            b->left += 8;
+        }
+        return;
+    }
+no_more:
+    if (nbits > b->left) {
+        b->insufficient = 1;
+        b->buf <<= 57 - b->left;
+        b->left = 57;
+    }
 }
 
 static inline int32_t extend(uint32_t v, int s) {
     return (s && v < (1u << (s - 1))) ? (int32_t)v - (1 << s) + 1 : (int32_t)v;
 }
 
-/* F.2.2.3 DECODE.  Returns the symbol, or -1 for a bit string that is no code. */
-static inline int decode(bits_t *b, const huff_t *t) {
-    if (b->cnt < 32) fill(b);
-    uint32_t look = (uint32_t)(b->buf >> (b->cnt - LOOK)) & ((1u << LOOK) - 1);
-    int len = t->look_len[look];
-    if (len) {
-        b->cnt -= len;
-        return t->look_sym[look];
-    }
-    for (len = LOOK + 1; len <= 16; len++) {
-        int32_t code = (int32_t)((b->buf >> (b->cnt - len)) & ((1u << len) - 1));
-        if (code <= t->maxcode[len]) {
-            b->cnt -= len;
-            return t->vals[code + t->valoffset[len]];
+static inline uint32_t hbits(hbits_t *b, int n) {
+    if (b->left < n) {
+        hfill(b, n);
+        if (b->left < n) {  /* the file ended (err is set; the scan is refused) */
+            b->left = 0;
+            return 0;
         }
     }
-    return -1;
+    b->left -= n;
+    return (uint32_t)(b->buf >> b->left) & ((1u << n) - 1);
+}
+
+/* jdhuff.c's HUFF_DECODE: an 8-bit look-ahead when 8 bits are there, else
+ * (or for a longer code) a code bit by bit from min_bits on.  A bit string
+ * that is no code gives 0 after 17 bits, as libjpeg gives it. */
+static int hdecode(hbits_t *b, const huff_t *t) {
+    int l = 1;
+    if (b->left < 8) hfill(b, 0);
+    if (b->left >= 9) {
+        uint32_t look = (uint32_t)(b->buf >> (b->left - LOOK)) & ((1u << LOOK) - 1);
+        int len = t->look_len[look];
+        if (len) {
+            b->left -= len;
+            return t->look_sym[look];
+        }
+        l = LOOK;
+    } else if (b->left == 8) {
+        uint32_t look = (uint32_t)(b->buf & 0xFF) << 1;
+        int len = t->look_len[look];
+        if (len && len <= 8) {
+            b->left -= len;
+            return t->look_sym[look];
+        }
+        l = 9;
+    }
+    int32_t code = (int32_t)hbits(b, l);
+    while (l <= 16 && code > t->maxcode[l]) {
+        code = (code << 1) | (int32_t)hbits(b, 1);
+        l++;
+    }
+    if (l > 16) return 0;
+    return t->vals[code + t->valoffset[l]];
 }
 
 /* ------------------------------------------------ JPEG: one scan's MCUs */
-
-enum { ERR_TRUNCATED = -1, ERR_HUFFMAN = -2, ERR_TABLE = -3, ERR_RESTART = -4, ERR_SHORT = -5, ERR_ARGS = -6 };
 
 typedef struct {
     int ss, se, ah, al, progressive;
     int32_t eobrun;
 } scan_t;
 
-static int block_sequential(bits_t *b, int16_t *blk, const huff_t *dc, const huff_t *ac, int32_t *pred) {
-    int s = decode(b, dc);
-    if (s < 0) return ERR_HUFFMAN;
-    if (s > 16) return ERR_HUFFMAN;
-    *pred += extend(get_bits(b, s), s);
+/* F.2.2: a sequential block (jdhuff.c's decode_mcu_slow). */
+static void block_sequential(hbits_t *b, int16_t *blk, const huff_t *dc, const huff_t *ac, int32_t *pred) {
+    int s = hdecode(b, dc);
+    if (s) s = extend(hbits(b, s), s);
+    *pred = (int32_t)((uint32_t)*pred + (uint32_t)s);
     blk[0] = (int16_t)*pred;
     for (int k = 1; k < 64; k++) {
-        int rs = decode(b, ac);
-        if (rs < 0) return ERR_HUFFMAN;
-        int r = rs >> 4;
+        int rs = hdecode(b, ac), r = rs >> 4;
         s = rs & 15;
         if (s) {
             k += r;
-            blk[NATURAL[k]] = (int16_t)extend(get_bits(b, s), s);
+            blk[NATURAL[k]] = (int16_t)extend(hbits(b, s), s);
         } else if (r == 15) {
             k += 15;
         } else {
             break;
         }
     }
-    return 0;
 }
 
-static int block_dc_first(bits_t *b, int16_t *blk, const huff_t *dc, int32_t *pred, int al) {
-    int s = decode(b, dc);
-    if (s < 0 || s > 16) return ERR_HUFFMAN;
-    *pred += extend(get_bits(b, s), s);
-    blk[0] = (int16_t)(int32_t)((uint32_t)*pred << al);
-    return 0;
+static void block_dc_first(hbits_t *b, int16_t *blk, const huff_t *dc, int32_t *pred, int al) {
+    int s = hdecode(b, dc);
+    if (s) s = extend(hbits(b, s), s);
+    *pred = (int32_t)((uint32_t)*pred + (uint32_t)s);
+    blk[0] = (int16_t)(uint16_t)((uint32_t)*pred << al);
 }
 
-static int block_ac_first(bits_t *b, int16_t *blk, const huff_t *ac, scan_t *sc) {
+static void block_ac_first(hbits_t *b, int16_t *blk, const huff_t *ac, scan_t *sc) {
     if (sc->eobrun > 0) {
         sc->eobrun--;
-        return 0;
+        return;
     }
     for (int k = sc->ss; k <= sc->se; k++) {
-        int rs = decode(b, ac);
-        if (rs < 0) return ERR_HUFFMAN;
-        int r = rs >> 4, s = rs & 15;
+        int rs = hdecode(b, ac), r = rs >> 4, s = rs & 15;
         if (s) {
             k += r;
-            blk[NATURAL[k]] = (int16_t)(int32_t)((uint32_t)extend(get_bits(b, s), s) << sc->al);
+            blk[NATURAL[k]] = (int16_t)(uint16_t)((uint32_t)extend(hbits(b, s), s) << sc->al);
         } else if (r == 15) {
             k += 15;
         } else {
             sc->eobrun = (1 << r) - 1;  /* this block ends the first band of the run */
-            if (r) sc->eobrun += (int32_t)get_bits(b, r);
+            if (r) sc->eobrun += (int32_t)hbits(b, r);
             break;
         }
     }
-    return 0;
 }
 
 /* G.1.2.3: a refinement scan adds one bit to every coefficient already
  * nonzero (a correction bit) and may make zero ones nonzero (+-1 << al). */
-static int block_ac_refine(bits_t *b, int16_t *blk, const huff_t *ac, scan_t *sc) {
+static void block_ac_refine(hbits_t *b, int16_t *blk, const huff_t *ac, scan_t *sc) {
     int p1 = 1 << sc->al, m1 = -(1 << sc->al);
     int k = sc->ss;
     if (sc->eobrun == 0) {
         for (; k <= sc->se; k++) {
-            int rs = decode(b, ac);
-            if (rs < 0) return ERR_HUFFMAN;
-            int r = rs >> 4, s = rs & 15, value = 0;
+            int rs = hdecode(b, ac), r = rs >> 4, s = rs & 15, value = 0;
             if (s) {  /* s is 1 in a valid stream: a new coefficient of magnitude 1 */
-                value = get_bits(b, 1) ? p1 : m1;
+                value = hbits(b, 1) ? p1 : m1;
             } else if (r != 15) {
                 sc->eobrun = 1 << r;
-                if (r) sc->eobrun += (int32_t)get_bits(b, r);
+                if (r) sc->eobrun += (int32_t)hbits(b, r);
                 break;
             }
             /* Skip r zero coefficients (and the nonzero ones between them,
@@ -327,7 +442,7 @@ static int block_ac_refine(bits_t *b, int16_t *blk, const huff_t *ac, scan_t *sc
             for (; k <= sc->se; k++) {
                 int16_t *c = blk + NATURAL[k];
                 if (*c) {
-                    if (get_bits(b, 1) && (*c & p1) == 0) *c = (int16_t)(*c >= 0 ? *c + p1 : *c + m1);
+                    if (hbits(b, 1) && (*c & p1) == 0) *c = (int16_t)(*c >= 0 ? *c + p1 : *c + m1);
                 } else {
                     if (--r < 0) break;
                 }
@@ -338,52 +453,70 @@ static int block_ac_refine(bits_t *b, int16_t *blk, const huff_t *ac, scan_t *sc
     if (sc->eobrun > 0) {  /* inside an end-of-band run: refine the nonzero ones left */
         for (; k <= sc->se; k++) {
             int16_t *c = blk + NATURAL[k];
-            if (*c && get_bits(b, 1) && (*c & p1) == 0) *c = (int16_t)(*c >= 0 ? *c + p1 : *c + m1);
+            if (*c && hbits(b, 1) && (*c & p1) == 0) *c = (int16_t)(*c >= 0 ? *c + p1 : *c + m1);
         }
         sc->eobrun--;
     }
-    return 0;
 }
 
-static int decode_block(bits_t *b, int16_t *blk, const huff_t *dc, const huff_t *ac, int32_t *pred, scan_t *sc) {
-    if (!sc->progressive) return block_sequential(b, blk, dc, ac, pred);
-    if (sc->ss == 0) {
-        if (sc->ah == 0) return block_dc_first(b, blk, dc, pred, sc->al);
-        if (get_bits(b, 1)) blk[0] = (int16_t)(blk[0] | (1 << sc->al));
-        return 0;
+static void decode_block(hbits_t *b, int16_t *blk, const huff_t *dc, const huff_t *ac, int32_t *pred, scan_t *sc) {
+    if (!sc->progressive) {
+        block_sequential(b, blk, dc, ac, pred);
+    } else if (sc->ss == 0) {
+        if (sc->ah == 0)
+            block_dc_first(b, blk, dc, pred, sc->al);
+        else if (hbits(b, 1))
+            blk[0] = (int16_t)(blk[0] | (1 << sc->al));
+    } else if (sc->ah == 0) {
+        block_ac_first(b, blk, ac, sc);
+    } else {
+        block_ac_refine(b, blk, ac, sc);
     }
-    return sc->ah == 0 ? block_ac_first(b, blk, ac, sc) : block_ac_refine(b, blk, ac, sc);
 }
 
-/* The offset of the next marker at or after p (FF followed by neither 00
- * nor FF), or -1 if the data ends first. */
-static int64_t next_marker(const uint8_t *data, const uint8_t *p, const uint8_t *end) {
-    for (; p + 1 < end; p++) {
-        if (p[0] == 0xFF && p[1] != 0 && p[1] != 0xFF) return p - data;
+/* The blocks of MCU m of a scan, in the order its data codes them, as
+ * pointers into the components' coefficient arrays, with the index in the
+ * scan of each block's component.  One component: the m-th of its nbx x nby
+ * blocks; more: the h x v blocks of each component in turn, rows first, of
+ * MCU (m / mcux, m % mcux).  geom: per component h, v, bw, nbx, nby.
+ * Returns the number of blocks (at most 10). */
+static int mcu_blocks(int64_t m, int ncomp, int16_t *const *coefs, const int32_t *geom, int mcux, int16_t **blk,
+                      int *comp) {
+    if (ncomp == 1) {
+        int64_t bw = geom[2], nbx = geom[3];
+        blk[0] = coefs[0] + ((m / nbx) * bw + m % nbx) * 64;
+        comp[0] = 0;
+        return 1;
     }
-    return -1;
+    int64_t my = m / mcux, mx = m % mcux;
+    int n = 0;
+    for (int c = 0; c < ncomp; c++) {
+        const int32_t *g = geom + 5 * c;
+        for (int by = 0; by < g[1]; by++) {
+            for (int bx = 0; bx < g[0] && n < 10; bx++) {
+                int64_t row = my * g[1] + by, col = mx * g[0] + bx;
+                blk[n] = coefs[c] + (row * g[2] + col) * 64;
+                comp[n++] = c;
+            }
+        }
+    }
+    return n;
 }
 
-/* At a restart interval's end: drop the bits left, step over the RSTn
- * marker that must follow, and clear the predictors and the EOB run. */
-static int restart(bits_t *b, const uint8_t *data, int32_t *pred, int ncomp, scan_t *sc) {
-    if (overran(b)) return b->p >= b->end ? ERR_TRUNCATED : ERR_SHORT;
-    int64_t m = next_marker(data, b->p, b->end);
-    if (m < 0) return ERR_TRUNCATED;
-    if (data[m + 1] < 0xD0 || data[m + 1] > 0xD7) return ERR_RESTART;
-    b->p = data + m + 2;
-    b->buf = 0;
-    b->cnt = 0;
-    b->marker = 0;
-    b->stuffed = 0;
-    for (int c = 0; c < ncomp; c++) pred[c] = 0;
-    sc->eobrun = 0;
-    return 0;
+/* The iMCU row that MCU m of a scan lies in (one component: its blocks'
+ * row over the component's v block rows of an iMCU row). */
+static inline int64_t imcu_row(int64_t m, int ncomp, const int32_t *geom, int mcux) {
+    return ncomp == 1 ? m / geom[3] / geom[1] : m / mcux;
 }
 
-/* Decode one scan whose entropy-coded data starts at data[0] into the
- * components' coefficient arrays (int16, (rows of blocks, geom bw, 64) in
- * natural order; a refinement scan adds to what earlier scans left).
+/* Decode one Huffman-coded scan whose entropy-coded data starts at data[0]
+ * into the components' coefficient arrays (int16, (rows of blocks, geom bw,
+ * 64) in natural order; a refinement scan adds to what earlier scans left),
+ * as libjpeg-turbo's jdhuff.c (sequential) and jdphuff.c (progressive)
+ * decode it, corrupt data included: a bit string that is no code decodes as
+ * symbol 0; once the data has run dry (a marker in the way) the MCUs after
+ * are left as they are until a restart marker is found; restart markers out
+ * of place are resynchronised as jpeg_resync_to_restart does.
  *   ncomp: components in the scan (1 = non-interleaved: one block per MCU
  *     over the component's nbx x nby blocks; else MCUs of h x v blocks each,
  *     mcux x mcuy of them);
@@ -391,11 +524,14 @@ static int restart(bits_t *b, const uint8_t *data, int32_t *pred, int ncomp, sca
  *   dc_tables, ac_tables: per component a table of TABLE_WORDS words
  *     (ignored where the scan does not use it);
  *   ss, se, ah, al: the spectral selection and successive approximation;
- *   progressive: 0 for a sequential frame; restart: the interval in MCUs.
- * Returns the offset of the marker that ends the scan, or a negative error. */
+ *   progressive: 0 for a sequential frame; restart: the interval in MCUs;
+ *   last_good: set to the iMCU row of the last MCU begun before the data
+ *     ran dry (libjpeg's last_good_iMCU_row, which block smoothing reads).
+ * Returns the offset of the marker after the scan (len if there is none),
+ * or a negative error. */
 int64_t vpt_jpeg_scan(const uint8_t *data, int64_t len, int ncomp, int16_t *const *coefs, const int32_t *geom,
                       const int32_t *dc_tables, const int32_t *ac_tables, int mcux, int mcuy, int ss, int se, int ah,
-                      int al, int progressive, int restart_interval) {
+                      int al, int progressive, int restart_interval, int64_t *last_good) {
     huff_t *dc = NULL, *ac = NULL;
     int64_t ret = 0;
     if (ncomp < 1 || ncomp > 4 || ss < 0 || se > 63 || ss > se || al > 13) return ERR_ARGS;
@@ -413,59 +549,475 @@ int64_t vpt_jpeg_scan(const uint8_t *data, int64_t len, int ncomp, int16_t *cons
             goto done;
         }
     }
-    bits_t b = {data, data + len, 0, 0, 0, 0};
+    src_t s = {data, 0, len, len, 0, 0, 0};
+    hbits_t b = {&s, 0, 0, 0};
     scan_t sc = {ss, se, ah, al, progressive, 0};
     int32_t pred[4] = {0, 0, 0, 0};
-    int64_t n_mcu, done_mcu = 0;
-    if (ncomp == 1) {
-        n_mcu = (int64_t)geom[3] * geom[4];
-    } else {
-        n_mcu = (int64_t)mcux * mcuy;
-    }
+    int next_rst = 0, dc_refine = progressive && ss == 0 && ah != 0;
+    int64_t n_mcu = ncomp == 1 ? (int64_t)geom[3] * geom[4] : (int64_t)mcux * mcuy, togo = restart_interval;
     for (int64_t m = 0; m < n_mcu; m++) {
-        if (restart_interval && m && m % restart_interval == 0) {
-            int err = restart(&b, data, pred, ncomp, &sc);
-            if (err) {
-                ret = err;
-                goto done;
+        if (!b.insufficient) *last_good = imcu_row(m, ncomp, geom, mcux);
+        if (restart_interval) {
+            if (togo == 0) {
+                b.left = 0;
+                src_restart_marker(&s, &next_rst);
+                if (s.err) break;
+                for (int c = 0; c < ncomp; c++) pred[c] = 0;
+                sc.eobrun = 0;
+                if (!s.unread) b.insufficient = 0;
+                togo = restart_interval;
+            }
+            togo--;
+        }
+        if (b.insufficient && !dc_refine) continue;  /* (a refinement bit of 0 changes nothing) */
+        int16_t *blk[10];
+        int comp[10];
+        int nb = mcu_blocks(m, ncomp, coefs, geom, mcux, blk, comp);
+        for (int k = 0; k < nb; k++) decode_block(&b, blk[k], &dc[comp[k]], &ac[comp[k]], &pred[comp[k]], &sc);
+        if (s.err) break;
+    }
+    ret = s.err ? s.err : src_end(&s);
+done:
+    free(dc);
+    free(ac);
+    return ret;
+}
+
+/* ---------------------------------------------- JPEG: arithmetic decoding */
+
+/* ITU-T T.81 Table D.2: per state Qe, Next_Index_LPS, Next_Index_MPS and
+ * Switch_MPS, packed as libjpeg-turbo packs them (Qe << 16 | NMPS << 8 |
+ * Switch << 7 | NLPS), and a 114th state of fixed probability 1/2 (Qe
+ * 0x5A1D, which never moves) for the sign of an AC coefficient and the bits
+ * of DC refinement. */
+#define Q(qe, nlps, nmps, sw) (((uint32_t)(qe) << 16) | ((nmps) << 8) | ((sw) << 7) | (nlps))
+static const uint32_t QE_TABLE[114] = {
+    Q(0x5a1d,   1,   1, 1), Q(0x2586,  14,   2, 0), Q(0x1114,  16,   3, 0), Q(0x080b,  18,   4, 0),
+    Q(0x03d8,  20,   5, 0), Q(0x01da,  23,   6, 0), Q(0x00e5,  25,   7, 0), Q(0x006f,  28,   8, 0),
+    Q(0x0036,  30,   9, 0), Q(0x001a,  33,  10, 0), Q(0x000d,  35,  11, 0), Q(0x0006,   9,  12, 0),
+    Q(0x0003,  10,  13, 0), Q(0x0001,  12,  13, 0), Q(0x5a7f,  15,  15, 1), Q(0x3f25,  36,  16, 0),
+    Q(0x2cf2,  38,  17, 0), Q(0x207c,  39,  18, 0), Q(0x17b9,  40,  19, 0), Q(0x1182,  42,  20, 0),
+    Q(0x0cef,  43,  21, 0), Q(0x09a1,  45,  22, 0), Q(0x072f,  46,  23, 0), Q(0x055c,  48,  24, 0),
+    Q(0x0406,  49,  25, 0), Q(0x0303,  51,  26, 0), Q(0x0240,  52,  27, 0), Q(0x01b1,  54,  28, 0),
+    Q(0x0144,  56,  29, 0), Q(0x00f5,  57,  30, 0), Q(0x00b7,  59,  31, 0), Q(0x008a,  60,  32, 0),
+    Q(0x0068,  62,  33, 0), Q(0x004e,  63,  34, 0), Q(0x003b,  32,  35, 0), Q(0x002c,  33,   9, 0),
+    Q(0x5ae1,  37,  37, 1), Q(0x484c,  64,  38, 0), Q(0x3a0d,  65,  39, 0), Q(0x2ef1,  67,  40, 0),
+    Q(0x261f,  68,  41, 0), Q(0x1f33,  69,  42, 0), Q(0x19a8,  70,  43, 0), Q(0x1518,  72,  44, 0),
+    Q(0x1177,  73,  45, 0), Q(0x0e74,  74,  46, 0), Q(0x0bfb,  75,  47, 0), Q(0x09f8,  77,  48, 0),
+    Q(0x0861,  78,  49, 0), Q(0x0706,  79,  50, 0), Q(0x05cd,  48,  51, 0), Q(0x04de,  50,  52, 0),
+    Q(0x040f,  50,  53, 0), Q(0x0363,  51,  54, 0), Q(0x02d4,  52,  55, 0), Q(0x025c,  53,  56, 0),
+    Q(0x01f8,  54,  57, 0), Q(0x01a4,  55,  58, 0), Q(0x0160,  56,  59, 0), Q(0x0125,  57,  60, 0),
+    Q(0x00f6,  58,  61, 0), Q(0x00cb,  59,  62, 0), Q(0x00ab,  61,  63, 0), Q(0x008f,  61,  32, 0),
+    Q(0x5b12,  65,  65, 1), Q(0x4d04,  80,  66, 0), Q(0x412c,  81,  67, 0), Q(0x37d8,  82,  68, 0),
+    Q(0x2fe8,  83,  69, 0), Q(0x293c,  84,  70, 0), Q(0x2379,  86,  71, 0), Q(0x1edf,  87,  72, 0),
+    Q(0x1aa9,  87,  73, 0), Q(0x174e,  72,  74, 0), Q(0x1424,  72,  75, 0), Q(0x119c,  74,  76, 0),
+    Q(0x0f6b,  74,  77, 0), Q(0x0d51,  75,  78, 0), Q(0x0bb6,  77,  79, 0), Q(0x0a40,  77,  48, 0),
+    Q(0x5832,  80,  81, 1), Q(0x4d1c,  88,  82, 0), Q(0x438e,  89,  83, 0), Q(0x3bdd,  90,  84, 0),
+    Q(0x34ee,  91,  85, 0), Q(0x2eae,  92,  86, 0), Q(0x299a,  93,  87, 0), Q(0x2516,  86,  71, 0),
+    Q(0x5570,  88,  89, 1), Q(0x4ca9,  95,  90, 0), Q(0x44d9,  96,  91, 0), Q(0x3e22,  97,  92, 0),
+    Q(0x3824,  99,  93, 0), Q(0x32b4,  99,  94, 0), Q(0x2e17,  93,  86, 0), Q(0x56a8,  95,  96, 1),
+    Q(0x4f46, 101,  97, 0), Q(0x47e5, 102,  98, 0), Q(0x41cf, 103,  99, 0), Q(0x3c3d, 104, 100, 0),
+    Q(0x375e,  99,  93, 0), Q(0x5231, 105, 102, 0), Q(0x4c0f, 106, 103, 0), Q(0x4639, 107, 104, 0),
+    Q(0x415e, 103,  99, 0), Q(0x5627, 105, 106, 1), Q(0x50e7, 108, 107, 0), Q(0x4b85, 109, 103, 0),
+    Q(0x5597, 110, 109, 0), Q(0x504f, 111, 107, 0), Q(0x5a10, 110, 111, 1), Q(0x5522, 112, 109, 0),
+    Q(0x59eb, 112, 111, 1), Q(0x5a1d, 113, 113, 0),
+};
+#undef Q
+
+/* The table, for a caller to hold against another copy of it. */
+const uint32_t *vpt_jpeg_qe_table(void) { return QE_TABLE; }
+
+#define FIXED_STATE 113
+#define DC_BINS 64
+#define AC_BINS 256
+
+typedef struct {
+    src_t *s;
+    int64_t c, a;  /* the C and A registers */
+    int ct;        /* bits left in C's input byte; -16 before the first two bytes, -1 after an error */
+} arith_t;
+
+/* D.2: decode one decision with the adaptive state *st (its high bit the
+ * MPS), renormalising and reading bytes as libjpeg-turbo's arith_decode
+ * does; after a marker the data reads as zeros. */
+static inline int arith_decode(arith_t *e, uint8_t *st) {
+    while (e->a < 0x8000) {
+        if (--e->ct < 0) {
+            int data = 0;
+            src_t *s = e->s;
+            if (!s->unread) {
+                data = src_byte(s);
+                if (data == 0xFF) {
+                    do data = src_byte(s);
+                    while (data == 0xFF && !s->err);
+                    if (data == 0) {
+                        data = 0xFF;
+                    } else {
+                        s->unread = data;
+                        s->marker_at = s->pos - 2;
+                        data = 0;
+                    }
+                }
+            }
+            e->c = (e->c << 8) | data;
+            if ((e->ct += 8) < 0 && ++e->ct == 0) e->a = 0x8000;  /* two bytes in: A becomes 0x10000 below */
+        }
+        e->a <<= 1;
+    }
+    int sv = *st;
+    uint32_t q = QE_TABLE[sv & 0x7F];
+    int nl = q & 0xFF, nm = (q >> 8) & 0xFF;
+    int64_t qe = q >> 16, temp = e->a - qe;
+    e->a = temp;
+    temp <<= e->ct;
+    if (e->c >= temp) {
+        e->c -= temp;
+        if (e->a < qe) {  /* conditional exchange: the MPS after all */
+            e->a = qe;
+            *st = (uint8_t)((sv & 0x80) ^ nm);
+        } else {
+            e->a = qe;
+            *st = (uint8_t)((sv & 0x80) ^ nl);
+            sv ^= 0x80;
+        }
+    } else if (e->a < 0x8000) {
+        if (e->a < qe) {
+            *st = (uint8_t)((sv & 0x80) ^ nl);
+            sv ^= 0x80;
+        } else {
+            *st = (uint8_t)((sv & 0x80) ^ nm);
+        }
+    }
+    return sv >> 7;
+}
+
+typedef struct {
+    uint8_t dc[16][DC_BINS], ac[16][AC_BINS], fixed[4];
+    int dc_tbl[4], ac_tbl[4], last_dc[4], dc_ctx[4];
+    int L[16], U[16], K[16];  /* the DAC conditioning of each table */
+    int ss, se, ah, al, progressive;
+} arith_scan_t;
+
+/* F.1.4.4.1 / F.2.4.1: a DC difference, added to the component's
+ * predictor (16-bit, as libjpeg keeps it).  Returns -1 on a magnitude past
+ * 2^15 (the decoder's error state). */
+static int arith_dc(arith_t *e, arith_scan_t *as, int ci) {
+    int tbl = as->dc_tbl[ci];
+    uint8_t *st = as->dc[tbl] + as->dc_ctx[ci];
+    if (arith_decode(e, st) == 0) {
+        as->dc_ctx[ci] = 0;
+        return 0;
+    }
+    int sign = arith_decode(e, st + 1), m, v;
+    st += 2 + sign;
+    if ((m = arith_decode(e, st)) != 0) {
+        st = as->dc[tbl] + 20;
+        while (arith_decode(e, st)) {
+            if ((m <<= 1) == 0x8000) return -1;
+            st++;
+        }
+    }
+    if (m < ((1 << as->L[tbl]) >> 1))
+        as->dc_ctx[ci] = 0;
+    else if (m > ((1 << as->U[tbl]) >> 1))
+        as->dc_ctx[ci] = 12 + sign * 4;
+    else
+        as->dc_ctx[ci] = 4 + sign * 4;
+    v = m;
+    st += 14;
+    while (m >>= 1)
+        if (arith_decode(e, st)) v |= m;
+    v += 1;
+    if (sign) v = -v;
+    as->last_dc[ci] = (as->last_dc[ci] + v) & 0xFFFF;
+    return 0;
+}
+
+/* F.1.4.4.2 / G.1.3.3: the AC coefficients ss..se of a block (scaled by
+ * 2^al) until the end-of-block decision.  Returns -1 on a run past se or a
+ * magnitude past 2^15; the coefficients decoded before stay. */
+static int arith_ac(arith_t *e, arith_scan_t *as, int ci, int16_t *blk, int ss, int se, int al) {
+    int tbl = as->ac_tbl[ci];
+    for (int k = ss; k <= se; k++) {
+        uint8_t *st = as->ac[tbl] + 3 * (k - 1);
+        if (arith_decode(e, st)) break;  /* end of block */
+        while (arith_decode(e, st + 1) == 0) {
+            st += 3;
+            if (++k > se) return -1;
+        }
+        int sign = arith_decode(e, as->fixed), m, v;
+        st += 2;
+        if ((m = arith_decode(e, st)) != 0 && arith_decode(e, st)) {
+            m <<= 1;
+            st = as->ac[tbl] + (k <= as->K[tbl] ? 189 : 217);
+            while (arith_decode(e, st)) {
+                if ((m <<= 1) == 0x8000) return -1;
+                st++;
             }
         }
-        if (ncomp == 1) {
-            int64_t bw = geom[2], nbx = geom[3];
-            int16_t *blk = coefs[0] + ((m / nbx) * bw + m % nbx) * 64;
-            int err = decode_block(&b, blk, &dc[0], &ac[0], &pred[0], &sc);
-            if (err) {
-                ret = err;
-                goto done;
+        v = m;
+        st += 14;
+        while (m >>= 1)
+            if (arith_decode(e, st)) v |= m;
+        v += 1;
+        if (sign) v = -v;
+        blk[NATURAL[k]] = (int16_t)(uint16_t)((uint32_t)v << al);
+    }
+    return 0;
+}
+
+/* G.1.3.3: an AC refinement: a correction bit for each coefficient already
+ * nonzero, and coefficients that become +-2^al, up to the end of block,
+ * which may only come past the last coefficient nonzero before. */
+static int arith_ac_refine(arith_t *e, arith_scan_t *as, int16_t *blk) {
+    int tbl = as->ac_tbl[0], p1 = 1 << as->al, m1 = -(1 << as->al), kex;
+    for (kex = as->se; kex > 0; kex--)
+        if (blk[NATURAL[kex]]) break;
+    for (int k = as->ss; k <= as->se; k++) {
+        uint8_t *st = as->ac[tbl] + 3 * (k - 1);
+        if (k > kex && arith_decode(e, st)) break;
+        for (;;) {
+            int16_t *coef = blk + NATURAL[k];
+            if (*coef) {
+                if (arith_decode(e, st + 2)) *coef = (int16_t)(*coef + (*coef < 0 ? m1 : p1));
+                break;
             }
-        } else {
-            int64_t my = m / mcux, mx = m % mcux;
-            for (int c = 0; c < ncomp; c++) {
-                const int32_t *g = geom + 5 * c;
-                for (int by = 0; by < g[1]; by++) {
-                    for (int bx = 0; bx < g[0]; bx++) {
-                        int64_t row = my * g[1] + by, col = mx * g[0] + bx;
-                        int err = decode_block(&b, coefs[c] + (row * g[2] + col) * 64, &dc[c], &ac[c], &pred[c], &sc);
-                        if (err) {
-                            ret = err;
-                            goto done;
+            if (arith_decode(e, st + 1)) {
+                *coef = (int16_t)(arith_decode(e, as->fixed) ? m1 : p1);
+                break;
+            }
+            st += 3;
+            if (++k > as->se) return -1;
+        }
+    }
+    return 0;
+}
+
+/* Clear the statistics, predictors and DC contexts a scan uses (at its
+ * start and at each restart) and restart the decoder's registers. */
+static void arith_reset(arith_t *e, arith_scan_t *as, int ncomp) {
+    for (int ci = 0; ci < ncomp; ci++) {
+        if (!as->progressive || (as->ss == 0 && as->ah == 0)) {
+            memset(as->dc[as->dc_tbl[ci]], 0, DC_BINS);
+            as->last_dc[ci] = as->dc_ctx[ci] = 0;
+        }
+        if (!as->progressive || as->ss) memset(as->ac[as->ac_tbl[ci]], 0, AC_BINS);
+    }
+    e->c = e->a = 0;
+    e->ct = -16;
+}
+
+/* Decode one arithmetic-coded scan (Annex D, F.1.4.4 and G.1.3, as
+ * libjpeg-turbo's jdarith.c decodes it) into the components' coefficient
+ * arrays, in the layout vpt_jpeg_scan fills.
+ *   data[0..len): the file from the scan's data on; limit: the bytes of it
+ *     the decoder may fetch (see src_t);
+ *   tbls: per component its DC and AC statistics table (0-15);
+ *   cond: the DAC conditioning, L[16], U[16], then K[16];
+ *   the rest as for vpt_jpeg_scan (last_good: the scan's last iMCU row).
+ * A magnitude or run that the code cannot have (libjpeg's JWRN_ARITH_BAD_CODE)
+ * leaves the rest of the restart interval's blocks as they are, as libjpeg
+ * does.  Returns the offset of the marker after the scan (len if there is
+ * none), or a negative error. */
+int64_t vpt_jpeg_arith_scan(const uint8_t *data, int64_t len, int64_t limit, int ncomp, int16_t *const *coefs,
+                            const int32_t *geom, const int32_t *tbls, const int32_t *cond, int mcux, int mcuy, int ss,
+                            int se, int ah, int al, int progressive, int restart_interval, int64_t *last_good) {
+    if (ncomp < 1 || ncomp > 4 || ss < 0 || se > 63 || ss > se || al > 13) return ERR_ARGS;
+    arith_scan_t *as = (arith_scan_t *)calloc(1, sizeof(arith_scan_t));
+    if (!as) return ERR_ARGS;
+    src_t s = {data, 0, limit < len ? limit : len, len, 0, 0, 0};
+    arith_t e = {&s, 0, 0, -16};
+    int next_rst = 0;
+    int64_t ret = 0;
+    as->ss = ss, as->se = se, as->ah = ah, as->al = al, as->progressive = progressive;
+    as->fixed[0] = FIXED_STATE;
+    for (int t = 0; t < 16; t++) {
+        as->L[t] = cond[t];
+        as->U[t] = cond[16 + t];
+        as->K[t] = cond[32 + t];
+    }
+    for (int ci = 0; ci < ncomp; ci++) {
+        as->dc_tbl[ci] = tbls[2 * ci] & 15;
+        as->ac_tbl[ci] = tbls[2 * ci + 1] & 15;
+    }
+    arith_reset(&e, as, ncomp);
+    int64_t n_mcu = ncomp == 1 ? (int64_t)geom[3] * geom[4] : (int64_t)mcux * mcuy, togo = restart_interval;
+    int dc_refine = progressive && ss == 0 && ah != 0;
+    for (int64_t m = 0; m < n_mcu; m++) {
+        *last_good = imcu_row(m, ncomp, geom, mcux);  /* (libjpeg's arithmetic decoder never runs dry) */
+        if (restart_interval) {
+            if (togo == 0) {
+                src_restart_marker(&s, &next_rst);
+                arith_reset(&e, as, ncomp);
+                togo = restart_interval;
+            }
+            togo--;
+        }
+        if (s.err) break;
+        if (e.ct == -1 && !dc_refine) continue;
+        int16_t *blk[10];
+        int comp[10];
+        int nb = mcu_blocks(m, ncomp, coefs, geom, mcux, blk, comp), bad = 0;
+        for (int k = 0; k < nb && !bad; k++) {
+            int ci = comp[k];
+            if (!progressive) {
+                bad = arith_dc(&e, as, ci);
+                if (!bad) {
+                    blk[k][0] = (int16_t)(uint16_t)as->last_dc[ci];
+                    bad = arith_ac(&e, as, ci, blk[k], 1, 63, 0);
+                }
+            } else if (ss == 0 && ah == 0) {
+                bad = arith_dc(&e, as, ci);
+                if (!bad) blk[k][0] = (int16_t)(uint16_t)((uint32_t)as->last_dc[ci] << al);
+            } else if (ss == 0) {
+                if (arith_decode(&e, as->fixed)) blk[k][0] = (int16_t)(blk[k][0] | (1 << al));
+            } else if (ah == 0) {
+                bad = arith_ac(&e, as, 0, blk[k], ss, se, al);
+            } else {
+                bad = arith_ac_refine(&e, as, blk[k]);
+            }
+        }
+        if (bad) e.ct = -1;
+        if (s.err) break;
+    }
+    ret = s.err ? s.err : src_end(&s);
+    free(as);
+    return ret;
+}
+
+/* ---------------------------------------------------- JPEG: lossless (SOF3) */
+
+/* H.1.2.1: the prediction of a sample from the one to its left (ra), above
+ * (rb) and above-left (rc), as libjpeg-turbo's jdlossls.c forms it. */
+static inline int predict(int psv, int ra, int rb, int rc) {
+    switch (psv) {
+    case 1: return ra;
+    case 2: return rb;
+    case 3: return rc;
+    case 4: return ra + rb - rc;
+    case 5: return ra + ((rb - rc) >> 1);
+    case 6: return rb + ((ra - rc) >> 1);
+    default: return (ra + rb) >> 1;
+    }
+}
+
+/* Decode one lossless Huffman-coded scan (Annex H, as libjpeg-turbo's
+ * jdlhuff.c, jddiffct.c and jdlossls.c decode it) into the components'
+ * sample planes: uint16 (dh, dw) each, the undifferenced values before the
+ * point transform's shift.
+ *   geom: per component h, v, dw, dh;
+ *   tables: per component its DC Huffman table (TABLE_WORDS words);
+ *   mcux: MCUs per row (ncomp 1: the component's width); imcu_rows: the
+ *     frame's rows of MCUs (ceil(height / largest v)); psv: the predictor
+ *     1-7; pt: the point transform; restart_interval: in MCUs, a multiple of
+ *     mcux.
+ * The differences are decoded a row of MCUs at a time and undifferenced an
+ * iMCU row at a time, as libjpeg does: the first row of the scan, and the
+ * first row undifferenced after each restart, is predicted from its left
+ * neighbour alone, seeded with 2^(7 - pt); every other row starts from the
+ * sample above.  Once the data has run dry (a marker in the way) the rows of
+ * MCUs after are decoded as zero differences restarting from the seed, until
+ * a restart marker is found.  Returns the offset of the marker after the
+ * scan (len if there is none), or a negative error. */
+int64_t vpt_jpeg_lossless_scan(const uint8_t *data, int64_t len, int ncomp, uint16_t *const *planes,
+                               const int32_t *geom, const int32_t *tables, int mcux, int imcu_rows, int psv, int pt,
+                               int restart_interval) {
+    if (ncomp < 1 || ncomp > 4 || psv < 1 || psv > 7 || pt < 0 || pt > 7 || mcux < 1) return ERR_ARGS;
+    huff_t *t = (huff_t *)malloc(sizeof(huff_t) * ncomp);
+    int32_t *diff[4] = {NULL, NULL, NULL, NULL};
+    int64_t width[4], ret = 0;
+    int first[4];
+    if (!t) return ERR_ARGS;
+    for (int c = 0; c < ncomp; c++) {
+        const int32_t *g = geom + 4 * c;
+        width[c] = ncomp == 1 ? mcux : (int64_t)mcux * g[0];
+        diff[c] = (int32_t *)calloc((size_t)(width[c] * g[1]), sizeof(int32_t));
+        if (!diff[c] || build_huff(&t[c], tables + c * TABLE_WORDS)) {
+            ret = diff[c] ? ERR_TABLE : ERR_ARGS;
+            goto done;
+        }
+        first[c] = 1;
+    }
+    src_t s = {data, 0, len, len, 0, 0, 0};
+    hbits_t b = {&s, 0, 0, 0};
+    int next_rst = 0, seed = 1 << (8 - pt - 1);
+    int64_t rows_per_interval = restart_interval / mcux, togo = rows_per_interval;
+    for (int64_t r = 0; r < imcu_rows; r++) {
+        int64_t mcu_rows = 1;
+        if (ncomp == 1) {
+            const int32_t *g = geom;
+            mcu_rows = r < imcu_rows - 1 ? g[1] : g[3] - (imcu_rows - 1) * g[1];
+        }
+        for (int64_t yo = 0; yo < mcu_rows; yo++) {
+            if (restart_interval && togo == 0) {
+                b.left = 0;
+                src_restart_marker(&s, &next_rst);
+                if (s.err) break;
+                if (!s.unread) b.insufficient = 0;
+                for (int c = 0; c < ncomp; c++) first[c] = 1;
+                togo = rows_per_interval;
+            }
+            if (b.insufficient) {
+                for (int c = 0; c < ncomp; c++) {
+                    const int32_t *g = geom + 4 * c;
+                    int64_t rows = ncomp == 1 ? 1 : g[1];
+                    int32_t *row0 = diff[c] + (ncomp == 1 ? yo : 0) * width[c];
+                    memset(row0, 0, sizeof(int32_t) * (size_t)(rows * width[c]));
+                    first[c] = 1;
+                }
+            } else {
+                for (int64_t mx = 0; mx < mcux; mx++) {
+                    for (int c = 0; c < ncomp; c++) {
+                        const int32_t *g = geom + 4 * c;
+                        int h = ncomp == 1 ? 1 : g[0], v = ncomp == 1 ? 1 : g[1];
+                        for (int y = 0; y < v; y++) {
+                            int32_t *row = diff[c] + (ncomp == 1 ? yo : y) * width[c] + mx * h;
+                            for (int x = 0; x < h; x++) {
+                                int sym = hdecode(&b, &t[c]), d = 0;
+                                if (sym == 16) {
+                                    d = 32768;
+                                } else if (sym) {
+                                    d = extend(hbits(&b, sym), sym);
+                                }
+                                row[x] = d;
+                            }
                         }
+                    }
+                    if (s.err) break;
+                }
+            }
+            if (s.err) break;
+            if (restart_interval) togo--;
+        }
+        if (s.err) break;
+        for (int c = 0; c < ncomp; c++) {  /* undifference this iMCU row's rows of each component */
+            const int32_t *g = geom + 4 * c;
+            int64_t v = g[1], dw = g[2], dh = g[3];
+            for (int64_t y = 0; y < v && r * v + y < dh; y++) {
+                const int32_t *d = diff[c] + y * width[c];
+                uint16_t *out = planes[c] + (r * v + y) * dw;
+                if (first[c]) {
+                    int ra = (d[0] + seed) & 0xFFFF;
+                    out[0] = (uint16_t)ra;
+                    for (int64_t x = 1; x < dw; x++) out[x] = (uint16_t)(ra = (d[x] + ra) & 0xFFFF);
+                    first[c] = 0;
+                } else {
+                    const uint16_t *up = out - dw;
+                    int rb = up[0], ra = (d[0] + rb) & 0xFFFF, rc;
+                    out[0] = (uint16_t)ra;
+                    for (int64_t x = 1; x < dw; x++) {
+                        rc = rb;
+                        rb = up[x];
+                        out[x] = (uint16_t)(ra = (d[x] + predict(psv, ra, rb, rc)) & 0xFFFF);
                     }
                 }
             }
         }
-        done_mcu++;
     }
-    if (overran(&b)) {
-        ret = b.p >= b.end ? ERR_TRUNCATED : ERR_SHORT;
-        goto done;
-    }
-    ret = b.marker ? (int64_t)(b.p - data) : next_marker(data, b.p, b.end);
-    if (ret < 0) ret = ERR_TRUNCATED;
+    ret = s.err ? s.err : src_end(&s);
 done:
-    free(dc);
-    free(ac);
-    (void)done_mcu;
+    for (int c = 0; c < ncomp; c++) free(diff[c]);
+    free(t);
     return ret;
 }
 
@@ -473,65 +1025,48 @@ done:
 
 #define CONST_BITS 13
 #define PASS1_BITS 2
-#define FIX_0_298631336 ((int64_t)2446)
-#define FIX_0_390180644 ((int64_t)3196)
-#define FIX_0_541196100 ((int64_t)4433)
-#define FIX_0_765366865 ((int64_t)6270)
-#define FIX_0_899976223 ((int64_t)7373)
-#define FIX_1_175875602 ((int64_t)9633)
-#define FIX_1_501321110 ((int64_t)12299)
-#define FIX_1_847759065 ((int64_t)15137)
-#define FIX_1_961570560 ((int64_t)16069)
-#define FIX_2_053119869 ((int64_t)16819)
-#define FIX_2_562915447 ((int64_t)20995)
-#define FIX_3_072711026 ((int64_t)25172)
-/* Round half up, then an arithmetic shift (floor). */
-#define DESCALE(x, n) (((x) + ((int64_t)1 << ((n)-1))) >> (n))
 
-/* One 8-point inverse DCT over in[0], in[s], ..., in[7 s]; results
- * (not yet descaled) in out[0..7]. */
-static inline void idct8(const int64_t *in, int s, int64_t *out) {
-    int64_t z1, z2, z3, z4, z5, t0, t1, t2, t3, t10, t11, t12, t13;
-    z2 = in[2 * s];
-    z3 = in[6 * s];
-    z1 = (z2 + z3) * FIX_0_541196100;
-    t2 = z1 + z3 * -FIX_1_847759065;
-    t3 = z1 + z2 * FIX_0_765366865;
-    t0 = (in[0] + in[4 * s]) * ((int64_t)1 << CONST_BITS);
-    t1 = (in[0] - in[4 * s]) * ((int64_t)1 << CONST_BITS);
-    t10 = t0 + t3;
-    t13 = t0 - t3;
-    t11 = t1 + t2;
-    t12 = t1 - t2;
-    t0 = in[7 * s];
-    t1 = in[5 * s];
-    t2 = in[3 * s];
-    t3 = in[1 * s];
-    z1 = t0 + t3;
-    z2 = t1 + t2;
-    z3 = t0 + t2;
-    z4 = t1 + t3;
-    z5 = (z3 + z4) * FIX_1_175875602;
-    t0 *= FIX_0_298631336;
-    t1 *= FIX_2_053119869;
-    t2 *= FIX_3_072711026;
-    t3 *= FIX_1_501321110;
-    z1 *= -FIX_0_899976223;
-    z2 *= -FIX_2_562915447;
-    z3 = z3 * -FIX_1_961570560 + z5;
-    z4 = z4 * -FIX_0_390180644 + z5;
-    t0 += z1 + z3;
-    t1 += z2 + z4;
-    t2 += z2 + z3;
-    t3 += z1 + z4;
-    out[0] = t10 + t3;
-    out[7] = t10 - t3;
-    out[1] = t11 + t2;
-    out[6] = t11 - t2;
-    out[2] = t12 + t1;
-    out[5] = t12 - t1;
-    out[3] = t13 + t0;
-    out[4] = t13 - t0;
+/* The "islow" inverse DCT as libjpeg-turbo's SIMD code (jidctint-sse2 /
+ * -avx2, what PIL's decoder runs) computes it: the fixed-point algorithm of
+ * jidctint.c (13 fraction bits, 2 extra bits between the passes, round-half-up
+ * descaling) in 16-bit lanes.  The dequantised coefficients, the sums in0 +-
+ * in4, in7 + in3 and in5 + in1 and the first pass's outputs are 16-bit
+ * (the first three wrap, the outputs saturate), the products and the rest
+ * 32-bit (wrapping), and a block whose rows 1-7 are all zero takes the first
+ * pass's shortcut, each dequantised DC << 2 in 16 bits.  For the
+ * coefficients of a valid 8-bit JPEG nothing wraps or saturates, and this is
+ * the C algorithm; for corrupt data it gives what PIL gives. */
+static inline int16_t wrap16(int32_t v) { return (int16_t)(uint16_t)(uint32_t)v; }
+static inline int16_t sat16(int32_t v) { return (int16_t)(v < -32768 ? -32768 : (v > 32767 ? 32767 : v)); }
+static inline int32_t add32(int32_t a, int32_t b) { return (int32_t)((uint32_t)a + (uint32_t)b); }
+static inline int32_t sub32(int32_t a, int32_t b) { return (int32_t)((uint32_t)a - (uint32_t)b); }
+
+/* One 8-point pass over in[0], in[s], ..., in[7 s]; the sums before
+ * descaling in out[0..7].  The odd part's rotations are regrouped as the
+ * SIMD code groups them, two products per 32-bit sum (pmaddwd). */
+static inline void idct8(const int16_t *in, int s, int32_t *out) {
+    int32_t z2 = in[2 * s], z3 = in[6 * s];
+    int32_t tmp3 = z2 * 10703 + z3 * 4433;    /* (F_0_541 + F_0_765, F_0_541) */
+    int32_t tmp2 = z2 * 4433 + z3 * -10704;   /* (F_0_541, F_0_541 - F_1_847) */
+    int32_t tmp0 = (int32_t)wrap16(in[0] + in[4 * s]) * (1 << CONST_BITS);
+    int32_t tmp1 = (int32_t)wrap16(in[0] - in[4 * s]) * (1 << CONST_BITS);
+    int32_t tmp10 = add32(tmp0, tmp3), tmp13 = sub32(tmp0, tmp3), tmp11 = add32(tmp1, tmp2), tmp12 = sub32(tmp1, tmp2);
+    int32_t i7 = in[7 * s], i5 = in[5 * s], i3 = in[3 * s], i1 = in[1 * s];
+    int32_t z3s = wrap16(i7 + i3), z4s = wrap16(i5 + i1);
+    int32_t z3r = z3s * -6436 + z4s * 9633;   /* (F_1_175 - F_1_961, F_1_175) */
+    int32_t z4r = z3s * 9633 + z4s * 6437;    /* (F_1_175, F_1_175 - F_0_390) */
+    int32_t o0 = add32(i7 * -4927 + i1 * -7373, z3r);   /* (F_0_298 - F_0_899, -F_0_899) */
+    int32_t o3 = add32(i7 * -7373 + i1 * 4926, z4r);    /* (-F_0_899, F_1_501 - F_0_899) */
+    int32_t o1 = add32(i5 * -4176 + i3 * -20995, z4r);  /* (F_2_053 - F_2_562, -F_2_562) */
+    int32_t o2 = add32(i5 * -20995 + i3 * 4177, z3r);   /* (-F_2_562, F_3_072 - F_2_562) */
+    out[0] = add32(tmp10, o3);
+    out[7] = sub32(tmp10, o3);
+    out[1] = add32(tmp11, o2);
+    out[6] = sub32(tmp11, o2);
+    out[2] = add32(tmp12, o1);
+    out[5] = sub32(tmp12, o1);
+    out[3] = add32(tmp13, o0);
+    out[4] = sub32(tmp13, o0);
 }
 
 /* Dequantise (qt: 64 values in natural order) and inverse-transform the
@@ -539,21 +1074,29 @@ static inline void idct8(const int64_t *in, int s, int64_t *out) {
  * sample plane (nby * 8, nbx * 8) uint8. */
 void vpt_jpeg_idct(const int16_t *coefs, int64_t nby, int64_t nbx, const int32_t *qt, uint8_t *plane) {
     int64_t width = nbx * 8;
+    const int p1 = CONST_BITS - PASS1_BITS, p2 = CONST_BITS + PASS1_BITS + 3;
     for (int64_t by = 0; by < nby; by++) {
         for (int64_t bx = 0; bx < nbx; bx++) {
             const int16_t *blk = coefs + (by * nbx + bx) * 64;
-            int64_t in[64], ws[64], col[8], out[8];
-            for (int i = 0; i < 64; i++) in[i] = (int64_t)blk[i] * qt[i];
-            for (int x = 0; x < 8; x++) {  /* pass 1: columns, kept at 2^PASS1_BITS */
-                idct8(in + x, 8, col);
-                for (int y = 0; y < 8; y++) ws[y * 8 + x] = DESCALE(col[y], CONST_BITS - PASS1_BITS);
+            int16_t in[64], ws[64];
+            int32_t out[8];
+            int ac = 0;
+            for (int i = 8; i < 64; i++) ac |= blk[i];
+            for (int i = 0; i < 64; i++) in[i] = wrap16(blk[i] * qt[i]);
+            if (!ac) {  /* pass 1's shortcut: every column is its DC */
+                for (int i = 0; i < 64; i++) ws[i] = wrap16(in[i & 7] * (1 << PASS1_BITS));
+            } else {
+                for (int x = 0; x < 8; x++) {  /* pass 1: columns */
+                    idct8(in + x, 8, out);
+                    for (int y = 0; y < 8; y++) ws[y * 8 + x] = sat16(add32(out[y], 1 << (p1 - 1)) >> p1);
+                }
             }
             for (int y = 0; y < 8; y++) {  /* pass 2: rows, to samples */
                 idct8(ws + y * 8, 1, out);
                 uint8_t *dst = plane + (by * 8 + y) * width + bx * 8;
                 for (int x = 0; x < 8; x++) {
-                    int64_t v = DESCALE(out[x], CONST_BITS + PASS1_BITS + 3) + 128;
-                    dst[x] = (uint8_t)(v < 0 ? 0 : (v > 255 ? 255 : v));
+                    int32_t v = add32(out[x], 1 << (p2 - 1)) >> p2;
+                    dst[x] = (uint8_t)((v < -128 ? -128 : (v > 127 ? 127 : v)) + 128);
                 }
             }
         }
@@ -594,18 +1137,22 @@ static inline int16_t smooth_pred(int64_t num, int64_t q, int al) {
  * columns stop at the component's last block that holds samples; its rows
  * may reach into the MCU padding below.  v: its vertical
  * sampling factor; rows: the frame's iMCU rows; qt: its 64 quantisers;
- * bits: the successive-approximation bit of coefficients 0..9 after the last
- * scan (-1 never coded).  The rows are walked per iMCU row as libjpeg-turbo
- * walks them: in the last iMCU row, whose block rows may be fewer than v,
- * the test for a row above or below counts those fewer rows. */
+ * last_bits: the successive-approximation bit of coefficients 0..9 after
+ * the last scan (-1 never coded); prev_bits: the same before the last scan
+ * of the component, which libjpeg-turbo uses for the iMCU rows after
+ * last_good, the last one whose MCUs the last scan decoded before its data
+ * ran dry.  The rows are walked per iMCU row as libjpeg-turbo walks them:
+ * in the last iMCU row, whose block rows may be fewer than v, the test for
+ * a row above or below counts those fewer rows. */
 void vpt_jpeg_smooth(const int16_t *coefs, int16_t *out, int64_t bw, int64_t nbx, int64_t nby, int v, int64_t rows,
-                     const int32_t *qt, const int32_t *bits) {
+                     const int32_t *qt, const int32_t *last_bits, const int32_t *prev_bits, int64_t last_good) {
     int64_t q[10];
     for (int k = 0; k < 10; k++) q[k] = qt[SMOOTH_POS[k]];
-    int change_dc = 1;
-    for (int k = 1; k < 10; k++) change_dc &= bits[k] == -1;
     int64_t last = nbx - 1;
     for (int64_t r = 0; r < rows; r++) {
+        const int32_t *bits = r > last_good ? prev_bits : last_bits;
+        int change_dc = 1;
+        for (int k = 1; k < 10; k++) change_dc &= bits[k] == -1;
         int64_t block_rows = v;
         if (r == rows - 1) {
             block_rows = nby % v;

@@ -1,5 +1,6 @@
 """The C image codec (csrc/imgcodec.c): the PNG row unfilter, the JPEG
-entropy decoder, inverse DCT and block smoothing, the TIFF LZW and PackBits
+entropy decoders (Huffman, arithmetic and lossless), inverse DCT and block
+smoothing, the TIFF LZW and PackBits
 decoders and predictors, the GIF LZW decoder and the BMP RLE decoder; and
 the WebP decoders (csrc/webpdec.c): VP8L, VP8 key frames and ALPH planes.
 Each is built with gcc into vpt_tpu_torch/build/ at first use and called
@@ -25,15 +26,15 @@ _CMD = ("gcc", "-O3", "-shared", "-fPIC")
 _lib = None
 _lock = threading.Lock()
 
-# vpt_jpeg_scan's error codes.
+# The JPEG scan decoders' error codes.
 JPEG_ERRORS = {
     -1: "truncated (the data ends inside a scan)",
-    -2: "corrupt (a bit string that is no Huffman code)",
     -3: "corrupt (a Huffman table that is no prefix code)",
-    -4: "corrupt (a restart marker missing or out of place)",
-    -5: "corrupt (a scan's data ends before its last block)",
     -6: "corrupt (bad scan parameters)",
+    -7: "refused as PIL refuses it: an arithmetic-coded scan runs past a 65536-byte block of the file, and "
+        "PIL hands libjpeg the file a block at a time while libjpeg's arithmetic decoder cannot wait for the next",
 }
+PIL_BLOCK = 65536  # the bytes PIL's ImageFile.load hands its decoder at a time (ImageFile.MAXBLOCK)
 HUFF_WORDS = 16 + 256  # a Huffman table: counts of codes of length 1..16, then the symbols
 
 
@@ -47,12 +48,19 @@ def library():
             lib.vpt_png_unfilter.restype = ctypes.c_int
             lib.vpt_png_unfilter.argtypes = [p, p, ctypes.c_int64, ctypes.c_int64, ctypes.c_int64]
             lib.vpt_jpeg_scan.restype = ctypes.c_int64
-            lib.vpt_jpeg_scan.argtypes = [p, ctypes.c_int64, ctypes.c_int, p, p, p, p] + [ctypes.c_int] * 8
+            lib.vpt_jpeg_scan.argtypes = [p, ctypes.c_int64, ctypes.c_int, p, p, p, p] + [ctypes.c_int] * 8 + [p]
+            lib.vpt_jpeg_arith_scan.restype = ctypes.c_int64
+            lib.vpt_jpeg_arith_scan.argtypes = [p, ctypes.c_int64, ctypes.c_int64, ctypes.c_int, p, p, p, p] + \
+                [ctypes.c_int] * 8 + [p]
+            lib.vpt_jpeg_lossless_scan.restype = ctypes.c_int64
+            lib.vpt_jpeg_lossless_scan.argtypes = [p, ctypes.c_int64, ctypes.c_int, p, p, p] + [ctypes.c_int] * 5
+            lib.vpt_jpeg_qe_table.restype = ctypes.POINTER(ctypes.c_uint32)
+            lib.vpt_jpeg_qe_table.argtypes = []
             lib.vpt_jpeg_idct.restype = None
             lib.vpt_jpeg_idct.argtypes = [p, ctypes.c_int64, ctypes.c_int64, p, p]
             i64 = ctypes.c_int64
             lib.vpt_jpeg_smooth.restype = None
-            lib.vpt_jpeg_smooth.argtypes = [p, p, i64, i64, i64, ctypes.c_int, i64, p, p]
+            lib.vpt_jpeg_smooth.argtypes = [p, p, i64, i64, i64, ctypes.c_int, i64, p, p, p, i64]
             for name in ("vpt_tiff_lzw", "vpt_packbits"):
                 getattr(lib, name).restype = i64
                 getattr(lib, name).argtypes = [p, i64, p, i64]
@@ -99,23 +107,76 @@ def png_unfilter(raw: np.ndarray, h: int, stride: int, bpp: int) -> np.ndarray:
     return out
 
 
-def jpeg_scan(data: np.ndarray, coefs: list, geom: np.ndarray, dc: np.ndarray, ac: np.ndarray, mcux: int, mcuy: int,
-              ss: int, se: int, ah: int, al: int, progressive: bool, restart: int) -> int:
-    """Decode one scan whose entropy-coded data begins at data[0] into the
-    scan's components' int16 coefficient arrays `coefs` (each (rows, geom
-    bw, 64), C-contiguous).  geom: int32 (n, 5), per component h, v, bw,
-    nbx, nby; dc, ac: int32 (n, HUFF_WORDS).  Returns the offset of the
-    marker that ends the scan; a code of JPEG_ERRORS raises a ValueError."""
+def _coef_pointers(coefs: list):
     for c in coefs:
         if c.dtype != np.int16 or not c.flags.c_contiguous:
             raise ValueError("coefficient arrays must be C-contiguous int16")
-    ptrs = (ctypes.c_void_p * len(coefs))(*[_ptr(c) for c in coefs])
+    return (ctypes.c_void_p * len(coefs))(*[_ptr(c) for c in coefs])
+
+
+def jpeg_scan(data: np.ndarray, coefs: list, geom: np.ndarray, dc: np.ndarray, ac: np.ndarray, mcux: int, mcuy: int,
+              ss: int, se: int, ah: int, al: int, progressive: bool, restart: int) -> tuple:
+    """Decode one Huffman-coded scan whose entropy-coded data begins at
+    data[0] into the scan's components' int16 coefficient arrays `coefs`
+    (each (rows, geom bw, 64), C-contiguous).  geom: int32 (n, 5), per
+    component h, v, bw, nbx, nby; dc, ac: int32 (n, HUFF_WORDS).  Returns
+    (the offset of the marker after the scan, data.size if none; the iMCU
+    row of the last MCU begun before the data ran dry, or -1); a code of
+    JPEG_ERRORS raises a ValueError."""
+    ptrs = _coef_pointers(coefs)
     geom, dc, ac = (np.ascontiguousarray(a, np.int32) for a in (geom, dc, ac))
+    last_good = ctypes.c_int64(-1)
     ret = library().vpt_jpeg_scan(_ptr(data), data.size, len(coefs), ctypes.addressof(ptrs), _ptr(geom), _ptr(dc),
-                                  _ptr(ac), mcux, mcuy, ss, se, ah, al, int(progressive), restart)
+                                  _ptr(ac), mcux, mcuy, ss, se, ah, al, int(progressive), restart,
+                                  ctypes.byref(last_good))
+    if ret < 0:
+        raise ValueError(JPEG_ERRORS.get(ret, f"error {ret}"))
+    return int(ret), last_good.value
+
+
+def jpeg_arith_scan(data: np.ndarray, limit: int, coefs: list, geom: np.ndarray, tables: np.ndarray,
+                    conditioning: np.ndarray, mcux: int, mcuy: int, ss: int, se: int, ah: int, al: int,
+                    progressive: bool, restart: int) -> tuple:
+    """Decode one arithmetic-coded scan whose data begins at data[0] into
+    `coefs` as jpeg_scan does; the decoder may fetch only data[:limit].
+    tables: int32 (n, 2), per component its DC and AC statistics table;
+    conditioning: int32 (48,), the DAC values L, U and K of tables 0-15.
+    Returns what jpeg_scan returns."""
+    ptrs = _coef_pointers(coefs)
+    geom, tables, conditioning = (np.ascontiguousarray(a, np.int32) for a in (geom, tables, conditioning))
+    last_good = ctypes.c_int64(-1)
+    ret = library().vpt_jpeg_arith_scan(_ptr(data), data.size, limit, len(coefs), ctypes.addressof(ptrs), _ptr(geom),
+                                        _ptr(tables), _ptr(conditioning), mcux, mcuy, ss, se, ah, al,
+                                        int(progressive), restart, ctypes.byref(last_good))
+    if ret < 0:
+        raise ValueError(JPEG_ERRORS.get(ret, f"error {ret}"))
+    return int(ret), last_good.value
+
+
+def jpeg_lossless_scan(data: np.ndarray, planes: list, geom: np.ndarray, tables: np.ndarray, mcux: int,
+                       imcu_rows: int, psv: int, pt: int, restart: int) -> int:
+    """Decode one lossless Huffman-coded scan whose data begins at data[0]
+    into the scan's components' uint16 (dh, dw) planes (C-contiguous; the
+    samples before the point transform's shift).  geom: int32 (n, 4), per
+    component h, v, dw, dh; tables: int32 (n, HUFF_WORDS) DC tables.
+    Returns the offset of the marker after the scan (data.size if none)."""
+    for p in planes:
+        if p.dtype != np.uint16 or not p.flags.c_contiguous:
+            raise ValueError("sample planes must be C-contiguous uint16")
+    ptrs = (ctypes.c_void_p * len(planes))(*[_ptr(p) for p in planes])
+    geom, tables = (np.ascontiguousarray(a, np.int32) for a in (geom, tables))
+    ret = library().vpt_jpeg_lossless_scan(_ptr(data), data.size, len(planes), ctypes.addressof(ptrs), _ptr(geom),
+                                           _ptr(tables), mcux, imcu_rows, psv, pt, restart)
     if ret < 0:
         raise ValueError(JPEG_ERRORS.get(ret, f"error {ret}"))
     return int(ret)
+
+
+def qe_table() -> np.ndarray:
+    """The C codec's copy of T.81 Table D.2 and the fixed 1/2 state: 114
+    uint32, each Qe << 16 | Next_Index_MPS << 8 | Switch_MPS << 7 |
+    Next_Index_LPS."""
+    return np.ctypeslib.as_array(library().vpt_jpeg_qe_table(), (114,)).copy()
 
 
 def jpeg_idct(coefs: np.ndarray, qt: np.ndarray) -> np.ndarray:
@@ -129,20 +190,23 @@ def jpeg_idct(coefs: np.ndarray, qt: np.ndarray) -> np.ndarray:
     return plane
 
 
-def jpeg_smooth(coefs: np.ndarray, nbx: int, nby: int, v: int, rows: int, qt: np.ndarray,
-                bits: np.ndarray) -> np.ndarray:
+def jpeg_smooth(coefs: np.ndarray, nbx: int, nby: int, v: int, rows: int, qt: np.ndarray, bits: np.ndarray,
+                prev_bits: np.ndarray, last_good: int) -> np.ndarray:
     """libjpeg-turbo's block smoothing of one progressive component: its
     MCU-padded (bh, bw, 64) int16 coefficients to the (nby, nbx, 64) blocks
     the IDCT takes (v: its vertical sampling factor; rows: the frame's iMCU
     rows; bits: the successive-approximation bit of coefficients 0..9, -1
-    where never coded)."""
+    where never coded; prev_bits: the same before the component's last scan,
+    used for the iMCU rows after last_good, the last the last scan decoded
+    before its data ran dry)."""
     coefs = np.ascontiguousarray(coefs, np.int16)
     if coefs.ndim != 3 or coefs.shape[2] != 64 or nbx > coefs.shape[1] or nby > coefs.shape[0] or \
-            coefs.shape[0] < rows * v or qt.size != 64 or bits.size != 10:
+            coefs.shape[0] < rows * v or qt.size != 64 or bits.size != 10 or prev_bits.size != 10:
         raise ValueError("jpeg_smooth: the coefficients do not hold the component's blocks")
     out = np.empty((nby, nbx, 64), np.int16)
-    qt, bits = (np.ascontiguousarray(a, np.int32) for a in (qt, bits))
-    library().vpt_jpeg_smooth(_ptr(coefs), _ptr(out), coefs.shape[1], nbx, nby, v, rows, _ptr(qt), _ptr(bits))
+    qt, bits, prev_bits = (np.ascontiguousarray(a, np.int32) for a in (qt, bits, prev_bits))
+    library().vpt_jpeg_smooth(_ptr(coefs), _ptr(out), coefs.shape[1], nbx, nby, v, rows, _ptr(qt), _ptr(bits),
+                              _ptr(prev_bits), last_good)
     return out
 
 

@@ -34,9 +34,11 @@ int32.  `load_png` is that array as float32 / 255, as the JAX package's
 `load_png` gives it; `decode_rgba` expands it as PIL's `convert("RGBA")`
 does (the glTF texture decode); `decode_samples` gives it as imageio's PIL
 route gives it to the JAX package's `load_hdr` (a palette image as its RGB
-colours).  KTX2, OpenEXR, Radiance HDR and PFM data, the formats that stay
-refused, raise a ValueError that names them, as does any other file PIL
-would not open.
+colours).  Other files raise a ValueError: KTX2, OpenEXR, Radiance HDR and
+PFM data, and the formats PIL opens that the port does not read yet whose
+leading bytes name them (Netpbm P1-P6, QOI, DDS, JPEG 2000, SGI, AVIF, PSD),
+each named; any other file, PIL's formats without such bytes (TGA, PCX,
+ICO / CUR) among them, as a file of unknown format.
 """
 
 from __future__ import annotations
@@ -59,6 +61,11 @@ _ADAM7 = ((0, 0, 8, 8), (4, 0, 8, 8), (0, 4, 4, 8), (2, 0, 4, 4), (0, 2, 2, 4), 
 # in and that the port does not read, to name them in the refusal.
 _OTHER_FORMATS = ((b"\xabKTX 20\xbb", "KTX2"), (b"\x76\x2f\x31\x01", "OpenEXR"),
                   (b"#?RADIANCE", "Radiance HDR"), (b"#?RGBE", "Radiance HDR"), (b"PF\n", "PFM"), (b"Pf\n", "PFM"))
+# Leading bytes of formats PIL opens (so the JAX package reads them) that the
+# port does not read yet (ROADMAP "Left").
+_PIL_ONLY_FORMATS = (*((b"P" + bytes([c]), f"Netpbm (P{chr(c)})") for c in b"123456"), (b"qoif", "QOI"),
+                     (b"DDS ", "DDS"), (b"\x00\x00\x00\x0cjP  \r\n\x87\n", "JPEG 2000"),
+                     (b"\xff\x4f\xff\x51", "JPEG 2000 (codestream)"), (b"\x01\xda", "SGI"), (b"8BPS", "PSD"))
 
 
 def to_uint8(image) -> np.ndarray:
@@ -185,8 +192,15 @@ def _pil_image(data: bytes, name: str):
         return arr, mode, None, None
     else:
         kind = next((f for magic, f in _OTHER_FORMATS if data.startswith(magic)), None)
-        raise ValueError(f"{name}: {kind + ' images are' if kind else 'a file of unknown format is'} not read "
-                         f"(only PNG, JPEG, TIFF, GIF, BMP and WebP)")
+        if kind:
+            raise ValueError(f"{name}: {kind} images are not read (only PNG, JPEG, TIFF, GIF, BMP and WebP)")
+        kind = next((f for magic, f in _PIL_ONLY_FORMATS if data.startswith(magic)), None)
+        if kind is None and data[4:8] == b"ftyp" and data[8:12] in (b"avif", b"avis"):
+            kind = "AVIF"
+        if kind:
+            raise ValueError(f"{name}: {kind} images are not read yet (PIL opens them; the port reads PNG, JPEG, "
+                             f"TIFF, GIF, BMP and WebP)")
+        raise ValueError(f"{name}: a file of unknown format is not read (only PNG, JPEG, TIFF, GIF, BMP and WebP)")
     gray_key = struct.unpack(">H", trns[:2])[0] if trns is not None and len(trns) >= 2 else None
     rgb_key = struct.unpack(">3H", trns[:6]) if trns is not None and len(trns) >= 6 else None
     if ctype == 3:
