@@ -55,7 +55,7 @@ Phases, each of which raises on failure:
   7. the media path: the stream-mode Renderer with a 128^3 procedural
      cloud and a homogeneous ground haze added by `add_volume` (the merged
      march, delta tracking, ratio-tracked NEE, HG phase) at 512x512,
-     max_depth 4 (MEDIA_FLAGS), 4 spp, one seed, its loop captured (one
+     max_depth 2 (MEDIA_FLAGS), 4 spp, one seed, its loop captured (one
      dispatch graph: a WHILE node over the iteration's segment graphs and,
      between them, a nested WHILE node over one step of each of its 5
      media loops) against the eager loop as phase 12 does it: after a
@@ -72,7 +72,7 @@ Phases, each of which raises on failure:
      load_grid reads equals the procedural grid exactly;
   8. the atmosphere path: the gallery's day setup (planet surface at
      y = 0, sky altitude 30 degrees) under colonnade's open sky, at depth
-     8 (7 media loops per iteration), the same way;
+     4 (ATMOSPHERE_FLAGS; 7 media loops per iteration), the same way;
   9. the user's entry points on the card:
      a. the textured colonnade (9 textures, ~4.7M texels of albedo and
         normal maps) at 512x512 with a metrics log, driven like phase 4
@@ -179,11 +179,11 @@ Phases, each of which raises on failure:
         spread over them; CUDA-event medians of 20-launch pairs of the
         five kernels (bounce; occlude on the shadow batch) beside their
         bounds (phase 3's way); clusters, groups and Gp; one captured
-        dispatch at
-        512x512, depth 8, 4 spp, at GRAPH_SEED after the one that captures:
-        s/dispatch, segments and the image's PSNR against phase 4's K = 128
-        image at that seed (above LAYOUT_PSNR), and whether image and
-        segments equal the default layout's;
+        dispatch at LAYOUT_SIZE^2 (256x256), depth 8, 4 spp, at GRAPH_SEED
+        after the one that captures: s/dispatch, segments and the image's
+        PSNR against phase 4's configuration's K = 128 image at that size
+        and seed (above LAYOUT_PSNR), and whether image and segments equal
+        the default layout's;
      b. the packet path (integrator.TRACE_MODE "packet") at
         PACKET_LAYOUTS (cluster.PACKET_SIZE 256, 1024, and 64, 384 and 2048,
         which supertile_tables runs in its run-time tile, _SORT_KEY "fe",
@@ -202,7 +202,7 @@ Phases, each of which raises on failure:
         launch before it and the ratio are printed too); the top ops, the
         csrc kernels' shares and the SM clock around it;
      d. `python -m vpt_tpu_torch.tools.quick_bench` at the defaults, then
-        `python -m vpt_tpu_torch.tools.sweep_bench 512 4 --configs
+        `python -m vpt_tpu_torch.tools.sweep_bench 256 4 --configs
         k64,k128,k256`, as subprocesses: each RESULT line with the card's
         name and power limit;
      one JSON line "layouts".
@@ -242,7 +242,7 @@ Phases, each of which raises on failure:
         and 2048 equals, bit for bit, the trace with cluster.PACKET_SIZE set
         to P (as phase 14b sets it);
      one JSON line "port_gaps".
- 17. the image formats, on a machine without PIL or imageio:
+ 17. the image formats, on a machine without PIL, imageio or OpenCV:
      a. every fixture of tests/torch_formats/ (TIFF, GIF, BMP, CMYK / YCCK,
         4:4:0 / 4:1:1 and block-smoothed JPEGs), of tests/torch_webp/
         (WebP: the simple and normal loop filters at each sharpness, 2 / 4 /
@@ -251,10 +251,15 @@ Phases, each of which raises on failure:
         offset) and of tests/torch_jpeg/ (arithmetic-coded sequential and
         progressive JPEGs, DAC conditioning, restart intervals, a
         block-smoothed SOF10, lossless JPEGs at predictors 1-7 and point
-        transforms 0-3) through decode_rgba and load_hdr against its
-        manifest: the sha256 of the JAX package's decode, or a ValueError
-        where it refuses; the C codec (its arithmetic and lossless scan
-        decoders too) and the C WebP decoders loaded;
+        transforms 0-3) and of tests/torch_pil_formats/ (TGA raw and RLE
+        with packets over scanlines and colour maps, PCX planes, DDS BC1-BC7
+        and uncompressed, Netpbm P1-P6 and PFM, QOI, SGI RLE, ICO / CUR, PSD;
+        and its three 2048x2048 timing textures, made here from their seed
+        by tests/pil_format_writers.py) through decode_rgba and load_hdr
+        against its manifest: the sha256 of the JAX package's decode, or a
+        ValueError where it refuses; the C codec (its arithmetic and
+        lossless scan decoders and its TGA, PCX, SGI, QOI and PackBits loops
+        too), the C WebP decoders and the C BC block decoders loaded;
      b. a 4096x2048 float32 RGB sky (default_sky) written by
         `write_float_tiff` here as Deflate 256x256 tiles and as
         uncompressed strips: load_hdr gives it back bitwise; its host
@@ -265,15 +270,18 @@ Phases, each of which raises on failure:
         seconds (median of 5), each under WEBP_LIMIT_S; decode_rgba of the
         2048x2048 4:2:0 SOF10 texture and the 1024x1024 lossless RGB image
         of tests/torch_jpeg/, host seconds (median of 5), each under
-        JPEG_LIMIT_S;
+        JPEG_LIMIT_S; decode_rgba of the 2048x2048 BC7 DDS, RLE TGA and QOI
+        textures, host seconds (median of 5), each under PIL_LIMIT_S;
      c. `python -m vpt_tpu_torch render garden` at 512x512, depth 8, 8 spp
         with --env sky.tif against --env sky.npy of the same array (two
         processes at once): bitwise equal; then the colonnade as a .glb with
         a GIF, an RLE8 BMP, an LZW TIFF and a CMYK JPEG base colour, a lossy
         WebP with ALPH on the back wall, a lossless WebP on the brass, a
-        SOF10 JPEG on the west wall and a lossless JPEG on the east wall
-        (each wall its own copy of stone), through the CLI, bitwise its
-        in-memory render with those decodes (each the manifest's sha256);
+        SOF10 JPEG on the west wall, a lossless JPEG on the east wall, the
+        BC7 DDS on the front wall, the RLE TGA and the QOI on two pedestals,
+        a PCX on a drape and a PSD on a statue (each of these its own copy
+        of its material), through the CLI, bitwise its in-memory render with
+        those decodes (each the manifest's sha256);
      one JSON line "image_formats".  `--image-formats` runs this phase alone
      (after the build).
 Every drive of phases 4-11, 13 and 14 checks that its loop ran captured (a
@@ -375,6 +383,7 @@ from vpt_tpu_torch.viewer import TerminalViewer
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "tests"))
 import gltf_scenes  # noqa: E402  (tests/gltf_scenes.py, jax-free: the .glb writer)
+import pil_format_writers  # noqa: E402  (tests/pil_format_writers.py, numpy alone: 17b's 2048x2048 textures)
 import torch_goldens  # noqa: E402  (tests/torch_goldens.py, jax-free: the golden configurations)
 import while_toys  # noqa: E402  (tests/while_toys.py, jax-free: toy dispatch graphs)
 
@@ -406,9 +415,12 @@ PLAIN = {
 STREAM_KERNELS = ("ray_keys", "supertile_tables", "stream", "occlude")
 W = H = 512
 TIMED_DISPATCHES = 2
-# The media path at depth 4 (the others at 8): its dispatch is tens of seconds
-# of host-bound loop steps, and the script stays within its time.
-MEDIA_FLAGS = RenderFlags(max_depth=4, max_medium_events=8)
+# The media path at depth 2 and the atmosphere at 4 (the others at 8; 4 and 8
+# until PR 20, when the script ran 1,021 s): an eager media dispatch is tens
+# of seconds of host-bound loop steps, phases 7, 8 and 10 run five of them,
+# and the script stays within its time.
+MEDIA_FLAGS = RenderFlags(max_depth=2, max_medium_events=8)
+ATMOSPHERE_FLAGS = RenderFlags(max_depth=4, max_medium_events=8)
 # The captured media and atmosphere dispatches are profiled at this size,
 # 1 spp: a media dispatch issues ~300 kernels per loop step whatever its
 # size, and a trace of millions of events takes minutes to gather.
@@ -1827,6 +1839,11 @@ LAYOUT_PSNR = 50.0
 PROFILE_EVENTS = 0.02
 PROFILE_TOLERANCE = 0.05
 SWEEP = "k64,k128,k256"  # 14d's tools.sweep_bench configurations
+# 14a-b's dispatches and 14d's sweep_bench run at LAYOUT_SIZE^2 (phase 4's
+# 512^2 until PR 19, when phase 14 took 302 s of the run's 1,094 s): every
+# layout and packet layout still renders, each image held to the K = 128
+# image at this size; each layout's kernel checks stay at phase 3's shapes.
+LAYOUT_SIZE = 256
 
 
 def slice_packets(pk: cluster.Packets, n: int) -> cluster.Packets:
@@ -1913,10 +1930,10 @@ def layout_dispatch(data, meta, flags, params, base, label: str, mode: str = "st
     `base` (phase 4's configuration at K = 128, the same seed), and whether
     image and segments equal those of `default`, the default layout's
     dispatch in the same mode (`base` where None)."""
-    zeros = torch.zeros((H, W, 3), device=params.view_inverse.device)
+    zeros = torch.zeros((LAYOUT_SIZE, LAYOUT_SIZE, 3), device=params.view_inverse.device)
 
     def dispatch():
-        return render_step(data, meta, flags, params, GRAPH_SEED, (W, H), zeros, 0, 4)
+        return render_step(data, meta, flags, params, GRAPH_SEED, (LAYOUT_SIZE, LAYOUT_SIZE), zeros, 0, 4)
 
     captured_or_eager(dispatch, True)
     run_ = captured_or_eager(dispatch, True)
@@ -1937,7 +1954,7 @@ def layout_dispatch(data, meta, flags, params, base, label: str, mode: str = "st
            "image_equals_default": bool(torch.equal(run_["img"], default["img"])),
            "segments_equal_default": run_["segments"] == default["segments"],
            "launches": {k: v for k, v in launches.items() if v}}
-    log(f"layout {label} dispatch ({mode}, 512x512, 4 spp, seed {GRAPH_SEED}): {run_['s']:.3f} s, "
+    log(f"layout {label} dispatch ({mode}, {LAYOUT_SIZE}x{LAYOUT_SIZE}, 4 spp, seed {GRAPH_SEED}): {run_['s']:.3f} s, "
         f"{run_['segments']} segments ({100 * out['segments_vs_k128']:+.4f}% against K = 128), "
         f"{out['segments_per_s'] / 1e6:.3f} M segs/s, PSNR {p:.1f} dB against the K = 128 image; image "
         f"{'equal to' if out['image_equals_default'] else 'NOT equal to'} and segments "
@@ -2015,7 +2032,7 @@ def run_tool(*args: str, timeout: float = 600) -> list:
 def layouts_phase(dev, smi: str, table, p3: dict, stream_r: Renderer, media_r: Renderer) -> None:
     """Phase 14: the layout knobs (a, b) and the dispatch tools (c, d)."""
     t_phase = time.perf_counter()
-    base = captured_or_eager(stepper(stream_r), True)  # phase 4's configuration at K = 128, GRAPH_SEED
+    base = captured_or_eager(stepper(stream_r, LAYOUT_SIZE), True)  # phase 4's configuration, K = 128, GRAPH_SEED
     tables = lookup.get_lookup_tables(device=dev)  # the cached bake: phase 4's fits
     rows = []
     # 14a. Cluster layouts.
@@ -2035,8 +2052,8 @@ def layouts_phase(dev, smi: str, table, p3: dict, stream_r: Renderer, media_r: R
     # 14b. Packet layouts.
     t0 = time.perf_counter()
     with mock.patch.object(integrator, "TRACE_MODE", "packet"):
-        captured_or_eager(stepper(stream_r), True)
-        packet_base = captured_or_eager(stepper(stream_r), True)  # the packet path at 512-ray packets, fs, sorted
+        captured_or_eager(stepper(stream_r, LAYOUT_SIZE), True)
+        packet_base = captured_or_eager(stepper(stream_r, LAYOUT_SIZE), True)  # 512-ray packets, fs, sorted
     for size, key, sort in PACKET_LAYOUTS:
         rows.append(packet_layout(stream_r, p3, size, key, sort, base, table, packet_base))
     log(f"phase 14b (packet layouts): {time.perf_counter() - t0:.1f} s")
@@ -2069,7 +2086,7 @@ def layouts_phase(dev, smi: str, table, p3: dict, stream_r: Renderer, media_r: R
     # 14d. quick_bench and sweep_bench as subprocesses.
     t0 = time.perf_counter()
     quick = run_tool("vpt_tpu_torch.tools.quick_bench")
-    sweep = run_tool("vpt_tpu_torch.tools.sweep_bench", "512", "4", "--configs", SWEEP, timeout=900)
+    sweep = run_tool("vpt_tpu_torch.tools.sweep_bench", str(LAYOUT_SIZE), "4", "--configs", SWEEP, timeout=900)
     results = [x for x in quick if x.startswith("RESULT")] + [x for x in sweep if "RESULT" in x and "===" not in x
                                                                 and not x.startswith("    ")]
     for line in quick[-3:] + sweep[sweep.index("=== sweep summary ==="):]:
@@ -2337,12 +2354,22 @@ FORMAT_TEXTURES = {"gif-local-interlaced-inside-transparent.gif": ("stone", "ima
                    "vp8l-m6-q100-exact.webp": ("brass", "image/webp"),
                    # fixtures of tests/torch_jpeg/: arithmetic-coded progressive, lossless
                    "arith-prog-ycc420-37x29.jpg": ("stone-wall-west", "image/jpeg"),
-                   "lossless-rgb-p7-pt3-37x29.jpg": ("stone-wall-east", "image/jpeg")}
+                   "lossless-rgb-p7-pt3-37x29.jpg": ("stone-wall-east", "image/jpeg"),
+                   # of tests/torch_pil_formats/ and its 2048x2048 timing textures (made from their seed here)
+                   "timing-bc7.dds": ("stone-wall-front", "image/vnd-ms.dds"),
+                   "timing-rle.tga": ("stone-ped0", "image/x-tga"),
+                   "timing-ops.qoi": ("stone-ped1", "image/qoi"),
+                   "pcx-pil-RGB-w13.pcx": ("drape-red-drape-n0", "image/x-pcx"),
+                   "psd-rgba-packbits.psd": ("brass-statue0", "image/vnd.adobe.photoshop")}
+# 17c's instances that get a copy of their material, for a texture of their own.
+OWN_MATERIALS = ("wall-back", "wall-west", "wall-east", "wall-front", "ped0", "ped1", "drape-n0", "statue0")
 FORMAT_FOLDERS = ((gltf_scenes.FORMAT_DIR, gltf_scenes.FORMAT_FIXTURES),
                   (gltf_scenes.WEBP_DIR, gltf_scenes.WEBP_FIXTURES),
-                  (gltf_scenes.JPEG_DIR, gltf_scenes.JPEG_FIXTURES))
+                  (gltf_scenes.JPEG_DIR, gltf_scenes.JPEG_FIXTURES),
+                  (gltf_scenes.PIL_FORMAT_DIR, gltf_scenes.PIL_FORMAT_FIXTURES + gltf_scenes.PIL_FORMAT_TIMING))
 WEBP_LIMIT_S = 1.0  # 17b: host seconds for decode_rgba of each 2048x2048 WebP texture
 JPEG_LIMIT_S = 1.0  # 17b: host seconds for decode_rgba of the SOF10 and lossless JPEG textures
+PIL_LIMIT_S = 1.0  # 17b: host seconds for decode_rgba of the 2048x2048 BC7 DDS, RLE TGA and QOI textures
 
 
 def write_float_tiff(path: str, img: np.ndarray, tile: int = 0) -> None:
@@ -2378,13 +2405,13 @@ def write_float_tiff(path: str, img: np.ndarray, tile: int = 0) -> None:
     check(n == len(offsets), "the TIFF writer's segments")
 
 
-def fixture_array(folder: str, name: str, key: str, manifest: dict):
-    """17a: fixture `name` of tests/torch_formats/, tests/torch_webp/ or
-    tests/torch_jpeg/ (`folder`) through the texture decode ("rgba") or load_hdr, held to its
-    manifest entry: the array (its sha256 that of the JAX package's decode),
-    or None where the entry says the JAX package refuses it and the port
-    raised a ValueError."""
-    path = os.path.join(folder, name)
+def fixture_array(path: str, name: str, key: str, manifest: dict):
+    """17a: fixture `name` (the file `path`) of tests/torch_formats/,
+    tests/torch_webp/, tests/torch_jpeg/ or tests/torch_pil_formats/ (or a
+    timing texture of the last) through the texture decode ("rgba") or
+    load_hdr, held to its manifest entry: the array (its sha256 that of the
+    JAX package's decode), or None where the entry says the JAX package
+    refuses it and the port raised a ValueError."""
     want = manifest[name][key]
     try:
         if key == "rgba":
@@ -2402,24 +2429,34 @@ def fixture_array(folder: str, name: str, key: str, manifest: dict):
 
 def image_formats_phase(dev, smi: str) -> None:
     """Phase 17: the TIFF, GIF, BMP, CMYK / any-sampling / smoothed JPEG,
-    WebP and arithmetic-coded / lossless JPEG decoders on the card's machine
-    (no PIL there) against the manifests of tests/torch_formats/,
-    tests/torch_webp/ and tests/torch_jpeg/, a 4096x2048 float TIFF sky read
-    back bitwise and timed, the 2048x2048 WebP textures and the SOF10 and
-    lossless JPEG textures timed, a render with a .tif sky against the same
-    array as .npy, and a .glb with GIF, RLE8 BMP, LZW TIFF, CMYK JPEG, WebP,
-    SOF10 and lossless JPEG textures through the CLI against its in-memory
-    render."""
+    WebP, arithmetic-coded / lossless JPEG, TGA, DDS, Netpbm / PFM, QOI,
+    SGI, PCX, ICO / CUR and PSD decoders on the card's machine (no PIL
+    there) against the manifests of tests/torch_formats/,
+    tests/torch_webp/, tests/torch_jpeg/ and tests/torch_pil_formats/, a
+    4096x2048 float TIFF sky read back bitwise and timed, the 2048x2048
+    WebP, BC7 DDS, RLE TGA and QOI textures and the SOF10 and lossless JPEG
+    textures timed, a render with a .tif sky against the same array as
+    .npy, and a .glb with GIF, RLE8 BMP, LZW TIFF, CMYK JPEG, WebP, SOF10,
+    lossless JPEG, BC7 DDS, RLE TGA, QOI, PCX and PSD textures through the
+    CLI against its in-memory render."""
     t_phase = time.perf_counter()
-    # 17a. The fixtures.
+    # 17a. The fixtures, and the timing textures of tests/torch_pil_formats/ from their seed.
+    t0 = time.perf_counter()
+    timing = pil_format_writers.timing_textures()
+    log(f"17a: the {len(timing)} 2048x2048 timing textures of pil_format_writers written in "
+        f"{time.perf_counter() - t0:.2f} s ({', '.join(f'{n} {len(d)} bytes' for n, d in timing.items())})")
+    made = tempfile.mkdtemp()
+    for name, data in timing.items():
+        with open(os.path.join(made, name), "wb") as f:
+            f.write(data)
     decoded = {}
     for folder, names in FORMAT_FOLDERS:
         with open(os.path.join(folder, "manifest.json")) as f:
             manifest = json.load(f)
         check(sorted(manifest) == sorted(names), f"17a: the manifest of {folder} names every fixture")
         t0 = time.perf_counter()
-        got = {(name, key): fixture_array(folder, name, key, manifest) for name in names
-               for key in ("rgba", "load_hdr")}
+        got = {(name, key): fixture_array(os.path.join(made if name in timing else folder, name), name, key, manifest)
+               for name in names for key in ("rgba", "load_hdr")}
         decoded.update(got)
         refused = sorted(f"{n} ({k})" for (n, k), v in got.items() if v is None)
         log(f"17a: {len(names)} fixtures of tests/{os.path.basename(folder)}/ decode to their manifest through the "
@@ -2429,6 +2466,9 @@ def image_formats_phase(dev, smi: str) -> None:
           and hasattr(codec._lib, "vpt_jpeg_lossless_scan"), "17a: the decoders ran the C codec")
     check(codec._webp_lib is not None and hasattr(codec._webp_lib, "vpt_vp8_decode"),
           "17a: the WebP fixtures ran the port's C WebP decoders")
+    check(codec._bcn_lib is not None and all(hasattr(codec._lib, f) for f in (
+        "vpt_tga_rle", "vpt_pcx_rle", "vpt_sgi_rle", "vpt_qoi_decode", "vpt_packbits_rows")),
+        "17a: the TGA, PCX, SGI, QOI, PSD and DDS fixtures ran the C codec and the C block decoders")
 
     # 17b. A 4096x2048 float TIFF sky.
     sky = default_sky(size=FORMAT_SKY)
@@ -2475,6 +2515,13 @@ def image_formats_phase(dev, smi: str) -> None:
         log(f"17b: decode_rgba of {name} ({shape[1]}x{shape[0]}, {len(data)} bytes; {smi}, host {os.cpu_count()} "
             f"CPUs): {median:.4f} s median of 5 {every}")
         check(median < JPEG_LIMIT_S, f"17b: {name} decodes in under {JPEG_LIMIT_S} s")
+    row["pil_formats"] = {}
+    for name, data in timing.items():
+        median, every = host_seconds(lambda: decode_rgba(data, name))
+        row["pil_formats"][name] = {"bytes": len(data), "s": median, "all_s": every}
+        log(f"17b: decode_rgba of {name} (2048x2048, {len(data)} bytes; {smi}, host {os.cpu_count()} CPUs): "
+            f"{median:.4f} s median of 5 {every}")
+        check(median < PIL_LIMIT_S, f"17b: {name} decodes in under {PIL_LIMIT_S} s")
 
     # 17c. A .tif sky against the .npy of the same array; a .glb of the new formats.
     with tempfile.TemporaryDirectory() as tmp:
@@ -2502,9 +2549,10 @@ def image_formats_phase(dev, smi: str) -> None:
         check(np.array_equal(got, want), "17c: the --env sky.tif render is bitwise the --env sky.npy render")
 
         scene = colonnade()
-        for wall in ("wall-back", "wall-west", "wall-east"):  # each its own copy of stone, for a texture of its own
-            inst = next(i for i in scene.instances if i.name == wall)
-            scene.materials.append(dataclasses.replace(scene.materials[inst.material], name=f"stone-{wall}"))
+        for own in OWN_MATERIALS:  # each its own copy of its material, for a texture of its own
+            inst = next(i for i in scene.instances if i.name == own)
+            mat = scene.materials[inst.material]
+            scene.materials.append(dataclasses.replace(mat, name=f"{mat.name}-{own}"))
             inst.material = len(scene.materials) - 1
         folders = {name: folder for folder, names in FORMAT_FOLDERS for name in names}
         images, textures = {}, {}
@@ -2514,8 +2562,11 @@ def image_formats_phase(dev, smi: str) -> None:
             scene.textures.append(textures[name])
             slot = len(scene.textures) - 1
             next(m for m in scene.materials if m.name == material).base_color_texture = slot
-            with open(os.path.join(folders[name], name), "rb") as f:
-                images[slot] = (f.read(), mime)
+            if name in timing:
+                images[slot] = (timing[name], mime)
+            else:
+                with open(os.path.join(folders[name], name), "rb") as f:
+                    images[slot] = (f.read(), mime)
         glb = gltf_scenes.scene_to_gltf(scene, os.path.join(tmp, "formats.glb"), images=images)
         sky_path = os.path.join(tmp, "colonnade_sky.npy")
         np.save(sky_path, scene.env_map)
@@ -2541,6 +2592,7 @@ def image_formats_phase(dev, smi: str) -> None:
         f"{ref.segments_traced}")
     check(got.shape == (H, W, 3) and np.isfinite(got).all(), "17c: the .glb render is finite, (512, 512, 3)")
     check(row["glb_render"]["bitwise"], "17c: the .glb render through the CLI is bitwise its in-memory render")
+    shutil.rmtree(made)
     row["phase_s"] = time.perf_counter() - t_phase
     print(json.dumps({"image_formats": row}))
     log(f"phase 17 (the image formats): {row['phase_s']:.1f} s")
@@ -2752,7 +2804,7 @@ def run(dev, smi: str, other_builds=()) -> None:
     kernel_vs_plain_render(r.scene_data, r.meta, r.flags, square, dev, "media")
 
     # 8. The atmosphere path: the day setup of scripts/gallery.py.
-    r = Renderer(colonnade(), width=W, height=H, flags=flags, samples_per_frame=4, device=dev)
+    r = Renderer(colonnade(), width=W, height=H, flags=ATMOSPHERE_FLAGS, samples_per_frame=4, device=dev)
     r.set_enable_atmosphere(True)
     r.set_planet_position((0.0, -6360e3, 0.0))
     r.set_sky_altitude(30.0)

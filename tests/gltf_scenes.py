@@ -19,7 +19,9 @@ it, PIL's decode of it as 8-bit RGBA; the large `TIMING_JPEG` has the
 sha256 of that decode in TIMING_JPEG.sha256 instead.  `FORMAT_FIXTURES`
 names the TIFF, GIF, BMP and JPEG fixtures of tests/torch_formats/ and
 their manifest.json, `WEBP_FIXTURES` the WebP ones of tests/torch_webp/,
-`JPEG_FIXTURES` the arithmetic-coded and lossless JPEGs of tests/torch_jpeg/.
+`JPEG_FIXTURES` the arithmetic-coded and lossless JPEGs of tests/torch_jpeg/,
+`PIL_FORMAT_FIXTURES` the TGA, DDS, Netpbm, QOI, SGI, PCX, ICO / CUR and PSD
+ones of tests/torch_pil_formats/.
 """
 
 from __future__ import annotations
@@ -105,6 +107,30 @@ JPEG_FIXTURES = (
     "lossless-rgb-sampling-21-p5-17x70.jpg", "lossless-gray-p4-pt1-rst-rows-1-255x3.jpg",
     "lossless-rgb-restart-5-mcus-refused-37x29.jpg", "lossless-gray-6-bit-refused-37x29.jpg",
     "lossless-ycc-adobe-1-refused-37x29.jpg", "lossless-ycck-adobe-2-refused-37x29.jpg", *JPEG_TIMING,
+)
+# The TGA, DDS, Netpbm / PFM, QOI, SGI, PCX, ICO / CUR and PSD fixtures of
+# tests/torch_pil_formats/ (written by tests/make_torch_pil_formats.py from
+# tests/pil_format_cases.py, each the case of its name), with a
+# manifest.json as tests/torch_formats/ has; it also holds the entries of
+# PIL_FORMAT_TIMING, the three 2048x2048 textures chip_smoke.py phase 17b
+# times, which are not committed: tests/pil_format_writers.timing_textures
+# makes them from a seed.
+PIL_FORMAT_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "torch_pil_formats")
+PIL_FORMAT_TIMING = ("timing-bc7.dds", "timing-rle.tga", "timing-ops.qoi")
+PIL_FORMAT_FIXTURES = (
+    "tga-pil-RGBA-rle-bottom.tga", "tga-pil-P-raw-top.tga", "tga-pil-LA-rle-top.tga", "tga-rle-cross-rgb24.tga",
+    "tga-rle-cross-map8.tga", "tga-bgra15-raw.tga", "tga-colour-map-16-start-3.tga", "tga-rgb24-flags-10.tga",
+    "tga-cur-magic.tga", "tga-pcx-magic.tga", "tga-gray1-raw.tga", "pcx-pil-P-w13.pcx", "pcx-pil-RGB-w13.pcx",
+    "pcx-pil-1-w13.pcx", "pcx-4-planes-w3.pcx", "pcx-2-planes-w9.pcx", "pcx-8-bit-short.pcx",
+    "dds-pil-RGBA-DXT5-13x9.dds", "dds-pil-RGB-DXT1-13x9.dds", "dds-pil-RGB-BC5-13x9.dds", "dds-bc4-ati1-10x7.dds",
+    "dds-bc5s-10x7.dds", "dds-bc6h-uf16-32x16.dds", "dds-bc6h-sf16-32x16.dds", "dds-bc7-32x16.dds",
+    "dds-bc7-mips.dds", "dds-masks-argb1555.dds", "dds-palette.dds", "dds-pil-LA-raw-12x8.dds",
+    "ppm-ascii-P1-maxNone.ppm", "ppm-ascii-P3-max7.ppm", "ppm-binary-P5-max1000.ppm", "ppm-binary-P6-max65535.ppm",
+    "ppm-pil-1.ppm", "ppm-pfm-Pf-le--1.0.ppm", "ppm-pfm-PF-be-1.0.ppm", "qoi-every-op-4-channels-4.qoi",
+    "qoi-every-op-3-channels-3.qoi", "sgi-3-channels-16-bit-rle.sgi", "sgi-4-channels-8-bit-rle.sgi",
+    "sgi-1-channels-8-bit-verbatim.sgi", "sgi-rle-short-length.sgi", "ico-pil-RGBA-png.ico", "ico-bmp-4-bit.ico",
+    "ico-bmp-32-bit.ico", "cur-8-bit.cur", "cur-32-bit-at-22.cur", "psd-rgba-packbits.psd", "psd-cmyk-raw.psd",
+    "psd-indexed-packbits.psd", "psd-bitmap-raw.psd", "psd-gray-packbits.psd",
 )
 # Adam7 passes: first column, first row, column step, row step.
 ADAM7 = ((0, 0, 8, 8), (4, 0, 8, 8), (0, 4, 4, 8), (2, 0, 4, 4), (0, 2, 2, 4), (1, 0, 2, 2), (0, 1, 1, 2))

@@ -244,7 +244,7 @@ def test_format_fixture_matches_its_manifest(tmp_path, name):
         assert [list(got.shape), str(got.dtype), hashlib.sha256(got.tobytes()).hexdigest()] == entry[key]
 
 
-# ------------------------------------------------- formats PIL opens, not yet read
+# ------------------------------------------------- formats PIL opens
 
 
 def pil_bytes(fmt: str, mode: str = "RGB", **kw) -> bytes:
@@ -258,30 +258,36 @@ def pil_bytes(fmt: str, mode: str = "RGB", **kw) -> bytes:
     return out.getvalue()
 
 
-PIL_ONLY = {  # case -> (the file, the format named in the refusal)
-    "ppm-p6": (lambda: pil_bytes("PPM"), "Netpbm (P6)"),
-    "pgm-p5": (lambda: pil_bytes("PPM", "L"), "Netpbm (P5)"),
-    "pbm-p4": (lambda: pil_bytes("PPM", "1"), "Netpbm (P4)"),
-    "pbm-p1-ascii": (lambda: b"P1\n3 2\n1 0 1\n0 1 0\n", "Netpbm (P1)"),
-    "pgm-p2-ascii": (lambda: b"P2\n3 2\n255\n0 128 255\n7 8 9\n", "Netpbm (P2)"),
-    "ppm-p3-ascii": (lambda: b"P3\n2 1\n255\n255 0 0 0 0 255\n", "Netpbm (P3)"),
-    "qoi": (lambda: pil_bytes("QOI"), "QOI"),
-    "dds": (lambda: pil_bytes("DDS"), "DDS"),
+PIL_ONLY = {  # case -> (the file, the format named in the refusal, or None where the port reads it)
+    "ppm-p6": (lambda: pil_bytes("PPM"), None),
+    "pgm-p5": (lambda: pil_bytes("PPM", "L"), None),
+    "pbm-p4": (lambda: pil_bytes("PPM", "1"), None),
+    "pbm-p1-ascii": (lambda: b"P1\n3 2\n1 0 1\n0 1 0\n", None),
+    "pgm-p2-ascii": (lambda: b"P2\n3 2\n255\n0 128 255\n7 8 9\n", None),
+    "ppm-p3-ascii": (lambda: b"P3\n2 1\n255\n255 0 0 0 0 255\n", None),
+    "qoi": (lambda: pil_bytes("QOI"), None),
+    "dds": (lambda: pil_bytes("DDS"), None),
     "jpeg2000-jp2": (lambda: pil_bytes("JPEG2000"), "JPEG 2000"),
     "jpeg2000-codestream": (lambda: pil_bytes("JPEG2000", no_jp2=True), "JPEG 2000 (codestream)"),
-    "sgi": (lambda: pil_bytes("SGI"), "SGI"),
+    "sgi": (lambda: pil_bytes("SGI"), None),
     "avif": (lambda: pil_bytes("AVIF"), "AVIF"),
 }
 
 
 @pytest.mark.parametrize("case", list(PIL_ONLY))
 def test_formats_pil_opens_are_refused_by_name(tmp_path, case):
-    """Files that the JAX package reads (PIL opens them) but the port does
-    not read yet: the texture decode raises a ValueError naming the image,
-    the format and that PIL opens it, not "unknown format"."""
+    """Files that the JAX package reads (PIL opens them): the port's texture
+    decode gives the JAX package's array where it reads the format (Netpbm,
+    QOI, DDS, SGI), and where it does not read it yet (JPEG 2000, AVIF)
+    raises a ValueError naming the image, the format and that PIL opens it,
+    not "unknown format"."""
     make, kind = PIL_ONLY[case]
     data = make()
     doc = {"images": [{"uri": "data:image/x;base64," + base64.b64encode(data).decode(), "name": "wall"}]}
-    assert jgltf._load_image(doc, [], str(tmp_path), 0).ndim == 3
+    want = jgltf._load_image(doc, [], str(tmp_path), 0)
+    assert want.ndim == 3
+    if kind is None:
+        assert_same(tgltf._load_image(doc, [], str(tmp_path), 0), want)
+        return
     with pytest.raises(ValueError, match=re.escape(f"wall: {kind} images are not read yet (PIL opens them")):
         tgltf._load_image(doc, [], str(tmp_path), 0)

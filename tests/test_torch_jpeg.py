@@ -431,8 +431,9 @@ def refusal_cases() -> dict:
                                   "webp-lossless", "webp-lossy", "exr", "pfm"])
 def test_refusals_name_the_format(tmp_path, case):
     """What the port refuses it refuses naming the format and the image:
-    SOF11, SOF5, 12-bit samples, and a lossless frame whose scan has Ss 0
-    (no predictor) as PIL refuses them.  The CMYK JPEG, the 4:4:0 one, the
+    SOF11, SOF5, 12-bit samples, a lossless frame whose scan has Ss 0 (no
+    predictor) and a colour PFM texture as PIL refuses them (the colour PFM
+    as an environment map reads as the JAX package's imageio reads it).  The CMYK JPEG, the 4:4:0 one, the
     progressive one that libjpeg smooths, the GIF, the lossless and lossy
     WebPs, and the Huffman-coded file whose SOF0 says SOF9 (PIL decodes its
     data as arithmetic code, to an image of noise), once refused, now decode
@@ -454,11 +455,10 @@ def test_refusals_name_the_format(tmp_path, case):
         # PIL refuses these too
         with pytest.raises(OSError):
             jgltf._load_image(doc, [], str(tmp_path), 0)
-    if case == "pfm":  # as an environment map too, though imageio reads one (as uint8)
+    if case == "pfm":  # as an environment map imageio reads one through OpenCV (as uint8), and so does the port
         path = tmp_path / "sky.pfm"
         path.write_bytes(data)
-        with pytest.raises(ValueError, match=r"\.pfm"):
-            tenvmap.load_hdr(str(path))
+        assert_same(tenvmap.load_hdr(str(path)), jenvmap.load_hdr(str(path)))
 
 
 @pytest.mark.parametrize("ext", [".exr", ".tif", ".pfm"])

@@ -1,8 +1,9 @@
-"""The port runs where JAX, PIL and imageio are not installed: importing
-vpt_tpu_torch and every module of the ported slice, or chip_smoke.py, must
-pull in neither `jax`, `vpt_tpu`, `PIL`, `imageio` nor `tifffile`; and the
-port alone decodes WebP with its own C decoders, where PIL (its `_webp`
-module) and imageio cannot be imported and no libwebp is loaded."""
+"""The port runs where JAX, PIL, imageio and OpenCV are not installed:
+importing vpt_tpu_torch and every module of the ported slice, or
+chip_smoke.py, must pull in neither `jax`, `vpt_tpu`, `PIL`, `imageio`,
+`tifffile` nor `cv2`; and the port alone decodes WebP, arithmetic-coded and
+lossless JPEG, and TGA, DDS, Netpbm, QOI, SGI, PCX, ICO / CUR and PSD with
+its own C decoders, where PIL, imageio and cv2 cannot be imported."""
 
 import os
 import subprocess
@@ -38,6 +39,15 @@ SLICE_MODULES = [
     "vpt_tpu_torch.io.gif",
     "vpt_tpu_torch.io.bmp",
     "vpt_tpu_torch.io.webp",
+    "vpt_tpu_torch.io.probe",
+    "vpt_tpu_torch.io.tga",
+    "vpt_tpu_torch.io.dds",
+    "vpt_tpu_torch.io.netpbm",
+    "vpt_tpu_torch.io.qoi",
+    "vpt_tpu_torch.io.sgi",
+    "vpt_tpu_torch.io.pcx",
+    "vpt_tpu_torch.io.ico",
+    "vpt_tpu_torch.io.psd",
     "vpt_tpu_torch.io.metrics",
     "vpt_tpu_torch.io.metrics_log",
     "vpt_tpu_torch.post.tonemap",
@@ -83,7 +93,7 @@ def test_imports_pull_in_no_jax(script):
         code = "import importlib.util, sys\nsys.path.insert(0, '.')\nimport chip_smoke\n"
     code += (
         "import sys\n"
-        "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'vpt_tpu', 'PIL', 'imageio', 'tifffile'))\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'vpt_tpu', 'PIL', 'imageio', 'tifffile', 'cv2'))\n"
         "assert not bad, bad\n"
     )
     proc = subprocess.run([sys.executable, "-c", code], cwd=_ROOT, capture_output=True, text=True, timeout=120)
@@ -157,6 +167,12 @@ assert np.array_equal(vdb.load_grid(path)[oz:oz + d, oy:oy + h, ox:ox + w], got.
 for mod, lib in ((bvh, "libvpt_bvh.so"), (blosc, "libvpt_lz4.so")):
     assert mod._lib is not None and mod._SRC.startswith(here) and mod._LIB.startswith(here), mod._SRC
     assert os.path.exists(os.path.join(here, "vpt_tpu_torch", "build", lib)), lib
+from vpt_tpu_torch.io import codec
+blocks = rng.integers(0, 256, (4, 16), np.uint8)
+blocks[:, 0] = 0x40  # BC7 mode 6
+assert codec.bcn_decode(blocks.tobytes(), 8, 8, 7).shape == (8, 8, 4)
+assert codec._bcn_lib is not None and codec._BCN_SRC.startswith(here) and codec._BCN_LIB.startswith(here)
+assert os.path.exists(os.path.join(here, "vpt_tpu_torch", "build", "libvpt_bcndec.so"))
 assert not any(m.split(".")[0] in ("jax", "vpt_tpu") for m in sys.modules)
 print("alone ok")
 """
@@ -165,10 +181,10 @@ print("alone ok")
 def test_the_port_alone_builds_and_reads(tmp_path):
     """vpt_tpu_torch/ copied without vpt_tpu/ beside it (its build/ left
     behind): in a process that can import nothing of the repository but the
-    copy, both BVH builders run on a seeded soup, and a .vdb that the port's
-    writer compresses with blosc reads back equal.  So the C BVH builder and
-    the LZ4 codec build from the port's own csrc/, and nothing reads a file
-    of the JAX package."""
+    copy, both BVH builders run on a seeded soup, a .vdb that the port's
+    writer compresses with blosc reads back equal, and BC7 blocks decode.
+    So the C BVH builder, the LZ4 codec and the DDS block decoders build
+    from the port's own csrc/, and nothing reads a file of the JAX package."""
     import shutil
 
     shutil.copytree(os.path.join(_ROOT, "vpt_tpu_torch"), str(tmp_path / "vpt_tpu_torch"),
@@ -181,7 +197,7 @@ def test_the_port_alone_builds_and_reads(tmp_path):
 
 _WEBP_ALONE = """
 import hashlib, json, os, sys
-for blocked in ("PIL", "PIL._webp", "imageio", "webp"):
+for blocked in ("PIL", "PIL._webp", "imageio", "webp", "cv2"):
     sys.modules[blocked] = None  # any import of these raises
 from vpt_tpu_torch.io import codec, image
 from vpt_tpu_torch.scene import envmap
@@ -221,7 +237,7 @@ def test_the_port_alone_decodes_webp(tmp_path):
 
 _JPEG_ALONE = """
 import hashlib, json, os, sys
-for blocked in ("PIL", "imageio"):
+for blocked in ("PIL", "imageio", "cv2"):
     sys.modules[blocked] = None  # any import of these raises
 from vpt_tpu_torch.io import codec, image
 from vpt_tpu_torch.scene import envmap
@@ -263,3 +279,57 @@ def test_the_port_alone_decodes_arithmetic_and_lossless_jpegs(tmp_path):
     proc = subprocess.run([sys.executable, "-c", _JPEG_ALONE, os.path.join(_ROOT, "tests", "torch_jpeg")],
                           cwd=str(tmp_path), env=env, capture_output=True, text=True, timeout=600)
     assert proc.returncode == 0 and "jpeg alone ok 54 8" in proc.stdout, proc.stderr[-3000:]
+
+
+_PIL_FORMATS_ALONE = """
+import hashlib, json, os, sys
+for blocked in ("PIL", "imageio", "cv2"):
+    sys.modules[blocked] = None  # any import of these raises
+from vpt_tpu_torch.io import codec, image
+from vpt_tpu_torch.scene import envmap
+here = os.getcwd()
+fixtures, tests = sys.argv[1], sys.argv[2]
+sys.path.insert(0, tests)
+import pil_format_writers  # numpy alone
+with open(os.path.join(fixtures, "manifest.json")) as f:
+    manifest = json.load(f)
+files = {name: os.path.join(fixtures, name) for name in manifest if os.path.exists(os.path.join(fixtures, name))}
+for name, data in pil_format_writers.timing_textures().items():
+    files[name] = os.path.join(here, name)
+    with open(files[name], "wb") as f:
+        f.write(data)
+assert sorted(files) == sorted(manifest)
+refused = 0
+for name, path in sorted(files.items()):
+    for key, read in (("rgba", lambda: image.decode_rgba(open(path, "rb").read(), name)),
+                      ("load_hdr", lambda: envmap.load_hdr(path))):
+        try:
+            got = read()
+        except ValueError:
+            assert manifest[name][key] is None, (name, key)
+            refused += 1
+            continue
+        assert [list(got.shape), str(got.dtype), hashlib.sha256(got.tobytes()).hexdigest()] == manifest[name][key], name
+assert codec._lib is not None and codec._SRC.startswith(here) and codec._LIB.startswith(here)
+assert codec._bcn_lib is not None and codec._BCN_SRC.startswith(here)
+print("pil formats alone ok", len(files), refused)
+"""
+
+
+def test_the_port_alone_decodes_the_pil_formats(tmp_path):
+    """vpt_tpu_torch/ copied on its own (its build/ left behind), in a
+    process where PIL, imageio and cv2 cannot be imported: every fixture of
+    tests/torch_pil_formats/ and the three 2048x2048 timing textures (from
+    tests/pil_format_writers.py, numpy alone) decode, through the texture
+    path and load_hdr, to the manifest, or raise a ValueError where the
+    manifest says the JAX package refuses them, with the codec and the DDS
+    block decoders built from the copy's csrc/."""
+    import shutil
+
+    shutil.copytree(os.path.join(_ROOT, "vpt_tpu_torch"), str(tmp_path / "vpt_tpu_torch"),
+                    ignore=shutil.ignore_patterns("build", "__pycache__", "*.so"))
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    proc = subprocess.run([sys.executable, "-c", _PIL_FORMATS_ALONE, os.path.join(_ROOT, "tests", "torch_pil_formats"),
+                           os.path.join(_ROOT, "tests")], cwd=str(tmp_path), env=env, capture_output=True, text=True,
+                          timeout=600)
+    assert proc.returncode == 0 and "pil formats alone ok 55 7" in proc.stdout, proc.stderr[-3000:] + proc.stdout

@@ -1572,3 +1572,234 @@ int64_t vpt_bmp_rle(const uint8_t *in, int64_t n, int64_t start, int64_t w, int6
 #undef PUT
     return len;
 }
+
+/* ---------------------------------------------------- TGA, PCX, PackBits */
+
+/* A TGA RLE stream (Truevision TGA 2.0: a packet header byte, bit 7 run or
+ * raw, bits 0-6 the pixel count less one) of `rows` scanlines of row_bytes
+ * bytes, `depth` bytes per pixel, into out in stream order, as PIL's decoder
+ * reads it: a raw packet may run on over any number of scanlines, a run
+ * packet that crosses the end of a scanline is an error.  Returns the bytes
+ * read; *status is 0 when every scanline was decoded, 1 when the data ends
+ * first, -1 for a run across a scanline. */
+int64_t vpt_tga_rle(const uint8_t *in, int64_t n, int depth, int64_t row_bytes, int64_t rows, uint8_t *out,
+                    int *status) {
+    int64_t i = 0, x = 0, y = 0;
+    while (y < rows) {
+        if (i >= n) break;
+        int64_t count = (int64_t)depth * ((in[i] & 0x7f) + 1);
+        if (in[i] & 0x80) {
+            if (i + 1 + depth > n) break;
+            if (x + count > row_bytes) {
+                *status = -1;
+                return i;
+            }
+            for (int64_t k = 0; k < count; k += depth) memcpy(out + y * row_bytes + x + k, in + i + 1, depth);
+            i += 1 + depth;
+            x += count;
+            if (x >= row_bytes) {
+                x = 0;
+                y++;
+            }
+            continue;
+        }
+        if (i + 1 + count > n) break;
+        i++;
+        while (count > 0 && y < rows) { /* a raw packet, over as many scanlines as it covers */
+            int64_t take = row_bytes - x < count ? row_bytes - x : count;
+            memcpy(out + y * row_bytes + x, in + i, take);
+            i += take;
+            count -= take;
+            x += take;
+            if (x >= row_bytes) {
+                x = 0;
+                y++;
+            }
+        }
+    }
+    *status = y < rows;
+    return i;
+}
+
+/* A PCX RLE stream (ZSoft PCX: a byte with both top bits set repeats the
+ * next byte its low six bits' times) of `rows` scanlines of `bytes` bytes,
+ * as PIL's decoder reads it: a run may not cross the end of a scanline, and
+ * a scanline whose planes are padded has its planes moved together before it
+ * is unpacked (plane i from i * stride to i * size; for the 2- and 4-plane
+ * 1-bit layouts, bits 2 or 4, size is (xsize + 7) / 8 and stride bytes /
+ * bits, else size is xsize and stride bytes / (bytes / xsize)).  Returns the
+ * bytes read; *status is 0 when every scanline was decoded, 1 when the data
+ * ends first, -1 for a run past a scanline's end. */
+int64_t vpt_pcx_rle(const uint8_t *in, int64_t n, int64_t bytes, int64_t xsize, int bits, int64_t rows,
+                    uint8_t *out, int *status) {
+    int64_t i = 0, x = 0, y = 0;
+    int overrun = 0;
+    while (y < rows) {
+        uint8_t *line = out + y * bytes;
+        if (i >= n) break;
+        if ((in[i] & 0xc0) == 0xc0) {
+            if (i + 2 > n) break;
+            for (int c = in[i] & 0x3f; c > 0; c--) {
+                if (x >= bytes) {
+                    overrun = 1;
+                    break;
+                }
+                line[x++] = in[i + 1];
+            }
+            i += 2;
+        } else {
+            line[x++] = in[i++];
+        }
+        if (x >= bytes) {
+            int64_t size = xsize, bands, stride = 0;
+            if (bits == 2 || bits == 4) {
+                size = (xsize + 7) / 8;
+                bands = bits;
+                stride = bytes / bits;
+            } else {
+                bands = bytes / xsize;
+                if (bands) stride = bytes / bands;
+            }
+            if (stride > size)
+                for (int64_t b = 1; b < bands; b++) memmove(line + b * size, line + b * stride, size);
+            x = 0;
+            y++;
+        }
+    }
+    *status = overrun ? -1 : y < rows;
+    return i;
+}
+
+/* PackBits (Apple technical note 1023; -128 a no-op) of `rows` scanlines of
+ * row_bytes bytes, as PIL's decoder reads a PSD channel: a packet that runs
+ * past the end of a scanline is cut there, the next packet starts the next
+ * scanline.  Returns the bytes read; *status is 0 when every scanline was
+ * decoded, 1 when the data ends first. */
+int64_t vpt_packbits_rows(const uint8_t *in, int64_t n, int64_t row_bytes, int64_t rows, uint8_t *out, int *status) {
+    int64_t i = 0, x = 0, y = 0;
+    while (y < rows) {
+        if (i >= n) break;
+        uint8_t *line = out + y * row_bytes;
+        if (in[i] & 0x80) {
+            if (in[i] == 0x80) {
+                i++;
+                continue;
+            }
+            if (i + 2 > n) break;
+            for (int c = 257 - in[i]; c > 0 && x < row_bytes; c--) line[x++] = in[i + 1];
+            i += 2;
+        } else {
+            int64_t len = in[i] + 2;
+            if (i + len > n) break;
+            for (int64_t k = 1; k < len && x < row_bytes; k++) line[x++] = in[i + k];
+            i += len;
+        }
+        if (x >= row_bytes) {
+            x = 0;
+            y++;
+        }
+    }
+    *status = y < rows;
+    return i;
+}
+
+/* ------------------------------------------------------------------ SGI */
+
+/* One scanline channel of SGI RLE (bit 7 a literal count, bits 0-6 the
+ * count, 0 the end), read as PIL reads it: `ops` (the row's length field)
+ * bounds the number of packets, not bytes, and a last packet that is no
+ * terminator ends the whole image.  Samples are bpc bytes, z samples apart.
+ * Returns 0, 1 (the image ends here) or -1 (past the row or the data). */
+static int sgi_row(uint8_t *dest, const uint8_t *buf, int64_t at, int64_t ops, int z, int64_t xsize, int bpc,
+                   int64_t last) {
+    int64_t x = 0, src = at;
+    for (; ops > 0; ops--) {
+        if (src + bpc - 1 > last) return -1;
+        uint8_t pixel = buf[src + bpc - 1];
+        src += bpc;
+        if (ops == 1 && pixel != 0) return 1;
+        int count = pixel & 0x7f;
+        if (!count) return 0;
+        if (x + count > xsize) return -1;
+        x += count;
+        if (pixel & 0x80) {
+            if (src + (int64_t)bpc * count > last) return -1;
+            for (; count; count--, src += bpc, dest += z * bpc) memcpy(dest, buf + src, bpc);
+        } else {
+            if (src + (bpc == 2 ? 2 : 0) > last) return -1;
+            for (; count; count--, dest += z * bpc) memcpy(dest, buf + src, bpc);
+            src += bpc;
+        }
+    }
+    return 0;
+}
+
+/* The scanlines of an RLE SGI image (the SGI image file format, version
+ * 1.0): buf is the file after its 512-byte header, start and length the
+ * tables of bands * ysize row offsets (file offsets) and lengths.  Each row
+ * interleaves its bands' samples into one line buffer that carries over from
+ * row to row, as PIL's decoder does, and is copied to out (row after row in
+ * file order, xsize * bands * bpc bytes each).  Returns the rows stored
+ * (fewer than ysize when a row ends the image, the rest left as they are),
+ * or -1 when a row reaches outside the data. */
+int64_t vpt_sgi_rle(const uint8_t *buf, int64_t size, const uint32_t *start, const uint32_t *length, int bands,
+                    int64_t xsize, int64_t ysize, int bpc, uint8_t *line, uint8_t *out) {
+    int64_t row_bytes = xsize * bands * bpc;
+    for (int64_t row = 0; row < ysize; row++) {
+        for (int c = 0; c < bands; c++) {
+            int64_t offset = start[row + c * ysize], len = length[row + c * ysize];
+            if (offset < 512) return -1;
+            offset -= 512;
+            if (offset + len > size) return -1;
+            int st = sgi_row(line + c * bpc, buf, offset, len, bands, xsize, bpc, size - 1);
+            if (st == -1) return -1;
+            if (st == 1) return row;
+        }
+        memcpy(out + row * row_bytes, line, row_bytes);
+    }
+    return ysize;
+}
+
+/* ------------------------------------------------------------------ QOI */
+
+/* A QOI stream (the QOI specification 1.0: RGB, RGBA, INDEX, DIFF, LUMA and
+ * RUN ops, the 64-entry index of (r * 3 + g * 5 + b * 7 + a * 11) % 64) of
+ * `pixels` pixels into out, `channels` (3 or 4) bytes each, as PIL's decoder
+ * reads it: no end marker is looked for, a run past the last pixel is cut.
+ * Returns 0, or -1 when the data ends before the last pixel. */
+int vpt_qoi_decode(const uint8_t *in, int64_t n, int64_t pixels, int channels, uint8_t *out) {
+    uint8_t index[64][4], px[4] = {0, 0, 0, 255};
+    memset(index, 0, sizeof(index));
+    int64_t i = 0, p = 0;
+    while (p < pixels) {
+        if (i >= n) return -1;
+        int b = in[i++], run = 1, is_run = 0;
+        if (b == 0xfe) {
+            if (i + 3 > n) return -1;
+            memcpy(px, in + i, 3);
+            i += 3;
+        } else if (b == 0xff) {
+            if (i + 4 > n) return -1;
+            memcpy(px, in + i, 4);
+            i += 4;
+        } else if ((b >> 6) == 0) {
+            memcpy(px, index[b & 63], 4);
+        } else if ((b >> 6) == 1) {
+            px[0] = (uint8_t)(px[0] + ((b >> 4) & 3) - 2);
+            px[1] = (uint8_t)(px[1] + ((b >> 2) & 3) - 2);
+            px[2] = (uint8_t)(px[2] + (b & 3) - 2);
+        } else if ((b >> 6) == 2) {
+            if (i >= n) return -1;
+            int b2 = in[i++], vg = (b & 63) - 32;
+            px[0] = (uint8_t)(px[0] + vg + ((b2 >> 4) & 15) - 8);
+            px[1] = (uint8_t)(px[1] + vg);
+            px[2] = (uint8_t)(px[2] + vg + (b2 & 15) - 8);
+        } else {
+            run = (b & 63) + 1;
+            is_run = 1;
+        }
+        if (!is_run) memcpy(index[(px[0] * 3 + px[1] * 5 + px[2] * 7 + px[3] * 11) % 64], px, 4);
+        for (; run && p < pixels; run--, p++) memcpy(out + p * channels, px, channels);
+    }
+    return 0;
+}

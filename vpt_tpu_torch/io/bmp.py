@@ -65,11 +65,21 @@ def read_pil(data: bytes, name: str = "image") -> tuple:
     if len(data) < 18:
         raise ValueError(f"{name}: BMP file is truncated")
     offset = struct.unpack_from("<I", data, 10)[0]
-    header_size = struct.unpack_from("<I", data, 14)[0]
-    hd = data[18 : 14 + header_size]
+    return decode(data, header(data, 14, name, offset), name)
+
+
+def header(data: bytes, pos: int, name: str, offset: int = 0, raw_alpha: bool = False) -> dict:
+    """PIL's BmpImageFile._bitmap: the bitmap header at `pos` (after a BMP
+    file header, or where a DIB, ICO or CUR entry starts), with its masks
+    and palette: width, height, bits, mode, raw (the unpacker), palette,
+    rle (0, or 1 / 2 for RLE8 / RLE4), direction and start (the pixel data's
+    offset: `offset`, or where the header and its palette end).  raw_alpha
+    reads 32-bit BI_RGB pixels as BGRA (PIL does for a CUR bitmap at 22)."""
+    header_size = struct.unpack_from("<I", data, pos)[0]
+    hd = data[pos + 4 : pos + header_size]
     if len(hd) < header_size - 4 or header_size < 12:
         raise ValueError(f"{name}: BMP header is truncated")
-    pos = 14 + header_size
+    pos += header_size
     direction = -1
     masks = None
     if header_size == 12:
@@ -100,7 +110,7 @@ def read_pil(data: bytes, name: str = "image") -> tuple:
     if bits not in _BIT2MODE:
         raise ValueError(f"{name}: {bits}-bit BMP images are not read")
     mode, raw = _BIT2MODE[bits]
-    rle = False
+    rle = 0
     if compression == 3:
         key = (bits, tuple(masks) if bits == 32 else tuple(masks[:3]))
         if bits not in (16, 24, 32) or key not in _MASK_MODES:
@@ -109,15 +119,18 @@ def read_pil(data: bytes, name: str = "image") -> tuple:
         if bits == 32 and "A" in raw:
             mode = "RGBA"
     elif compression in (1, 2):
-        rle = True
+        rle = compression
     elif compression != 0:
         raise ValueError(f"{name}: BMP compression {compression} is not read (only none, RLE8, RLE4 and bit "
                          f"fields)")
+    elif bits == 32 and raw_alpha:
+        mode, raw = "RGBA", "BGRA"
     palette = None
     if mode == "P":
         if not 0 < colors <= 256:
             raise ValueError(f"{name}: BMP palette size {colors} is not read")
         table = data[pos : pos + padding * colors]
+        pos += len(table)
         indices = (0, 255) if colors == 2 else range(colors)
         gray = all(table[i * padding : i * padding + 3] == bytes([v & 0xFF]) * 3 for i, v in enumerate(indices))
         if gray:
@@ -127,14 +140,22 @@ def read_pil(data: bytes, name: str = "image") -> tuple:
             palette = np.zeros((256, 3), np.uint8)
             if n:
                 palette[:n] = np.frombuffer(table[: n * padding], np.uint8).reshape(n, padding)[:, 2::-1]
+    return {"width": w, "height": h, "bits": bits, "mode": mode, "raw": raw, "palette": palette, "rle": rle,
+            "direction": direction, "start": offset or pos}
+
+
+def decode(data: bytes, hd: dict, name: str, height: int | None = None) -> tuple:
+    """The pixels a header describes (its height, or `height` rows of it, as
+    an ICO or CUR entry gives): (array, mode, palette)."""
+    w, h, bits, mode, raw, start = hd["width"], hd["height"] if height is None else height, hd["bits"], hd["mode"], \
+        hd["raw"], hd["start"]
     if w == 0 or h == 0:
         raise ValueError(f"{name}: BMP image has no pixels")
     codec.check_size(w, h, name)
-    start = offset or pos
-    if rle:
+    if hd["rle"]:
         if mode == "1":
             raise ValueError(f"{name}: RLE BMP with a black-and-white palette is not read (PIL has no unpacker)")
-        idx = codec.bmp_rle(data[start:], start, w, h, compression == 2)
+        idx = codec.bmp_rle(data[start:], start, w, h, hd["rle"] == 2)
         if idx.size < w * h:
             raise ValueError(f"{name}: BMP RLE data is short of the image (not enough image data)")
         rows, raw = idx.reshape(h, w), "P"
@@ -146,7 +167,7 @@ def read_pil(data: bytes, name: str = "image") -> tuple:
         if start + stride * h > len(data):
             raise ValueError(f"{name}: BMP file is truncated")
         rows = np.frombuffer(data, np.uint8, stride * h, start).reshape(h, stride)
-    if direction == -1:
+    if hd["direction"] == -1:
         rows = rows[::-1]
     arr = _unpack(np.ascontiguousarray(rows), raw, w)
-    return np.ascontiguousarray(arr), mode, palette
+    return np.ascontiguousarray(arr), mode, hd["palette"]

@@ -1,8 +1,10 @@
 """The C image codec (csrc/imgcodec.c): the PNG row unfilter, the JPEG
 entropy decoders (Huffman, arithmetic and lossless), inverse DCT and block
 smoothing, the TIFF LZW and PackBits
-decoders and predictors, the GIF LZW decoder and the BMP RLE decoder; and
-the WebP decoders (csrc/webpdec.c): VP8L, VP8 key frames and ALPH planes.
+decoders and predictors, the GIF LZW decoder, the BMP, TGA, PCX and SGI RLE
+decoders, PSD's PackBits and the QOI decoder; the WebP decoders
+(csrc/webpdec.c): VP8L, VP8 key frames and ALPH planes; and the DDS block
+decoders (csrc/bcndec.c): BC1-BC7.
 Each is built with gcc into vpt_tpu_torch/build/ at first use and called
 through ctypes,
 which releases the interpreter lock, so `load_gltf`'s thread pool decodes
@@ -72,6 +74,16 @@ def library():
             lib.vpt_gif_lzw.argtypes = [p, i64, ctypes.c_int, p, i64, i64, ctypes.c_int]
             lib.vpt_bmp_rle.restype = i64
             lib.vpt_bmp_rle.argtypes = [p, i64, i64, i64, i64, ctypes.c_int, p, i64]
+            lib.vpt_tga_rle.restype = i64
+            lib.vpt_tga_rle.argtypes = [p, i64, ctypes.c_int, i64, i64, p, p]
+            lib.vpt_pcx_rle.restype = i64
+            lib.vpt_pcx_rle.argtypes = [p, i64, i64, i64, ctypes.c_int, i64, p, p]
+            lib.vpt_packbits_rows.restype = i64
+            lib.vpt_packbits_rows.argtypes = [p, i64, i64, i64, p, p]
+            lib.vpt_sgi_rle.restype = i64
+            lib.vpt_sgi_rle.argtypes = [p, i64, p, p, ctypes.c_int, i64, i64, ctypes.c_int, p, p]
+            lib.vpt_qoi_decode.restype = ctypes.c_int
+            lib.vpt_qoi_decode.argtypes = [p, i64, i64, ctypes.c_int, p]
             _lib = lib
     return _lib
 
@@ -362,3 +374,96 @@ def bmp_rle(data, start: int, w: int, h: int, rle4: bool) -> np.ndarray:
     if n < 0:
         raise ValueError("RLE data ends inside a delta")
     return out[: min(n, w * h)]
+
+
+def _rows_status(fn, data, rows: int, row_bytes: int, *args) -> tuple:
+    src = _bytes(data)
+    out = np.zeros((rows, row_bytes), np.uint8)
+    status = ctypes.c_int(0)
+    fn(_ptr(src), src.size, *args, _ptr(out), ctypes.byref(status))
+    return out, status.value
+
+
+def tga_rle(data, depth: int, row_bytes: int, rows: int) -> tuple:
+    """A TGA RLE stream as PIL's decoder reads it: ((rows, row_bytes) uint8
+    scanlines in stream order, status): 0 when all were decoded, 1 when the
+    data ends first, -1 for a run packet across the end of a scanline."""
+    return _rows_status(lambda src, n, out, st: library().vpt_tga_rle(src, n, depth, row_bytes, rows, out, st),
+                        data, rows, row_bytes)
+
+
+def pcx_rle(data, row_bytes: int, xsize: int, bits: int, rows: int) -> tuple:
+    """A PCX RLE stream as PIL's decoder reads it (its planes moved together
+    where the scanline is padded; bits: the unpacker's bits per pixel):
+    ((rows, row_bytes) uint8, status): 0, 1 (the data ends first) or -1 (a
+    run past the end of a scanline)."""
+    return _rows_status(lambda src, n, out, st: library().vpt_pcx_rle(src, n, row_bytes, xsize, bits, rows, out, st),
+                        data, rows, row_bytes)
+
+
+def packbits_rows(data, row_bytes: int, rows: int) -> tuple:
+    """PackBits scanlines as PIL's decoder reads a PSD channel (a packet cut
+    at the end of its scanline): ((rows, row_bytes) uint8, status): 0, or 1
+    when the data ends first."""
+    return _rows_status(lambda src, n, out, st: library().vpt_packbits_rows(src, n, row_bytes, rows, out, st),
+                        data, rows, row_bytes)
+
+
+def sgi_rle(data, start: np.ndarray, length: np.ndarray, bands: int, xsize: int, ysize: int, bpc: int) -> tuple:
+    """An RLE SGI image's scanlines (data: the file after its 512-byte
+    header; start, length: its offset and length tables) as PIL's decoder
+    reads them: ((ysize, xsize * bands * bpc) uint8 rows in file order, the
+    number of rows decoded; the rest are zero).  A row that reaches outside
+    the data raises a ValueError."""
+    src = _bytes(data)
+    start, length = (np.ascontiguousarray(a, np.uint32) for a in (start, length))
+    out = np.zeros((ysize, xsize * bands * bpc), np.uint8)
+    line = np.zeros(xsize * bands * bpc, np.uint8)
+    rows = library().vpt_sgi_rle(_ptr(src), src.size, _ptr(start), _ptr(length), bands, xsize, ysize, bpc,
+                                 _ptr(line), _ptr(out))
+    if rows < 0:
+        raise ValueError("SGI RLE data runs past its row or the file (image buffer overrun)")
+    return out, int(rows)
+
+
+def qoi_decode(data, pixels: int, channels: int) -> np.ndarray:
+    """A QOI stream's first `pixels` pixels, (pixels, channels) uint8, as
+    PIL's decoder reads them.  Data that ends first raises a ValueError."""
+    src = _bytes(data)
+    out = np.empty((pixels, channels), np.uint8)
+    if library().vpt_qoi_decode(_ptr(src), src.size, pixels, channels, _ptr(out)):
+        raise ValueError("QOI data ends before the last pixel (image file is truncated)")
+    return out
+
+
+_BCN_SRC = os.path.join(CSRC_DIR, "bcndec.c")
+_BCN_LIB = os.path.join(BUILD_DIR, "libvpt_bcndec.so")
+_bcn_lib = None
+
+
+def bcn_library():
+    """The DDS block decoders (csrc/bcndec.c), built with gcc on first use
+    (rebuilt when the source is newer)."""
+    global _bcn_lib
+    with _lock:
+        if _bcn_lib is None:
+            lib = ctypes.CDLL(host_library(_BCN_SRC, _BCN_LIB, _CMD, "the DDS block decoders"))
+            i64 = ctypes.c_int64
+            lib.vpt_bcn_decode.restype = ctypes.c_int
+            lib.vpt_bcn_decode.argtypes = [ctypes.c_void_p, i64, i64, i64, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+            _bcn_lib = lib
+    return _bcn_lib
+
+
+def bcn_decode(data, width: int, height: int, kind: int, sign: bool = False) -> np.ndarray:
+    """BCn blocks (kind 1-7: BC1-BC7; sign: BC5's or BC6H's signed form) of a
+    width x height surface as PIL decodes them: (height, width) uint8 for
+    BC4, else (height, width, 4) RGBA.  Data that ends before the last block
+    raises a ValueError."""
+    src = _bytes(data)
+    out = np.zeros((height, width) if kind == 4 else (height, width, 4), np.uint8)
+    rc = bcn_library().vpt_bcn_decode(_ptr(src), src.size, width, height, kind, int(sign), _ptr(out))
+    if rc:
+        raise ValueError("DDS data ends before the last block (image file is truncated)" if rc > 0 else
+                         f"unknown BCn kind {kind}")
+    return out

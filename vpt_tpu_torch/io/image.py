@@ -23,32 +23,41 @@ its content:
 - BMP (io/bmp.py): every header, palettes, 16 / 24 / 32-bit, bit fields,
   RLE8 and RLE4;
 - WebP (io/webp.py): lossless and lossy (with its ALPH chunk), the first
-  frame of an animation, as "RGB" or "RGBA" as PIL's libwebp gives them.
+  frame of an animation, as "RGB" or "RGBA" as PIL's libwebp gives them;
+- TGA (io/tga.py), DDS with BC1-BC7 (io/dds.py, csrc/bcndec.c), Netpbm
+  P1-P6 and gray PFM (io/netpbm.py), QOI (io/qoi.py), SGI (io/sgi.py), PCX
+  (io/pcx.py), ICO and CUR (io/ico.py), PSD's merged image (io/psd.py) and
+  headerless DIBs (io/bmp.py), each in the modes PIL gives.
+
+PIL opens a file by trying its plugins in order (`_PLUGINS`; io/probe.py
+tests the ones the port has no reader for), so a file without magic bytes
+(TGA) is read only when no plugin before TGA's claims it.
 
 The arrays are PIL's: a 16-bit RGB, RGBA or gray+alpha PNG gives its
 samples' high bytes (the gray+alpha one as RGBA), a 16-bit gray one its
 full uint16 values, a 1-bit gray one booleans and a 2- or 4-bit gray one
 samples scaled to 0..255; a palette image its indices; a CMYK JPEG 255 -
 its samples (PIL's "CMYK;I"); a float TIFF float32, a signed or 32-bit one
-int32.  `load_png` is that array as float32 / 255, as the JAX package's
-`load_png` gives it; `decode_rgba` expands it as PIL's `convert("RGBA")`
-does (the glTF texture decode); `decode_samples` gives it as imageio's PIL
-route gives it to the JAX package's `load_hdr` (a palette image as its RGB
-colours).  Other files raise a ValueError: KTX2, OpenEXR, Radiance HDR and
-PFM data, and the formats PIL opens that the port does not read yet whose
-leading bytes name them (Netpbm P1-P6, QOI, DDS, JPEG 2000, SGI, AVIF, PSD),
-each named; any other file, PIL's formats without such bytes (TGA, PCX,
-ICO / CUR) among them, as a file of unknown format.
+int32; a 16-bit Netpbm gray int32 ("I"), a PFM float32 ("F").  `load_png`
+is that array as float32 / 255, as the JAX package's `load_png` gives it;
+`decode_rgba` expands it as PIL's `convert("RGBA")` does (the glTF texture
+decode); `decode_samples` gives it as imageio's PIL route gives it to the
+JAX package's `load_hdr` (a palette image as its palette's colours).  Other
+files raise a ValueError: KTX2, OpenEXR, Radiance HDR and colour PFM data,
+which PIL does not open either, and the formats PIL opens that the port does
+not read yet (JPEG 2000, AVIF and PIL's rarer plugins, ROADMAP "Left"),
+each named; any other file as a file of unknown format.
 """
 
 from __future__ import annotations
 
+import re
 import struct
 import zlib
 
 import numpy as np
 
-from vpt_tpu_torch.io import bmp, codec, gif, tiff, webp
+from vpt_tpu_torch.io import bmp, codec, dds, gif, ico, netpbm, pcx, probe, psd, qoi, sgi, tga, tiff, webp
 from vpt_tpu_torch.io.jpeg import decode_jpeg
 
 _PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
@@ -58,14 +67,16 @@ _DEPTHS = {0: (1, 2, 4, 8, 16), 2: (8, 16), 3: (1, 2, 4, 8), 4: (8, 16), 6: (8, 
 # Adam7 passes: first column, first row, column step, row step.
 _ADAM7 = ((0, 0, 8, 8), (4, 0, 8, 8), (0, 4, 4, 8), (2, 0, 4, 4), (0, 2, 2, 4), (1, 0, 2, 2), (0, 1, 1, 2))
 # Leading bytes of image formats that glTF assets or environment maps come
-# in and that the port does not read, to name them in the refusal.
+# in and that neither PIL nor the port reads, to name them in the refusal.
 _OTHER_FORMATS = ((b"\xabKTX 20\xbb", "KTX2"), (b"\x76\x2f\x31\x01", "OpenEXR"),
-                  (b"#?RADIANCE", "Radiance HDR"), (b"#?RGBE", "Radiance HDR"), (b"PF\n", "PFM"), (b"Pf\n", "PFM"))
-# Leading bytes of formats PIL opens (so the JAX package reads them) that the
-# port does not read yet (ROADMAP "Left").
-_PIL_ONLY_FORMATS = (*((b"P" + bytes([c]), f"Netpbm (P{chr(c)})") for c in b"123456"), (b"qoif", "QOI"),
-                     (b"DDS ", "DDS"), (b"\x00\x00\x00\x0cjP  \r\n\x87\n", "JPEG 2000"),
-                     (b"\xff\x4f\xff\x51", "JPEG 2000 (codestream)"), (b"\x01\xda", "SGI"), (b"8BPS", "PSD"))
+                  (b"#?RADIANCE", "Radiance HDR"), (b"#?RGBE", "Radiance HDR"), (b"PF\n", "PFM (colour)"))
+_READ = "PNG, JPEG, TIFF, GIF, BMP, WebP, TGA, DDS, Netpbm, QOI, SGI, PCX, ICO, CUR and PSD"
+# PIL's names of the formats it opens that the port does not read yet
+# (ROADMAP "Left"), as the refusals name them.
+_UNPORTED_NAMES = {"JPEG2000": "JPEG 2000", "ICNS": "ICNS (Apple icon)", "IM": "IM (LabEye)", "IMT": "IM tools",
+                   "IPTC": "IPTC/NAA", "MCIDAS": "McIdas area", "MSP": "MSP (Windows Paint)", "PCD": "PhotoCD",
+                   "PIXAR": "PIXAR raster", "SUN": "Sun raster", "XVTHUMB": "XV thumbnail", "GBR": "GIMP brush",
+                   "FLI": "FLI / FLC animation", "FTEX": "FTEX (Independence War texture)", "SPIDER": "SPIDER"}
 
 
 def to_uint8(image) -> np.ndarray:
@@ -107,15 +118,78 @@ def _samples(rows: np.ndarray, w: int, c: int, depth: int) -> np.ndarray:
     return ((rows[:, :, None] >> shifts) & ((1 << depth) - 1)).reshape(h, -1)[:, :w].reshape(h, w, 1)
 
 
+def _row_ends(w: int, h: int, bits: int, interlace: int) -> list:
+    """The offsets in the inflated image data where each filtered row ends
+    (the passes' rows in turn for Adam7)."""
+    ends, pos = [], 0
+    for x0, y0, dx, dy in _ADAM7 if interlace else ((0, 0, 1, 1),):
+        pw, ph = max(0, -(-(w - x0) // dx)), max(0, -(-(h - y0) // dy))
+        if pw and ph:
+            ends += [pos + (k + 1) * (1 + (pw * bits + 7) // 8) for k in range(ph)]
+            pos = ends[-1]
+    return ends
+
+
+def _inflate(idat: list, row_ends: list, name: str) -> tuple:
+    """The image data as PIL's decoder inflates it, and the file offset
+    where PIL stops reading it: fed an IDAT chunk ((offset, body) in idat),
+    at most 65536 bytes of it, at a time, stopped once the last row is out,
+    so that what follows in the bytes fed so far is checked (the Adler-32
+    too) and what follows them is not; a stream that ends with a row's last
+    bytes leaves the rows after it zero, as PIL leaves them."""
+    need, d, parts, size, grew, end = row_ends[-1], zlib.decompressobj(), [], 0, False, 0
+    try:
+        for offset, body in idat:
+            for at in range(0, max(len(body), 1), codec.PIL_BLOCK):
+                piece = body[at : at + codec.PIL_BLOCK]
+                parts.append(d.decompress(piece, need - size))
+                size, grew, end = size + len(parts[-1]), bool(parts[-1]), offset + at + len(piece)
+                if size >= need or d.eof:
+                    break
+            if size >= need or d.eof:
+                break
+    except zlib.error as e:
+        raise ValueError(f"{name}: PNG image data is corrupt ({e})") from None
+    if size < need and d.eof and grew and size in set(row_ends):  # the end came with a row's last bytes
+        parts.append(bytes(need - size))
+    return b"".join(parts), end
+
+
+def _after_image(data: bytes, pos: int, trns, name: str):
+    """PIL's reading of the chunks after the image data (from `pos`, past
+    the CRC of the last IDAT it read): each up to IEND or a header that
+    names no chunk must hold its data; a tRNS there sets the transparency.
+    Returns the tRNS chunk."""
+    while pos + 8 <= len(data):
+        (length,) = struct.unpack(">I", data[pos : pos + 4])
+        kind = data[pos + 4 : pos + 8]
+        if kind == b"IEND" or not re.fullmatch(rb"\w{4}", kind):
+            break
+        if pos + 8 + length > len(data):
+            raise ValueError(f"{name}: PNG file is truncated in chunk {kind!r}")
+        if kind == b"tRNS":
+            trns = data[pos + 8 : pos + 8 + length]
+        pos += 12 + length
+    return trns
+
+
 def _decode_png(data: bytes, name: str):
     """(samples, depth, colour type, palette, tRNS bytes) of a PNG's bytes:
     the (H, W, c) samples (palette indices for colour type 3), the (n, 3)
-    PLTE entries or None, the tRNS chunk or None."""
+    PLTE entries or None, the tRNS chunk or None.  The chunks are read as
+    PIL reads them: those before the first IDAT with their CRCs checked, the
+    image data from that IDAT and the IDATs right after it (their CRCs
+    unread, `_inflate`), and the chunks after the data PIL read
+    (`_after_image`)."""
     pos, idat, header, palette, trns = 8, [], None, None, None
     while pos + 8 <= len(data):
         (length,) = struct.unpack(">I", data[pos : pos + 4])
         kind, body = data[pos + 4 : pos + 8], data[pos + 8 : pos + 8 + length]
+        if kind == b"IDAT":
+            break
         crc = data[pos + 8 + length : pos + 12 + length]
+        if not re.fullmatch(rb"\w{4}", kind):
+            raise ValueError(f"{name}: broken PNG file (chunk {kind!r})")
         if len(crc) < 4:
             raise ValueError(f"{name}: PNG file is truncated in chunk {kind!r}")
         if zlib.crc32(kind + body) & 0xFFFFFFFF != struct.unpack(">I", crc)[0]:
@@ -126,10 +200,12 @@ def _decode_png(data: bytes, name: str):
             palette = np.frombuffer(body, np.uint8)[: len(body) // 3 * 3].reshape(-1, 3)
         elif kind == b"tRNS":
             trns = body
-        elif kind == b"IDAT":
-            idat.append(body)
         elif kind == b"IEND":
             break
+        pos += 12 + length
+    while pos + 8 <= len(data) and data[pos + 4 : pos + 8] == b"IDAT":
+        (length,) = struct.unpack(">I", data[pos : pos + 4])
+        idat.append((pos + 8, data[pos + 8 : pos + 8 + length]))
         pos += 12 + length
     if header is None:
         raise ValueError(f"{name}: no IHDR chunk")
@@ -142,12 +218,11 @@ def _decode_png(data: bytes, name: str):
         raise ValueError(f"{name}: palette PNG without a PLTE chunk")
     if interlace > 1:
         raise ValueError(f"{name}: unknown PNG interlace method {interlace}")
-    try:
-        raw = np.frombuffer(zlib.decompress(b"".join(idat)), np.uint8)
-    except zlib.error as e:
-        raise ValueError(f"{name}: PNG image data is corrupt ({e})") from None
     c = _CHANNELS[ctype]
     bits, bpp = c * depth, max(1, c * depth // 8)
+    raw, end = _inflate(idat, _row_ends(w, h, bits, interlace), name)
+    raw = np.frombuffer(raw, np.uint8)
+    trns = _after_image(data, end + 4, trns, name)
     if not interlace:
         samples = _samples(codec.png_unfilter(raw, h, (w * bits + 7) // 8, bpp), w, c, depth)
     else:  # Adam7: seven sub-images, each filtered on its own
@@ -164,43 +239,9 @@ def _decode_png(data: bytes, name: str):
     return samples, depth, ctype, palette, trns
 
 
-def _pil_image(data: bytes, name: str):
-    """The image as PIL opens it: (array, mode, palette, transparency).
-    The array is `np.asarray` of PIL's image; the palette is (256, 3)
-    (unlisted entries black) for modes "P" and "PA", else None; the
-    transparency is PIL's `info` value (a gray level, an RGB triple) or, for
-    a palette image, its entries' alphas as a PNG tRNS chunk gives them, or
-    None."""
-    if data[:8] == _PNG_SIGNATURE:
-        samples, depth, ctype, palette, trns = _decode_png(data, name)
-    elif data[:3] == _JPEG_SOI:
-        arr = decode_jpeg(data, name)
-        return arr, "L" if arr.ndim == 2 else ("RGB", "CMYK")[arr.shape[2] == 4], None, None
-    elif data[:4] in tiff.MAGIC:
-        arr, mode, table = tiff.read_pil(data, name)
-        return arr, mode, table, None
-    elif data[:6] in (b"GIF87a", b"GIF89a"):
-        arr, mode, table, index = gif.read_pil(data, name)
-        if mode == "P" and index is not None:  # alpha 0 at the transparency index, as tRNS alphas
-            return arr, mode, table, bytes([255] * index + [0])
-        return arr, mode, table, index
-    elif data[:2] == b"BM":
-        arr, mode, table = bmp.read_pil(data, name)
-        return arr, mode, table, None
-    elif data[:4] == b"RIFF" and data[8:12] == b"WEBP":
-        arr, mode = webp.read_pil(data, name)
-        return arr, mode, None, None
-    else:
-        kind = next((f for magic, f in _OTHER_FORMATS if data.startswith(magic)), None)
-        if kind:
-            raise ValueError(f"{name}: {kind} images are not read (only PNG, JPEG, TIFF, GIF, BMP and WebP)")
-        kind = next((f for magic, f in _PIL_ONLY_FORMATS if data.startswith(magic)), None)
-        if kind is None and data[4:8] == b"ftyp" and data[8:12] in (b"avif", b"avis"):
-            kind = "AVIF"
-        if kind:
-            raise ValueError(f"{name}: {kind} images are not read yet (PIL opens them; the port reads PNG, JPEG, "
-                             f"TIFF, GIF, BMP and WebP)")
-        raise ValueError(f"{name}: a file of unknown format is not read (only PNG, JPEG, TIFF, GIF, BMP and WebP)")
+def _png(data: bytes, name: str) -> tuple:
+    """A PNG as PIL opens it: (array, mode, palette, transparency)."""
+    samples, depth, ctype, palette, trns = _decode_png(data, name)
     gray_key = struct.unpack(">H", trns[:2])[0] if trns is not None and len(trns) >= 2 else None
     rgb_key = struct.unpack(">3H", trns[:6]) if trns is not None and len(trns) >= 6 else None
     if ctype == 3:
@@ -223,9 +264,113 @@ def _pil_image(data: bytes, name: str):
     return samples, ("LA" if ctype == 4 else "RGBA"), None, None
 
 
+def _gif(data: bytes, name: str) -> tuple:
+    arr, mode, table, index = gif.read_pil(data, name)
+    if mode == "P" and index is not None:  # alpha 0 at the transparency index, as tRNS alphas
+        return arr, mode, table, bytes([255] * index + [0])
+    return arr, mode, table, index
+
+
+def _dib(data: bytes, name: str) -> tuple:
+    hd = ico.bitmap_header(data, 0, name)
+    if hd["width"] <= 0 or hd["height"] <= 0:
+        raise probe.PassOn(f"{name}: DIB of {hd['width']}x{hd['height']} pixels")
+    return bmp.decode(data, hd, name)
+
+
+def _ico_png(name: str):
+    def png(data: bytes) -> tuple:
+        arr, mode, table, _ = _png(data, name)  # PIL keeps the entry's pixels and palette, not its transparency
+        return arr, mode, table
+    return png
+
+
+# PIL 12.1's plugins in the order `Image.open` tries them, each with a test
+# of the file's first bytes (its `_accept`, or None: always tried) and its
+# reader, which returns (array, mode, palette) or (array, mode, palette,
+# transparency), raises probe.PassOn where PIL tries the next plugin, and
+# raises a ValueError where PIL refuses the file.  A plugin the port has no
+# reader for is probe.UNPORTED's test.
+_PLUGINS = (
+    ("BMP", lambda d: d[:2] == b"BM", lambda d, n, f: bmp.read_pil(d, n)),
+    ("DIB", lambda d: d[:4] in (b"\x0c\0\0\0", b"(\0\0\0", b"4\0\0\0", b"8\0\0\0", b"@\0\0\0", b"l\0\0\0",
+                                b"|\0\0\0"), lambda d, n, f: _dib(d, n)),
+    ("GIF", lambda d: d[:6] in (b"GIF87a", b"GIF89a"), lambda d, n, f: _gif(d, n)),
+    ("JPEG", lambda d: d[:3] == _JPEG_SOI, lambda d, n, f: _jpeg(d, n)),
+    ("PPM", netpbm.accept, lambda d, n, f: netpbm.read_pil(d, n)),
+    ("PNG", lambda d: d[:8] == _PNG_SIGNATURE, lambda d, n, f: _png(d, n)),
+    *((fmt, None, None) for fmt in ("AVIF", "BLP", "BUFR")),
+    ("CUR", lambda d: d[:4] == b"\0\0\2\0", lambda d, n, f: ico.read_cur(d, n)),
+    ("PCX", pcx.accept, lambda d, n, f: pcx.read_pil(d, n, f)),
+    ("DCX", None, None),
+    ("DDS", lambda d: d[:4] == b"DDS ", lambda d, n, f: dds.read_pil(d, n)),
+    *((fmt, None, None) for fmt in ("EPS", "FITS", "FLI", "FTEX", "GBR", "GRIB", "HDF5", "JPEG2000", "ICNS")),
+    ("ICO", lambda d: d[:4] == b"\0\0\1\0", lambda d, n, f: ico.read_ico(d, n, _ico_png(n))),
+    *((fmt, None, None) for fmt in ("IM", "IMT", "IPTC", "MCIDAS", "MPEG")),
+    ("TIFF", lambda d: d[:4] in tiff.MAGIC, lambda d, n, f: tiff.read_pil(d, n)),
+    *((fmt, None, None) for fmt in ("MSP", "PCD", "PIXAR")),
+    ("PSD", lambda d: d[:4] == b"8BPS", lambda d, n, f: psd.read_pil(d, n)),
+    ("QOI", lambda d: d[:4] == b"qoif", lambda d, n, f: qoi.read_pil(d, n)),
+    ("SGI", sgi.accept, lambda d, n, f: sgi.read_pil(d, n)),
+    *((fmt, None, None) for fmt in ("SPIDER", "SUN")),
+    ("TGA", lambda d: True, lambda d, n, f: tga.read_pil(d, n)),
+    ("WEBP", lambda d: d[:4] == b"RIFF" and d[8:12] == b"WEBP", lambda d, n, f: (*webp.read_pil(d, n), None)),
+    *((fmt, None, None) for fmt in ("WMF", "XBM", "XPM", "XVTHUMB")),
+)
+
+
+def _jpeg(data: bytes, name: str) -> tuple:
+    arr = decode_jpeg(data, name)
+    return arr, "L" if arr.ndim == 2 else ("RGB", "CMYK")[arr.shape[2] == 4], None
+
+
+class Unidentified(ValueError):
+    """No plugin of PIL's claims the file (PIL's UnidentifiedImageError)."""
+
+
+def _open(data: bytes, name: str, from_file: bool = False) -> tuple:
+    """The image as PIL's `Image.open` opens it: (format, array, mode,
+    palette, transparency), trying PIL's plugins in its order.  `from_file`:
+    PIL reads a file from a path (which a PCX reader's seek before its start
+    refuses), not from memory."""
+    for fmt, accept, read in _PLUGINS:
+        if read is None:
+            if probe.UNPORTED[fmt](data):
+                kind = _UNPORTED_NAMES.get(fmt, fmt)
+                if fmt == "JPEG2000" and data[:4] == b"\xff\x4f\xff\x51":
+                    kind += " (codestream)"
+                raise ValueError(f"{name}: {kind} images are not read yet (PIL opens them; the port reads {_READ})")
+            continue
+        if not accept(data):
+            continue
+        try:
+            out = read(data, name, from_file)
+        except probe.PassOn:
+            continue
+        return (fmt, *out) if len(out) == 4 else (fmt, *out, None)
+    kind = next((f for magic, f in _OTHER_FORMATS if data.startswith(magic)), None)
+    if kind:
+        raise Unidentified(f"{name}: {kind} images are not read (PIL does not open them either)")
+    raise Unidentified(f"{name}: a file of unknown format is not read (only {_READ})")
+
+
+def _pil_image(data: bytes, name: str, from_file: bool = False):
+    """The image as PIL opens it: (array, mode, palette, transparency).
+    The array is `np.asarray` of PIL's image; the palette is (256, 3), or
+    (256, 4) for an RGBA palette (unlisted entries black), for modes "P" and
+    "PA", None for other modes and a palette image without one; the
+    transparency is PIL's `info` value (a gray level, an RGB triple) or, for
+    a palette image, its entries' alphas as a PNG tRNS chunk gives them, or
+    None."""
+    return _open(data, name, from_file)[1:]
+
+
 def _palette_colours(indices, table, trns) -> np.ndarray:
-    """Palette indices (H, W) to RGB, or RGBA where a tRNS chunk gives the
-    entries' alphas (entries past its end are opaque)."""
+    """Palette indices (H, W) to RGB, or RGBA where the palette has alphas
+    or a tRNS chunk gives the entries' alphas (entries past its end are
+    opaque); a palette image without a palette is black, as PIL gives it."""
+    if table is None:
+        table = np.zeros((256, 3), np.uint8)
     if trns is not None:
         alpha = np.full(256, 255, np.uint8)
         alpha[: min(len(trns), 256)] = np.frombuffer(trns[:256], np.uint8)
@@ -261,7 +406,7 @@ def _muldiv255(a: np.ndarray, b: np.ndarray) -> np.ndarray:
     return ((t >> 8) + t) >> 8
 
 
-def decode_rgba(data: bytes, name: str = "image") -> np.ndarray:
+def decode_rgba(data: bytes, name: str = "image", from_file: bool = False) -> np.ndarray:
     """An image's bytes as (H, W, 4) float32 in [0, 1], expanded as PIL's
     `convert("RGBA")` expands each mode: gray g -> (g, g, g, 255) (16- and
     32-bit gray clipped to 0..255 first, float gray truncated), gray+alpha
@@ -269,8 +414,10 @@ def decode_rgba(data: bytes, name: str = "image") -> np.ndarray:
     alphas (a PNG's tRNS, a GIF's transparency index, a TIFF's alpha
     samples), CMYK -> RGB by PIL's cmyk2rgb (255 - k - (255 - k) * c / 255,
     rounded); a pixel whose gray or RGB value equals the tRNS key's low bytes
-    gets alpha 0."""
-    arr, mode, table, trns = _pil_image(data, name)
+    gets alpha 0.  A Lab image raises a ValueError: PIL converts it through
+    LittleCMS, which the port does not.  `from_file`: the bytes are a file's
+    that PIL opens by its path (a glTF image's URI), not from memory."""
+    arr, mode, table, trns = _pil_image(data, name, from_file)
     if mode == "P":
         rgba = _palette_colours(arr, table, trns)
         if rgba.shape[2] == 3:
@@ -280,6 +427,8 @@ def decode_rgba(data: bytes, name: str = "image") -> np.ndarray:
         return _unit(np.concatenate([table[arr[..., 0]], arr[..., 1:2]], axis=-1))
     if mode == "RGBA":
         return _unit(arr)
+    if mode == "LAB":
+        raise ValueError(f"{name}: a Lab image is not converted to RGBA (PIL converts it through LittleCMS)")
     if mode == "CMYK":
         nk = 255 - arr[..., 3:4].astype(np.int32)
         rgb = np.clip(nk - _muldiv255(arr[..., :3], nk), 0, 255)
@@ -303,11 +452,20 @@ def decode_rgba(data: bytes, name: str = "image") -> np.ndarray:
     return _unit(rgba)
 
 
-def decode_samples(data: bytes, name: str = "image") -> np.ndarray:
+def decode_samples(data: bytes, name: str = "image", from_file: bool = False) -> np.ndarray:
     """An image's samples as imageio reads them through PIL: PIL's array, a
-    palette image converted to its RGB colours."""
-    arr, mode, table, _ = _pil_image(data, name)
-    return table[arr] if mode == "P" else arr
+    palette image converted to its palette's colours (RGB, or RGBA for an
+    RGBA palette).  imageio reads no PSD (its plugin cannot seek a PSD's
+    first frame) and no palette image without a palette: both raise a
+    ValueError, as imageio raises.  `from_file` as for decode_rgba."""
+    fmt, arr, mode, table, _ = _open(data, name, from_file)
+    if fmt == "PSD":
+        raise ValueError(f"{name}: imageio reads no PSD file (its Pillow plugin cannot seek the first frame)")
+    if mode == "P":
+        if table is None:
+            raise ValueError(f"{name}: a palette image without a palette (imageio cannot convert it)")
+        return table[arr]
+    return arr
 
 
 def load_png(path: str) -> np.ndarray:
@@ -315,7 +473,7 @@ def load_png(path: str) -> np.ndarray:
     255 (vpt_tpu's io/image.load_png): (H, W) for gray, 1-bit and palette
     images (palette indices), else (H, W, channels)."""
     with open(path, "rb") as f:
-        arr = _pil_image(f.read(), path)[0]
+        arr = _pil_image(f.read(), path, from_file=True)[0]
     return np.asarray(arr, np.float32) / 255.0
 
 

@@ -11,16 +11,25 @@ import os
 
 import numpy as np
 
-from vpt_tpu_torch.io import tiff
-from vpt_tpu_torch.io.image import decode_samples, load_radiance_hdr
+from vpt_tpu_torch.io import netpbm, tiff
+from vpt_tpu_torch.io.image import Unidentified, decode_samples, load_radiance_hdr
 from vpt_tpu_torch.scene.types import EnvMapData
 
 # Extensions imageio reads for the JAX package, and how: a TIFF by its
-# bundled tifffile (the samples in their own dtype), the rest, and a .tif
-# file that is no TIFF, by PIL, which opens a file by its content.  The
-# samples are not divided by 255.
+# bundled tifffile (the samples in their own dtype); a .pbm or .pfm file
+# that OpenCV claims (Netpbm or PFM data) by its OpenCV plugin; the rest,
+# and a .tif file that is no TIFF, by PIL, which opens a file by its
+# content, and a file PIL cannot identify by the plugins after PIL's, of
+# which OpenCV reads colour PFM.  The samples are not divided by 255.
 _TIFF_EXTENSIONS = (".tif", ".tiff")
-_PIL_EXTENSIONS = (".png", ".jpg", ".jpeg", ".bmp", ".gif", ".webp")
+_OPENCV_EXTENSIONS = (".pbm", ".pfm")
+_PIL_EXTENSIONS = (".png", ".jpg", ".jpeg", ".bmp", ".gif", ".webp", ".tga", ".icb", ".vda", ".vst", ".dds", ".ppm",
+                   ".pgm", ".pnm", ".qoi", ".sgi", ".rgb", ".rgba", ".bw", ".pcx", ".ico", ".cur", ".psd")
+# Leading bytes of the formats OpenCV reads besides Netpbm and PFM, which
+# the port does not read through OpenCV's decoders.
+_OPENCV_OTHERS = (b"BM", b"\xff\xd8\xff", b"\x89PNG\r\n\x1a\n", b"II*\0", b"MM\0*", b"RIFF", b"\x59\xa6\x6a\x95",
+                  b"#?RADIANCE", b"#?RGBE", b"\x76\x2f\x31\x01", b"\x00\x00\x00\x0cjP  ", b"\xff\x4f\xff\x51",
+                  b"P7")
 
 
 def load_hdr(path: str) -> np.ndarray:
@@ -28,27 +37,44 @@ def load_hdr(path: str) -> np.ndarray:
     Radiance `.hdr` file, a `.tif` / `.tiff` file (its first series as
     imageio's tifffile reads it: float16 / 32 / 64 and integer samples as
     they are, strips or tiles, none / LZW / Deflate / PackBits compression),
-    or a `.png`, `.jpg`, `.jpeg`, `.bmp`, `.gif` or `.webp` file read by its
+    a `.pbm` / `.pfm` file of Netpbm or PFM data as imageio's OpenCV plugin
+    reads it (8-bit RGB; a PFM's floats divided by its scale's magnitude and
+    rounded to 8 bits, a gray one repeated), or a file of one of PIL's
+    extensions (`.png`, `.jpg`, `.jpeg`, `.bmp`, `.gif`, `.webp`, `.tga`,
+    `.dds`, `.ppm`, `.pgm`, `.pnm`, `.qoi`, `.sgi`, `.rgb`, `.rgba`, `.bw`,
+    `.pcx`, `.ico`, `.cur` and the rest of _PIL_EXTENSIONS) read by its
     content as imageio reads it through PIL (palette images as their
     colours, a CMYK JPEG's first three of its four channels, a WebP
-    animation's first frame).  Gray is repeated to three channels.  Other
-    extensions (EXR, PFM and the rest of imageio's) raise a ValueError that
-    names the extension."""
+    animation's first frame; no PSD, which imageio's plugin cannot read),
+    or through OpenCV where PIL cannot identify the data (colour PFM).
+    Gray is repeated to three channels.  Other extensions (EXR and the rest
+    of imageio's) raise a ValueError that names the extension."""
+    lower = path.lower()
     if path.endswith(".npy"):
         img = np.load(path)
     elif path.endswith(".hdr"):
         img = load_radiance_hdr(path)
-    elif path.lower().endswith(_TIFF_EXTENSIONS + _PIL_EXTENSIONS):
+    elif lower.endswith(_TIFF_EXTENSIONS + _OPENCV_EXTENSIONS + _PIL_EXTENSIONS):
         with open(path, "rb") as f:
             data = f.read()
-        if path.lower().endswith(_TIFF_EXTENSIONS) and data[:4] in tiff.MAGIC:
+        if lower.endswith(_TIFF_EXTENSIONS) and data[:4] in tiff.MAGIC:
             img = tiff.read_array(data, path)
+        elif lower.endswith(_OPENCV_EXTENSIONS) and netpbm.cv2_claims(data):
+            img = netpbm.read_cv2(data, path)
+        elif lower.endswith(_OPENCV_EXTENSIONS) and data.startswith(_OPENCV_OTHERS):
+            raise ValueError(f"{path}: OpenCV reads this {os.path.splitext(path)[1]} file's data (another format "
+                             f"than Netpbm or PFM), which the port does not read through OpenCV")
         else:
-            img = decode_samples(data, path)
+            try:
+                img = decode_samples(data, path, from_file=True)
+            except Unidentified:
+                if not netpbm.cv2_claims(data):
+                    raise
+                img = netpbm.read_cv2(data, path)
     else:
         ext = os.path.splitext(path)[1] or "extensionless"
         raise ValueError(f"{path}: {ext} files are not read as environment maps (only .npy, .hdr, .tif, .tiff, "
-                         f".png, .jpg, .jpeg, .bmp, .gif and .webp)")
+                         f".pbm, .pfm and {', '.join(_PIL_EXTENSIONS)})")
     img = np.asarray(img, np.float32)
     if img.ndim == 2:
         img = np.repeat(img[..., None], 3, axis=-1)

@@ -102,7 +102,7 @@ def _load_image(doc, buffers, base_dir, image_index):
     if "uri" in img and not img["uri"].startswith("data:"):
         name = os.path.join(base_dir, img["uri"])
         with open(name, "rb") as f:
-            data = f.read()
+            return decode_rgba(f.read(), name, from_file=True)
     else:
         if "uri" in img:
             payload = img["uri"].split(",", 1)[1]
