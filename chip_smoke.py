@@ -255,11 +255,15 @@ Phases, each of which raises on failure:
         with packets over scanlines and colour maps, PCX planes, DDS BC1-BC7
         and uncompressed, Netpbm P1-P6 and PFM, QOI, SGI RLE, ICO / CUR, PSD;
         and its three 2048x2048 timing textures, made here from their seed
-        by tests/pil_format_writers.py) through decode_rgba and load_hdr
+        by tests/pil_format_writers.py) and of tests/torch_jpeg2000/ (JPEG
+        2000: PIL's and OpenCV's writers at their options, JP2 boxes and
+        codestream edits built by tests/jpeg2000_cases.py, the timing
+        textures and the sky) through decode_rgba and load_hdr
         against its manifest: the sha256 of the JAX package's decode, or a
         ValueError where it refuses; the C codec (its arithmetic and
         lossless scan decoders and its TGA, PCX, SGI, QOI and PackBits loops
-        too), the C WebP decoders and the C BC block decoders loaded;
+        too), the C WebP decoders, the C BC block decoders and the C JPEG
+        2000 decoder loaded;
      b. a 4096x2048 float32 RGB sky (default_sky) written by
         `write_float_tiff` here as Deflate 256x256 tiles and as
         uncompressed strips: load_hdr gives it back bitwise; its host
@@ -272,14 +276,20 @@ Phases, each of which raises on failure:
         of tests/torch_jpeg/, host seconds (median of 5), each under
         JPEG_LIMIT_S; decode_rgba of the 2048x2048 BC7 DDS, RLE TGA and QOI
         textures, host seconds (median of 5), each under PIL_LIMIT_S;
+        decode_rgba of the 2048x2048 9/7 JP2 at a rate and the 1024x1024
+        5/3 JP2 of 256x256 tiles of tests/torch_jpeg2000/, host seconds
+        (median of 5) beside PIL's where the fixtures were made, each under
+        JP2_LIMIT_S;
      c. `python -m vpt_tpu_torch render garden` at 512x512, depth 8, 8 spp
-        with --env sky.tif against --env sky.npy of the same array (two
+        with --env sky.tif against --env sky.npy of the same array, and
+        with --env sky.jp2 against --env sky_jp2.npy of its decode (four
         processes at once): bitwise equal; then the colonnade as a .glb with
         a GIF, an RLE8 BMP, an LZW TIFF and a CMYK JPEG base colour, a lossy
         WebP with ALPH on the back wall, a lossless WebP on the brass, a
         SOF10 JPEG on the west wall, a lossless JPEG on the east wall, the
         BC7 DDS on the front wall, the RLE TGA and the QOI on two pedestals,
-        a PCX on a drape and a PSD on a statue (each of these its own copy
+        a PCX on a drape, a PSD on a statue and a tiled JP2 on a third
+        pedestal (each of these its own copy
         of its material), through the CLI, bitwise its in-memory render with
         those decodes (each the manifest's sha256);
      one JSON line "image_formats".  `--image-formats` runs this phase alone
@@ -2360,16 +2370,20 @@ FORMAT_TEXTURES = {"gif-local-interlaced-inside-transparent.gif": ("stone", "ima
                    "timing-rle.tga": ("stone-ped0", "image/x-tga"),
                    "timing-ops.qoi": ("stone-ped1", "image/qoi"),
                    "pcx-pil-RGB-w13.pcx": ("drape-red-drape-n0", "image/x-pcx"),
-                   "psd-rgba-packbits.psd": ("brass-statue0", "image/vnd.adobe.photoshop")}
+                   "psd-rgba-packbits.psd": ("brass-statue0", "image/vnd.adobe.photoshop"),
+                   # of tests/torch_jpeg2000/: the 1024x1024 5/3 JP2 of 256x256 tiles
+                   "timing-1024-53-tiles.jp2": ("stone-ped2", "image/jp2")}
 # 17c's instances that get a copy of their material, for a texture of their own.
-OWN_MATERIALS = ("wall-back", "wall-west", "wall-east", "wall-front", "ped0", "ped1", "drape-n0", "statue0")
+OWN_MATERIALS = ("wall-back", "wall-west", "wall-east", "wall-front", "ped0", "ped1", "drape-n0", "statue0", "ped2")
 FORMAT_FOLDERS = ((gltf_scenes.FORMAT_DIR, gltf_scenes.FORMAT_FIXTURES),
                   (gltf_scenes.WEBP_DIR, gltf_scenes.WEBP_FIXTURES),
                   (gltf_scenes.JPEG_DIR, gltf_scenes.JPEG_FIXTURES),
-                  (gltf_scenes.PIL_FORMAT_DIR, gltf_scenes.PIL_FORMAT_FIXTURES + gltf_scenes.PIL_FORMAT_TIMING))
+                  (gltf_scenes.PIL_FORMAT_DIR, gltf_scenes.PIL_FORMAT_FIXTURES + gltf_scenes.PIL_FORMAT_TIMING),
+                  (gltf_scenes.JPEG2000_DIR, gltf_scenes.jpeg2000_fixtures()))
 WEBP_LIMIT_S = 1.0  # 17b: host seconds for decode_rgba of each 2048x2048 WebP texture
 JPEG_LIMIT_S = 1.0  # 17b: host seconds for decode_rgba of the SOF10 and lossless JPEG textures
 PIL_LIMIT_S = 1.0  # 17b: host seconds for decode_rgba of the 2048x2048 BC7 DDS, RLE TGA and QOI textures
+JP2_LIMIT_S = 3.0  # 17b: host seconds for decode_rgba of the 2048x2048 9/7 and 1024x1024 tiled 5/3 JP2 textures
 
 
 def write_float_tiff(path: str, img: np.ndarray, tile: int = 0) -> None:
@@ -2430,14 +2444,16 @@ def fixture_array(path: str, name: str, key: str, manifest: dict):
 def image_formats_phase(dev, smi: str) -> None:
     """Phase 17: the TIFF, GIF, BMP, CMYK / any-sampling / smoothed JPEG,
     WebP, arithmetic-coded / lossless JPEG, TGA, DDS, Netpbm / PFM, QOI,
-    SGI, PCX, ICO / CUR and PSD decoders on the card's machine (no PIL
-    there) against the manifests of tests/torch_formats/,
-    tests/torch_webp/, tests/torch_jpeg/ and tests/torch_pil_formats/, a
-    4096x2048 float TIFF sky read back bitwise and timed, the 2048x2048
-    WebP, BC7 DDS, RLE TGA and QOI textures and the SOF10 and lossless JPEG
-    textures timed, a render with a .tif sky against the same array as
-    .npy, and a .glb with GIF, RLE8 BMP, LZW TIFF, CMYK JPEG, WebP, SOF10,
-    lossless JPEG, BC7 DDS, RLE TGA, QOI, PCX and PSD textures through the
+    SGI, PCX, ICO / CUR, PSD and JPEG 2000 decoders on the card's machine
+    (no PIL there) against the manifests of tests/torch_formats/,
+    tests/torch_webp/, tests/torch_jpeg/, tests/torch_pil_formats/ and
+    tests/torch_jpeg2000/, a 4096x2048 float TIFF sky read back bitwise and
+    timed, the 2048x2048 WebP, BC7 DDS, RLE TGA and QOI textures, the SOF10
+    and lossless JPEG textures and the two JP2 textures timed, renders with
+    a .tif sky against the same array as .npy and a .jp2 sky against the
+    .npy of its decode, and a .glb with GIF, RLE8 BMP, LZW TIFF, CMYK JPEG,
+    WebP, SOF10, lossless JPEG, BC7 DDS, RLE TGA, QOI, PCX, PSD and JP2
+    textures through the
     CLI against its in-memory render."""
     t_phase = time.perf_counter()
     # 17a. The fixtures, and the timing textures of tests/torch_pil_formats/ from their seed.
@@ -2469,6 +2485,8 @@ def image_formats_phase(dev, smi: str) -> None:
     check(codec._bcn_lib is not None and all(hasattr(codec._lib, f) for f in (
         "vpt_tga_rle", "vpt_pcx_rle", "vpt_sgi_rle", "vpt_qoi_decode", "vpt_packbits_rows")),
         "17a: the TGA, PCX, SGI, QOI, PSD and DDS fixtures ran the C codec and the C block decoders")
+    check(codec._j2k_lib is not None and hasattr(codec._j2k_lib, "vpt_j2k_decode"),
+          "17a: the JPEG 2000 fixtures ran the port's C JPEG 2000 decoder")
 
     # 17b. A 4096x2048 float TIFF sky.
     sky = default_sky(size=FORMAT_SKY)
@@ -2522,18 +2540,37 @@ def image_formats_phase(dev, smi: str) -> None:
         log(f"17b: decode_rgba of {name} (2048x2048, {len(data)} bytes; {smi}, host {os.cpu_count()} CPUs): "
             f"{median:.4f} s median of 5 {every}")
         check(median < PIL_LIMIT_S, f"17b: {name} decodes in under {PIL_LIMIT_S} s")
+    row["jpeg2000"] = {}
+    with open(os.path.join(gltf_scenes.JPEG2000_DIR, "pil_seconds.json")) as f:
+        pil_seconds = json.load(f)
+    for name in gltf_scenes.JPEG2000_TIMING:
+        with open(os.path.join(gltf_scenes.JPEG2000_DIR, name), "rb") as f:
+            data = f.read()
+        median, every = host_seconds(lambda: decode_rgba(data, name))
+        shape = decoded[name, "rgba"].shape
+        row["jpeg2000"][name] = {"bytes": len(data), "shape": list(shape), "s": median, "all_s": every,
+                                 "pil_s_where_made": pil_seconds[name]["pil_s"]}
+        log(f"17b: decode_rgba of {name} ({shape[1]}x{shape[0]}, {len(data)} bytes; {smi}, host {os.cpu_count()} "
+            f"CPUs): {median:.4f} s median of 5 {every}; PIL's decode where the fixture was made (CPU sandbox, "
+            f"{pil_seconds['host']['cpus']} CPUs, tests/make_torch_jpeg2000.py): {pil_seconds[name]['pil_s']:.4f} s")
+        check(median < JP2_LIMIT_S, f"17b: {name} decodes in under {JP2_LIMIT_S} s")
 
-    # 17c. A .tif sky against the .npy of the same array; a .glb of the new formats.
+    # 17c. A .tif sky against the .npy of the same array, a .jp2 sky against the .npy of its decode; a .glb of
+    # the new formats.
     with tempfile.TemporaryDirectory() as tmp:
         small = default_sky(size=FORMAT_RENDER_SKY)
         np.save(os.path.join(tmp, "sky.npy"), small)
         write_float_tiff(os.path.join(tmp, "sky.tif"), small, FORMAT_TILE)
+        shutil.copy(os.path.join(gltf_scenes.JPEG2000_DIR, gltf_scenes.JPEG2000_SKY), os.path.join(tmp, "sky.jp2"))
+        np.save(os.path.join(tmp, "sky_jp2.npy"), load_hdr(os.path.join(tmp, "sky.jp2")))
+        skies = {"tif": "sky.tif", "npy": "sky.npy", "jp2": "sky.jp2", "jp2npy": "sky_jp2.npy"}
         args = ("--width", str(W), "--height", str(H), "--spp", "8", "--spp-per-frame", "4", "--depth", "8")
         procs = {ext: subprocess.Popen([sys.executable, "-m", "vpt_tpu_torch", "render", "garden", "-o",
                                         os.path.join(tmp, f"garden_{ext}.png"), "--hdr-output",
-                                        os.path.join(tmp, f"garden_{ext}.npy"), "--env", os.path.join(tmp, f"sky.{ext}"),
-                                        *args], cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
-                 for ext in ("tif", "npy")}
+                                        os.path.join(tmp, f"garden_{ext}.npy"), "--env",
+                                        os.path.join(tmp, sky), *args], cwd=ROOT, stdout=subprocess.PIPE,
+                                       stderr=subprocess.PIPE, text=True)
+                 for ext, sky in skies.items()}
         outs = {ext: p.communicate(timeout=600) for ext, p in procs.items()}
         for ext, p in procs.items():
             check(p.returncode == 0, f"17c: render garden --env sky.{ext} exits 0:\n{outs[ext][0][-2000:]}\n"
@@ -2547,6 +2584,13 @@ def image_formats_phase(dev, smi: str) -> None:
         check(got.shape == (H, W, 3) and np.isfinite(got).all() and float(got.mean()) > 0.0,
               "17c: the --env sky.tif render is finite and lit")
         check(np.array_equal(got, want), "17c: the --env sky.tif render is bitwise the --env sky.npy render")
+        got, want = (np.load(os.path.join(tmp, f"garden_{ext}.npy")) for ext in ("jp2", "jp2npy"))
+        log(f"17c: render garden {W}x{H} depth 8, 8 spp with --env sky.jp2 ({gltf_scenes.JPEG2000_SKY}, 9/7) and "
+            f"--env sky_jp2.npy (its load_hdr decode), at once: bitwise equal {bool(np.array_equal(got, want))}, "
+            f"segments {stats['jp2']['segments']} vs {stats['jp2npy']['segments']}")
+        check(got.shape == (H, W, 3) and np.isfinite(got).all() and float(got.mean()) > 0.0,
+              "17c: the --env sky.jp2 render is finite and lit")
+        check(np.array_equal(got, want), "17c: the --env sky.jp2 render is bitwise the --env sky_jp2.npy render")
 
         scene = colonnade()
         for own in OWN_MATERIALS:  # each its own copy of its material, for a texture of its own

@@ -132,6 +132,24 @@ PIL_FORMAT_FIXTURES = (
     "ico-bmp-32-bit.ico", "cur-8-bit.cur", "cur-32-bit-at-22.cur", "psd-rgba-packbits.psd", "psd-cmyk-raw.psd",
     "psd-indexed-packbits.psd", "psd-bitmap-raw.psd", "psd-gray-packbits.psd",
 )
+# The JPEG 2000 fixtures of tests/torch_jpeg2000/ (written by
+# tests/make_torch_jpeg2000.py: every case of tests/jpeg2000_cases.py under
+# its name and extension, the two timing textures of JPEG2000_TIMING that
+# chip_smoke.py phase 17b times, and JPEG2000_SKY, 17c's environment map),
+# with a manifest.json as tests/torch_formats/ has, and pil_seconds.json,
+# PIL's decode seconds of the timing textures where the fixtures were made.
+JPEG2000_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "torch_jpeg2000")
+JPEG2000_TIMING = ("timing-2048-97-rate.jp2", "timing-1024-53-tiles.jp2")
+JPEG2000_SKY = "sky-512x1024.jp2"
+JPEG2000_EXTENSIONS = (".jp2", ".j2k", ".j2c", ".jpc", ".jpf", ".jpx")
+
+
+def jpeg2000_fixtures() -> tuple:
+    """The files of tests/torch_jpeg2000/ (the timing textures and the sky
+    included), by name."""
+    return tuple(sorted(f for f in os.listdir(JPEG2000_DIR) if f.endswith(JPEG2000_EXTENSIONS)))
+
+
 # Adam7 passes: first column, first row, column step, row step.
 ADAM7 = ((0, 0, 8, 8), (4, 0, 8, 8), (0, 4, 4, 8), (2, 0, 4, 4), (0, 2, 2, 4), (1, 0, 2, 2), (0, 1, 1, 2))
 

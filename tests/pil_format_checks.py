@@ -92,14 +92,6 @@ def compare(data: bytes, directory: str, exts) -> dict:
     return out
 
 
-# The one difference the port keeps (ROADMAP Queue 3): a Lab image (PSD
-# colour mode 9) as a texture, which PIL converts to RGBA through
-# LittleCMS; the port refuses it, naming LittleCMS.
-KNOWN = "LittleCMS"
-
-
-def failures(data: bytes, directory: str, exts, known: bool = False) -> list:
-    """The pairs of one file that differ; with `known`, less the texture
-    decodes the port refuses as the known difference (KNOWN)."""
-    out = [v for k, v in compare(data, directory, exts).items() if k != "_jax" and v]
-    return [v for v in out if not (known and v.startswith("texture") and KNOWN in v)]
+def failures(data: bytes, directory: str, exts) -> list:
+    """The pairs of one file that differ."""
+    return [v for k, v in compare(data, directory, exts).items() if k != "_jax" and v]

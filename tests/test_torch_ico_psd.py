@@ -7,8 +7,8 @@ cannot seek a PSD's first frame).  Every case of tests/pil_format_cases.py
 with their AND masks, the entry PIL picks among ties, CUR at every depth,
 PSD raw and PackBits in every colour mode PIL opens) and a seeded sweep of
 corrupt copies give the same arrays on every path, or a ValueError where the
-JAX package raises; but for the one difference the port keeps, a Lab PSD as
-a texture (PIL converts it through LittleCMS; the port refuses it).
+JAX package raises; a Lab PSD's texture too, which PIL converts through
+LittleCMS and the port through io/lab.py.
 """
 
 import numpy as np
@@ -27,14 +27,14 @@ LAB = ("psd-lab-raw", "psd-lab-packbits")
 @pytest.mark.parametrize("name", NAMES)
 def test_case_equals_jax(tmp_path, name):
     """One file on the three pairs (texture from memory and from a file,
-    load_png, load_hdr): equal, or refused by both (the Lab texture apart:
+    load_png, load_hdr): equal, or refused by both (the Lab texture too:
     test_lab_texture_is_the_known_difference); and the JAX package reads
     every ICO and CUR case on every path, every PSD case but REFUSED on
     every path but load_hdr."""
     exts = pc.EXTENSIONS[name.split("-")[0]]
     result = chk.compare(pc.case_bytes(name), str(tmp_path), exts)
     bad = [v for k, v in result.items() if k != "_jax" and v]
-    assert bad == [] or (name in LAB and all(v.startswith("texture") and chk.KNOWN in v for v in bad)), bad
+    assert bad == [], bad
     keys = {k for k in result if k != "_jax"}
     want = set() if name in REFUSED else ({"texture", "texture-file", "load_png"} if name.startswith("psd") else keys)
     assert set(result["_jax"]) == want
@@ -44,25 +44,23 @@ def test_case_equals_jax(tmp_path, name):
 def test_corrupt_files_equal_jax(tmp_path, seed):
     """Corrupt copies (a byte changed, the file cut, a byte put in; 12 per
     seed, each of another case): each decodes as the JAX package decodes it
-    on every path, or raises a ValueError where it raises (a Lab texture
-    refused, naming LittleCMS)."""
+    on every path, or raises a ValueError where it raises."""
     for k in range(12):
         name = NAMES[(seed * 12 + k) * 7 % len(NAMES)]
         data = pc.mutants(name, seed, 1)[0]
-        assert chk.failures(data, str(tmp_path), pc.EXTENSIONS[name.split("-")[0]], known=True) == [], name
+        assert chk.failures(data, str(tmp_path), pc.EXTENSIONS[name.split("-")[0]]) == [], name
 
 
 @pytest.mark.parametrize("name", LAB)
 def test_lab_texture_is_the_known_difference(tmp_path, name):
-    """A Lab PSD: load_png gives PIL's array (L, and a and b as PIL's
-    unpackers store them, each XOR 0x80); as a texture the JAX package
-    converts it through LittleCMS to sRGB, which the port does not do: it
-    refuses, naming LittleCMS (ROADMAP Queue 3)."""
+    """A Lab PSD, once the known difference (the port refused it): load_png
+    gives PIL's array (L, and a and b as PIL's unpackers store them, each
+    XOR 0x80); as a texture the JAX package converts it through LittleCMS
+    to sRGB, and the port gives the same RGBA (io/lab.py)."""
     data = pc.case_bytes(name)
     result = chk.compare(data, str(tmp_path), (".psd",))
-    assert sorted(k for k, v in result.items() if k != "_jax" and v) == ["texture", "texture-file"]
-    with pytest.raises(ValueError, match="LittleCMS"):
-        timage.decode_rgba(data, name)
+    assert [k for k, v in result.items() if k != "_jax" and v] == []
+    assert {"texture", "texture-file", "load_png"} <= set(result["_jax"])
 
 
 def test_packbits_rows_cut_packets_at_the_row_end():

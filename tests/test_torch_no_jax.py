@@ -48,6 +48,9 @@ SLICE_MODULES = [
     "vpt_tpu_torch.io.pcx",
     "vpt_tpu_torch.io.ico",
     "vpt_tpu_torch.io.psd",
+    "vpt_tpu_torch.io.jpeg2000",
+    "vpt_tpu_torch.io.lab",
+    "vpt_tpu_torch.io.imageio_order",
     "vpt_tpu_torch.io.metrics",
     "vpt_tpu_torch.io.metrics_log",
     "vpt_tpu_torch.post.tonemap",
@@ -333,3 +336,47 @@ def test_the_port_alone_decodes_the_pil_formats(tmp_path):
                            os.path.join(_ROOT, "tests")], cwd=str(tmp_path), env=env, capture_output=True, text=True,
                           timeout=600)
     assert proc.returncode == 0 and "pil formats alone ok 55 7" in proc.stdout, proc.stderr[-3000:] + proc.stdout
+
+
+_JPEG2000_ALONE = """
+import hashlib, json, os, sys
+for blocked in ("PIL", "imageio", "cv2"):
+    sys.modules[blocked] = None  # any import of these raises
+from vpt_tpu_torch.io import codec, image
+from vpt_tpu_torch.scene import envmap
+here = os.getcwd()
+fixtures = sys.argv[1]
+with open(os.path.join(fixtures, "manifest.json")) as f:
+    manifest = json.load(f)
+refused = 0
+for name in sorted(manifest):
+    path = os.path.join(fixtures, name)
+    for key, read in (("rgba", lambda: image.decode_rgba(open(path, "rb").read(), name)),
+                      ("load_hdr", lambda: envmap.load_hdr(path))):
+        try:
+            got = read()
+        except ValueError:
+            assert manifest[name][key] is None, (name, key)
+            refused += 1
+            continue
+        assert [list(got.shape), str(got.dtype), hashlib.sha256(got.tobytes()).hexdigest()] == manifest[name][key], name
+assert codec._j2k_lib is not None and codec._J2K_SRC.startswith(here) and codec._J2K_LIB.startswith(here)
+print("jpeg2000 alone ok", len(manifest), refused)
+"""
+
+
+def test_the_port_alone_decodes_jpeg2000(tmp_path):
+    """vpt_tpu_torch/ copied on its own (its build/ left behind), in a
+    process where PIL, imageio and cv2 cannot be imported: every file of
+    tests/torch_jpeg2000/ decodes, through the texture path and load_hdr,
+    to the manifest (the JAX package's decodes), or raises a ValueError
+    where the manifest says the JAX package refuses it, with the JPEG 2000
+    decoder built from the copy's csrc/."""
+    import shutil
+
+    shutil.copytree(os.path.join(_ROOT, "vpt_tpu_torch"), str(tmp_path / "vpt_tpu_torch"),
+                    ignore=shutil.ignore_patterns("build", "__pycache__", "*.so"))
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    proc = subprocess.run([sys.executable, "-c", _JPEG2000_ALONE, os.path.join(_ROOT, "tests", "torch_jpeg2000")],
+                          cwd=str(tmp_path), env=env, capture_output=True, text=True, timeout=600)
+    assert proc.returncode == 0 and "jpeg2000 alone ok 172 34" in proc.stdout, proc.stderr[-3000:] + proc.stdout

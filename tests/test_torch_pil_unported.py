@@ -2,8 +2,9 @@
 "Left"): a file of each, as PIL writes it or built here, is one the JAX
 package decodes, and the port's texture decode refuses it naming the format
 (io/probe.py tells which plugin PIL gives it to), not as a file of unknown
-format and not by reading it as another format (a TGA).  A headerless DIB,
-which PIL opens in its `preinit` set, the port reads as PIL does.
+format and not by reading it as another format (a TGA).  A format ported
+since (JPEG 2000) decodes as PIL expands it.  A headerless DIB, which PIL
+opens in its `preinit` set, the port reads as PIL does.
 """
 
 import io
@@ -50,7 +51,7 @@ UNPORTED = {  # case -> (the file, PIL's format, the name in the port's refusal)
     "xvthumb": (lambda: b"P7 332\n#END_OF_COMMENTS\n4 3 255\n" + bytes(range(12)), "XVThumb", "XV thumbnail"),
     "ftex": (lambda: b"FTEX" + struct.pack("<9I", 1, 4, 4, 1, 1, 0, 1, 0, 48) + bytes(48), "FTEX",
              "FTEX (Independence War texture)"),
-    "jpeg2000": (lambda: _pil("JPEG2000"), "JPEG2000", "JPEG 2000"),
+    "jpeg2000": (lambda: _pil("JPEG2000"), "JPEG2000", None),  # read since JPEG 2000 was ported
     "avif": (lambda: _pil("AVIF"), "AVIF", "AVIF"),
 }
 
@@ -63,7 +64,11 @@ def test_unported_formats_are_refused_by_name(case):
         warnings.simplefilter("ignore")
         im = Image.open(io.BytesIO(data))
         assert im.format == fmt
-        assert np.asarray(im.convert("RGBA")).ndim == 3
+        want = np.asarray(im.convert("RGBA"))
+        assert want.ndim == 3
+    if kind is None:  # a format the port reads now: PIL's expansion, bitwise
+        np.testing.assert_array_equal(timage.decode_rgba(data, "wall"), want.astype(np.float32) / np.float32(255.0))
+        return
     with pytest.raises(ValueError, match=re.escape(f"wall: {kind} images are not read yet (PIL opens them")):
         timage.decode_rgba(data, "wall")
 

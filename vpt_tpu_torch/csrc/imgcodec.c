@@ -1803,3 +1803,35 @@ int vpt_qoi_decode(const uint8_t *in, int64_t n, int64_t pixels, int channels, u
     }
     return 0;
 }
+
+/* PIL's Lab -> sRGB (io/lab.py): n pixels of PIL Lab bytes (L, signed a, b)
+   through LittleCMS 2.17's TetrahedralInterp16 of `grid` (33^3 nodes of 3
+   16-bit samples, L outermost), then FROM_16_TO_8. */
+void vpt_lab_to_rgb(const uint8_t *lab, int64_t n, const uint16_t *grid, uint8_t *out) {
+    const int64_t step[3] = {33 * 33 * 3, 33 * 3, 3};
+    for (int64_t i = 0; i < n; i++) {
+        int64_t base = 0, r[3], d[3];
+        for (int k = 0; k < 3; k++) {
+            int64_t v = (int64_t)(k ? lab[3 * i + k] ^ 0x80 : lab[3 * i]) * 257;
+            int64_t a = v * 32;
+            int64_t fx = a + (a + 0x7fff) / 0xffff;  /* _cmsToFixedDomain */
+            base += (fx >> 16) * step[k];
+            r[k] = fx & 0xffff;
+            d[k] = v == 0xffff ? 0 : step[k];
+        }
+        /* the tetrahedron: the axes by falling fraction (on a tie either
+           order gives the same sum) */
+        int o[3] = {0, 1, 2};
+        for (int p = 0; p < 2; p++)
+            for (int q = 0; q < 2 - p; q++)
+                if (r[o[q]] < r[o[q + 1]]) { int t = o[q]; o[q] = o[q + 1]; o[q + 1] = t; }
+        int64_t o1 = d[o[0]], o2 = o1 + d[o[1]], o3 = o2 + d[o[2]];
+        for (int ch = 0; ch < 3; ch++) {
+            int64_t c0 = grid[base + ch], c1 = grid[base + o1 + ch], c2 = grid[base + o2 + ch];
+            int64_t c3 = grid[base + o3 + ch];
+            int64_t rest = (c1 - c0) * r[o[0]] + (c2 - c1) * r[o[1]] + (c3 - c2) * r[o[2]] + 0x8001;
+            int64_t v16 = (c0 + ((rest + (rest >> 16)) >> 16)) & 0xffff;
+            out[3 * i + ch] = (uint8_t)((v16 * 65281 + 8388608) >> 24);
+        }
+    }
+}

@@ -2,9 +2,10 @@
 entropy decoders (Huffman, arithmetic and lossless), inverse DCT and block
 smoothing, the TIFF LZW and PackBits
 decoders and predictors, the GIF LZW decoder, the BMP, TGA, PCX and SGI RLE
-decoders, PSD's PackBits and the QOI decoder; the WebP decoders
-(csrc/webpdec.c): VP8L, VP8 key frames and ALPH planes; and the DDS block
-decoders (csrc/bcndec.c): BC1-BC7.
+decoders, PSD's PackBits, the QOI decoder and the Lab -> sRGB lookup; the
+WebP decoders (csrc/webpdec.c): VP8L, VP8 key frames and ALPH planes; the
+DDS block decoders (csrc/bcndec.c): BC1-BC7; and the JPEG 2000 decoder
+(csrc/j2kdec.c).
 Each is built with gcc into vpt_tpu_torch/build/ at first use and called
 through ctypes,
 which releases the interpreter lock, so `load_gltf`'s thread pool decodes
@@ -84,6 +85,8 @@ def library():
             lib.vpt_sgi_rle.argtypes = [p, i64, p, p, ctypes.c_int, i64, i64, ctypes.c_int, p, p]
             lib.vpt_qoi_decode.restype = ctypes.c_int
             lib.vpt_qoi_decode.argtypes = [p, i64, i64, ctypes.c_int, p]
+            lib.vpt_lab_to_rgb.restype = None
+            lib.vpt_lab_to_rgb.argtypes = [p, i64, p, p]
             _lib = lib
     return _lib
 
@@ -437,6 +440,16 @@ def qoi_decode(data, pixels: int, channels: int) -> np.ndarray:
 
 
 _BCN_SRC = os.path.join(CSRC_DIR, "bcndec.c")
+def lab_to_rgb(lab: np.ndarray, grid: np.ndarray) -> np.ndarray:
+    """(H, W, 3) uint8 PIL Lab samples to sRGB through LittleCMS's
+    tetrahedral interpolation of `grid` (io/lab.py: (33**3, 3) nodes)."""
+    src = np.ascontiguousarray(lab, np.uint8)
+    nodes = np.ascontiguousarray(grid, np.uint16)
+    out = np.empty(src.shape, np.uint8)
+    library().vpt_lab_to_rgb(_ptr(src), src.size // 3, _ptr(nodes), _ptr(out))
+    return out
+
+
 _BCN_LIB = os.path.join(BUILD_DIR, "libvpt_bcndec.so")
 _bcn_lib = None
 
@@ -467,3 +480,70 @@ def bcn_decode(data, width: int, height: int, kind: int, sign: bool = False) -> 
         raise ValueError("DDS data ends before the last block (image file is truncated)" if rc > 0 else
                          f"unknown BCn kind {kind}")
     return out
+
+
+_J2K_SRC = os.path.join(CSRC_DIR, "j2kdec.c")
+_J2K_LIB = os.path.join(BUILD_DIR, "libvpt_j2kdec.so")
+# OpenJPEG's 9/7 wavelet, ICT and dequantiser are float32 operation by
+# operation: no contraction into fused multiply-adds.
+_J2K_CMD = ("gcc", "-O3", "-shared", "-fPIC", "-ffp-contract=off")
+_j2k_lib = None
+
+
+def j2k_library():
+    """The JPEG 2000 decoder (csrc/j2kdec.c), built with gcc on first use
+    (rebuilt when the source is newer)."""
+    global _j2k_lib
+    with _lock:
+        if _j2k_lib is None:
+            lib = ctypes.CDLL(host_library(_J2K_SRC, _J2K_LIB, _J2K_CMD, "the JPEG 2000 decoder"))
+            p, i64, u32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_uint32
+            lib.vpt_j2k_open.restype = p
+            lib.vpt_j2k_open.argtypes = [p, i64, u32, u32, ctypes.POINTER(ctypes.c_int), ctypes.c_char_p, i64]
+            lib.vpt_j2k_close.restype = None
+            lib.vpt_j2k_close.argtypes = [p]
+            lib.vpt_j2k_info.restype = ctypes.c_int
+            lib.vpt_j2k_info.argtypes = [p, p, i64]
+            lib.vpt_j2k_decode.restype = ctypes.c_int
+            lib.vpt_j2k_decode.argtypes = [p, ctypes.c_int, p, i64, i64, i64, p, ctypes.c_char_p, i64]
+            lib.vpt_j2k_position.restype = i64
+            lib.vpt_j2k_position.argtypes = [p]
+            _j2k_lib = lib
+    return _j2k_lib
+
+
+class J2kCodestream:
+    """A JPEG 2000 codestream after OpenJPEG's main-header read: `image` is
+    (x0, y0, x1, y1, components), `comps` a (prec, sgnd, dx, dy) row per
+    component.  `ihdr`: a JP2 file's image-header width and height, which
+    the codestream's must equal (0, 0 for a raw codestream).  A header that
+    OpenJPEG refuses raises a ValueError."""
+
+    def __init__(self, data, ihdr=(0, 0)):
+        self._src = _bytes(data)
+        self._lib = j2k_library()
+        rc, err = ctypes.c_int(0), ctypes.create_string_buffer(256)
+        self._h = self._lib.vpt_j2k_open(_ptr(self._src), self._src.size, ihdr[0], ihdr[1], ctypes.byref(rc), err, 256)
+        if not self._h:
+            raise MemoryError("JPEG 2000 decoder: out of memory")
+        if rc.value:
+            self.close()
+            raise ValueError(f"OpenJPEG refuses the codestream: {err.value.decode(errors='replace')}")
+        info = np.zeros(5 + 4 * 16384, np.int64)
+        self._lib.vpt_j2k_info(self._h, _ptr(info), info.size)
+        self.image = tuple(int(v) for v in info[:5])
+        self.comps = info[5 : 5 + 4 * self.image[4]].reshape(-1, 4)
+
+    def decode(self, kind: int, out: np.ndarray, xsize: int, ysize: int, ycc: np.ndarray) -> int:
+        """Decode every tile into `out` (PIL's image rows) through PIL's
+        unpacker `kind`; returns the stream position after the codestream."""
+        err = ctypes.create_string_buffer(256)
+        rc = self._lib.vpt_j2k_decode(self._h, kind, _ptr(out), out.strides[0], xsize, ysize, _ptr(ycc), err, 256)
+        if rc:
+            raise ValueError(f"OpenJPEG fails to decode the codestream: {err.value.decode(errors='replace')}")
+        return int(self._lib.vpt_j2k_position(self._h))
+
+    def close(self) -> None:
+        if self._h:
+            self._lib.vpt_j2k_close(self._h)
+            self._h = None

@@ -57,7 +57,7 @@ import zlib
 
 import numpy as np
 
-from vpt_tpu_torch.io import bmp, codec, dds, gif, ico, netpbm, pcx, probe, psd, qoi, sgi, tga, tiff, webp
+from vpt_tpu_torch.io import bmp, codec, dds, gif, ico, jpeg2000, lab, netpbm, pcx, probe, psd, qoi, sgi, tga, tiff, webp
 from vpt_tpu_torch.io.jpeg import decode_jpeg
 
 _PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
@@ -70,10 +70,10 @@ _ADAM7 = ((0, 0, 8, 8), (4, 0, 8, 8), (0, 4, 4, 8), (2, 0, 4, 4), (0, 2, 2, 4), 
 # in and that neither PIL nor the port reads, to name them in the refusal.
 _OTHER_FORMATS = ((b"\xabKTX 20\xbb", "KTX2"), (b"\x76\x2f\x31\x01", "OpenEXR"),
                   (b"#?RADIANCE", "Radiance HDR"), (b"#?RGBE", "Radiance HDR"), (b"PF\n", "PFM (colour)"))
-_READ = "PNG, JPEG, TIFF, GIF, BMP, WebP, TGA, DDS, Netpbm, QOI, SGI, PCX, ICO, CUR and PSD"
+_READ = "PNG, JPEG, JPEG 2000, TIFF, GIF, BMP, WebP, TGA, DDS, Netpbm, QOI, SGI, PCX, ICO, CUR and PSD"
 # PIL's names of the formats it opens that the port does not read yet
 # (ROADMAP "Left"), as the refusals name them.
-_UNPORTED_NAMES = {"JPEG2000": "JPEG 2000", "ICNS": "ICNS (Apple icon)", "IM": "IM (LabEye)", "IMT": "IM tools",
+_UNPORTED_NAMES = {"ICNS": "ICNS (Apple icon)", "IM": "IM (LabEye)", "IMT": "IM tools",
                    "IPTC": "IPTC/NAA", "MCIDAS": "McIdas area", "MSP": "MSP (Windows Paint)", "PCD": "PhotoCD",
                    "PIXAR": "PIXAR raster", "SUN": "Sun raster", "XVTHUMB": "XV thumbnail", "GBR": "GIMP brush",
                    "FLI": "FLI / FLC animation", "FTEX": "FTEX (Independence War texture)", "SPIDER": "SPIDER"}
@@ -304,7 +304,9 @@ _PLUGINS = (
     ("PCX", pcx.accept, lambda d, n, f: pcx.read_pil(d, n, f)),
     ("DCX", None, None),
     ("DDS", lambda d: d[:4] == b"DDS ", lambda d, n, f: dds.read_pil(d, n)),
-    *((fmt, None, None) for fmt in ("EPS", "FITS", "FLI", "FTEX", "GBR", "GRIB", "HDF5", "JPEG2000", "ICNS")),
+    *((fmt, None, None) for fmt in ("EPS", "FITS", "FLI", "FTEX", "GBR", "GRIB", "HDF5")),
+    ("JPEG2000", jpeg2000.accept, lambda d, n, f: jpeg2000.read_pil(d, n)),
+    ("ICNS", None, None),
     ("ICO", lambda d: d[:4] == b"\0\0\1\0", lambda d, n, f: ico.read_ico(d, n, _ico_png(n))),
     *((fmt, None, None) for fmt in ("IM", "IMT", "IPTC", "MCIDAS", "MPEG")),
     ("TIFF", lambda d: d[:4] in tiff.MAGIC, lambda d, n, f: tiff.read_pil(d, n)),
@@ -337,8 +339,6 @@ def _open(data: bytes, name: str, from_file: bool = False) -> tuple:
         if read is None:
             if probe.UNPORTED[fmt](data):
                 kind = _UNPORTED_NAMES.get(fmt, fmt)
-                if fmt == "JPEG2000" and data[:4] == b"\xff\x4f\xff\x51":
-                    kind += " (codestream)"
                 raise ValueError(f"{name}: {kind} images are not read yet (PIL opens them; the port reads {_READ})")
             continue
         if not accept(data):
@@ -363,6 +363,19 @@ def _pil_image(data: bytes, name: str, from_file: bool = False):
     a palette image, its entries' alphas as a PNG tRNS chunk gives them, or
     None."""
     return _open(data, name, from_file)[1:]
+
+
+# Bits per pixel of PIL's raw packer for each mode: `np.asarray` of a PIL
+# image goes through `tobytes`, whose encoder refuses a row wider than
+# INT_MAX // bits - 7 pixels with a MemoryError.
+_RAW_BITS = {"1": 1, "L": 8, "P": 8, "I;16": 16, "I;16B": 16, "LA": 16, "PA": 16, "RGB": 24, "LAB": 24, "RGBA": 32,
+             "CMYK": 32, "I": 32, "F": 32}
+
+
+def _as_array_check(width: int, mode: str, name: str) -> None:
+    bits = _RAW_BITS.get(mode, 32)
+    if width > 0x7FFFFFFF // bits - 7:
+        raise ValueError(f"{name}: a row of {width} {mode} pixels is more than PIL's tobytes (np.asarray) packs")
 
 
 def _palette_colours(indices, table, trns) -> np.ndarray:
@@ -414,10 +427,12 @@ def decode_rgba(data: bytes, name: str = "image", from_file: bool = False) -> np
     alphas (a PNG's tRNS, a GIF's transparency index, a TIFF's alpha
     samples), CMYK -> RGB by PIL's cmyk2rgb (255 - k - (255 - k) * c / 255,
     rounded); a pixel whose gray or RGB value equals the tRNS key's low bytes
-    gets alpha 0.  A Lab image raises a ValueError: PIL converts it through
-    LittleCMS, which the port does not.  `from_file`: the bytes are a file's
+    gets alpha 0; Lab -> sRGB as LittleCMS transforms it for PIL (io/lab.py),
+    alpha 0 (PIL's pad byte, which its PSD reader leaves 0).
+    `from_file`: the bytes are a file's
     that PIL opens by its path (a glTF image's URI), not from memory."""
     arr, mode, table, trns = _pil_image(data, name, from_file)
+    _as_array_check(arr.shape[1], "RGBA", name)
     if mode == "P":
         rgba = _palette_colours(arr, table, trns)
         if rgba.shape[2] == 3:
@@ -427,8 +442,9 @@ def decode_rgba(data: bytes, name: str = "image", from_file: bool = False) -> np
         return _unit(np.concatenate([table[arr[..., 0]], arr[..., 1:2]], axis=-1))
     if mode == "RGBA":
         return _unit(arr)
-    if mode == "LAB":
-        raise ValueError(f"{name}: a Lab image is not converted to RGBA (PIL converts it through LittleCMS)")
+    if mode == "LAB":  # LittleCMS's Lab -> sRGB; alpha is the image's pad byte, which a PSD leaves 0
+        rgb = lab.to_rgb(arr)
+        return _unit(np.concatenate([rgb, np.zeros(rgb.shape[:2] + (1,), np.uint8)], axis=-1))
     if mode == "CMYK":
         nk = 255 - arr[..., 3:4].astype(np.int32)
         rgb = np.clip(nk - _muldiv255(arr[..., :3], nk), 0, 255)
@@ -461,6 +477,8 @@ def decode_samples(data: bytes, name: str = "image", from_file: bool = False) ->
     fmt, arr, mode, table, _ = _open(data, name, from_file)
     if fmt == "PSD":
         raise ValueError(f"{name}: imageio reads no PSD file (its Pillow plugin cannot seek the first frame)")
+    _as_array_check(arr.shape[1], ("RGBA" if table.shape[1] == 4 else "RGB") if mode == "P" and table is not None
+                    else mode, name)
     if mode == "P":
         if table is None:
             raise ValueError(f"{name}: a palette image without a palette (imageio cannot convert it)")
@@ -473,7 +491,8 @@ def load_png(path: str) -> np.ndarray:
     255 (vpt_tpu's io/image.load_png): (H, W) for gray, 1-bit and palette
     images (palette indices), else (H, W, channels)."""
     with open(path, "rb") as f:
-        arr = _pil_image(f.read(), path, from_file=True)[0]
+        arr, mode = _pil_image(f.read(), path, from_file=True)[:2]
+    _as_array_check(arr.shape[1], mode, path)
     return np.asarray(arr, np.float32) / 255.0
 
 

@@ -186,7 +186,6 @@ UNPORTED = {
     "GBR": _gbr,
     "GRIB": lambda d: len(d) >= 8 and d[:4] == b"GRIB" and d[7] == 1,
     "HDF5": lambda d: d[:8] == b"\x89HDF\r\n\x1a\n",
-    "JPEG2000": lambda d: d[:4] == b"\xff\x4f\xff\x51" or d[:12] == b"\x00\x00\x00\x0cjP  \r\n\x87\n",
     "ICNS": lambda d: d[:4] == b"icns",
     "IM": _im,
     "IMT": _imt,

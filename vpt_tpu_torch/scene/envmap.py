@@ -11,70 +11,88 @@ import os
 
 import numpy as np
 
-from vpt_tpu_torch.io import netpbm, tiff
-from vpt_tpu_torch.io.image import Unidentified, decode_samples, load_radiance_hdr
+from vpt_tpu_torch.io import imageio_order, jpeg2000, netpbm, tiff
+from vpt_tpu_torch.io.image import _PLUGINS, Unidentified, decode_samples, load_radiance_hdr
+from vpt_tpu_torch.io.probe import UNPORTED
 from vpt_tpu_torch.scene.types import EnvMapData
 
-# Extensions imageio reads for the JAX package, and how: a TIFF by its
-# bundled tifffile (the samples in their own dtype); a .pbm or .pfm file
-# that OpenCV claims (Netpbm or PFM data) by its OpenCV plugin; the rest,
-# and a .tif file that is no TIFF, by PIL, which opens a file by its
-# content, and a file PIL cannot identify by the plugins after PIL's, of
-# which OpenCV reads colour PFM.  The samples are not divided by 255.
-_TIFF_EXTENSIONS = (".tif", ".tiff")
-_OPENCV_EXTENSIONS = (".pbm", ".pfm")
-_PIL_EXTENSIONS = (".png", ".jpg", ".jpeg", ".bmp", ".gif", ".webp", ".tga", ".icb", ".vda", ".vst", ".dds", ".ppm",
-                   ".pgm", ".pnm", ".qoi", ".sgi", ".rgb", ".rgba", ".bw", ".pcx", ".ico", ".cur", ".psd")
-# Leading bytes of the formats OpenCV reads besides Netpbm and PFM, which
-# the port does not read through OpenCV's decoders.
-_OPENCV_OTHERS = (b"BM", b"\xff\xd8\xff", b"\x89PNG\r\n\x1a\n", b"II*\0", b"MM\0*", b"RIFF", b"\x59\xa6\x6a\x95",
-                  b"#?RADIANCE", b"#?RGBE", b"\x76\x2f\x31\x01", b"\x00\x00\x00\x0cjP  ", b"\xff\x4f\xff\x51",
-                  b"P7")
+# The formats OpenCV's `haveImageReader` claims by their leading bytes,
+# besides Netpbm and PFM (netpbm.cv2_claims), which the port does not read
+# through OpenCV's decoders (ROADMAP Queue 1).
+_OPENCV_OTHERS = ((b"BM", "BMP"), (b"\xff\xd8\xff", "JPEG"), (b"\x89PNG\r\n\x1a\n", "PNG"), (b"II*\0", "TIFF"),
+                  (b"MM\0*", "TIFF"), (b"II+\0", "TIFF"), (b"MM\0+", "TIFF"), (b"GIF87a", "GIF"), (b"GIF89a", "GIF"),
+                  (b"\x59\xa6\x6a\x95", "Sun raster"), (b"#?RADIANCE", "Radiance HDR"), (b"#?RGBE", "Radiance HDR"),
+                  (jpeg2000.JP2_SIGNATURE, "JPEG 2000"), (jpeg2000.CODESTREAM, "JPEG 2000"), (b"P7", "PAM"))
+# PIL's `_accept` of each format by name (imageio's legacy "<format>-PIL"
+# plugins claim a file PIL's plugin accepts; MPO opens as a JPEG).
+_PIL_ACCEPT = {**{fmt: accept for fmt, accept, _ in _PLUGINS if accept is not None}, **UNPORTED}
+_PIL_ACCEPT["MPO"] = _PIL_ACCEPT["JPEG"]
+
+
+def _opencv_format(data: bytes):
+    if data[:4] == b"RIFF" and data[8:12] == b"WEBP":
+        return "WebP"
+    return next((kind for magic, kind in _OPENCV_OTHERS if data.startswith(magic)), None)
+
+
+def _imageio_read(data: bytes, path: str) -> np.ndarray:
+    """imageio's `imread` of the file as the JAX package calls it: the
+    plugins of its extension in imageio's order, then all of them
+    (io/imageio_order.py), the first that claims the file reading it.  The
+    ones the port has: Pillow (the data PIL opens; io/image.decode_samples),
+    OpenCV (Netpbm and PFM data, netpbm.read_cv2), the bundled tifffile
+    (TIFF data, tiff.read_array) and the legacy "<format>-PIL" plugins,
+    which claim a file PIL's plugin accepts and then fail where Pillow
+    failed; every other plugin (FreeImage, pyav, ITK, ...) is not installed
+    or claims no image data here.  OpenCV's other decoders are not ported:
+    data it claims first raises, naming OpenCV and the format."""
+    pil_failed = False
+    for plugin in imageio_order.plugins(path):
+        if plugin == "pillow":
+            try:
+                return decode_samples(data, path, from_file=True)
+            except Unidentified:
+                pil_failed = True
+        elif plugin == "opencv":
+            if netpbm.cv2_claims(data):
+                return netpbm.read_cv2(data, path)
+            kind = _opencv_format(data)
+            if kind:
+                raise ValueError(f"{path}: imageio reads this {os.path.splitext(path)[1] or 'extensionless'} file's "
+                                 f"{kind} data through OpenCV, which the port does not read through OpenCV")
+        elif plugin == "TIFF":
+            if data[:4] in tiff.MAGIC:
+                return tiff.read_array(data, path)
+        elif plugin.endswith("-PIL") and pil_failed:
+            accept = _PIL_ACCEPT.get(plugin[:-4])
+            if accept is not None and accept(data):
+                raise ValueError(f"{path}: PIL's {plugin[:-4]} plugin claims the file but cannot open it")
+    raise ValueError(f"{path}: no plugin of imageio's reads this file")
 
 
 def load_hdr(path: str) -> np.ndarray:
-    """An environment image as float32 (H, W, 3) from a `.npy` array, a
-    Radiance `.hdr` file, a `.tif` / `.tiff` file (its first series as
-    imageio's tifffile reads it: float16 / 32 / 64 and integer samples as
-    they are, strips or tiles, none / LZW / Deflate / PackBits compression),
-    a `.pbm` / `.pfm` file of Netpbm or PFM data as imageio's OpenCV plugin
-    reads it (8-bit RGB; a PFM's floats divided by its scale's magnitude and
-    rounded to 8 bits, a gray one repeated), or a file of one of PIL's
-    extensions (`.png`, `.jpg`, `.jpeg`, `.bmp`, `.gif`, `.webp`, `.tga`,
-    `.dds`, `.ppm`, `.pgm`, `.pnm`, `.qoi`, `.sgi`, `.rgb`, `.rgba`, `.bw`,
-    `.pcx`, `.ico`, `.cur` and the rest of _PIL_EXTENSIONS) read by its
-    content as imageio reads it through PIL (palette images as their
-    colours, a CMYK JPEG's first three of its four channels, a WebP
-    animation's first frame; no PSD, which imageio's plugin cannot read),
-    or through OpenCV where PIL cannot identify the data (colour PFM).
-    Gray is repeated to three channels.  Other extensions (EXR and the rest
-    of imageio's) raise a ValueError that names the extension."""
-    lower = path.lower()
+    """An environment image as float32 (H, W, 3), as the JAX package's
+    `load_hdr` gives it: a `.npy` array, a Radiance `.hdr` file (the port's
+    own decoder), or any other file as imageio reads it (`_imageio_read`):
+    by its extension's plugin order, so a TIFF through tifffile (float16 /
+    32 / 64 and integer samples as they are), Netpbm or PFM data through
+    OpenCV where OpenCV comes first (`.pbm`, `.pfm`: 8-bit RGB; a PFM's
+    floats divided by its scale's magnitude and rounded to 8 bits), and
+    the data PIL opens (PNG, JPEG, JPEG 2000, BMP, GIF, WebP, TGA, DDS, ...)
+    through PIL (palette images as their colours, a CMYK JPEG's first three
+    of its four channels, a WebP animation's first frame; no PSD, which
+    imageio's plugin cannot read).  The samples are not divided by 255; gray
+    is repeated to three channels.  What imageio would read through a
+    decoder the port lacks (OpenCV's PNG, JPEG, TIFF, ... readers where
+    OpenCV comes before Pillow, as for `.exr`) raises a ValueError that
+    names it."""
     if path.endswith(".npy"):
         img = np.load(path)
     elif path.endswith(".hdr"):
         img = load_radiance_hdr(path)
-    elif lower.endswith(_TIFF_EXTENSIONS + _OPENCV_EXTENSIONS + _PIL_EXTENSIONS):
-        with open(path, "rb") as f:
-            data = f.read()
-        if lower.endswith(_TIFF_EXTENSIONS) and data[:4] in tiff.MAGIC:
-            img = tiff.read_array(data, path)
-        elif lower.endswith(_OPENCV_EXTENSIONS) and netpbm.cv2_claims(data):
-            img = netpbm.read_cv2(data, path)
-        elif lower.endswith(_OPENCV_EXTENSIONS) and data.startswith(_OPENCV_OTHERS):
-            raise ValueError(f"{path}: OpenCV reads this {os.path.splitext(path)[1]} file's data (another format "
-                             f"than Netpbm or PFM), which the port does not read through OpenCV")
-        else:
-            try:
-                img = decode_samples(data, path, from_file=True)
-            except Unidentified:
-                if not netpbm.cv2_claims(data):
-                    raise
-                img = netpbm.read_cv2(data, path)
     else:
-        ext = os.path.splitext(path)[1] or "extensionless"
-        raise ValueError(f"{path}: {ext} files are not read as environment maps (only .npy, .hdr, .tif, .tiff, "
-                         f".pbm, .pfm and {', '.join(_PIL_EXTENSIONS)})")
+        with open(path, "rb") as f:
+            img = _imageio_read(f.read(), path)
     img = np.asarray(img, np.float32)
     if img.ndim == 2:
         img = np.repeat(img[..., None], 3, axis=-1)
