@@ -260,7 +260,11 @@ Phases, each of which raises on failure:
         codestream edits built by tests/jpeg2000_cases.py, the timing
         textures and the sky) through decode_rgba and load_hdr
         against its manifest: the sha256 of the JAX package's decode, or a
-        ValueError where it refuses; the C codec (its arithmetic and
+        ValueError where it refuses; every file of tests/torch_opencv/
+        (what imageio hands to OpenCV: Radiance, Sun raster, BMP, PAM,
+        Netpbm, JPEG with EXIF orientations, PNG, TIFF, WebP, GIF, JPEG
+        2000, AVIF) named sky.exr through load_hdr against its manifest,
+        or the refusal it records; the C codec (its arithmetic and
         lossless scan decoders and its TGA, PCX, SGI, QOI and PackBits loops
         too), the C WebP decoders, the C BC block decoders and the C JPEG
         2000 decoder loaded;
@@ -268,8 +272,10 @@ Phases, each of which raises on failure:
         `write_float_tiff` here as Deflate 256x256 tiles and as
         uncompressed strips: load_hdr gives it back bitwise; its host
         seconds (median of 5) beside load_radiance_hdr of the same sky by
-        save_radiance_hdr, with the card's name and power limit; the
-        Deflate read under FORMAT_LIMIT_S; decode_rgba of the two 2048x2048
+        save_radiance_hdr, and load_hdr of that file named sky.HDR
+        (OpenCV's route: 8-bit, io/cv_hdr.py) under OPENCV_LIMIT_S, with
+        the card's name and power limit; the Deflate read under
+        FORMAT_LIMIT_S; decode_rgba of the two 2048x2048
         WebP textures of tests/torch_webp/ (lossy with ALPH, lossless), host
         seconds (median of 5), each under WEBP_LIMIT_S; decode_rgba of the
         2048x2048 4:2:0 SOF10 texture and the 1024x1024 lossless RGB image
@@ -281,9 +287,11 @@ Phases, each of which raises on failure:
         (median of 5) beside PIL's where the fixtures were made, each under
         JP2_LIMIT_S;
      c. `python -m vpt_tpu_torch render garden` at 512x512, depth 8, 8 spp
-        with --env sky.tif against --env sky.npy of the same array, and
-        with --env sky.jp2 against --env sky_jp2.npy of its decode (four
-        processes at once): bitwise equal; then the colonnade as a .glb with
+        with --env sky.tif against --env sky.npy of the same array, with
+        --env sky.jp2 against --env sky_jp2.npy of its decode, and with
+        --env sky.HDR (a Radiance file of tests/torch_opencv/) against
+        --env sky_HDR.npy of its manifest decode (six processes at once):
+        bitwise equal; then the colonnade as a .glb with
         a GIF, an RLE8 BMP, an LZW TIFF and a CMYK JPEG base colour, a lossy
         WebP with ALPH on the back wall, a lossless WebP on the brass, a
         SOF10 JPEG on the west wall, a lossless JPEG on the east wall, the
@@ -2384,6 +2392,9 @@ WEBP_LIMIT_S = 1.0  # 17b: host seconds for decode_rgba of each 2048x2048 WebP t
 JPEG_LIMIT_S = 1.0  # 17b: host seconds for decode_rgba of the SOF10 and lossless JPEG textures
 PIL_LIMIT_S = 1.0  # 17b: host seconds for decode_rgba of the 2048x2048 BC7 DDS, RLE TGA and QOI textures
 JP2_LIMIT_S = 3.0  # 17b: host seconds for decode_rgba of the 2048x2048 9/7 and 1024x1024 tiled 5/3 JP2 textures
+OPENCV_DIR = os.path.join(ROOT, "tests", "torch_opencv")  # the files imageio hands to OpenCV, and their manifest
+OPENCV_SKY = "hdr-sky-64x32.hdr"  # 17c's Radiance sky, named sky.HDR
+OPENCV_LIMIT_S = 2.0  # 17b: host seconds for load_hdr of the 4096x2048 Radiance sky named sky.HDR (OpenCV's route)
 
 
 def write_float_tiff(path: str, img: np.ndarray, tile: int = 0) -> None:
@@ -2441,17 +2452,51 @@ def fixture_array(path: str, name: str, key: str, manifest: dict):
     return got
 
 
+def opencv_fixtures() -> dict:
+    """17a: every file of tests/torch_opencv/ named sky.exr (imageio's
+    OpenCV plugin comes first for .exr) through load_hdr, held to the
+    manifest: the sha256 and shape of the JAX package's decode, or a
+    ValueError where it refuses or where the port refuses by name.  The
+    arrays by name."""
+    with open(os.path.join(OPENCV_DIR, "manifest.json")) as f:
+        manifest = json.load(f)
+    t0 = time.perf_counter()
+    out, refused = {}, []
+    with tempfile.TemporaryDirectory() as tmp:
+        for name, want in sorted(manifest.items()):
+            path = os.path.join(tmp, "sky.exr")
+            shutil.copy(os.path.join(OPENCV_DIR, name), path)
+            try:
+                got = load_hdr(path)
+            except ValueError as e:
+                check(want is None or want.get("port_refuses"), f"17a: {name} decodes, as the JAX package's does; "
+                                                               f"the port raised {e}")
+                refused.append(name)
+                continue
+            digest = hashlib.sha256(np.ascontiguousarray(got, np.float32).tobytes()).hexdigest()
+            check(want is not None and not want.get("port_refuses") and list(got.shape) == want["shape"]
+                  and digest == want["sha256"], f"17a: {name} decodes to its manifest entry {want}")
+            out[name] = got
+    check(codec._lib is not None and hasattr(codec._lib, "vpt_rgbe_cv"),
+          "17a: the Radiance files ran the C codec's OpenCV scanline reader")
+    log(f"17a: {len(manifest)} files of tests/torch_opencv/ through load_hdr as sky.exr (OpenCV's route) to their "
+        f"manifest ({len(out)} arrays by sha256; {len(refused)} refused where the JAX package refuses or the port "
+        f"refuses by name; {time.perf_counter() - t0:.2f} s)")
+    return out
+
+
 def image_formats_phase(dev, smi: str) -> None:
     """Phase 17: the TIFF, GIF, BMP, CMYK / any-sampling / smoothed JPEG,
     WebP, arithmetic-coded / lossless JPEG, TGA, DDS, Netpbm / PFM, QOI,
-    SGI, PCX, ICO / CUR, PSD and JPEG 2000 decoders on the card's machine
-    (no PIL there) against the manifests of tests/torch_formats/,
-    tests/torch_webp/, tests/torch_jpeg/, tests/torch_pil_formats/ and
-    tests/torch_jpeg2000/, a 4096x2048 float TIFF sky read back bitwise and
-    timed, the 2048x2048 WebP, BC7 DDS, RLE TGA and QOI textures, the SOF10
+    SGI, PCX, ICO / CUR, PSD and JPEG 2000 decoders and the OpenCV route of
+    load_hdr on the card's machine (no PIL or OpenCV there) against the
+    manifests of tests/torch_formats/, tests/torch_webp/, tests/torch_jpeg/,
+    tests/torch_pil_formats/, tests/torch_jpeg2000/ and tests/torch_opencv/,
+    a 4096x2048 float TIFF sky read back bitwise and timed, the Radiance sky
+    as sky.HDR timed, the 2048x2048 WebP, BC7 DDS, RLE TGA and QOI textures, the SOF10
     and lossless JPEG textures and the two JP2 textures timed, renders with
-    a .tif sky against the same array as .npy and a .jp2 sky against the
-    .npy of its decode, and a .glb with GIF, RLE8 BMP, LZW TIFF, CMYK JPEG,
+    a .tif sky against the same array as .npy, a .jp2 and a .HDR sky
+    against the .npy of their decodes, and a .glb with GIF, RLE8 BMP, LZW TIFF, CMYK JPEG,
     WebP, SOF10, lossless JPEG, BC7 DDS, RLE TGA, QOI, PCX, PSD and JP2
     textures through the
     CLI against its in-memory render."""
@@ -2487,6 +2532,7 @@ def image_formats_phase(dev, smi: str) -> None:
         "17a: the TGA, PCX, SGI, QOI, PSD and DDS fixtures ran the C codec and the C block decoders")
     check(codec._j2k_lib is not None and hasattr(codec._j2k_lib, "vpt_j2k_decode"),
           "17a: the JPEG 2000 fixtures ran the port's C JPEG 2000 decoder")
+    opencv_decoded = opencv_fixtures()
 
     # 17b. A 4096x2048 float TIFF sky.
     sky = default_sky(size=FORMAT_SKY)
@@ -2507,12 +2553,20 @@ def image_formats_phase(dev, smi: str) -> None:
             row[f"{label}_s"], row[f"{label}_all_s"] = host_seconds(lambda: load_hdr(path))
         row["radiance_bytes"] = os.path.getsize(hdr)
         row["radiance_s"], row["radiance_all_s"] = host_seconds(lambda: load_radiance_hdr(hdr))
+        upper = os.path.join(tmp, "sky.HDR")  # the same file under a name imageio gives OpenCV
+        shutil.copy(hdr, upper)
+        got = load_hdr(upper)
+        check(got.dtype == np.float32 and got.shape == sky.shape and float(got.max()) <= 255.0
+              and np.array_equal(got, np.rint(got)), "17b: load_hdr of sky.HDR is OpenCV's 8-bit decode")
+        row["radiance_opencv_s"], row["radiance_opencv_all_s"] = host_seconds(lambda: load_hdr(upper))
     log(f"17b: load_hdr host seconds (median of 5; {smi}, host {os.cpu_count()} CPUs) of the {FORMAT_SKY[1]}x"
         f"{FORMAT_SKY[0]} float32 RGB sky: Deflate {FORMAT_TILE}x{FORMAT_TILE} tiles ({row['deflate_tiles_bytes']} "
         f"bytes) {row['deflate_tiles_s']:.4f} s {row['deflate_tiles_all_s']}; uncompressed strips "
         f"({row['strips_bytes']} bytes) {row['strips_s']:.4f} s {row['strips_all_s']}; load_radiance_hdr of the "
         f"same sky by save_radiance_hdr ({row['radiance_bytes']} bytes) {row['radiance_s']:.4f} s "
-        f"{row['radiance_all_s']}; both TIFFs bitwise the array")
+        f"{row['radiance_all_s']}; load_hdr of that file named sky.HDR (OpenCV's route, io/cv_hdr.py) "
+        f"{row['radiance_opencv_s']:.4f} s {row['radiance_opencv_all_s']}; both TIFFs bitwise the array")
+    check(row["radiance_opencv_s"] < OPENCV_LIMIT_S, f"17b: the sky.HDR sky reads in under {OPENCV_LIMIT_S} s")
     check(row["deflate_tiles_s"] < FORMAT_LIMIT_S, f"17b: the Deflate TIFF sky reads in under {FORMAT_LIMIT_S} s")
     row["webp"] = {}
     for name in gltf_scenes.WEBP_TIMING:
@@ -2563,7 +2617,10 @@ def image_formats_phase(dev, smi: str) -> None:
         write_float_tiff(os.path.join(tmp, "sky.tif"), small, FORMAT_TILE)
         shutil.copy(os.path.join(gltf_scenes.JPEG2000_DIR, gltf_scenes.JPEG2000_SKY), os.path.join(tmp, "sky.jp2"))
         np.save(os.path.join(tmp, "sky_jp2.npy"), load_hdr(os.path.join(tmp, "sky.jp2")))
-        skies = {"tif": "sky.tif", "npy": "sky.npy", "jp2": "sky.jp2", "jp2npy": "sky_jp2.npy"}
+        shutil.copy(os.path.join(OPENCV_DIR, OPENCV_SKY), os.path.join(tmp, "sky.HDR"))
+        np.save(os.path.join(tmp, "sky_HDR.npy"), opencv_decoded[OPENCV_SKY])
+        skies = {"tif": "sky.tif", "npy": "sky.npy", "jp2": "sky.jp2", "jp2npy": "sky_jp2.npy", "HDR": "sky.HDR",
+                 "HDRnpy": "sky_HDR.npy"}
         args = ("--width", str(W), "--height", str(H), "--spp", "8", "--spp-per-frame", "4", "--depth", "8")
         procs = {ext: subprocess.Popen([sys.executable, "-m", "vpt_tpu_torch", "render", "garden", "-o",
                                         os.path.join(tmp, f"garden_{ext}.png"), "--hdr-output",
@@ -2591,6 +2648,13 @@ def image_formats_phase(dev, smi: str) -> None:
         check(got.shape == (H, W, 3) and np.isfinite(got).all() and float(got.mean()) > 0.0,
               "17c: the --env sky.jp2 render is finite and lit")
         check(np.array_equal(got, want), "17c: the --env sky.jp2 render is bitwise the --env sky_jp2.npy render")
+        got, want = (np.load(os.path.join(tmp, f"garden_{ext}.npy")) for ext in ("HDR", "HDRnpy"))
+        log(f"17c: render garden {W}x{H} depth 8, 8 spp with --env sky.HDR ({OPENCV_SKY}, a Radiance file that "
+            f"imageio hands to OpenCV) and --env sky_HDR.npy (its manifest decode), at once: bitwise equal "
+            f"{bool(np.array_equal(got, want))}, segments {stats['HDR']['segments']} vs {stats['HDRnpy']['segments']}")
+        check(got.shape == (H, W, 3) and np.isfinite(got).all() and float(got.mean()) > 0.0,
+              "17c: the --env sky.HDR render is finite and lit")
+        check(np.array_equal(got, want), "17c: the --env sky.HDR render is bitwise the --env sky_HDR.npy render")
 
         scene = colonnade()
         for own in OWN_MATERIALS:  # each its own copy of its material, for a texture of its own

@@ -3,9 +3,9 @@ order: each extension's plugins, then all of them; io/imageio_order.py).
 
 Every extension the JAX package reads image data under, with PNG data of
 8 and 16 bits, gray, gray+alpha, RGB, RGBA and palette, JPEG, DIB and JPEG
-2000 data: the port gives the JAX package's array bitwise, or, where
-imageio would hand the data to OpenCV before Pillow (`.exr`: `EXR-FI`,
-`pyav`, `opencv`), raises a ValueError that names OpenCV and the format.
+2000 data: the port gives the JAX package's array bitwise, also where
+imageio hands the data to OpenCV before Pillow (`.exr`: `EXR-FI`, `pyav`,
+`opencv`; `.HDR`), or raises a ValueError where the JAX package raises.
 """
 
 from __future__ import annotations
@@ -72,11 +72,6 @@ CASES = [(kind, ext) for kind in DATA for ext in (
     PNG_EXTS if kind.startswith("png") else JPEG_EXTS if kind == "jpeg" else DIB_EXTS if kind == "dib" else JP2_EXTS)]
 
 
-def _opencv_first(ext: str) -> bool:
-    order = imageio_order.plugins("x" + ext)
-    return order.index("opencv") < order.index("pillow")
-
-
 @pytest.mark.parametrize("kind,ext", CASES)
 def test_load_hdr_follows_imageio_order(tmp_path, kind, ext):
     path = str(tmp_path / f"sky{ext}")
@@ -92,11 +87,7 @@ def test_load_hdr_follows_imageio_order(tmp_path, kind, ext):
         with pytest.raises(ValueError):
             tenvmap.load_hdr(path)
         return
-    try:
-        got = tenvmap.load_hdr(path)
-    except ValueError as e:  # only where imageio hands the data to OpenCV first
-        assert _opencv_first(ext) and "OpenCV" in str(e), e
-        return
+    got = tenvmap.load_hdr(path)
     assert got.dtype == want.dtype and got.shape == want.shape
     np.testing.assert_array_equal(got, want)
 
@@ -115,12 +106,15 @@ def test_imageio_order_is_imageio_s():
 
 @pytest.mark.parametrize("kind", [k for k in DATA if k.startswith("png")])
 def test_png_data_under_exr_is_opencv_s(tmp_path, kind):
-    """`.exr` gives imageio's OpenCV plugin the file before Pillow: the JAX
-    package reads PNG data there through OpenCV, which the port refuses by
-    name (ROADMAP Queue 1 keeps OpenCV's other decoders)."""
+    """`.exr` gives imageio's OpenCV plugin the file before Pillow: both
+    packages read PNG data there through OpenCV (libpng's 8-bit BGR: the
+    high byte of 16-bit samples, alpha dropped, palette expanded), bitwise
+    alike."""
     path = str(tmp_path / "sky.exr")
     with open(path, "wb") as f:
         f.write(DATA[kind]())
-    assert jenvmap.load_hdr(path).shape[-1] == 3
-    with pytest.raises(ValueError, match="PNG data through OpenCV"):
-        tenvmap.load_hdr(path)
+    want = jenvmap.load_hdr(path)
+    assert want.shape[-1] == 3
+    got = tenvmap.load_hdr(path)
+    assert got.dtype == want.dtype and got.shape == want.shape
+    np.testing.assert_array_equal(got, want)

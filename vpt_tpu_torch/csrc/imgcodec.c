@@ -1252,8 +1252,9 @@ void vpt_jpeg_smooth(const int16_t *coefs, int16_t *out, int64_t bw, int64_t nbx
  * would end at or past the last bit (that code is dropped); the code one past
  * the table is the previous string plus its first byte.  The first cap bytes
  * go to out.  Returns the decoded length (all of it, not only what fit), -1
- * for a strip that does not begin with CLEAR or is under 4 bytes, -2 for a
- * code after CLEAR that is no byte or a code further past the table. */
+ * for a strip that does not begin with CLEAR or is under 4 bytes, -2 - n for
+ * a code after CLEAR that is no byte or a code further past the table, n
+ * the bytes decoded before it. */
 int64_t vpt_tiff_lzw(const uint8_t *in, int64_t n, uint8_t *out, int64_t cap) {
     static const int WIDTH_AT[4][2] = {{511, 10}, {1023, 11}, {2047, 12}, {0, 0}};
     if (n < 4) return -1;
@@ -1308,13 +1309,13 @@ int64_t vpt_tiff_lzw(const uint8_t *in, int64_t n, uint8_t *out, int64_t cap) {
             bitcount += width;
             if (code == 257) break;
             if (code > 255) {
-                ret = -2;
+                ret = -2 - total;
                 goto done;
             }
             EMIT(code);
         } else {
             if (code > tablen) {
-                ret = -2;
+                ret = -2 - total;
                 goto done;
             }
             if (code < tablen) {
@@ -1834,4 +1835,69 @@ void vpt_lab_to_rgb(const uint8_t *lab, int64_t n, const uint16_t *grid, uint8_t
             out[3 * i + ch] = (uint8_t)((v16 * 65281 + 8388608) >> 24);
         }
     }
+}
+
+/* ------------------------------------------------------- Radiance (OpenCV) */
+
+/* A Radiance picture's pixels as OpenCV's rgbe.cpp (RGBE_ReadPixels_RLE,
+ * Bruce Walter's reader) reads them, into w * h RGBE quadruples.  Scanlines
+ * of width 8..32767 may be new-style run-length coded (2, 2, then the width
+ * big-endian, then four channel planes of runs: a count above 128 repeats the
+ * next byte count - 128 times, else count bytes follow); the first scanline
+ * that does not begin so switches the rest of the picture to flat
+ * quadruples, that one's four bytes the first of them.  Other widths are
+ * flat throughout.  Old-style runs (1, 1, 1, n) are not expanded.  Returns 0,
+ * -1 where the data ends first, -2 for a scanline of another width and -3 for
+ * a run of 0 or past the end of its channel. */
+int vpt_rgbe_cv(const uint8_t *in, int64_t n, int64_t w, int64_t h, uint8_t *out) {
+    int64_t i = 0, total = w * h, done = 0;
+    if (w < 8 || w > 0x7fff) {
+        if (n < total * 4) return -1;
+        memcpy(out, in, (size_t)(total * 4));
+        return 0;
+    }
+    uint8_t *line = (uint8_t *)malloc((size_t)(4 * w));
+    if (!line) return -1;
+    for (int64_t y = 0; y < h; y++) {
+        if (i + 4 > n) { free(line); return -1; }
+        const uint8_t *q = in + i;
+        i += 4;
+        if (q[0] != 2 || q[1] != 2 || (q[2] & 0x80)) {
+            free(line);
+            int64_t rest = total - done;
+            if (n - (i - 4) < rest * 4) return -1;
+            memcpy(out + done * 4, q, (size_t)(rest * 4));
+            return 0;
+        }
+        if ((((int64_t)q[2] << 8) | q[3]) != w) { free(line); return -2; }
+        int64_t p = 0;
+        for (int c = 0; c < 4; c++) {
+            int64_t end = (int64_t)(c + 1) * w;
+            while (p < end) {
+                if (i + 2 > n) { free(line); return -1; }
+                int count = in[i], val = in[i + 1];
+                i += 2;
+                if (count > 128) {
+                    count -= 128;
+                    if (count > end - p) { free(line); return -3; }
+                    memset(line + p, val, (size_t)count);
+                    p += count;
+                } else {
+                    if (count == 0 || count > end - p) { free(line); return -3; }
+                    line[p++] = (uint8_t)val;
+                    if (--count > 0) {
+                        if (i + count > n) { free(line); return -1; }
+                        memcpy(line + p, in + i, (size_t)count);
+                        i += count;
+                        p += count;
+                    }
+                }
+            }
+        }
+        for (int64_t x = 0; x < w; x++)
+            for (int c = 0; c < 4; c++) out[(done + x) * 4 + c] = line[c * w + x];
+        done += w;
+    }
+    free(line);
+    return 0;
 }

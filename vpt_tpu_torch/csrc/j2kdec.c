@@ -2418,6 +2418,19 @@ static void unpack(j2k_t *j, int kind, const tinfo_t *ti, const uint8_t *data, u
         }
         break;
     }
+    case 9: /* raw: each component's samples as unsigned 32-bit words, (h, w, numcomps) at full resolution */
+        for (uint32_t n = 0, off = 0; n < j->numcomps; n++) {
+            comp_params(&cp[n], 8, &shift, &offset, &csiz);
+            uint32_t cw = w / cp[n].dx, chh = h / cp[n].dy;
+            const uint8_t *d = data + off;
+            for (uint32_t y = 0; y < h; y++) {
+                uint32_t *row = (uint32_t *)(out + (size_t)(y0 + y) * ostride) + (size_t)x0 * j->numcomps;
+                for (uint32_t x = 0; x < w; x++)
+                    row[(size_t)x * j->numcomps + n] = word_at(d, csiz, (size_t)(y / cp[n].dy) * cw + x / cp[n].dx);
+            }
+            off += (uint32_t)csiz * cw * chh;
+        }
+        break;
     default: { /* 5 srgb_rgb, 6 sycc_rgb (3 components), 7 srgba_rgba, 8 sycca_rgba (4) */
         int n_c = (kind == 7 || kind == 8) ? 4 : 3;
         int shifts[4], offsets[4], csizs[4];

@@ -87,6 +87,8 @@ def library():
             lib.vpt_qoi_decode.argtypes = [p, i64, i64, ctypes.c_int, p]
             lib.vpt_lab_to_rgb.restype = None
             lib.vpt_lab_to_rgb.argtypes = [p, i64, p, p]
+            lib.vpt_rgbe_cv.restype = ctypes.c_int
+            lib.vpt_rgbe_cv.argtypes = [p, i64, i64, i64, p]
             _lib = lib
     return _lib
 
@@ -104,6 +106,16 @@ def check_size(w: int, h: int, name: str) -> None:
     """Refuse an image larger than PIL opens, before anything is allocated."""
     if w * h > MAX_PIXELS:
         raise ValueError(f"{name}: image of {w}x{h} pixels is larger than PIL opens ({MAX_PIXELS} pixels)")
+
+
+CV_MAX_SIDE, CV_MAX_PIXELS = 1 << 20, 1 << 30  # OpenCV's CV_IO_MAX_IMAGE_WIDTH / HEIGHT and _PIXELS
+
+
+def check_cv_size(w: int, h: int, name: str) -> None:
+    """OpenCV's validateInputImageSize, which `imreadmulti` applies to every
+    header it reads."""
+    if not (0 < w <= CV_MAX_SIDE and 0 < h <= CV_MAX_SIDE and w * h <= CV_MAX_PIXELS):
+        raise ValueError(f"{name}: an image of {w}x{h} pixels is larger than OpenCV reads (validateInputImageSize)")
 
 
 def png_unfilter(raw: np.ndarray, h: int, stride: int, bpp: int) -> np.ndarray:
@@ -307,18 +319,25 @@ def _bytes(data) -> np.ndarray:
         np.ascontiguousarray(data, np.uint8)
 
 
-def tiff_lzw(data, size: int, count: bool = False):
+def tiff_lzw(data, size: int, count: bool = False, partial: bool = False):
     """A TIFF LZW strip as imageio's tifffile decodes it: its first `size`
     bytes (fewer if it decodes to fewer), or with `count` the length of all
     of it.  A strip that does not begin with CLEAR, or holds a code that no
-    table entry can be, raises a ValueError."""
+    table entry can be, raises a ValueError; with `partial`, (the first
+    `size` bytes, whether no such code stopped the decode): the bytes
+    decoded before that code (libtiff's LZWDecode stops there, "Using code
+    not yet in table")."""
     src = _bytes(data)
     out = np.empty(max(size, 1), np.uint8)
     n = library().vpt_tiff_lzw(_ptr(src), src.size, _ptr(out), size)
     if n == -1:
         raise ValueError("LZW strip does not begin with a CLEAR code")
     if n < 0:
-        raise ValueError("LZW strip holds a code past its table")
+        if not partial:
+            raise ValueError("LZW strip holds a code past its table")
+        return out[: min(-2 - n, size)], False
+    if partial:
+        return out[: min(n, size)], True
     return int(n) if count else out[: min(n, size)]
 
 
@@ -377,6 +396,21 @@ def bmp_rle(data, start: int, w: int, h: int, rle4: bool) -> np.ndarray:
     if n < 0:
         raise ValueError("RLE data ends inside a delta")
     return out[: min(n, w * h)]
+
+
+RGBE_ERRORS = {-1: "RGBE read error (the data ends early)", -2: "RGBE bad file format: wrong scanline width",
+               -3: "RGBE bad file format: bad scanline data"}
+
+
+def rgbe_cv(data, w: int, h: int) -> np.ndarray:
+    """A Radiance picture's pixels as OpenCV's rgbe.cpp reads them: (h, w, 4)
+    RGBE bytes.  A ValueError with OpenCV's message where it fails."""
+    src = _bytes(data)
+    out = np.empty((h, w, 4), np.uint8)
+    rc = library().vpt_rgbe_cv(_ptr(src), src.size, w, h, _ptr(out))
+    if rc:
+        raise ValueError(RGBE_ERRORS[rc])
+    return out
 
 
 def _rows_status(fn, data, rows: int, row_bytes: int, *args) -> tuple:

@@ -188,12 +188,12 @@ def _decode_png(data: bytes, name: str):
         if kind == b"IDAT":
             break
         crc = data[pos + 8 + length : pos + 12 + length]
-        if not re.fullmatch(rb"\w{4}", kind):
-            raise ValueError(f"{name}: broken PNG file (chunk {kind!r})")
+        if not re.fullmatch(rb"\w{4}", kind):  # (PIL's SyntaxError: its Image.open tries the next plugin)
+            raise probe.PassOn(f"{name}: broken PNG file (chunk {kind!r})")
         if len(crc) < 4:
             raise ValueError(f"{name}: PNG file is truncated in chunk {kind!r}")
         if zlib.crc32(kind + body) & 0xFFFFFFFF != struct.unpack(">I", crc)[0]:
-            raise ValueError(f"{name}: CRC mismatch in chunk {kind!r}")
+            raise probe.PassOn(f"{name}: CRC mismatch in chunk {kind!r}")
         if kind == b"IHDR":
             header = struct.unpack(">IIBBBBB", body)
         elif kind == b"PLTE":

@@ -300,13 +300,28 @@ def _upsample(plane: np.ndarray, fx: int, fy: int, w: int, fancy: bool = True) -
     return _interleave((left + bias[0]) >> shift, (right + bias[1]) >> shift, 1)
 
 
-def decode_jpeg(data: bytes, name: str = "image") -> np.ndarray:
+def decode_jpeg(data: bytes, name: str = "image", stdio: bool = False, color: str | None = None) -> np.ndarray:
     """A JPEG file's bytes as PIL decodes them: (H, W) uint8 for a gray
     image, (H, W, 3) uint8 RGB, or (H, W, 4) uint8 for a CMYK or YCCK one
-    (PIL's "CMYK" array: 255 - the CMYK samples)."""
-    buf = np.frombuffer(data, np.uint8)
+    (PIL's "CMYK" array: 255 - the CMYK samples).
+
+    stdio: as libjpeg reads the file through its stdio source instead, as
+    OpenCV reads it: past its end the file reads as EOI markers, FF D9
+    repeated (so a cut segment is filled with them, a cut scan ends as at a
+    marker, and a cut multi-scan file is output with the scans it has,
+    components never scanned 0; a file that ends before its first scan
+    fails), an arithmetic-coded scan may run to the end of the file, and a
+    single-scan file ends at its scan (OpenCV lets jpeg_finish_decompress
+    fail on what follows).
+
+    color: the colour space libjpeg is told the file holds instead of its
+    guess: "ycc" (YCbCr, converted to RGB) or "raw" (no conversion), as
+    libtiff's JPEG codec sets it."""
     if data[:2] != b"\xff\xd8":
         raise ValueError(f"{name} is not a JPEG file")
+    if stdio:  # past its end the file reads as EOI markers, as many as a segment may take
+        data = data + b"\xff\xd9" * 32769
+    buf = np.frombuffer(data, np.uint8)
     qtables, htables, comps, frame = {}, {}, [], None
     conditioning = _DEFAULT_CONDITIONING.copy()
     restart, jfif, adobe, eoi = 0, False, None, False
@@ -351,6 +366,7 @@ def decode_jpeg(data: bytes, name: str = "image") -> np.ndarray:
                 raise ValueError(f"{name}: JPEG has two frames")
             frame = _frame(seg, name)
             frame["coding"], frame["progressive"] = _FRAMES[marker]
+            frame["stdio"] = stdio
             comps = frame["comps"]
         elif marker in _SOF_NAMES:
             raise ValueError(f"{name}: {_SOF_NAMES[marker]} JPEG images are not read (only Huffman-coded "
@@ -363,6 +379,9 @@ def decode_jpeg(data: bytes, name: str = "image") -> np.ndarray:
                 raise ValueError(f"{name}: JPEG has a second scan after a scan of every component (libjpeg "
                                  f"expects its end there)")
             nxt = _scan(seg, buf, nxt, frame, qtables, htables, conditioning, restart, name)
+            if stdio and not frame["multi"]:
+                eoi = True
+                break
         elif marker == 0xDC:
             pass  # DNL: libjpeg ignores it (the frame's height is never 0 here)
         else:
@@ -371,6 +390,13 @@ def decode_jpeg(data: bytes, name: str = "image") -> np.ndarray:
     if frame is None:
         raise ValueError(f"{name}: JPEG file is truncated (no frame header)")
     lossless = frame["coding"] == "lossless"
+    if stdio and not frame["scans"]:
+        raise ValueError(f"{name}: JPEG file has no scan before its end (libjpeg: JERR_NO_IMAGE)")
+    for c in comps if stdio else ():
+        if lossless and c.samples is None:
+            c.samples = np.zeros((c.dh, c.dw), np.uint8)
+        elif not lossless and c.coefs is None:
+            c.coefs, c.qt = np.zeros((c.bh, c.bw, 64), np.int16), np.zeros(64, np.int32)
     if any((c.samples if lossless else c.coefs) is None for c in comps):
         raise ValueError(f"{name}: JPEG file is truncated")
     if not eoi and frame["multi"]:  # (libjpeg reads a multi-scan file to its end before any output)
@@ -382,6 +408,8 @@ def decode_jpeg(data: bytes, name: str = "image") -> np.ndarray:
         convert = jfif or (adobe != 0 if adobe is not None else [c.id for c in comps] != [82, 71, 66])
     else:
         convert = len(comps) == 4 and adobe not in (None, 0)
+    if color is not None:
+        convert = color == "ycc"
     if lossless and convert:
         raise ValueError(f"{name}: lossless JPEG images in {'YCbCr' if len(comps) == 3 else 'YCCK'} are not read "
                          f"(libjpeg-turbo converts no colour space of a lossless image)")
@@ -511,7 +539,8 @@ def _scan(seg: bytes, buf: np.ndarray, start: int, frame: dict, qtables: dict, h
     try:
         if coding == "arithmetic":
             tbl = np.array([[t >> 4, t & 15] for t in tables], np.int32)
-            end, frame["last_good"] = codec.jpeg_arith_scan(buf[start:], _arith_limit(start, len(buf)) - start,
+            limit = len(buf) if frame["stdio"] else _arith_limit(start, len(buf))
+            end, frame["last_good"] = codec.jpeg_arith_scan(buf[start:], limit - start,
                                                             coefs, geom, tbl, conditioning, frame["mcux"],
                                                             frame["mcuy"], ss, se, ah, al, progressive, restart)
         else:

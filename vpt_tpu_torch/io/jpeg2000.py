@@ -263,6 +263,7 @@ class _Jp2:
         self.meth = self.enumcs = 0
         self.pclr_channels = None
         self.has_cmap = self.has_cdef = False
+        self.bodies = {}  # pclr, cmap and cdef boxes as read (OpenJPEG applies them after decoding)
 
     def box(self, kind: bytes, body: bytes) -> None:
         """One box's handler; a ValueError where it returns false."""
@@ -355,6 +356,7 @@ class _Jp2:
             if n < 3 + channels + entries * sum(sizes):
                 raise ValueError("Bad PCLR box")
             self.pclr_channels = channels
+            self.bodies[kind] = body
         elif kind == b"cmap":
             if self.pclr_channels is None:
                 raise ValueError("Need to read a PCLR box before the CMAP box.")
@@ -363,6 +365,7 @@ class _Jp2:
             if n < self.pclr_channels * 4:
                 raise ValueError("Insufficient data for CMAP box.")
             self.has_cmap = True
+            self.bodies[kind] = body
         elif kind == b"cdef":
             if self.has_cdef:
                 raise ValueError("Only one CDEF box is allowed.")
@@ -374,6 +377,7 @@ class _Jp2:
             if n < 2 + count * 6:
                 raise ValueError("Insufficient data for CDEF box.")
             self.has_cdef = True
+            self.bodies[kind] = body
 
     def read_boxes(self, data: bytes, pos: int) -> int:
         """opj_jp2_read_header_procedure from `pos`: the boxes up to the

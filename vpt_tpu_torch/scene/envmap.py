@@ -7,32 +7,17 @@ importance, the quantity the MIS weights read as the PDF.  Leaves are numpy.
 
 from __future__ import annotations
 
-import os
-
 import numpy as np
 
-from vpt_tpu_torch.io import imageio_order, jpeg2000, netpbm, tiff
+from vpt_tpu_torch.io import imageio_order, opencv, tiff
 from vpt_tpu_torch.io.image import _PLUGINS, Unidentified, decode_samples, load_radiance_hdr
 from vpt_tpu_torch.io.probe import UNPORTED
 from vpt_tpu_torch.scene.types import EnvMapData
 
-# The formats OpenCV's `haveImageReader` claims by their leading bytes,
-# besides Netpbm and PFM (netpbm.cv2_claims), which the port does not read
-# through OpenCV's decoders (ROADMAP Queue 1).
-_OPENCV_OTHERS = ((b"BM", "BMP"), (b"\xff\xd8\xff", "JPEG"), (b"\x89PNG\r\n\x1a\n", "PNG"), (b"II*\0", "TIFF"),
-                  (b"MM\0*", "TIFF"), (b"II+\0", "TIFF"), (b"MM\0+", "TIFF"), (b"GIF87a", "GIF"), (b"GIF89a", "GIF"),
-                  (b"\x59\xa6\x6a\x95", "Sun raster"), (b"#?RADIANCE", "Radiance HDR"), (b"#?RGBE", "Radiance HDR"),
-                  (jpeg2000.JP2_SIGNATURE, "JPEG 2000"), (jpeg2000.CODESTREAM, "JPEG 2000"), (b"P7", "PAM"))
 # PIL's `_accept` of each format by name (imageio's legacy "<format>-PIL"
 # plugins claim a file PIL's plugin accepts; MPO opens as a JPEG).
 _PIL_ACCEPT = {**{fmt: accept for fmt, accept, _ in _PLUGINS if accept is not None}, **UNPORTED}
 _PIL_ACCEPT["MPO"] = _PIL_ACCEPT["JPEG"]
-
-
-def _opencv_format(data: bytes):
-    if data[:4] == b"RIFF" and data[8:12] == b"WEBP":
-        return "WebP"
-    return next((kind for magic, kind in _OPENCV_OTHERS if data.startswith(magic)), None)
 
 
 def _imageio_read(data: bytes, path: str) -> np.ndarray:
@@ -40,12 +25,11 @@ def _imageio_read(data: bytes, path: str) -> np.ndarray:
     plugins of its extension in imageio's order, then all of them
     (io/imageio_order.py), the first that claims the file reading it.  The
     ones the port has: Pillow (the data PIL opens; io/image.decode_samples),
-    OpenCV (Netpbm and PFM data, netpbm.read_cv2), the bundled tifffile
-    (TIFF data, tiff.read_array) and the legacy "<format>-PIL" plugins,
-    which claim a file PIL's plugin accepts and then fail where Pillow
-    failed; every other plugin (FreeImage, pyav, ITK, ...) is not installed
-    or claims no image data here.  OpenCV's other decoders are not ported:
-    data it claims first raises, naming OpenCV and the format."""
+    OpenCV (the data one of its decoders claims; io/opencv.py), the bundled
+    tifffile (TIFF data, tiff.read_array) and the legacy "<format>-PIL"
+    plugins, which claim a file PIL's plugin accepts and then fail where
+    Pillow failed; every other plugin (FreeImage, pyav, ITK, ...) is not
+    installed or claims no image data here."""
     pil_failed = False
     for plugin in imageio_order.plugins(path):
         if plugin == "pillow":
@@ -54,12 +38,8 @@ def _imageio_read(data: bytes, path: str) -> np.ndarray:
             except Unidentified:
                 pil_failed = True
         elif plugin == "opencv":
-            if netpbm.cv2_claims(data):
-                return netpbm.read_cv2(data, path)
-            kind = _opencv_format(data)
-            if kind:
-                raise ValueError(f"{path}: imageio reads this {os.path.splitext(path)[1] or 'extensionless'} file's "
-                                 f"{kind} data through OpenCV, which the port does not read through OpenCV")
+            if opencv.decoder(data):
+                return opencv.read(data, path)
         elif plugin == "TIFF":
             if data[:4] in tiff.MAGIC:
                 return tiff.read_array(data, path)
@@ -72,20 +52,21 @@ def _imageio_read(data: bytes, path: str) -> np.ndarray:
 
 def load_hdr(path: str) -> np.ndarray:
     """An environment image as float32 (H, W, 3), as the JAX package's
-    `load_hdr` gives it: a `.npy` array, a Radiance `.hdr` file (the port's
-    own decoder), or any other file as imageio reads it (`_imageio_read`):
-    by its extension's plugin order, so a TIFF through tifffile (float16 /
-    32 / 64 and integer samples as they are), Netpbm or PFM data through
-    OpenCV where OpenCV comes first (`.pbm`, `.pfm`: 8-bit RGB; a PFM's
-    floats divided by its scale's magnitude and rounded to 8 bits), and
-    the data PIL opens (PNG, JPEG, JPEG 2000, BMP, GIF, WebP, TGA, DDS, ...)
-    through PIL (palette images as their colours, a CMYK JPEG's first three
-    of its four channels, a WebP animation's first frame; no PSD, which
-    imageio's plugin cannot read).  The samples are not divided by 255; gray
-    is repeated to three channels.  What imageio would read through a
-    decoder the port lacks (OpenCV's PNG, JPEG, TIFF, ... readers where
-    OpenCV comes before Pillow, as for `.exr`) raises a ValueError that
-    names it."""
+    `load_hdr` gives it: a `.npy` array, a Radiance file named `.hdr` (the
+    port's own decoder, floats), or any other file as imageio reads it
+    (`_imageio_read`): by its extension's plugin order, so a TIFF through
+    tifffile (float16 / 32 / 64 and integer samples as they are), the data
+    PIL opens (PNG, JPEG, JPEG 2000, BMP, GIF, WebP, TGA, DDS, ...) through
+    PIL (palette images as their colours, a CMYK JPEG's first three of its
+    four channels, a WebP animation's first frame; no PSD, which imageio's
+    plugin cannot read), and the data OpenCV claims where OpenCV comes
+    first (`.HDR`, `.pic`, `.exr`, `.sr`, `.dip`, `.pxm`, `.pbm`, `.pfm`, a
+    name without an extension, ...) through OpenCV: 8-bit RGB, so a
+    Radiance sky named `sky.HDR` or `sky.pic` reads as OpenCV's rounding of
+    its radiance times 255 (io/cv_hdr.py), not as floats.  The samples are
+    not divided by 255; gray is repeated to three channels.  What neither
+    package reads raises a ValueError; AVIF through OpenCV is refused by
+    name (io/opencv.py)."""
     if path.endswith(".npy"):
         img = np.load(path)
     elif path.endswith(".hdr"):
