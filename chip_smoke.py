@@ -55,7 +55,7 @@ Phases, each of which raises on failure:
   7. the media path: the stream-mode Renderer with a 128^3 procedural
      cloud and a homogeneous ground haze added by `add_volume` (the merged
      march, delta tracking, ratio-tracked NEE, HG phase) at 512x512,
-     max_depth 2 (MEDIA_FLAGS), 4 spp, one seed, its loop captured (one
+     max_depth 1 (MEDIA_FLAGS), 4 spp, one seed, its loop captured (one
      dispatch graph: a WHILE node over the iteration's segment graphs and,
      between them, a nested WHILE node over one step of each of its 5
      media loops) against the eager loop as phase 12 does it: after a
@@ -72,7 +72,7 @@ Phases, each of which raises on failure:
      load_grid reads equals the procedural grid exactly;
   8. the atmosphere path: the gallery's day setup (planet surface at
      y = 0, sky altitude 30 degrees) under colonnade's open sky, at depth
-     4 (ATMOSPHERE_FLAGS; 7 media loops per iteration), the same way;
+     2 (ATMOSPHERE_FLAGS; 7 media loops per iteration), the same way;
   9. the user's entry points on the card:
      a. the textured colonnade (9 textures, ~4.7M texels of albedo and
         normal maps) at 512x512 with a metrics log, driven like phase 4
@@ -142,8 +142,8 @@ Phases, each of which raises on failure:
      s/dispatch, segments/s, the device time of one captured dispatch's
      launch (one CUDA event pair) and its busy share, the capture seconds
      and graph pool bytes, and one
-     torch.profiler trace of a captured dispatch and, but for the sharded
-     path, of an eager one: kernel launches, device time and busy share
+     torch.profiler trace of a captured dispatch and, in the stream path,
+     of an eager one: kernel launches, device time and busy share
      (device time over the unprofiled s/dispatch), the top kernels; one
      JSON line "graphs" with phases 7 and 8's rows first;
  13. the goldens and the gallery (vpt_tpu_torch/gallery.py):
@@ -179,7 +179,7 @@ Phases, each of which raises on failure:
         spread over them; CUDA-event medians of 20-launch pairs of the
         five kernels (bounce; occlude on the shadow batch) beside their
         bounds (phase 3's way); clusters, groups and Gp; one captured
-        dispatch at LAYOUT_SIZE^2 (256x256), depth 8, 4 spp, at GRAPH_SEED
+        dispatch at LAYOUT_SIZE^2 (128x128), depth 8, 4 spp, at GRAPH_SEED
         after the one that captures: s/dispatch, segments and the image's
         PSNR against phase 4's configuration's K = 128 image at that size
         and seed (above LAYOUT_PSNR), and whether image and segments equal
@@ -201,10 +201,10 @@ Phases, each of which raises on failure:
         the step's WHILE launch (one event pair, after the profiled run; the
         launch before it and the ratio are printed too); the top ops, the
         csrc kernels' shares and the SM clock around it;
-     d. `python -m vpt_tpu_torch.tools.quick_bench` at the defaults, then
-        `python -m vpt_tpu_torch.tools.sweep_bench 256 4 --configs
-        k64,k128,k256`, as subprocesses: each RESULT line with the card's
-        name and power limit;
+     d. `python -m vpt_tpu_torch.tools.quick_bench 128`, then
+        `python -m vpt_tpu_torch.tools.sweep_bench 128 4 --configs k128`
+        (a K 64 and a K 256 dispatch run in a), as subprocesses: each
+        RESULT line with the card's name and power limit;
      one JSON line "layouts".
  15. the probe kernels (csrc/probe.cu, tools/hopper_probe.py: the
      counterparts of scripts/mosaic_probe.py's and scripts/smem_probe.py's
@@ -258,7 +258,14 @@ Phases, each of which raises on failure:
         by tests/pil_format_writers.py) and of tests/torch_jpeg2000/ (JPEG
         2000: PIL's and OpenCV's writers at their options, JP2 boxes and
         codestream edits built by tests/jpeg2000_cases.py, the timing
-        textures and the sky) through decode_rgba and load_hdr
+        textures and the sky) through decode_rgba and load_hdr, and of
+        tests/torch_pil_rare/ (PIL's rarer plugins: BLP, icns, DCX, FITS,
+        FTEX, GBR, IM, IM Tools, MSP, SPIDER, Sun raster, XBM, XPM, XV
+        thumbnails, FLI / FLC, IPTC, McIdas, PIXAR, and files of the
+        plugins that decode on neither machine; and the PhotoCD cases, the
+        2048x2048 timing textures and the FITS sky that
+        tests/pil_rare_writers.py makes here from seeds) through
+        decode_rgba of the bytes and of the file, load_png and load_hdr,
         against its manifest: the sha256 of the JAX package's decode, or a
         ValueError where it refuses; every file of tests/torch_opencv/
         (what imageio hands to OpenCV: Radiance, Sun raster, BMP, PAM,
@@ -285,19 +292,26 @@ Phases, each of which raises on failure:
         decode_rgba of the 2048x2048 9/7 JP2 at a rate and the 1024x1024
         5/3 JP2 of 256x256 tiles of tests/torch_jpeg2000/, host seconds
         (median of 5) beside PIL's where the fixtures were made, each under
-        JP2_LIMIT_S;
+        JP2_LIMIT_S; decode_rgba of the 2048x2048 Sun raster RLE, MSP v2,
+        FLC, XBM and BLP2 DXT5 textures, each under RARE_LIMIT_S, and
+        load_hdr of the 4096x2048 float FITS sky under FITS_LIMIT_S, host
+        seconds (median of 5);
      c. `python -m vpt_tpu_torch render garden` at 512x512, depth 8, 8 spp
         with --env sky.tif against --env sky.npy of the same array, with
         --env sky.jp2 against --env sky_jp2.npy of its decode, and with
         --env sky.HDR (a Radiance file of tests/torch_opencv/) against
-        --env sky_HDR.npy of its manifest decode (six processes at once):
-        bitwise equal; then the colonnade as a .glb with
+        --env sky_HDR.npy of its manifest decode, and with --env sky.fits
+        (a 1024x512 float FITS) against --env sky_fits.npy of its decode
+        (eight processes at once): bitwise equal; then the colonnade as a
+        .glb with
         a GIF, an RLE8 BMP, an LZW TIFF and a CMYK JPEG base colour, a lossy
         WebP with ALPH on the back wall, a lossless WebP on the brass, a
         SOF10 JPEG on the west wall, a lossless JPEG on the east wall, the
         BC7 DDS on the front wall, the RLE TGA and the QOI on two pedestals,
-        a PCX on a drape, a PSD on a statue and a tiled JP2 on a third
-        pedestal (each of these its own copy
+        a PCX on a drape, a PSD on a statue, a tiled JP2 on a third
+        pedestal, the Sun raster RLE and the BLP2 DXT5 textures on two more,
+        the FLC on a drape, an icns on a statue and a FITS image on a drape
+        (each of these its own copy
         of its material), through the CLI, bitwise its in-memory render with
         those decodes (each the manifest's sha256);
      one JSON line "image_formats".  `--image-formats` runs this phase alone
@@ -402,6 +416,7 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "tests"))
 import gltf_scenes  # noqa: E402  (tests/gltf_scenes.py, jax-free: the .glb writer)
 import pil_format_writers  # noqa: E402  (tests/pil_format_writers.py, numpy alone: 17b's 2048x2048 textures)
+import pil_rare_writers  # noqa: E402  (tests/pil_rare_writers.py, numpy alone: PIL's rarer plugins' large files)
 import torch_goldens  # noqa: E402  (tests/torch_goldens.py, jax-free: the golden configurations)
 import while_toys  # noqa: E402  (tests/while_toys.py, jax-free: toy dispatch graphs)
 
@@ -433,12 +448,12 @@ PLAIN = {
 STREAM_KERNELS = ("ray_keys", "supertile_tables", "stream", "occlude")
 W = H = 512
 TIMED_DISPATCHES = 2
-# The media path at depth 2 and the atmosphere at 4 (the others at 8; 4 and 8
-# until PR 20, when the script ran 1,021 s): an eager media dispatch is tens
-# of seconds of host-bound loop steps, phases 7, 8 and 10 run five of them,
-# and the script stays within its time.
-MEDIA_FLAGS = RenderFlags(max_depth=2, max_medium_events=8)
-ATMOSPHERE_FLAGS = RenderFlags(max_depth=4, max_medium_events=8)
+# The media path at depth 1 and the atmosphere at 2 (the others at 8; 4 and 8
+# when the script ran 1,021 s, 2 and 4 when it ran 973.9 s with phase 17
+# grown): an eager media dispatch is seconds of host-bound loop steps,
+# phases 7, 8 and 10 run five of them, and the script stays within its time.
+MEDIA_FLAGS = RenderFlags(max_depth=1, max_medium_events=8)
+ATMOSPHERE_FLAGS = RenderFlags(max_depth=2, max_medium_events=8)
 # The captured media and atmosphere dispatches are profiled at this size,
 # 1 spp: a media dispatch issues ~300 kernels per loop step whatever its
 # size, and a trace of millions of events takes minutes to gather.
@@ -1493,15 +1508,17 @@ def graph_turns(label: str, dispatch, profile_eager: bool = True, small=None) ->
 
 def graph_phase(dev, stream_r: Renderer, smi: str, media_rows: list) -> None:
     """Phase 12: the captured loop against the eager one in the stream,
-    packet, textured and sharded paths (colonnade 512x512, depth 8, 4 spp);
-    its JSON line also holds phases 7 and 8's rows (`media_rows`)."""
+    packet, textured and sharded paths (colonnade 512x512, depth 8, 4 spp;
+    an eager dispatch profiled in the stream path alone, the captured one
+    in each); its JSON line also holds phases 7 and 8's rows
+    (`media_rows`)."""
     t_phase = time.perf_counter()
     rows = media_rows + [graph_turns("stream", stepper(stream_r))]
     with mock.patch.object(integrator, "TRACE_MODE", "packet"):
-        rows.append(graph_turns("packet", stepper(stream_r)))
+        rows.append(graph_turns("packet", stepper(stream_r), profile_eager=False))
     textured = Renderer(colonnade_textured(), width=W, height=H, flags=stream_r.flags, samples_per_frame=4,
                         device=dev)
-    rows.append(graph_turns("textured", stepper(textured)))
+    rows.append(graph_turns("textured", stepper(textured), profile_eager=False))
     del textured
     r = stream_r
     with tempfile.TemporaryDirectory() as tmp:
@@ -1856,12 +1873,16 @@ LAYOUT_PSNR = 50.0
 # kernels, the parent commit's too (PERF.md §7); the ratio is printed.
 PROFILE_EVENTS = 0.02
 PROFILE_TOLERANCE = 0.05
-SWEEP = "k64,k128,k256"  # 14d's tools.sweep_bench configurations
-# 14a-b's dispatches and 14d's sweep_bench run at LAYOUT_SIZE^2 (phase 4's
-# 512^2 until PR 19, when phase 14 took 302 s of the run's 1,094 s): every
-# layout and packet layout still renders, each image held to the K = 128
-# image at this size; each layout's kernel checks stay at phase 3's shapes.
-LAYOUT_SIZE = 256
+# 14d's tools.sweep_bench configuration: K 128 alone (14a drives K 64 and
+# K 256 already).
+SWEEP = "k128"
+# 14a-b's dispatches and 14d's quick_bench and sweep_bench run at
+# LAYOUT_SIZE^2 (phase 4's 512^2 when phase 14 took 302 s of the run's
+# 1,094 s; 256^2 when it took 336.8 s of 1,098.1 s):
+# every layout and packet layout still renders, each image held to the
+# K = 128 image at this size; each layout's kernel checks stay at phase 3's
+# shapes.
+LAYOUT_SIZE = 128
 
 
 def slice_packets(pk: cluster.Packets, n: int) -> cluster.Packets:
@@ -2103,7 +2124,7 @@ def layouts_phase(dev, smi: str, table, p3: dict, stream_r: Renderer, media_r: R
     log(f"phase 14c (profile_dispatch): {time.perf_counter() - t0:.1f} s")
     # 14d. quick_bench and sweep_bench as subprocesses.
     t0 = time.perf_counter()
-    quick = run_tool("vpt_tpu_torch.tools.quick_bench")
+    quick = run_tool("vpt_tpu_torch.tools.quick_bench", str(LAYOUT_SIZE))
     sweep = run_tool("vpt_tpu_torch.tools.sweep_bench", str(LAYOUT_SIZE), "4", "--configs", SWEEP, timeout=900)
     results = [x for x in quick if x.startswith("RESULT")] + [x for x in sweep if "RESULT" in x and "===" not in x
                                                                 and not x.startswith("    ")]
@@ -2382,16 +2403,31 @@ FORMAT_TEXTURES = {"gif-local-interlaced-inside-transparent.gif": ("stone", "ima
                    # of tests/torch_jpeg2000/: the 1024x1024 5/3 JP2 of 256x256 tiles
                    "timing-1024-53-tiles.jp2": ("stone-ped2", "image/jp2")}
 # 17c's instances that get a copy of their material, for a texture of their own.
-OWN_MATERIALS = ("wall-back", "wall-west", "wall-east", "wall-front", "ped0", "ped1", "drape-n0", "statue0", "ped2")
+OWN_MATERIALS = ("wall-back", "wall-west", "wall-east", "wall-front", "ped0", "ped1", "drape-n0", "statue0", "ped2",
+                 "ped3", "ped4", "drape-s0", "statue2", "drape-n1")
 FORMAT_FOLDERS = ((gltf_scenes.FORMAT_DIR, gltf_scenes.FORMAT_FIXTURES),
                   (gltf_scenes.WEBP_DIR, gltf_scenes.WEBP_FIXTURES),
                   (gltf_scenes.JPEG_DIR, gltf_scenes.JPEG_FIXTURES),
                   (gltf_scenes.PIL_FORMAT_DIR, gltf_scenes.PIL_FORMAT_FIXTURES + gltf_scenes.PIL_FORMAT_TIMING),
-                  (gltf_scenes.JPEG2000_DIR, gltf_scenes.jpeg2000_fixtures()))
+                  (gltf_scenes.JPEG2000_DIR, gltf_scenes.jpeg2000_fixtures()),
+                  (gltf_scenes.PIL_RARE_DIR, gltf_scenes.pil_rare_fixtures() + pil_rare_writers.generated_names()))
+# The four decodes each fixture of tests/torch_pil_rare/ is held to (the other
+# folders hold two).
+RARE_KEYS = ("rgba", "rgba_file", "load_png", "load_hdr")
 WEBP_LIMIT_S = 1.0  # 17b: host seconds for decode_rgba of each 2048x2048 WebP texture
 JPEG_LIMIT_S = 1.0  # 17b: host seconds for decode_rgba of the SOF10 and lossless JPEG textures
 PIL_LIMIT_S = 1.0  # 17b: host seconds for decode_rgba of the 2048x2048 BC7 DDS, RLE TGA and QOI textures
 JP2_LIMIT_S = 3.0  # 17b: host seconds for decode_rgba of the 2048x2048 9/7 and 1024x1024 tiled 5/3 JP2 textures
+RARE_LIMIT_S = 1.0  # 17b: host seconds for decode_rgba of each 2048x2048 texture of PIL's rarer plugins
+FITS_LIMIT_S = 2.0  # 17b: host seconds for load_hdr of the 4096x2048 float FITS sky
+# 17c's textures of PIL's rarer plugins, each on a material of its own: the
+# 2048x2048 Sun raster RLE, BLP2 DXT5 and FLC timing textures (made from their
+# seed here), an icns of RLE RGB with its mask, an 8-bit FITS image.
+RARE_TEXTURES = {"timing-sun-rle-2048.ras": ("stone-ped3", "image/x-sun-raster"),
+                 "timing-blp2-dxt5-2048.blp": ("stone-ped4", "image/x-blp"),
+                 "timing-fli-brun-2048.flc": ("drape-red-drape-s0", "image/x-flc"),
+                 "icns-rle-mask.icns": ("brass-statue2", "image/icns"),
+                 "fits-bitpix8.fits": ("drape-green-drape-n1", "image/fits")}
 OPENCV_DIR = os.path.join(ROOT, "tests", "torch_opencv")  # the files imageio hands to OpenCV, and their manifest
 OPENCV_SKY = "hdr-sky-64x32.hdr"  # 17c's Radiance sky, named sky.HDR
 OPENCV_LIMIT_S = 2.0  # 17b: host seconds for load_hdr of the 4096x2048 Radiance sky named sky.HDR (OpenCV's route)
@@ -2432,16 +2468,20 @@ def write_float_tiff(path: str, img: np.ndarray, tile: int = 0) -> None:
 
 def fixture_array(path: str, name: str, key: str, manifest: dict):
     """17a: fixture `name` (the file `path`) of tests/torch_formats/,
-    tests/torch_webp/, tests/torch_jpeg/ or tests/torch_pil_formats/ (or a
-    timing texture of the last) through the texture decode ("rgba") or
-    load_hdr, held to its manifest entry: the array (its sha256 that of the
-    JAX package's decode), or None where the entry says the JAX package
-    refuses it and the port raised a ValueError."""
+    tests/torch_webp/, tests/torch_jpeg/, tests/torch_pil_formats/,
+    tests/torch_jpeg2000/ or tests/torch_pil_rare/ (or a file made from a
+    seed) through the texture decode of its bytes ("rgba") or of the file
+    by its path ("rgba_file"), load_png or load_hdr, held to its manifest
+    entry: the array (its sha256 that of the JAX package's decode), or None
+    where the entry says the JAX package refuses it and the port raised a
+    ValueError."""
     want = manifest[name][key]
     try:
-        if key == "rgba":
+        if key in ("rgba", "rgba_file"):
             with open(path, "rb") as f:
-                got = decode_rgba(f.read(), name)
+                got = decode_rgba(f.read(), name, from_file=key == "rgba_file")
+        elif key == "load_png":
+            got = load_png(path)
         else:
             got = load_hdr(path)
     except ValueError as e:
@@ -2506,8 +2546,12 @@ def image_formats_phase(dev, smi: str) -> None:
     timing = pil_format_writers.timing_textures()
     log(f"17a: the {len(timing)} 2048x2048 timing textures of pil_format_writers written in "
         f"{time.perf_counter() - t0:.2f} s ({', '.join(f'{n} {len(d)} bytes' for n, d in timing.items())})")
+    t0 = time.perf_counter()
+    rare = pil_rare_writers.generated()
+    log(f"17a: the {len(rare)} large files of pil_rare_writers written in {time.perf_counter() - t0:.2f} s "
+        f"({', '.join(f'{n} {len(d)} bytes' for n, d in rare.items())})")
     made = tempfile.mkdtemp()
-    for name, data in timing.items():
+    for name, data in {**timing, **rare}.items():
         with open(os.path.join(made, name), "wb") as f:
             f.write(data)
     decoded = {}
@@ -2516,12 +2560,14 @@ def image_formats_phase(dev, smi: str) -> None:
             manifest = json.load(f)
         check(sorted(manifest) == sorted(names), f"17a: the manifest of {folder} names every fixture")
         t0 = time.perf_counter()
-        got = {(name, key): fixture_array(os.path.join(made if name in timing else folder, name), name, key, manifest)
-               for name in names for key in ("rgba", "load_hdr")}
+        keys = RARE_KEYS if folder == gltf_scenes.PIL_RARE_DIR else ("rgba", "load_hdr")
+        got = {(name, key): fixture_array(os.path.join(made if name in timing or name in rare else folder, name), name,
+                                          key, manifest)
+               for name in names for key in keys}
         decoded.update(got)
         refused = sorted(f"{n} ({k})" for (n, k), v in got.items() if v is None)
-        log(f"17a: {len(names)} fixtures of tests/{os.path.basename(folder)}/ decode to their manifest through the "
-            f"texture decode and load_hdr ({len(got) - len(refused)} arrays by sha256; {len(refused)} refused where "
+        log(f"17a: {len(names)} fixtures of tests/{os.path.basename(folder)}/ decode to their manifest through "
+            f"{', '.join(keys)} ({len(got) - len(refused)} arrays by sha256; {len(refused)} refused where "
             f"the JAX package refuses{': ' if refused else ''}{', '.join(refused)}; {time.perf_counter() - t0:.2f} s)")
     check(codec._lib is not None and hasattr(codec._lib, "vpt_tiff_lzw") and hasattr(codec._lib, "vpt_jpeg_arith_scan")
           and hasattr(codec._lib, "vpt_jpeg_lossless_scan"), "17a: the decoders ran the C codec")
@@ -2532,6 +2578,9 @@ def image_formats_phase(dev, smi: str) -> None:
         "17a: the TGA, PCX, SGI, QOI, PSD and DDS fixtures ran the C codec and the C block decoders")
     check(codec._j2k_lib is not None and hasattr(codec._j2k_lib, "vpt_j2k_decode"),
           "17a: the JPEG 2000 fixtures ran the port's C JPEG 2000 decoder")
+    check(all(hasattr(codec._lib, f) for f in ("vpt_sun_rle", "vpt_msp_rle", "vpt_xbm_hex", "vpt_fli_decode",
+                                                "vpt_pcd_planes", "vpt_bit_decode", "vpt_blp_dxt")),
+          "17a: PIL's rarer plugins ran the C codec's Sun RLE, MSP, XBM, FLI, PhotoCD, bit and BLP DXT loops")
     opencv_decoded = opencv_fixtures()
 
     # 17b. A 4096x2048 float TIFF sky.
@@ -2609,6 +2658,23 @@ def image_formats_phase(dev, smi: str) -> None:
             f"{pil_seconds['host']['cpus']} CPUs, tests/make_torch_jpeg2000.py): {pil_seconds[name]['pil_s']:.4f} s")
         check(median < JP2_LIMIT_S, f"17b: {name} decodes in under {JP2_LIMIT_S} s")
 
+    row["pil_rare"] = {}
+    for name in pil_rare_writers.TIMING:
+        data = rare[name]
+        median, every = host_seconds(lambda: decode_rgba(data, name))
+        row["pil_rare"][name] = {"bytes": len(data), "s": median, "all_s": every}
+        log(f"17b: decode_rgba of {name} (2048x2048, {len(data)} bytes; {smi}, host {os.cpu_count()} CPUs): "
+            f"{median:.4f} s median of 5 {every}")
+        check(median < RARE_LIMIT_S, f"17b: {name} decodes in under {RARE_LIMIT_S} s")
+    fits_path = os.path.join(made, pil_rare_writers.SKY)
+    median, every = host_seconds(lambda: load_hdr(fits_path))
+    sky_fits = decoded[pil_rare_writers.SKY, "load_hdr"]
+    row["pil_rare"][pil_rare_writers.SKY] = {"bytes": len(rare[pil_rare_writers.SKY]), "s": median, "all_s": every}
+    log(f"17b: load_hdr of {pil_rare_writers.SKY} (4096x2048 BITPIX -32, {len(rare[pil_rare_writers.SKY])} bytes; "
+        f"{smi}, host {os.cpu_count()} CPUs): {median:.4f} s median of 5 {every}; (2048, 4096, 3) float32, range "
+        f"{float(sky_fits.min()):.3f}-{float(sky_fits.max()):.3f}")
+    check(median < FITS_LIMIT_S, f"17b: the FITS sky reads in under {FITS_LIMIT_S} s")
+
     # 17c. A .tif sky against the .npy of the same array, a .jp2 sky against the .npy of its decode; a .glb of
     # the new formats.
     with tempfile.TemporaryDirectory() as tmp:
@@ -2619,8 +2685,11 @@ def image_formats_phase(dev, smi: str) -> None:
         np.save(os.path.join(tmp, "sky_jp2.npy"), load_hdr(os.path.join(tmp, "sky.jp2")))
         shutil.copy(os.path.join(OPENCV_DIR, OPENCV_SKY), os.path.join(tmp, "sky.HDR"))
         np.save(os.path.join(tmp, "sky_HDR.npy"), opencv_decoded[OPENCV_SKY])
+        with open(os.path.join(tmp, "sky.fits"), "wb") as f:  # floats as PIL's FITS plugin reads BITPIX -32
+            f.write(pil_rare_writers.fits(small[..., 0], -32, little=True))
+        np.save(os.path.join(tmp, "sky_fits.npy"), load_hdr(os.path.join(tmp, "sky.fits")))
         skies = {"tif": "sky.tif", "npy": "sky.npy", "jp2": "sky.jp2", "jp2npy": "sky_jp2.npy", "HDR": "sky.HDR",
-                 "HDRnpy": "sky_HDR.npy"}
+                 "HDRnpy": "sky_HDR.npy", "fits": "sky.fits", "fitsnpy": "sky_fits.npy"}
         args = ("--width", str(W), "--height", str(H), "--spp", "8", "--spp-per-frame", "4", "--depth", "8")
         procs = {ext: subprocess.Popen([sys.executable, "-m", "vpt_tpu_torch", "render", "garden", "-o",
                                         os.path.join(tmp, f"garden_{ext}.png"), "--hdr-output",
@@ -2655,6 +2724,15 @@ def image_formats_phase(dev, smi: str) -> None:
         check(got.shape == (H, W, 3) and np.isfinite(got).all() and float(got.mean()) > 0.0,
               "17c: the --env sky.HDR render is finite and lit")
         check(np.array_equal(got, want), "17c: the --env sky.HDR render is bitwise the --env sky_HDR.npy render")
+        got, want = (np.load(os.path.join(tmp, f"garden_{ext}.npy")) for ext in ("fits", "fitsnpy"))
+        log(f"17c: render garden {W}x{H} depth 8, 8 spp with --env sky.fits ({FORMAT_RENDER_SKY[1]}x"
+            f"{FORMAT_RENDER_SKY[0]} BITPIX -32, gray) and --env sky_fits.npy (its load_hdr decode), at once: bitwise "
+            f"equal {bool(np.array_equal(got, want))}, segments {stats['fits']['segments']} vs "
+            f"{stats['fitsnpy']['segments']}")
+        check(got.shape == (H, W, 3) and np.isfinite(got).all() and float(got.mean()) > 0.0,
+              "17c: the --env sky.fits render is finite and lit")
+        check(np.array_equal(got, want), "17c: the --env sky.fits render is bitwise the --env sky_fits.npy render")
+        check(stats["fits"]["segments"] == stats["fitsnpy"]["segments"], "17c: the FITS sky renders' segments equal")
 
         scene = colonnade()
         for own in OWN_MATERIALS:  # each its own copy of its material, for a texture of its own
@@ -2664,14 +2742,14 @@ def image_formats_phase(dev, smi: str) -> None:
             inst.material = len(scene.materials) - 1
         folders = {name: folder for folder, names in FORMAT_FOLDERS for name in names}
         images, textures = {}, {}
-        for name, (material, mime) in FORMAT_TEXTURES.items():
+        for name, (material, mime) in {**FORMAT_TEXTURES, **RARE_TEXTURES}.items():
             textures[name] = decoded[name, "rgba"]
             check(textures[name] is not None, f"17c: {name} is a texture the JAX package reads")
             scene.textures.append(textures[name])
             slot = len(scene.textures) - 1
             next(m for m in scene.materials if m.name == material).base_color_texture = slot
-            if name in timing:
-                images[slot] = (timing[name], mime)
+            if name in timing or name in rare:
+                images[slot] = ({**timing, **rare}[name], mime)
             else:
                 with open(os.path.join(folders[name], name), "rb") as f:
                     images[slot] = (f.read(), mime)
@@ -2684,7 +2762,7 @@ def image_formats_phase(dev, smi: str) -> None:
         got = np.load(hdr_out)
         ref_scene = load_gltf(glb)
     ref_scene.env_map = scene.env_map
-    for name, (material, _) in FORMAT_TEXTURES.items():
+    for name, (material, _) in {**FORMAT_TEXTURES, **RARE_TEXTURES}.items():
         ref_scene.textures[next(m for m in ref_scene.materials if m.name == material).base_color_texture] = \
             textures[name]
     ref = Renderer(ref_scene, width=W, height=H, flags=RenderFlags(max_depth=8), samples_per_frame=4, max_samples=8,
@@ -2694,12 +2772,14 @@ def image_formats_phase(dev, smi: str) -> None:
     want = ref.hdr_image()
     row["glb_render"] = {"seconds": cli["seconds"], "segments": cli["segments"],
                          "bitwise": bool(np.array_equal(got, want))}
-    log(f"17c: CLI render of the .glb with {', '.join(f'{n} ({m})' for n, (m, _) in FORMAT_TEXTURES.items())} "
+    log(f"17c: CLI render of the .glb with "
+        f"{', '.join(f'{n} ({m})' for n, (m, _) in {**FORMAT_TEXTURES, **RARE_TEXTURES}.items())} "
         f"decoded by the port vs the in-memory render with the decodes whose sha256 is the manifest's, {W}x{H} "
         f"depth 8, 8 spp: bitwise equal {row['glb_render']['bitwise']}, segments {cli['segments']} vs "
         f"{ref.segments_traced}")
     check(got.shape == (H, W, 3) and np.isfinite(got).all(), "17c: the .glb render is finite, (512, 512, 3)")
     check(row["glb_render"]["bitwise"], "17c: the .glb render through the CLI is bitwise its in-memory render")
+    check(cli["segments"] == ref.segments_traced, "17c: the .glb render's segments equal the in-memory render's")
     shutil.rmtree(made)
     row["phase_s"] = time.perf_counter() - t_phase
     print(json.dumps({"image_formats": row}))

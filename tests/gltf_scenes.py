@@ -21,7 +21,8 @@ names the TIFF, GIF, BMP and JPEG fixtures of tests/torch_formats/ and
 their manifest.json, `WEBP_FIXTURES` the WebP ones of tests/torch_webp/,
 `JPEG_FIXTURES` the arithmetic-coded and lossless JPEGs of tests/torch_jpeg/,
 `PIL_FORMAT_FIXTURES` the TGA, DDS, Netpbm, QOI, SGI, PCX, ICO / CUR and PSD
-ones of tests/torch_pil_formats/.
+ones of tests/torch_pil_formats/, `pil_rare_fixtures()` the files of PIL's
+rarer plugins in tests/torch_pil_rare/.
 """
 
 from __future__ import annotations
@@ -132,6 +133,22 @@ PIL_FORMAT_FIXTURES = (
     "ico-bmp-32-bit.ico", "cur-8-bit.cur", "cur-32-bit-at-22.cur", "psd-rgba-packbits.psd", "psd-cmyk-raw.psd",
     "psd-indexed-packbits.psd", "psd-bitmap-raw.psd", "psd-gray-packbits.psd",
 )
+# The fixtures of PIL's rarer plugins (BLP, icns, DCX, FITS, FTEX, GBR, IM,
+# IMT, MSP, SPIDER, Sun raster, XBM, XPM, XV thumbnails, FLI, IPTC, McIdas,
+# PIXAR, and files of the plugins that decode on neither machine) in
+# tests/torch_pil_rare/, written by tests/make_torch_pil_rare.py from
+# tests/pil_rare_cases.py, with a manifest.json of the JAX package's four
+# decodes of each ("rgba", "rgba_file", "load_png", "load_hdr"); it also
+# holds the files tests/pil_rare_writers.generated() makes from seeds (the
+# PhotoCD cases, the 2048x2048 timing textures, the 4096x2048 FITS sky).
+PIL_RARE_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "torch_pil_rare")
+
+
+def pil_rare_fixtures() -> tuple:
+    """The committed files of tests/torch_pil_rare/, by name."""
+    return tuple(sorted(f for f in os.listdir(PIL_RARE_DIR) if f != "manifest.json"))
+
+
 # The JPEG 2000 fixtures of tests/torch_jpeg2000/ (written by
 # tests/make_torch_jpeg2000.py: every case of tests/jpeg2000_cases.py under
 # its name and extension, the two timing textures of JPEG2000_TIMING that

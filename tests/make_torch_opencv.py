@@ -4,9 +4,11 @@ hands an `.exr` file to OpenCV before any other installed plugin): the
 sha256 of its float32 array and its shape, or null where it raises.
 
 Files whose name holds "port-refuses" are the OpenCV data the port does not
-read (AVIF, CIE Lab TIFF) or cannot (a PAM of 2 or 4 channels, whose rows
-OpenCV leaves half unwritten, so the JAX package's array is whatever memory
-held): their entry records the port's refusal instead of a sha256.
+read (AVIF) or cannot (a PAM of 2 or 4 channels, whose rows OpenCV leaves
+half unwritten, so the JAX package's array is whatever memory held): their
+entry records the port's refusal instead of a sha256.  Files named
+"sweep-*" are corrupt copies tests/opencv_sweep.py found, kept as they
+were (tests/opencv_cases.py reads them back).
 
 Needs PIL, OpenCV (cv2), imageio and the JAX package.  Run from the
 repository root:

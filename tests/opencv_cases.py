@@ -9,6 +9,7 @@ the sweep against cv2 (tests/opencv_sweep.py).
 from __future__ import annotations
 
 import io
+import os
 import struct
 import zlib
 
@@ -616,9 +617,46 @@ def _(rng):
     return _pil_mode(field(rng, 33, 40, 3), "YCbCr", compression="jpeg", tile=(16, 16))
 
 
-@case("tiff-cielab-port-refuses-17x11.tif")
+@case("tiff-cielab-17x11.tif")
 def _(rng):
     return _pil_mode(field(rng, 11, 17, 3), "LAB")
+
+
+def _lab_tiff(px: np.ndarray, bits: int, white=None, order: str = "<") -> bytes:
+    """An uncompressed CIE L*a*b* TIFF of (h, w, 3) samples (a*, b* as
+    two's complement), with a WhitePoint tag of (x num, x den, y num, y
+    den) rationals where given."""
+    h, w, _ = px.shape
+    data = px.astype(order + ("u1" if bits == 8 else "u2")).tobytes()
+    entries = [(256, 4, 1, w), (257, 4, 1, h), (258, 3, 3, "bits"), (259, 3, 1, 1), (262, 3, 1, 8),
+               (273, 4, 1, "data"), (277, 3, 1, 3), (278, 4, 1, h), (279, 4, 1, len(data)), (284, 3, 1, 1)]
+    blobs = {"bits": struct.pack(order + "3H", bits, bits, bits)}
+    if white is not None:
+        entries.append((318, 5, 2, "white"))
+        blobs["white"] = struct.pack(order + "4I", *white)
+    pos, offsets, tail = 8 + 2 + 12 * len(entries) + 4, {}, b""
+    for key, blob in blobs.items():
+        offsets[key], tail, pos = pos, tail + blob, pos + len(blob)
+    offsets["data"] = pos
+    out = (b"II*\0" if order == "<" else b"MM\0*") + struct.pack(order + "IH", 8, len(entries))
+    for tag, kind, count, value in sorted(entries):
+        if isinstance(value, str):
+            out += struct.pack(order + "HHII", tag, kind, count, offsets[value])
+        elif kind == 3:
+            out += struct.pack(order + "HHIHH", tag, kind, count, value, 0)
+        else:
+            out += struct.pack(order + "HHII", tag, kind, count, value)
+    return out + struct.pack(order + "I", 0) + tail + data
+
+
+@case("tiff-cielab-16bit-be-17x11.tif")
+def _(rng):
+    return _lab_tiff(rng.integers(0, 65536, (11, 17, 3)), 16, order=">")
+
+
+@case("tiff-cielab-whitepoint-d65-17x11.tif")
+def _(rng):
+    return _lab_tiff(rng.integers(0, 256, (11, 17, 3)), 8, white=(3127, 10000, 3290, 10000))
 
 
 @case("tiff-float32-refused-13x7.tif")
@@ -745,6 +783,20 @@ def _(rng):
 @case("avif-port-refuses-13x7.avif")
 def _(rng):
     return _pil(field(rng, 7, 13, 3), "AVIF", quality=80)
+
+
+# ------------------------------------------------------------------ sweeps
+
+# Corrupt copies that `python tests/opencv_sweep.py 8 22` and `8 23` found
+# the port reading otherwise than `cv2` and that it now reads as `cv2` does,
+# kept as files of tests/torch_opencv/ named "sweep-SEED-FORMAT-FILE-K"
+# (tests/opencv_sweep.py's own names): the files they were cut from are
+# not all remade byte for byte (tifffile writes the date), so the bytes are
+# the record, and their builder reads them back.
+_HERE = os.path.dirname(os.path.abspath(__file__))
+for _name in sorted(os.listdir(os.path.join(_HERE, "torch_opencv"))):
+    if _name.startswith("sweep-"):
+        CASES[_name] = lambda _p=os.path.join(_HERE, "torch_opencv", _name): open(_p, "rb").read()
 
 
 # ------------------------------------------------------------------ mutants

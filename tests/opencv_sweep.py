@@ -2,13 +2,18 @@
 port's OpenCV route (vpt_tpu_torch/io/opencv.py) against
 `cv2.imreadmulti(path, 0, 1, IMREAD_COLOR)` then BGR -> RGB, as imageio's
 plugin calls it, on mutants (tests/opencv_cases.mutants) of every file of
-tests/torch_opencv/ and of the format, WebP and JPEG 2000 cases of
+tests/torch_opencv/ (but the corrupt copies of earlier sweeps kept there)
+and of the format, WebP and JPEG 2000 cases of
 tests/format_cases.py, tests/webp_cases.py and tests/jpeg2000_cases.py.
 A mutant agrees where both read the same array or both fail.  OpenCV runs
 in a worker process that is restarted where a mutant crashes it (such a
 mutant counts as OpenCV failing).  Prints the counts by format as JSON.
 
-    python tests/opencv_sweep.py [MUTANTS_PER_FILE] [SEED]
+    python tests/opencv_sweep.py [MUTANTS_PER_FILE] [SEED] [OUT_DIR]
+
+With OUT_DIR, each differing mutant is written there as FORMAT-FILE-K (the
+index of its source file and of the mutant), to be made a fixture of
+tests/opencv_cases.py.
 """
 
 from __future__ import annotations
@@ -78,7 +83,7 @@ def files() -> list:
     out = []
     folder = os.path.join(HERE, "torch_opencv")
     for name in sorted(os.listdir(folder)):
-        if name != "manifest.json":
+        if name != "manifest.json" and not name.startswith("sweep-"):  # (those are corrupt copies already)
             with open(os.path.join(folder, name), "rb") as f:
                 out.append((name.split("-")[0], f.read()))
     import format_cases
@@ -96,10 +101,13 @@ def files() -> list:
 def main() -> None:
     n = int(sys.argv[1]) if len(sys.argv) > 1 else 6
     seed = int(sys.argv[2]) if len(sys.argv) > 2 else 22
+    out_dir = sys.argv[3] if len(sys.argv) > 3 else None
+    if out_dir:
+        os.makedirs(out_dir, exist_ok=True)
     cv = OpenCV()
     counts = collections.defaultdict(collections.Counter)
     for i, (fmt, data) in enumerate(files()):
-        for m in mutants(data, seed + i, n):
+        for k, m in enumerate(mutants(data, seed + i, n)):
             if opencv.decoder(m) is None:
                 counts[fmt]["not claimed"] += 1
                 continue
@@ -113,6 +121,9 @@ def main() -> None:
             else:
                 key = "agree (equal)" if want.shape == got.shape and np.array_equal(want, got) else "differ"
             counts[fmt][key] += 1
+            if key == "differ" and out_dir:
+                with open(os.path.join(out_dir, f"{fmt}-{i}-{k}"), "wb") as f:
+                    f.write(m)
     total = collections.Counter()
     for c in counts.values():
         total.update(c)

@@ -2,8 +2,9 @@
 importing vpt_tpu_torch and every module of the ported slice, or
 chip_smoke.py, must pull in neither `jax`, `vpt_tpu`, `PIL`, `imageio`,
 `tifffile` nor `cv2`; and the port alone decodes WebP, arithmetic-coded and
-lossless JPEG, and TGA, DDS, Netpbm, QOI, SGI, PCX, ICO / CUR and PSD with
-its own C decoders, where PIL, imageio and cv2 cannot be imported."""
+lossless JPEG, TGA, DDS, Netpbm, QOI, SGI, PCX, ICO / CUR and PSD, and
+PIL's rarer plugins with its own decoders, where PIL, imageio and cv2
+cannot be imported."""
 
 import os
 import subprocess
@@ -48,6 +49,25 @@ SLICE_MODULES = [
     "vpt_tpu_torch.io.pcx",
     "vpt_tpu_torch.io.ico",
     "vpt_tpu_torch.io.psd",
+    "vpt_tpu_torch.io.raw",
+    "vpt_tpu_torch.io.dcx",
+    "vpt_tpu_torch.io.ftex",
+    "vpt_tpu_torch.io.xvthumb",
+    "vpt_tpu_torch.io.pixar",
+    "vpt_tpu_torch.io.mcidas",
+    "vpt_tpu_torch.io.spider",
+    "vpt_tpu_torch.io.im",
+    "vpt_tpu_torch.io.gbr",
+    "vpt_tpu_torch.io.fits",
+    "vpt_tpu_torch.io.sun",
+    "vpt_tpu_torch.io.msp",
+    "vpt_tpu_torch.io.xbm",
+    "vpt_tpu_torch.io.xpm",
+    "vpt_tpu_torch.io.blp",
+    "vpt_tpu_torch.io.icns",
+    "vpt_tpu_torch.io.fli",
+    "vpt_tpu_torch.io.iptc",
+    "vpt_tpu_torch.io.pcd",
     "vpt_tpu_torch.io.jpeg2000",
     "vpt_tpu_torch.io.lab",
     "vpt_tpu_torch.io.imageio_order",
@@ -380,3 +400,58 @@ def test_the_port_alone_decodes_jpeg2000(tmp_path):
     proc = subprocess.run([sys.executable, "-c", _JPEG2000_ALONE, os.path.join(_ROOT, "tests", "torch_jpeg2000")],
                           cwd=str(tmp_path), env=env, capture_output=True, text=True, timeout=600)
     assert proc.returncode == 0 and "jpeg2000 alone ok 172 34" in proc.stdout, proc.stderr[-3000:] + proc.stdout
+
+
+_PIL_RARE_ALONE = """
+import hashlib, json, os, sys
+for blocked in ("PIL", "imageio", "cv2"):
+    sys.modules[blocked] = None  # any import of these raises
+from vpt_tpu_torch.io import codec, image
+from vpt_tpu_torch.scene import envmap
+here = os.getcwd()
+fixtures, tests = sys.argv[1], sys.argv[2]
+sys.path.insert(0, tests)
+import pil_rare_writers  # numpy alone
+with open(os.path.join(fixtures, "manifest.json")) as f:
+    manifest = json.load(f)
+files = {name: os.path.join(fixtures, name) for name in manifest if os.path.exists(os.path.join(fixtures, name))}
+for name in pil_rare_writers.PCD:
+    files[name] = os.path.join(here, name)
+    with open(files[name], "wb") as f:
+        f.write(pil_rare_writers.pcd_case(int(name[len("pcd-orientation")])))
+refused = 0
+for name, path in sorted(files.items()):
+    data = open(path, "rb").read()
+    for key, read in (("rgba", lambda: image.decode_rgba(data, name)),
+                      ("rgba_file", lambda: image.decode_rgba(data, name, from_file=True)),
+                      ("load_png", lambda: image.load_png(path)), ("load_hdr", lambda: envmap.load_hdr(path))):
+        try:
+            got = read()
+        except ValueError:
+            assert manifest[name][key] is None, (name, key)
+            refused += 1
+            continue
+        assert [list(got.shape), str(got.dtype), hashlib.sha256(got.tobytes()).hexdigest()] == manifest[name][key], \
+            (name, key)
+assert codec._lib is not None and codec._SRC.startswith(here) and codec._LIB.startswith(here)
+print("pil rare alone ok", len(files), refused)
+"""
+
+
+def test_the_port_alone_decodes_the_rare_pil_formats(tmp_path):
+    """vpt_tpu_torch/ copied on its own (its build/ left behind), in a
+    process where PIL, imageio and cv2 cannot be imported: every committed
+    fixture of tests/torch_pil_rare/ and the three PhotoCD cases (from
+    tests/pil_rare_writers.py, numpy alone) decode on the texture path
+    (from memory and from a file), load_png and load_hdr to the manifest,
+    or raise a ValueError where the manifest says the JAX package refuses
+    them, with the codec built from the copy's csrc/."""
+    import shutil
+
+    shutil.copytree(os.path.join(_ROOT, "vpt_tpu_torch"), str(tmp_path / "vpt_tpu_torch"),
+                    ignore=shutil.ignore_patterns("build", "__pycache__", "*.so"))
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    proc = subprocess.run([sys.executable, "-c", _PIL_RARE_ALONE, os.path.join(_ROOT, "tests", "torch_pil_rare"),
+                           os.path.join(_ROOT, "tests")], cwd=str(tmp_path), env=env, capture_output=True, text=True,
+                          timeout=600)
+    assert proc.returncode == 0 and "pil rare alone ok" in proc.stdout, proc.stderr[-3000:] + proc.stdout

@@ -10,7 +10,9 @@ both packages, live, under each extension group that reaches OpenCV:
 (every plugin, Pillow first) and `.png` (OpenCV last).
 The port's array equals the JAX package's bitwise (dtype, shape, values),
 or both raise; a file named "port-refuses" the port refuses by name while
-OpenCV reads it (ROADMAP "Not ported, by decision").  The manifest holds
+OpenCV reads it (ROADMAP "Not ported, by decision").  The files named
+"sweep-*" are corrupt copies on which the port once differed from `cv2`
+(tests/opencv_sweep.py).  The manifest holds
 the JAX package's decode under `.exr`, which `chip_smoke.py` holds the port
 to on the card's machine, where there is no JAX.
 """

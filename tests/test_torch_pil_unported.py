@@ -1,10 +1,12 @@
-"""The formats PIL 12.1 opens that the port does not read yet (ROADMAP
-"Left"): a file of each, as PIL writes it or built here, is one the JAX
-package decodes, and the port's texture decode refuses it naming the format
-(io/probe.py tells which plugin PIL gives it to), not as a file of unknown
-format and not by reading it as another format (a TGA).  A format ported
-since (JPEG 2000) decodes as PIL expands it.  A headerless DIB, which PIL
-opens in its `preinit` set, the port reads as PIL does.
+"""The formats PIL 12.1 opens that the port once refused by name: a file of
+each, as PIL writes it or built here, is one the JAX package decodes, and
+the port's texture decode now gives PIL's expansion of it bitwise (JPEG
+2000 since it was ported, PIL's rarer plugins since they were: BLP, ICNS,
+IM, MSP, SPIDER, XBM, DCX, GBR, SUN, XPM, FITS, XVThumb, FTEX), not a file
+of another format's reading (a TGA).  AVIF alone is still refused, naming
+the format (io/probe.py tells which plugin PIL gives a file to).  A
+headerless DIB, which PIL opens in its `preinit` set, the port reads as PIL
+does.  The formats' own tests are tests/test_torch_pil_rare.py.
 """
 
 import io
@@ -34,24 +36,23 @@ def _fits() -> bytes:
     return b"".join(c.encode().ljust(80) for c in cards).ljust(2880) + bytes(range(12)).ljust(2880, b"\0")
 
 
-UNPORTED = {  # case -> (the file, PIL's format, the name in the port's refusal)
-    "blp": (lambda: _pil("BLP", "P"), "BLP", "BLP"),
-    "icns": (lambda: _pil("ICNS", size=(16, 16)), "ICNS", "ICNS (Apple icon)"),
-    "im": (lambda: _pil("IM"), "IM", "IM (LabEye)"),
-    "msp": (lambda: _pil("MSP", "1"), "MSP", "MSP (Windows Paint)"),
-    "spider": (lambda: _pil("SPIDER", "F"), "SPIDER", "SPIDER"),
-    "xbm": (lambda: _pil("XBM", "1"), "XBM", "XBM"),
-    "dcx": (lambda: struct.pack("<III", 0x3ADE68B1, 12, 0) + _pil("PCX"), "DCX", "DCX"),
+UNPORTED = {  # case -> (the file, PIL's format, the name in the port's refusal, or None: read)
+    "blp": (lambda: _pil("BLP", "P"), "BLP", None),
+    "icns": (lambda: _pil("ICNS", size=(16, 16)), "ICNS", None),
+    "im": (lambda: _pil("IM"), "IM", None),
+    "msp": (lambda: _pil("MSP", "1"), "MSP", None),
+    "spider": (lambda: _pil("SPIDER", "F"), "SPIDER", None),
+    "xbm": (lambda: _pil("XBM", "1"), "XBM", None),
+    "dcx": (lambda: struct.pack("<III", 0x3ADE68B1, 12, 0) + _pil("PCX"), "DCX", None),
     "gbr": (lambda: struct.pack(">5I", 28, 2, 8, 6, 1) + b"GIMP" + struct.pack(">I", 10) + b"x\0" + bytes(48), "GBR",
-            "GIMP brush"),
-    "sun": (lambda: struct.pack(">8I", 0x59A66A95, 8, 6, 8, 48, 1, 0, 0) + bytes(48), "SUN", "Sun raster"),
+            None),
+    "sun": (lambda: struct.pack(">8I", 0x59A66A95, 8, 6, 8, 48, 1, 0, 0) + bytes(48), "SUN", None),
     "xpm": (lambda: b'/* XPM */\nstatic char *x[] = {\n"2 1 2 1",\n"a c #ff0000",\n"b c #00ff00",\n"ab"\n};\n', "XPM",
-            "XPM"),
-    "fits": (_fits, "FITS", "FITS"),
-    "xvthumb": (lambda: b"P7 332\n#END_OF_COMMENTS\n4 3 255\n" + bytes(range(12)), "XVThumb", "XV thumbnail"),
-    "ftex": (lambda: b"FTEX" + struct.pack("<9I", 1, 4, 4, 1, 1, 0, 1, 0, 48) + bytes(48), "FTEX",
-             "FTEX (Independence War texture)"),
-    "jpeg2000": (lambda: _pil("JPEG2000"), "JPEG2000", None),  # read since JPEG 2000 was ported
+            None),
+    "fits": (_fits, "FITS", None),
+    "xvthumb": (lambda: b"P7 332\n#END_OF_COMMENTS\n4 3 255\n" + bytes(range(12)), "XVThumb", None),
+    "ftex": (lambda: b"FTEX" + struct.pack("<9I", 1, 4, 4, 1, 1, 0, 1, 0, 48) + bytes(48), "FTEX", None),
+    "jpeg2000": (lambda: _pil("JPEG2000"), "JPEG2000", None),
     "avif": (lambda: _pil("AVIF"), "AVIF", "AVIF"),
 }
 
@@ -66,7 +67,7 @@ def test_unported_formats_are_refused_by_name(case):
         assert im.format == fmt
         want = np.asarray(im.convert("RGBA"))
         assert want.ndim == 3
-    if kind is None:  # a format the port reads now: PIL's expansion, bitwise
+    if kind is None:  # a format the port reads: PIL's expansion, bitwise
         np.testing.assert_array_equal(timage.decode_rgba(data, "wall"), want.astype(np.float32) / np.float32(255.0))
         return
     with pytest.raises(ValueError, match=re.escape(f"wall: {kind} images are not read yet (PIL opens them")):

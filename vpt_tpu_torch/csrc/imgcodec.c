@@ -1901,3 +1901,405 @@ int vpt_rgbe_cv(const uint8_t *in, int64_t n, int64_t w, int64_t h, uint8_t *out
     free(line);
     return 0;
 }
+
+/* ------------------------------------------------- PIL's rarer plugins */
+
+/* PIL's "bit" decoder as ImImagePlugin drives it for its "L*n" float
+ * images (fill 3, pad 8, unsigned, no table): each byte goes in above the
+ * bits still held, n-bit fields come off the low end, a line's fields start
+ * afresh (the bit count reset, the bits held kept), rows bottom-up.
+ * Returns 0 when every row was decoded, -1 when the data ends first. */
+int vpt_bit_decode(const uint8_t *in, int64_t n, float *out, int64_t w, int64_t h, int bits) {
+    uint64_t buffer = 0, mask = (uint64_t)(uint32_t)((1 << bits) - 1);
+    int count = 0;
+    int64_t x = 0, y = h - 1;
+    for (int64_t i = 0; i < n; i++) {
+        uint8_t byte = in[i];
+        buffer |= (uint64_t)byte << count;
+        count += 8;
+        while (count >= bits) {
+            uint64_t data = buffer & mask;
+            if (count > 32)
+                buffer = byte >> (8 - (count - bits));
+            else
+                buffer >>= bits;
+            count -= bits;
+            out[y * w + x] = (float)data;
+            if (++x >= w) {
+                if (--y < 0) return 0;
+                x = 0;
+                count = 0;
+            }
+        }
+    }
+    return -1;
+}
+
+/* PIL's Sun raster RLE decoder (SunRleDecode.c): 0x80 0 is a literal 0x80,
+ * 0x80 n v a run of n + 1 bytes v that goes on across scanlines, any other
+ * byte itself; scanlines of `bytes` bytes, no padding.  Returns 0 when
+ * every row was decoded, -1 when the data ends first. */
+int vpt_sun_rle(const uint8_t *in, int64_t n, int64_t bytes, int64_t rows, uint8_t *out) {
+    int64_t i = 0, x = 0, y = 0;
+    while (y < rows) {
+        int64_t run, extra = 0;
+        uint8_t v;
+        if (i >= n) return -1;
+        if (in[i] == 0x80) {
+            if (i + 2 > n) return -1;
+            if (in[i + 1] == 0) {
+                run = 1;
+                v = 0x80;
+                i += 2;
+            } else {
+                if (i + 3 > n) return -1;
+                run = in[i + 1] + 1;
+                v = in[i + 2];
+                i += 3;
+            }
+        } else {
+            run = 1;
+            v = in[i++];
+        }
+        if (x + run > bytes) {
+            extra = run - (bytes - x);
+            run = bytes - x;
+        }
+        for (;;) {
+            memset(out + y * bytes + x, v, (size_t)run);
+            x += run;
+            if (x >= bytes) {
+                x = 0;
+                if (++y >= rows) return 0;
+            }
+            if (extra == 0) break;
+            run = extra < bytes ? extra : bytes;
+            extra -= run;
+        }
+    }
+    return 0;
+}
+
+/* PIL's Windows Paint v2 decoder (MspImagePlugin.MspDecoder): the row map
+ * of h 16-bit lengths at byte 32, then each row's runs (0 count value: a
+ * run; n: n literal bytes, cut at the row's end); an empty row is `blank`
+ * bytes of 0xff.  The rows' bytes go out back to back, the first `cap`
+ * kept; *made is how many there were.  Returns 0, -1 for a file shorter
+ * than its row map or a row, -2 for a run cut by its row's end. */
+int vpt_msp_rle(const uint8_t *in, int64_t n, int64_t h, int64_t blank, uint8_t *out, int64_t cap, int64_t *made) {
+    int64_t o = 0, pos = 32 + 2 * h;
+    *made = 0;
+    if (pos > n) return -1;
+    for (int64_t y = 0; y < h; y++) {
+        int64_t len = in[32 + 2 * y] | (int64_t)in[33 + 2 * y] << 8;
+        if (len == 0) {
+            for (int64_t k = 0; k < blank; k++, o++)
+                if (o < cap) out[o] = 0xff;
+            continue;
+        }
+        if (pos + len > n) return -1;
+        const uint8_t *row = in + pos;
+        pos += len;
+        int64_t idx = 0;
+        while (idx < len) {
+            int type = row[idx++];
+            if (type == 0) {
+                if (idx + 2 > len) return -2;
+                int count = row[idx], val = row[idx + 1];
+                idx += 2;
+                for (int k = 0; k < count; k++, o++)
+                    if (o < cap) out[o] = (uint8_t)val;
+            } else {
+                int64_t end = idx + type < len ? idx + type : len;
+                for (int64_t k = idx; k < end; k++, o++)
+                    if (o < cap) out[o] = row[k];
+                idx += type;
+            }
+        }
+    }
+    *made = o;
+    return 0;
+}
+
+/* PIL's X bitmap decoder (XbmDecode.c): skip to the next 'x', take the two
+ * characters after it as hex digits (anything else counts 0), three bytes
+ * a value; scanlines of `bytes` values.  Returns 0 when every row was
+ * decoded, -1 when the data ends first. */
+static int hexval(uint8_t c) {
+    return c >= '0' && c <= '9' ? c - '0' : c >= 'a' && c <= 'f' ? c - 'a' + 10 : c >= 'A' && c <= 'F' ? c - 'A' + 10 : 0;
+}
+
+int vpt_xbm_hex(const uint8_t *in, int64_t n, int64_t bytes, int64_t rows, uint8_t *out) {
+    int64_t i = 0, k = 0, total = bytes * rows;
+    while (k < total) {
+        while (i < n && in[i] != 'x') i++;
+        if (i + 3 > n) return -1;
+        out[k++] = (uint8_t)((hexval(in[i + 1]) << 4) + hexval(in[i + 2]));
+        i += 3;
+    }
+    return 0;
+}
+
+/* PIL's PhotoCD base-image decoder (PcdDecode.c): each 3 * w bytes hold two
+ * rows of luma and one row each of the two half-width chroma planes; out
+ * gets (rows, w, 3) Y, C1, C2 for PIL's "YCC;P" unpacker.  Returns 0, or
+ * -1 when the data ends first. */
+int vpt_pcd_planes(const uint8_t *in, int64_t n, int64_t w, int64_t rows, uint8_t *out) {
+    int64_t chunk = 3 * w, y = 0;
+    const uint8_t *p = in;
+    while (y < rows) {
+        if (n < chunk) return -1;
+        for (int line = 0; line < 2 && y < rows; line++, y++)
+            for (int64_t x = 0; x < w; x++) {
+                uint8_t *o = out + (y * w + x) * 3;
+                o[0] = p[x + line * w];
+                o[1] = p[(x + 4 * w) / 2];
+                o[2] = p[(x + 5 * w) / 2];
+            }
+        p += chunk;
+        n -= chunk;
+    }
+    return 0;
+}
+
+/* PIL's FLI / FLC frame decoder (FliDecode.c) called on the bytes PIL's
+ * ImageFile.load has gathered: nothing is done until the frame's size (its
+ * first 32-bit word, a pad byte allowed) is in hand; then the 0xf1fa
+ * frame's sub-chunks are applied to the (h, w) image: colour chunks
+ * (4, 11) and the postage stamp (18) skipped, SS2 (7) word and LC (12)
+ * byte deltas, BLACK (13), BRUN (15) and COPY (16).  Returns the bytes
+ * consumed (more data wanted), or -1 with *err 0 (the frame is done) or
+ * PIL's error code: -1 unknown chunk or frame, -2 overrun, -3 a chunk that
+ * does not advance. */
+#define FLI_I16(p) ((p)[0] + ((int)(p)[1] << 8))
+#define FLI_I32(p) ((int32_t)((uint32_t)(p)[0] | (uint32_t)(p)[1] << 8 | (uint32_t)(p)[2] << 16 | (uint32_t)(p)[3] << 24))
+#define FLI_OOB(k) if (data + (k) > ptr + bytes) { *err = -2; return -1; }
+
+int64_t vpt_fli_decode(const uint8_t *buf, int64_t bytes, uint8_t *img, int64_t xsize, int64_t ysize, int *err) {
+    const uint8_t *ptr = buf;
+    *err = 0;
+    if (bytes < 4) return 0;
+    int64_t framesize = (uint32_t)FLI_I32(ptr);
+    if (bytes + (bytes % 2) < framesize) return 0;
+    if (bytes < 8) { *err = -2; return -1; }
+    if (FLI_I16(ptr + 4) != 0xF1FA) { *err = -1; return -1; }
+    int chunks = FLI_I16(ptr + 6);
+    ptr += 16;
+    bytes -= 16;
+    for (int c = 0; c < chunks; c++) {
+        const uint8_t *data;
+        int64_t x, y, i, j;
+        if (bytes < 10) { *err = -2; return -1; }
+        data = ptr + 6;
+        switch (FLI_I16(ptr + 4)) {
+        case 4: case 11: case 18:
+            break;
+        case 7: {  /* SS2 */
+            int lines = FLI_I16(data), l;
+            data += 2;
+            for (l = 0, y = 0; l < lines && y < ysize; l++, y++) {
+                uint8_t *line = img + y * xsize;
+                int p, packets;
+                FLI_OOB(2)
+                packets = FLI_I16(data);
+                data += 2;
+                while (packets & 0x8000) {
+                    if (packets & 0x4000) {
+                        y += 65536 - packets;
+                        if (y >= ysize) { *err = -2; return -1; }
+                        line = img + y * xsize;
+                    } else {
+                        line[xsize - 1] = (uint8_t)packets;
+                    }
+                    FLI_OOB(2)
+                    packets = FLI_I16(data);
+                    data += 2;
+                }
+                for (p = 0, x = 0; p < packets; p++) {
+                    FLI_OOB(2)
+                    x += data[0];
+                    if (data[1] >= 128) {
+                        FLI_OOB(4)
+                        i = 256 - data[1];
+                        if (x + i + i > xsize) break;
+                        for (j = 0; j < i; j++) {
+                            line[x++] = data[2];
+                            line[x++] = data[3];
+                        }
+                        data += 4;
+                    } else {
+                        i = 2 * (int64_t)data[1];
+                        if (x + i > xsize) break;
+                        FLI_OOB(2 + i)
+                        memcpy(line + x, data + 2, (size_t)i);
+                        data += 2 + i;
+                        x += i;
+                    }
+                }
+                if (p < packets) break;
+            }
+            if (l < lines) { *err = -2; return -1; }
+            break;
+        }
+        case 12: {  /* LC */
+            int64_t ymax;
+            y = FLI_I16(data);
+            ymax = y + FLI_I16(data + 2);
+            data += 4;
+            for (; y < ymax && y < ysize; y++) {
+                uint8_t *out = img + y * xsize;
+                int p, packets;
+                FLI_OOB(1)
+                packets = *data++;
+                for (p = 0, x = 0; p < packets; p++, x += i) {
+                    FLI_OOB(2)
+                    x += data[0];
+                    if (data[1] & 0x80) {
+                        i = 256 - data[1];
+                        if (x + i > xsize) break;
+                        FLI_OOB(3)
+                        memset(out + x, data[2], (size_t)i);
+                        data += 3;
+                    } else {
+                        i = data[1];
+                        if (x + i > xsize) break;
+                        FLI_OOB(2 + i)
+                        memcpy(out + x, data + 2, (size_t)i);
+                        data += i + 2;
+                    }
+                }
+                if (p < packets) break;
+            }
+            if (y < ymax) { *err = -2; return -1; }
+            break;
+        }
+        case 13:  /* BLACK */
+            memset(img, 0, (size_t)(xsize * ysize));
+            break;
+        case 15:  /* BRUN */
+            for (y = 0; y < ysize; y++) {
+                uint8_t *out = img + y * xsize;
+                data += 1;
+                for (x = 0; x < xsize; x += i) {
+                    FLI_OOB(2)
+                    if (data[0] & 0x80) {
+                        i = 256 - data[0];
+                        if (x + i > xsize) break;
+                        FLI_OOB(i + 1)
+                        memcpy(out + x, data + 1, (size_t)i);
+                        data += i + 1;
+                    } else {
+                        i = data[0];
+                        if (x + i > xsize) break;
+                        memset(out + x, data[1], (size_t)i);
+                        data += 2;
+                    }
+                }
+                if (x != xsize) { *err = -2; return -1; }
+            }
+            break;
+        case 16:  /* COPY */
+            if (INT32_MAX / xsize < ysize) { *err = -2; return -1; }
+            if (data + xsize * ysize > ptr + bytes) return ptr - buf;
+            for (y = 0; y < ysize; y++) {
+                memcpy(img + y * xsize, data, (size_t)xsize);
+                data += xsize;
+            }
+            break;
+        default:
+            *err = -1;
+            return -1;
+        }
+        int64_t advance = FLI_I32(ptr);
+        if (advance == 0) { *err = -3; return -1; }
+        if (advance < 0 || advance > bytes) { *err = -2; return -1; }
+        ptr += advance;
+        bytes -= advance;
+    }
+    return -1;
+}
+
+/* BLP2's DXT1 / DXT3 / DXT5 blocks as PIL's Python decode_dxt1 / 3 / 5
+ * (BlpImagePlugin.py) decode them, which differ from PIL's C BCn decoder:
+ * 565 colours widened by shifts alone (no bit replication), integer thirds
+ * and halves, DXT3 / DXT5 colours always in the four-colour mode.  `in`
+ * holds `rows` block rows of `blocks` blocks each; out gets PIL's stream:
+ * per block row its four pixel rows of 4 * blocks pixels, `c` bytes each
+ * (c 4, or 3 for DXT1 without alpha).  kind: 1, 3 or 5. */
+static void dxt_colours(const uint8_t *b, int four, int table[4][4]) {
+    int c0 = b[0] | b[1] << 8, c1 = b[2] | b[3] << 8;
+    int p[2][3] = {{(c0 >> 11 & 0x1F) << 3, (c0 >> 5 & 0x3F) << 2, (c0 & 0x1F) << 3},
+                   {(c1 >> 11 & 0x1F) << 3, (c1 >> 5 & 0x3F) << 2, (c1 & 0x1F) << 3}};
+    int more = four || c0 > c1;
+    for (int k = 0; k < 3; k++) {
+        table[0][k] = p[0][k];
+        table[1][k] = p[1][k];
+        table[2][k] = more ? (2 * p[0][k] + p[1][k]) / 3 : (p[0][k] + p[1][k]) / 2;
+        table[3][k] = more ? (2 * p[1][k] + p[0][k]) / 3 : 0;
+    }
+    table[0][3] = table[1][3] = table[2][3] = 255;
+    table[3][3] = more ? 255 : 0;
+}
+
+void vpt_blp_dxt(const uint8_t *in, int64_t rows, int64_t blocks, int kind, int c, uint8_t *out) {
+    int64_t size = kind == 1 ? 8 : 16, line = 4 * blocks * c;
+    for (int64_t r = 0; r < rows; r++)
+        for (int64_t k = 0; k < blocks; k++) {
+            const uint8_t *b = in + (r * blocks + k) * size;
+            int table[4][4], alpha[16];
+            dxt_colours(kind == 1 ? b : b + 8, kind != 1, table);
+            uint32_t code = b[size - 4] | (uint32_t)b[size - 3] << 8 | (uint32_t)b[size - 2] << 16 |
+                            (uint32_t)b[size - 1] << 24;
+            if (kind == 3) {
+                for (int i = 0; i < 16; i++) alpha[i] = (b[i / 2] >> (4 * (i & 1)) & 0xF) * 17;
+            } else if (kind == 5) {
+                int a0 = b[0], a1 = b[1];
+                uint64_t bits = 0;
+                for (int i = 0; i < 6; i++) bits |= (uint64_t)b[2 + i] << (8 * i);
+                for (int i = 0; i < 16; i++) {
+                    int q = (int)(bits >> (3 * i) & 7);
+                    alpha[i] = q == 0 ? a0 : q == 1 ? a1 : a0 > a1 ? ((8 - q) * a0 + (q - 1) * a1) / 7
+                             : q == 6 ? 0 : q == 7 ? 255 : ((6 - q) * a0 + (q - 1) * a1) / 5;
+                }
+            }
+            for (int i = 0; i < 16; i++) {
+                int q = code >> (2 * i) & 3;
+                uint8_t *o = out + (r * 4 + i / 4) * line + (k * 4 + i % 4) * c;
+                for (int ch = 0; ch < 3; ch++) o[ch] = (uint8_t)table[q][ch];
+                if (c == 4) o[3] = (uint8_t)(kind == 1 ? table[q][3] : alpha[i]);
+            }
+        }
+}
+
+/* libtiff's PackBitsDecode (tif_packbits.c) of one strip or tile: runs cut
+ * at the `occ` bytes the strip holds, a literal run that the data cannot
+ * fill whole dropped ("lack of data"), -128 a no-op.  Returns the bytes
+ * written; the strip decoded whole when that is occ. */
+int64_t vpt_packbits_libtiff(const uint8_t *in, int64_t cc, uint8_t *out, int64_t occ) {
+    int64_t i = 0, o = 0;
+    while (cc > 0 && occ > 0) {
+        int n = (int8_t)in[i++];
+        cc--;
+        if (n < 0) {
+            if (n == -128) continue;
+            int64_t k = -n + 1;
+            if (occ < k) k = occ;
+            if (cc == 0) break;
+            occ -= k;
+            uint8_t b = in[i++];
+            cc--;
+            memset(out + o, b, (size_t)k);
+            o += k;
+        } else {
+            int64_t k = n + 1;
+            if (occ < k) k = occ;
+            if (cc < k) break;
+            memcpy(out + o, in + i, (size_t)k);
+            o += k;
+            occ -= k;
+            i += k;
+            cc -= k;
+        }
+    }
+    return o;
+}

@@ -2587,6 +2587,7 @@ int vpt_j2k_decode(void *h, int kind, uint8_t *out, int64_t ostride, int64_t xsi
                    const int16_t *ycc, char *err, int64_t errlen) {
     j2k_t *j = (j2k_t *)h;
     int rc = 0;
+    uint32_t decoded = 0;
     for (;;) {
         uint32_t tileno;
         int got = read_tile_header(j, &tileno);
@@ -2631,12 +2632,20 @@ int vpt_j2k_decode(void *h, int kind, uint8_t *out, int64_t ostride, int64_t xsi
             uint32_t m = rd(b, 2);
             if (m == 0xffd9) { j->cur_tile = 0; j->state = ST_EOC; }
             else if (m != 0xff90) {
-                if (left(j) == 0) { j->state = ST_NEOC; continue; }
-                rc = fail(j, "Stream too short, expected SOT");
-                break;
+                if (left(j) == 0) j->state = ST_NEOC;
+                else {
+                    rc = fail(j, "Stream too short, expected SOT");
+                    break;
+                }
             }
         }
+        /* opj_decode (OpenCV's call, kind 9) stops at the stream's end after a tile or once every tile is
+           decoded; PIL's tile loop reads the next tile header whatever the state */
+        decoded++;
+        if (kind == 9 && ((left(j) == 0 && j->state == ST_NEOC) || decoded == j->tw * j->th)) break;
     }
+    /* opj_j2k_are_all_used_components_decoded: opj_decode fails where no tile reached the image */
+    if (!rc && kind == 9 && decoded == 0) rc = fail(j, "Failed to decode component 0");
     if (rc) snprintf(err, (size_t)errlen, "%s", j->err);
     return rc;
 }

@@ -2,7 +2,8 @@
 entropy decoders (Huffman, arithmetic and lossless), inverse DCT and block
 smoothing, the TIFF LZW and PackBits
 decoders and predictors, the GIF LZW decoder, the BMP, TGA, PCX and SGI RLE
-decoders, PSD's PackBits, the QOI decoder and the Lab -> sRGB lookup; the
+decoders, PSD's PackBits, the QOI decoder, the Lab -> sRGB lookup and PIL's
+"bit", Sun raster RLE, Windows Paint, X bitmap, FLI and PhotoCD decoders; the
 WebP decoders (csrc/webpdec.c): VP8L, VP8 key frames and ALPH planes; the
 DDS block decoders (csrc/bcndec.c): BC1-BC7; and the JPEG 2000 decoder
 (csrc/j2kdec.c).
@@ -89,6 +90,21 @@ def library():
             lib.vpt_lab_to_rgb.argtypes = [p, i64, p, p]
             lib.vpt_rgbe_cv.restype = ctypes.c_int
             lib.vpt_rgbe_cv.argtypes = [p, i64, i64, i64, p]
+            lib.vpt_bit_decode.restype = ctypes.c_int
+            lib.vpt_bit_decode.argtypes = [p, i64, p, i64, i64, ctypes.c_int]
+            for name in ("vpt_sun_rle", "vpt_xbm_hex"):
+                getattr(lib, name).restype = ctypes.c_int
+                getattr(lib, name).argtypes = [p, i64, i64, i64, p]
+            lib.vpt_msp_rle.restype = ctypes.c_int
+            lib.vpt_msp_rle.argtypes = [p, i64, i64, i64, p, i64, p]
+            lib.vpt_pcd_planes.restype = ctypes.c_int
+            lib.vpt_pcd_planes.argtypes = [p, i64, i64, i64, p]
+            lib.vpt_fli_decode.restype = i64
+            lib.vpt_packbits_libtiff.restype = i64
+            lib.vpt_packbits_libtiff.argtypes = [p, i64, p, i64]
+            lib.vpt_blp_dxt.restype = None
+            lib.vpt_blp_dxt.argtypes = [p, i64, i64, ctypes.c_int, ctypes.c_int, p]
+            lib.vpt_fli_decode.argtypes = [p, i64, p, i64, i64, p]
             _lib = lib
     return _lib
 
@@ -471,6 +487,94 @@ def qoi_decode(data, pixels: int, channels: int) -> np.ndarray:
     if library().vpt_qoi_decode(_ptr(src), src.size, pixels, channels, _ptr(out)):
         raise ValueError("QOI data ends before the last pixel (image file is truncated)")
     return out
+
+
+def bit_decode(data, out: np.ndarray, bits: int) -> int:
+    """PIL's "bit" decoder (ImImagePlugin's fill 3, pad 8) of data into the
+    (h, w) float32 `out`, rows bottom-up: 0, or -1 when the data ends
+    first."""
+    src = _bytes(data)
+    h, w = out.shape
+    return library().vpt_bit_decode(_ptr(src), src.size, _ptr(out), w, h, bits)
+
+
+def _lines(fn, data, row_bytes: int, rows: int, what: str) -> np.ndarray:
+    src = _bytes(data)
+    out = np.zeros((rows, row_bytes), np.uint8)
+    if getattr(library(), fn)(_ptr(src), src.size, row_bytes, rows, _ptr(out)):
+        raise ValueError(f"{what} data ends before the last scanline (PIL: image file is truncated)")
+    return out
+
+
+def sun_rle(data, row_bytes: int, rows: int) -> np.ndarray:
+    """A Sun raster RLE stream as PIL's decoder reads it: (rows, row_bytes)
+    uint8 scanlines (runs go on across them).  Data that ends first raises a
+    ValueError."""
+    return _lines("vpt_sun_rle", data, row_bytes, rows, "Sun raster RLE")
+
+
+def xbm_hex(data, row_bytes: int, rows: int) -> np.ndarray:
+    """An X bitmap's hex values as PIL's decoder reads them: (rows,
+    row_bytes) uint8.  Data that ends first raises a ValueError."""
+    return _lines("vpt_xbm_hex", data, row_bytes, rows, "XBM")
+
+
+def msp_rle(data, h: int, blank: int, cap: int) -> tuple:
+    """A Windows Paint v2 file's rows (data: the whole file) as PIL's
+    MspDecoder writes them: (the first `cap` bytes, how many it wrote).  A
+    file shorter than its row map or a row, or a run its row cuts, raises a
+    ValueError."""
+    src = _bytes(data)
+    out = np.zeros(max(cap, 1), np.uint8)
+    made = ctypes.c_int64(0)
+    rc = library().vpt_msp_rle(_ptr(src), src.size, h, blank, _ptr(out), cap, ctypes.byref(made))
+    if rc == -1:
+        raise ValueError("truncated MSP file (PIL)")
+    if rc:
+        raise ValueError("corrupted MSP file: a run cut by its row's end (PIL)")
+    return out[:cap], made.value
+
+
+def pcd_planes(data, w: int, rows: int) -> np.ndarray:
+    """A PhotoCD base image's planes as PIL's decoder reads them: (rows, w,
+    3) Y, C1, C2.  Data that ends first raises a ValueError."""
+    src = _bytes(data)
+    out = np.zeros((rows, w, 3), np.uint8)
+    if library().vpt_pcd_planes(_ptr(src), src.size, w, rows, _ptr(out)):
+        raise ValueError("PhotoCD image data ends early (PIL: image file is truncated)")
+    return out
+
+
+def fli_decode(data, img: np.ndarray) -> tuple:
+    """One call of PIL's FLI decoder on the bytes gathered so far, applied to
+    the (h, w) uint8 `img`: (bytes consumed or -1, PIL's error code)."""
+    src = _bytes(data)
+    err = ctypes.c_int(0)
+    h, w = img.shape
+    n = library().vpt_fli_decode(_ptr(src), src.size, _ptr(img), w, h, ctypes.byref(err))
+    return n, err.value
+
+
+def packbits_libtiff(data, size: int) -> np.ndarray:
+    """A PackBits strip as libtiff's decoder writes it into a buffer of
+    `size` bytes: the bytes written (fewer where the data runs short)."""
+    src = _bytes(data)
+    out = np.zeros(max(size, 1), np.uint8)
+    n = library().vpt_packbits_libtiff(_ptr(src), src.size, _ptr(out), size)
+    return out[:n]
+
+
+def blp_dxt(data, rows: int, blocks: int, kind: int, channels: int) -> bytes:
+    """BLP2 DXT block rows (kind 1, 3 or 5) as PIL's Python decoders give
+    them: per block row, its four pixel rows of 4 * blocks pixels of
+    `channels` bytes."""
+    src = _bytes(data)
+    size = 8 if kind == 1 else 16
+    if src.size < rows * blocks * size:
+        raise ValueError("BLP DXT data ends before the last block")
+    out = np.empty(rows * 4 * blocks * 4 * channels, np.uint8)
+    library().vpt_blp_dxt(_ptr(src), rows, blocks, kind, channels, _ptr(out))
+    return out.tobytes()
 
 
 _BCN_SRC = os.path.join(CSRC_DIR, "bcndec.c")

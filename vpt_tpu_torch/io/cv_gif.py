@@ -1,7 +1,8 @@
 """GIF files as OpenCV 5.0's own GifDecoder (grfmt_gif.cpp) reads their
 first frame with `IMREAD_COLOR`.
 
-The logical screen is the image; a frame that reaches past it fails, as
+The header must say GIF87a or GIF89a (any "GIF" file is claimed).  The
+logical screen is the image; a frame that reaches past it fails, as
 does one without a colour table (local, else the global one), a
 background index past the global table, a disposal method above 3 before
 the first frame, or a file whose blocks do not run on to the trailer
@@ -142,6 +143,8 @@ def read(data: bytes, name: str) -> tuple:
 
 
 def _read(data: bytes, name: str) -> np.ndarray:
+    if data[:6] not in (b"GIF87a", b"GIF89a"):  # (GifDecoder::readHeader; its signature check takes "GIF")
+        raise _Fail(f"version {data[3:6]!r}")
     s = _Stream(data, 6)
     sw, sh = s.word(), s.word()
     if not (sw > 0 and sh > 0):

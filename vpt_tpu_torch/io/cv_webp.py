@@ -167,6 +167,7 @@ def _still(data: bytes, name: str) -> np.ndarray | None:
 def read(data: bytes, name: str) -> tuple:
     """The first frame as (H, W, 3) uint8 RGB, and its EXIF bytes."""
     img = _still(data, name)
-    if img is None:
+    if img is None:  # an animation: OpenCV checks its canvas first (validateInputImageSize)
+        codec.check_cv_size(1 + int.from_bytes(data[24:27], "little"), 1 + int.from_bytes(data[27:30], "little"), name)
         img, _ = webp.read_pil(data, name)
     return np.ascontiguousarray(img[..., :3]), _exif(data)

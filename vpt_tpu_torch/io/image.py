@@ -57,7 +57,9 @@ import zlib
 
 import numpy as np
 
-from vpt_tpu_torch.io import bmp, codec, dds, gif, ico, jpeg2000, lab, netpbm, pcx, probe, psd, qoi, sgi, tga, tiff, webp
+from vpt_tpu_torch.io import (blp, bmp, codec, dcx, dds, fits, fli, ftex, gbr, gif, icns, ico, im, iptc, jpeg2000, lab,
+                              mcidas, msp, netpbm, pcd, pcx, pixar, probe, psd, qoi, raw, sgi, spider, sun, tga, tiff,
+                              webp, xbm, xpm, xvthumb)
 from vpt_tpu_torch.io.jpeg import decode_jpeg
 
 _PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
@@ -70,13 +72,19 @@ _ADAM7 = ((0, 0, 8, 8), (4, 0, 8, 8), (0, 4, 4, 8), (2, 0, 4, 4), (0, 2, 2, 4), 
 # in and that neither PIL nor the port reads, to name them in the refusal.
 _OTHER_FORMATS = ((b"\xabKTX 20\xbb", "KTX2"), (b"\x76\x2f\x31\x01", "OpenEXR"),
                   (b"#?RADIANCE", "Radiance HDR"), (b"#?RGBE", "Radiance HDR"), (b"PF\n", "PFM (colour)"))
-_READ = "PNG, JPEG, JPEG 2000, TIFF, GIF, BMP, WebP, TGA, DDS, Netpbm, QOI, SGI, PCX, ICO, CUR and PSD"
-# PIL's names of the formats it opens that the port does not read yet
-# (ROADMAP "Left"), as the refusals name them.
-_UNPORTED_NAMES = {"ICNS": "ICNS (Apple icon)", "IM": "IM (LabEye)", "IMT": "IM tools",
-                   "IPTC": "IPTC/NAA", "MCIDAS": "McIdas area", "MSP": "MSP (Windows Paint)", "PCD": "PhotoCD",
-                   "PIXAR": "PIXAR raster", "SUN": "Sun raster", "XVTHUMB": "XV thumbnail", "GBR": "GIMP brush",
-                   "FLI": "FLI / FLC animation", "FTEX": "FTEX (Independence War texture)", "SPIDER": "SPIDER"}
+_READ = ("PNG, JPEG, JPEG 2000, TIFF, GIF, BMP, WebP, TGA, DDS, Netpbm, QOI, SGI, PCX, ICO, CUR, PSD and PIL's "
+         "other plugins but AVIF, BUFR, EPS, GRIB, HDF5, MPEG and WMF")
+# The plugins PIL 12.1 has that decode on neither machine, as the refusals
+# name them, and why.
+_UNPORTED_NAMES = {"AVIF": "AVIF", "BUFR": "BUFR", "EPS": "EPS (PostScript)", "GRIB": "GRIB", "HDF5": "HDF5",
+                   "MPEG": "MPEG", "WMF": "WMF / EMF"}
+_UNPORTED_WHY = {"AVIF": "an AV1 intra decoder is a codec of its own (ROADMAP \"Not ported\")",
+                 "BUFR": "PIL has no BUFR handler installed, so it raises too",
+                 "GRIB": "PIL has no GRIB handler installed, so it raises too",
+                 "HDF5": "PIL has no HDF5 handler installed, so it raises too",
+                 "EPS": "PIL renders it with Ghostscript, which neither machine has",
+                 "MPEG": "PIL has no MPEG decoder, so it raises too",
+                 "WMF": "PIL renders it through Windows only, so it raises too"}
 
 
 def to_uint8(image) -> np.ndarray:
@@ -278,6 +286,16 @@ def _dib(data: bytes, name: str) -> tuple:
     return bmp.decode(data, hd, name)
 
 
+def _icns_png(name: str):
+    def png(data: bytes) -> tuple:  # PIL's ICNS image takes the PNG's pixels and palette, not its transparency
+        try:
+            arr, mode, table, _ = _png(data, name)
+        except probe.PassOn as e:
+            raise ValueError(str(e)) from None
+        return arr, mode, table
+    return png
+
+
 def _ico_png(name: str):
     def png(data: bytes) -> tuple:
         arr, mode, table, _ = _png(data, name)  # PIL keeps the entry's pixels and palette, not its transparency
@@ -285,12 +303,13 @@ def _ico_png(name: str):
     return png
 
 
-# PIL 12.1's plugins in the order `Image.open` tries them, each with a test
-# of the file's first bytes (its `_accept`, or None: always tried) and its
-# reader, which returns (array, mode, palette) or (array, mode, palette,
-# transparency), raises probe.PassOn where PIL tries the next plugin, and
-# raises a ValueError where PIL refuses the file.  A plugin the port has no
-# reader for is probe.UNPORTED's test.
+# PIL 12.1's plugins in the order `Image.open` tries them, each with its
+# `_accept` test of the file's first 16 bytes (None: PIL registers none, the
+# plugin is tried on every file: IM, IMT, IPTC, PCD, SPIDER, TGA) and its reader, which returns (array, mode,
+# palette) or (array, mode, palette, transparency), raises probe.PassOn where
+# PIL tries the next plugin, and raises a ValueError where PIL refuses the
+# file.  A plugin that decodes on neither machine (probe.UNPORTED) has no
+# reader: its test is probe's.
 _PLUGINS = (
     ("BMP", lambda d: d[:2] == b"BM", lambda d, n, f: bmp.read_pil(d, n)),
     ("DIB", lambda d: d[:4] in (b"\x0c\0\0\0", b"(\0\0\0", b"4\0\0\0", b"8\0\0\0", b"@\0\0\0", b"l\0\0\0",
@@ -299,26 +318,55 @@ _PLUGINS = (
     ("JPEG", lambda d: d[:3] == _JPEG_SOI, lambda d, n, f: _jpeg(d, n)),
     ("PPM", netpbm.accept, lambda d, n, f: netpbm.read_pil(d, n)),
     ("PNG", lambda d: d[:8] == _PNG_SIGNATURE, lambda d, n, f: _png(d, n)),
-    *((fmt, None, None) for fmt in ("AVIF", "BLP", "BUFR")),
+    ("AVIF", probe.UNPORTED["AVIF"], None),
+    ("BLP", blp.accept, lambda d, n, f: blp.read_pil(d, n)),
+    ("BUFR", probe.UNPORTED["BUFR"], None),
     ("CUR", lambda d: d[:4] == b"\0\0\2\0", lambda d, n, f: ico.read_cur(d, n)),
     ("PCX", pcx.accept, lambda d, n, f: pcx.read_pil(d, n, f)),
-    ("DCX", None, None),
+    ("DCX", dcx.accept, dcx.read_pil),
     ("DDS", lambda d: d[:4] == b"DDS ", lambda d, n, f: dds.read_pil(d, n)),
-    *((fmt, None, None) for fmt in ("EPS", "FITS", "FLI", "FTEX", "GBR", "GRIB", "HDF5")),
+    ("EPS", probe.UNPORTED["EPS"], None),
+    ("FITS", fits.accept, fits.read_pil),
+    ("FLI", fli.accept, lambda d, n, f: fli.read_pil(d, n)),
+    ("FTEX", ftex.accept, ftex.read_pil),
+    ("GBR", gbr.accept, gbr.read_pil),
+    ("GRIB", probe.UNPORTED["GRIB"], None),
+    ("HDF5", probe.UNPORTED["HDF5"], None),
     ("JPEG2000", jpeg2000.accept, lambda d, n, f: jpeg2000.read_pil(d, n)),
-    ("ICNS", None, None),
+    ("ICNS", icns.accept, lambda d, n, f: icns.read_pil(d, n, f, _icns_png(n), rgba8)),
     ("ICO", lambda d: d[:4] == b"\0\0\1\0", lambda d, n, f: ico.read_ico(d, n, _ico_png(n))),
-    *((fmt, None, None) for fmt in ("IM", "IMT", "IPTC", "MCIDAS", "MPEG")),
+    ("IM", None, im.read_pil),
+    ("IMT", None, im.read_imt),
+    ("IPTC", None, lambda d, n, f: iptc.read_pil(d, n, _iptc_inner)),
+    ("MCIDAS", mcidas.accept, mcidas.read_pil),
+    ("MPEG", probe.UNPORTED["MPEG"], None),
     ("TIFF", lambda d: d[:4] in tiff.MAGIC, lambda d, n, f: tiff.read_pil(d, n)),
-    *((fmt, None, None) for fmt in ("MSP", "PCD", "PIXAR")),
+    ("MSP", msp.accept, lambda d, n, f: msp.read_pil(d, n)),
+    ("PCD", None, lambda d, n, f: pcd.read_pil(d, n)),
+    ("PIXAR", pixar.accept, pixar.read_pil),
     ("PSD", lambda d: d[:4] == b"8BPS", lambda d, n, f: psd.read_pil(d, n)),
     ("QOI", lambda d: d[:4] == b"qoif", lambda d, n, f: qoi.read_pil(d, n)),
     ("SGI", sgi.accept, lambda d, n, f: sgi.read_pil(d, n)),
-    *((fmt, None, None) for fmt in ("SPIDER", "SUN")),
-    ("TGA", lambda d: True, lambda d, n, f: tga.read_pil(d, n)),
+    ("SPIDER", None, spider.read_pil),
+    ("SUN", sun.accept, lambda d, n, f: sun.read_pil(d, n)),
+    ("TGA", None, lambda d, n, f: tga.read_pil(d, n)),
     ("WEBP", lambda d: d[:4] == b"RIFF" and d[8:12] == b"WEBP", lambda d, n, f: (*webp.read_pil(d, n), None)),
-    *((fmt, None, None) for fmt in ("WMF", "XBM", "XPM", "XVTHUMB")),
+    ("WMF", probe.UNPORTED["WMF"], None),
+    ("XBM", xbm.accept, lambda d, n, f: xbm.read_pil(d, n)),
+    ("XPM", xpm.accept, lambda d, n, f: xpm.read_pil(d, n)),
+    ("XVTHUMB", xvthumb.accept, xvthumb.read_pil),
 )
+
+
+def _iptc_inner(data: bytes, name: str) -> tuple:
+    """IPTC's image data as PIL's `Image.open` of it opens it."""
+    return _open(data, name)[1:]
+
+
+# The readers whose `np.asarray` differs from the loaded image (io/icns.py,
+# io/iptc.py), as `_open(asarray=True)` reads them.
+_AS_ARRAY = {"ICNS": lambda d, n, f: icns.read_pil(d, n, f, _icns_png(n), rgba8, asarray=True),
+             "IPTC": lambda d, n, f: iptc.read_pil(d, n, _iptc_inner, asarray=True)}
 
 
 def _jpeg(data: bytes, name: str) -> tuple:
@@ -330,21 +378,28 @@ class Unidentified(ValueError):
     """No plugin of PIL's claims the file (PIL's UnidentifiedImageError)."""
 
 
-def _open(data: bytes, name: str, from_file: bool = False) -> tuple:
+def _open(data: bytes, name: str, from_file: bool = False, asarray: bool = False) -> tuple:
     """The image as PIL's `Image.open` opens it: (format, array, mode,
     palette, transparency), trying PIL's plugins in its order.  `from_file`:
-    PIL reads a file from a path (which a PCX reader's seek before its start
-    refuses), not from memory."""
+    PIL reads a file from a path (True or raw.PATH: a real file, whose seek
+    before its start a PCX reader refuses, and which PIL may map), or from a
+    file object (raw.FILE_OBJECT: imageio's way, a real file but no map),
+    not from memory.  `asarray`: the array as `np.asarray` of the
+    opened image gives it, where that differs from the loaded image (an icns
+    image not in RGBA, io/icns.py; IPTC image data of another size than its
+    records', io/iptc.py)."""
+    from_file = raw.PATH if from_file is True else int(from_file)
     for fmt, accept, read in _PLUGINS:
+        if accept is not None and not accept(data if read is None else data[:16]):
+            continue
         if read is None:
-            if probe.UNPORTED[fmt](data):
-                kind = _UNPORTED_NAMES.get(fmt, fmt)
-                raise ValueError(f"{name}: {kind} images are not read yet (PIL opens them; the port reads {_READ})")
-            continue
-        if not accept(data):
-            continue
+            if fmt == "AVIF":
+                raise ValueError(f"{name}: AVIF images are not read yet (PIL opens them; {_UNPORTED_WHY[fmt]}; the "
+                                 f"port reads {_READ})")
+            raise ValueError(f"{name}: {_UNPORTED_NAMES[fmt]} images are not read (PIL's {fmt} plugin claims the "
+                             f"file, and {_UNPORTED_WHY[fmt]}; the port reads {_READ})")
         try:
-            out = read(data, name, from_file)
+            out = (_AS_ARRAY.get(fmt, read) if asarray else read)(data, name, from_file)
         except probe.PassOn:
             continue
         return (fmt, *out) if len(out) == 4 else (fmt, *out, None)
@@ -354,7 +409,7 @@ def _open(data: bytes, name: str, from_file: bool = False) -> tuple:
     raise Unidentified(f"{name}: a file of unknown format is not read (only {_READ})")
 
 
-def _pil_image(data: bytes, name: str, from_file: bool = False):
+def _pil_image(data: bytes, name: str, from_file: bool = False, asarray: bool = False):
     """The image as PIL opens it: (array, mode, palette, transparency).
     The array is `np.asarray` of PIL's image; the palette is (256, 3), or
     (256, 4) for an RGBA palette (unlisted entries black), for modes "P" and
@@ -362,13 +417,14 @@ def _pil_image(data: bytes, name: str, from_file: bool = False):
     transparency is PIL's `info` value (a gray level, an RGB triple) or, for
     a palette image, its entries' alphas as a PNG tRNS chunk gives them, or
     None."""
-    return _open(data, name, from_file)[1:]
+    return _open(data, name, from_file, asarray)[1:]
 
 
 # Bits per pixel of PIL's raw packer for each mode: `np.asarray` of a PIL
 # image goes through `tobytes`, whose encoder refuses a row wider than
 # INT_MAX // bits - 7 pixels with a MemoryError.
-_RAW_BITS = {"1": 1, "L": 8, "P": 8, "I;16": 16, "I;16B": 16, "LA": 16, "PA": 16, "RGB": 24, "LAB": 24, "RGBA": 32,
+_RAW_BITS = {"1": 1, "L": 8, "P": 8, "I;16": 16, "I;16L": 16, "I;16B": 16, "LA": 16, "PA": 16, "RGB": 24, "LAB": 24,
+             "YCbCr": 24, "RGBA": 32,
              "CMYK": 32, "I": 32, "F": 32}
 
 
@@ -419,39 +475,38 @@ def _muldiv255(a: np.ndarray, b: np.ndarray) -> np.ndarray:
     return ((t >> 8) + t) >> 8
 
 
-def decode_rgba(data: bytes, name: str = "image", from_file: bool = False) -> np.ndarray:
-    """An image's bytes as (H, W, 4) float32 in [0, 1], expanded as PIL's
-    `convert("RGBA")` expands each mode: gray g -> (g, g, g, 255) (16- and
-    32-bit gray clipped to 0..255 first, float gray truncated), gray+alpha
-    -> (g, g, g, a), RGB -> alpha 255, palette -> its entries with their
-    alphas (a PNG's tRNS, a GIF's transparency index, a TIFF's alpha
-    samples), CMYK -> RGB by PIL's cmyk2rgb (255 - k - (255 - k) * c / 255,
-    rounded); a pixel whose gray or RGB value equals the tRNS key's low bytes
-    gets alpha 0; Lab -> sRGB as LittleCMS transforms it for PIL (io/lab.py),
-    alpha 0 (PIL's pad byte, which its PSD reader leaves 0).
-    `from_file`: the bytes are a file's
-    that PIL opens by its path (a glTF image's URI), not from memory."""
-    arr, mode, table, trns = _pil_image(data, name, from_file)
-    _as_array_check(arr.shape[1], "RGBA", name)
-    if mode == "P":
-        rgba = _palette_colours(arr, table, trns)
-        if rgba.shape[2] == 3:
-            rgba = np.concatenate([rgba, np.full(rgba.shape[:2] + (1,), 255, np.uint8)], axis=-1)
-        return _unit(rgba)
+def _ycbcr_to_rgb(arr: np.ndarray) -> np.ndarray:
+    """PIL's YCbCr -> RGB conversion (ConvertYCbCr.c) of (H, W, 3) uint8."""
+    tab = jpeg2000._ycc_tables().astype(np.int32)
+    y, cb, cr = (arr[..., k].astype(np.int32) for k in range(3))
+    rgb = np.stack([y + (tab[cr] >> 6), y + ((tab[256 + cb] + tab[512 + cr]) >> 6), y + (tab[768 + cb] >> 6)], -1)
+    return np.clip(rgb, 0, 255).astype(np.uint8)
+
+
+def rgba8(arr: np.ndarray, mode: str, table, trns) -> np.ndarray:
+    """PIL's `convert("RGBA")` of an image as (H, W, 4) uint8 (see
+    decode_rgba)."""
+    if mode == "P":  # the palette as 256 RGBA entries, then one lookup
+        lut = _palette_colours(np.arange(256), table, trns)
+        if lut.shape[1] == 3:
+            lut = np.concatenate([lut, np.full((256, 1), 255, np.uint8)], axis=-1)
+        return lut.astype(np.uint8)[arr]
     if mode == "PA":
-        return _unit(np.concatenate([table[arr[..., 0]], arr[..., 1:2]], axis=-1))
+        return np.concatenate([table[arr[..., 0]][..., :3], arr[..., 1:2]], axis=-1)
     if mode == "RGBA":
-        return _unit(arr)
+        return arr
     if mode == "LAB":  # LittleCMS's Lab -> sRGB; alpha is the image's pad byte, which a PSD leaves 0
         rgb = lab.to_rgb(arr)
-        return _unit(np.concatenate([rgb, np.zeros(rgb.shape[:2] + (1,), np.uint8)], axis=-1))
+        return np.concatenate([rgb, np.zeros(rgb.shape[:2] + (1,), np.uint8)], axis=-1)
     if mode == "CMYK":
         nk = 255 - arr[..., 3:4].astype(np.int32)
         rgb = np.clip(nk - _muldiv255(arr[..., :3], nk), 0, 255)
-        return _unit(np.concatenate([rgb, np.full(arr.shape[:2] + (1,), 255)], axis=-1).astype(np.uint8))
-    if mode == "1":
+        return np.concatenate([rgb, np.full(arr.shape[:2] + (1,), 255)], axis=-1).astype(np.uint8)
+    if mode == "YCbCr":
+        arr = _ycbcr_to_rgb(arr)
+    elif mode == "1":
         arr = arr.astype(np.uint8) * np.uint8(255)
-    elif mode in ("I;16", "I;16B", "I"):
+    elif mode in ("I;16", "I;16L", "I;16B", "I"):
         arr = np.clip(arr, 0, 255).astype(np.uint8)
     elif mode == "F":  # through "L": truncated, NaN as 0
         arr = np.where(arr >= 255.0, 255, np.where(arr > 0.0, arr, 0)).astype(np.uint8)
@@ -463,9 +518,33 @@ def decode_rgba(data: bytes, name: str = "image", from_file: bool = False) -> np
         rgba[..., :3] = arr[..., None] if arr.ndim == 2 else arr
         rgba[..., 3] = 255
         if trns is not None:
+            if isinstance(trns, bytes):
+                raise ValueError("a transparency key of bytes on an image of mode " + mode +
+                                 " (PIL cannot convert it to RGBA)")
             key = np.atleast_1d(np.asarray(trns, np.int64)) & 0xFF
             rgba[..., 3][(rgba[..., : key.size] == key).all(axis=-1)] = 0
-    return _unit(rgba)
+    return rgba
+
+
+def decode_rgba(data: bytes, name: str = "image", from_file: bool = False) -> np.ndarray:
+    """An image's bytes as (H, W, 4) float32 in [0, 1], expanded as PIL's
+    `convert("RGBA")` expands each mode: gray g -> (g, g, g, 255) (16- and
+    32-bit gray clipped to 0..255 first, float gray truncated), gray+alpha
+    -> (g, g, g, a), RGB -> alpha 255, palette -> its entries with their
+    alphas (a PNG's tRNS, a GIF's transparency index, a TIFF's alpha
+    samples, the bytes of an XPM's transparent key), CMYK -> RGB by PIL's
+    cmyk2rgb (255 - k - (255 - k) * c / 255, rounded), YCbCr -> RGB by
+    PIL's tables; a pixel whose gray or RGB value equals the tRNS key's low
+    bytes gets alpha 0; Lab -> sRGB as LittleCMS transforms it for PIL
+    (io/lab.py), alpha 0 (PIL's pad byte, which its PSD reader leaves 0).
+    `from_file`: the bytes are a file's
+    that PIL opens by its path (a glTF image's URI), not from memory."""
+    arr, mode, table, trns = _pil_image(data, name, from_file)
+    _as_array_check(arr.shape[1], "RGBA", name)
+    try:
+        return _unit(rgba8(arr, mode, table, trns))
+    except ValueError as e:
+        raise ValueError(f"{name}: {e}") from None
 
 
 def decode_samples(data: bytes, name: str = "image", from_file: bool = False) -> np.ndarray:
@@ -473,10 +552,15 @@ def decode_samples(data: bytes, name: str = "image", from_file: bool = False) ->
     palette image converted to its palette's colours (RGB, or RGBA for an
     RGBA palette).  imageio reads no PSD (its plugin cannot seek a PSD's
     first frame) and no palette image without a palette: both raise a
-    ValueError, as imageio raises.  `from_file` as for decode_rgba."""
-    fmt, arr, mode, table, _ = _open(data, name, from_file)
+    ValueError, as imageio raises.  `from_file` as for _open (imageio hands
+    PIL a file object, raw.FILE_OBJECT)."""
+    fmt, arr, mode, table, _ = _open(data, name, from_file, asarray=True)
     if fmt == "PSD":
         raise ValueError(f"{name}: imageio reads no PSD file (its Pillow plugin cannot seek the first frame)")
+    if fmt == "SPIDER":
+        spider.read_pil(data, name, from_file, imageio=True)
+    if fmt == "ICNS" and mode == "P":
+        raise ValueError(f"{name}: imageio cannot convert an icns image of mode P (it has no palette of its own)")
     _as_array_check(arr.shape[1], ("RGBA" if table.shape[1] == 4 else "RGB") if mode == "P" and table is not None
                     else mode, name)
     if mode == "P":
@@ -491,7 +575,7 @@ def load_png(path: str) -> np.ndarray:
     255 (vpt_tpu's io/image.load_png): (H, W) for gray, 1-bit and palette
     images (palette indices), else (H, W, channels)."""
     with open(path, "rb") as f:
-        arr, mode = _pil_image(f.read(), path, from_file=True)[:2]
+        arr, mode = _pil_image(f.read(), path, from_file=True, asarray=True)[:2]
     _as_array_check(arr.shape[1], mode, path)
     return np.asarray(arr, np.float32) / 255.0
 

@@ -30,8 +30,11 @@ def _planes(buf: np.ndarray, w: int, planes: int) -> np.ndarray:
     return sum(bits[:, p] << p for p in range(planes)).astype(np.uint8)
 
 
-def read_pil(data: bytes, name: str = "image", from_file: bool = False) -> tuple:
-    """A PCX file as PIL opens it: (array, mode, (256, 3) palette or None)."""
+def read_pil(data: bytes, name: str = "image", from_file: bool = False, whole: bytes | None = None) -> tuple:
+    """A PCX file as PIL opens it: (array, mode, (256, 3) palette or None).
+    `whole`: the file the PCX image lies in (a DCX page), whose end PIL
+    reads the 8-bit palette from."""
+    whole = data if whole is None else whole
     if not accept(data) or len(data) < 68:
         raise PassOn(f"{name}: not a PCX file")
     x0, y0, x1, y1 = struct.unpack_from("<4H", data, 4)
@@ -48,9 +51,9 @@ def read_pil(data: bytes, name: str = "image", from_file: bool = False) -> tuple
         palette[:16] = np.frombuffer(data, np.uint8, 48, 16).reshape(16, 3)
     elif version == 5 and bits == 8 and planes == 1:
         mode = raw = "L"
-        if from_file and len(data) < 769:
+        if from_file and len(whole) < 769:
             raise ValueError(f"{name}: PCX file shorter than its 769-byte palette (PIL: invalid seek)")
-        tail = data[-769:] if len(data) >= 769 else data
+        tail = whole[-769:] if len(whole) >= 769 else whole
         if len(tail) == 769 and tail[0] == 12 and tail[1:] != bytes(np.repeat(np.arange(256, dtype=np.uint8), 3)):
             mode = raw = "P"
             palette = np.frombuffer(tail, np.uint8, 768, 1).reshape(256, 3).copy()

@@ -39,6 +39,7 @@ import zlib
 import numpy as np
 
 from vpt_tpu_torch.io import codec
+from vpt_tpu_torch.io.probe import PassOn
 
 # Tag number -> name, for the tags the readers look at.
 _TAGS = {256: "width", 257: "length", 258: "bits", 259: "compression", 262: "photometric", 266: "fillorder",
@@ -577,21 +578,26 @@ def read_pil(data: bytes, name: str = "image") -> tuple:
     order, ifds = _ifds(data, name)
     tags = ifds[0]
     page = _Page(data, order, tags, name)
+    # (What PIL's _open refuses with a SyntaxError passes the file on to its next plugin.)
     if order == ">" and data[2:4] == b"\0+":
-        page.fail("big-endian BigTIFF is not read (PIL finds no dimensions in it)")
+        raise PassOn(f"{name}: big-endian BigTIFF (PIL finds no dimensions in it)")
     if page.compression not in _COMPRESSIONS:
         page.fail(f"TIFF compression {page.compression} is not read (only none, LZW, Deflate and PackBits)")
     if page.orientation in (5, 6, 7, 8):
         page.fail(f"TIFF orientation {page.orientation} is not read")
     key = _pil_key(page, tags)
     if key not in _PIL_MODES or (order == ">" and key in _II_ONLY):
-        page.fail(f"TIFF layout (photometric {key[0]}, sample format {key[1]}, bits {key[2]}, extra samples "
-                  f"{key[3]}) is not read (PIL has no mode for it)")
+        raise PassOn(f"{name}: TIFF layout (photometric {key[0]}, sample format {key[1]}, bits {key[2]}, extra "
+                     f"samples {key[3]}) that PIL has no mode for (unknown pixel mode)")
     if page.compression == 1 and page.fillorder == 2 and (key not in _FILL2 or (order == ">" and key[2] == (16,))):
-        page.fail("this TIFF layout with fill order 2 is not read (PIL has no mode for it)")
+        raise PassOn(f"{name}: a TIFF layout with fill order 2 that PIL has no mode for (unknown pixel mode)")
+    if page.compression == 1 and not ({"strip_offsets", "tile_offsets"} & set(tags)):
+        raise PassOn(f"{name}: TIFF without strip or tile offsets (PIL: unknown data organization)")
     if page.compression not in (5, 8, 32946):
         page.predictor = 1  # neither PIL's raw decoder nor libtiff's PackBits codec applies a predictor
     mode, raw = _PIL_MODES[key]
+    if mode in ("P", "PA") and tags.get("colormap") is None:
+        raise PassOn(f"{name}: palette TIFF without a ColorMap (PIL: KeyError in its _setup)")
     if page.planar == 2 and page.compression == 1:
         return _raw_planar(page, raw), mode, None
     s = _spec_samples(page)
@@ -616,10 +622,7 @@ def read_pil(data: bytes, name: str = "image") -> tuple:
     elif raw == "F;32F":
         arr = s[..., 0].astype(np.float32)
     elif mode in ("P", "PA"):
-        cmap = tags.get("colormap")
-        if cmap is None:
-            page.fail("palette TIFF without a ColorMap")
-        pal = (np.asarray(cmap, np.int64) // 256).astype(np.uint8)
+        pal = (np.asarray(tags["colormap"], np.int64) // 256).astype(np.uint8)
         n = len(pal) // 3
         palette = np.zeros((256, 3), np.uint8)
         palette[: min(n, 256)] = pal.reshape(3, n).T[:256]

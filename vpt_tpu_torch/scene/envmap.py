@@ -11,12 +11,14 @@ import numpy as np
 
 from vpt_tpu_torch.io import imageio_order, opencv, tiff
 from vpt_tpu_torch.io.image import _PLUGINS, Unidentified, decode_samples, load_radiance_hdr
-from vpt_tpu_torch.io.probe import UNPORTED
+from vpt_tpu_torch.io.raw import FILE_OBJECT
+from vpt_tpu_torch.io.probe import ACCEPT
 from vpt_tpu_torch.scene.types import EnvMapData
 
 # PIL's `_accept` of each format by name (imageio's legacy "<format>-PIL"
-# plugins claim a file PIL's plugin accepts; MPO opens as a JPEG).
-_PIL_ACCEPT = {**{fmt: accept for fmt, accept, _ in _PLUGINS if accept is not None}, **UNPORTED}
+# plugins claim a file PIL's plugin accepts, and none where PIL registers no
+# `_accept`; MPO opens as a JPEG).
+_PIL_ACCEPT = {**{fmt: accept for fmt, accept, read in _PLUGINS if accept is not None and read is not None}, **ACCEPT}
 _PIL_ACCEPT["MPO"] = _PIL_ACCEPT["JPEG"]
 
 
@@ -34,7 +36,7 @@ def _imageio_read(data: bytes, path: str) -> np.ndarray:
     for plugin in imageio_order.plugins(path):
         if plugin == "pillow":
             try:
-                return decode_samples(data, path, from_file=True)
+                return decode_samples(data, path, from_file=FILE_OBJECT)
             except Unidentified:
                 pil_failed = True
         elif plugin == "opencv":
