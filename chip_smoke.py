@@ -267,14 +267,19 @@ Phases, each of which raises on failure:
         tests/pil_rare_writers.py makes here from seeds) through
         decode_rgba of the bytes and of the file, load_png and load_hdr,
         against its manifest: the sha256 of the JAX package's decode, or a
-        ValueError where it refuses; every file of tests/torch_opencv/
+        ValueError where it refuses; so too every file of tests/torch_avif/
+        (coded-lossless AVIF PIL writes: every subsampling, RGBA with alpha
+        premultiplied or not, both ranges, aom speeds 0-10, tiles, palette,
+        an avis sequence, and the 1024x1024 timing textures and sky; the
+        lossy, intra block copy and FCC-matrix files the port refuses by
+        name where the JAX package reads them); every file of tests/torch_opencv/
         (what imageio hands to OpenCV: Radiance, Sun raster, BMP, PAM,
         Netpbm, JPEG with EXIF orientations, PNG, TIFF, WebP, GIF, JPEG
         2000, AVIF) named sky.exr through load_hdr against its manifest,
         or the refusal it records; the C codec (its arithmetic and
         lossless scan decoders and its TGA, PCX, SGI, QOI and PackBits loops
         too), the C WebP decoders, the C BC block decoders and the C JPEG
-        2000 decoder loaded;
+        2000 decoder and the C AV1 decoder loaded;
      b. a 4096x2048 float32 RGB sky (default_sky) written by
         `write_float_tiff` here as Deflate 256x256 tiles and as
         uncompressed strips: load_hdr gives it back bitwise; its host
@@ -295,14 +300,18 @@ Phases, each of which raises on failure:
         JP2_LIMIT_S; decode_rgba of the 2048x2048 Sun raster RLE, MSP v2,
         FLC, XBM and BLP2 DXT5 textures, each under RARE_LIMIT_S, and
         load_hdr of the 4096x2048 float FITS sky under FITS_LIMIT_S, host
-        seconds (median of 5);
+        seconds (median of 5); decode_rgba of the 1024x1024 lossless 4:2:0
+        and RGBA AVIF textures, each under AVIF_LIMIT_S, host seconds
+        (median of 5);
      c. `python -m vpt_tpu_torch render garden` at 512x512, depth 8, 8 spp
         with --env sky.tif against --env sky.npy of the same array, with
         --env sky.jp2 against --env sky_jp2.npy of its decode, and with
         --env sky.HDR (a Radiance file of tests/torch_opencv/) against
         --env sky_HDR.npy of its manifest decode, and with --env sky.fits
-        (a 1024x512 float FITS) against --env sky_fits.npy of its decode
-        (eight processes at once): bitwise equal; then the colonnade as a
+        (a 1024x512 float FITS) against --env sky_fits.npy of its decode,
+        and with --env sky.avif (a 1024x512 lossless AVIF) against --env
+        sky_avif.npy of its manifest decode (ten processes at once):
+        bitwise equal, with equal segments; then the colonnade as a
         .glb with
         a GIF, an RLE8 BMP, an LZW TIFF and a CMYK JPEG base colour, a lossy
         WebP with ALPH on the back wall, a lossless WebP on the brass, a
@@ -310,7 +319,8 @@ Phases, each of which raises on failure:
         BC7 DDS on the front wall, the RLE TGA and the QOI on two pedestals,
         a PCX on a drape, a PSD on a statue, a tiled JP2 on a third
         pedestal, the Sun raster RLE and the BLP2 DXT5 textures on two more,
-        the FLC on a drape, an icns on a statue and a FITS image on a drape
+        the FLC on a drape, an icns on a statue, a FITS image on a drape
+        and the two 1024x1024 AVIF textures on a drape and a column
         (each of these its own copy
         of its material), through the CLI, bitwise its in-memory render with
         those decodes (each the manifest's sha256);
@@ -373,6 +383,7 @@ import struct
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 import weakref
 import zlib
@@ -414,6 +425,7 @@ from vpt_tpu_torch.viewer import TerminalViewer
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "tests"))
+import avif_cases  # noqa: E402  (tests/avif_cases.py, jax-free: the AVIF files the port refuses by name)
 import gltf_scenes  # noqa: E402  (tests/gltf_scenes.py, jax-free: the .glb writer)
 import pil_format_writers  # noqa: E402  (tests/pil_format_writers.py, numpy alone: 17b's 2048x2048 textures)
 import pil_rare_writers  # noqa: E402  (tests/pil_rare_writers.py, numpy alone: PIL's rarer plugins' large files)
@@ -1852,7 +1864,10 @@ LAYOUT_GROUPS = (4, 16, 48, 64)
 # fs, sorted); 64, 384 and 2048 rays run supertile_tables' run-time tile.
 PACKET_LAYOUTS = ((256, "fs", True), (1024, "fs", True), (512, "fe", True), (512, "fs", False), (64, "fs", True),
                   (384, "fs", True), (2048, "fs", True))
-VISIT_SLICE = 32  # packets whose visit phase 14 holds against the plain version (the plain visit takes ~80 ms a packet)
+# Packets whose visit phase 14 holds against the plain version (the plain
+# visit takes ~80 ms a packet): 32 until the script took 1,054.7 s with
+# phase 14 at 244.0 s on a slow host (PERF.md, "Findings"), 8 since.
+VISIT_SLICE = 8
 # A layout may change which of two triangles at equal t a ray takes; the
 # path of such a sample continues elsewhere, an independent sample in that
 # pixel.  So a layout's image is held to phase 4's K = 128 one at the same
@@ -2404,15 +2419,16 @@ FORMAT_TEXTURES = {"gif-local-interlaced-inside-transparent.gif": ("stone", "ima
                    "timing-1024-53-tiles.jp2": ("stone-ped2", "image/jp2")}
 # 17c's instances that get a copy of their material, for a texture of their own.
 OWN_MATERIALS = ("wall-back", "wall-west", "wall-east", "wall-front", "ped0", "ped1", "drape-n0", "statue0", "ped2",
-                 "ped3", "ped4", "drape-s0", "statue2", "drape-n1")
+                 "ped3", "ped4", "drape-s0", "statue2", "drape-n1", "drape-s1", "col0n")
 FORMAT_FOLDERS = ((gltf_scenes.FORMAT_DIR, gltf_scenes.FORMAT_FIXTURES),
                   (gltf_scenes.WEBP_DIR, gltf_scenes.WEBP_FIXTURES),
                   (gltf_scenes.JPEG_DIR, gltf_scenes.JPEG_FIXTURES),
                   (gltf_scenes.PIL_FORMAT_DIR, gltf_scenes.PIL_FORMAT_FIXTURES + gltf_scenes.PIL_FORMAT_TIMING),
                   (gltf_scenes.JPEG2000_DIR, gltf_scenes.jpeg2000_fixtures()),
-                  (gltf_scenes.PIL_RARE_DIR, gltf_scenes.pil_rare_fixtures() + pil_rare_writers.generated_names()))
-# The four decodes each fixture of tests/torch_pil_rare/ is held to (the other
-# folders hold two).
+                  (gltf_scenes.PIL_RARE_DIR, gltf_scenes.pil_rare_fixtures() + pil_rare_writers.generated_names()),
+                  (gltf_scenes.AVIF_DIR, gltf_scenes.avif_fixtures()))
+# The four decodes each fixture of tests/torch_pil_rare/ and tests/torch_avif/
+# is held to (the other folders hold two).
 RARE_KEYS = ("rgba", "rgba_file", "load_png", "load_hdr")
 WEBP_LIMIT_S = 1.0  # 17b: host seconds for decode_rgba of each 2048x2048 WebP texture
 JPEG_LIMIT_S = 1.0  # 17b: host seconds for decode_rgba of the SOF10 and lossless JPEG textures
@@ -2420,6 +2436,11 @@ PIL_LIMIT_S = 1.0  # 17b: host seconds for decode_rgba of the 2048x2048 BC7 DDS,
 JP2_LIMIT_S = 3.0  # 17b: host seconds for decode_rgba of the 2048x2048 9/7 and 1024x1024 tiled 5/3 JP2 textures
 RARE_LIMIT_S = 1.0  # 17b: host seconds for decode_rgba of each 2048x2048 texture of PIL's rarer plugins
 FITS_LIMIT_S = 2.0  # 17b: host seconds for load_hdr of the 4096x2048 float FITS sky
+AVIF_LIMIT_S = 1.0  # 17b: host seconds for decode_rgba of each 1024x1024 lossless AVIF texture
+# 17c's AVIF textures (of tests/torch_avif/), each on a material of its own:
+# the 1024x1024 lossless 4:2:0 timing texture and the RGBA one.
+AVIF_TEXTURES = {gltf_scenes.AVIF_TIMING[0]: ("drape-green-drape-s1", "image/avif"),
+                 gltf_scenes.AVIF_TIMING[1]: ("stone-col0n", "image/avif")}
 # 17c's textures of PIL's rarer plugins, each on a material of its own: the
 # 2048x2048 Sun raster RLE, BLP2 DXT5 and FLC timing textures (made from their
 # seed here), an icns of RLE RGB with its mask, an 8-bit FITS image.
@@ -2485,7 +2506,8 @@ def fixture_array(path: str, name: str, key: str, manifest: dict):
         else:
             got = load_hdr(path)
     except ValueError as e:
-        check(want is None, f"17a: {name} ({key}) decodes, as the JAX package's does; the port raised {e}")
+        check(want is None or avif_cases.REFUSED.get(name, "\0") in str(e),
+              f"17a: {name} ({key}) decodes, as the JAX package's does; the port raised {e}")
         return None
     check(want == [list(got.shape), str(got.dtype), hashlib.sha256(got.tobytes()).hexdigest()],
           f"17a: {name} ({key}) decodes to its manifest entry {want}")
@@ -2560,7 +2582,7 @@ def image_formats_phase(dev, smi: str) -> None:
             manifest = json.load(f)
         check(sorted(manifest) == sorted(names), f"17a: the manifest of {folder} names every fixture")
         t0 = time.perf_counter()
-        keys = RARE_KEYS if folder == gltf_scenes.PIL_RARE_DIR else ("rgba", "load_hdr")
+        keys = RARE_KEYS if folder in (gltf_scenes.PIL_RARE_DIR, gltf_scenes.AVIF_DIR) else ("rgba", "load_hdr")
         got = {(name, key): fixture_array(os.path.join(made if name in timing or name in rare else folder, name), name,
                                           key, manifest)
                for name in names for key in keys}
@@ -2581,6 +2603,8 @@ def image_formats_phase(dev, smi: str) -> None:
     check(all(hasattr(codec._lib, f) for f in ("vpt_sun_rle", "vpt_msp_rle", "vpt_xbm_hex", "vpt_fli_decode",
                                                 "vpt_pcd_planes", "vpt_bit_decode", "vpt_blp_dxt")),
           "17a: PIL's rarer plugins ran the C codec's Sun RLE, MSP, XBM, FLI, PhotoCD, bit and BLP DXT loops")
+    check(codec._av1_lib is not None and hasattr(codec._av1_lib, "vpt_av1_decode"),
+          "17a: the AVIF fixtures ran the port's C AV1 decoder")
     opencv_decoded = opencv_fixtures()
 
     # 17b. A 4096x2048 float TIFF sky.
@@ -2674,6 +2698,15 @@ def image_formats_phase(dev, smi: str) -> None:
         f"{smi}, host {os.cpu_count()} CPUs): {median:.4f} s median of 5 {every}; (2048, 4096, 3) float32, range "
         f"{float(sky_fits.min()):.3f}-{float(sky_fits.max()):.3f}")
     check(median < FITS_LIMIT_S, f"17b: the FITS sky reads in under {FITS_LIMIT_S} s")
+    row["avif"] = {}
+    for name in gltf_scenes.AVIF_TIMING:
+        with open(os.path.join(gltf_scenes.AVIF_DIR, name), "rb") as f:
+            data = f.read()
+        median, every = host_seconds(lambda: decode_rgba(data, name))
+        row["avif"][name] = {"bytes": len(data), "s": median, "all_s": every}
+        log(f"17b: decode_rgba of {name} (1024x1024 lossless AV1, {len(data)} bytes; {smi}, host {os.cpu_count()} "
+            f"CPUs): {median:.4f} s median of 5 {every}")
+        check(median < AVIF_LIMIT_S, f"17b: {name} decodes in under {AVIF_LIMIT_S} s")
 
     # 17c. A .tif sky against the .npy of the same array, a .jp2 sky against the .npy of its decode; a .glb of
     # the new formats.
@@ -2688,8 +2721,11 @@ def image_formats_phase(dev, smi: str) -> None:
         with open(os.path.join(tmp, "sky.fits"), "wb") as f:  # floats as PIL's FITS plugin reads BITPIX -32
             f.write(pil_rare_writers.fits(small[..., 0], -32, little=True))
         np.save(os.path.join(tmp, "sky_fits.npy"), load_hdr(os.path.join(tmp, "sky.fits")))
+        shutil.copy(os.path.join(gltf_scenes.AVIF_DIR, gltf_scenes.AVIF_SKY), os.path.join(tmp, "sky.avif"))
+        np.save(os.path.join(tmp, "sky_avif.npy"), decoded[gltf_scenes.AVIF_SKY, "load_hdr"])
         skies = {"tif": "sky.tif", "npy": "sky.npy", "jp2": "sky.jp2", "jp2npy": "sky_jp2.npy", "HDR": "sky.HDR",
-                 "HDRnpy": "sky_HDR.npy", "fits": "sky.fits", "fitsnpy": "sky_fits.npy"}
+                 "HDRnpy": "sky_HDR.npy", "fits": "sky.fits", "fitsnpy": "sky_fits.npy", "avif": "sky.avif",
+                 "avifnpy": "sky_avif.npy"}
         args = ("--width", str(W), "--height", str(H), "--spp", "8", "--spp-per-frame", "4", "--depth", "8")
         procs = {ext: subprocess.Popen([sys.executable, "-m", "vpt_tpu_torch", "render", "garden", "-o",
                                         os.path.join(tmp, f"garden_{ext}.png"), "--hdr-output",
@@ -2733,6 +2769,14 @@ def image_formats_phase(dev, smi: str) -> None:
               "17c: the --env sky.fits render is finite and lit")
         check(np.array_equal(got, want), "17c: the --env sky.fits render is bitwise the --env sky_fits.npy render")
         check(stats["fits"]["segments"] == stats["fitsnpy"]["segments"], "17c: the FITS sky renders' segments equal")
+        got, want = (np.load(os.path.join(tmp, f"garden_{ext}.npy")) for ext in ("avif", "avifnpy"))
+        log(f"17c: render garden {W}x{H} depth 8, 8 spp with --env sky.avif ({gltf_scenes.AVIF_SKY}, lossless 4:2:0 "
+            f"AV1) and --env sky_avif.npy (its manifest decode), at once: bitwise equal "
+            f"{bool(np.array_equal(got, want))}, segments {stats['avif']['segments']} vs {stats['avifnpy']['segments']}")
+        check(got.shape == (H, W, 3) and np.isfinite(got).all() and float(got.mean()) > 0.0,
+              "17c: the --env sky.avif render is finite and lit")
+        check(np.array_equal(got, want), "17c: the --env sky.avif render is bitwise the --env sky_avif.npy render")
+        check(stats["avif"]["segments"] == stats["avifnpy"]["segments"], "17c: the AVIF sky renders' segments equal")
 
         scene = colonnade()
         for own in OWN_MATERIALS:  # each its own copy of its material, for a texture of its own
@@ -2742,7 +2786,7 @@ def image_formats_phase(dev, smi: str) -> None:
             inst.material = len(scene.materials) - 1
         folders = {name: folder for folder, names in FORMAT_FOLDERS for name in names}
         images, textures = {}, {}
-        for name, (material, mime) in {**FORMAT_TEXTURES, **RARE_TEXTURES}.items():
+        for name, (material, mime) in {**FORMAT_TEXTURES, **RARE_TEXTURES, **AVIF_TEXTURES}.items():
             textures[name] = decoded[name, "rgba"]
             check(textures[name] is not None, f"17c: {name} is a texture the JAX package reads")
             scene.textures.append(textures[name])
@@ -2762,7 +2806,7 @@ def image_formats_phase(dev, smi: str) -> None:
         got = np.load(hdr_out)
         ref_scene = load_gltf(glb)
     ref_scene.env_map = scene.env_map
-    for name, (material, _) in {**FORMAT_TEXTURES, **RARE_TEXTURES}.items():
+    for name, (material, _) in {**FORMAT_TEXTURES, **RARE_TEXTURES, **AVIF_TEXTURES}.items():
         ref_scene.textures[next(m for m in ref_scene.materials if m.name == material).base_color_texture] = \
             textures[name]
     ref = Renderer(ref_scene, width=W, height=H, flags=RenderFlags(max_depth=8), samples_per_frame=4, max_samples=8,
@@ -2773,7 +2817,7 @@ def image_formats_phase(dev, smi: str) -> None:
     row["glb_render"] = {"seconds": cli["seconds"], "segments": cli["segments"],
                          "bitwise": bool(np.array_equal(got, want))}
     log(f"17c: CLI render of the .glb with "
-        f"{', '.join(f'{n} ({m})' for n, (m, _) in {**FORMAT_TEXTURES, **RARE_TEXTURES}.items())} "
+        f"{', '.join(f'{n} ({m})' for n, (m, _) in {**FORMAT_TEXTURES, **RARE_TEXTURES, **AVIF_TEXTURES}.items())} "
         f"decoded by the port vs the in-memory render with the decodes whose sha256 is the manifest's, {W}x{H} "
         f"depth 8, 8 spp: bitwise equal {row['glb_render']['bitwise']}, segments {cli['segments']} vs "
         f"{ref.segments_traced}")
@@ -2802,7 +2846,9 @@ def main() -> int:
     smi = card_description(0)
     log(f"torch {torch.__version__} cuda {torch.version.cuda} device {torch.cuda.get_device_name(0)} | {smi}")
 
-    # 2. Build.
+    # 2. Build: the kernels, and the host image codecs in the background (gcc, one process each).
+    host_codecs = threading.Thread(target=codec.build_all, daemon=True)
+    host_codecs.start()
     kernels.library()
     log(f"kernel build: {kernels.build_seconds:.1f} s (nvcc {' '.join(kernels.NVCC_FLAGS)})")
     if args.gallery_full:

@@ -167,6 +167,22 @@ def jpeg2000_fixtures() -> tuple:
     return tuple(sorted(f for f in os.listdir(JPEG2000_DIR) if f.endswith(JPEG2000_EXTENSIONS)))
 
 
+# The AVIF fixtures of tests/torch_avif/ (written by tests/make_torch_avif.py
+# from tests/avif_cases.py: coded-lossless 8-bit files PIL writes, the files
+# the port refuses by name, the two 1024x1024 timing textures AVIF_TIMING
+# that chip_smoke.py phase 17b times and AVIF_SKY, 17c's environment map),
+# with a manifest.json of the JAX package's four decodes of each, as
+# tests/torch_pil_rare/ has.
+AVIF_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "torch_avif")
+AVIF_TIMING = ("timing-1024-soft-420.avif", "timing-1024-ramp-rgba.avif")
+AVIF_SKY = "sky-1024x512.avif"
+
+
+def avif_fixtures() -> tuple:
+    """The files of tests/torch_avif/, by name."""
+    return tuple(sorted(f for f in os.listdir(AVIF_DIR) if f.endswith(".avif")))
+
+
 # Adam7 passes: first column, first row, column step, row step.
 ADAM7 = ((0, 0, 8, 8), (4, 0, 8, 8), (0, 4, 4, 8), (2, 0, 4, 4), (0, 2, 2, 4), (1, 0, 2, 2), (0, 1, 1, 2))
 

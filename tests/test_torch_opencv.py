@@ -39,7 +39,7 @@ NAMES = sorted(MANIFEST)
 OPENCV_FIRST = (".HDR", ".pic", ".exr", ".sr", ".dip", ".pxm")
 PIL_FIRST = (".rgbe", "", ".png")
 # Why the port refuses a file OpenCV reads, by the words its message holds.
-REFUSALS = {"avif": "AVIF", "pam": "unwritten", "cielab": "CIE Lab"}
+REFUSALS = {"avif": "AVIF", "pam": "unwritten", "cielab": "CIE Lab", "apng": "unwritten"}
 
 
 def _data(name: str) -> bytes:

@@ -3,8 +3,9 @@ each, as PIL writes it or built here, is one the JAX package decodes, and
 the port's texture decode now gives PIL's expansion of it bitwise (JPEG
 2000 since it was ported, PIL's rarer plugins since they were: BLP, ICNS,
 IM, MSP, SPIDER, XBM, DCX, GBR, SUN, XPM, FITS, XVThumb, FTEX), not a file
-of another format's reading (a TGA).  AVIF alone is still refused, naming
-the format (io/probe.py tells which plugin PIL gives a file to).  A
+of another format's reading (a TGA).  Lossy AVIF (PIL's default quality 75)
+alone is still refused, naming the format and that the frame is not
+coded-lossless (io/probe.py tells which plugin PIL gives a file to).  A
 headerless DIB, which PIL opens in its `preinit` set, the port reads as PIL
 does.  The formats' own tests are tests/test_torch_pil_rare.py.
 """
@@ -70,8 +71,10 @@ def test_unported_formats_are_refused_by_name(case):
     if kind is None:  # a format the port reads: PIL's expansion, bitwise
         np.testing.assert_array_equal(timage.decode_rgba(data, "wall"), want.astype(np.float32) / np.float32(255.0))
         return
-    with pytest.raises(ValueError, match=re.escape(f"wall: {kind} images are not read yet (PIL opens them")):
+    with pytest.raises(ValueError, match=re.escape(f"wall: {kind} images are not read yet (PIL opens them")) as err:
         timage.decode_rgba(data, "wall")
+    if case == "avif":  # saved at PIL's default quality 75: lossy AV1, which the port refuses by name
+        assert "not coded-lossless" in str(err.value)
 
 
 @pytest.mark.parametrize("bits", [8, 24])

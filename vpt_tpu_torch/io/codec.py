@@ -16,6 +16,7 @@ fall back to.
 
 from __future__ import annotations
 
+import concurrent.futures
 import ctypes
 import os
 import threading
@@ -685,3 +686,48 @@ class J2kCodestream:
         if self._h:
             self._lib.vpt_j2k_close(self._h)
             self._h = None
+
+
+_AV1_SRC = os.path.join(CSRC_DIR, "av1dec.c")  # its tables: csrc/av1dec_cdf.h
+_AV1_LIB = os.path.join(BUILD_DIR, "libvpt_av1dec.so")
+_av1_lib = None
+AV1_ERRORS = {
+    -1: "AV1 tile data is corrupt (a coefficient's Golomb code runs past 32 bits)",
+    -2: "out of memory",
+    -3: "AV1 frame parameters outside what the decoder takes",
+    -4: "AV1 tile is empty",
+}
+
+
+def av1_library():
+    """The AV1 key-frame decoder and libavif's YUV -> RGB conversion
+    (csrc/av1dec.c), built with gcc on first use (rebuilt when the source is
+    newer)."""
+    global _av1_lib
+    with _lock:
+        if _av1_lib is None:
+            lib = ctypes.CDLL(host_library(_AV1_SRC, _AV1_LIB, _CMD, "the AV1 decoder"))
+            p = ctypes.c_void_p
+            lib.vpt_av1_decode.restype = ctypes.c_int
+            lib.vpt_av1_decode.argtypes = [p, p, p, ctypes.c_int, p, p, p]
+            lib.vpt_avif_rgb.restype = ctypes.c_int
+            lib.vpt_avif_rgb.argtypes = [p, p, p, p, p, p]
+            _av1_lib = lib
+    return _av1_lib
+
+
+def av1_check(rc: int, name: str) -> None:
+    if rc:
+        raise ValueError(f"{name}: {AV1_ERRORS.get(rc, f'AV1 decoder error {rc}')}")
+
+
+def build_all() -> None:
+    """Build every host codec of this module at once, one gcc process each,
+    where its library is missing or older than its source; each loads when
+    first used, as before."""
+    builds = ((_SRC, _LIB, _CMD, "the image codec"), (_WEBP_SRC, _WEBP_LIB, _CMD, "the WebP decoders"),
+              (_BCN_SRC, _BCN_LIB, _CMD, "the DDS block decoders"),
+              (_J2K_SRC, _J2K_LIB, _J2K_CMD, "the JPEG 2000 decoder"), (_AV1_SRC, _AV1_LIB, _CMD, "the AV1 decoder"))
+    with concurrent.futures.ThreadPoolExecutor(len(builds)) as pool:
+        for done in [pool.submit(host_library, *b) for b in builds]:
+            done.result()

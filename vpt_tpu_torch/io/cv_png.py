@@ -8,9 +8,11 @@ dropped, nothing composited), `png_set_palette_to_rgb` (an index past the
 palette black), `png_set_expand_gray_1_2_4_to_8` (1, 2 and 4-bit gray
 scaled by 255, 85, 17) and `png_set_gray_to_rgb`.  An APNG reads as its
 first frame (`_first_frame`): the default image where an fcTL comes before
-IDAT, else the first frame's fdAT data, as stored (not blended), on a
-black canvas; OpenCV's own chunk reader feeds it to libpng with CRCs and
-the Adler-32 unchecked, and reads no chunk after it.  The EXIF orientation comes from an
+IDAT, else the first frame's fdAT rows over the default image, as stored
+(not blended), on a black canvas; OpenCV's own chunk reader feeds each
+frame to libpng's progressive reader chunk by chunk, with the CRCs
+unchecked, and a frame's rows stop at its first inflate error
+(`_frame_rows`).  The EXIF orientation comes from an
 `eXIf` chunk.  libpng reads every chunk to IEND and refuses what is
 broken on the way (`_sanitise`), more strictly than PIL.
 """
@@ -64,33 +66,78 @@ def _crc_ok(data: bytes, pos: int, length: int) -> bool:
     return len(crc) == 4 and zlib.crc32(data[pos + 4 : pos + 8 + length]) & 0xFFFFFFFF == struct.unpack(">I", crc)[0]
 
 
-def _inflate_frame(stream: bytes, name: str) -> bytes:
-    """A frame's zlib stream as libpng inflates it under OpenCV's APNG
-    settings: the zlib header checked, the Adler-32 not (its CRC action
-    QUIET_USE turns libpng's IGNORE_ADLER32 on)."""
-    if len(stream) < 2 or (stream[0] << 8 | stream[1]) % 31 or stream[0] & 15 != 8 or stream[0] >> 4 > 7 or \
-            stream[1] & 32:
-        raise ValueError(f"{name}: APNG frame with a bad zlib header")
-    try:
-        return zlib.decompressobj(-15).decompress(stream[2:])
-    except zlib.error as e:
-        raise ValueError(f"{name}: APNG frame data is corrupt ({e})") from None
+_CHANNELS = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}
 
 
-def _first_frame(data: bytes, name: str) -> tuple:
-    """An APNG's first frame as OpenCV's APNG reader gives it: (that frame
-    as a PNG of its own, its offset or None, the canvas size).  The
-    default image where an fcTL comes before IDAT, else the data of the
-    first fcTL's fdAT chunks; the frame's CRCs unchecked, as are those of
-    the chunks OpenCV reads itself, but IHDR's and PLTE's (libpng reads
-    them first); the chunks after the frame unread.  (How OpenCV's reader
-    goes on where a frame's data is corrupt is not known: ROADMAP Queue
-    3.)"""
-    chunks, pos = [], 8
+def _frame_rows(parts: list, header: bytes, size: tuple, name: str) -> tuple:
+    """A frame's zlib data as libpng's progressive reader takes it under
+    OpenCV's APNG reader, fed one chunk at a time: (the raw rows it hands
+    on, filter byte first, whether every row came).  Each row is one
+    inflate call into a row-sized buffer; a call that fails (a deflate
+    error, a bad zlib header, a wrong Adler-32 found in the call that
+    fills the last row) is libpng's benign "ADLER32 checksum mismatch",
+    so the row it was filling and every later row are never handed on.
+    A row with a filter byte above 4 is libpng's error, and the read
+    fails."""
+    depth, ctype, interlace = header[8], header[9], header[12]
+    rowbytes = (size[0] * _CHANNELS.get(ctype, 1) * depth + 7) // 8 + 1
+    inflater, rows, row = zlib.decompressobj(), [], b""
+    for part in parts:
+        while part and not inflater.eof and len(rows) < size[1]:
+            try:
+                out = inflater.decompress(part, rowbytes - len(row))
+            except zlib.error:
+                return rows, False
+            part, row = inflater.unconsumed_tail, row + out
+            if len(row) == rowbytes:
+                if row[0] > 4 and not interlace:
+                    raise ValueError(f"{name}: APNG frame row with a bad filter byte (libpng: bad adaptive "
+                                     "filter value)")
+                rows.append(row)
+                row = b""
+            elif not out:
+                break
+    return rows, len(rows) == size[1]
+
+
+def _frame_png(header: bytes, size: tuple, rows: list, plte: bytes) -> bytes:
+    """A frame's rows as a PNG of their own; rows that never came are
+    filter-0 zeros (the caller puts what lies beneath in their place)."""
+    rowbytes = (size[0] * _CHANNELS.get(header[9], 1) * header[8] + 7) // 8 + 1
+    raw = b"".join(rows) + bytes(rowbytes * (size[1] - len(rows)))
+    png = SIGNATURE + _chunk(b"IHDR", struct.pack(">II", *size) + header[8:13]) + plte
+    return png + _chunk(b"IDAT", zlib.compress(raw)) + _chunk(b"IEND", b"")
+
+
+def _fctl(body: bytes, canvas: tuple, name: str) -> tuple:
+    """An fcTL's (width, height, x, y), refused as OpenCV refuses it:
+    the frame past the canvas, a dispose op above 2 or a blend op above
+    1."""
+    w, h, x, y = struct.unpack(">4I", body[4:20])
+    if x + w > canvas[0] or y + h > canvas[1] or body[24] > 2 or body[25] > 1:
+        raise ValueError(f"{name}: APNG fcTL frame outside the canvas or with a bad dispose / blend op (OpenCV)")
+    return w, h, x, y
+
+
+def _first_frame(data: bytes, name: str) -> np.ndarray:
+    """An APNG's first frame as OpenCV's APNG reader gives it, RGB on the
+    canvas.  The default image is frame 0 where an fcTL comes before
+    IDAT; else it is decoded all the same, into the buffer the first
+    fcTL's fdAT rows then overwrite (row j of a w-wide frame at pixel
+    j * w of that buffer), and the frame is drawn as stored (not blended)
+    on a black canvas.  The chunks' CRCs go unchecked but IHDR's and
+    PLTE's (libpng reads them first); the first fcTL and the one after
+    frame 0's data are checked (`_fctl`), and a chunk up to that one cut
+    short by the end of the file fails the read; nothing after it is read.
+    Rows that never came (`_frame_rows`) show the default image beneath,
+    and where nothing was decoded beneath them OpenCV returns memory it
+    never writes, which no reader can reproduce: refused by name."""
+    chunks, pos, complete = [], 8, []
     while pos + 8 <= len(data):
         (length,) = struct.unpack(">I", data[pos : pos + 4])
         kind = data[pos + 4 : pos + 8]
         chunks.append((kind, data[pos + 8 : pos + 8 + length], _crc_ok(data, pos, length)))
+        complete.append(pos + 12 + length <= len(data))
         if kind == b"IEND":
             break
         pos += 12 + length
@@ -102,24 +149,45 @@ def _first_frame(data: bytes, name: str) -> tuple:
         if kind in (b"IHDR", b"PLTE") and not ok:
             raise ValueError(f"{name}: PNG chunk {kind!r} fails its CRC (libpng)")
     header = next(b for k, b, _ in chunks if k == b"IHDR")
-    default = b"".join(b for k, b, _ in chunks[idat:][: next((i for i, (k, _, _) in enumerate(chunks[idat:])
-                                                              if k != b"IDAT"), len(chunks) - idat)])
-    first = kinds.index(b"fcTL") if b"fcTL" in kinds else None
     canvas = struct.unpack(">II", header[:8])
+    plte = b"".join(_chunk(k, b) for k, b, _ in chunks[:idat] if k in (b"PLTE", b"tRNS"))
+    ends = next((i for i, (k, _, _) in enumerate(chunks[idat:]) if k != b"IDAT"), len(chunks) - idat)
+    default = [b for _, b, _ in chunks[idat : idat + ends]]
+    first = kinds.index(b"fcTL") if b"fcTL" in kinds else None
+    fctl0 = _fctl(chunks[first][1], canvas, name) if first is not None else None
+    rows, whole = _frame_rows(default, header, canvas, name)
+    beneath = _rgb(_frame_png(header, canvas, rows, plte), name).reshape(-1, 3)
+    written = np.zeros(canvas[0] * canvas[1], bool)
+    written[: len(rows) * canvas[0]] = True
+    if header[12] and not whole:
+        written[:] = False
     if first is None or first < idat:
-        raw, at, size = _inflate_frame(default, name), None, canvas
+        frame, at, size, nxt = beneath, (0, 0), canvas, idat + ends
     else:
-        w, h, x, y = struct.unpack(">4I", chunks[first][1][4:20])
-        parts = []
-        for k, b, _ in chunks[first + 1 :]:
+        w, h, x, y = fctl0
+        parts, nxt = [], len(chunks)
+        for i, (k, b, _) in enumerate(chunks[first + 1 :], first + 1):
             if k == b"fcTL":
+                nxt = i
                 break
             if k == b"fdAT":
                 parts.append(b[4:])
-        raw, at, size = _inflate_frame(b"".join(parts), name), (x, y), (w, h)
-    png = SIGNATURE + _chunk(b"IHDR", struct.pack(">II", *size) + header[8:13])
-    png += b"".join(_chunk(k, b) for k, b, _ in chunks[:idat] if k in (b"PLTE", b"tRNS"))
-    return png + _chunk(b"IDAT", zlib.compress(raw)) + _chunk(b"IEND", b""), at, canvas
+        rows, whole = _frame_rows(parts, header, (w, h), name)
+        frame = beneath.copy()
+        if rows and not (header[12] and not whole):
+            frame[: len(rows) * w] = _rgb(_frame_png(header, (w, h), rows, plte), name).reshape(-1, 3)[: len(rows) * w]
+            written[: len(rows) * w] = True
+        at, size = (x, y), (w, h)
+    if not all(complete[: nxt + 1]):
+        raise ValueError(f"{name}: APNG chunk cut short by the end of the file (OpenCV's chunk reader)")
+    if nxt < len(chunks) and chunks[nxt][0] == b"fcTL":
+        _fctl(chunks[nxt][1], canvas, name)
+    if not written[: size[0] * size[1]].all():
+        raise ValueError(f"{name}: APNG frame 0 stops early with nothing decoded beneath it: OpenCV returns "
+                         "memory it never writes (unwritten rows; ROADMAP \"Known, kept\")")
+    out = np.zeros((canvas[1], canvas[0], 3), np.uint8)
+    out[at[1] : at[1] + size[1], at[0] : at[0] + size[0]] = frame[: size[0] * size[1]].reshape(size[1], size[0], 3)
+    return out
 
 
 _CRITICAL = (b"IHDR", b"PLTE", b"IDAT", b"IEND")
@@ -162,17 +230,13 @@ def _sanitise(data: bytes, name: str) -> bytes:
 def read(data: bytes, name: str) -> tuple:
     """The image as (H, W, 3) uint8 RGB, and its EXIF bytes."""
     data = _sanitise(data, name)
-    png, at, canvas = data, None, None
     if b"acTL" in [k for k, _ in _chunks(data)]:
         try:
-            png, at, canvas = _first_frame(data, name)
-        except (struct.error, StopIteration):
+            rgb = _first_frame(data, name)
+        except (struct.error, StopIteration, IndexError):
             raise ValueError(f"{name}: APNG with a broken acTL / fcTL chunk") from None
-    rgb = _rgb(png, name)
-    if at is not None:
-        out = np.zeros((canvas[1], canvas[0], 3), np.uint8)
-        out[at[1] : at[1] + rgb.shape[0], at[0] : at[0] + rgb.shape[1]] = rgb
-        rgb = out
+    else:
+        rgb = _rgb(data, name)
     return rgb, _exif(data)
 
 

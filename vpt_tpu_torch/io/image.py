@@ -24,6 +24,9 @@ its content:
   RLE8 and RLE4;
 - WebP (io/webp.py): lossless and lossy (with its ALPH chunk), the first
   frame of an animation, as "RGB" or "RGBA" as PIL's libwebp gives them;
+- AVIF (io/avif.py, io/av1.py, csrc/av1dec.c): coded-lossless 8-bit AV1
+  key frames in an image item or frame 0 of a sequence, with alpha, as
+  "RGB" or "RGBA" as PIL's libavif gives them;
 - TGA (io/tga.py), DDS with BC1-BC7 (io/dds.py, csrc/bcndec.c), Netpbm
   P1-P6 and gray PFM (io/netpbm.py), QOI (io/qoi.py), SGI (io/sgi.py), PCX
   (io/pcx.py), ICO and CUR (io/ico.py), PSD's merged image (io/psd.py) and
@@ -45,8 +48,9 @@ decode); `decode_samples` gives it as imageio's PIL route gives it to the
 JAX package's `load_hdr` (a palette image as its palette's colours).  Other
 files raise a ValueError: KTX2, OpenEXR, Radiance HDR and colour PFM data,
 which PIL does not open either, and the formats PIL opens that the port does
-not read yet (JPEG 2000, AVIF and PIL's rarer plugins, ROADMAP "Left"),
-each named; any other file as a file of unknown format.
+not read (AVIF that is not coded-lossless 8-bit, io/avif.py, and the
+plugins of probe.UNPORTED), each named; any other file as a file of unknown
+format.
 """
 
 from __future__ import annotations
@@ -57,7 +61,7 @@ import zlib
 
 import numpy as np
 
-from vpt_tpu_torch.io import (blp, bmp, codec, dcx, dds, fits, fli, ftex, gbr, gif, icns, ico, im, iptc, jpeg2000, lab,
+from vpt_tpu_torch.io import (avif, blp, bmp, codec, dcx, dds, fits, fli, ftex, gbr, gif, icns, ico, im, iptc, jpeg2000, lab,
                               mcidas, msp, netpbm, pcd, pcx, pixar, probe, psd, qoi, raw, sgi, spider, sun, tga, tiff,
                               webp, xbm, xpm, xvthumb)
 from vpt_tpu_torch.io.jpeg import decode_jpeg
@@ -73,13 +77,12 @@ _ADAM7 = ((0, 0, 8, 8), (4, 0, 8, 8), (0, 4, 4, 8), (2, 0, 4, 4), (0, 2, 2, 4), 
 _OTHER_FORMATS = ((b"\xabKTX 20\xbb", "KTX2"), (b"\x76\x2f\x31\x01", "OpenEXR"),
                   (b"#?RADIANCE", "Radiance HDR"), (b"#?RGBE", "Radiance HDR"), (b"PF\n", "PFM (colour)"))
 _READ = ("PNG, JPEG, JPEG 2000, TIFF, GIF, BMP, WebP, TGA, DDS, Netpbm, QOI, SGI, PCX, ICO, CUR, PSD and PIL's "
-         "other plugins but AVIF, BUFR, EPS, GRIB, HDF5, MPEG and WMF")
+         "other plugins but BUFR, EPS, GRIB, HDF5, MPEG and WMF")
 # The plugins PIL 12.1 has that decode on neither machine, as the refusals
 # name them, and why.
-_UNPORTED_NAMES = {"AVIF": "AVIF", "BUFR": "BUFR", "EPS": "EPS (PostScript)", "GRIB": "GRIB", "HDF5": "HDF5",
+_UNPORTED_NAMES = {"BUFR": "BUFR", "EPS": "EPS (PostScript)", "GRIB": "GRIB", "HDF5": "HDF5",
                    "MPEG": "MPEG", "WMF": "WMF / EMF"}
-_UNPORTED_WHY = {"AVIF": "an AV1 intra decoder is a codec of its own (ROADMAP \"Not ported\")",
-                 "BUFR": "PIL has no BUFR handler installed, so it raises too",
+_UNPORTED_WHY = {"BUFR": "PIL has no BUFR handler installed, so it raises too",
                  "GRIB": "PIL has no GRIB handler installed, so it raises too",
                  "HDF5": "PIL has no HDF5 handler installed, so it raises too",
                  "EPS": "PIL renders it with Ghostscript, which neither machine has",
@@ -318,7 +321,7 @@ _PLUGINS = (
     ("JPEG", lambda d: d[:3] == _JPEG_SOI, lambda d, n, f: _jpeg(d, n)),
     ("PPM", netpbm.accept, lambda d, n, f: netpbm.read_pil(d, n)),
     ("PNG", lambda d: d[:8] == _PNG_SIGNATURE, lambda d, n, f: _png(d, n)),
-    ("AVIF", probe.UNPORTED["AVIF"], None),
+    ("AVIF", probe.ACCEPT["AVIF"], lambda d, n, f: (*avif.read_pil(d, n), None)),
     ("BLP", blp.accept, lambda d, n, f: blp.read_pil(d, n)),
     ("BUFR", probe.UNPORTED["BUFR"], None),
     ("CUR", lambda d: d[:4] == b"\0\0\2\0", lambda d, n, f: ico.read_cur(d, n)),
@@ -393,9 +396,6 @@ def _open(data: bytes, name: str, from_file: bool = False, asarray: bool = False
         if accept is not None and not accept(data if read is None else data[:16]):
             continue
         if read is None:
-            if fmt == "AVIF":
-                raise ValueError(f"{name}: AVIF images are not read yet (PIL opens them; {_UNPORTED_WHY[fmt]}; the "
-                                 f"port reads {_READ})")
             raise ValueError(f"{name}: {_UNPORTED_NAMES[fmt]} images are not read (PIL's {fmt} plugin claims the "
                              f"file, and {_UNPORTED_WHY[fmt]}; the port reads {_READ})")
         try:
