@@ -168,13 +168,14 @@ def jpeg2000_fixtures() -> tuple:
 
 
 # The AVIF fixtures of tests/torch_avif/ (written by tests/make_torch_avif.py
-# from tests/avif_cases.py: coded-lossless 8-bit files PIL writes, the files
-# the port refuses by name, the two 1024x1024 timing textures AVIF_TIMING
-# that chip_smoke.py phase 17b times and AVIF_SKY, 17c's environment map),
+# from tests/avif_cases.py: lossless and lossy 8-bit files PIL writes, the
+# files the port refuses by name, the three 1024x1024 timing textures
+# AVIF_TIMING that chip_smoke.py phase 17b times and AVIF_SKY, 17c's
+# environment map),
 # with a manifest.json of the JAX package's four decodes of each, as
 # tests/torch_pil_rare/ has.
 AVIF_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "torch_avif")
-AVIF_TIMING = ("timing-1024-soft-420.avif", "timing-1024-ramp-rgba.avif")
+AVIF_TIMING = ("timing-1024-soft-420.avif", "timing-1024-ramp-rgba.avif", "timing-1024-lossy-420.avif")
 AVIF_SKY = "sky-1024x512.avif"
 
 

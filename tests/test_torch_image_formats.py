@@ -270,7 +270,7 @@ PIL_ONLY = {  # case -> (the file, the format named in the refusal, or None wher
     "jpeg2000-jp2": (lambda: pil_bytes("JPEG2000"), None),
     "jpeg2000-codestream": (lambda: pil_bytes("JPEG2000", no_jp2=True), None),
     "sgi": (lambda: pil_bytes("SGI"), None),
-    "avif": (lambda: pil_bytes("AVIF"), "AVIF"),
+    "avif": (lambda: pil_bytes("AVIF", quality=60, advanced={"enable-qm": "1"}), "AVIF"),  # quantizer matrices
 }
 
 
@@ -278,9 +278,9 @@ PIL_ONLY = {  # case -> (the file, the format named in the refusal, or None wher
 def test_formats_pil_opens_are_refused_by_name(tmp_path, case):
     """Files that the JAX package reads (PIL opens them): the port's texture
     decode gives the JAX package's array where it reads the format (Netpbm,
-    QOI, DDS, SGI, JPEG 2000), and where it does not read it yet (AVIF)
-    raises a ValueError naming the image, the format and that PIL opens it,
-    not "unknown format"."""
+    QOI, DDS, SGI, JPEG 2000), and where it does not read it yet (AVIF
+    with quantizer matrices) raises a ValueError naming the image, the
+    format and that PIL opens it, not "unknown format"."""
     make, kind = PIL_ONLY[case]
     data = make()
     doc = {"images": [{"uri": "data:image/x;base64," + base64.b64encode(data).decode(), "name": "wall"}]}

@@ -3,9 +3,9 @@ each, as PIL writes it or built here, is one the JAX package decodes, and
 the port's texture decode now gives PIL's expansion of it bitwise (JPEG
 2000 since it was ported, PIL's rarer plugins since they were: BLP, ICNS,
 IM, MSP, SPIDER, XBM, DCX, GBR, SUN, XPM, FITS, XVThumb, FTEX), not a file
-of another format's reading (a TGA).  Lossy AVIF (PIL's default quality 75)
-alone is still refused, naming the format and that the frame is not
-coded-lossless (io/probe.py tells which plugin PIL gives a file to).  A
+of another format's reading (a TGA).  AVIF with quantizer matrices (aom's
+`enable-qm`) alone is still refused, naming the format and `using_qmatrix`
+(io/probe.py tells which plugin PIL gives a file to).  A
 headerless DIB, which PIL opens in its `preinit` set, the port reads as PIL
 does.  The formats' own tests are tests/test_torch_pil_rare.py.
 """
@@ -22,12 +22,12 @@ from PIL import Image
 from vpt_tpu_torch.io import image as timage
 
 
-def _pil(fmt: str, mode: str = "RGB", size=(8, 6)) -> bytes:
+def _pil(fmt: str, mode: str = "RGB", size=(8, 6), **kw) -> bytes:
     rng = np.random.default_rng(len(fmt))
     im = Image.fromarray(rng.integers(0, 256, (size[1], size[0], 3), np.uint8))
     im = im.quantize(8) if mode == "P" else im.convert(mode)
     out = io.BytesIO()
-    im.save(out, format=fmt)
+    im.save(out, format=fmt, **kw)
     return out.getvalue()
 
 
@@ -54,7 +54,7 @@ UNPORTED = {  # case -> (the file, PIL's format, the name in the port's refusal,
     "xvthumb": (lambda: b"P7 332\n#END_OF_COMMENTS\n4 3 255\n" + bytes(range(12)), "XVThumb", None),
     "ftex": (lambda: b"FTEX" + struct.pack("<9I", 1, 4, 4, 1, 1, 0, 1, 0, 48) + bytes(48), "FTEX", None),
     "jpeg2000": (lambda: _pil("JPEG2000"), "JPEG2000", None),
-    "avif": (lambda: _pil("AVIF"), "AVIF", "AVIF"),
+    "avif": (lambda: _pil("AVIF", size=(64, 48), quality=60, advanced={"enable-qm": "1"}), "AVIF", "AVIF"),
 }
 
 
@@ -73,8 +73,8 @@ def test_unported_formats_are_refused_by_name(case):
         return
     with pytest.raises(ValueError, match=re.escape(f"wall: {kind} images are not read yet (PIL opens them")) as err:
         timage.decode_rgba(data, "wall")
-    if case == "avif":  # saved at PIL's default quality 75: lossy AV1, which the port refuses by name
-        assert "not coded-lossless" in str(err.value)
+    if case == "avif":  # saved with quantizer matrices, which the port refuses by name
+        assert "using_qmatrix" in str(err.value)
 
 
 @pytest.mark.parametrize("bits", [8, 24])

@@ -4,11 +4,14 @@ temporal unit, the sequence header and the frame header of a key frame
 bitstream specification (sections 5.3-5.11).
 
 `decode(data, name)` decodes one AV1 temporal unit (an AVIF item or
-sample) to its planes.  This slice of the port decodes coded-lossless 8-bit
-frames (every segment's qindex 0, so every transform is the 4x4 WHT and the
-in-loop filters are off); what lies outside it is refused by name, each
-with its ROADMAP Queue 1 item.  The tiles themselves are decoded in C
-(csrc/av1dec.c, through io/codec.py).
+sample) to its planes.  This slice of the port decodes 8-bit key frames,
+lossless and lossy: every transform size and type, dequantization with
+delta q and the deblocking filter with delta lf; what lies outside it
+(CDEF, loop restoration, quantizer matrices, segment qindex and
+loop-filter features, delta_lf_multi, superres, 10 / 12 bits, intra
+block copy, film grain) is refused by name, each with its ROADMAP Queue 1
+item.  The tiles themselves are decoded in C (csrc/av1dec.c, through
+io/codec.py).
 """
 
 from __future__ import annotations
@@ -19,8 +22,12 @@ import numpy as np
 
 from vpt_tpu_torch.io import codec
 
-LOSSY = ("a frame that is not coded-lossless (lossy AVIF: transform sizes and types, dequantization, "
-         "deblocking, CDEF and loop restoration; ROADMAP Queue 1, the lossy AVIF slice)")
+SECOND_HALF = "ROADMAP Queue 1, the lossy AVIF slice, second half"
+CDEF = f"CDEF, a nonzero strength or cdef_bits above 0 ({SECOND_HALF})"
+RESTORATION = f"loop restoration ({SECOND_HALF})"
+SEG_FEATURES = f"a segment qindex or loop filter feature (no writer here makes it; {SECOND_HALF})"
+DELTA_LF_MULTI = f"delta_lf_multi (no writer here makes it; {SECOND_HALF})"
+QMATRIX = f"quantizer matrices, using_qmatrix ({SECOND_HALF})"
 DEEP = "bit depth {} (10- and 12-bit AV1; ROADMAP Queue 1, the intrabc / 10 / 12-bit / film grain slice)"
 INTRABC = "allow_intrabc (intra block copy; ROADMAP Queue 1, the intrabc / 10 / 12-bit / film grain slice)"
 GRAIN = "film grain (ROADMAP Queue 1, the intrabc / 10 / 12-bit / film grain slice)"
@@ -90,9 +97,7 @@ def obus(data: bytes) -> list:
     """(type, temporal_id, spatial_id, payload start, payload end) of each OBU."""
     out, pos = [], 0
     while pos < len(data):
-        h = data[pos]
-        if h & 0x80:
-            raise ValueError("AV1 OBU with its forbidden bit set")
+        h = data[pos]  # dav1d reads past obu_forbidden_bit (it checks it in strict mode alone)
         kind, ext, has_size = (h >> 3) & 15, (h >> 2) & 1, (h >> 1) & 1
         pos += 1
         tid = sid = 0
@@ -115,8 +120,13 @@ def obus(data: bytes) -> list:
 def sequence_header(data: bytes) -> dict:
     b, s = Bits(data), {}
     s["profile"] = b.f(3)
+    if s["profile"] > 2:
+        raise ValueError(f"AV1 sequence header of profile {s['profile']} (dav1d refuses it)")
     s["still"] = b.f(1)
     s["reduced"] = b.f(1)
+    if s["reduced"] and not s["still"]:
+        raise ValueError("AV1 sequence header with a reduced still-picture header but no still picture (dav1d "
+                         "refuses it)")
     s["timing"] = s["decoder_model"] = s["equal_picture_interval"] = 0
     s["op_idc"], s["op_decoder_model"] = [0], [0]
     if s["reduced"]:
@@ -336,12 +346,11 @@ def frame_header(b: Bits, s: dict, tid: int, sid: int, name: str) -> dict:
         diff = b.f(1) if s["separate_uv_delta_q"] else 0
         deltas += [delta_q(), delta_q()]
         deltas += [delta_q(), delta_q()] if diff else deltas[1:3]
+    else:
+        deltas += [0, 0, 0, 0]
     if b.f(1):  # using_qmatrix
-        b.f(4)
-        b.f(4)
-        if s["separate_uv_delta_q"]:
-            b.f(4)
-    # segmentation_params
+        raise Refused(name, QMATRIX)
+    # segmentation_params (a key frame: update_map 1, update_data 1)
     features = [[None] * 8 for _ in range(8)]
     h["seg_enabled"] = b.f(1)
     if h["seg_enabled"]:
@@ -356,14 +365,49 @@ def frame_header(b: Bits, s: dict, tid: int, sid: int, name: str) -> dict:
     h["seg_pre_skip"] = int(any(features[i][j] is not None for i in range(8) for j in range(5, 8)))
     h["last_active_seg"] = max([i for i in range(8) if any(f is not None for f in features[i])], default=0)
     h["seg_skip"] = [int(features[i][6] is not None) for i in range(8)]
-    qindex = [max(0, min(255, base_q + features[i][0])) if features[i][0] is not None else base_q
-              for i in range(8)]
-    lossless = [q == 0 and not any(deltas) for q in qindex]
-    if not all(lossless):
-        raise Refused(name, LOSSY)
-    # delta_q_params: base_q_idx is 0, so no delta q and no delta lf; loop
-    # filter, CDEF and loop restoration are off in a coded-lossless frame,
-    # and its TxMode is ONLY_4X4.
+    if any(features[i][j] is not None for i in range(8) for j in range(5)):
+        raise Refused(name, SEG_FEATURES)
+    # delta_q_params / delta_lf_params
+    h["base_q"], h["deltas"] = base_q, deltas
+    h["delta_q"] = [0, 0, 0, 0]  # delta_q_present, delta_q_res, delta_lf_present, delta_lf_res
+    if base_q > 0 and b.f(1):
+        h["delta_q"][:2] = [1, b.f(2)]
+        if b.f(1):
+            h["delta_q"][2:] = [1, b.f(2)]
+            if b.f(1):
+                raise Refused(name, DELTA_LF_MULTI)
+    coded_lossless = base_q == 0 and not any(deltas)
+    # loop_filter_params: the reference deltas of a key frame start at their
+    # defaults (INTRA_FRAME 1), which an update may change
+    h["lf_level"], h["lf_sharpness"], h["lf_delta_enabled"], h["lf_ref_delta"] = [0, 0, 0, 0], 0, 0, 1
+    if not coded_lossless:
+        lvl = [b.f(6), b.f(6), 0, 0]
+        if planes > 1 and (lvl[0] or lvl[1]):
+            lvl[2], lvl[3] = b.f(6), b.f(6)
+        h["lf_level"], h["lf_sharpness"] = lvl, b.f(3)
+        h["lf_delta_enabled"] = b.f(1)
+        if h["lf_delta_enabled"] and b.f(1):  # loop_filter_delta_update
+            for i in range(8):
+                if b.f(1):
+                    v = b.su(7)
+                    if i == 0:
+                        h["lf_ref_delta"] = v
+            for _ in range(2):
+                if b.f(1):
+                    b.su(7)
+    # cdef_params: one strength set of 0 filters nothing and reads no cdef_idx
+    if not coded_lossless and s["cdef"]:
+        b.f(2)  # cdef_damping_minus_3
+        cdef_bits = b.f(2)
+        for _ in range(1 << cdef_bits):
+            if any([b.f(4), b.f(2)] + ([b.f(4), b.f(2)] if planes > 1 else [])) or cdef_bits:
+                raise Refused(name, CDEF)
+    # lr_params
+    if not coded_lossless and s["restoration"]:
+        if any(b.f(2) for _ in range(planes)):
+            raise Refused(name, RESTORATION)
+    # read_tx_mode
+    h["tx_mode_select"] = 0 if coded_lossless else b.f(1)
     h["reduced_tx_set"] = b.f(1)
     if s["film_grain"] and (show or showable) and b.f(1):
         raise Refused(name, GRAIN)
@@ -378,6 +422,12 @@ def decode(data: bytes, name: str) -> tuple:
     seq = hdr = None
     tiles, ntiles = [], 0
     for kind, tid, sid, start, end in obus(data):
+        if kind == 5:  # metadata: dav1d reads its type and the fixed fields of the types it knows
+            mtype, pos = leb128(data[:end], start)
+            if pos + {1: 4, 2: 24}.get(mtype, 0) > end:
+                raise ValueError(f"{name}: AV1 metadata OBU cut short")
+        if kind in (4, 7) and hdr is None:
+            raise ValueError(f"{name}: AV1 tile group or redundant frame header before a frame header")
         if kind == 1:
             seq = sequence_header(data[start:end])
             if seq["depth"] != 8:
@@ -407,7 +457,9 @@ def decode(data: bytes, name: str) -> tuple:
     v = np.zeros_like(u)
     prm = np.array([mi_rows, mi_cols, ssx, ssy, hdr["planes"], seq["sb128"], seq["filter_intra"],
                     seq["edge_filter"], hdr["screen"], hdr["disable_cdf_update"], hdr["seg_enabled"],
-                    hdr["seg_pre_skip"], hdr["last_active_seg"], *hdr["seg_skip"]], np.int32)
+                    hdr["seg_pre_skip"], hdr["last_active_seg"], *hdr["seg_skip"], hdr["width"], hdr["height"],
+                    hdr["base_q"], hdr["tx_mode_select"], hdr["reduced_tx_set"], *hdr["deltas"], *hdr["lf_level"],
+                    hdr["lf_sharpness"], hdr["lf_delta_enabled"], hdr["lf_ref_delta"], *hdr["delta_q"]], np.int32)
     tile_arr = np.array(tiles, np.int64).reshape(-1, 6)
     buf = np.frombuffer(data, np.uint8)
     p = ctypes.c_void_p

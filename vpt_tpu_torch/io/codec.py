@@ -692,10 +692,14 @@ _AV1_SRC = os.path.join(CSRC_DIR, "av1dec.c")  # its tables: csrc/av1dec_cdf.h
 _AV1_LIB = os.path.join(BUILD_DIR, "libvpt_av1dec.so")
 _av1_lib = None
 AV1_ERRORS = {
-    -1: "AV1 tile data is corrupt (a coefficient's Golomb code runs past 32 bits)",
+    -1: "AV1 tile data is corrupt (a vertical partition in a 4:2:2 frame, which dav1d refuses)",
     -2: "out of memory",
     -3: "AV1 frame parameters outside what the decoder takes",
     -4: "AV1 tile is empty",
+    -5: "AV1 tile data is corrupt (its symbol decoder reads more than 14 bits past the tile's end)",
+    -6: ("AV1 tile data outside the specification: a transform's intermediate values leave 16 bits, which no "
+         "conforming stream's do, and dav1d then saturates them at points of its own SIMD code (ROADMAP "
+         "\"Known, kept\")"),
 }
 
 
